@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. the card's name and power limit (nvidia-smi);
+2. build the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+3. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it (B1 paged scores: bit-identical; B2 sparse
+   decode attention: f32; B3 causal prefill attention: bf16), with kernel,
+   plain and library times and the roofline bound; then check the whole
+   serving path on a small input: the port on the card against the port's
+   plain versions on the CPU (greedy tokens identical, logits close);
+4. serve full-width qwen3-0.6b (random bf16 weights from a seed) through
+   ``ServingEngine(paged=True, slots=4, max_seq=8192, block_size=32)``:
+   4 requests of 2048-4096-token prompts × 16 new tokens, with every
+   kernel's launch counter set to 0 just before and read just after.
+
+It prints a ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
+with code 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM: HBM3
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}   # dense, per second
+SERVE = dict(slots=4, max_seq=8192, block_size=32)
+PROMPTS = (2048, 3072, 4096, 2560)
+NEW_TOKENS = 16
+B2_ATOL, B2_RTOL = 1e-5, 1e-5          # f32 output
+B3_ATOL, B3_RTOL = 1e-4, 2.0 ** -7     # bf16 output: one ulp of each element
+SMALL_PATH_LOGIT_TOL = 3e-4
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def events_ms(fn, iters: int) -> float:
+    """Mean time of ``fn`` on the device timeline (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, kernel_name: str, iters: int) -> float:
+    """Device time per launch of the CUDA kernel named ``kernel_name``, from
+    the profiler's trace. Raises when the trace holds no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if kernel_name in e.key:
+            total_us += (getattr(e, "device_time_total", 0)
+                         or getattr(e, "cuda_time_total", 0))
+    if total_us <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {kernel_name}")
+    return total_us / iters / 1e3
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_pool(dev, gen, cfg, slots, max_seq, block_size, lengths):
+    """A paged pool at the serving shapes with random contents: slot s holds
+    ``lengths[s]`` tokens over scrambled physical blocks."""
+    import torch
+    from repro_torch.core.cache import empty_paged_cache
+    from repro_torch.models.blocks import salca_params_for
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    r = salca_params_for(cfg, max_seq).r(hd)
+    mb = max_seq // block_size
+    nb = slots * mb
+    pool = empty_paged_cache(nb, block_size, slots, mb, kv, hd, r, device=dev)
+    d = pool.data
+    d["k_codes"].copy_(torch.randint(-127, 128, d["k_codes"].shape, generator=gen,
+                                     device=dev, dtype=torch.int8))
+    d["v_codes"].copy_(torch.randint(-127, 128, d["v_codes"].shape, generator=gen,
+                                     device=dev, dtype=torch.int8))
+    d["feat_words"].copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, d["feat_words"].shape,
+                                        generator=gen, device=dev, dtype=torch.int32))
+    for f in ("k_scale", "v_scale", "feat_scale"):
+        d[f].copy_(torch.rand(d[f].shape, generator=gen, device=dev) * 0.02 + 1e-3)
+    d["feat_zero"].copy_(torch.randn(d["feat_zero"].shape, generator=gen, device=dev))
+    perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    for s, n in enumerate(lengths):
+        need = -(-n // block_size)
+        pool.page_table[s, :need] = perm[s * mb: s * mb + need]
+        pool.length[s] = n
+    pool.heavy_idx.copy_(torch.sort(torch.rand((slots, kv, hd), generator=gen, device=dev)
+                                    .argsort(-1)[..., :r], dim=-1).values.to(torch.int32))
+    return pool
+
+
+def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
+    """Phase 3a: each kernel against its plain version on the same inputs, at
+    the main path's shapes. Returns one record per kernel (launch counts are
+    filled in from the main path's run)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.selection import (
+        _quantized_query_groups, query_heavy_features, select_sparse_pattern_blocked)
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.models.blocks import salca_params_for
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    s, mseq, bs = SERVE["slots"], SERVE["max_seq"], SERVE["block_size"]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pool = random_pool(dev, gen, cfg, s, mseq, bs, lengths)
+    q = torch.randn((s, h, hd), generator=gen, device=dev)
+    q_feat = query_heavy_features(q, pool.heavy_idx, h // kv)
+    qc, qs, qsum = _quantized_query_groups(q_feat, kv)
+    pages = pool.clamped_pages()
+    b1_args = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero, pages)
+    recs = []
+
+    # B1 — bit-identical
+    out = se.paged_score_estimate(*b1_args, bf16=PERF.bf16_collectives)
+    plain = se.paged_score_estimate_plain(*b1_args, bf16=PERF.bf16_collectives)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        raise AssertionError(f"B1: kernel differs from plain version on "
+                             f"{int((out != plain).sum())} of {out.numel()} scores")
+    ms = kernel_ms(lambda: se.paged_score_estimate(*b1_args), "paged_score_estimate", iters)
+    blocks = int(torch.unique(pages).numel())
+    g = qc.shape[2]
+    b1_bytes = (blocks * bs * kv * (pool.feat_words.shape[-1] * 4 + 8)   # words, scale, zero
+                + qc.numel() + 8 * qs.numel() + 4 * pages.numel() + 4 * out.numel())
+    b1_ops = 2 * s * kv * g * pages.shape[1] * bs * qc.shape[-1]
+    bms, bby = bound(b1_bytes, b1_ops, "int8")
+    recs.append(dict(name="paged_score_estimate", route="cuda",
+                     source="src/repro_torch/csrc/score_est.cu",
+                     replaces="src/repro/kernels/score_est/kernel.py:219",
+                     launches=None, max_abs_err=float((out - plain).abs().max()),
+                     tolerance="bit-identical", err_over_tol=0.0, ms=ms,
+                     plain_ms=events_ms(lambda: se.paged_score_estimate_plain(*b1_args),
+                                        max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None))
+
+    # B2 — on the selection this query makes over this pool
+    params = salca_params_for(cfg, mseq)
+    sel = select_sparse_pattern_blocked(out, params, pool.mapped_valid_mask()[:, None, :], bs)
+    pblk, counts, bmask = fd._selected_block_plan(pool, sel)
+    qr = q.reshape(s * kv, h // kv, hd).contiguous()
+    b2_args = (qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk, counts,
+               bmask, kv)
+    out2 = fd.sparse_flash_decode_paged_kernel(*b2_args)
+    plain2 = fd.sparse_flash_decode_paged_plain(qr, pool.k_codes, pool.k_scale, pool.v_codes,
+                                                pool.v_scale, pblk, bmask, kv)
+    err2 = float((out2 - plain2).abs().max())
+    # f32 on both sides, summed in other orders; the card read 6.6e-7
+    ratio2 = float(((out2 - plain2).abs() / (B2_ATOL + B2_RTOL * plain2.abs())).max())
+    if not ratio2 <= 1.0:
+        raise AssertionError(f"B2: |kernel - plain| reaches {ratio2:.3g}x its bound "
+                             f"{B2_ATOL:g} + {B2_RTOL:g}·|plain| (max abs err {err2})")
+    ms = kernel_ms(lambda: fd.sparse_flash_decode_paged_kernel(*b2_args),
+                   "sparse_flash_decode_paged", iters)
+    live = int(counts.sum())
+    b2_bytes = (live * bs * (2 * hd + 8) + 2 * qr.numel() * 4 + 4 * counts.numel()
+                + live * (4 + bs))
+    b2_ops = live * bs * (h // kv) * hd * 4
+    bms, bby = bound(b2_bytes, b2_ops, "f32")
+    recs.append(dict(name="sparse_flash_decode_paged", route="cuda",
+                     source="src/repro_torch/csrc/flash_decode.cu",
+                     replaces="src/repro/kernels/flash_decode/kernel.py:207",
+                     launches=None, max_abs_err=err2,
+                     tolerance=f"{B2_ATOL:g} + {B2_RTOL:g}*|plain|", err_over_tol=ratio2, ms=ms,
+                     plain_ms=events_ms(lambda: fd.sparse_flash_decode_paged_plain(
+                         qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk,
+                         bmask, kv), max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     selected_blocks=live, rows=int(counts.numel())))
+    del pool
+
+    # B3 — one layer's prefill attention of the longest prompt, bf16
+    t = prompt_len
+    q3 = torch.randn((h, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k3 = torch.randn((kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v3 = torch.randn((kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+    out3 = fp.flash_attention(q3, k3, v3)
+    plain3 = fp.flash_attention_plain(q3, k3, v3)
+    diff3 = (out3.float() - plain3.float()).abs()
+    err3 = float(diff3.max())
+    # both sides work in f32 and round once to bf16, so an element may differ
+    # by one bf16 ulp of itself (<= 2^-7 |x|); a dropped key tile or a wrong
+    # rescale moves the late rows (|x| ~ 0.02) by far more than that
+    ratio3 = float((diff3 / (B3_ATOL + B3_RTOL * plain3.float().abs())).max())
+    if not ratio3 <= 1.0:
+        raise AssertionError(f"B3: |kernel - plain| reaches {ratio3:.3g}x its bound "
+                             f"{B3_ATOL:g} + 2^-7·|plain| (max abs err {err3})")
+    ms = kernel_ms(lambda: fp.flash_attention(q3, k3, v3), "flash_prefill_kernel",
+                   max(2, iters // 4))
+    kr = k3.repeat_interleave(h // kv, 0)[None]
+    vr = v3.repeat_interleave(h // kv, 0)[None]
+    lib = events_ms(lambda: F.scaled_dot_product_attention(q3[None], kr, vr, is_causal=True),
+                    max(2, iters // 4))
+    b3_bytes = 2 * (2 * q3.numel() + k3.numel() + v3.numel())
+    b3_ops = 4 * hd * h * t * (t + 1) // 2
+    bms, bby = bound(b3_bytes, b3_ops, "bf16")
+    recs.append(dict(name="flash_prefill", route="cuda",
+                     source="src/repro_torch/csrc/flash_prefill.cu",
+                     replaces="src/repro/kernels/flash_prefill/kernel.py:98",
+                     launches=None, max_abs_err=err3,
+                     tolerance=f"{B3_ATOL:g} + 2^-7*|plain|", err_over_tol=ratio3, ms=ms,
+                     plain_ms=events_ms(lambda: fp.flash_attention_plain(q3, k3, v3), 2),
+                     bound_ms=bms, bound_by=bby, library_ms=lib))
+    return recs
+
+
+def check_small_path(dev):
+    """Phase 3b: the whole serving path on a small input — the port on the
+    card against the port's plain versions on the CPU (which the CPU tests
+    hold against the JAX reference). Reduced qwen3-0.6b at f32, a sparse
+    selection (k = 128 of 256 positions)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.weights import init_lm_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (150, 200, 170)]
+    runs = {}
+    for d in ("cpu", dev):
+        p = params if d == "cpu" else {
+            "embed": {k: v.to(d) for k, v in params["embed"].items()},
+            "ln_f": {"scale": params["ln_f"]["scale"].to(d)},
+            "layers": [_to(layer, d) for layer in params["layers"]]}
+        eng = ServingEngine(cfg, p, max_seq=256, slots=2, block_size=32, device=d)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=5) for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        logits = []
+        orig = eng._decode
+
+        def rec(*a, orig=orig, logits=logits):
+            out = orig(*a)
+            logits.append((a[1].copy(), out[1].float().cpu().numpy()))
+            return out
+
+        eng._decode = rec
+        eng.run()
+        runs[d] = ([r.output for r in reqs], logits)
+    (tok_c, lg_c), (tok_g, lg_g) = runs["cpu"], runs[dev]
+    if tok_c != tok_g:
+        raise AssertionError(f"small path: greedy tokens differ: cpu {tok_c} vs card {tok_g}")
+    gap = max(float(np.abs(a[1][a[0]] - b[1][b[0]]).max()) for a, b in zip(lg_c, lg_g))
+    # cuBLAS and the CPU sum in other orders; over ~500 stored tokens a
+    # last-ulp difference in K/V can move one int8 / 2-bit code by one step
+    # (the CPU tests see 3.3e-5 against JAX for the same reason). The card
+    # read 1.28e-4 in every run; the limit leaves 2.3x of headroom.
+    if not gap <= SMALL_PATH_LOGIT_TOL:
+        raise AssertionError(f"small path: max logits gap {gap} > {SMALL_PATH_LOGIT_TOL:g}")
+    return {"tokens_identical": True, "max_logit_gap": gap, "ticks": len(lg_g)}
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
+
+
+def main_path_model(dev):
+    """The main path's model: full-width qwen3-0.6b, random bf16 weights
+    from seed 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_lm_params
+    cfg = get_config("qwen3-0.6b")
+    return cfg, init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def main_path_requests(vocab_size: int):
+    """The main path's requests: prompts of PROMPTS tokens drawn from seed
+    0, NEW_TOKENS new tokens each."""
+    from repro_torch.runtime.serve import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, vocab_size, n).astype(np.int32),
+                    max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
+
+
+def serve_main_path(dev):
+    """Phase 4: full-width qwen3-0.6b through the port's engine."""
+    import torch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.runtime.serve import Request, ServingEngine
+    cfg, params = main_path_model(dev)
+
+    # warm-up on a separate engine (module loading, cuBLAS handles)
+    warm = ServingEngine(cfg, params, device=dev, **SERVE)
+    warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
+        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    engine = ServingEngine(cfg, params, device=dev, **SERVE)
+    reqs = main_path_requests(cfg.vocab_size)
+    for r in reqs:
+        engine.submit(r)
+    finite = []
+    orig_decode, orig_prefill = engine._decode, engine._prefill
+
+    def decode(*a):
+        nxt, logits = orig_decode(*a)
+        finite.append(torch.isfinite(logits[torch.from_numpy(a[1]).to(dev)]).all())
+        return nxt, logits
+
+    def prefill(req):
+        row, st = orig_prefill(req)
+        finite.append(torch.tensor(bool(np.isfinite(row).all())))
+        return row, st
+
+    engine._decode, engine._prefill = decode, prefill
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    stats = engine.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    assert stats.completed == len(PROMPTS), stats.summary()
+    assert all(len(r.output) == NEW_TOKENS and r.stop_reason == "length" for r in reqs)
+    assert stats.decode_calls == stats.ticks > 0, stats.summary()
+    assert all(bool(f) for f in finite), "non-finite logits on the main path"
+    nl = cfg.num_layers
+    want = {"paged_score_estimate": nl * stats.ticks,
+            "sparse_flash_decode_paged": nl * stats.ticks,
+            "flash_prefill": nl * stats.admissions}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
+    assert vocab_ok, "sampled a token outside the vocabulary"
+    summary = stats.summary()
+    summary.update(wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS))
+    return launches, summary
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+
+    dev = "cuda"
+    print(gpu_line(), flush=True)                                          # phase 1
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    secs = common.build_kernels()                                          # phase 2
+    print(f"build: {secs:.1f} s", flush=True)
+    for name, log in common.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
+
+    cfg = get_config("qwen3-0.6b")                                         # phase 3
+    recs = check_kernels(dev, cfg, lengths=[n + NEW_TOKENS for n in PROMPTS],
+                         prompt_len=max(PROMPTS))
+    for r in recs:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"(tolerance {r['tolerance']}; {r['err_over_tol']:.3g} of it) "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']})", flush=True)
+    small = check_small_path(dev)
+    print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
+
+    launches, summary = serve_main_path(dev)                               # phase 4
+    print(f"serve qwen3-0.6b: ms/tick={summary['decode_ms_per_tick']:.2f} "
+          f"decode tok/s={summary['decode_tokens_per_s']:.1f} "
+          f"mean TTFT s={summary['mean_ttft_s']:.3f} prefill_s={summary['prefill_s']:.3f} "
+          f"peak mem GB={summary['peak_mem_gb']:.2f}", flush=True)
+    print(f"serve stats: {json.dumps(summary)}", flush=True)
+    for r in recs:
+        r["launches"] = launches.get(r["name"], 0)
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']} was not launched on the main path")
+    print(json.dumps({"kernels": recs}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

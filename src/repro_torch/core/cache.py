@@ -1,0 +1,352 @@
+"""Salca KV cache in PyTorch: int8 K/V + packed 2-bit heavy-channel features.
+
+Port of the reference `core/cache.py` restricted to the first slice: the
+contiguous batch=1 prefill cache (`SalcaCache`, `prefill_cache`) and the
+paged block pool with int8 K/V (`PagedSalcaCache` and its primitives).
+
+Layouts match the reference at every public field: pool data leaves are
+``(P, BS, KV, ·)``, per-slot metadata ``(S, ·)``. Packed feature words are
+int32 tensors with the reference's uint32 bits.
+
+**In place.** The reference returns new pools; the port's pool primitives
+update the pool's tensors in place (``index_put_``/``scatter_add_``) and
+return the same object. Writes the reference drops (unmapped block, full
+slot, shared block) go to one spare *sink* block kept past the public
+``P`` blocks, so no write needs a host-side mask and no step syncs with
+the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import heavy_channels as hc
+from repro_torch.core import quantization as qz
+from repro_torch.core.selection import SalcaParams
+
+PAGE_UNMAPPED = -1
+
+
+class SalcaCache(NamedTuple):
+    """Contiguous cache of one prefill: the source of a paged install."""
+    k_codes: torch.Tensor     # (B, S, KV, HD) int8
+    k_scale: torch.Tensor     # (B, S, KV) f32
+    v_codes: torch.Tensor     # (B, S, KV, HD) int8
+    v_scale: torch.Tensor     # (B, S, KV) f32
+    feat_words: torch.Tensor  # (B, S, KV, R//16) int32 (uint32 bits)
+    feat_scale: torch.Tensor  # (B, S, KV) f32
+    feat_zero: torch.Tensor   # (B, S, KV) f32
+    heavy_idx: torch.Tensor   # (B, KV, R) int32
+    length: torch.Tensor      # (B,) int32
+
+    @property
+    def max_seq(self) -> int:
+        return self.k_codes.shape[1]
+
+
+def _encode_tokens(k: torch.Tensor, v: torch.Tensor, heavy_idx: torch.Tensor):
+    """Quantize K/V tokens (B, T, KV, HD) into cache field values, with the
+    key features taken at heavy_idx (B, KV, R)."""
+    k8 = qz.quantize_kv_int8(k)
+    v8 = qz.quantize_kv_int8(v)
+    r = heavy_idx.shape[-1]
+    idx = heavy_idx[:, None].expand(k.shape[:3] + (r,)).long()
+    f2 = qz.quantize_key_features(torch.gather(k.float(), -1, idx))
+    return k8, v8, qz.pack2bit(f2.codes), f2.scale, f2.zero
+
+
+def prefill_cache(k: torch.Tensor, v: torch.Tensor, max_seq: int,
+                  params: SalcaParams,
+                  heavy_idx: torch.Tensor | None = None) -> SalcaCache:
+    """Cache of prefill K/V (B, T, KV, HD), zero-padded to ``max_seq``.
+    The heavy channels are identified here, per kv head from Σ|K| over the
+    prompt, unless ``heavy_idx`` (B, KV, R) is given."""
+    b, t, kv, hd = k.shape
+    r = params.r(hd)
+    if heavy_idx is None:
+        heavy_idx = hc.heavy_channel_indices(k.transpose(1, 2), r)
+    k8, v8, words, fs, fz = _encode_tokens(k, v, heavy_idx)
+    pad = max_seq - t
+    assert pad >= 0, f"prefill length {t} exceeds cache capacity {max_seq}"
+
+    def padt(x):  # pad the token dim (1)
+        return torch.cat([x, x.new_zeros((b, pad) + x.shape[2:])], dim=1)
+
+    return SalcaCache(
+        k_codes=padt(k8.codes), k_scale=padt(k8.scale),
+        v_codes=padt(v8.codes), v_scale=padt(v8.scale),
+        feat_words=padt(words), feat_scale=padt(fs), feat_zero=padt(fz),
+        heavy_idx=heavy_idx.to(torch.int32),
+        length=torch.full((b,), t, dtype=torch.int32, device=k.device))
+
+
+_DATA_FIELDS = ("k_codes", "k_scale", "v_codes", "v_scale",
+                "feat_words", "feat_scale", "feat_zero")
+
+
+@dataclass
+class PagedSalcaCache:
+    """One layer's paged block pool: shared physical blocks + per-slot
+    page tables. ``data`` holds the seven data leaves with one extra sink
+    block at index P; the public leaves are the views of blocks [0, P)."""
+    data: dict
+    heavy_idx: torch.Tensor   # (S, KV, R) int32
+    length: torch.Tensor      # (S,) int32
+    page_table: torch.Tensor  # (S, MB) int32, -1 = unmapped
+    refcount: torch.Tensor    # (P,) int32
+    sel_hist: torch.Tensor    # (S, MB) int32, selected tokens per logical block
+
+    k_codes = property(lambda self: self.data["k_codes"][:-1])        # (P, BS, KV, HD) int8
+    k_scale = property(lambda self: self.data["k_scale"][:-1])        # (P, BS, KV) f32
+    v_codes = property(lambda self: self.data["v_codes"][:-1])
+    v_scale = property(lambda self: self.data["v_scale"][:-1])
+    feat_words = property(lambda self: self.data["feat_words"][:-1])  # (P, BS, KV, R//16)
+    feat_scale = property(lambda self: self.data["feat_scale"][:-1])
+    feat_zero = property(lambda self: self.data["feat_zero"][:-1])
+
+    @property
+    def num_blocks(self) -> int:
+        return self.refcount.shape[0]
+
+    @property
+    def block_size(self) -> int:
+        return self.data["k_codes"].shape[1]
+
+    @property
+    def num_slots(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def max_blocks(self) -> int:
+        return self.page_table.shape[1]
+
+    @property
+    def max_seq(self) -> int:
+        return self.max_blocks * self.block_size
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.data["k_codes"].shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return self.data["k_codes"].shape[3]
+
+    @property
+    def kv_pool_dtype(self) -> str:
+        return "int8"
+
+    def valid_mask(self) -> torch.Tensor:
+        """(S, L) bool: True where a real token is stored."""
+        pos = torch.arange(self.max_seq, device=self.length.device)
+        return pos[None, :] < self.length[:, None]
+
+    def mapped_valid_mask(self) -> torch.Tensor:
+        """(S, L) bool: stored AND its block mapped."""
+        resident = torch.repeat_interleave(self.page_table >= 0, self.block_size, dim=-1)
+        return self.valid_mask() & resident
+
+    def clamped_pages(self) -> torch.Tensor:
+        """Page table with unmapped entries clamped to block 0 for reads."""
+        return torch.clamp_min(self.page_table, 0)
+
+    def check_invariants(self, free_blocks=None, host_refcount=None) -> "InvariantReport":
+        """Audit of the pool's bookkeeping (host-side, one device sync):
+        refcount == page-table references, ids in range, cursors in
+        [0, max_seq], mapped entries contiguous from logical 0, and — when
+        given — the free list disjoint from every mapped block and covering
+        every unreferenced block, the host refcount mirror equal to the
+        device's. Never raises; returns an `InvariantReport`."""
+        pt = self.page_table.cpu().numpy()
+        rc = self.refcount.cpu().numpy()
+        ln = self.length.cpu().numpy()
+        p, mb = self.num_blocks, self.max_blocks
+        rep = InvariantReport(checked={"slots": self.num_slots, "blocks": p,
+                                       "max_blocks": mb})
+        if ((ln < 0) | (ln > self.max_seq)).any():
+            rep.fail(f"length out of [0, {self.max_seq}]")
+        if (rc < 0).any():
+            rep.fail(f"negative refcount at blocks {np.where(rc < 0)[0].tolist()}")
+        if ((pt < PAGE_UNMAPPED) | (pt >= p)).any():
+            rep.fail("page-table entry outside [-1, num_blocks)")
+            pt = np.clip(pt, PAGE_UNMAPPED, p - 1)
+        derived = np.bincount(pt[pt >= 0], minlength=p).astype(rc.dtype)
+        if not (derived == rc).all():
+            bad = np.where(derived != rc)[0]
+            rep.fail(f"refcount mismatch at blocks {bad.tolist()[:8]}")
+        if host_refcount is not None and not (np.asarray(host_refcount) == rc).all():
+            rep.fail("host refcount mirror diverges from device")
+        if free_blocks is not None:
+            free = np.asarray(list(free_blocks), dtype=np.int64)
+            if len(set(free.tolist())) != len(free):
+                rep.fail("duplicate ids in the free list")
+            elif free.size and ((free < 0) | (free >= p)).any():
+                rep.fail("free-list id outside the pool")
+            else:
+                free_mask = np.zeros(p, bool)
+                free_mask[free] = True
+                if (free_mask & (derived > 0)).any():
+                    rep.fail("free ∩ mapped ≠ ∅")
+                if (~free_mask & (derived == 0)).any():
+                    rep.fail(f"leaked blocks: "
+                             f"{np.where(~free_mask & (derived == 0))[0].tolist()[:8]}")
+        mapped = pt >= 0
+        first_unmapped = np.where(mapped.all(axis=1), mb, np.argmin(mapped, axis=1))
+        if (mapped & (np.arange(mb)[None, :] >= first_unmapped[:, None])).any():
+            rep.fail("page-table hole below a mapped block")
+        return rep
+
+
+@dataclass
+class InvariantReport:
+    violations: list = field(default_factory=list)
+    checked: dict = field(default_factory=dict)
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def fail(self, msg: str) -> None:
+        self.violations.append(msg)
+
+
+def empty_paged_cache(num_blocks: int, block_size: int, slots: int,
+                      max_blocks: int, kv_heads: int, head_dim: int, r: int,
+                      kv_pool_dtype: str = "int8", device="cpu") -> PagedSalcaCache:
+    if kv_pool_dtype != "int8":
+        raise NotImplementedError(
+            f"kv_pool_dtype={kv_pool_dtype!r}: the fp16/int4 pools come with the "
+            "tiered-pool slice of the port; this slice stores int8 K/V")
+    n = num_blocks + 1   # + the sink block
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    data = {
+        "k_codes": z((n, block_size, kv_heads, head_dim), torch.int8),
+        "k_scale": z((n, block_size, kv_heads), torch.float32),
+        "v_codes": z((n, block_size, kv_heads, head_dim), torch.int8),
+        "v_scale": z((n, block_size, kv_heads), torch.float32),
+        "feat_words": z((n, block_size, kv_heads, r // qz.CODES_PER_WORD), torch.int32),
+        "feat_scale": z((n, block_size, kv_heads), torch.float32),
+        "feat_zero": z((n, block_size, kv_heads), torch.float32),
+    }
+    return PagedSalcaCache(
+        data=data,
+        heavy_idx=z((slots, kv_heads, r), torch.int32),
+        length=z((slots,), torch.int32),
+        page_table=torch.full((slots, max_blocks), PAGE_UNMAPPED, dtype=torch.int32,
+                              device=device),
+        refcount=z((num_blocks,), torch.int32),
+        sel_hist=z((slots, max_blocks), torch.int32))
+
+
+def _refcount_add(refcount: torch.Tensor, pages: torch.Tensor, delta: int) -> None:
+    """Add ``delta`` to refcount at every mapped (≥ 0) page id, in place."""
+    pages = pages.reshape(-1).long()
+    refcount.scatter_add_(0, pages.clamp_min(0),
+                          torch.where(pages >= 0, delta, 0).to(refcount.dtype))
+
+
+def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
+                       pages) -> PagedSalcaCache:
+    """Write a batch=1 contiguous cache into the physical blocks named by
+    ``pages`` (MB,) (-1 = not allocated: the write is dropped) and install
+    the page table for ``slot``, which must be unmapped. In place."""
+    if src.k_codes.shape[0] != 1:
+        raise ValueError(f"src cache must have batch 1, got {src.k_codes.shape[0]}")
+    if (pool.num_kv_heads, pool.head_dim) != tuple(src.k_codes.shape[2:]):
+        raise ValueError("kv-head/head-dim mismatch between pool and src")
+    if src.max_seq > pool.max_seq:
+        raise ValueError(f"src length {src.max_seq} exceeds paged logical capacity "
+                         f"{pool.max_seq}")
+    bs, mb, p = pool.block_size, pool.max_blocks, pool.num_blocks
+    dev = pool.refcount.device
+    pages = torch.as_tensor(pages, dtype=torch.int32).to(dev)
+    sink = torch.where(pages >= 0, pages, p).long()
+    pad = pool.max_seq - src.max_seq
+    for f in _DATA_FIELDS:
+        val = getattr(src, f)[0]
+        val = torch.cat([val, val.new_zeros((pad,) + val.shape[1:])], dim=0)
+        pool.data[f][sink] = val.reshape((mb, bs) + val.shape[1:])
+    pool.heavy_idx[slot] = src.heavy_idx[0]
+    pool.length[slot] = src.length[0]
+    pool.page_table[slot] = pages
+    _refcount_add(pool.refcount, pages, +1)
+    pool.sel_hist[slot] = 0
+    return pool
+
+
+def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
+                       v: torch.Tensor) -> PagedSalcaCache:
+    """Append one decoded token's K/V (S, KV, HD) at each slot's cursor
+    (`pool.length`), resolved through the page table. Writes to unmapped
+    blocks, past the logical capacity, or into a shared block (refcount > 1)
+    are dropped and the cursor holds. In place."""
+    s = k.shape[0]
+    bs, mb, p = pool.block_size, pool.max_blocks, pool.num_blocks
+    cur = pool.length
+    blk = torch.clamp(torch.div(cur, bs, rounding_mode="floor"), 0, mb - 1).long()
+    sidx = torch.arange(s, device=cur.device)
+    page = pool.page_table[sidx, blk]
+    rc = pool.refcount[page.clamp_min(0).long()]
+    ok = (cur >= 0) & (cur < pool.max_seq) & (page >= 0) & (rc <= 1)
+    pg = torch.where(ok, page, p).long()
+    off = torch.remainder(cur, bs).long()
+    k8, v8, words, fs, fz = _encode_tokens(k[:, None], v[:, None], pool.heavy_idx)
+    vals = {"k_codes": k8.codes, "k_scale": k8.scale, "v_codes": v8.codes,
+            "v_scale": v8.scale, "feat_words": words, "feat_scale": fs,
+            "feat_zero": fz}
+    for f, val in vals.items():
+        pool.data[f][pg, off] = val[:, 0]
+    pool.length = torch.where(ok, cur + 1, cur)
+    return pool
+
+
+def map_block(pool: PagedSalcaCache, slot: int, logical_block: int,
+              page: int) -> PagedSalcaCache:
+    """Map one logical block of ``slot`` to physical block ``page``; the new
+    page gains a reference and a previously mapped one releases it."""
+    old = pool.page_table[slot, logical_block].clone()
+    _refcount_add(pool.refcount, torch.tensor([page], device=old.device), +1)
+    _refcount_add(pool.refcount, old, -1)
+    pool.page_table[slot, logical_block] = page
+    return pool
+
+
+def free_pages(pool: PagedSalcaCache, slot: int) -> PagedSalcaCache:
+    """Release a slot: decref every block it maps, unmap its row, zero its
+    length. Data rows stay for the next owner to overwrite. In place."""
+    _refcount_add(pool.refcount, pool.page_table[slot], -1)
+    pool.length[slot] = 0
+    pool.page_table[slot] = PAGE_UNMAPPED
+    pool.sel_hist[slot] = 0
+    return pool
+
+
+def record_selection(pool: PagedSalcaCache, sel_indices: torch.Tensor,
+                     sel_mask: torch.Tensor) -> PagedSalcaCache:
+    """Add this tick's selected tokens (S, KV, C) per logical block into
+    `sel_hist`. In place."""
+    s = sel_indices.shape[0]
+    blk = torch.clamp(torch.div(sel_indices, pool.block_size, rounding_mode="floor"),
+                      0, pool.max_blocks - 1)
+    pool.sel_hist.scatter_add_(1, blk.reshape(s, -1).long(),
+                               sel_mask.reshape(s, -1).to(torch.int32))
+    return pool
+
+
+def paged_logical_kv(pool: PagedSalcaCache):
+    """Dequantized dense logical K/V (S, L, KV, HD) f32 — the dense oracle's
+    read of a paged pool."""
+    pt = pool.clamped_pages().long()
+    s, l = pt.shape[0], pool.max_seq
+    k = (pool.k_codes[pt].float() * pool.k_scale[pt][..., None]).reshape(
+        s, l, pool.num_kv_heads, -1)
+    v = (pool.v_codes[pt].float() * pool.v_scale[pt][..., None]).reshape(
+        s, l, pool.num_kv_heads, -1)
+    return k, v

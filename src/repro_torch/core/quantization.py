@@ -1,0 +1,160 @@
+"""Low-precision quantization primitives of Salca (paper §3.1), in PyTorch.
+
+Port of the reference `core/quantization.py`, restricted to what the paged
+int8 decode path uses: 2-bit asymmetric key features, 3-bit symmetric query
+features, int8 per-token K/V, uint8 score binning and 2-bit packing. Every
+function reproduces the reference bit for bit on the same float32 inputs:
+`torch.round` rounds half to even like `jnp.round`, and a bf16 round trip
+rounds to nearest even like `lax.reduce_precision(·, 8, 7)`.
+
+Packed feature words are kept as ``int32`` tensors holding the reference's
+``uint32`` bits (PyTorch's ``uint32`` lacks most ops).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+CODES_PER_WORD = 16
+
+_EPS = 1e-6
+
+
+class AsymQuant(NamedTuple):
+    """``x ≈ scale * codes + zero``."""
+    codes: torch.Tensor   # int8
+    scale: torch.Tensor   # f32, per row
+    zero: torch.Tensor    # f32, per row (= row min)
+
+
+class SymQuant(NamedTuple):
+    """``x ≈ scale * codes``."""
+    codes: torch.Tensor   # int8
+    scale: torch.Tensor   # f32, per row
+
+
+def asym_quantize(x: torch.Tensor, bits: int) -> AsymQuant:
+    """Asymmetric quantization along the last dim with ``2**bits`` levels."""
+    levels = (1 << bits) - 1
+    x32 = x.float()
+    lo = x32.amin(dim=-1, keepdim=True)
+    hi = x32.amax(dim=-1, keepdim=True)
+    safe = torch.clamp_min((hi - lo) / levels, _EPS)
+    codes = torch.clamp(torch.round((x32 - lo) / safe), 0, levels).to(torch.int8)
+    return AsymQuant(codes, safe.squeeze(-1), lo.squeeze(-1))
+
+
+def sym_quantize(x: torch.Tensor, bits: int) -> SymQuant:
+    """Symmetric quantization along the last dim; codes in ±(2^(b-1)-1)."""
+    m = (1 << (bits - 1)) - 1
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax / m, _EPS)
+    codes = torch.clamp(torch.round(x32 / scale), -m, m)
+    return SymQuant(codes.to(torch.int8), scale.squeeze(-1))
+
+
+def quantize_key_features(k_feat: torch.Tensor) -> AsymQuant:
+    """2-bit asymmetric quantization of heavy-channel key features."""
+    return asym_quantize(k_feat, bits=2)
+
+
+def quantize_query_features(q_feat: torch.Tensor) -> SymQuant:
+    """3-bit symmetric quantization of heavy-channel query features."""
+    return sym_quantize(q_feat, bits=3)
+
+
+def quantize_kv_int8(x: torch.Tensor) -> SymQuant:
+    """INT8 symmetric per-token quantization of K or V."""
+    return sym_quantize(x, bits=8)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 to the nearest bf16 (ties to even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def dequant_score_chain(q_scale, a, z, int_dot, q_sums, bf16: bool) -> torch.Tensor:
+    """``s_q · (a · Σq̂ĉ + z · Σq̂)`` — the shared phase-1 dequant chain.
+
+    With ``bf16`` every intermediate is rounded to bf16, at exactly the
+    points the reference pins with `lax.reduce_precision`; the CUDA score
+    kernel rounds at the same points, so all three agree bit for bit.
+    Operands broadcast against each other; returns f32.
+    """
+    d = int_dot.float()
+    qm = q_sums.float()
+    a, z, qs = a.float(), z.float(), q_scale.float()
+    if not bf16:
+        return qs * (a * d + z * qm)
+    rp = bf16_round
+    return rp(rp(qs) * rp(rp(rp(a) * rp(d)) + rp(rp(z) * rp(qm))))
+
+
+SCORE_NEG_INF = -3.0e38     # masked-score sentinel for the binning affine map
+
+
+def masked_scores(scores: torch.Tensor, valid_mask: torch.Tensor | None) -> torch.Tensor:
+    s = scores.float()
+    if valid_mask is not None:
+        s = torch.where(valid_mask, s, torch.full_like(s, SCORE_NEG_INF))
+    return s
+
+
+def score_bounds(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw per-row (lo, hi) of masked scores; all-masked rows give lo=+inf."""
+    lo = torch.where(s <= SCORE_NEG_INF / 2, torch.full_like(s, float("inf")), s).amin(-1)
+    return lo, s.amax(-1)
+
+
+def binning_affine(lo: torch.Tensor, hi: torch.Tensor):
+    """(lo, hi) → (offset, scale) with ``bin = clip(round((s-offset)/scale)+1, 1, 255)``."""
+    offset = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
+    scale = torch.clamp_min((hi - offset) / 254.0, _EPS)
+    return offset, scale
+
+
+def bins_from_bounds(s, lo, hi, valid_mask=None) -> torch.Tensor:
+    """Affine-map masked scores to uint8 bins; masked positions land on 0."""
+    offset, scale = binning_affine(lo, hi)
+    bins = torch.clamp(torch.round((s - offset[..., None]) / scale[..., None]) + 1.0,
+                       1.0, 255.0)
+    if valid_mask is not None:
+        bins = torch.where(valid_mask, bins, torch.zeros_like(bins))
+    return bins.to(torch.uint8)
+
+
+def quantize_scores_uint8(scores: torch.Tensor,
+                          valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Map FP scores to uint8 bins [0, 255] per row (last dim)."""
+    if valid_mask is not None:
+        valid_mask = valid_mask.expand(scores.shape)
+    s = masked_scores(scores, valid_mask)
+    lo, hi = score_bounds(s)
+    return bins_from_bounds(s, lo, hi, valid_mask)
+
+
+def _shifts(device, dtype) -> torch.Tensor:
+    return torch.arange(0, 2 * CODES_PER_WORD, 2, dtype=dtype, device=device)
+
+
+def pack2bit(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 2-bit codes (int8 in {0..3}, last dim a multiple of 16) into
+    int32 words holding the reference's uint32 bits: code j of a word sits
+    at bits 2j."""
+    *lead, r = codes.shape
+    assert r % CODES_PER_WORD == 0, f"feature dim {r} not divisible by 16"
+    c = codes.to(torch.int64).reshape(*lead, r // CODES_PER_WORD, CODES_PER_WORD)
+    w = (c << _shifts(codes.device, torch.int64)).sum(dim=-1)  # disjoint fields
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack2bit(words: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of `pack2bit`: int32 words → int8 codes of feature dim ``r``.
+    The ``& 3`` mask removes the sign bits the arithmetic shift brings in."""
+    *lead, nw = words.shape
+    assert nw * CODES_PER_WORD == r
+    c = (words[..., None] >> _shifts(words.device, torch.int32)) & 3
+    return c.reshape(*lead, r).to(torch.int8)

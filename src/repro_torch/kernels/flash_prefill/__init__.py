@@ -1,0 +1,1 @@
+"""Kernel package: see ops.py."""

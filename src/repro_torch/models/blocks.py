@@ -1,0 +1,71 @@
+"""Global-attention ("A") block of the dense LM: prefill and paged decode.
+
+Port of the reference `models/blocks.py` for the first slice: the
+`salca_params_for` rule, the A-block prefill (dense causal attention
+through kernel B3, then `prefill_cache`) and the paged branch of
+`_attn_decode` (append into the pool, Salca selection, sparse attention).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import dense_decode_from_paged, salca_decode_attention_paged
+from repro_torch.core.cache import (
+    PagedSalcaCache, append_token_paged, prefill_cache, record_selection)
+from repro_torch.core.selection import SalcaParams
+from repro_torch.models.attention import prefill_attention, qkv_project
+from repro_torch.models.common import glu_apply, rmsnorm
+
+
+def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
+    k = max(128, min(int(seq_len * cfg.salca_retention), cfg.salca_max_k, seq_len))
+    k_cap = min(((int(k * 1.25) + 127) // 128) * 128, seq_len)
+    return SalcaParams(feature_sparsity=cfg.salca_feature_sparsity, k=k, k_cap=k_cap,
+                       pool_window=cfg.salca_pool_window, use_pool=cfg.salca_use_pool)
+
+
+def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int):
+    """x (B, T, D) → (x_out, SalcaCache of the layer's K/V padded to max_seq)."""
+    t = x.shape[1]
+    xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    positions = torch.arange(t, device=x.device)
+    q, k, v = qkv_project(params["attn"], xn, cfg, positions)
+    o = prefill_attention(q, k, v)
+    x = x + o.reshape(x.shape[0], t, -1) @ params["attn"]["wo"]
+    f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
+    cache = prefill_cache(k, v, max_seq=max_seq, params=salca_params_for(cfg, max_seq))
+    return x + f, cache
+
+
+def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
+                      cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
+                      active: torch.Tensor) -> torch.Tensor:
+    """One token per slot: x (S, D) → attention output (S, D). Updates the
+    layer's pool in place. Inactive slots write nothing (their write cursor
+    is forced past the capacity) and read as holding 0 tokens."""
+    s = x.shape[0]
+    q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
+    q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
+    write_pos = torch.where(active, pos, pool.max_seq).to(torch.int32)
+    valid_len = torch.where(active, pos + 1, 0).to(torch.int32)
+    pool.length = write_pos
+    append_token_paged(pool, k, v)
+    pool.length = valid_len
+    if cfg.salca:
+        o, sel = salca_decode_attention_paged(q, pool, salca, return_selection=True)
+        record_selection(pool, sel.indices, sel.mask)
+    else:
+        o = dense_decode_from_paged(q, pool, pool.valid_mask())
+    return o.to(x.dtype).reshape(s, -1) @ params["wo"]
+
+
+def block_decode(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
+                 cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
+                 active: torch.Tensor) -> torch.Tensor:
+    h = attn_decode_paged(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), pool,
+                          cfg, pos, salca, active)
+    x = x + h
+    return x + glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps),
+                         cfg.act)

@@ -1,0 +1,306 @@
+"""Serving engine: continuous batching over a paged Salca KV pool, on one GPU.
+
+Port of the reference `runtime/serve.py` for the first slice. The engine
+keeps ONE pooled decode state: every layer's attention cache is a shared
+physical block pool with per-slot page tables. Admission is FIFO: a
+request is prefilled alone (batch 1, kernel B3) and written into the
+``ceil(prompt / block_size)`` blocks it takes from the free list; it waits
+head-of-line while the pool cannot cover it. Each tick grows every slot
+whose cursor crossed a block boundary by one block (or finishes it with an
+``overflow`` stop when the free list is empty) and then makes exactly ONE
+decode call that advances all active slots under an active-slot mask
+(kernels B1 and B2 in every layer). Sampling is greedy (argmax).
+
+Knobs of the reference engine that later slices port raise
+`NotImplementedError` naming that slice instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.registry import get_model
+
+# reference knob → the port slice (ROADMAP Queue A) that brings it
+_LATER = {
+    "prefix_sharing": "A.7 (prefix sharing with copy-on-write)",
+    "prefix_cache": "A.7 (persistent prefix cache)",
+    "host_spill": "A.7 (fp16/int4 pools and host spill)",
+    "prefill_chunk": "A.7 (chunked prefill and preemption)",
+    "preempt": "A.7 (chunked prefill and preemption)",
+    "faults": "A.7 (fault injection, deadlines and the auditor)",
+    "ctx": "A.9 (sharded decode)",
+}
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (T,) int32
+    max_new_tokens: int = 16
+    stop_token: int | None = None
+    submitted: float = field(default_factory=time.time)
+    admitted: float | None = None
+    first_token_time: float | None = None
+    done_time: float | None = None
+    stop_reason: str | None = None     # "length" | "stop" | "overflow"
+    output: list = field(default_factory=list)
+    token_times: list = field(default_factory=list)
+
+    @property
+    def ttft_s(self) -> float | None:
+        return None if self.first_token_time is None else self.first_token_time - self.submitted
+
+
+@dataclass
+class ServeStats:
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    decode_steps: int = 0      # per-slot token decodes (Σ active over ticks)
+    ticks: int = 0
+    decode_calls: int = 0      # decode dispatches (== ticks by design)
+    completed: int = 0
+    tokens_generated: int = 0  # includes the prefill-produced first token
+    queue_wait_s: float = 0.0
+    ttft_s: float = 0.0
+    admissions: int = 0
+    ttft_count: int = 0
+    peak_active_slots: int = 0
+    overflows: int = 0
+    dropped_writes: int = 0
+    prefill_tokens: int = 0
+    block_pool_size: int = 0
+    block_size: int = 0
+    blocks_in_use: int = 0
+    peak_blocks_in_use: int = 0
+
+    def summary(self) -> dict:
+        return {
+            "completed": self.completed, "prefill_s": self.prefill_s,
+            "decode_s": self.decode_s, "decode_steps": self.decode_steps,
+            "ticks": self.ticks, "decode_calls": self.decode_calls,
+            "tokens_generated": self.tokens_generated,
+            "decode_ms_per_tick": 1e3 * self.decode_s / max(self.ticks, 1),
+            "decode_tokens_per_s": self.decode_steps / self.decode_s if self.decode_s else 0.0,
+            "mean_queue_wait_s": self.queue_wait_s / max(self.admissions, 1),
+            "mean_ttft_s": self.ttft_s / max(self.ttft_count, 1),
+            "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
+            "overflows": self.overflows, "dropped_writes": self.dropped_writes,
+            "prefill_tokens": self.prefill_tokens, "block_pool_size": self.block_pool_size,
+            "peak_blocks_in_use": self.peak_blocks_in_use,
+        }
+
+
+class ServingEngine:
+    """Slot-pooled continuous-batching engine over a paged pool on one device.
+
+    ``num_blocks`` physical blocks of ``block_size`` tokens are shared by
+    ``slots`` request slots; ``block_size`` must divide ``max_seq``. Runs on
+    ``device`` ("cuda" by default, which raises on a machine without a
+    card); ``device="cpu"`` runs every kernel's plain version.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict, max_seq: int, slots: int = 4,
+                 paged: bool = True,
+                 block_size: int = 32, num_blocks: int | None = None,
+                 device="cuda", *, ctx=None, prefix_sharing: bool = False,
+                 prefix_cache: bool = False, host_spill: bool = False,
+                 prefill_chunk: int | None = None, preempt: bool = False, faults=None,
+                 kv_pool_dtype: str | None = None):
+        self.device = resolve_device(device)
+        asked = {"ctx": ctx is not None, "prefix_sharing": prefix_sharing,
+                 "prefix_cache": prefix_cache, "host_spill": host_spill,
+                 "prefill_chunk": prefill_chunk is not None, "preempt": preempt,
+                 "faults": faults is not None}
+        for knob, on in asked.items():
+            if on:
+                raise NotImplementedError(f"{knob}: not ported yet; comes with slice "
+                                          f"{_LATER[knob]}")
+        if not paged:
+            raise NotImplementedError("paged=False (contiguous slot pool) comes with "
+                                      "slice A.8 of the port")
+        if kv_pool_dtype not in (None, "int8") or cfg.kv_pool_dtype != "int8":
+            raise NotImplementedError("fp16/int4 pools come with slice A.7 (tiered pool)")
+        if max_seq % block_size:
+            raise ValueError(f"block_size {block_size} must divide max_seq {max_seq}")
+        self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
+        self.api = get_model(cfg)
+        self.stats = ServeStats()
+        self._queue: deque[Request] = deque()
+        self._active: dict[int, Request] = {}
+        self._free = sorted(range(slots), reverse=True)          # pop() → lowest
+        self._tokens = np.zeros((slots,), np.int32)
+        self._mask = np.zeros((slots,), bool)
+        self.block_size = block_size
+        self.max_blocks = max_seq // block_size
+        self.num_blocks = num_blocks or slots * self.max_blocks
+        self.stats.block_pool_size = self.num_blocks
+        self.stats.block_size = block_size
+        self._free_blocks = list(range(self.num_blocks))         # pop() → highest
+        self._slot_blocks: dict[int, list[int]] = {}
+        self._slot_pos: dict[int, int] = {}                      # next write position
+        self._refcount = np.zeros((self.num_blocks,), np.int64)  # host mirror
+        self._state = self.api.init_paged_state(slots, max_seq, block_size,
+                                                self.num_blocks, self.device)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.max_seq:
+            raise ValueError(f"request {req.rid}: prompt({len(req.prompt)}) + "
+                             f"max_new_tokens({req.max_new_tokens}) exceeds "
+                             f"max_seq={self.max_seq}")
+        lifetime = len(req.prompt) + max(req.max_new_tokens - 1, 0)
+        if self._blocks_for(lifetime) > self.num_blocks:
+            raise ValueError(f"request {req.rid}: needs {self._blocks_for(lifetime)} "
+                             f"blocks over its lifetime but the pool has {self.num_blocks}")
+        self._queue.append(req)
+
+    def _blocks_for(self, tokens: int) -> int:
+        return max(1, -(-tokens // self.block_size))
+
+    def _note_block_usage(self) -> None:
+        used = self.num_blocks - len(self._free_blocks)
+        self.stats.blocks_in_use = used
+        self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use, used)
+
+    def _prefill(self, req: Request):
+        t0 = time.time()
+        tokens = torch.from_numpy(np.asarray(req.prompt, np.int32)[None]).to(self.device)
+        logits, state1 = self.api.prefill(self.params, tokens, self.max_seq)
+        logits_row = logits[0].float().cpu().numpy()         # waits for the device
+        self.stats.prefill_s += time.time() - t0
+        self.stats.prefill_tokens += len(req.prompt)
+        return logits_row, state1
+
+    def _admit(self) -> None:
+        """FIFO admission: prefill the queue head alone and write it into
+        freshly allocated blocks; wait head-of-line when the pool is short."""
+        while self._queue and self._free:
+            req = self._queue[0]
+            need = self._blocks_for(len(req.prompt))
+            if need > len(self._free_blocks):
+                break
+            t0 = time.time()
+            blocks = [self._free_blocks.pop() for _ in range(need)]
+            pages = np.full((self.max_blocks,), -1, np.int32)
+            pages[:need] = blocks
+            self._queue.popleft()
+            slot = self._free.pop()
+            req.admitted = t0
+            self.stats.admissions += 1
+            self.stats.queue_wait_s += t0 - req.submitted
+            logits_row, state1 = self._prefill(req)
+            for b in blocks:
+                self._refcount[b] += 1
+            self._slot_blocks[slot] = blocks
+            self._slot_pos[slot] = len(req.prompt)
+            self._note_block_usage()
+            self._state = self.api.write_into_pages(self._state, state1, slot, pages)
+            self._activate(req, slot, logits_row)
+
+    def _next_token(self, req: Request, tok: int) -> int:
+        self.stats.tokens_generated += 1
+        req.token_times.append(time.time())
+        req.output.append(tok)
+        return tok
+
+    def _activate(self, req: Request, slot: int, logits_row: np.ndarray) -> None:
+        tok = self._next_token(req, int(np.argmax(logits_row)))
+        req.first_token_time = time.time()
+        self.stats.ttft_s += req.ttft_s
+        self.stats.ttft_count += 1
+        self._active[slot] = req
+        self._tokens[slot] = tok
+        self._mask[slot] = True
+        self.stats.peak_active_slots = max(self.stats.peak_active_slots,
+                                           int(self._mask.sum()))
+        if req.stop_token is not None and tok == req.stop_token:
+            self._finish(slot, req, time.time(), "stop")
+        elif req.max_new_tokens <= 1:
+            self._finish(slot, req, time.time(), "length")
+
+    def _finish(self, slot: int, req: Request, now: float, reason: str) -> None:
+        req.done_time = now
+        req.stop_reason = reason
+        self.stats.completed += 1
+        del self._active[slot]
+        self._mask[slot] = False
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+        for b in self._slot_blocks.pop(slot):
+            self._refcount[b] -= 1
+            if self._refcount[b] == 0:
+                self._free_blocks.append(b)
+        self._slot_pos.pop(slot)
+        self._note_block_usage()
+        self._state = self.api.reset_slot(self._state, slot)
+
+    def _grow_or_overflow(self) -> None:
+        """Before a tick every active slot must have a private block for its
+        next KV write: a slot whose cursor crossed a block boundary maps one
+        fresh block in every layer; with no block free it finishes with an
+        ``overflow`` stop and the write that could not land is counted."""
+        now = time.time()
+        for slot, req in list(self._active.items()):
+            pos = self._slot_pos[slot]
+            held = self._slot_blocks[slot]
+            logical = pos // self.block_size
+            if pos < self.max_seq and logical < len(held):
+                continue
+            if pos < self.max_seq and self._free_blocks:
+                blk = self._free_blocks.pop()
+                self._refcount[blk] += 1
+                held.append(blk)
+                self._state = self.api.map_block(self._state, slot, logical, blk)
+                self._note_block_usage()
+                continue
+            self.stats.overflows += 1
+            self.stats.dropped_writes += 1
+            self._finish(slot, req, now, "overflow")
+
+    def _decode(self, tokens: np.ndarray, mask: np.ndarray):
+        """The tick's one decode call: (greedy next tokens (S,), logits (S, V_pad))."""
+        tok = torch.from_numpy(tokens).to(self.device)
+        act = torch.from_numpy(mask).to(self.device)
+        logits, self._state = self.api.decode_step(self.params, self._state, tok, act)
+        return logits.argmax(dim=-1), logits
+
+    def _tick(self) -> None:
+        self._grow_or_overflow()
+        if not self._active:
+            return
+        self.stats.peak_active_slots = max(self.stats.peak_active_slots,
+                                           int(self._mask.sum()))
+        t0 = time.time()
+        nxt, _ = self._decode(self._tokens.copy(), self._mask.copy())
+        nxt_host = nxt.cpu().numpy()                          # waits for the device
+        self.stats.decode_s += time.time() - t0
+        self.stats.decode_calls += 1
+        self.stats.ticks += 1
+        self.stats.decode_steps += int(self._mask.sum())
+        now = time.time()
+        for slot in list(self._active):
+            req = self._active[slot]
+            self._slot_pos[slot] += 1
+            tok = self._next_token(req, int(nxt_host[slot]))
+            self._tokens[slot] = tok
+            if req.stop_token is not None and tok == req.stop_token:
+                self._finish(slot, req, now, "stop")
+            elif len(req.output) >= req.max_new_tokens:
+                self._finish(slot, req, now, "length")
+
+    def run(self, max_ticks: int = 10_000) -> ServeStats:
+        ticks = 0
+        while (self._queue or self._active) and ticks < max_ticks:
+            self._admit()
+            if self._active:
+                self._tick()
+            ticks += 1
+        return self.stats

@@ -1,0 +1,101 @@
+"""Card-only checks of the port's CUDA kernels against their plain versions.
+
+Marked ``cuda``: they skip on a machine without a CUDA device and run on
+the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+The plain versions are held against the JAX reference by the CPU tests
+(tests/test_torch_kernels.py), so agreement here closes the chain.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(dev, gen, slots=3, max_seq=128, bs=16, kv=2, hd=32, r=16, lengths=(40, 0, 100)):
+    from repro_torch.core.cache import empty_paged_cache
+    mb = max_seq // bs
+    pool = empty_paged_cache(slots * mb, bs, slots, mb, kv, hd, r, device=dev)
+    for f, lo, hi in (("k_codes", -127, 128), ("v_codes", -127, 128),
+                      ("feat_words", -2 ** 31, 2 ** 31 - 1)):
+        t = pool.data[f]
+        t.copy_(torch.randint(lo, hi, t.shape, generator=gen, device=dev, dtype=t.dtype))
+    for f in ("k_scale", "v_scale", "feat_scale", "feat_zero"):
+        pool.data[f].copy_(torch.rand(pool.data[f].shape, generator=gen, device=dev) + 1e-3)
+    perm = torch.randperm(slots * mb, generator=gen, device=dev).to(torch.int32)
+    for s, n in enumerate(lengths):
+        need = -(-n // bs)
+        pool.page_table[s, :need] = perm[s * mb: s * mb + need]
+        pool.length[s] = n
+    pool.heavy_idx.copy_(torch.rand((slots, kv, hd), generator=gen, device=dev)
+                         .argsort(-1)[..., :r].sort(-1).values.to(torch.int32))
+    return pool
+
+
+@pytest.mark.parametrize("g,bf16", [(1, True), (2, True), (2, False)])
+def test_b1_kernel_bitwise(dev, g, bf16):
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.score_est.ops import (
+        paged_score_estimate, paged_score_estimate_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pool = _pool(dev, gen)
+    s, kv, r = 3, 2, 16
+    qc = torch.randint(-3, 4, (s, kv, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((s, kv, g), generator=gen, device=dev)
+    qsum = qc.to(torch.int32).sum(-1, dtype=torch.int32)
+    args = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero,
+            pool.clamped_pages())
+    n0 = LAUNCHES["paged_score_estimate"]
+    out = paged_score_estimate(*args, bf16=bf16)
+    assert LAUNCHES["paged_score_estimate"] == n0 + 1
+    assert torch.equal(out, paged_score_estimate_plain(*args, bf16=bf16))
+
+
+def test_b2_kernel_matches_plain(dev):
+    from repro_torch.core.selection import SalcaParams
+    from repro_torch.core.attention import salca_decode_attention_paged
+    from repro_torch.kernels.flash_decode.ops import (
+        _selected_block_plan, sparse_flash_decode_paged_kernel,
+        sparse_flash_decode_paged_plain)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = _pool(dev, gen)
+    q = torch.randn((3, 4, 32), generator=gen, device=dev)
+    params = SalcaParams(k=24, k_cap=48, pool_window=7)
+    _, sel = salca_decode_attention_paged(q, pool, params, return_selection=True)
+    pblk, counts, bmask = _selected_block_plan(pool, sel)
+    qr = q.reshape(6, 2, 32)
+    out = sparse_flash_decode_paged_kernel(qr, pool.k_codes, pool.k_scale, pool.v_codes,
+                                           pool.v_scale, pblk, counts, bmask, 2)
+    ref = sparse_flash_decode_paged_plain(qr, pool.k_codes, pool.k_scale, pool.v_codes,
+                                          pool.v_scale, pblk, bmask, 2)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,t,window,q_offset,hd", [
+    (torch.float32, 100, 0, 0, 32), (torch.float32, 64, 16, 0, 64),
+    (torch.float32, 48, 0, 80, 128), (torch.bfloat16, 300, 0, 0, 128)])
+def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd):
+    from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(2)
+    s_len = t + q_offset
+    q = torch.randn((4, t, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, s_len, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, s_len, hd), generator=gen, device=dev).to(dtype)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    # both sides work in f32; a bf16 output rounds once, so an element may
+    # differ by one bf16 ulp of itself (<= 2^-7 |x|)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
