@@ -6,17 +6,22 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+2. build the six CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
+   one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (B1 paged scores: bit-identical; B2 sparse
-   decode attention: f32; B3 causal prefill attention: bf16), with kernel,
-   plain and library times and the roofline bound; then check the whole
-   serving path on a small input: the port on the card against the port's
-   plain versions on the CPU (greedy tokens identical, logits close);
+   shapes the main paths give it (B1 paged scores, B4 scores + bounds and
+   B5 bin/pool/histogram: bit-identical; B2 sparse decode attention and B6
+   its unnormalised partials: f32; B3 causal prefill attention: bf16), with
+   kernel, plain and library times and the roofline bound; then check the
+   whole serving path on a small input: the port on the card against the
+   port's plain versions on the CPU (greedy tokens identical, logits close);
 4. serve full-width qwen3-0.6b (random bf16 weights from a seed) through
    ``ServingEngine(paged=True, slots=4, max_seq=8192, block_size=32)``:
    4 requests of 2048-4096-token prompts × 16 new tokens, with every
-   kernel's launch counter set to 0 just before and read just after.
+   kernel's launch counter set to 0 just before and read just after; then
+   serve the same requests again through the block-sharded tick,
+   ``ServingEngine(ctx=...)`` over a world of one rank (nccl): B4, B5 and
+   B6 replace B1 and B2, and the greedy tokens must equal the first run's.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
@@ -41,7 +46,7 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}   # dense, per second
 SERVE = dict(slots=4, max_seq=8192, block_size=32)
 PROMPTS = (2048, 3072, 4096, 2560)
 NEW_TOKENS = 16
-B2_ATOL, B2_RTOL = 1e-5, 1e-5          # f32 output
+B2_ATOL, B2_RTOL = 1e-5, 1e-5          # f32 output (B2, and B6's acc and l)
 B3_ATOL, B3_RTOL = 1e-4, 2.0 ** -7     # bf16 output: one ulp of each element
 SMALL_PATH_LOGIT_TOL = 3e-4
 
@@ -69,7 +74,8 @@ def events_ms(fn, iters: int) -> float:
 
 def kernel_ms(fn, kernel_name: str, iters: int) -> float:
     """Device time per launch of the CUDA kernel named ``kernel_name``, from
-    the profiler's trace. Raises when the trace holds no device time for it."""
+    the profiler's trace (averaged over the launches it recorded). Raises
+    when the trace holds no device time for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -78,14 +84,16 @@ def kernel_ms(fn, kernel_name: str, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, launches = 0.0, 0
     for e in prof.key_averages():
         if kernel_name in e.key:
             total_us += (getattr(e, "device_time_total", 0)
                          or getattr(e, "cuda_time_total", 0))
+            launches += e.count
     if total_us <= 0:
         raise RuntimeError(f"the profiler recorded no device time for {kernel_name}")
-    return total_us / iters / 1e3
+    # per recorded launch: the trace can miss some of the ``iters`` launches
+    return total_us / launches / 1e3
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -157,7 +165,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
     if not torch.equal(out, plain):
         raise AssertionError(f"B1: kernel differs from plain version on "
                              f"{int((out != plain).sum())} of {out.numel()} scores")
-    ms = kernel_ms(lambda: se.paged_score_estimate(*b1_args), "paged_score_estimate", iters)
+    ms = kernel_ms(lambda: se.paged_score_estimate(*b1_args), "paged_score_kernel", iters)
     blocks = int(torch.unique(pages).numel())
     g = qc.shape[2]
     b1_bytes = (blocks * bs * kv * (pool.feat_words.shape[-1] * 4 + 8)   # words, scale, zero
@@ -190,7 +198,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
         raise AssertionError(f"B2: |kernel - plain| reaches {ratio2:.3g}x its bound "
                              f"{B2_ATOL:g} + {B2_RTOL:g}·|plain| (max abs err {err2})")
     ms = kernel_ms(lambda: fd.sparse_flash_decode_paged_kernel(*b2_args),
-                   "sparse_flash_decode_paged", iters)
+                   "sparse_flash_decode_paged_kernel", iters)
     live = int(counts.sum())
     b2_bytes = (live * bs * (2 * hd + 8) + 2 * qr.numel() * 4 + 4 * counts.numel()
                 + live * (4 + bs))
@@ -206,6 +214,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
                          bmask, kv), max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=None,
                      selected_blocks=live, rows=int(counts.numel())))
+    recs += check_sharded_kernels(dev, pool, q, b1_args, params, iters)
     del pool
 
     # B3 — one layer's prefill attention of the longest prompt, bf16
@@ -240,6 +249,127 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
                      tolerance=f"{B3_ATOL:g} + 2^-7*|plain|", err_over_tol=ratio3, ms=ms,
                      plain_ms=events_ms(lambda: fp.flash_attention_plain(q3, k3, v3), 2),
                      bound_ms=bms, bound_by=bby, library_ms=lib))
+    return recs
+
+
+def _check_exact(name, got, want):
+    import torch
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} differs from the plain version on "
+                                 f"{int((a != b).sum())} of {a.numel()} elements")
+
+
+def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
+    """Phase 3a, the block-sharded tick's kernels at one rank on the main
+    path's pool and query: B4 and B5 bit-identical, B6 within
+    B2_ATOL + B2_RTOL·scale on acc, m and l."""
+    import torch
+    from repro_torch.core import histogram_topk as ht
+    from repro_torch.core import quantization as qz
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.kernels.selection_fused import ops as sf
+    s, bs = SERVE["slots"], SERVE["block_size"]
+    kv, hd, mb = pool.num_kv_heads, pool.head_dim, pool.max_blocks
+    n = mb * bs
+    recs = []
+
+    # B4 — at one rank every mapped, stored position is owned and valid
+    pos = torch.arange(n, device=dev).reshape(mb, bs)
+    blk_valid = (pool.page_table >= 0)[..., None] & (pos[None] < pool.length[:, None, None])
+    b4_args = b1_args + (blk_valid,)
+    out4 = se.paged_score_bounds(*b4_args, bf16=PERF.bf16_collectives)
+    _check_exact("B4", out4, se.paged_score_bounds_plain(*b4_args, bf16=PERF.bf16_collectives))
+    qc, pages = b1_args[0], b1_args[6]
+    blocks = int(torch.unique(pages).numel())
+    b4_bytes = (blocks * bs * kv * (pool.feat_words.shape[-1] * 4 + 8)
+                + qc.numel() + 8 * qc.shape[0] * qc.shape[1] * qc.shape[2]
+                + 4 * pages.numel() + blk_valid.numel() + 4 * out4[0].numel() + 8 * s * kv)
+    b4_ops = 2 * s * kv * qc.shape[2] * mb * bs * qc.shape[-1]
+    bms, bby = bound(b4_bytes, b4_ops, "int8")
+    recs.append(dict(name="paged_score_bounds", route="cuda",
+                     source="src/repro_torch/csrc/score_est.cu",
+                     replaces="src/repro/kernels/score_est/kernel.py:164",
+                     launches=None, max_abs_err=0.0, tolerance="bit-identical",
+                     err_over_tol=0.0,
+                     ms=kernel_ms(lambda: se.paged_score_bounds(*b4_args), "paged_score_kernel",
+                                  iters),
+                     plain_ms=events_ms(lambda: se.paged_score_bounds_plain(*b4_args),
+                                        max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None))
+
+    # B5 — halo columns as the one-rank all-reduce leaves them: each block's
+    # neighbours' edge bins under the global affine
+    sm, lo, hi = out4
+    w = params.pool_window
+    halo = w // 2
+    bins = qz.bins_from_bounds(sm, lo, hi, blk_valid.reshape(s, 1, n)).reshape(s, kv, mb, bs)
+    zero = torch.zeros((s, kv, 1, halo), dtype=torch.uint8, device=dev)
+    from_left = torch.cat([zero, bins[..., :-1, -halo:]], dim=-2).contiguous()
+    from_right = torch.cat([bins[..., 1:, :halo], zero], dim=-2).contiguous()
+    force = torch.zeros((s, mb, bs), dtype=torch.bool, device=dev)    # no sink/recent
+    b5_args = (sm.reshape(s, kv, mb, bs), lo, hi, from_left, from_right, blk_valid, force)
+    out5 = sf.paged_fused_select(*b5_args, window=w)
+    _check_exact("B5", out5, sf.paged_fused_select_plain(*b5_args, window=w))
+    b5_bytes = (4 * sm.numel() + 8 * s * kv + 2 * from_left.numel() + 2 * blk_valid.numel()
+                + out5[0].numel() + 4 * out5[1].numel())
+    b5_ops = sm.numel() * (w + 8)        # bin (5 f32 ops), pool (w max), force, count
+    bms, bby = bound(b5_bytes, b5_ops, "f32")
+    recs.append(dict(name="paged_fused_select", route="cuda",
+                     source="src/repro_torch/csrc/selection_fused.cu",
+                     replaces="src/repro/kernels/selection_fused/kernel.py:188",
+                     launches=None, max_abs_err=0.0, tolerance="bit-identical",
+                     err_over_tol=0.0,
+                     ms=kernel_ms(lambda: sf.paged_fused_select(*b5_args, window=w),
+                                  "paged_fused_select_kernel", iters),
+                     plain_ms=events_ms(lambda: sf.paged_fused_select_plain(*b5_args, window=w),
+                                        max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None))
+
+    # B6 — partials over the rank-local plan of the selection B5 leads to
+    t = ht.locate_threshold(out5[1], params.k)
+    keep = out5[0].reshape(s, kv, n) >= t[..., None].to(torch.uint8)
+    sel = ht.Selection(*ht.compact_indices(keep, params.k_cap), t)
+    pblk, counts, bmask = fd._selected_block_plan(pool, sel, (0, pool.num_blocks))
+    h = q.shape[1]
+    qr = q.reshape(s * kv, h // kv, hd).contiguous()
+    kvargs = (qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk)
+    out6 = fd.sparse_flash_decode_paged_partials_kernel(*kvargs, counts, bmask, kv)
+    plain6 = fd.sparse_flash_decode_paged_partials_plain(*kvargs, bmask, kv)
+    # acc is an unnormalised sum whose terms cancel, so its rounding error
+    # scales with sum(p·|v|) (the plain partials over |v|), not with |acc|;
+    # m and l do not cancel and scale with themselves
+    mag = fd.sparse_flash_decode_paged_partials_plain(*kvargs[:3], kvargs[3].abs(),
+                                                      *kvargs[4:], bmask, kv)[0]
+    err6, ratio6 = 0.0, 0.0
+    for a, b, scale in zip(out6, plain6, (mag, plain6[1].abs(), plain6[2])):
+        err6 = max(err6, float((a - b).abs().max()))
+        ratio6 = max(ratio6, float(((a - b).abs() / (B2_ATOL + B2_RTOL * scale)).max()))
+    acc_vs_abs = float(((out6[0] - plain6[0]).abs()
+                        / (B2_ATOL + B2_RTOL * plain6[0].abs())).max())
+    if not ratio6 <= 1.0:
+        raise AssertionError(f"B6: |kernel - plain| reaches {ratio6:.3g}x its bound "
+                             f"{B2_ATOL:g} + {B2_RTOL:g}·scale (max abs err {err6})")
+    live = int(counts.sum())
+    b6_bytes = (live * bs * (2 * hd + 8) + 2 * qr.numel() * 4 + 8 * qr.shape[0] * qr.shape[1]
+                + 4 * counts.numel() + live * (4 + bs))
+    bms, bby = bound(b6_bytes, live * bs * (h // kv) * hd * 4, "f32")
+    recs.append(dict(name="sparse_flash_decode_paged_partials", route="cuda",
+                     source="src/repro_torch/csrc/flash_decode.cu",
+                     replaces="src/repro/kernels/flash_decode/kernel.py:276",
+                     launches=None, max_abs_err=err6,
+                     tolerance=(f"{B2_ATOL:g} + {B2_RTOL:g}*scale; scale = sum(p*|v|) "
+                                "for acc, |plain| for m and l"), err_over_tol=ratio6,
+                     acc_err_over_abs_plain_tol=acc_vs_abs,
+                     ms=kernel_ms(lambda: fd.sparse_flash_decode_paged_partials_kernel(
+                         *kvargs, counts, bmask, kv), "sparse_flash_decode_paged_kernel", iters),
+                     plain_ms=events_ms(lambda: fd.sparse_flash_decode_paged_partials_plain(
+                         *kvargs, bmask, kv), max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     selected_blocks=live, rows=int(counts.numel())))
     return recs
 
 
@@ -317,22 +447,29 @@ def main_path_requests(vocab_size: int):
                     max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
 
 
-def serve_main_path(dev):
-    """Phase 4: full-width qwen3-0.6b through the port's engine."""
+def serve_main_path(dev, ctx=None):
+    """Phase 4: full-width qwen3-0.6b through the port's engine — the
+    unsharded tick, or with ``ctx`` the block-sharded tick. Returns the
+    launch counts of the run, its summary and the requests' tokens."""
+    import gc
+
     import torch
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
+    gc.collect()              # an earlier run's engine (its hooks form a cycle)
+    torch.cuda.empty_cache()
     cfg, params = main_path_model(dev)
 
-    # warm-up on a separate engine (module loading, cuBLAS handles)
-    warm = ServingEngine(cfg, params, device=dev, **SERVE)
+    # warm-up on a separate engine (module loading, cuBLAS handles, the
+    # communicator of the first all-reduce)
+    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **SERVE)
     warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
         0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
     warm.run()
     del warm
     torch.cuda.synchronize()
 
-    engine = ServingEngine(cfg, params, device=dev, **SERVE)
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **SERVE)
     reqs = main_path_requests(cfg.vocab_size)
     for r in reqs:
         engine.submit(r)
@@ -362,26 +499,51 @@ def serve_main_path(dev):
     assert stats.decode_calls == stats.ticks > 0, stats.summary()
     assert all(bool(f) for f in finite), "non-finite logits on the main path"
     nl = cfg.num_layers
-    want = {"paged_score_estimate": nl * stats.ticks,
-            "sparse_flash_decode_paged": nl * stats.ticks,
-            "flash_prefill": nl * stats.admissions}
+    tick_kernels = (("paged_score_estimate", "sparse_flash_decode_paged") if ctx is None else
+                    ("paged_score_bounds", "paged_fused_select",
+                     "sparse_flash_decode_paged_partials"))
+    want = {k: nl * stats.ticks for k in tick_kernels}
+    want["flash_prefill"] = nl * stats.admissions
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
     assert vocab_ok, "sampled a token outside the vocabulary"
     summary = stats.summary()
     summary.update(wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS))
-    return launches, summary
+                   ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS),
+                   launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels})
+    return launches, summary, [r.output for r in reqs]
+
+
+def first_divergence(a: list, b: list):
+    """(request, step) of the first token where two runs' outputs differ."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+        if len(x) != len(y):
+            return i, min(len(x), len(y))
+    return None
+
+
+def print_serve(label: str, summary: dict) -> None:
+    print(f"serve qwen3-0.6b {label}: ms/tick={summary['decode_ms_per_tick']:.2f} "
+          f"decode tok/s={summary['decode_tokens_per_s']:.1f} "
+          f"mean TTFT s={summary['mean_ttft_s']:.3f} prefill_s={summary['prefill_s']:.3f} "
+          f"peak mem GB={summary['peak_mem_gb']:.2f} "
+          f"launches/tick={json.dumps(summary['launches_per_tick'])}", flush=True)
+    print(f"serve stats {label}: {json.dumps(summary)}", flush=True)
 
 
 def main() -> int:
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_decode_ctx
     from repro_torch.kernels import common
 
     dev = "cuda"
@@ -408,17 +570,25 @@ def main() -> int:
     small = check_small_path(dev)
     print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
 
-    launches, summary = serve_main_path(dev)                               # phase 4
-    print(f"serve qwen3-0.6b: ms/tick={summary['decode_ms_per_tick']:.2f} "
-          f"decode tok/s={summary['decode_tokens_per_s']:.1f} "
-          f"mean TTFT s={summary['mean_ttft_s']:.3f} prefill_s={summary['prefill_s']:.3f} "
-          f"peak mem GB={summary['peak_mem_gb']:.2f}", flush=True)
-    print(f"serve stats: {json.dumps(summary)}", flush=True)
+    launches, summary, tokens = serve_main_path(dev)                       # phase 4
+    print_serve("unsharded", summary)
+    ctx = init_decode_ctx(dev)
+    launches_sh, summary_sh, tokens_sh = serve_main_path(dev, ctx)
+    print_serve("sharded (one rank, nccl)", summary_sh)
+    where = first_divergence(tokens, tokens_sh)
+    if where is not None:
+        i, j = where
+        raise AssertionError(f"sharded run diverges from the unsharded run at request {i}, "
+                             f"generated token {j}: {tokens[i][j:j + 1]} vs "
+                             f"{tokens_sh[i][j:j + 1]}")
+    print("sharded vs unsharded greedy tokens: identical", flush=True)
+    sharded = {"paged_score_bounds", "paged_fused_select", "sparse_flash_decode_paged_partials"}
     for r in recs:
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches"] = (launches_sh if r["name"] in sharded else launches).get(r["name"], 0)
         if r["launches"] < 1:
-            raise AssertionError(f"{r['name']} was not launched on the main path")
+            raise AssertionError(f"{r['name']} was not launched on its main path")
     print(json.dumps({"kernels": recs}), flush=True)
+    dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

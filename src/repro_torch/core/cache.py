@@ -14,6 +14,15 @@ return the same object. Writes the reference drops (unmapped block, full
 slot, shared block) go to one spare *sink* block kept past the public
 ``P`` blocks, so no write needs a host-side mask and no step syncs with
 the device.
+
+**Block-sharded pools.** The physical block dim can be split across the
+ranks of a `distributed.sharding.DecodeCtx`: rank i holds only the data of
+global ids ``[lo, hi) = [i·P/n, (i+1)·P/n)`` (plus its own sink block),
+while the page table (global ids), lengths, heavy sets, refcount and
+``sel_hist`` stay replicated. The primitives that take ``block_range`` see
+such a local pool: resolutions into blocks outside ``[lo, hi)`` are flagged
+unowned (reads) or land in the sink (writes) — the reference's
+`_localize_pages` rule.
 """
 
 from __future__ import annotations
@@ -110,7 +119,14 @@ class PagedSalcaCache:
 
     @property
     def num_blocks(self) -> int:
+        """Pool size P as the refcount counts it (global on a block-sharded
+        rank, whose refcount is replicated)."""
         return self.refcount.shape[0]
+
+    @property
+    def sink(self) -> int:
+        """Index of the sink block = the number of blocks held locally."""
+        return self.data["k_codes"].shape[0] - 1
 
     @property
     def block_size(self) -> int:
@@ -216,12 +232,15 @@ class InvariantReport:
 
 def empty_paged_cache(num_blocks: int, block_size: int, slots: int,
                       max_blocks: int, kv_heads: int, head_dim: int, r: int,
-                      kv_pool_dtype: str = "int8", device="cpu") -> PagedSalcaCache:
+                      kv_pool_dtype: str = "int8", device="cpu",
+                      local_blocks: int | None = None) -> PagedSalcaCache:
+    """A pool of ``num_blocks`` blocks whose data leaves hold ``local_blocks``
+    of them (default: all; a block-sharded rank holds its ``P/n``)."""
     if kv_pool_dtype != "int8":
         raise NotImplementedError(
             f"kv_pool_dtype={kv_pool_dtype!r}: the fp16/int4 pools come with the "
             "tiered-pool slice of the port; this slice stores int8 K/V")
-    n = num_blocks + 1   # + the sink block
+    n = (num_blocks if local_blocks is None else local_blocks) + 1   # + the sink block
 
     def z(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -245,6 +264,16 @@ def empty_paged_cache(num_blocks: int, block_size: int, slots: int,
         sel_hist=z((slots, max_blocks), torch.int32))
 
 
+def _localize_pages(pages: torch.Tensor, block_range) -> torch.Tensor:
+    """Global physical block ids → this rank's local ids; unowned and
+    unmapped ids map to ``PAGE_UNMAPPED``. Identity without a range."""
+    if block_range is None:
+        return pages
+    lo, hi = block_range
+    owned = (pages >= lo) & (pages < hi)
+    return torch.where(owned, pages - lo, PAGE_UNMAPPED)
+
+
 def _refcount_add(refcount: torch.Tensor, pages: torch.Tensor, delta: int) -> None:
     """Add ``delta`` to refcount at every mapped (≥ 0) page id, in place."""
     pages = pages.reshape(-1).long()
@@ -253,10 +282,14 @@ def _refcount_add(refcount: torch.Tensor, pages: torch.Tensor, delta: int) -> No
 
 
 def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
-                       pages) -> PagedSalcaCache:
+                       pages, block_range=None) -> PagedSalcaCache:
     """Write a batch=1 contiguous cache into the physical blocks named by
     ``pages`` (MB,) (-1 = not allocated: the write is dropped) and install
-    the page table for ``slot``, which must be unmapped. In place."""
+    the page table for ``slot``, which must be unmapped. In place.
+
+    With ``block_range`` (a block-sharded rank, the prefill replicated on
+    every rank) only the blocks this rank owns are written; the page table
+    and refcount take the global ids everywhere."""
     if src.k_codes.shape[0] != 1:
         raise ValueError(f"src cache must have batch 1, got {src.k_codes.shape[0]}")
     if (pool.num_kv_heads, pool.head_dim) != tuple(src.k_codes.shape[2:]):
@@ -264,10 +297,11 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     if src.max_seq > pool.max_seq:
         raise ValueError(f"src length {src.max_seq} exceeds paged logical capacity "
                          f"{pool.max_seq}")
-    bs, mb, p = pool.block_size, pool.max_blocks, pool.num_blocks
+    bs, mb = pool.block_size, pool.max_blocks
     dev = pool.refcount.device
     pages = torch.as_tensor(pages, dtype=torch.int32).to(dev)
-    sink = torch.where(pages >= 0, pages, p).long()
+    local = _localize_pages(pages, block_range)
+    sink = torch.where(local >= 0, local, pool.sink).long()
     pad = pool.max_seq - src.max_seq
     for f in _DATA_FIELDS:
         val = getattr(src, f)[0]
@@ -282,20 +316,24 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
 
 
 def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
-                       v: torch.Tensor) -> PagedSalcaCache:
+                       v: torch.Tensor, block_range=None) -> PagedSalcaCache:
     """Append one decoded token's K/V (S, KV, HD) at each slot's cursor
     (`pool.length`), resolved through the page table. Writes to unmapped
     blocks, past the logical capacity, or into a shared block (refcount > 1)
-    are dropped and the cursor holds. In place."""
+    are dropped and the cursor holds. In place.
+
+    With ``block_range`` the cursor walk and the length advance run alike on
+    every rank, but the data lands only on the rank owning the block."""
     s = k.shape[0]
-    bs, mb, p = pool.block_size, pool.max_blocks, pool.num_blocks
+    bs, mb = pool.block_size, pool.max_blocks
     cur = pool.length
     blk = torch.clamp(torch.div(cur, bs, rounding_mode="floor"), 0, mb - 1).long()
     sidx = torch.arange(s, device=cur.device)
     page = pool.page_table[sidx, blk]
     rc = pool.refcount[page.clamp_min(0).long()]
     ok = (cur >= 0) & (cur < pool.max_seq) & (page >= 0) & (rc <= 1)
-    pg = torch.where(ok, page, p).long()
+    local = _localize_pages(page, block_range)
+    pg = torch.where(ok & (local >= 0), local, pool.sink).long()
     off = torch.remainder(cur, bs).long()
     k8, v8, words, fs, fz = _encode_tokens(k[:, None], v[:, None], pool.heavy_idx)
     vals = {"k_codes": k8.codes, "k_scale": k8.scale, "v_codes": v8.codes,
@@ -308,20 +346,26 @@ def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
 
 
 def map_block(pool: PagedSalcaCache, slot: int, logical_block: int,
-              page: int) -> PagedSalcaCache:
+              page: int, block_range=None) -> PagedSalcaCache:
     """Map one logical block of ``slot`` to physical block ``page``; the new
-    page gains a reference and a previously mapped one releases it."""
+    page gains a reference and a previously mapped one releases it.
+
+    ``block_range``: the reference's layout with a sharded refcount (each
+    rank's ``refcount`` holds only its blocks) — the page-table write
+    applies everywhere, the refcount deltas only on the owner."""
     old = pool.page_table[slot, logical_block].clone()
-    _refcount_add(pool.refcount, torch.tensor([page], device=old.device), +1)
-    _refcount_add(pool.refcount, old, -1)
+    new = torch.tensor([page], dtype=torch.int32, device=old.device)
+    _refcount_add(pool.refcount, _localize_pages(new, block_range), +1)
+    _refcount_add(pool.refcount, _localize_pages(old, block_range), -1)
     pool.page_table[slot, logical_block] = page
     return pool
 
 
-def free_pages(pool: PagedSalcaCache, slot: int) -> PagedSalcaCache:
+def free_pages(pool: PagedSalcaCache, slot: int, block_range=None) -> PagedSalcaCache:
     """Release a slot: decref every block it maps, unmap its row, zero its
-    length. Data rows stay for the next owner to overwrite. In place."""
-    _refcount_add(pool.refcount, pool.page_table[slot], -1)
+    length. Data rows stay for the next owner to overwrite. In place.
+    ``block_range``: sharded-refcount form, as in `map_block`."""
+    _refcount_add(pool.refcount, _localize_pages(pool.page_table[slot], block_range), -1)
     pool.length[slot] = 0
     pool.page_table[slot] = PAGE_UNMAPPED
     pool.sel_hist[slot] = 0
@@ -338,6 +382,22 @@ def record_selection(pool: PagedSalcaCache, sel_indices: torch.Tensor,
     pool.sel_hist.scatter_add_(1, blk.reshape(s, -1).long(),
                                sel_mask.reshape(s, -1).to(torch.int32))
     return pool
+
+
+def _resolve_pages(pool: PagedSalcaCache, idx: torch.Tensor, block_range=None):
+    """Walk the page table for logical token indices idx (S, ...): returns
+    (page, offset, mapped). Unmapped — and, with ``block_range``, unowned —
+    resolutions clamp to (block 0, offset 0) with ``mapped`` False; owned
+    pages come back in the local coordinate."""
+    bs = pool.block_size
+    blk = torch.clamp(torch.div(idx, bs, rounding_mode="floor"), 0, pool.max_blocks - 1)
+    pt = pool.page_table.reshape((pool.num_slots,) + (1,) * (idx.ndim - 2)
+                                 + (pool.max_blocks,))
+    page = torch.gather(pt.expand(idx.shape[:-1] + (pool.max_blocks,)), -1, blk.long())
+    page = _localize_pages(page, block_range)
+    mapped = page >= 0
+    return (torch.where(mapped, page, 0), torch.where(mapped, torch.remainder(idx, bs), 0),
+            mapped)
 
 
 def paged_logical_kv(pool: PagedSalcaCache):

@@ -35,3 +35,16 @@ def maxpool1d_blocked(x: torch.Tensor, window: int) -> torch.Tensor:
     assert window // 2 <= x.shape[-1], "halo exceeds block size"
     flat = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
     return maxpool1d(flat, window).reshape(x.shape)
+
+
+def maxpool1d_blocked_halo(x: torch.Tensor, window: int, from_left: torch.Tensor,
+                           from_right: torch.Tensor) -> torch.Tensor:
+    """`maxpool1d_blocked` with the neighbour halos supplied explicitly:
+    x (..., nb, bs); from_left/from_right (..., nb, window//2) — the edge
+    columns of each block's logical neighbours (the block-sharded tick
+    psums them across ranks first). Each block pools on its own."""
+    if window == 1:
+        return x
+    halo = window // 2
+    padded = torch.cat([from_left.to(x.dtype), x, from_right.to(x.dtype)], dim=-1)
+    return maxpool1d(padded, window)[..., halo:-halo]

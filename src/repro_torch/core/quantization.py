@@ -9,6 +9,11 @@ rounds to nearest even like `lax.reduce_precision(·, 8, 7)`.
 
 Packed feature words are kept as ``int32`` tensors holding the reference's
 ``uint32`` bits (PyTorch's ``uint32`` lacks most ops).
+
+Divisions by a constant go through `div_const`: PyTorch's CUDA kernels turn
+a division by a Python scalar into a multiplication by its reciprocal,
+which is one ulp off IEEE division on some rows; the reference and the CPU
+divide.
 """
 
 from __future__ import annotations
@@ -20,6 +25,19 @@ import torch
 CODES_PER_WORD = 16
 
 _EPS = 1e-6
+
+_CONSTS: dict = {}
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` with IEEE division on every device: the divisor is a 0-dim
+    tensor on x's device (cached), which no backend rewrites into a
+    multiplication by ``1/c``."""
+    key = (c, x.dtype, x.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(c, dtype=x.dtype, device=x.device)
+    return x / t
 
 
 class AsymQuant(NamedTuple):
@@ -41,7 +59,7 @@ def asym_quantize(x: torch.Tensor, bits: int) -> AsymQuant:
     x32 = x.float()
     lo = x32.amin(dim=-1, keepdim=True)
     hi = x32.amax(dim=-1, keepdim=True)
-    safe = torch.clamp_min((hi - lo) / levels, _EPS)
+    safe = torch.clamp_min(div_const(hi - lo, levels), _EPS)
     codes = torch.clamp(torch.round((x32 - lo) / safe), 0, levels).to(torch.int8)
     return AsymQuant(codes, safe.squeeze(-1), lo.squeeze(-1))
 
@@ -51,7 +69,7 @@ def sym_quantize(x: torch.Tensor, bits: int) -> SymQuant:
     m = (1 << (bits - 1)) - 1
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax / m, _EPS)
+    scale = torch.clamp_min(div_const(amax, m), _EPS)
     codes = torch.clamp(torch.round(x32 / scale), -m, m)
     return SymQuant(codes.to(torch.int8), scale.squeeze(-1))
 
@@ -112,7 +130,7 @@ def score_bounds(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def binning_affine(lo: torch.Tensor, hi: torch.Tensor):
     """(lo, hi) → (offset, scale) with ``bin = clip(round((s-offset)/scale)+1, 1, 255)``."""
     offset = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
-    scale = torch.clamp_min((hi - offset) / 254.0, _EPS)
+    scale = torch.clamp_min(div_const(hi - offset, 254.0), _EPS)
     return offset, scale
 
 

@@ -78,6 +78,28 @@ def estimate_relevance_paged(q_feat: torch.Tensor, pool, groups: int) -> torch.T
                                 bf16=PERF.bf16_collectives)
 
 
+def estimate_relevance_paged_bounds(q_feat: torch.Tensor, pool, groups: int,
+                                    blk_valid: torch.Tensor,
+                                    pages: torch.Tensor | None = None):
+    """Phase 1 of the block-sharded tick: scores + raw binning bounds in one
+    pass (kernel B4 on the card). ``blk_valid`` (S, MB, BS) bool marks this
+    rank's owned-and-stored positions; ``pages`` (S, MB) overrides the table
+    the stream walks (a sharded rank passes its localized, clamped table).
+    Returns (scores (S, KV, L) with invalid positions at `SCORE_NEG_INF`,
+    lo (S, KV), hi (S, KV)), the partials the caller pmin/pmax-merges."""
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.score_est.ops import paged_score_bounds
+    s, h, r = q_feat.shape
+    kv = pool.num_kv_heads
+    assert h == kv * groups
+    if pages is None:
+        pages = pool.clamped_pages()
+    qc, qs, qsum = _quantized_query_groups(q_feat, kv)
+    return paged_score_bounds(qc, qs, qsum, pool.feat_words, pool.feat_scale,
+                              pool.feat_zero, pages, blk_valid,
+                              bf16=PERF.bf16_collectives)
+
+
 def select_sparse_pattern_blocked(scores: torch.Tensor, params: SalcaParams,
                                   valid_mask: torch.Tensor | None,
                                   block_size: int) -> ht.Selection:

@@ -1,5 +1,5 @@
-// Kernel B2: exact sparse attention over selected physical blocks of the
-// int8 paged pool, for Hopper (sm_90a).
+// Kernels B2 and B6: exact sparse attention over selected physical blocks
+// of the int8 paged pool, for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_decode/kernel.py::
 // sparse_flash_decode_paged_pallas (int8 branch: per-token scales). Row
@@ -9,6 +9,13 @@
 // (running max m, sum l) and acc += p * (v_int8 * v_scale), all f32; the
 // output is acc / max(l, 1e-20). Padded list entries (n >= counts[b]) are
 // never read.
+//
+// B6 replaces sparse_flash_decode_paged_partials_pallas: the same kernel
+// (template flag PARTIALS) stopped before the normalization, writing the
+// online-softmax state (acc, m, l) that the block-sharded tick merges
+// across ranks. A row with counts[b] == 0 (this rank owns none of its
+// selected blocks) writes acc = 0, m = -1e30, l = 0, which vanish in the
+// merge.
 //
 // Bound on this card: bytes — the int8 K and V rows of the selected blocks
 // plus their scales, read once; the math is 4 flops per byte. Design: one
@@ -26,7 +33,7 @@
 
 namespace {
 
-template <int G>
+template <int G, bool PARTIALS>
 __global__ void sparse_flash_decode_paged_kernel(
     const float* __restrict__ q,          // (BH, G, HD)
     const int8_t* __restrict__ k_codes,   // (P, BS, KV, HD)
@@ -36,7 +43,9 @@ __global__ void sparse_flash_decode_paged_kernel(
     const int32_t* __restrict__ pblk,     // (BH, NSB)
     const int32_t* __restrict__ counts,   // (BH,)
     const uint8_t* __restrict__ bmask,    // (BH, NSB, BS)
-    float* __restrict__ out,              // (BH, G, HD)
+    float* __restrict__ out,              // (BH, G, HD): output, or acc if PARTIALS
+    float* __restrict__ m_out,            // (BH, G)  [PARTIALS]
+    float* __restrict__ l_out,            // (BH, G)  [PARTIALS]
     int HD, int BS, int KV, int NSB, float scale) {
   extern __shared__ float sh[];
   float* q_sh = sh;               // (G, HD)
@@ -115,8 +124,40 @@ __global__ void sparse_flash_decode_paged_kernel(
     __syncthreads();   // p_sh is rewritten by the next block
   }
   for (int g = 0; g < G; ++g) {
-    out[((size_t)b * G + g) * HD + tid] = acc[g] / fmaxf(l[g], 1e-20f);
+    out[((size_t)b * G + g) * HD + tid] = PARTIALS ? acc[g] : acc[g] / fmaxf(l[g], 1e-20f);
   }
+  if (PARTIALS && tid == 0) {   // every thread holds the same (m, l)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m_out[(size_t)b * G + g] = m[g];
+      l_out[(size_t)b * G + g] = l[g];
+    }
+  }
+}
+
+template <bool PARTIALS>
+int launch(const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
+           const void* v_scale, const void* pblk, const void* counts, const void* bmask,
+           void* out, void* m_out, void* l_out, int BH, int G, int HD, int BS, int KV,
+           int NSB, float scale, void* stream) {
+  if (HD % 32 != 0 || HD > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(G * HD + G * BS) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+#define B2_LAUNCH(GG)                                                              \
+  sparse_flash_decode_paged_kernel<GG, PARTIALS><<<BH, HD, smem, st>>>(            \
+      (const float*)q, (const int8_t*)k_codes, (const float*)k_scale,              \
+      (const int8_t*)v_codes, (const float*)v_scale, (const int32_t*)pblk,         \
+      (const int32_t*)counts, (const uint8_t*)bmask, (float*)out, (float*)m_out,   \
+      (float*)l_out, HD, BS, KV, NSB, scale)
+  switch (G) {
+    case 1: B2_LAUNCH(1); break;
+    case 2: B2_LAUNCH(2); break;
+    case 4: B2_LAUNCH(4); break;
+    case 8: B2_LAUNCH(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef B2_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -127,22 +168,15 @@ extern "C" int sparse_flash_decode_paged(const void* q, const void* k_codes,
                                          const void* counts, const void* bmask, void* out,
                                          int BH, int G, int HD, int BS, int KV, int NSB,
                                          float scale, void* stream) {
-  if (HD % 32 != 0 || HD > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(G * HD + G * BS) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-#define B2_LAUNCH(GG)                                                              \
-  sparse_flash_decode_paged_kernel<GG><<<BH, HD, smem, st>>>(                      \
-      (const float*)q, (const int8_t*)k_codes, (const float*)k_scale,              \
-      (const int8_t*)v_codes, (const float*)v_scale, (const int32_t*)pblk,         \
-      (const int32_t*)counts, (const uint8_t*)bmask, (float*)out, HD, BS, KV, NSB, \
-      scale)
-  switch (G) {
-    case 1: B2_LAUNCH(1); break;
-    case 2: B2_LAUNCH(2); break;
-    case 4: B2_LAUNCH(4); break;
-    case 8: B2_LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef B2_LAUNCH
-  return (int)cudaGetLastError();
+  return launch<false>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, out,
+                       nullptr, nullptr, BH, G, HD, BS, KV, NSB, scale, stream);
+}
+
+extern "C" int sparse_flash_decode_paged_partials(
+    const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
+    const void* v_scale, const void* pblk, const void* counts, const void* bmask, void* acc,
+    void* m, void* l, int BH, int G, int HD, int BS, int KV, int NSB, float scale,
+    void* stream) {
+  return launch<true>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, acc, m,
+                      l, BH, G, HD, BS, KV, NSB, scale, stream);
 }

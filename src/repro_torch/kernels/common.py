@@ -32,6 +32,7 @@ SOURCES = {
     "score_est": "score_est.cu",
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "selection_fused": "selection_fused.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,74 @@
+"""Kernel B5: fused binning, blocked max-pool and histogram over paged
+scores, and its plain PyTorch version.
+
+Replaces `repro/kernels/selection_fused/kernel.py::paged_fused_select_pallas`.
+Phases 2-3 of the block-sharded tick up to the threshold: INT8 binning with
+the GLOBAL (all-reduced) bounds, a stride-1 max-pool per block with the
+neighbours' edge bins supplied as halo columns, sink/recent forcing to 255
+and the raw 256-bin histogram. The threshold is located by the caller after
+the histogram's all-reduce. CUDA source: ``repro_torch/csrc/selection_fused.cu``;
+its outputs are bit-identical to the plain version below.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quantization as qz
+from repro_torch.core.histogram_topk import histogram256
+from repro_torch.core.maxpool import maxpool1d_blocked_halo
+from repro_torch.kernels import common
+
+
+def paged_fused_select_plain(scores, lo, hi, from_left, from_right, blk_valid, force,
+                             window: int = 7):
+    """Plain version (mirrors the reference `paged_fused_select_ref`):
+    `bins_from_bounds` → `maxpool1d_blocked_halo` → force → `histogram256`."""
+    s, kv, mb, bs = scores.shape
+    valid = blk_valid[:, None]                                  # (S, 1, MB, BS)
+    bins = qz.bins_from_bounds(scores.reshape(s, kv, mb * bs), lo, hi,
+                               valid.reshape(s, 1, mb * bs))
+    blocked = bins.reshape(s, kv, mb, bs)
+    if window > 1:
+        pooled = maxpool1d_blocked_halo(blocked, window, from_left, from_right)
+        pooled = torch.where(valid, pooled, torch.zeros_like(pooled))
+    else:
+        pooled = blocked
+    pooled = torch.where(force[:, None] & valid, torch.full_like(pooled, 255), pooled)
+    return pooled, histogram256(pooled.reshape(s, kv, mb * bs))
+
+
+def paged_fused_select(scores, lo, hi, from_left, from_right, blk_valid, force,
+                       window: int = 7):
+    """scores (S, KV, MB, BS) f32 (sentinel-masked); lo/hi (S, KV) f32 global
+    bounds; from_left/from_right (S, KV, MB, window//2) uint8 halo bins (any
+    width when ``window`` is 1); blk_valid/force (S, MB, BS) bool → (pooled
+    (S, KV, MB, BS) uint8, hist (S, KV, 256) int32). CPU tensors take the
+    plain version; CUDA tensors launch kernel B5."""
+    if scores.device.type == "cpu":
+        return paged_fused_select_plain(scores, lo, hi, from_left, from_right, blk_valid,
+                                        force, window)
+    s, kv, mb, bs = scores.shape
+    dev = scores.device
+    halo = window // 2
+    if window > 1 and (window % 2 == 0 or halo > bs):
+        raise ValueError(f"window {window}: must be odd with window//2 <= block size {bs}")
+    common.require(scores, "scores", torch.float32, (s, kv, mb, bs), dev)
+    common.require(lo, "lo", torch.float32, (s, kv), dev)
+    common.require(hi, "hi", torch.float32, (s, kv), dev)
+    if window > 1:
+        common.require(from_left, "from_left", torch.uint8, (s, kv, mb, halo), dev)
+        common.require(from_right, "from_right", torch.uint8, (s, kv, mb, halo), dev)
+    common.require(blk_valid, "blk_valid", torch.bool, (s, mb, bs), dev)
+    common.require(force, "force", torch.bool, (s, mb, bs), dev)
+    pooled = torch.empty((s, kv, mb, bs), dtype=torch.uint8, device=dev)
+    hist = torch.zeros((s, kv, 256), dtype=torch.int32, device=dev)
+    fn = common.load("selection_fused", "paged_fused_select",
+                     [common.P] * 9 + [common.I] * 5 + [common.P])
+    err = fn(scores.data_ptr(), lo.data_ptr(), hi.data_ptr(), from_left.data_ptr(),
+             from_right.data_ptr(), blk_valid.data_ptr(), force.data_ptr(),
+             pooled.data_ptr(), hist.data_ptr(), s, kv, mb, bs, halo,
+             common.stream_ptr(pooled))
+    common.check(err, "paged_fused_select")
+    common.LAUNCHES["paged_fused_select"] += 1
+    return pooled, hist

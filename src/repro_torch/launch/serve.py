@@ -4,7 +4,9 @@
         --requests 4 --prompt-len 2048 --new-tokens 16 --max-seq 8192
 
 ``--local`` serves the reduced config (pass ``--device cpu`` to run it on
-the CPU with the kernels' plain versions).
+the CPU with the kernels' plain versions). ``--sharded`` serves through the
+block-sharded tick (kernels B4-B6) over a world of one rank: ``nccl`` on the
+card, ``gloo`` on the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import init_decode_ctx
 from repro_torch.runtime.serve import Request, ServingEngine
 from repro_torch.weights import init_lm_params
 
@@ -32,6 +35,8 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharded", action="store_true",
+                    help="block-sharded pool over a world of one rank")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -41,8 +46,9 @@ def main() -> None:
     max_seq = -(-max_seq // args.block_size) * args.block_size
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_lm_params(cfg, gen, args.device)
+    ctx = init_decode_ctx(args.device) if args.sharded else None
     engine = ServingEngine(cfg, params, max_seq=max_seq, slots=args.slots,
-                           block_size=args.block_size, device=args.device)
+                           block_size=args.block_size, device=args.device, ctx=ctx)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).astype(np.int32)

@@ -1,9 +1,10 @@
 """Global-attention ("A") block of the dense LM: prefill and paged decode.
 
-Port of the reference `models/blocks.py` for the first slice: the
+Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the A-block prefill (dense causal attention
-through kernel B3, then `prefill_cache`) and the paged branch of
-`_attn_decode` (append into the pool, Salca selection, sparse attention).
+through kernel B3, then `prefill_cache`) and the two paged branches of
+`_attn_decode` (append into the pool, Salca selection, sparse attention):
+on one device, or — given a `DecodeCtx` — over a block-sharded pool.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from repro_torch.core.attention import dense_decode_from_paged, salca_decode_att
 from repro_torch.core.cache import (
     PagedSalcaCache, append_token_paged, prefill_cache, record_selection)
 from repro_torch.core.selection import SalcaParams
+from repro_torch.core.sp_decode import sp_dense_decode_paged, sp_salca_decode_paged
+from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models.attention import prefill_attention, qkv_project
 from repro_torch.models.common import glu_apply, rmsnorm
 
@@ -41,16 +44,27 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int)
 
 def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
                       cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                      active: torch.Tensor) -> torch.Tensor:
+                      active: torch.Tensor, ctx: DecodeCtx | None = None) -> torch.Tensor:
     """One token per slot: x (S, D) → attention output (S, D). Updates the
     layer's pool in place. Inactive slots write nothing (their write cursor
-    is forced past the capacity) and read as holding 0 tokens."""
+    is forced out of range) and read as holding 0 tokens.
+
+    With ``ctx`` the pool is this rank's share of a block-sharded pool: q,
+    k and v are replicated (every rank runs the whole dense model), the
+    append lands only on the rank owning the cursor's block, and the
+    attention is the two-collective sharded tick (`core.sp_decode`)."""
     s = x.shape[0]
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
-    write_pos = torch.where(active, pos, pool.max_seq).to(torch.int32)
+    write_pos = torch.where(active, pos, -1).to(torch.int32)
     valid_len = torch.where(active, pos + 1, 0).to(torch.int32)
     pool.length = write_pos
+    if ctx is not None:
+        append_token_paged(pool, k, v, block_range=local_block_range(pool.num_blocks, ctx))
+        pool.length = valid_len
+        o = (sp_salca_decode_paged(q, pool, salca, ctx) if cfg.salca
+             else sp_dense_decode_paged(q, pool, ctx))
+        return o.to(x.dtype).reshape(s, -1) @ params["wo"]
     append_token_paged(pool, k, v)
     pool.length = valid_len
     if cfg.salca:
@@ -63,9 +77,9 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
 
 def block_decode(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
                  cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                 active: torch.Tensor) -> torch.Tensor:
+                 active: torch.Tensor, ctx: DecodeCtx | None = None) -> torch.Tensor:
     h = attn_decode_paged(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), pool,
-                          cfg, pos, salca, active)
+                          cfg, pos, salca, active, ctx)
     x = x + h
     return x + glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps),
                          cfg.act)

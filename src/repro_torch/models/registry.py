@@ -15,9 +15,9 @@ from repro_torch.models import transformer
 
 class ModelAPI(NamedTuple):
     prefill: Callable[..., Any]            # (params, tokens, max_seq) -> (logits, state)
-    decode_step: Callable[..., Any]        # (params, state, token, active) -> (logits, state)
-    init_paged_state: Callable[..., Any]   # (slots, max_seq, block_size, num_blocks, device)
-    write_into_pages: Callable[..., Any]   # (pool, src, slot, pages) -> pool
+    decode_step: Callable[..., Any]        # (params, state, token, active, ctx) -> (logits, state)
+    init_paged_state: Callable[..., Any]   # (slots, max_seq, block_size, num_blocks, device, ctx)
+    write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx) -> pool
     map_block: Callable[..., Any]          # (pool, slot, logical_block, page) -> pool
     reset_slot: Callable[..., Any]         # (pool, slot) -> pool
 
@@ -42,12 +42,12 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     def prefill(params, tokens, max_seq):
         return transformer.lm_prefill(params, cfg, tokens, max_seq)
 
-    def decode_step(params, state, token, active):
-        return transformer.lm_decode_step(params, cfg, state, token, active)
+    def decode_step(params, state, token, active, ctx=None):
+        return transformer.lm_decode_step(params, cfg, state, token, active, ctx)
 
-    def init_paged_state(slots, max_seq, block_size, num_blocks, device):
+    def init_paged_state(slots, max_seq, block_size, num_blocks, device, ctx=None):
         return transformer.lm_init_paged_state(cfg, slots, max_seq, block_size,
-                                               num_blocks, device)
+                                               num_blocks, device, ctx)
 
     return ModelAPI(prefill, decode_step, init_paged_state, transformer.lm_write_into_slot,
                     transformer.lm_map_block, transformer.lm_reset_slot)

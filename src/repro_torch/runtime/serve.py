@@ -1,6 +1,6 @@
-"""Serving engine: continuous batching over a paged Salca KV pool, on one GPU.
+"""Serving engine: continuous batching over a paged Salca KV pool.
 
-Port of the reference `runtime/serve.py` for the first slice. The engine
+Port of the reference `runtime/serve.py` for the paged engine. The engine
 keeps ONE pooled decode state: every layer's attention cache is a shared
 physical block pool with per-slot page tables. Admission is FIFO: a
 request is prefilled alone (batch 1, kernel B3) and written into the
@@ -10,6 +10,17 @@ whose cursor crossed a block boundary by one block (or finishes it with an
 ``overflow`` stop when the free list is empty) and then makes exactly ONE
 decode call that advances all active slots under an active-slot mask
 (kernels B1 and B2 in every layer). Sampling is greedy (argmax).
+
+Block-sharded pool (``ctx=DecodeCtx(...)``): the physical block dim is
+split evenly across the ranks of the context's process group, each rank
+holding ``num_blocks / world_size`` blocks, and the tick runs the sharded
+island (kernels B4, B5, B6 and two collective phases). Every rank runs this
+same host loop on the same requests (SPMD): allocation is deterministic, so
+page tables stay identical across ranks, and the all-reduced attention
+gives every rank the same logits and hence the same greedy tokens. One free
+list per shard (`ShardedBlockAllocator`): admission takes blocks from the
+least-loaded shards, so one request can span shards; growth prefers the
+shard holding the slot's tail block.
 
 Knobs of the reference engine that later slices port raise
 `NotImplementedError` naming that slice instead of being ignored.
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import DecodeCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
 
@@ -36,7 +48,6 @@ _LATER = {
     "prefill_chunk": "A.7 (chunked prefill and preemption)",
     "preempt": "A.7 (chunked prefill and preemption)",
     "faults": "A.7 (fault injection, deadlines and the auditor)",
-    "ctx": "A.9 (sharded decode)",
 }
 
 
@@ -57,6 +68,64 @@ class Request:
     @property
     def ttft_s(self) -> float | None:
         return None if self.first_token_time is None else self.first_token_time - self.submitted
+
+
+class ShardedBlockAllocator:
+    """Host-side per-shard free lists over a block pool whose physical block
+    dim is split into ``n_shards`` contiguous ranges (shard of block ``b`` =
+    ``b // (num_blocks // n_shards)``, the rule `local_block_range` applies
+    on the device). The lists are disjoint, every id stays in its shard's
+    range, and an allocated block is in no list until released.
+    ``n_shards=1`` is a single free list popping the highest id."""
+
+    def __init__(self, num_blocks: int, n_shards: int = 1):
+        if num_blocks % n_shards:
+            raise ValueError(f"num_blocks {num_blocks} must divide evenly "
+                             f"across {n_shards} shards")
+        self.num_blocks = num_blocks
+        self.n_shards = n_shards
+        self.blocks_per_shard = num_blocks // n_shards
+        self._free = [list(range(s * self.blocks_per_shard, (s + 1) * self.blocks_per_shard))
+                      for s in range(n_shards)]
+
+    def shard_of(self, block: int) -> int:
+        return block // self.blocks_per_shard
+
+    @property
+    def total_free(self) -> int:
+        return sum(len(f) for f in self._free)
+
+    def free_counts(self) -> list[int]:
+        return [len(f) for f in self._free]
+
+    def free_ids(self) -> list[int]:
+        """Flat snapshot of every free block id."""
+        return [b for f in self._free for b in f]
+
+    def alloc(self, need: int, prefer: int | None = None) -> list[int] | None:
+        """Pop ``need`` blocks, or None (nothing popped) if the pool cannot
+        cover them. ``prefer`` drains that shard first; otherwise blocks come
+        from the least-loaded shards (most free first), spilling across
+        shards so one request can exceed one shard's pool."""
+        if need > self.total_free:
+            return None
+        order = sorted(range(self.n_shards), key=lambda s: -len(self._free[s]))
+        if prefer is not None:
+            order = [prefer] + [s for s in order if s != prefer]
+        out: list[int] = []
+        for s in order:
+            while self._free[s] and len(out) < need:
+                out.append(self._free[s].pop())
+            if len(out) == need:
+                break
+        return out
+
+    def release(self, block: int) -> None:
+        self._free[self.shard_of(block)].append(block)
+
+    def take(self, block: int) -> None:
+        """Remove a specific id from its shard's list."""
+        self._free[self.shard_of(block)].remove(block)
 
 
 @dataclass
@@ -80,9 +149,11 @@ class ServeStats:
     block_size: int = 0
     blocks_in_use: int = 0
     peak_blocks_in_use: int = 0
+    shards: int = 1                      # pool shards (the ctx's world size)
+    peak_shard_blocks_in_use: int = 0    # hottest single shard at peak (shards > 1)
 
     def summary(self) -> dict:
-        return {
+        out = {
             "completed": self.completed, "prefill_s": self.prefill_s,
             "decode_s": self.decode_s, "decode_steps": self.decode_steps,
             "ticks": self.ticks, "decode_calls": self.decode_calls,
@@ -94,28 +165,34 @@ class ServeStats:
             "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
             "overflows": self.overflows, "dropped_writes": self.dropped_writes,
             "prefill_tokens": self.prefill_tokens, "block_pool_size": self.block_pool_size,
-            "peak_blocks_in_use": self.peak_blocks_in_use,
+            "peak_blocks_in_use": self.peak_blocks_in_use, "shards": self.shards,
         }
+        if self.shards > 1:
+            out["peak_shard_blocks_in_use"] = self.peak_shard_blocks_in_use
+        return out
 
 
 class ServingEngine:
-    """Slot-pooled continuous-batching engine over a paged pool on one device.
+    """Slot-pooled continuous-batching engine over a paged pool.
 
     ``num_blocks`` physical blocks of ``block_size`` tokens are shared by
     ``slots`` request slots; ``block_size`` must divide ``max_seq``. Runs on
     ``device`` ("cuda" by default, which raises on a machine without a
-    card); ``device="cpu"`` runs every kernel's plain version.
+    card); ``device="cpu"`` runs every kernel's plain version. ``ctx``
+    (`distributed.sharding.DecodeCtx`) splits the pool's blocks across its
+    ranks; ``num_blocks`` must then divide evenly by the world size.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int, slots: int = 4,
                  paged: bool = True,
                  block_size: int = 32, num_blocks: int | None = None,
-                 device="cuda", *, ctx=None, prefix_sharing: bool = False,
+                 device="cuda", *, ctx: DecodeCtx | None = None,
+                 prefix_sharing: bool = False,
                  prefix_cache: bool = False, host_spill: bool = False,
                  prefill_chunk: int | None = None, preempt: bool = False, faults=None,
                  kv_pool_dtype: str | None = None):
         self.device = resolve_device(device)
-        asked = {"ctx": ctx is not None, "prefix_sharing": prefix_sharing,
+        asked = {"prefix_sharing": prefix_sharing,
                  "prefix_cache": prefix_cache, "host_spill": host_spill,
                  "prefill_chunk": prefill_chunk is not None, "preempt": preempt,
                  "faults": faults is not None}
@@ -143,12 +220,20 @@ class ServingEngine:
         self.num_blocks = num_blocks or slots * self.max_blocks
         self.stats.block_pool_size = self.num_blocks
         self.stats.block_size = block_size
-        self._free_blocks = list(range(self.num_blocks))         # pop() → highest
+        self.ctx = ctx
+        self.n_shards = 1 if ctx is None else ctx.world_size
+        self.stats.shards = self.n_shards
+        self._alloc = ShardedBlockAllocator(self.num_blocks, self.n_shards)
         self._slot_blocks: dict[int, list[int]] = {}
         self._slot_pos: dict[int, int] = {}                      # next write position
         self._refcount = np.zeros((self.num_blocks,), np.int64)  # host mirror
         self._state = self.api.init_paged_state(slots, max_seq, block_size,
-                                                self.num_blocks, self.device)
+                                                self.num_blocks, self.device, ctx)
+
+    @property
+    def _free_blocks(self) -> list[int]:
+        """Flat snapshot of the free block ids (all shards)."""
+        return self._alloc.free_ids()
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -166,9 +251,13 @@ class ServingEngine:
         return max(1, -(-tokens // self.block_size))
 
     def _note_block_usage(self) -> None:
-        used = self.num_blocks - len(self._free_blocks)
+        used = self.num_blocks - self._alloc.total_free
         self.stats.blocks_in_use = used
         self.stats.peak_blocks_in_use = max(self.stats.peak_blocks_in_use, used)
+        if self.n_shards > 1:
+            hot = max(self._alloc.blocks_per_shard - f for f in self._alloc.free_counts())
+            self.stats.peak_shard_blocks_in_use = max(self.stats.peak_shard_blocks_in_use,
+                                                      hot)
 
     def _prefill(self, req: Request):
         t0 = time.time()
@@ -185,10 +274,10 @@ class ServingEngine:
         while self._queue and self._free:
             req = self._queue[0]
             need = self._blocks_for(len(req.prompt))
-            if need > len(self._free_blocks):
+            blocks = self._alloc.alloc(need)          # least-loaded shards first
+            if blocks is None:
                 break
             t0 = time.time()
-            blocks = [self._free_blocks.pop() for _ in range(need)]
             pages = np.full((self.max_blocks,), -1, np.int32)
             pages[:need] = blocks
             self._queue.popleft()
@@ -202,7 +291,8 @@ class ServingEngine:
             self._slot_blocks[slot] = blocks
             self._slot_pos[slot] = len(req.prompt)
             self._note_block_usage()
-            self._state = self.api.write_into_pages(self._state, state1, slot, pages)
+            self._state = self.api.write_into_pages(self._state, state1, slot, pages,
+                                                    self.ctx)
             self._activate(req, slot, logits_row)
 
     def _next_token(self, req: Request, tok: int) -> int:
@@ -237,7 +327,7 @@ class ServingEngine:
         for b in self._slot_blocks.pop(slot):
             self._refcount[b] -= 1
             if self._refcount[b] == 0:
-                self._free_blocks.append(b)
+                self._alloc.release(b)
         self._slot_pos.pop(slot)
         self._note_block_usage()
         self._state = self.api.reset_slot(self._state, slot)
@@ -245,7 +335,8 @@ class ServingEngine:
     def _grow_or_overflow(self) -> None:
         """Before a tick every active slot must have a private block for its
         next KV write: a slot whose cursor crossed a block boundary maps one
-        fresh block in every layer; with no block free it finishes with an
+        fresh block in every layer, from the shard holding its tail block
+        when that shard has one; with no block free it finishes with an
         ``overflow`` stop and the write that could not land is counted."""
         now = time.time()
         for slot, req in list(self._active.items()):
@@ -254,8 +345,8 @@ class ServingEngine:
             logical = pos // self.block_size
             if pos < self.max_seq and logical < len(held):
                 continue
-            if pos < self.max_seq and self._free_blocks:
-                blk = self._free_blocks.pop()
+            if pos < self.max_seq and self._alloc.total_free:
+                blk, = self._alloc.alloc(1, prefer=self._alloc.shard_of(held[-1]))
                 self._refcount[blk] += 1
                 held.append(blk)
                 self._state = self.api.map_block(self._state, slot, logical, blk)
@@ -269,7 +360,8 @@ class ServingEngine:
         """The tick's one decode call: (greedy next tokens (S,), logits (S, V_pad))."""
         tok = torch.from_numpy(tokens).to(self.device)
         act = torch.from_numpy(mask).to(self.device)
-        logits, self._state = self.api.decode_step(self.params, self._state, tok, act)
+        logits, self._state = self.api.decode_step(self.params, self._state, tok, act,
+                                                   self.ctx)
         return logits.argmax(dim=-1), logits
 
     def _tick(self) -> None:

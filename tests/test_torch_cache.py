@@ -87,17 +87,21 @@ def test_append_map_free_reuse_bitwise(rng):
 
 
 def test_full_slot_and_masked_cursor_drop_writes(rng):
-    """A cursor at max_seq (the engine's inactive-slot sentinel) and a slot
-    at full capacity drop their writes and hold their cursor."""
+    """A cursor at max_seq or at -1 (the engine's inactive-slot sentinel)
+    and a slot at full capacity drop their writes and hold their cursor."""
     jd, td = _prefill(rng, MAX_SEQ)
     jp, tp = _pools()
     jp = jc.prefill_into_pages(jp, jd, 0, jnp.asarray(_pages([3, 4, 5, 6])))
     tc.prefill_into_pages(tp, td, 0, tt(_pages([3, 4, 5, 6])))
+    jp2 = jc.prefill_into_pages(jp, jd, 1, jnp.asarray(_pages([7, 8, 9, 10])))
+    tc.prefill_into_pages(tp, td, 1, tt(_pages([7, 8, 9, 10])))
+    jp = jp2._replace(length=jp2.length.at[1].set(-1))
+    tp.length[1] = -1
     k3 = rng.normal(size=(3, 2, 32)).astype(np.float32)
     jp = jc.append_token_paged(jp, jnp.asarray(k3), jnp.asarray(k3))
     tc.append_token_paged(tp, tt(k3), tt(k3))
     assert_fields_equal(jp, tp, POOL_FIELDS)
-    assert int(tp.length[0]) == MAX_SEQ
+    assert int(tp.length[0]) == MAX_SEQ and int(tp.length[1]) == -1
 
 
 def test_record_selection_bitwise(rng):

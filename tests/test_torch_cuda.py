@@ -1,4 +1,4 @@
-"""Card-only checks of the port's CUDA kernels against their plain versions.
+"""Card-only checks of the port's CUDA kernels (B1-B6) against their plain versions.
 
 Marked ``cuda``: they skip on a machine without a CUDA device and run on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -99,3 +99,109 @@ def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd):
     # differ by one bf16 ulp of itself (<= 2^-7 |x|)
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def _blk_valid(pool):
+    """Owned-and-stored columns (S, MB, BS) of a pool at one rank; slot 1
+    holds nothing, so its row is all masked."""
+    s, mb, bs = pool.num_slots, pool.max_blocks, pool.block_size
+    pos = torch.arange(mb * bs, device=pool.length.device).reshape(mb, bs)
+    return (pool.page_table >= 0)[..., None] & (pos[None] < pool.length[:, None, None])
+
+
+@pytest.mark.parametrize("g,bf16", [(1, True), (2, True), (2, False)])
+def test_b4_kernel_bitwise(dev, g, bf16):
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.score_est.ops import paged_score_bounds, paged_score_bounds_plain
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = _pool(dev, gen)
+    s, kv, r = 3, 2, 16
+    qc = torch.randint(-3, 4, (s, kv, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((s, kv, g), generator=gen, device=dev)
+    qsum = qc.to(torch.int32).sum(-1, dtype=torch.int32)
+    args = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero,
+            pool.clamped_pages(), _blk_valid(pool))
+    n0 = LAUNCHES["paged_score_bounds"]
+    out = paged_score_bounds(*args, bf16=bf16)
+    assert LAUNCHES["paged_score_bounds"] == n0 + 1
+    for t, p in zip(out, paged_score_bounds_plain(*args, bf16=bf16)):
+        assert torch.equal(t, p)
+    assert torch.isposinf(out[1][1]).all()        # slot 1: nothing valid
+
+
+@pytest.mark.parametrize("window", [1, 7])
+def test_b5_kernel_bitwise(dev, window):
+    from repro_torch.kernels.selection_fused.ops import (
+        paged_fused_select, paged_fused_select_plain)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    s, kv, mb, bs = 3, 2, 9, 32
+    valid = torch.rand((s, mb, bs), generator=gen, device=dev) < 0.8
+    valid[1] = False
+    scores = torch.randn((s, kv, mb, bs), generator=gen, device=dev)
+    scores = torch.where(valid[:, None], scores, torch.full_like(scores, -3.0e38))
+    lo = torch.where(valid.any(-1).any(-1)[:, None], scores.amin((2, 3)) - 0.5,
+                     torch.full((s, kv), float("inf"), device=dev))
+    hi = scores.amax((2, 3)) + torch.rand((s, kv), generator=gen, device=dev)
+    halo = max(window // 2, 1)
+    fl, fr = (torch.randint(0, 256, (s, kv, mb, halo), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(2))
+    force = torch.zeros((s, mb, bs), dtype=torch.bool, device=dev)
+    force[:, 0, :4] = True
+    force[0, -1, -16:] = True
+    args = (scores, lo, hi, fl, fr, valid, force)
+    for t, p in zip(paged_fused_select(*args, window=window),
+                    paged_fused_select_plain(*args, window=window)):
+        assert torch.equal(t, p)
+
+
+def test_b6_kernel_matches_plain(dev):
+    """Partials over a rank-local plan (half the pool's blocks), so some
+    rows own nothing: those are exactly (0, -1e30, 0); the rest within
+    1e-5 + 1e-5·scale (f32 on both sides, other summation order)."""
+    from repro_torch.core.attention import salca_decode_attention_paged
+    from repro_torch.core.selection import SalcaParams
+    from repro_torch.kernels.flash_decode.ops import (
+        _selected_block_plan, sparse_flash_decode_paged_partials_kernel,
+        sparse_flash_decode_paged_partials_plain)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pool = _pool(dev, gen)
+    q = torch.randn((3, 4, 32), generator=gen, device=dev)
+    params = SalcaParams(k=24, k_cap=48, pool_window=7)
+    _, sel = salca_decode_attention_paged(q, pool, params, return_selection=True)
+    pblk, counts, bmask = _selected_block_plan(pool, sel, (0, pool.num_blocks // 2))
+    assert (counts == 0).any() and (counts > 0).any()
+    qr = q.reshape(6, 2, 32)
+    ops = (qr, pool.k_codes[:pool.num_blocks // 2].contiguous(),
+           pool.k_scale[:pool.num_blocks // 2].contiguous(),
+           pool.v_codes[:pool.num_blocks // 2].contiguous(),
+           pool.v_scale[:pool.num_blocks // 2].contiguous(), pblk)
+    got = sparse_flash_decode_paged_partials_kernel(*ops, counts, bmask, 2)
+    want = sparse_flash_decode_paged_partials_plain(*ops, bmask, 2)
+    # acc is an unnormalised sum whose terms cancel: its rounding error
+    # scales with sum(p·|v|), the same sum over |v| (m and l have no
+    # cancellation: |plain| is their scale)
+    mag = sparse_flash_decode_paged_partials_plain(*ops[:3], ops[3].abs(), *ops[4:], bmask, 2)
+    empty = counts == 0
+    for t, p, scale in zip(got, want, (mag[0], want[1].abs(), want[2])):
+        assert torch.equal(t[empty], p[empty])
+        assert ((t - p).abs()[~empty] <= 1e-5 + 1e-5 * scale[~empty]).all()
+    assert (got[0][empty] == 0).all() and (got[1][empty] == -1e30).all()
+
+
+def test_quantization_on_card_bitwise_equals_cpu(dev):
+    """The exact quantizers give the same bits on the card as on the CPU
+    (where they match the reference): 2-bit asymmetric features, 3-bit and
+    8-bit symmetric codes and their scales, and the uint8 score bins. A
+    division by a Python scalar would run as a reciprocal multiply on the
+    card and move some scales by one ulp."""
+    from repro_torch.core import quantization as qz
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((4096, 64), generator=gen) * torch.rand((4096, 1), generator=gen) * 10
+    for fn in (lambda t: qz.asym_quantize(t, 2), lambda t: qz.sym_quantize(t, 3),
+               lambda t: qz.sym_quantize(t, 8)):
+        for a, b in zip(fn(x), fn(x.to(dev))):
+            assert torch.equal(a, b.cpu())
+    s = torch.randn((64, 8, 2048), generator=gen) * 5
+    lo, hi = s.amin(-1), s.amax(-1)
+    assert torch.equal(qz.bins_from_bounds(s, lo, hi),
+                       qz.bins_from_bounds(s.to(dev), lo.to(dev), hi.to(dev)).cpu())
