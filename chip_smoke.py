@@ -6,22 +6,32 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the six CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
-   one process per source, all started together);
+2. build the nine CUDA kernels' four sources from ``src/repro_torch/csrc``
+   (nvcc, sm_90a, one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it (B1 paged scores, B4 scores + bounds and
-   B5 bin/pool/histogram: bit-identical; B2 sparse decode attention and B6
-   its unnormalised partials: f32; B3 causal prefill attention: bf16), with
-   kernel, plain and library times and the roofline bound; then check the
-   whole serving path on a small input: the port on the card against the
-   port's plain versions on the CPU (greedy tokens identical, logits close);
+   shapes the main paths give it, with kernel, plain and library times and
+   the roofline bound — the paged kernels (B1 paged scores, B4 scores +
+   bounds and B5 bin/pool/histogram: bit-identical; B2 sparse decode
+   attention and B6 its unnormalised partials: f32; B3 causal prefill
+   attention: bf16) and the contiguous tick's (B7 flat scores in both of
+   its chains and B9 bin/pool/histogram/threshold: bit-identical; B8
+   sparse decode attention over gathered rows: f32); then check the whole
+   serving path on a small input, paged and contiguous: the port on the
+   card against the port's plain versions on the CPU (greedy tokens
+   identical, logits close);
 4. serve full-width qwen3-0.6b (random bf16 weights from a seed) through
    ``ServingEngine(paged=True, slots=4, max_seq=8192, block_size=32)``:
    4 requests of 2048-4096-token prompts × 16 new tokens, with every
    kernel's launch counter set to 0 just before and read just after; then
    serve the same requests again through the block-sharded tick,
-   ``ServingEngine(ctx=...)`` over a world of one rank (nccl): B4, B5 and
-   B6 replace B1 and B2, and the greedy tokens must equal the first run's.
+   ``ServingEngine(paged=True, ctx=...)`` over a world of one rank (nccl):
+   B4, B5 and B6 replace B1 and B2, and the greedy tokens must equal the
+   first run's; then through the contiguous slot pool,
+   ``ServingEngine(paged=False, slots=4, max_seq=8192)``: B7, B9 and B8
+   run the tick, fed the first run's tokens (teacher forcing), and every
+   logits row of every request must stay within CONTIG_LOGIT_ULPS bf16
+   ulps of the first run's row for the same history; a step where the two
+   greedy picks part is printed with the paged run's top-two gap.
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
@@ -43,12 +53,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM: HBM3
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}   # dense, per second
-SERVE = dict(slots=4, max_seq=8192, block_size=32)
+SERVE = dict(paged=True, slots=4, max_seq=8192, block_size=32)
 PROMPTS = (2048, 3072, 4096, 2560)
 NEW_TOKENS = 16
-B2_ATOL, B2_RTOL = 1e-5, 1e-5          # f32 output (B2, and B6's acc and l)
+B2_ATOL, B2_RTOL = 1e-5, 1e-5          # f32 output (B2, B8, and B6's acc and l)
 B3_ATOL, B3_RTOL = 1e-4, 2.0 ** -7     # bf16 output: one ulp of each element
 SMALL_PATH_LOGIT_TOL = 3e-4
+# contiguous vs paged logits for one history, in bf16 ulps of the top
+# logit: the card reads at most 15.75 on every row; faults injected into
+# one slot (an append dropped or written a row early, a gather reading the
+# neighbouring rows) read 37-106 (PERF.md)
+CONTIG_LOGIT_ULPS = 24
 
 
 def gpu_line() -> str:
@@ -131,6 +146,175 @@ def random_pool(dev, gen, cfg, slots, max_seq, block_size, lengths):
     pool.heavy_idx.copy_(torch.sort(torch.rand((slots, kv, hd), generator=gen, device=dev)
                                     .argsort(-1)[..., :r], dim=-1).values.to(torch.int32))
     return pool
+
+
+def random_cache(dev, gen, cfg, slots, max_seq, lengths):
+    """A contiguous slot pool at the serving shapes with random contents:
+    slot s holds ``lengths[s]`` tokens."""
+    import torch
+    from repro_torch.core.cache import empty_cache
+    from repro_torch.models.blocks import salca_params_for
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    r = salca_params_for(cfg, max_seq).r(hd)
+    cache = empty_cache(slots, max_seq, kv, hd, r, device=dev)
+    for f in ("k_codes", "v_codes"):
+        getattr(cache, f).copy_(torch.randint(-127, 128, getattr(cache, f).shape, generator=gen,
+                                              device=dev, dtype=torch.int8))
+    cache.feat_words.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, cache.feat_words.shape,
+                                         generator=gen, device=dev, dtype=torch.int32))
+    for f in ("k_scale", "v_scale", "feat_scale"):
+        getattr(cache, f).copy_(torch.rand(getattr(cache, f).shape, generator=gen, device=dev)
+                                * 0.02 + 1e-3)
+    cache.feat_zero.copy_(torch.randn(cache.feat_zero.shape, generator=gen, device=dev))
+    cache.length.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
+    cache.heavy_idx.copy_(torch.sort(torch.rand((slots, kv, hd), generator=gen, device=dev)
+                                     .argsort(-1)[..., :r], dim=-1).values.to(torch.int32))
+    return cache
+
+
+def check_flat_kernels(dev, cfg, lengths, iters=20):
+    """Phase 3a, the contiguous tick's kernels at its shapes on a random
+    slot pool: B7 bit-identical in the tick's bf16-pinned chain and in the
+    reference op's f32 chain, B9 bit-identical, B8 within
+    B2_ATOL + B2_RTOL·|plain| on the selection B9 leads to."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import quantization as qz
+    from repro_torch.core.attention import gather_selected
+    from repro_torch.core.histogram_topk import Selection, compact_indices
+    from repro_torch.core.selection import _quantized_query_groups, query_heavy_features
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.kernels.selection_fused import ops as sf
+    from repro_torch.models.blocks import salca_params_for
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    s, n = SERVE["slots"], SERVE["max_seq"]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bh = s * kv
+    cache = random_cache(dev, gen, cfg, s, n, lengths)
+    q = torch.randn((s, h, hd), generator=gen, device=dev)
+    qc, qs, _ = _quantized_query_groups(query_heavy_features(q, cache.heavy_idx, h // kv), kv)
+    g, r = qc.shape[2], qc.shape[3]
+    recs = []
+
+    # B7 — the tick's form, reading the cache's (B, N, KV, ·) fields in place
+    b7_args = (qc, qs, cache.feat_words, cache.feat_scale, cache.feat_zero)
+    scores = se.flat_score_estimate(*b7_args, bf16=True)
+    _check_exact("B7 (bf16 chain)", (scores,),
+                 (se.flat_score_estimate_plain(*b7_args, bf16=True),))
+    # … and the reference op's form, over (BH, N, ·) copies
+    op_args = (qc.reshape(bh, g, r), qs.reshape(bh, g),
+               cache.feat_words.transpose(1, 2).reshape(bh, n, r // 16),
+               cache.feat_scale.transpose(1, 2).reshape(bh, n),
+               cache.feat_zero.transpose(1, 2).reshape(bh, n))
+    _check_exact("B7 (f32 chain)", (se.score_estimate(*op_args),),
+                 (se.score_estimate_plain(*op_args),))
+    b7_bytes = (s * n * kv * (r // 16 * 4 + 8)                 # words, scale, zero
+                + qc.numel() + 4 * qs.numel() + 4 * scores.numel())
+    bms, bby = bound(b7_bytes, 2 * bh * g * n * r, "int8")
+    recs.append(dict(name="score_estimate", route="cuda",
+                     source="src/repro_torch/csrc/score_est.cu",
+                     replaces="src/repro/kernels/score_est/kernel.py:54",
+                     launches=None, max_abs_err=0.0,
+                     tolerance="bit-identical (bf16 and f32 chains)", err_over_tol=0.0,
+                     ms=kernel_ms(lambda: se.flat_score_estimate(*b7_args), "flat_score_kernel",
+                                  iters),
+                     f32_chain_ms=kernel_ms(lambda: se.score_estimate(*op_args),
+                                            "flat_score_kernel", iters),
+                     plain_ms=events_ms(lambda: se.flat_score_estimate_plain(*b7_args),
+                                        max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None))
+
+    # B9 — on the bounds and cleaned offset `fused_select_flat` passes it
+    params = salca_params_for(cfg, n)
+    w = params.pool_window
+    valid = torch.arange(n, device=dev)[None, :] < cache.length[:, None]
+    sm = qz.masked_scores(scores, valid[:, None, :])
+    lo, hi = qz.score_bounds(sm)
+    offset, _ = qz.binning_affine(lo, hi)
+    b9_args = (sm.reshape(bh, n), offset.reshape(-1).contiguous(), hi.reshape(-1).contiguous(),
+               torch.full((bh,), params.k, dtype=torch.int32, device=dev),
+               cache.length.repeat_interleave(kv))
+    out9 = sf.fused_bin_pool_threshold(*b9_args, window=w)
+    _check_exact("B9", out9, sf.fused_bin_pool_threshold_plain(*b9_args, window=w))
+    b9_bytes = 4 * bh * n + 16 * bh + bh * n + 4 * out9[1].numel() + 4 * bh
+    bms, bby = bound(b9_bytes, bh * n * (w + 8), "f32")    # bin, pool, count
+    recs.append(dict(name="fused_bin_pool_threshold", route="cuda",
+                     source="src/repro_torch/csrc/selection_fused.cu",
+                     replaces="src/repro/kernels/selection_fused/kernel.py:90",
+                     launches=None, max_abs_err=0.0, tolerance="bit-identical",
+                     err_over_tol=0.0,
+                     ms=kernel_ms(lambda: sf.fused_bin_pool_threshold(*b9_args, window=w),
+                                  "fused_bin_pool_threshold_kernel", iters),
+                     plain_ms=events_ms(lambda: sf.fused_bin_pool_threshold_plain(
+                         *b9_args, window=w), max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     thresholds=sorted({int(t) for t in out9[2].tolist()})))
+
+    # B8 — over the rows that selection gathers
+    keep = out9[0] >= out9[2][:, None].to(torch.uint8)
+    sel = Selection(*compact_indices(keep.reshape(s, kv, n), params.k_cap),
+                    out9[2].reshape(s, kv))
+    kc, ks, vc, vs = gather_selected(cache, sel)
+    c = kc.shape[2]
+    b8_args = (q.reshape(bh, h // kv, hd).contiguous(), kc.reshape(bh, c, hd),
+               ks.reshape(bh, c), vc.reshape(bh, c, hd), vs.reshape(bh, c),
+               sel.mask.reshape(bh, c))
+    out8 = fd.sparse_flash_decode(*b8_args)
+    plain8 = fd.sparse_flash_decode_plain(*b8_args)
+    err8 = float((out8 - plain8).abs().max())
+    ratio8 = float(((out8 - plain8).abs() / (B2_ATOL + B2_RTOL * plain8.abs())).max())
+    if not ratio8 <= 1.0:
+        raise AssertionError(f"B8: |kernel - plain| reaches {ratio8:.3g}x its bound "
+                             f"{B2_ATOL:g} + {B2_RTOL:g}·|plain| (max abs err {err8})")
+    live = int(sel.mask.sum())
+    b8_bytes = live * (2 * hd + 8) + bh * c + 2 * 4 * b8_args[0].numel()
+    bms, bby = bound(b8_bytes, live * (h // kv) * hd * 4, "f32")
+    # the yardstick: one SDPA call over the gathered rows, dequantized beforehand
+    kd = (kc.float() * ks[..., None]).reshape(bh, 1, c, hd)
+    vd = (vc.float() * vs[..., None]).reshape(bh, 1, c, hd)
+    qq = b8_args[0].reshape(bh, 1, h // kv, hd)
+    am = sel.mask.reshape(bh, 1, 1, c)
+    lib = events_ms(lambda: F.scaled_dot_product_attention(qq, kd, vd, attn_mask=am), iters)
+    recs.append(dict(name="sparse_flash_decode", route="cuda",
+                     source="src/repro_torch/csrc/flash_decode.cu",
+                     replaces="src/repro/kernels/flash_decode/kernel.py:73",
+                     launches=None, max_abs_err=err8,
+                     tolerance=f"{B2_ATOL:g} + {B2_RTOL:g}*|plain|", err_over_tol=ratio8,
+                     ms=kernel_ms(lambda: fd.sparse_flash_decode(*b8_args),
+                                  "sparse_flash_decode_paged_kernel", iters),
+                     plain_ms=events_ms(lambda: fd.sparse_flash_decode_plain(*b8_args),
+                                        max(2, iters // 10)),
+                     bound_ms=bms, bound_by=bby, library_ms=lib,
+                     library_call="scaled_dot_product_attention on the gathered rows, "
+                                  "dequantized beforehand (dequantization not timed)",
+                     selected_rows=live, capacity=bh * c))
+
+    # the contiguous tick against the paged tick on the same tokens: the
+    # reference's contract makes their selections identical (B7 = B1's
+    # scores, B9 = the blocked chain's bins and threshold), and their
+    # outputs differ only in summation order
+    from repro_torch.core.attention import salca_decode_attention, salca_decode_attention_paged
+    from repro_torch.core.cache import SalcaCache, empty_paged_cache, prefill_into_pages
+    bs = SERVE["block_size"]
+    mb = n // bs
+    pool = empty_paged_cache(s * mb, bs, s, mb, kv, hd, r, device=dev)
+    perm = torch.randperm(s * mb, generator=gen, device=dev).to(torch.int32)
+    for i in range(s):
+        prefill_into_pages(pool, SalcaCache(*(f[i:i + 1] for f in cache)), i,
+                           perm[i * mb:(i + 1) * mb])
+    out_c, sel_c = salca_decode_attention(q, cache, params, return_selection=True)
+    out_p, sel_p = salca_decode_attention_paged(q, pool, params, return_selection=True)
+    _check_exact("contiguous vs paged tick selection", sel_c, sel_p)
+    ratio = float(((out_c - out_p).abs() / (B2_ATOL + B2_RTOL * out_p.abs())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"contiguous vs paged tick: outputs reach {ratio:.3g}x "
+                             f"{B2_ATOL:g} + {B2_RTOL:g}·|paged|")
+    print(f"contiguous vs paged tick at the main path's shapes: selections identical "
+          f"({int(sel_c.count.sum())} tokens), outputs within {ratio:.3g} of "
+          f"{B2_ATOL:g} + {B2_RTOL:g}·|paged|", flush=True)
+    return recs
 
 
 def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
@@ -257,7 +441,7 @@ def _check_exact(name, got, want):
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, want)):
         if not torch.equal(a, b):
-            raise AssertionError(f"{name}: output {i} differs from the plain version on "
+            raise AssertionError(f"{name}: output {i} differs on "
                                  f"{int((a != b).sum())} of {a.numel()} elements")
 
 
@@ -373,11 +557,12 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
     return recs
 
 
-def check_small_path(dev):
+def check_small_path(dev, paged: bool):
     """Phase 3b: the whole serving path on a small input — the port on the
     card against the port's plain versions on the CPU (which the CPU tests
-    hold against the JAX reference). Reduced qwen3-0.6b at f32, a sparse
-    selection (k = 128 of 256 positions)."""
+    hold against the JAX reference), through the paged or the contiguous
+    engine. Reduced qwen3-0.6b at f32, a sparse selection (k = 128 of 256
+    positions)."""
     import dataclasses
 
     import torch
@@ -396,7 +581,7 @@ def check_small_path(dev):
             "embed": {k: v.to(d) for k, v in params["embed"].items()},
             "ln_f": {"scale": params["ln_f"]["scale"].to(d)},
             "layers": [_to(layer, d) for layer in params["layers"]]}
-        eng = ServingEngine(cfg, p, max_seq=256, slots=2, block_size=32, device=d)
+        eng = ServingEngine(cfg, p, max_seq=256, slots=2, paged=paged, block_size=32, device=d)
         reqs = [Request(rid=i, prompt=pr, max_new_tokens=5) for i, pr in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
@@ -413,15 +598,18 @@ def check_small_path(dev):
         runs[d] = ([r.output for r in reqs], logits)
     (tok_c, lg_c), (tok_g, lg_g) = runs["cpu"], runs[dev]
     if tok_c != tok_g:
-        raise AssertionError(f"small path: greedy tokens differ: cpu {tok_c} vs card {tok_g}")
+        raise AssertionError(f"small path (paged={paged}): greedy tokens differ: "
+                             f"cpu {tok_c} vs card {tok_g}")
     gap = max(float(np.abs(a[1][a[0]] - b[1][b[0]]).max()) for a, b in zip(lg_c, lg_g))
     # cuBLAS and the CPU sum in other orders; over ~500 stored tokens a
     # last-ulp difference in K/V can move one int8 / 2-bit code by one step
     # (the CPU tests see 3.3e-5 against JAX for the same reason). The card
     # read 1.28e-4 in every run; the limit leaves 2.3x of headroom.
     if not gap <= SMALL_PATH_LOGIT_TOL:
-        raise AssertionError(f"small path: max logits gap {gap} > {SMALL_PATH_LOGIT_TOL:g}")
-    return {"tokens_identical": True, "max_logit_gap": gap, "ticks": len(lg_g)}
+        raise AssertionError(f"small path (paged={paged}): max logits gap {gap} > "
+                             f"{SMALL_PATH_LOGIT_TOL:g}")
+    return {"paged": paged, "tokens_identical": True, "max_logit_gap": gap,
+            "ticks": len(lg_g)}
 
 
 def _to(tree, dev):
@@ -447,10 +635,14 @@ def main_path_requests(vocab_size: int):
                     max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
 
 
-def serve_main_path(dev, ctx=None):
-    """Phase 4: full-width qwen3-0.6b through the port's engine — the
-    unsharded tick, or with ``ctx`` the block-sharded tick. Returns the
-    launch counts of the run, its summary and the requests' tokens."""
+def serve_main_path(dev, ctx=None, paged=True, force=None):
+    """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
+    unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
+    the contiguous tick. ``force`` ({rid: tokens}) feeds the engine those
+    tokens in place of its own picks (teacher forcing). Returns the launch
+    counts of the run, its summary, the engine's own greedy picks per
+    request and, for every generated token (request, index), the logits row
+    it was drawn from, on the host (index 0: the prefill's row)."""
     import gc
 
     import torch
@@ -459,34 +651,41 @@ def serve_main_path(dev, ctx=None):
     gc.collect()              # an earlier run's engine (its hooks form a cycle)
     torch.cuda.empty_cache()
     cfg, params = main_path_model(dev)
+    serve = dict(SERVE, paged=paged)
 
     # warm-up on a separate engine (module loading, cuBLAS handles, the
     # communicator of the first all-reduce)
-    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **SERVE)
+    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
         0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
     warm.run()
     del warm
     torch.cuda.synchronize()
 
-    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **SERVE)
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     reqs = main_path_requests(cfg.vocab_size)
     for r in reqs:
         engine.submit(r)
-    finite = []
-    orig_decode, orig_prefill = engine._decode, engine._prefill
+    ticks, rows, own = [], {}, {}
+    orig_decode, orig_prefill, orig_next = engine._decode, engine._prefill, engine._next_token
 
     def decode(*a):
+        who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
         nxt, logits = orig_decode(*a)
-        finite.append(torch.isfinite(logits[torch.from_numpy(a[1]).to(dev)]).all())
+        # to pinned host memory, ready when the engine reads ``nxt``
+        ticks.append((who, logits.to("cpu", non_blocking=True)))
         return nxt, logits
 
     def prefill(req):
         row, st = orig_prefill(req)
-        finite.append(torch.tensor(bool(np.isfinite(row).all())))
+        rows[(req.rid, 0)] = torch.from_numpy(row)
         return row, st
 
-    engine._decode, engine._prefill = decode, prefill
+    def next_token(req, tok):
+        own[(req.rid, len(req.output))] = tok
+        return orig_next(req, tok if force is None else force[req.rid][len(req.output)])
+
+    engine._decode, engine._prefill, engine._next_token = decode, prefill, next_token
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
@@ -494,14 +693,23 @@ def serve_main_path(dev, ctx=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert stats.completed == len(PROMPTS), stats.summary()
     assert all(len(r.output) == NEW_TOKENS and r.stop_reason == "length" for r in reqs)
     assert stats.decode_calls == stats.ticks > 0, stats.summary()
-    assert all(bool(f) for f in finite), "non-finite logits on the main path"
+    for who, logits in ticks:
+        for slot, rid, j in who:
+            rows[(rid, j)] = logits[slot]
+    assert all(bool(torch.isfinite(r).all()) for r in rows.values()), \
+        "non-finite logits on the main path"
     nl = cfg.num_layers
-    tick_kernels = (("paged_score_estimate", "sparse_flash_decode_paged") if ctx is None else
-                    ("paged_score_bounds", "paged_fused_select",
-                     "sparse_flash_decode_paged_partials"))
+    if not paged:
+        tick_kernels = ("score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode")
+    elif ctx is None:
+        tick_kernels = ("paged_score_estimate", "sparse_flash_decode_paged")
+    else:
+        tick_kernels = ("paged_score_bounds", "paged_fused_select",
+                        "sparse_flash_decode_paged_partials")
     want = {k: nl * stats.ticks for k in tick_kernels}
     want["flash_prefill"] = nl * stats.admissions
     if launches != want:
@@ -509,10 +717,11 @@ def serve_main_path(dev, ctx=None):
     vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
     assert vocab_ok, "sampled a token outside the vocabulary"
     summary = stats.summary()
-    summary.update(wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+    summary.update(wall_s=wall, peak_mem_gb=peak,
                    ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS),
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels})
-    return launches, summary, [r.output for r in reqs]
+    picks = [[own[(r.rid, j)] for j in range(len(r.output))] for r in reqs]
+    return launches, summary, picks, rows
 
 
 def first_divergence(a: list, b: list):
@@ -524,6 +733,45 @@ def first_divergence(a: list, b: list):
         if len(x) != len(y):
             return i, min(len(x), len(y))
     return None
+
+
+def bf16_ulp(row) -> float:
+    """One bf16 ulp of a logits row's top logit, 2^(floor(log2|top|) - 7):
+    the unit of the gaps that decide the greedy token."""
+    import torch
+    return 2.0 ** (torch.frexp(row.float().max()).exponent.item() - 8)
+
+
+def check_contiguous_logits(tokens, trace, picks_c, trace_c) -> dict:
+    """The contiguous run, fed the paged run's tokens, against the paged
+    run. Both ticks select the same tokens and their attention differs only
+    in summation order, so for every request and every step (the same
+    history on both) the two logits rows must agree within
+    CONTIG_LOGIT_ULPS bf16 ulps of the paged row's top logit. Where the two
+    greedy picks part, the paged run's top-two gap is printed; it is at
+    most twice the rows' difference, so the check holds it to a near-tie.
+    Returns the largest difference per request, in ulps."""
+    worst = {}
+    for i, x in enumerate(tokens):
+        most, parts = 0.0, []
+        for j in range(len(x)):
+            a, b = trace[(i, j)].float(), trace_c[(i, j)].float()
+            ulp = bf16_ulp(a)
+            d = float((a - b).abs().max()) / ulp
+            if not d <= CONTIG_LOGIT_ULPS:
+                raise AssertionError(
+                    f"contiguous vs paged: request {i}, generated token {j}: logits differ "
+                    f"by {d:.3g} bf16 ulps of the top logit > {CONTIG_LOGIT_ULPS}")
+            most = max(most, d)
+            if picks_c[i][j] != x[j]:
+                top2 = a.topk(2).values
+                parts.append(f"token {j} ({x[j]} vs {picks_c[i][j]}; paged top-two gap "
+                             f"{float(top2[0] - top2[1]) / ulp:.3g} ulps)")
+        worst[i] = most
+        print(f"contiguous vs paged, request {i}: logits within {most:.3g} bf16 ulps over "
+              f"{len(x)} steps; greedy picks part at "
+              f"{', '.join(parts) if parts else 'no step'}", flush=True)
+    return worst
 
 
 def print_serve(label: str, summary: dict) -> None:
@@ -559,22 +807,24 @@ def main() -> int:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     cfg = get_config("qwen3-0.6b")                                         # phase 3
-    recs = check_kernels(dev, cfg, lengths=[n + NEW_TOKENS for n in PROMPTS],
-                         prompt_len=max(PROMPTS))
+    lengths = [n + NEW_TOKENS for n in PROMPTS]
+    recs = check_kernels(dev, cfg, lengths=lengths, prompt_len=max(PROMPTS))
+    recs += check_flat_kernels(dev, cfg, lengths=lengths)
     for r in recs:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
               f"(tolerance {r['tolerance']}; {r['err_over_tol']:.3g} of it) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']})", flush=True)
-    small = check_small_path(dev)
-    print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
+    for paged in (True, False):
+        small = check_small_path(dev, paged)
+        print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
 
-    launches, summary, tokens = serve_main_path(dev)                       # phase 4
-    print_serve("unsharded", summary)
+    launches, summary, tokens, trace = serve_main_path(dev)                # phase 4
+    print_serve("paged", summary)
     ctx = init_decode_ctx(dev)
-    launches_sh, summary_sh, tokens_sh = serve_main_path(dev, ctx)
-    print_serve("sharded (one rank, nccl)", summary_sh)
+    launches_sh, summary_sh, tokens_sh, _ = serve_main_path(dev, ctx)
+    print_serve("paged sharded (one rank, nccl)", summary_sh)
     where = first_divergence(tokens, tokens_sh)
     if where is not None:
         i, j = where
@@ -582,9 +832,17 @@ def main() -> int:
                              f"generated token {j}: {tokens[i][j:j + 1]} vs "
                              f"{tokens_sh[i][j:j + 1]}")
     print("sharded vs unsharded greedy tokens: identical", flush=True)
+    launches_c, summary_c, picks_c, trace_c = serve_main_path(
+        dev, paged=False, force=dict(enumerate(tokens)))
+    print_serve("contiguous (teacher-forced on the paged run's tokens)", summary_c)
+    worst = check_contiguous_logits(tokens, trace, picks_c, trace_c)
+    print(f"contiguous vs paged: every logits row within {max(worst.values()):.3g} bf16 ulps "
+          f"(limit {CONTIG_LOGIT_ULPS})", flush=True)
     sharded = {"paged_score_bounds", "paged_fused_select", "sparse_flash_decode_paged_partials"}
+    flat = {"score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode"}
     for r in recs:
-        r["launches"] = (launches_sh if r["name"] in sharded else launches).get(r["name"], 0)
+        run = launches_sh if r["name"] in sharded else launches_c if r["name"] in flat else launches
+        r["launches"] = run.get(r["name"], 0)
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on its main path")
     print(json.dumps({"kernels": recs}), flush=True)

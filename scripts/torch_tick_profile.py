@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a decode tick of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded]
+    python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded | --contiguous]
 
 Serves the main path of chip_smoke.py (its model, engine settings and
-requests, imported from there) — with ``--sharded`` through the
-block-sharded tick over a world of one rank — warms up for 3 ticks, then profiles
+requests, imported from there) — the paged tick; with ``--sharded`` the
+block-sharded tick over a world of one rank; with ``--contiguous`` the
+contiguous slot pool's tick (``paged=False``) — warms up for 3 ticks, then profiles
 ``--ticks`` decode ticks with torch.profiler. Prints the host wall time per tick, the device
 time per tick (sum of kernel times; kernels of one stream do not overlap),
 the device busy share, launches per tick, the kernels with the most device
@@ -31,8 +32,11 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ticks", type=int, default=5)
-    ap.add_argument("--sharded", action="store_true",
-                    help="profile ServingEngine(ctx=...) over a world of one rank")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--sharded", action="store_true",
+                      help="profile ServingEngine(paged=True, ctx=...) over a world of one rank")
+    mode.add_argument("--contiguous", action="store_true",
+                      help="profile ServingEngine(paged=False), the contiguous slot pool")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -47,7 +51,8 @@ def main() -> int:
     dev = "cuda"
     cfg, params = main_path_model(dev)
     ctx = init_decode_ctx(dev) if args.sharded else None
-    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **SERVE)
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx,
+                           **dict(SERVE, paged=not args.contiguous))
     for r in main_path_requests(cfg.vocab_size):
         engine.submit(r)
     engine._admit()
@@ -73,7 +78,9 @@ def main() -> int:
             host.append((e.self_cpu_time_total, e.count, e.key))
     rows.sort(reverse=True)
     host.sort(reverse=True)
-    out = {"tick": "sharded (one rank)" if args.sharded else "unsharded",
+    tick = ("sharded (one rank)" if args.sharded else
+            "contiguous" if args.contiguous else "paged unsharded")
+    out = {"tick": tick,
            "wall_ms_per_tick": wall * 1e3,
            "device_ms_per_tick": device_us / args.ticks / 1e3,
            "device_busy_share": device_us / 1e3 / args.ticks / (wall * 1e3),

@@ -1,19 +1,23 @@
 """Salca KV cache in PyTorch: int8 K/V + packed 2-bit heavy-channel features.
 
-Port of the reference `core/cache.py` restricted to the first slice: the
-contiguous batch=1 prefill cache (`SalcaCache`, `prefill_cache`) and the
-paged block pool with int8 K/V (`PagedSalcaCache` and its primitives).
+Port of the reference `core/cache.py` for the int8 caches: the contiguous
+cache (`SalcaCache`: a prefill's cache, and the slot pool of the
+contiguous engine with its primitives) and the paged block pool
+(`PagedSalcaCache` and its primitives).
 
-Layouts match the reference at every public field: pool data leaves are
-``(P, BS, KV, ·)``, per-slot metadata ``(S, ·)``. Packed feature words are
-int32 tensors with the reference's uint32 bits.
+Layouts match the reference at every public field: contiguous leaves are
+``(B, S, KV, ·)``, pool data leaves ``(P, BS, KV, ·)``, per-slot metadata
+``(S, ·)``. Packed feature words are int32 tensors with the reference's
+uint32 bits.
 
-**In place.** The reference returns new pools; the port's pool primitives
-update the pool's tensors in place (``index_put_``/``scatter_add_``) and
-return the same object. Writes the reference drops (unmapped block, full
-slot, shared block) go to one spare *sink* block kept past the public
-``P`` blocks, so no write needs a host-side mask and no step syncs with
-the device.
+**In place.** The reference returns new caches; the port's primitives
+update the cache's tensors in place (``index_put_``/``scatter_add_``/
+``copy_``) and return the same object. No write needs a host-side mask and
+no step syncs with the device: a contiguous append the reference drops
+(cursor at or past ``max_seq``) writes the row's old values back through a
+clamped index; a paged write the reference drops (unmapped block, full
+slot, shared block) goes to one spare *sink* block kept past the public
+``P`` blocks.
 
 **Block-sharded pools.** The physical block dim can be split across the
 ranks of a `distributed.sharding.DecodeCtx`: rank i holds only the data of
@@ -41,7 +45,8 @@ PAGE_UNMAPPED = -1
 
 
 class SalcaCache(NamedTuple):
-    """Contiguous cache of one prefill: the source of a paged install."""
+    """Contiguous cache: one prefill's (the source of a slot or paged
+    install), or the contiguous engine's slot pool (B = slots)."""
     k_codes: torch.Tensor     # (B, S, KV, HD) int8
     k_scale: torch.Tensor     # (B, S, KV) f32
     v_codes: torch.Tensor     # (B, S, KV, HD) int8
@@ -55,6 +60,37 @@ class SalcaCache(NamedTuple):
     @property
     def max_seq(self) -> int:
         return self.k_codes.shape[1]
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.k_codes.shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k_codes.shape[3]
+
+    def valid_mask(self) -> torch.Tensor:
+        """(B, S) bool: True where a real token is stored."""
+        pos = torch.arange(self.max_seq, device=self.length.device)
+        return pos[None, :] < self.length[:, None]
+
+
+def empty_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int, r: int,
+                device="cpu") -> SalcaCache:
+    """An all-zero contiguous cache of ``batch`` rows (lengths 0)."""
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return SalcaCache(
+        k_codes=z((batch, max_seq, kv_heads, head_dim), torch.int8),
+        k_scale=z((batch, max_seq, kv_heads), torch.float32),
+        v_codes=z((batch, max_seq, kv_heads, head_dim), torch.int8),
+        v_scale=z((batch, max_seq, kv_heads), torch.float32),
+        feat_words=z((batch, max_seq, kv_heads, r // qz.CODES_PER_WORD), torch.int32),
+        feat_scale=z((batch, max_seq, kv_heads), torch.float32),
+        feat_zero=z((batch, max_seq, kv_heads), torch.float32),
+        heavy_idx=z((batch, kv_heads, r), torch.int32),
+        length=z((batch,), torch.int32))
 
 
 def _encode_tokens(k: torch.Tensor, v: torch.Tensor, heavy_idx: torch.Tensor):
@@ -95,6 +131,73 @@ def prefill_cache(k: torch.Tensor, v: torch.Tensor, max_seq: int,
 
 _DATA_FIELDS = ("k_codes", "k_scale", "v_codes", "v_scale",
                 "feat_words", "feat_scale", "feat_zero")
+
+
+def append_token(cache: SalcaCache, k: torch.Tensor, v: torch.Tensor) -> SalcaCache:
+    """Append one decoded token's K/V (B, KV, HD) at each row's cursor
+    (`cache.length`), which then advances to ``min(length + 1, max_seq)``.
+    A cursor outside [0, max_seq) drops the write, as the reference's
+    ``mode="drop"`` scatter does at ``max_seq`` (its callers never pass a
+    negative cursor): the row's old values are written back through the
+    clamped index, so nothing syncs with the host. In place."""
+    b = k.shape[0]
+    cur = cache.length
+    ok = (cur >= 0) & (cur < cache.max_seq)
+    rows = torch.arange(b, device=cur.device)
+    at = torch.clamp(cur, 0, cache.max_seq - 1).long()
+    k8, v8, words, fs, fz = _encode_tokens(k[:, None], v[:, None], cache.heavy_idx)
+    vals = (k8.codes, k8.scale, v8.codes, v8.scale, words, fs, fz)
+    for f, val in zip(_DATA_FIELDS, vals):
+        buf = getattr(cache, f)
+        keep = ok.reshape((b,) + (1,) * (val.ndim - 2))
+        buf[rows, at] = torch.where(keep, val[:, 0], buf[rows, at])
+    cache.length.copy_(torch.clamp_max(cur + 1, cache.max_seq))
+    return cache
+
+
+def write_prefill_into_slot(pool: SalcaCache, src: SalcaCache, slot: int) -> SalcaCache:
+    """Write a batch=1 cache into row ``slot`` of a pooled cache: every field,
+    the heavy-channel set and the length cursor included; other rows are
+    untouched. ``src`` must match ``pool`` on every trailing dim. In place."""
+    if src.k_codes.shape[0] != 1:
+        raise ValueError(f"src cache must have batch 1, got {src.k_codes.shape[0]}")
+    if pool.k_codes.shape[1:] != src.k_codes.shape[1:]:
+        raise ValueError(f"slot shape mismatch: pool {tuple(pool.k_codes.shape[1:])} "
+                         f"vs src {tuple(src.k_codes.shape[1:])}")
+    for p, x in zip(pool, src):
+        p[slot] = x[0].to(p.dtype)
+    return pool
+
+
+def reset_slot(pool: SalcaCache, slot: int) -> SalcaCache:
+    """Mark row ``slot`` empty (length 0); its data rows stay for the next
+    admission to overwrite (the valid mask gates every read). In place."""
+    pool.length[slot] = 0
+    return pool
+
+
+def append_token_masked(cache: SalcaCache, k: torch.Tensor, v: torch.Tensor,
+                        active: torch.Tensor | None) -> SalcaCache:
+    """`append_token` under an active-row mask (B,) bool: inactive rows drop
+    the write (cursor forced to ``max_seq``) and keep their stored length;
+    active rows advance to ``min(length + 1, max_seq)``. In place."""
+    if active is None:
+        return append_token(cache, k, v)
+    old_len = cache.length.clone()
+    cache.length.copy_(torch.where(active, old_len, cache.max_seq))
+    append_token(cache, k, v)
+    cache.length.copy_(torch.where(active, torch.clamp_max(old_len + 1, cache.max_seq),
+                                   old_len))
+    return cache
+
+
+def cache_bytes(cache: SalcaCache) -> dict[str, int]:
+    """Physical bytes of a contiguous cache by region."""
+    def nbytes(x):
+        return x.numel() * x.element_size()
+    kv = sum(nbytes(getattr(cache, f)) for f in ("k_codes", "v_codes", "k_scale", "v_scale"))
+    feats = sum(nbytes(getattr(cache, f)) for f in ("feat_words", "feat_scale", "feat_zero"))
+    return {"kv_region": kv, "feature_region": feats, "total": kv + feats}
 
 
 @dataclass

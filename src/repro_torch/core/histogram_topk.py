@@ -60,12 +60,18 @@ def compact_indices(keep: torch.Tensor, k_cap: int):
             count.reshape(lead))
 
 
+def histogram_topk(bins: torch.Tensor, k, k_cap: int) -> Selection:
+    """Top-K over uint8 bins (..., n) (bin 0 = masked): the threshold of
+    their histogram, then the kept positions compacted into ``k_cap``."""
+    t = locate_threshold(histogram256(bins), k)
+    keep = bins >= t[..., None].to(bins.dtype)
+    indices, mask, count = compact_indices(keep, k_cap)
+    return Selection(indices, mask, count, t)
+
+
 def histogram_topk_blocked(bins: torch.Tensor, k, k_cap: int) -> Selection:
     """Top-K over block-decomposed bins (..., nb, bs) in page order. The
     per-block histograms add into the global one, so this equals the flat
     form; indices come out in the logical (flattened) coordinate."""
-    flat = bins.reshape(bins.shape[:-2] + (bins.shape[-2] * bins.shape[-1],))
-    t = locate_threshold(histogram256(flat), k)
-    keep = flat >= t[..., None].to(flat.dtype)
-    indices, mask, count = compact_indices(keep, k_cap)
-    return Selection(indices, mask, count, t)
+    return histogram_topk(bins.reshape(bins.shape[:-2] + (bins.shape[-2] * bins.shape[-1],)),
+                          k, k_cap)

@@ -1,9 +1,10 @@
-"""Salca sparse-pattern selection (paper Algorithm 1, phases 1-3) over a paged pool.
+"""Salca sparse-pattern selection (paper Algorithm 1, phases 1-3).
 
-Port of the reference `core/selection.py` for the paged decode tick:
+Port of the reference `core/selection.py`, flat (contiguous cache) and
+paged:
 
     q ─heavy channels─► q_feat ─(group sum)─ 3-bit quant ─► q̂
-    Ŝ = dequant(q̂ · k̂ᵀ) over the 2-bit packed key features    (kernel B1)
+    Ŝ = dequant(q̂ · k̂ᵀ) over the 2-bit packed key features  (kernels B7, B1, B4)
     bins = uint8(Ŝ) → max-pool → 256-bin histogram threshold → compaction
 """
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.core import histogram_topk as ht
 from repro_torch.core import quantization as qz
-from repro_torch.core.maxpool import maxpool1d_blocked
+from repro_torch.core.maxpool import maxpool1d_blocked, maxpool1d_reuse
 
 
 @dataclass(frozen=True)
@@ -63,6 +64,23 @@ def _quantized_query_groups(q_feat: torch.Tensor, kv: int):
     return qc, qs, qsum
 
 
+def estimate_relevance(q_feat: torch.Tensor, feat_words: torch.Tensor,
+                       feat_scale: torch.Tensor, feat_zero: torch.Tensor,
+                       groups: int) -> torch.Tensor:
+    """Phase 1 over a contiguous feature stream (kernel B7 on the card):
+    q_feat (B, H, r); feat_words (B, N, KV, r/16) int32; feat_scale/zero
+    (B, N, KV) f32 → group-summed scores (B, KV, N) f32. The kernel reads
+    the cache's fields through their strides (no transposed copy)."""
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.score_est.ops import flat_score_estimate
+    b, h, r = q_feat.shape
+    kv = feat_words.shape[2]
+    assert h == kv * groups
+    qc, qs, _ = _quantized_query_groups(q_feat, kv)
+    return flat_score_estimate(qc, qs, feat_words, feat_scale, feat_zero,
+                               bf16=PERF.bf16_collectives)
+
+
 def estimate_relevance_paged(q_feat: torch.Tensor, pool, groups: int) -> torch.Tensor:
     """Phase 1 straight off the physical block pool, per logical block through
     the page table (kernel B1 on the card). q_feat (S, H, r) → scores
@@ -100,6 +118,51 @@ def estimate_relevance_paged_bounds(q_feat: torch.Tensor, pool, groups: int,
                               bf16=PERF.bf16_collectives)
 
 
+def _force_sink_recent(pooled: torch.Tensor, params: SalcaParams,
+                       valid_mask: torch.Tensor | None) -> torch.Tensor:
+    """Sink/recent forcing: the first ``sink_tokens`` and the last
+    ``recent_tokens`` stored positions go to bin 255 (never a masked one)."""
+    n = pooled.shape[-1]
+    pos = torch.arange(n, device=pooled.device)
+    forced = torch.zeros(n, dtype=torch.bool, device=pooled.device)
+    if params.sink_tokens:
+        forced = forced | (pos < params.sink_tokens)
+    if params.recent_tokens and valid_mask is not None:
+        length = valid_mask.to(torch.int32).sum(-1, keepdim=True)
+        forced = forced | (pos >= (length - params.recent_tokens))
+    if valid_mask is not None:
+        forced = forced & valid_mask
+    return torch.where(forced, torch.full_like(pooled, 255), pooled)
+
+
+def select_sparse_pattern(scores: torch.Tensor, params: SalcaParams,
+                          valid_mask: torch.Tensor | None = None) -> ht.Selection:
+    """Phases 2-3 over flat scores (B, KV, N); valid_mask (B, 1|KV, N) bool
+    (True = stored token): uint8 binning → max-pool → sink/recent forcing →
+    histogram threshold → compaction."""
+    bins = qz.quantize_scores_uint8(scores, valid_mask)
+    if params.use_pool and params.pool_window > 1:
+        pooled = maxpool1d_reuse(bins, params.pool_window)
+        if valid_mask is not None:   # pooling must not revive masked slots
+            pooled = torch.where(valid_mask, pooled, torch.zeros_like(pooled))
+    else:
+        pooled = bins
+    if params.sink_tokens or params.recent_tokens:
+        pooled = _force_sink_recent(pooled, params, valid_mask)
+    return ht.histogram_topk(pooled, params.k, params.k_cap)
+
+
+def salca_select(q_feat: torch.Tensor, feat_words: torch.Tensor, feat_scale: torch.Tensor,
+                 feat_zero: torch.Tensor, groups: int, params: SalcaParams,
+                 valid_mask: torch.Tensor | None = None) -> ht.Selection:
+    """Phases 1-3 over a contiguous cache: B7's scores, then the chain of
+    `select_sparse_pattern`. valid_mask (B, N) or (B, 1|KV, N)."""
+    scores = estimate_relevance(q_feat, feat_words, feat_scale, feat_zero, groups)
+    if valid_mask is not None and valid_mask.ndim == 2:
+        valid_mask = valid_mask[:, None, :]
+    return select_sparse_pattern(scores, params, valid_mask)
+
+
 def select_sparse_pattern_blocked(scores: torch.Tensor, params: SalcaParams,
                                   valid_mask: torch.Tensor | None,
                                   block_size: int) -> ht.Selection:
@@ -118,15 +181,6 @@ def select_sparse_pattern_blocked(scores: torch.Tensor, params: SalcaParams,
     else:
         pooled = bins
     if params.sink_tokens or params.recent_tokens:
-        pos = torch.arange(n, device=scores.device)
-        forced = torch.zeros(n, dtype=torch.bool, device=scores.device)
-        if params.sink_tokens:
-            forced = forced | (pos < params.sink_tokens)
-        if params.recent_tokens and valid_mask is not None:
-            length = valid_mask.to(torch.int32).sum(-1, keepdim=True)
-            forced = forced | (pos >= (length - params.recent_tokens))
-        if valid_mask is not None:
-            forced = forced & valid_mask
-        pooled = torch.where(forced, torch.full_like(pooled, 255), pooled)
+        pooled = _force_sink_recent(pooled, params, valid_mask)
     return ht.histogram_topk_blocked(pooled.reshape(pooled.shape[:-1] + (nb, block_size)),
                                      params.k, params.k_cap)

@@ -1,4 +1,4 @@
-// Kernels B1 and B4: paged relevance scoring (Salca phase 1) for Hopper
+// Kernels B1, B4 and B7: relevance scoring (Salca phase 1) for Hopper
 // (sm_90a).
 //
 // B1 replaces src/repro/kernels/score_est/kernel.py::paged_score_estimate_pallas.
@@ -21,14 +21,25 @@
 // bounds equal the plain reduction bit for bit). The wrapper fills lo with
 // +inf and hi with -inf before the launch.
 //
+// B7 replaces score_estimate_pallas: flat (B, KV, N) scores of a contiguous
+// feature stream, read through separate batch / token / kv-head strides for
+// words, scale and zero, so the contiguous tick passes views of the cache's
+// (B, N, KV, .) fields and the reference's (BH, N, .) layout is the case
+// KV = 1. Template flag BF16: off, it is score_estimate_pallas's unpinned f32
+// chain s_q * (a * dot + z * sum(q)) (with __fmul_rn/__fadd_rn, so nvcc does
+// not contract it into an FMA); on, it is the pinned chain of B1, i.e. the
+// flat selection.estimate_relevance under bf16_collectives=True. The chain
+// itself exists once (score_chain), for B1, B4 and B7.
+//
 // Bound on this card: bytes. Per (token, kv head) it reads 16 B of words
 // plus 8 B of scale/zero (plus 1 B of validity per token for B4) and does
 // 64 small integer MACs, far below the ~300 ops/byte where compute would
-// bind. Design: one CTA per (slot, logical block) loads its own page id
-// (Hopper has no scalar prefetch); threads walk the block token-major so
-// consecutive threads read consecutive 24 B records; the (KV, G, r) query
-// codes sit in shared memory. The integer dot is plain int32 FMAs (exact).
-// No tensor cores: at r = 64 the kernel is a memory stream.
+// bind. Design: one CTA per (slot, logical block) for B1/B4, per (batch
+// row, run of tokens) for B7; threads walk token-major with the kv head
+// fastest, so consecutive threads read consecutive 24 B records of the
+// (., N, KV, .) layout; the (KV, G, r) query codes sit in shared memory.
+// The integer dot is plain int32 FMAs (exact). No tensor cores: at r = 64
+// the kernels are a memory stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +65,18 @@ __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   if (__float_as_int(v) >= 0) atomicMax((int*)addr, __float_as_int(v));
   else atomicMin((unsigned int*)addr, __float_as_uint(v));
+}
+
+// quantization.dequant_score_chain for one score: s_q * (a * d + z * qm),
+// every intermediate rounded to bf16 when ``bf16`` (the reference pins the
+// same points), plain IEEE f32 ops otherwise.
+__device__ __forceinline__ float score_chain(float sq, float a, float d, float z, float qm,
+                                             bool bf16) {
+  if (bf16) {
+    return rp(__fmul_rn(rp(sq), rp(__fadd_rn(rp(__fmul_rn(rp(a), rp(d))),
+                                             rp(__fmul_rn(rp(z), rp(qm)))))));
+  }
+  return __fmul_rn(sq, __fadd_rn(__fmul_rn(a, d), __fmul_rn(z, qm)));
 }
 
 template <bool BOUNDS>
@@ -106,16 +129,7 @@ __global__ void paged_score_kernel(
         }
       }
       const int qi = (s * KV + kv) * G + g;
-      const float d = (float)dot;
-      const float qm = (float)q_sums[qi];
-      const float sq = q_scale[qi];
-      float sc;
-      if (bf16) {
-        sc = rp(__fmul_rn(rp(sq), rp(__fadd_rn(rp(__fmul_rn(rp(a), rp(d))),
-                                               rp(__fmul_rn(rp(z), rp(qm)))))));
-      } else {
-        sc = __fmul_rn(sq, __fadd_rn(__fmul_rn(a, d), __fmul_rn(z, qm)));
-      }
+      const float sc = score_chain(q_scale[qi], a, (float)dot, z, (float)q_sums[qi], bf16);
       acc = (g == 0) ? sc : __fadd_rn(acc, sc);
     }
     if (BOUNDS) {
@@ -132,6 +146,61 @@ __global__ void paged_score_kernel(
       if (lo_sh[kv] != INFINITY) atomic_min_f32(&lo[s * KV + kv], lo_sh[kv]);
       atomic_max_f32(&hi[s * KV + kv], hi_sh[kv]);
     }
+  }
+}
+
+// B7: row r = b * KV + kv of the (B * KV, N) output. CTA (x, b) scores
+// tokens [x * TN, x * TN + TN) of batch row b for every kv head.
+template <bool BF16>
+__global__ void flat_score_kernel(
+    const int8_t* __restrict__ q_codes,     // (B * KV, G, R)
+    const float* __restrict__ q_scale,      // (B * KV, G)
+    const uint32_t* __restrict__ words,     // [b * w_sb + n * w_sn + kv * w_skv + i]
+    const float* __restrict__ feat_scale,   // [b * a_sb + n * a_sn + kv * a_skv]
+    const float* __restrict__ feat_zero,    // [b * z_sb + n * z_sn + kv * z_skv]
+    float* __restrict__ out,                // (B * KV, N)
+    int KV, int G, int R, int N, int TN,
+    long long w_sb, long long w_sn, long long w_skv,
+    long long a_sb, long long a_sn, long long a_skv,
+    long long z_sb, long long z_sn, long long z_skv) {
+  extern __shared__ int32_t qsum_sh[];      // (KV, G) code sums, then the codes
+  int8_t* q_sh = (int8_t*)(qsum_sh + KV * G);   // (KV, G, R) of batch row b
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * TN;
+  const int W = R / 16;
+  const int nq = KV * G * R;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) q_sh[i] = q_codes[(size_t)b * nq + i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < KV * G; i += blockDim.x) {
+    int sum = 0;
+    for (int c = 0; c < R; ++c) sum += q_sh[i * R + c];
+    qsum_sh[i] = sum;
+  }
+  __syncthreads();
+  const int nn = min(TN, N - n0);
+  for (int idx = threadIdx.x; idx < nn * KV; idx += blockDim.x) {
+    const int n = n0 + idx / KV;
+    const int kv = idx % KV;
+    const uint32_t* w = words + b * w_sb + n * w_sn + kv * w_skv;
+    const float a = feat_scale[b * a_sb + n * a_sn + kv * a_skv];
+    const float z = feat_zero[b * z_sb + n * z_sn + kv * z_skv];
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const int8_t* q = q_sh + (kv * G + g) * R;
+      int dot = 0;
+      for (int wi = 0; wi < W; ++wi) {
+        const uint32_t word = w[wi];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          dot += (int)((word >> (2 * c)) & 3u) * (int)q[wi * 16 + c];
+        }
+      }
+      const size_t qi = ((size_t)b * KV + kv) * G + g;
+      const float sc = score_chain(q_scale[qi], a, (float)dot, z, (float)qsum_sh[kv * G + g],
+                                   BF16);
+      acc = (g == 0) ? sc : __fadd_rn(acc, sc);
+    }
+    out[((size_t)b * KV + kv) * N + n] = acc;
   }
 }
 
@@ -171,4 +240,31 @@ extern "C" int paged_score_bounds(const void* q_codes, const void* q_scale,
                                   int MB, int bf16, void* stream) {
   return launch<true>(q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages,
                       blk_valid, out, lo, hi, S, KV, G, R, BS, MB, bf16, stream);
+}
+
+// B7. Strides are in elements of each tensor; the output is (B * KV, N).
+extern "C" int flat_score_estimate(const void* q_codes, const void* q_scale, const void* words,
+                                   const void* feat_scale, const void* feat_zero, void* out,
+                                   int B, int KV, int G, int R, int N, long long w_sb,
+                                   long long w_sn, long long w_skv, long long a_sb,
+                                   long long a_sn, long long a_skv, long long z_sb,
+                                   long long z_sn, long long z_skv, int bf16, void* stream) {
+  if (R % 16 != 0 || KV < 1 || KV > 1024) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const int tn = (1024 + KV - 1) / KV;      // tokens per CTA: ~1024 (token, kv) records
+  const dim3 grid((N + tn - 1) / tn, B);
+  const size_t smem = (size_t)KV * G * sizeof(int32_t) + (size_t)KV * G * R;
+  cudaStream_t st = (cudaStream_t)stream;
+#define B7_LAUNCH(FLAG)                                                                  \
+  flat_score_kernel<FLAG><<<grid, threads, smem, st>>>(                                  \
+      (const int8_t*)q_codes, (const float*)q_scale, (const uint32_t*)words,             \
+      (const float*)feat_scale, (const float*)feat_zero, (float*)out, KV, G, R, N, tn,   \
+      w_sb, w_sn, w_skv, a_sb, a_sn, a_skv, z_sb, z_sn, z_skv)
+  if (bf16) {
+    B7_LAUNCH(true);
+  } else {
+    B7_LAUNCH(false);
+  }
+#undef B7_LAUNCH
+  return (int)cudaGetLastError();
 }

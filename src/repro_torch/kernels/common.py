@@ -111,6 +111,7 @@ def build_kernels(names=None) -> float:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 

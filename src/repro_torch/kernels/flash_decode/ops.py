@@ -1,5 +1,5 @@
-"""Kernels B2 and B6: exact sparse attention over selected physical blocks
-(int8 pool), their plain PyTorch versions, and the paged front-ends.
+"""Kernels B2, B6 and B8: exact sparse attention over int8 K/V, their plain
+PyTorch versions, and the paged front-ends.
 
 B2 replaces `repro/kernels/flash_decode/kernel.py::sparse_flash_decode_paged_pallas`
 (int8 branch). Each row b = slot·KV + kv walks its list of ``counts[b]``
@@ -8,7 +8,11 @@ the selection mask, online softmax and the V sum, all in f32, normalised
 with ``max(l, 1e-20)``. B6 replaces `sparse_flash_decode_paged_partials_pallas`:
 the same walk stopped before the normalisation, returning the online-softmax
 state (acc, m, l) a block-sharded rank contributes to the cross-rank merge.
-CUDA source of both: ``repro_torch/csrc/flash_decode.cu`` (one template).
+B8 replaces `sparse_flash_decode_pallas`: the same math over rows already
+gathered into (BH, C, ·) arrays (the contiguous tick), scaled by a multiply
+with 1/sqrt(HD) as the TPU kernel does.
+
+CUDA source of all three: ``repro_torch/csrc/flash_decode.cu`` (one template).
 """
 
 from __future__ import annotations
@@ -48,6 +52,50 @@ def sparse_flash_decode_paged_plain(q, k_codes, k_scale, v_codes, v_scale, pblk,
     l = p.sum(-1, keepdim=True)
     v = vc * vs[..., None]
     return torch.einsum("bgc,bcd->bgd", p, v) / torch.clamp_min(l, 1e-20)
+
+
+def sparse_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:
+    """Plain version of B8 (mirrors the reference `sparse_flash_decode_ref`)."""
+    hd = q.shape[-1]
+    s = torch.einsum("bgd,bcd->bgc", q.float(), k_codes.float())
+    s = s * k_scale[:, None, :] / math.sqrt(hd)
+    m3 = mask[:, None, :]
+    s = torch.where(m3, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(m3, p, torch.zeros_like(p))
+    l = p.sum(-1, keepdim=True)
+    v = v_codes.float() * v_scale[..., None]
+    return torch.einsum("bgc,bcd->bgd", p, v) / torch.clamp_min(l, 1e-20)
+
+
+def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:
+    """Exact attention of q (BH, G, HD) f32 over gathered int8 K/V codes (BH,
+    C, HD) with scales (BH, C) f32 and mask (BH, C) bool → (BH, G, HD) f32;
+    a row with nothing selected returns zeros. CPU tensors take the plain
+    version; CUDA tensors launch kernel B8."""
+    if q.device.type == "cpu":
+        return sparse_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, mask)
+    bh, g, hd = q.shape
+    c = k_codes.shape[1]
+    dev = q.device
+    if hd % 32 or hd > 1024 or g not in GROUPS or c < 1:
+        raise ValueError(f"kernel B8 needs HD a multiple of 32 (≤1024), G in {GROUPS} and "
+                         f"C ≥ 1; got HD={hd}, G={g}, C={c}")
+    common.require(q, "q", torch.float32, (bh, g, hd), dev)
+    common.require(k_codes, "k_codes", torch.int8, (bh, c, hd), dev)
+    common.require(k_scale, "k_scale", torch.float32, (bh, c), dev)
+    common.require(v_codes, "v_codes", torch.int8, (bh, c, hd), dev)
+    common.require(v_scale, "v_scale", torch.float32, (bh, c), dev)
+    common.require(mask, "mask", torch.bool, (bh, c), dev)
+    out = torch.empty((bh, g, hd), dtype=torch.float32, device=dev)
+    fn = common.load("flash_decode", "sparse_flash_decode",
+                     [common.P] * 7 + [common.I] * 4 + [common.F, common.P])
+    err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+             v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), bh, g, hd, c,
+             1.0 / math.sqrt(hd), common.stream_ptr(out))
+    common.check(err, "sparse_flash_decode")
+    common.LAUNCHES["sparse_flash_decode"] += 1
+    return out
 
 
 def _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, blk_mask,

@@ -1,12 +1,14 @@
-"""Serving launcher of the port: paged Salca decoding with random weights.
+"""Serving launcher of the port: Salca decoding with random weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --requests 4 --prompt-len 2048 --new-tokens 16 --max-seq 8192
 
-``--local`` serves the reduced config (pass ``--device cpu`` to run it on
-the CPU with the kernels' plain versions). ``--sharded`` serves through the
-block-sharded tick (kernels B4-B6) over a world of one rank: ``nccl`` on the
-card, ``gloo`` on the CPU.
+Serves the contiguous slot pool by default (kernels B7-B9 in the tick), as
+the reference launcher does; ``--paged`` serves the paged block pool
+(kernels B1, B2) and ``--sharded`` its block-sharded tick (kernels B4-B6)
+over a world of one rank — ``nccl`` on the card, ``gloo`` on the CPU
+(``--sharded`` implies ``--paged``). ``--local`` serves the reduced config;
+pass ``--device cpu`` to run on the CPU with the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true", help="paged block pool")
     ap.add_argument("--sharded", action="store_true",
-                    help="block-sharded pool over a world of one rank")
+                    help="block-sharded paged pool over a world of one rank (implies --paged)")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -48,7 +51,8 @@ def main() -> None:
     params = init_lm_params(cfg, gen, args.device)
     ctx = init_decode_ctx(args.device) if args.sharded else None
     engine = ServingEngine(cfg, params, max_seq=max_seq, slots=args.slots,
-                           block_size=args.block_size, device=args.device, ctx=ctx)
+                           paged=args.paged or args.sharded, block_size=args.block_size,
+                           device=args.device, ctx=ctx)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).astype(np.int32)

@@ -1,10 +1,11 @@
-"""Global-attention ("A") block of the dense LM: prefill and paged decode.
+"""Global-attention ("A") block of the dense LM: prefill and decode.
 
 Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the A-block prefill (dense causal attention
-through kernel B3, then `prefill_cache`) and the two paged branches of
-`_attn_decode` (append into the pool, Salca selection, sparse attention):
-on one device, or — given a `DecodeCtx` — over a block-sharded pool.
+through kernel B3, then `prefill_cache`) and three branches of
+`_attn_decode` (append, Salca selection, sparse attention): over the
+contiguous slot pool, over a paged pool on one device, or — given a
+`DecodeCtx` — over a block-sharded paged pool.
 """
 
 from __future__ import annotations
@@ -12,9 +13,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.attention import dense_decode_from_paged, salca_decode_attention_paged
+from repro_torch.core.attention import (
+    dense_decode_attention, dense_decode_from_paged, salca_decode_attention,
+    salca_decode_attention_paged)
 from repro_torch.core.cache import (
-    PagedSalcaCache, append_token_paged, prefill_cache, record_selection)
+    PagedSalcaCache, SalcaCache, append_token, append_token_paged, prefill_cache,
+    record_selection)
 from repro_torch.core.selection import SalcaParams
 from repro_torch.core.sp_decode import sp_dense_decode_paged, sp_salca_decode_paged
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
@@ -75,11 +79,41 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
     return o.to(x.dtype).reshape(s, -1) @ params["wo"]
 
 
-def block_decode(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
-                 cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                 active: torch.Tensor, ctx: DecodeCtx | None = None) -> torch.Tensor:
-    h = attn_decode_paged(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), pool,
-                          cfg, pos, salca, active, ctx)
+def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
+                           cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
+                           active: torch.Tensor) -> torch.Tensor:
+    """One token per slot over the contiguous slot pool: x (S, D) →
+    attention output (S, D). Updates the layer's cache in place. Inactive
+    slots write nothing (their cursor is forced to ``max_seq``, where the
+    append drops the write) and read as holding 0 tokens."""
+    s = x.shape[0]
+    q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
+    q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
+    cache.length.copy_(torch.where(active, pos, cache.max_seq))
+    append_token(cache, k, v)
+    cache.length.copy_(torch.where(active, pos + 1, 0))
+    if cfg.salca:
+        o = salca_decode_attention(q, cache, salca)
+    else:
+        kd = cache.k_codes.float() * cache.k_scale[..., None]
+        vd = cache.v_codes.float() * cache.v_scale[..., None]
+        o = dense_decode_attention(q, kd, vd, cache.valid_mask())
+    return o.to(x.dtype).reshape(s, -1) @ params["wo"]
+
+
+def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: torch.Tensor,
+                 salca: SalcaParams, active: torch.Tensor,
+                 ctx: DecodeCtx | None = None) -> torch.Tensor:
+    """x (S, D) → (S, D) over the layer's cache: a `SalcaCache` slot pool
+    (contiguous engine) or a `PagedSalcaCache` (``ctx``: block-sharded)."""
+    xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if isinstance(pool, SalcaCache):
+        if ctx is not None:
+            raise NotImplementedError("the sequence-sharded contiguous tick (flat sp_* "
+                                      "decode) is not ported yet; ROADMAP A.9")
+        h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active)
+    else:
+        h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx)
     x = x + h
     return x + glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps),
                          cfg.act)

@@ -16,10 +16,12 @@ from repro_torch.models import transformer
 class ModelAPI(NamedTuple):
     prefill: Callable[..., Any]            # (params, tokens, max_seq) -> (logits, state)
     decode_step: Callable[..., Any]        # (params, state, token, active, ctx) -> (logits, state)
+    init_state: Callable[..., Any]         # (slots, max_seq, device) -> contiguous pool
+    write_into_slot: Callable[..., Any]    # (pool, src, slot) -> pool
     init_paged_state: Callable[..., Any]   # (slots, max_seq, block_size, num_blocks, device, ctx)
     write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx) -> pool
     map_block: Callable[..., Any]          # (pool, slot, logical_block, page) -> pool
-    reset_slot: Callable[..., Any]         # (pool, slot) -> pool
+    reset_slot: Callable[..., Any]         # (pool, slot) -> pool, contiguous or paged
 
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
@@ -45,9 +47,13 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     def decode_step(params, state, token, active, ctx=None):
         return transformer.lm_decode_step(params, cfg, state, token, active, ctx)
 
+    def init_state(slots, max_seq, device):
+        return transformer.lm_init_state(cfg, slots, max_seq, device)
+
     def init_paged_state(slots, max_seq, block_size, num_blocks, device, ctx=None):
         return transformer.lm_init_paged_state(cfg, slots, max_seq, block_size,
                                                num_blocks, device, ctx)
 
-    return ModelAPI(prefill, decode_step, init_paged_state, transformer.lm_write_into_slot,
+    return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
+                    init_paged_state, transformer.lm_write_into_slot,
                     transformer.lm_map_block, transformer.lm_reset_slot)

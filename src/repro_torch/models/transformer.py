@@ -1,9 +1,9 @@
-"""Decoder-only LM over a stack of "A" blocks: prefill, paged decode
-state and the decode step.
+"""Decoder-only LM over a stack of "A" blocks: prefill, pooled decode
+state (contiguous slot pool or paged) and the decode step.
 
-Port of the reference `models/transformer.py` for the dense LM of the
-first slice. Where the reference scans stacked per-period states, the port
-keeps a Python list with one entry per layer.
+Port of the reference `models/transformer.py` for the dense LM. Where the
+reference scans stacked per-period states, the port keeps a Python list
+with one entry per layer.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cache import empty_paged_cache, free_pages, map_block, prefill_into_pages
+from repro_torch.core.cache import (
+    PagedSalcaCache, empty_cache, empty_paged_cache, free_pages, map_block, prefill_into_pages,
+    reset_slot, write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -22,8 +24,8 @@ from repro_torch.models.common import (
 
 @dataclass
 class LMState:
-    """Per-layer caches (prefill: `SalcaCache`; serving: `PagedSalcaCache`)
-    and the (B,) position cursor."""
+    """Per-layer caches (prefill and the contiguous slot pool: `SalcaCache`;
+    the paged engine: `PagedSalcaCache`) and the (B,) position cursor."""
     caches: list
     pos: torch.Tensor
 
@@ -40,6 +42,16 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: in
     logits = vocab_mask_logits(lm_logits(params["embed"], h[:, -1], cfg), cfg)
     pos = torch.full((h.shape[0],), tokens.shape[1], dtype=torch.int32, device=h.device)
     return logits, LMState(caches, pos)
+
+
+def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState:
+    """Contiguous decode state: one empty ``(batch, max_seq, ·)`` cache per
+    layer (the contiguous engine's slot pool), cursors at 0."""
+    r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
+    caches = [empty_cache(batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim, r,
+                          device=device)
+              for _ in range(cfg.num_layers)]
+    return LMState(caches, torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: int,
@@ -60,14 +72,23 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
     return LMState(caches, torch.zeros(slots, dtype=torch.int32, device=device))
 
 
-def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages,
+def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
                        ctx: DecodeCtx | None = None) -> LMState:
-    """Install a batch=1 prefill state into row ``slot``: the same physical
-    blocks ``pages`` (MB,) in every layer's pool. In place. With ``ctx`` the
-    prefill is replicated and each rank writes only the blocks it owns."""
+    """Install a batch=1 prefill state into row ``slot``. In place.
+
+    Contiguous pools take ``pages=None`` (`write_prefill_into_slot`); paged
+    pools take the same physical blocks ``pages`` (MB,) in every layer
+    (`prefill_into_pages`) — with ``ctx`` the prefill is replicated and each
+    rank writes only the blocks it owns."""
     for dst, s in zip(pool.caches, src.caches):
-        block_range = None if ctx is None else local_block_range(dst.num_blocks, ctx)
-        prefill_into_pages(dst, s, slot, pages, block_range)
+        if isinstance(dst, PagedSalcaCache):
+            if pages is None:
+                raise ValueError("paged cache substate requires a pages array "
+                                 "(use write_into_pages)")
+            block_range = None if ctx is None else local_block_range(dst.num_blocks, ctx)
+            prefill_into_pages(dst, s, slot, pages, block_range)
+        else:
+            write_prefill_into_slot(dst, s, slot)
     pool.pos[slot] = src.pos[0]
     return pool
 
@@ -79,8 +100,13 @@ def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMS
 
 
 def lm_reset_slot(pool: LMState, slot: int) -> LMState:
+    """Free row ``slot``: caches marked empty (paged: page table unmapped and
+    blocks decref'd), the position cursor zeroed. In place."""
     for c in pool.caches:
-        free_pages(c, slot)
+        if isinstance(c, PagedSalcaCache):
+            free_pages(c, slot)
+        else:
+            reset_slot(c, slot)
     pool.pos[slot] = 0
     return pool
 
@@ -89,7 +115,8 @@ def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.
                    active: torch.Tensor, ctx: DecodeCtx | None = None):
     """One token for every active slot: token (S,) int → (logits (S, V_pad),
     state). Inactive slots write nothing and hold their cursor; their
-    logits are garbage the caller ignores. ``ctx``: the state's pools are
+    logits are garbage the caller ignores. The state's caches are the
+    contiguous slot pool or paged pools; ``ctx``: the paged pools are
     block-sharded over its ranks (the logits are identical on every rank)."""
     h = embed_tokens(params["embed"], token).to(cdtype(cfg))
     pos = state.pos

@@ -1,17 +1,26 @@
-"""Serving engine: continuous batching over a paged Salca KV pool.
+"""Serving engine: continuous batching over a slot-pooled or paged Salca KV cache.
 
-Port of the reference `runtime/serve.py` for the paged engine. The engine
-keeps ONE pooled decode state: every layer's attention cache is a shared
-physical block pool with per-slot page tables. Admission is FIFO: a
-request is prefilled alone (batch 1, kernel B3) and written into the
-``ceil(prompt / block_size)`` blocks it takes from the free list; it waits
-head-of-line while the pool cannot cover it. Each tick grows every slot
-whose cursor crossed a block boundary by one block (or finishes it with an
-``overflow`` stop when the free list is empty) and then makes exactly ONE
-decode call that advances all active slots under an active-slot mask
-(kernels B1 and B2 in every layer). Sampling is greedy (argmax).
+Port of the reference `runtime/serve.py`. The engine keeps ONE pooled
+decode state. Admission is FIFO: a request is prefilled alone (batch 1,
+kernel B3) and written into a free slot of that state; each tick makes
+exactly ONE decode call that advances all active slots under an
+active-slot mask. Sampling is greedy (argmax).
 
-Block-sharded pool (``ctx=DecodeCtx(...)``): the physical block dim is
+Contiguous slot pool (``paged=False``, the default, as in the reference):
+every layer's cache is a dense ``(slots, max_seq, ·)`` `SalcaCache`; the
+prefill is copied into the slot's row, a finished slot is reset (length
+0), and the tick runs kernels B7, B9 and B8 in every layer. A slot that
+reached ``max_seq`` finishes with an ``overflow`` stop.
+
+Paged pool (``paged=True``): every layer's attention cache is a shared
+physical block pool with per-slot page tables. Admission writes the
+prompt into the ``ceil(prompt / block_size)`` blocks it takes from the
+free list and waits head-of-line while the pool cannot cover it. Each tick
+first grows every slot whose cursor crossed a block boundary by one block
+(or finishes it with an ``overflow`` stop when the free list is empty);
+the tick runs kernels B1 and B2 in every layer.
+
+Block-sharded paged pool (``ctx=DecodeCtx(...)``): the physical block dim is
 split evenly across the ranks of the context's process group, each rank
 holding ``num_blocks / world_size`` blocks, and the tick runs the sharded
 island (kernels B4, B5, B6 and two collective phases). Every rank runs this
@@ -22,7 +31,8 @@ list per shard (`ShardedBlockAllocator`): admission takes blocks from the
 least-loaded shards, so one request can span shards; growth prefers the
 shard holding the slot's tail block.
 
-Knobs of the reference engine that later slices port raise
+Knobs that the reference rejects without ``paged=True`` raise its
+`ValueError`s; knobs of the reference engine that later slices port raise
 `NotImplementedError` naming that slice instead of being ignored.
 """
 
@@ -153,38 +163,47 @@ class ServeStats:
     peak_shard_blocks_in_use: int = 0    # hottest single shard at peak (shards > 1)
 
     def summary(self) -> dict:
+        """The reference's summary keys that this port has; the block-pool
+        keys only for a paged engine, as there."""
         out = {
             "completed": self.completed, "prefill_s": self.prefill_s,
             "decode_s": self.decode_s, "decode_steps": self.decode_steps,
             "ticks": self.ticks, "decode_calls": self.decode_calls,
             "tokens_generated": self.tokens_generated,
+            "decode_ms_per_step": 1e3 * self.decode_s / max(self.decode_steps, 1),
             "decode_ms_per_tick": 1e3 * self.decode_s / max(self.ticks, 1),
             "decode_tokens_per_s": self.decode_steps / self.decode_s if self.decode_s else 0.0,
             "mean_queue_wait_s": self.queue_wait_s / max(self.admissions, 1),
             "mean_ttft_s": self.ttft_s / max(self.ttft_count, 1),
             "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
             "overflows": self.overflows, "dropped_writes": self.dropped_writes,
-            "prefill_tokens": self.prefill_tokens, "block_pool_size": self.block_pool_size,
-            "peak_blocks_in_use": self.peak_blocks_in_use, "shards": self.shards,
+            "prefill_tokens": self.prefill_tokens,
         }
-        if self.shards > 1:
-            out["peak_shard_blocks_in_use"] = self.peak_shard_blocks_in_use
+        if self.block_pool_size:
+            out.update(block_pool_size=self.block_pool_size,
+                       peak_blocks_in_use=self.peak_blocks_in_use,
+                       block_utilization=self.peak_blocks_in_use / self.block_pool_size)
+            if self.shards > 1:
+                out.update(shards=self.shards,
+                           peak_shard_blocks_in_use=self.peak_shard_blocks_in_use)
         return out
 
 
 class ServingEngine:
-    """Slot-pooled continuous-batching engine over a paged pool.
+    """Slot-pooled continuous-batching engine.
 
-    ``num_blocks`` physical blocks of ``block_size`` tokens are shared by
-    ``slots`` request slots; ``block_size`` must divide ``max_seq``. Runs on
-    ``device`` ("cuda" by default, which raises on a machine without a
-    card); ``device="cpu"`` runs every kernel's plain version. ``ctx``
-    (`distributed.sharding.DecodeCtx`) splits the pool's blocks across its
-    ranks; ``num_blocks`` must then divide evenly by the world size.
+    ``paged=False`` (the default): a contiguous ``(slots, max_seq, ·)`` cache
+    per layer. ``paged=True``: ``num_blocks`` physical blocks of
+    ``block_size`` tokens shared by ``slots`` request slots; ``block_size``
+    must divide ``max_seq``; ``ctx`` (`distributed.sharding.DecodeCtx`)
+    splits the pool's blocks across its ranks, and ``num_blocks`` must then
+    divide evenly by the world size. Runs on ``device`` ("cuda" by default,
+    which raises on a machine without a card); ``device="cpu"`` runs every
+    kernel's plain version.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int, slots: int = 4,
-                 paged: bool = True,
+                 paged: bool = False,
                  block_size: int = 32, num_blocks: int | None = None,
                  device="cuda", *, ctx: DecodeCtx | None = None,
                  prefix_sharing: bool = False,
@@ -192,6 +211,20 @@ class ServingEngine:
                  prefill_chunk: int | None = None, preempt: bool = False, faults=None,
                  kv_pool_dtype: str | None = None):
         self.device = resolve_device(device)
+        # the reference's ValueErrors for knobs that need the paged pool
+        if kv_pool_dtype is not None and kv_pool_dtype != cfg.kv_pool_dtype and not paged:
+            raise ValueError("kv_pool_dtype override requires paged=True "
+                             "(the knob names the paged pool's storage)")
+        if not paged:
+            for knob, on in (("prefix_sharing", prefix_sharing), ("host_spill", host_spill),
+                             ("preempt", preempt), ("prefill_chunk", prefill_chunk is not None)):
+                if on:
+                    raise ValueError(f"{knob} requires paged=True")
+            if ctx is not None:
+                raise NotImplementedError("ctx with paged=False: the sequence-sharded "
+                                          "contiguous tick is not ported yet (ROADMAP A.9)")
+        if prefix_cache and not prefix_sharing:
+            raise ValueError("prefix_cache requires prefix_sharing=True")
         asked = {"prefix_sharing": prefix_sharing,
                  "prefix_cache": prefix_cache, "host_spill": host_spill,
                  "prefill_chunk": prefill_chunk is not None, "preempt": preempt,
@@ -200,14 +233,10 @@ class ServingEngine:
             if on:
                 raise NotImplementedError(f"{knob}: not ported yet; comes with slice "
                                           f"{_LATER[knob]}")
-        if not paged:
-            raise NotImplementedError("paged=False (contiguous slot pool) comes with "
-                                      "slice A.8 of the port")
         if kv_pool_dtype not in (None, "int8") or cfg.kv_pool_dtype != "int8":
             raise NotImplementedError("fp16/int4 pools come with slice A.7 (tiered pool)")
-        if max_seq % block_size:
-            raise ValueError(f"block_size {block_size} must divide max_seq {max_seq}")
         self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
+        self.paged = paged
         self.api = get_model(cfg)
         self.stats = ServeStats()
         self._queue: deque[Request] = deque()
@@ -215,13 +244,18 @@ class ServingEngine:
         self._free = sorted(range(slots), reverse=True)          # pop() → lowest
         self._tokens = np.zeros((slots,), np.int32)
         self._mask = np.zeros((slots,), bool)
+        self.ctx = ctx
+        self.n_shards = 1 if ctx is None else ctx.world_size
+        if not paged:
+            self._state = self.api.init_state(slots, max_seq, self.device)
+            return
+        if max_seq % block_size:
+            raise ValueError(f"block_size {block_size} must divide max_seq {max_seq}")
         self.block_size = block_size
         self.max_blocks = max_seq // block_size
         self.num_blocks = num_blocks or slots * self.max_blocks
         self.stats.block_pool_size = self.num_blocks
         self.stats.block_size = block_size
-        self.ctx = ctx
-        self.n_shards = 1 if ctx is None else ctx.world_size
         self.stats.shards = self.n_shards
         self._alloc = ShardedBlockAllocator(self.num_blocks, self.n_shards)
         self._slot_blocks: dict[int, list[int]] = {}
@@ -242,7 +276,7 @@ class ServingEngine:
                              f"max_new_tokens({req.max_new_tokens}) exceeds "
                              f"max_seq={self.max_seq}")
         lifetime = len(req.prompt) + max(req.max_new_tokens - 1, 0)
-        if self._blocks_for(lifetime) > self.num_blocks:
+        if self.paged and self._blocks_for(lifetime) > self.num_blocks:
             raise ValueError(f"request {req.rid}: needs {self._blocks_for(lifetime)} "
                              f"blocks over its lifetime but the pool has {self.num_blocks}")
         self._queue.append(req)
@@ -269,9 +303,21 @@ class ServingEngine:
         return logits_row, state1
 
     def _admit(self) -> None:
-        """FIFO admission: prefill the queue head alone and write it into
-        freshly allocated blocks; wait head-of-line when the pool is short."""
+        """FIFO admission: prefill the queue head alone and write it into the
+        lowest free slot (paged: into freshly allocated blocks, waiting
+        head-of-line when the pool is short)."""
         while self._queue and self._free:
+            if not self.paged:
+                req = self._queue.popleft()
+                slot = self._free.pop()
+                t0 = time.time()
+                req.admitted = t0
+                self.stats.admissions += 1
+                self.stats.queue_wait_s += t0 - req.submitted
+                logits_row, state1 = self._prefill(req)
+                self._state = self.api.write_into_slot(self._state, state1, slot)
+                self._activate(req, slot, logits_row)
+                continue
             req = self._queue[0]
             need = self._blocks_for(len(req.prompt))
             blocks = self._alloc.alloc(need)          # least-loaded shards first
@@ -324,22 +370,31 @@ class ServingEngine:
         self._mask[slot] = False
         self._free.append(slot)
         self._free.sort(reverse=True)
-        for b in self._slot_blocks.pop(slot):
-            self._refcount[b] -= 1
-            if self._refcount[b] == 0:
-                self._alloc.release(b)
-        self._slot_pos.pop(slot)
-        self._note_block_usage()
+        if self.paged:
+            for b in self._slot_blocks.pop(slot):
+                self._refcount[b] -= 1
+                if self._refcount[b] == 0:
+                    self._alloc.release(b)
+            self._slot_pos.pop(slot)
+            self._note_block_usage()
         self._state = self.api.reset_slot(self._state, slot)
 
     def _grow_or_overflow(self) -> None:
-        """Before a tick every active slot must have a private block for its
-        next KV write: a slot whose cursor crossed a block boundary maps one
+        """Before a tick every active slot must be able to store its next KV
+        write. Paged: a slot whose cursor crossed a block boundary maps one
         fresh block in every layer, from the shard holding its tail block
-        when that shard has one; with no block free it finishes with an
+        when that shard has one. A slot that cannot (no block free, or a
+        contiguous slot holding ``max_seq`` tokens) finishes with an
         ``overflow`` stop and the write that could not land is counted."""
         now = time.time()
         for slot, req in list(self._active.items()):
+            if not self.paged:
+                if len(req.prompt) + len(req.output) - 1 < self.max_seq:
+                    continue
+                self.stats.overflows += 1
+                self.stats.dropped_writes += 1
+                self._finish(slot, req, now, "overflow")
+                continue
             pos = self._slot_pos[slot]
             held = self._slot_blocks[slot]
             logical = pos // self.block_size
@@ -380,7 +435,8 @@ class ServingEngine:
         now = time.time()
         for slot in list(self._active):
             req = self._active[slot]
-            self._slot_pos[slot] += 1
+            if self.paged:
+                self._slot_pos[slot] += 1
             tok = self._next_token(req, int(nxt_host[slot]))
             self._tokens[slot] = tok
             if req.stop_token is not None and tok == req.stop_token:

@@ -51,7 +51,8 @@ def engine(inp, ctx):
     from repro_torch.configs import get_config
     from repro_torch.runtime.serve import Request, ServingEngine
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32")
-    eng = ServingEngine(cfg, inp["weights"], device="cpu", ctx=ctx, **inp["engine"])
+    eng = ServingEngine(cfg, inp["weights"], paged=True, device="cpu", ctx=ctx,
+                        **inp["engine"])
     reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=inp["new_tokens"])
             for i, p in enumerate(inp["prompts"])]
     for r in reqs:

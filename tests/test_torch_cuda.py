@@ -1,4 +1,4 @@
-"""Card-only checks of the port's CUDA kernels (B1-B6) against their plain versions.
+"""Card-only checks of the port's CUDA kernels (B1-B9) against their plain versions.
 
 Marked ``cuda``: they skip on a machine without a CUDA device and run on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -205,3 +205,83 @@ def test_quantization_on_card_bitwise_equals_cpu(dev):
     lo, hi = s.amin(-1), s.amax(-1)
     assert torch.equal(qz.bins_from_bounds(s, lo, hi),
                        qz.bins_from_bounds(s.to(dev), lo.to(dev), hi.to(dev)).cpu())
+
+
+@pytest.mark.parametrize("b,kv,g,r,n,bf16", [
+    (2, 4, 1, 32, 300, True), (3, 2, 2, 64, 1024, True), (2, 4, 2, 32, 300, False),
+    (1, 8, 1, 64, 2048, True)])
+def test_b7_kernel_bitwise_on_cache_layout(dev, b, kv, g, r, n, bf16):
+    """B7 reading a contiguous cache's (B, N, KV, ·) fields through their
+    strides, both chains, bit for bit (N not a multiple of the CTA's run)."""
+    from repro_torch.core.cache import empty_cache
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.score_est.ops import flat_score_estimate, flat_score_estimate_plain
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cache = empty_cache(b, n, kv, 32, r, device=dev)
+    cache.feat_words.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, cache.feat_words.shape,
+                                         generator=gen, device=dev, dtype=torch.int32))
+    cache.feat_scale.copy_(torch.rand(cache.feat_scale.shape, generator=gen, device=dev))
+    cache.feat_zero.copy_(torch.randn(cache.feat_zero.shape, generator=gen, device=dev))
+    qc = torch.randint(-3, 4, (b, kv, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((b, kv, g), generator=gen, device=dev)
+    args = (qc, qs, cache.feat_words, cache.feat_scale, cache.feat_zero)
+    n0 = LAUNCHES["score_estimate"]
+    out = flat_score_estimate(*args, bf16=bf16)
+    assert LAUNCHES["score_estimate"] == n0 + 1
+    assert torch.equal(out, flat_score_estimate_plain(*args, bf16=bf16))
+
+
+@pytest.mark.parametrize("bh,g,r,n", [(1, 1, 16, 256), (3, 2, 32, 1000), (2, 8, 128, 2048)])
+def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
+    """The reference op's (BH, N, ·) form and its unpinned f32 chain."""
+    from repro_torch.kernels.score_est.ops import score_estimate, score_estimate_plain
+    gen = torch.Generator(device=dev).manual_seed(8)
+    qc = torch.randint(-3, 4, (bh, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((bh, g), generator=gen, device=dev)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (bh, n, r // 16), generator=gen, device=dev,
+                          dtype=torch.int32)
+    fs = torch.rand((bh, n), generator=gen, device=dev)
+    fz = torch.randn((bh, n), generator=gen, device=dev)
+    assert torch.equal(score_estimate(qc, qs, words, fs, fz),
+                       score_estimate_plain(qc, qs, words, fs, fz))
+
+
+@pytest.mark.parametrize("bh,g,c,hd,density", [
+    (1, 1, 256, 64, 1.0), (2, 4, 512, 128, 0.7), (3, 2, 100, 128, 0.3), (2, 8, 256, 256, 0.9)])
+def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
+    """B8 within 1e-5 + 1e-5·|plain| (f32, other summation order), C not a
+    multiple of 32 included; a row with nothing selected is exactly zero."""
+    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode, sparse_flash_decode_plain
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kc, vc = (torch.randint(-127, 128, (bh, c, hd), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((bh, c), generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2))
+    mask = torch.rand((bh, c), generator=gen, device=dev) < density
+    mask[:, 0] = True
+    mask[-1] = False
+    q = torch.randn((bh, g, hd), generator=gen, device=dev)
+    args = (q, kc, ks, vc, vs, mask)
+    out = sparse_flash_decode(*args)
+    ref = sparse_flash_decode_plain(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.parametrize("bh,n,window", [(2, 1024, 7), (1, 4096, 1), (3, 2050, 11), (4, 8192, 7)])
+def test_b9_kernel_bitwise(dev, bh, n, window):
+    """Pooled bins, histogram and threshold bit for bit: ragged lengths,
+    one empty row, halos across the CTAs' runs."""
+    from repro_torch.kernels.selection_fused.ops import (
+        fused_bin_pool_threshold, fused_bin_pool_threshold_plain)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    scores = torch.randn((bh, n), generator=gen, device=dev) * 4
+    lengths = torch.randint(n // 2, n + 1, (bh,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    lo = scores.amin(-1) - 0.25
+    hi = scores.amax(-1)
+    k = torch.full((bh,), max(8, n // 16), dtype=torch.int32, device=dev)
+    args = (scores, lo, hi, k, lengths)
+    for t, p in zip(fused_bin_pool_threshold(*args, window=window),
+                    fused_bin_pool_threshold_plain(*args, window=window)):
+        assert torch.equal(t, p)

@@ -116,7 +116,7 @@ def test_engine_overflow_and_validation(weights, rng):
     """Block exhaustion finishes a request with an `overflow` stop (no silent
     clip); the knobs of later slices raise instead of being ignored."""
     _, tp = weights
-    eng = TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, block_size=BS, num_blocks=3,
+    eng = TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS, num_blocks=3,
                   device="cpu")
     ra = TRequest(rid=0, prompt=rng.integers(0, 512, 30).astype(np.int32), max_new_tokens=18)
     rb = TRequest(rid=1, prompt=rng.integers(0, 512, 14).astype(np.int32), max_new_tokens=18)
@@ -128,8 +128,9 @@ def test_engine_overflow_and_validation(weights, rng):
     assert "overflow" in (ra.stop_reason, rb.stop_reason)
     assert sorted(eng._free_blocks) == [0, 1, 2]
     for kw in ({"prefix_sharing": True}, {"preempt": True}, {"prefill_chunk": 8},
-               {"host_spill": True}, {"kv_pool_dtype": "int4"}, {"paged": False}):
+               {"host_spill": True}, {"kv_pool_dtype": "int4"}):
         with pytest.raises(NotImplementedError):
-            TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, block_size=BS, device="cpu", **kw)
+            TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                    device="cpu", **kw)
     with pytest.raises(ValueError):
-        TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, block_size=24, device="cpu")
+        TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=24, device="cpu")

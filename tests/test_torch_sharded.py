@@ -477,10 +477,12 @@ def test_ctx_validation(engine_weights, world1):
     _, tp = engine_weights
     three = DecodeCtx(world1.group, 0, 3, "gloo")
     with pytest.raises(ValueError, match="divide evenly"):
-        TEngine(TCFG, tp, max_seq=64, block_size=16, num_blocks=8, device="cpu", ctx=three)
+        TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, num_blocks=8, device="cpu",
+                ctx=three)
     for kw in ({"prefix_sharing": True}, {"host_spill": True}, {"kv_pool_dtype": "int4"}):
         with pytest.raises(NotImplementedError):
-            TEngine(TCFG, tp, max_seq=64, block_size=16, device="cpu", ctx=world1, **kw)
+            TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, device="cpu", ctx=world1,
+                    **kw)
     with pytest.raises(RuntimeError, match="nccl"):
         pmin(torch.zeros(3), world1._replace(backend="nccl"))
     with pytest.raises(ValueError, match="store"):
