@@ -6,19 +6,23 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the nine CUDA kernels' four sources from ``src/repro_torch/csrc``
+2. build the eleven CUDA kernels' four sources from ``src/repro_torch/csrc``
    (nvcc, sm_90a, one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with kernel, plain and library times and
    the roofline bound — the paged kernels (B1 paged scores, B4 scores +
    bounds and B5 bin/pool/histogram: bit-identical; B2 sparse decode
-   attention and B6 its unnormalised partials: f32; B3 causal prefill
-   attention: bf16) and the contiguous tick's (B7 flat scores in both of
-   its chains and B9 bin/pool/histogram/threshold: bit-identical; B8
-   sparse decode attention over gathered rows: f32); then check the whole
-   serving path on a small input, paged and contiguous: the port on the
-   card against the port's plain versions on the CPU (greedy tokens
-   identical, logits close);
+   attention and B6 its unnormalised partials: f32, in each of the pool's
+   storage branches int8, fp16 and int4; B3 causal prefill attention:
+   bf16), the contiguous tick's (B7 flat scores in both of its chains and
+   B9 bin/pool/histogram/threshold: bit-identical; B8 sparse decode
+   attention over gathered rows: f32), and B10 (max-pool) and B11
+   (histogram + threshold), bit-identical, driven once through their
+   public entry points; then check the whole serving path on a small
+   input — paged, contiguous, a fp16 pool, and an int4 pool with the host
+   tier on a pool small enough that blocks demote and promote: the port
+   on the card against the port's plain versions on the CPU (greedy
+   tokens identical, logits close);
 4. serve full-width qwen3-0.6b (random bf16 weights from a seed) through
    ``ServingEngine(paged=True, slots=4, max_seq=8192, block_size=32)``:
    4 requests of 2048-4096-token prompts × 16 new tokens, with every
@@ -31,7 +35,13 @@ Phases (any failure raises and the script exits non-zero):
    run the tick, fed the first run's tokens (teacher forcing), and every
    logits row of every request must stay within CONTIG_LOGIT_ULPS bf16
    ulps of the first run's row for the same history; a step where the two
-   greedy picks part is printed with the paged run's top-two gap.
+   greedy picks part is printed with the paged run's top-two gap. Then the
+   tiered pool: ``kv_pool_dtype="fp16"`` and ``"int4"``, each unsharded
+   (B2's branch) and block-sharded at one rank (B6's branch, tokens equal
+   to the unsharded run's), and ``kv_pool_dtype="int4", host_spill=True``
+   on SPILL_RUN's 200-block pool, checked by `SpillProbe` (a bit-exact
+   block round trip, wave admission, pressure and policy demotion,
+   promotion, transfer bytes, a drained pool).
 
 It prints a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
@@ -40,6 +50,7 @@ with code 1 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -64,6 +75,14 @@ SMALL_PATH_LOGIT_TOL = 3e-4
 # one slot (an append dropped or written a row early, a gather reading the
 # neighbouring rows) read 37-106 (PERF.md)
 CONTIG_LOGIT_ULPS = 24
+# the host tier on the small path: 8 blocks for prompts of 5, 7 and 6 blocks
+SMALL_SPILL = dict(kv_pool_dtype="int4", host_spill=True, num_blocks=8, demote_after=1,
+                   spill_keep_recent=2)
+# the host tier at full width: 200 blocks for the requests' 370, so that the
+# 4096-token prompt (128 blocks) admits in waves after pressure demotion
+# (SpillProbe; PERF.md)
+SPILL_RUN = dict(kv_pool_dtype="int4", host_spill=True, num_blocks=200, demote_after=1,
+                 spill_keep_recent=48)
 
 
 def gpu_line() -> str:
@@ -117,9 +136,10 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_pool(dev, gen, cfg, slots, max_seq, block_size, lengths):
-    """A paged pool at the serving shapes with random contents: slot s holds
-    ``lengths[s]`` tokens over scrambled physical blocks."""
+def random_pool(dev, gen, cfg, slots, max_seq, block_size, lengths, kv_pool_dtype="int8"):
+    """A paged pool at the serving shapes with random contents in storage
+    mode ``kv_pool_dtype``: slot s holds ``lengths[s]`` tokens over
+    scrambled physical blocks (int4: any byte is a pair of nibbles)."""
     import torch
     from repro_torch.core.cache import empty_paged_cache
     from repro_torch.models.blocks import salca_params_for
@@ -127,16 +147,20 @@ def random_pool(dev, gen, cfg, slots, max_seq, block_size, lengths):
     r = salca_params_for(cfg, max_seq).r(hd)
     mb = max_seq // block_size
     nb = slots * mb
-    pool = empty_paged_cache(nb, block_size, slots, mb, kv, hd, r, device=dev)
+    pool = empty_paged_cache(nb, block_size, slots, mb, kv, hd, r, kv_pool_dtype=kv_pool_dtype,
+                             device=dev)
     d = pool.data
-    d["k_codes"].copy_(torch.randint(-127, 128, d["k_codes"].shape, generator=gen,
-                                     device=dev, dtype=torch.int8))
-    d["v_codes"].copy_(torch.randint(-127, 128, d["v_codes"].shape, generator=gen,
-                                     device=dev, dtype=torch.int8))
+    for f in ("k_codes", "v_codes"):
+        if kv_pool_dtype == "fp16":
+            d[f].copy_(torch.randn(d[f].shape, generator=gen, device=dev))
+        else:
+            d[f].copy_(torch.randint(-127, 128, d[f].shape, generator=gen, device=dev,
+                                     dtype=torch.int8))
     d["feat_words"].copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, d["feat_words"].shape,
                                         generator=gen, device=dev, dtype=torch.int32))
     for f in ("k_scale", "v_scale", "feat_scale"):
-        d[f].copy_(torch.rand(d[f].shape, generator=gen, device=dev) * 0.02 + 1e-3)
+        if kv_pool_dtype != "fp16" or f == "feat_scale":      # fp16: unit scales
+            d[f].copy_(torch.rand(d[f].shape, generator=gen, device=dev) * 0.02 + 1e-3)
     d["feat_zero"].copy_(torch.randn(d["feat_zero"].shape, generator=gen, device=dev))
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     for s, n in enumerate(lengths):
@@ -557,12 +581,151 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
     return recs
 
 
-def check_small_path(dev, paged: bool):
+def check_tiered_kernels(dev, cfg, lengths, iters=20):
+    """Phase 3a, B2's and B6's fp16 and int4 branches at the main path's
+    shapes, each on a random pool in its mode and the selection the query
+    makes over it: B2 within B2_ATOL + B2_RTOL·|plain|, B6 within
+    B2_ATOL + B2_RTOL·scale as B6's int8 branch (scale = sum(p·|v|) for acc)."""
+    import torch
+    from repro_torch.core.quantization import pack_int4, unpack_int4
+    from repro_torch.core.selection import (
+        _quantized_query_groups, query_heavy_features, select_sparse_pattern_blocked)
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.models.blocks import salca_params_for
+
+    s, mseq, bs = SERVE["slots"], SERVE["max_seq"], SERVE["block_size"]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    params = salca_params_for(cfg, mseq)
+    recs = []
+    for mode, elem_bytes in (("fp16", 2.0), ("int4", 0.5)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        pool = random_pool(dev, gen, cfg, s, mseq, bs, lengths, kv_pool_dtype=mode)
+        q = torch.randn((s, h, hd), generator=gen, device=dev)
+        qc, qs, qsum = _quantized_query_groups(query_heavy_features(q, pool.heavy_idx, h // kv),
+                                               kv)
+        scores = se.paged_score_estimate(qc, qs, qsum, pool.feat_words, pool.feat_scale,
+                                         pool.feat_zero, pool.clamped_pages(),
+                                         bf16=PERF.bf16_collectives)
+        sel = select_sparse_pattern_blocked(scores, params, pool.mapped_valid_mask()[:, None, :],
+                                            bs)
+        qr = q.reshape(s * kv, h // kv, hd).contiguous()
+        live_rows = {}
+        for partials in (False, True):
+            pblk, counts, bmask = fd._selected_block_plan(
+                pool, sel, (0, pool.num_blocks) if partials else None)
+            ops = (qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk)
+            kern = functools.partial(fd.sparse_flash_decode_paged_partials_kernel if partials
+                                     else fd.sparse_flash_decode_paged_kernel,
+                                     *ops, counts, bmask, kv, mode)
+            plain_of = (fd.sparse_flash_decode_paged_partials_plain if partials
+                        else fd.sparse_flash_decode_paged_plain)
+            plain_fn = functools.partial(plain_of, *ops, bmask, kv, mode)
+            got, want = kern(), plain_fn()
+            if partials:
+                vabs = ops[3].abs() if mode == "fp16" else pack_int4(unpack_int4(ops[3]).abs())
+                scales = (plain_of(*ops[:3], vabs, *ops[4:], bmask, kv, mode)[0],
+                          want[1].abs(), want[2])
+                tol = (f"{B2_ATOL:g} + {B2_RTOL:g}*scale; scale = sum(p*|v|) for acc, "
+                       "|plain| for m and l")
+            else:
+                got, want, scales = (got,), (want,), (want.abs(),)
+                tol = f"{B2_ATOL:g} + {B2_RTOL:g}*|plain|"
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ratio = max(float(((a - b).abs() / (B2_ATOL + B2_RTOL * sc)).max())
+                        for a, b, sc in zip(got, want, scales))
+            name = ("sparse_flash_decode_paged_partials" if partials
+                    else "sparse_flash_decode_paged") + f"[{mode}]"
+            if not ratio <= 1.0:
+                raise AssertionError(f"{name}: |kernel - plain| reaches {ratio:.3g}x its "
+                                     f"bound {tol} (max abs err {err})")
+            live = int(counts.sum())
+            live_rows[partials] = live
+            # K and V rows of the selected blocks at the mode's width, one
+            # scale word per block for each; q, the outputs, the plan
+            nbytes = (live * (2 * bs * hd * elem_bytes + 8) + 2 * qr.numel() * 4
+                      + (8 * qr.shape[0] * qr.shape[1] if partials else 0)
+                      + 4 * counts.numel() + live * (4 + bs))
+            bms, bby = bound(nbytes, live * bs * (h // kv) * hd * 4, "f32")
+            recs.append(dict(name=name, route="cuda",
+                             source="src/repro_torch/csrc/flash_decode.cu",
+                             replaces="src/repro/kernels/flash_decode/kernel.py:"
+                                      + ("276" if partials else "207"),
+                             launches=None, max_abs_err=err, tolerance=tol,
+                             err_over_tol=ratio,
+                             ms=kernel_ms(kern, "sparse_flash_decode_paged_kernel", iters),
+                             plain_ms=events_ms(plain_fn, max(2, iters // 10)),
+                             bound_ms=bms, bound_by=bby, library_ms=None,
+                             selected_blocks=live, rows=int(counts.numel())))
+        if live_rows[False] != live_rows[True]:
+            raise AssertionError(f"{mode}: the one-rank plan lists {live_rows[True]} blocks, "
+                                 f"the unsharded plan {live_rows[False]}")
+        del pool
+    return recs
+
+
+def check_bin_kernels(dev, iters=50):
+    """Phase 3a, B10 (max-pool) and B11 (histogram + threshold), the entry
+    points `maxpool_int8` and `hist_threshold` of the reference's public
+    kernel API, at (32, 8192) uint8 bins with window 7 and k = 409: each is
+    driven once with the launch counts at 0 (no serving path calls them, so
+    this drive is their path), then held bit for bit against its plain
+    version and timed. Library calls: `max_pool1d` on a float copy (the
+    bins are >= 0, so its -inf padding pools as the kernel's zero fill) and
+    `bincount` over row-offset bins (the histogram only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.hist_topk import ops as ht
+    from repro_torch.kernels.maxpool import ops as mp
+    bh, n, window, k = SERVE["slots"] * 8, SERVE["max_seq"], 7, 409
+    bins = torch.randint(0, 256, (bh, n), generator=torch.Generator(device=dev).manual_seed(4),
+                         device=dev, dtype=torch.uint8)
+    reset_launches()
+    pooled = mp.maxpool_int8(bins, window)
+    hist, thr = ht.hist_threshold(bins, k)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _check_exact("B10", (pooled,), (mp.maxpool_int8_plain(bins, window),))
+    kk = torch.full((bh,), k, dtype=torch.int32, device=dev)
+    _check_exact("B11", (hist, thr), ht.hist_threshold_plain(bins, kk))
+    xf = bins.float()[:, None]
+    offs = (bins.long() + 256 * torch.arange(bh, device=dev)[:, None]).reshape(-1)
+    recs = []
+    for name, kname, fn, plain, lib, nbytes, ops, replaces, call in (
+            ("maxpool_int8", "maxpool_u8_kernel", lambda: mp.maxpool_int8(bins, window),
+             lambda: mp.maxpool_int8_plain(bins, window),
+             lambda: F.max_pool1d(xf, window, stride=1, padding=window // 2),
+             2 * bh * n, bh * n * (window - 1), "src/repro/kernels/maxpool/kernel.py:55",
+             "max_pool1d on a float copy of the bins (copy not timed)"),
+            ("hist_threshold", "hist_threshold_kernel", lambda: ht.hist_threshold(bins, k),
+             lambda: ht.hist_threshold_plain(bins, kk),
+             lambda: torch.bincount(offs, minlength=bh * 256),
+             bh * n + 4 * bh + 4 * 256 * bh + 4 * bh, bh * n + bh * 256,
+             "src/repro/kernels/hist_topk/kernel.py:57",
+             "bincount over row-offset bins: the histogram only, no threshold "
+             "(offsets not timed)")):
+        bms, bby = bound(nbytes, ops, "f32")
+        recs.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/selection_fused.cu", replaces=replaces,
+                         launches=launches.get(name, 0), max_abs_err=0.0,
+                         tolerance="bit-identical", err_over_tol=0.0,
+                         ms=kernel_ms(fn, kname, iters),
+                         plain_ms=events_ms(plain, max(2, iters // 10)),
+                         bound_ms=bms, bound_by=bby, library_ms=events_ms(lib, iters),
+                         library_call=call))
+    print(f"B10/B11 drive: launches {launches}; thresholds "
+          f"{sorted({int(t) for t in thr.tolist()})}", flush=True)
+    return recs
+
+
+def check_small_path(dev, paged: bool, **engine_kw):
     """Phase 3b: the whole serving path on a small input — the port on the
     card against the port's plain versions on the CPU (which the CPU tests
     hold against the JAX reference), through the paged or the contiguous
-    engine. Reduced qwen3-0.6b at f32, a sparse selection (k = 128 of 256
-    positions)."""
+    engine, with ``engine_kw`` (a pool mode, the host tier). Reduced
+    qwen3-0.6b at f32, a sparse selection (k = 128 of 256 positions)."""
     import dataclasses
 
     import torch
@@ -581,7 +744,8 @@ def check_small_path(dev, paged: bool):
             "embed": {k: v.to(d) for k, v in params["embed"].items()},
             "ln_f": {"scale": params["ln_f"]["scale"].to(d)},
             "layers": [_to(layer, d) for layer in params["layers"]]}
-        eng = ServingEngine(cfg, p, max_seq=256, slots=2, paged=paged, block_size=32, device=d)
+        eng = ServingEngine(cfg, p, max_seq=256, slots=2, paged=paged, block_size=32, device=d,
+                            **engine_kw)
         reqs = [Request(rid=i, prompt=pr, max_new_tokens=5) for i, pr in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
@@ -594,22 +758,31 @@ def check_small_path(dev, paged: bool):
             return out
 
         eng._decode = rec
-        eng.run()
-        runs[d] = ([r.output for r in reqs], logits)
-    (tok_c, lg_c), (tok_g, lg_g) = runs["cpu"], runs[dev]
+        stats = eng.run()
+        runs[d] = ([r.output for r in reqs], logits, stats)
+    (tok_c, lg_c, st_c), (tok_g, lg_g, st_g) = runs["cpu"], runs[dev]
+    label = f"paged={paged}" + "".join(f", {k}={v}" for k, v in engine_kw.items())
     if tok_c != tok_g:
-        raise AssertionError(f"small path (paged={paged}): greedy tokens differ: "
+        raise AssertionError(f"small path ({label}): greedy tokens differ: "
                              f"cpu {tok_c} vs card {tok_g}")
+    spill = {}
+    if engine_kw.get("host_spill"):
+        spill = {k: getattr(st_g, k) for k in ("demotions", "promotions", "pcie_bytes")}
+        if not (st_g.demotions > 0 and st_g.promotions > 0) or spill != {
+                k: getattr(st_c, k) for k in spill}:
+            raise AssertionError(f"small path ({label}): the host tier must demote and "
+                                 f"promote, alike on both: card {spill} vs cpu "
+                                 f"{ {k: getattr(st_c, k) for k in spill} }")
     gap = max(float(np.abs(a[1][a[0]] - b[1][b[0]]).max()) for a, b in zip(lg_c, lg_g))
     # cuBLAS and the CPU sum in other orders; over ~500 stored tokens a
     # last-ulp difference in K/V can move one int8 / 2-bit code by one step
     # (the CPU tests see 3.3e-5 against JAX for the same reason). The card
     # read 1.28e-4 in every run; the limit leaves 2.3x of headroom.
     if not gap <= SMALL_PATH_LOGIT_TOL:
-        raise AssertionError(f"small path (paged={paged}): max logits gap {gap} > "
+        raise AssertionError(f"small path ({label}): max logits gap {gap} > "
                              f"{SMALL_PATH_LOGIT_TOL:g}")
-    return {"paged": paged, "tokens_identical": True, "max_logit_gap": gap,
-            "ticks": len(lg_g)}
+    return {"paged": paged, **engine_kw, "tokens_identical": True, "max_logit_gap": gap,
+            "ticks": len(lg_g), **spill}
 
 
 def _to(tree, dev):
@@ -635,14 +808,17 @@ def main_path_requests(vocab_size: int):
                     max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
 
 
-def serve_main_path(dev, ctx=None, paged=True, force=None):
+def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
-    the contiguous tick. ``force`` ({rid: tokens}) feeds the engine those
-    tokens in place of its own picks (teacher forcing). Returns the launch
-    counts of the run, its summary, the engine's own greedy picks per
-    request and, for every generated token (request, index), the logits row
-    it was drawn from, on the host (index 0: the prefill's row)."""
+    the contiguous tick; ``engine_kw`` adds the tiered pool's knobs
+    (``kv_pool_dtype``, ``host_spill``, ...). ``force`` ({rid: tokens})
+    feeds the engine those tokens in place of its own picks (teacher
+    forcing); ``probe`` (a `SpillProbe`) is installed on the engine before
+    the run and checks it after. Returns the launch counts of the run, its
+    summary, the engine's own greedy picks per request and, for every
+    generated token (request, index), the logits row it was drawn from, on
+    the host (index 0: the prefill's row)."""
     import gc
 
     import torch
@@ -651,7 +827,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None):
     gc.collect()              # an earlier run's engine (its hooks form a cycle)
     torch.cuda.empty_cache()
     cfg, params = main_path_model(dev)
-    serve = dict(SERVE, paged=paged)
+    serve = dict(SERVE, paged=paged, **engine_kw)
 
     # warm-up on a separate engine (module loading, cuBLAS handles, the
     # communicator of the first all-reduce)
@@ -686,6 +862,8 @@ def serve_main_path(dev, ctx=None, paged=True, force=None):
         return orig_next(req, tok if force is None else force[req.rid][len(req.output)])
 
     engine._decode, engine._prefill, engine._next_token = decode, prefill, next_token
+    if probe is not None:
+        probe.install(engine)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
@@ -703,13 +881,15 @@ def serve_main_path(dev, ctx=None, paged=True, force=None):
     assert all(bool(torch.isfinite(r).all()) for r in rows.values()), \
         "non-finite logits on the main path"
     nl = cfg.num_layers
+    branch = {"int8": ""}.get(engine_kw.get("kv_pool_dtype", "int8"),
+                              f"[{engine_kw.get('kv_pool_dtype')}]")
     if not paged:
         tick_kernels = ("score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode")
     elif ctx is None:
-        tick_kernels = ("paged_score_estimate", "sparse_flash_decode_paged")
+        tick_kernels = ("paged_score_estimate", "sparse_flash_decode_paged" + branch)
     else:
         tick_kernels = ("paged_score_bounds", "paged_fused_select",
-                        "sparse_flash_decode_paged_partials")
+                        "sparse_flash_decode_paged_partials" + branch)
     want = {k: nl * stats.ticks for k in tick_kernels}
     want["flash_prefill"] = nl * stats.admissions
     if launches != want:
@@ -717,11 +897,125 @@ def serve_main_path(dev, ctx=None, paged=True, force=None):
     vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
     assert vocab_ok, "sampled a token outside the vocabulary"
     summary = stats.summary()
+    if probe is not None:
+        summary.update(probe.finish(engine))
     summary.update(wall_s=wall, peak_mem_gb=peak,
                    ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS),
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels})
     picks = [[own[(r.rid, j)] for j in range(len(r.output))] for r in reqs]
     return launches, summary, picks, rows
+
+
+class SpillProbe:
+    """Instruments the int4 + host-spill run of phase 4 and checks it.
+
+    * Round trip: before the first tick, the oldest block of the longest
+      resident request is read (every layer's rows, on the card), demoted,
+      promoted back into a fresh block and read again: the two reads must
+      be equal bit for bit.
+    * Histogram: with random weights every tick selects tokens in every
+      block (28 layers × 8 kv heads per slot), so no block goes cold by
+      itself. As in the reference's spill test, the reader reports the
+      first ``COLD`` logical blocks of every slot unselected (the real
+      reader still runs and syncs); the policy then demotes those of them
+      that are resident, and the promotion pass brings back the spilled
+      blocks with the highest counts.
+    * After the run: wave admission happened, demotions by pressure and by
+      policy and at least one promotion happened, ``pcie_bytes`` equals
+      (demotions + promotions) × the block bytes, every request ended with
+      ``length`` and no overflow, and the pool drained (all blocks free,
+      refcounts 0, no spilled payload left, every layer's invariants).
+    """
+    COLD = 8
+
+    def install(self, eng) -> None:
+        import torch
+        # demotions by cause; wave admissions
+        self.events = {"pressure": 0, "policy": 0, "wave": 0, "wave_admissions": 0}
+        self.hist_s, self.hist_calls = 0.0, 0
+        self.roundtrip = None
+        real_hist, real_policy = eng._sel_hist_fn, eng._spill_policy
+        real_demote, real_install, real_tick = eng.demote_block, eng._install_prompt, eng._tick
+        real_streaks = eng._update_cold_streaks
+        phase = {"now": "pressure"}
+
+        def hist(state):
+            h = real_hist(state).clone()
+            h[:, :self.COLD] = 0
+            return h
+
+        def streaks():      # the policy's per-tick histogram read and sync
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_streaks()
+            self.hist_s += time.perf_counter() - t0
+            self.hist_calls += 1
+
+        def demote(slot, logical):
+            self.events[phase["now"]] += 1
+            return real_demote(slot, logical)
+
+        def policy():
+            phase["now"] = "policy"
+            real_policy()
+            phase["now"] = "pressure"
+
+        def install(slot, need, state1):
+            if need > eng._alloc.total_free:          # the prompt admits in waves
+                self.events["wave_admissions"] += 1
+                phase["now"] = "wave"
+            real_install(slot, need, state1)
+            phase["now"] = "pressure"
+
+        def tick():
+            if self.roundtrip is None:
+                self.roundtrip = self._roundtrip(eng, real_demote)
+            real_tick()
+
+        eng._sel_hist_fn, eng._spill_policy, eng.demote_block = hist, policy, demote
+        eng._install_prompt, eng._tick, eng._update_cold_streaks = install, tick, streaks
+
+    @staticmethod
+    def _roundtrip(eng, demote) -> dict:
+        import torch
+        slot = max(eng._active, key=lambda s: eng._slot_pos[s])
+        logical = next(j for j, b in enumerate(eng._slot_blocks[slot]) if b >= 0)
+        before = [[t.clone() for t in rows]
+                  for rows in eng.api.read_block(eng._state, eng._slot_blocks[slot][logical])]
+        demote(slot, logical)
+        if not eng.promote_block(slot, logical):
+            raise AssertionError("round trip: no block free to promote into")
+        after = eng.api.read_block(eng._state, eng._slot_blocks[slot][logical])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for ra, rb in zip(before, after) for a, b in zip(ra, rb))
+        if not same:
+            raise AssertionError(f"round trip of block ({slot}, {logical}) is not bit-exact")
+        return {"slot": slot, "logical": logical, "bit_exact": True,
+                "bytes": eng._block_bytes}
+
+    def finish(self, eng) -> dict:
+        st = eng.stats
+        ev = self.events
+        if not (ev["wave_admissions"] >= 1 and ev["pressure"] >= 1 and ev["policy"] >= 1
+                and st.promotions >= 1):
+            raise AssertionError(f"host tier: wave admission, pressure and policy demotion "
+                                 f"and a promotion must all happen; got {ev}, "
+                                 f"{st.promotions} promotions")
+        if st.pcie_bytes != (st.demotions + st.promotions) * eng._block_bytes:
+            raise AssertionError(f"pcie_bytes {st.pcie_bytes} != (demotions + promotions) "
+                                 f"× {eng._block_bytes}")
+        if st.overflows:
+            raise AssertionError(f"{st.overflows} overflow stops with the host tier on")
+        free = sorted(eng._free_blocks)
+        if free != list(range(eng.num_blocks)) or eng._refcount.sum() or eng._spilled:
+            raise AssertionError("the pool did not drain: leaked blocks or spilled payloads")
+        for pool in eng._state.caches:
+            rep = pool.check_invariants(free_blocks=free, host_refcount=eng._refcount)
+            if not rep.ok:
+                raise AssertionError(f"pool invariants after the run: {rep.violations}")
+        return {"spill_events": dict(ev), "roundtrip": self.roundtrip,
+                "block_bytes": eng._block_bytes,
+                "cold_streak_update_ms_per_tick": 1e3 * self.hist_s / max(self.hist_calls, 1)}
 
 
 def first_divergence(a: list, b: list):
@@ -810,14 +1104,17 @@ def main() -> int:
     lengths = [n + NEW_TOKENS for n in PROMPTS]
     recs = check_kernels(dev, cfg, lengths=lengths, prompt_len=max(PROMPTS))
     recs += check_flat_kernels(dev, cfg, lengths=lengths)
+    recs += check_tiered_kernels(dev, cfg, lengths=lengths)
+    recs += check_bin_kernels(dev)
     for r in recs:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
               f"(tolerance {r['tolerance']}; {r['err_over_tol']:.3g} of it) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']})", flush=True)
-    for paged in (True, False):
-        small = check_small_path(dev, paged)
+    for paged, kw in ((True, {}), (False, {}), (True, {"kv_pool_dtype": "fp16"}),
+                      (True, SMALL_SPILL)):
+        small = check_small_path(dev, paged, **kw)
         print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
 
     launches, summary, tokens, trace = serve_main_path(dev)                # phase 4
@@ -838,11 +1135,33 @@ def main() -> int:
     worst = check_contiguous_logits(tokens, trace, picks_c, trace_c)
     print(f"contiguous vs paged: every logits row within {max(worst.values()):.3g} bf16 ulps "
           f"(limit {CONTIG_LOGIT_ULPS})", flush=True)
-    sharded = {"paged_score_bounds", "paged_fused_select", "sparse_flash_decode_paged_partials"}
-    flat = {"score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode"}
+    # the tiered pool: fp16 and int4 pools, each unsharded and block-sharded
+    # (tokens must agree), then int4 with the host tier on a small pool
+    runs = {"int8": launches, "int8 sharded": launches_sh, "contiguous": launches_c}
+    for mode in ("fp16", "int4"):
+        runs[mode], summary_m, tokens_m, _ = serve_main_path(dev, kv_pool_dtype=mode)
+        print_serve(f"paged {mode}", summary_m)
+        runs[f"{mode} sharded"], summary_ms, tokens_ms, _ = serve_main_path(
+            dev, ctx, kv_pool_dtype=mode)
+        print_serve(f"paged {mode} sharded (one rank, nccl)", summary_ms)
+        if first_divergence(tokens_m, tokens_ms) is not None:
+            raise AssertionError(f"{mode}: the sharded run's tokens differ from the paged "
+                                 f"run's at (request, token) {first_divergence(tokens_m, tokens_ms)}")
+        print(f"{mode}: sharded vs unsharded greedy tokens: identical", flush=True)
+    runs["int4 spill"], summary_sp, _, _ = serve_main_path(dev, probe=SpillProbe(), **SPILL_RUN)
+    print_serve(f"paged int4 + host spill {json.dumps(SPILL_RUN)}", summary_sp)
+    # each kernel's launches on the run of its path (B10/B11: their phase-3 drive)
+    home = {"sparse_flash_decode_paged[fp16]": "fp16",
+            "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",
+            "sparse_flash_decode_paged[int4]": "int4 spill",
+            "sparse_flash_decode_paged_partials[int4]": "int4 sharded",
+            "paged_score_bounds": "int8 sharded", "paged_fused_select": "int8 sharded",
+            "sparse_flash_decode_paged_partials": "int8 sharded",
+            "score_estimate": "contiguous", "fused_bin_pool_threshold": "contiguous",
+            "sparse_flash_decode": "contiguous"}
     for r in recs:
-        run = launches_sh if r["name"] in sharded else launches_c if r["name"] in flat else launches
-        r["launches"] = run.get(r["name"], 0)
+        if r["name"] not in ("maxpool_int8", "hist_threshold"):
+            r["launches"] = runs[home.get(r["name"], "int8")].get(r["name"], 0)
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on its main path")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -2,11 +2,13 @@
 """Where a decode tick of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded | --contiguous]
+        [--kv-dtype int8|fp16|int4]
 
 Serves the main path of chip_smoke.py (its model, engine settings and
 requests, imported from there) — the paged tick; with ``--sharded`` the
 block-sharded tick over a world of one rank; with ``--contiguous`` the
-contiguous slot pool's tick (``paged=False``) — warms up for 3 ticks, then profiles
+contiguous slot pool's tick (``paged=False``); ``--kv-dtype`` picks the
+paged pool's storage — warms up for 3 ticks, then profiles
 ``--ticks`` decode ticks with torch.profiler. Prints the host wall time per tick, the device
 time per tick (sum of kernel times; kernels of one stream do not overlap),
 the device busy share, launches per tick, the kernels with the most device
@@ -37,7 +39,11 @@ def main() -> int:
                       help="profile ServingEngine(paged=True, ctx=...) over a world of one rank")
     mode.add_argument("--contiguous", action="store_true",
                       help="profile ServingEngine(paged=False), the contiguous slot pool")
+    ap.add_argument("--kv-dtype", choices=("int8", "fp16", "int4"), default="int8",
+                    help="the paged pool's K/V storage")
     args = ap.parse_args()
+    if args.contiguous and args.kv_dtype != "int8":
+        ap.error("--kv-dtype names the paged pool's storage")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -52,7 +58,8 @@ def main() -> int:
     cfg, params = main_path_model(dev)
     ctx = init_decode_ctx(dev) if args.sharded else None
     engine = ServingEngine(cfg, params, device=dev, ctx=ctx,
-                           **dict(SERVE, paged=not args.contiguous))
+                           **dict(SERVE, paged=not args.contiguous,
+                                  **({} if args.contiguous else {"kv_pool_dtype": args.kv_dtype})))
     for r in main_path_requests(cfg.vocab_size):
         engine.submit(r)
     engine._admit()
@@ -80,7 +87,7 @@ def main() -> int:
     host.sort(reverse=True)
     tick = ("sharded (one rank)" if args.sharded else
             "contiguous" if args.contiguous else "paged unsharded")
-    out = {"tick": tick,
+    out = {"tick": tick, "kv_pool_dtype": None if args.contiguous else args.kv_dtype,
            "wall_ms_per_tick": wall * 1e3,
            "device_ms_per_tick": device_us / args.ticks / 1e3,
            "device_busy_share": device_us / 1e3 / args.ticks / (wall * 1e3),

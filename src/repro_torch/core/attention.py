@@ -156,7 +156,9 @@ def dense_decode_from_cache(q, cache: SalcaCache) -> torch.Tensor:
 
 
 def dense_decode_from_paged(q, pool: PagedSalcaCache, valid_mask=None) -> torch.Tensor:
-    """Dense attention over a paged pool's dequantized logical view."""
+    """Dense attention over a paged pool's dequantized logical view, in every
+    storage mode (`paged_logical_kv`); the default mask leaves out
+    host-spilled (unmapped) blocks, as the sparse path does."""
     k, v = paged_logical_kv(pool)
     return dense_decode_attention(q, k, v,
                                   pool.mapped_valid_mask() if valid_mask is None else valid_mask)

@@ -1,9 +1,18 @@
-"""Salca KV cache in PyTorch: int8 K/V + packed 2-bit heavy-channel features.
+"""Salca KV cache in PyTorch: quantized K/V + packed 2-bit heavy-channel features.
 
-Port of the reference `core/cache.py` for the int8 caches: the contiguous
-cache (`SalcaCache`: a prefill's cache, and the slot pool of the
-contiguous engine with its primitives) and the paged block pool
-(`PagedSalcaCache` and its primitives).
+Port of the reference `core/cache.py`: the contiguous int8 cache
+(`SalcaCache`: a prefill's cache, and the slot pool of the contiguous
+engine with its primitives) and the paged block pool (`PagedSalcaCache`
+and its primitives) in its three storage modes, ``kv_pool_dtype``:
+
+* ``"int8"`` — int8 codes (P, BS, KV, HD) with per-token scales (P, BS, KV);
+* ``"fp16"`` — f16 values (P, BS, KV, HD) with unit per-block scales
+  (P, 1, KV) that nothing rewrites;
+* ``"int4"`` — two signed nibbles per byte (P, BS, KV, HD/2) with one
+  per-block, per-head scale (P, 1, KV).
+
+The mode is inferred from the leaves, as in the reference. The 2-bit
+feature stream is the same in every mode.
 
 Layouts match the reference at every public field: contiguous leaves are
 ``(B, S, KV, ·)``, pool data leaves ``(P, BS, KV, ·)``, per-slot metadata
@@ -212,8 +221,8 @@ class PagedSalcaCache:
     refcount: torch.Tensor    # (P,) int32
     sel_hist: torch.Tensor    # (S, MB) int32, selected tokens per logical block
 
-    k_codes = property(lambda self: self.data["k_codes"][:-1])        # (P, BS, KV, HD) int8
-    k_scale = property(lambda self: self.data["k_scale"][:-1])        # (P, BS, KV) f32
+    k_codes = property(lambda self: self.data["k_codes"][:-1])        # (P, BS, KV, HD | HD/2)
+    k_scale = property(lambda self: self.data["k_scale"][:-1])        # (P, BS | 1, KV) f32
     v_codes = property(lambda self: self.data["v_codes"][:-1])
     v_scale = property(lambda self: self.data["v_scale"][:-1])
     feat_words = property(lambda self: self.data["feat_words"][:-1])  # (P, BS, KV, R//16)
@@ -253,11 +262,19 @@ class PagedSalcaCache:
 
     @property
     def head_dim(self) -> int:
-        return self.data["k_codes"].shape[3]
+        hd = self.data["k_codes"].shape[3]
+        return 2 * hd if self.kv_pool_dtype == "int4" else hd
 
     @property
     def kv_pool_dtype(self) -> str:
-        return "int8"
+        """K/V storage mode, inferred from the leaves: f16 codes → "fp16";
+        int8 codes with per-token scales → "int8"; with per-block scales
+        (scale dim 1; the per-block modes need block_size > 1) → "int4"."""
+        if self.data["k_codes"].dtype == torch.float16:
+            return "fp16"
+        if self.data["k_scale"].shape[1] == self.data["k_codes"].shape[1]:
+            return "int8"
+        return "int4"
 
     def valid_mask(self) -> torch.Tensor:
         """(S, L) bool: True where a real token is stored."""
@@ -337,22 +354,35 @@ def empty_paged_cache(num_blocks: int, block_size: int, slots: int,
                       max_blocks: int, kv_heads: int, head_dim: int, r: int,
                       kv_pool_dtype: str = "int8", device="cpu",
                       local_blocks: int | None = None) -> PagedSalcaCache:
-    """A pool of ``num_blocks`` blocks whose data leaves hold ``local_blocks``
-    of them (default: all; a block-sharded rank holds its ``P/n``)."""
-    if kv_pool_dtype != "int8":
-        raise NotImplementedError(
-            f"kv_pool_dtype={kv_pool_dtype!r}: the fp16/int4 pools come with the "
-            "tiered-pool slice of the port; this slice stores int8 K/V")
+    """A pool of ``num_blocks`` blocks in storage mode ``kv_pool_dtype``
+    (module docstring) whose data leaves hold ``local_blocks`` of them
+    (default: all; a block-sharded rank holds its ``P/n``)."""
     n = (num_blocks if local_blocks is None else local_blocks) + 1   # + the sink block
 
     def z(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    # K/V codes and scales by mode; fp16's unit scales are never rewritten
+    code_shape, code_dt = (n, block_size, kv_heads, head_dim), torch.int8
+    scale_shape, scale_fill = (n, 1, kv_heads), 0.0
+    if kv_pool_dtype == "int8":
+        scale_shape = (n, block_size, kv_heads)
+    elif kv_pool_dtype == "fp16":
+        assert block_size > 1, "fp16 pool needs block_size > 1 (mode inference)"
+        code_dt, scale_fill = torch.float16, 1.0
+    elif kv_pool_dtype == "int4":
+        assert block_size > 1, "int4 pool needs block_size > 1 (mode inference)"
+        assert head_dim % 2 == 0, f"head_dim {head_dim} not packable to int4"
+        code_shape = (n, block_size, kv_heads, head_dim // 2)
+    else:
+        raise ValueError(f"unknown kv_pool_dtype {kv_pool_dtype!r}")
+
+    def scale():
+        return torch.full(scale_shape, scale_fill, dtype=torch.float32, device=device)
+
     data = {
-        "k_codes": z((n, block_size, kv_heads, head_dim), torch.int8),
-        "k_scale": z((n, block_size, kv_heads), torch.float32),
-        "v_codes": z((n, block_size, kv_heads, head_dim), torch.int8),
-        "v_scale": z((n, block_size, kv_heads), torch.float32),
+        "k_codes": z(code_shape, code_dt), "k_scale": scale(),
+        "v_codes": z(code_shape, code_dt), "v_scale": scale(),
         "feat_words": z((n, block_size, kv_heads, r // qz.CODES_PER_WORD), torch.int32),
         "feat_scale": z((n, block_size, kv_heads), torch.float32),
         "feat_zero": z((n, block_size, kv_heads), torch.float32),
@@ -390,6 +420,11 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     ``pages`` (MB,) (-1 = not allocated: the write is dropped) and install
     the page table for ``slot``, which must be unmapped. In place.
 
+    The int8 K/V rows are transcoded into the pool's mode: fp16 stores the
+    dequantized rows verbatim (the unit scales stay), int4 requantizes each
+    block with one scale per kv head (`sym_quantize_axes` over the block's
+    tokens and channels).
+
     With ``block_range`` (a block-sharded rank, the prefill replicated on
     every rank) only the blocks this rank owns are written; the page table
     and refcount take the global ids everywhere."""
@@ -406,10 +441,24 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     local = _localize_pages(pages, block_range)
     sink = torch.where(local >= 0, local, pool.sink).long()
     pad = pool.max_seq - src.max_seq
-    for f in _DATA_FIELDS:
+
+    def to_blocks(f):     # (1, src_seq, KV, ·) → (MB, BS, KV, ·)
         val = getattr(src, f)[0]
         val = torch.cat([val, val.new_zeros((pad,) + val.shape[1:])], dim=0)
-        pool.data[f][sink] = val.reshape((mb, bs) + val.shape[1:])
+        return val.reshape((mb, bs) + val.shape[1:])
+
+    blocks = {f: to_blocks(f) for f in _DATA_FIELDS}
+    mode = pool.kv_pool_dtype
+    if mode != "int8":
+        for c, sc in (("k_codes", "k_scale"), ("v_codes", "v_scale")):
+            x = blocks[c].float() * blocks.pop(sc)[..., None]
+            if mode == "fp16":
+                blocks[c] = x
+            else:
+                q, scale = qz.sym_quantize_axes(x, bits=4, axes=(1, 3))
+                blocks[c], blocks[sc] = qz.pack_int4(q), scale[..., 0]    # (MB, 1, KV)
+    for f, val in blocks.items():
+        pool.data[f][sink] = val.to(pool.data[f].dtype)
     pool.heavy_idx[slot] = src.heavy_idx[0]
     pool.length[slot] = src.length[0]
     pool.page_table[slot] = pages
@@ -425,6 +474,10 @@ def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
     blocks, past the logical capacity, or into a shared block (refcount > 1)
     are dropped and the cursor holds. In place.
 
+    By mode: int8 stores the token's codes and scale; fp16 stores the raw
+    row (no scale is written); int4 requantizes the target block
+    (`_int4_block_append`).
+
     With ``block_range`` the cursor walk and the length advance run alike on
     every rank, but the data lands only on the rank owning the block."""
     s = k.shape[0]
@@ -439,13 +492,45 @@ def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
     pg = torch.where(ok & (local >= 0), local, pool.sink).long()
     off = torch.remainder(cur, bs).long()
     k8, v8, words, fs, fz = _encode_tokens(k[:, None], v[:, None], pool.heavy_idx)
-    vals = {"k_codes": k8.codes, "k_scale": k8.scale, "v_codes": v8.codes,
-            "v_scale": v8.scale, "feat_words": words, "feat_scale": fs,
-            "feat_zero": fz}
+    vals = {"feat_words": words, "feat_scale": fs, "feat_zero": fz}
+    mode = pool.kv_pool_dtype
+    if mode == "int8":
+        vals.update(k_codes=k8.codes, k_scale=k8.scale, v_codes=v8.codes, v_scale=v8.scale)
+    elif mode == "fp16":
+        vals.update(k_codes=k[:, None], v_codes=v[:, None])
+    else:
+        for c, sc, tok in (("k_codes", "k_scale", k), ("v_codes", "v_scale", v)):
+            _int4_block_append(pool.data[c], pool.data[sc], tok, pg, off)
     for f, val in vals.items():
-        pool.data[f][pg, off] = val[:, 0]
+        pool.data[f][pg, off] = val[:, 0].to(pool.data[f].dtype)
     pool.length = torch.where(ok, cur + 1, cur)
     return pool
+
+
+def _int4_block_append(codes_buf: torch.Tensor, scale_buf: torch.Tensor, tok: torch.Tensor,
+                       pg: torch.Tensor, off: torch.Tensor) -> None:
+    """One token's int4 append for K or V, in place: the target block's
+    per-head scale grows monotonically (``max(old, amax/7)``), the block's
+    stored codes are rescaled into it and the token's row is set. At
+    ``off == 0`` the scale resets to the token's own range, so a fresh or
+    reused block inherits nothing. Dropped writes (``pg`` = the sink)
+    requantize the sink, which nothing reads."""
+    m = qz.INT4_MAXABS
+    bs = codes_buf.shape[1]
+    old_codes = qz.unpack_int4(codes_buf[pg]).float()            # (S, BS, KV, HD)
+    old_scale = scale_buf[pg, 0]                                 # (S, KV)
+    t32 = tok.float()                                            # (S, KV, HD)
+    reset = (off == 0)[:, None]
+    base = torch.where(reset, torch.zeros_like(old_scale), old_scale)
+    new_scale = torch.clamp_min(torch.maximum(base, qz.div_const(t32.abs().amax(-1), m)),
+                                1e-6)
+    ratio = torch.where(reset, torch.zeros_like(old_scale), old_scale / new_scale)
+    rescaled = torch.clamp(torch.round(old_codes * ratio[:, None, :, None]), -m, m)
+    tok_codes = torch.clamp(torch.round(t32 / new_scale[..., None]), -m, m)
+    row = torch.arange(bs, device=pg.device)[None, :, None, None] == off[:, None, None, None]
+    merged = torch.where(row, tok_codes[:, None], rescaled).to(torch.int8)
+    codes_buf[pg] = qz.pack_int4(merged)
+    scale_buf[pg, 0] = new_scale
 
 
 def map_block(pool: PagedSalcaCache, slot: int, logical_block: int,
@@ -505,11 +590,46 @@ def _resolve_pages(pool: PagedSalcaCache, idx: torch.Tensor, block_range=None):
 
 def paged_logical_kv(pool: PagedSalcaCache):
     """Dequantized dense logical K/V (S, L, KV, HD) f32 — the dense oracle's
-    read of a paged pool."""
+    read of a paged pool, in every mode: int4 codes unpack first, and the
+    scale gather broadcasts whether it is per token or per block."""
     pt = pool.clamped_pages().long()
     s, l = pt.shape[0], pool.max_seq
-    k = (pool.k_codes[pt].float() * pool.k_scale[pt][..., None]).reshape(
+    unpack = qz.unpack_int4 if pool.kv_pool_dtype == "int4" else (lambda x: x)
+    k = (unpack(pool.k_codes[pt]).float() * pool.k_scale[pt][..., None]).reshape(
         s, l, pool.num_kv_heads, -1)
-    v = (pool.v_codes[pt].float() * pool.v_scale[pt][..., None]).reshape(
+    v = (unpack(pool.v_codes[pt]).float() * pool.v_scale[pt][..., None]).reshape(
         s, l, pool.num_kv_heads, -1)
     return k, v
+
+
+# One physical block's data rows in storage format (codes stay packed,
+# scales ride along): a host-spill demote → promote round trip is bit-exact.
+
+def read_block_rows(pool: PagedSalcaCache, page: int) -> tuple:
+    """The seven data-field rows of physical block ``page`` (views)."""
+    return tuple(pool.data[f][page] for f in _DATA_FIELDS)
+
+
+def write_block_rows(pool: PagedSalcaCache, page: int, rows: tuple) -> PagedSalcaCache:
+    """Install rows captured by `read_block_rows` into block ``page``. In place."""
+    for f, r in zip(_DATA_FIELDS, rows):
+        pool.data[f][page].copy_(r, non_blocking=True)
+    return pool
+
+
+def block_data_bytes(pool: PagedSalcaCache) -> int:
+    """Bytes of one physical block across the seven data fields — the unit
+    of a host-spill transfer."""
+    return sum(pool.data[f][0].numel() * pool.data[f].element_size() for f in _DATA_FIELDS)
+
+
+def paged_cache_bytes(pool: PagedSalcaCache) -> dict[str, int]:
+    """Physical bytes of the public pool by region (the sink block not
+    counted), plus the page-table, refcount and histogram overhead."""
+    def nbytes(x):
+        return x.numel() * x.element_size()
+    kv = sum(nbytes(getattr(pool, f)) for f in ("k_codes", "v_codes", "k_scale", "v_scale"))
+    feats = sum(nbytes(getattr(pool, f)) for f in ("feat_words", "feat_scale", "feat_zero"))
+    table = nbytes(pool.page_table) + nbytes(pool.refcount) + nbytes(pool.sel_hist)
+    return {"kv_region": kv, "feature_region": feats, "page_table": table,
+            "total": kv + feats + table}

@@ -1,8 +1,9 @@
 """Low-precision quantization primitives of Salca (paper §3.1), in PyTorch.
 
-Port of the reference `core/quantization.py`, restricted to what the paged
-int8 decode path uses: 2-bit asymmetric key features, 3-bit symmetric query
-features, int8 per-token K/V, uint8 score binning and 2-bit packing. Every
+Port of the reference `core/quantization.py`, restricted to what the
+decode paths use: 2-bit asymmetric key features, 3-bit symmetric query
+features, int8 per-token K/V, the tiered pool's per-block symmetric codes
+and int4 nibble packing, uint8 score binning and 2-bit packing. Every
 function reproduces the reference bit for bit on the same float32 inputs:
 `torch.round` rounds half to even like `jnp.round`, and a bf16 round trip
 rounds to nearest even like `lax.reduce_precision(·, 8, 7)`.
@@ -23,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 CODES_PER_WORD = 16
+INT4_MAXABS = 7          # 4-bit symmetric codes {-7..7} (nibble-packed)
 
 _EPS = 1e-6
 
@@ -72,6 +74,43 @@ def sym_quantize(x: torch.Tensor, bits: int) -> SymQuant:
     scale = torch.clamp_min(div_const(amax, m), _EPS)
     codes = torch.clamp(torch.round(x32 / scale), -m, m)
     return SymQuant(codes.to(torch.int8), scale.squeeze(-1))
+
+
+def sym_quantize_axes(x: torch.Tensor, bits: int,
+                      axes: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric quantization with ONE shared scale over ``axes`` (the
+    tiered pool's per-block, per-head scheme: for blocks (MB, BS, KV, HD),
+    ``axes=(1, 3)``). Returns (codes int8, scale f32) with the reduced axes
+    kept as size-1 dims."""
+    m = (1 << (bits - 1)) - 1
+    x32 = x.float()
+    amax = x32.abs().amax(dim=axes, keepdim=True)
+    scale = torch.clamp_min(div_const(amax, m), _EPS)
+    codes = torch.clamp(torch.round(x32 / scale), -m, m)
+    return codes.to(torch.int8), scale
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack int4 codes (int8 in [-7, 7], even last dim) two per byte: the
+    even channel in the low nibble, the odd one in the high nibble. The
+    byte is assembled in int16 and reinterpreted as int8, so no int8 shift
+    overflows on any device."""
+    *lead, d = codes.shape
+    assert d % 2 == 0, f"head dim {d} not divisible by 2 for int4 packing"
+    c = codes.to(torch.int16).reshape(*lead, d // 2, 2)
+    byte = ((c[..., 1] & 0x0F) << 4) | (c[..., 0] & 0x0F)        # [0, 255]
+    return byte.to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_int4`; returns int8 codes, last dim doubled. The high
+    nibble comes out sign-extended by the arithmetic shift ``b >> 4``; the
+    low one is the remainder ``b - 16·hi`` in [0, 15], sign-extended."""
+    b = packed.to(torch.int16)
+    hi = b >> 4
+    lo = b - (hi << 4)
+    lo = lo - ((lo & 8) << 1)
+    return torch.stack([lo, hi], dim=-1).reshape(*b.shape[:-1], 2 * b.shape[-1]).to(torch.int8)
 
 
 def quantize_key_features(k_feat: torch.Tensor) -> AsymQuant:

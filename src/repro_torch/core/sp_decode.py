@@ -139,9 +139,9 @@ def sp_salca_decode_paged(q: torch.Tensor, pool: PagedSalcaCache, params: SalcaP
 def sp_dense_decode_paged(q: torch.Tensor, pool: PagedSalcaCache,
                           ctx: DecodeCtx) -> torch.Tensor:
     """Dense (no selection) decode of q (S, H, HD) over a block-sharded
-    pool (global attention): each rank dequantizes only the K/V it holds
-    (unowned positions masked) and the partials merge with the same
-    online-softmax reduce."""
+    pool (global attention), in every storage mode: each rank dequantizes
+    only the K/V it holds (unowned positions masked) and the partials merge
+    with the same online-softmax reduce."""
     s_, h, hd = q.shape
     kv = pool.num_kv_heads
     n = pool.max_seq
@@ -151,8 +151,13 @@ def sp_dense_decode_paged(q: torch.Tensor, pool: PagedSalcaCache,
     valid = pool.valid_mask() & owned
     pgk, offk = pg[:, None, :].long(), off[:, None, :].long()           # (S, 1, L)
     kvb = torch.arange(kv, device=q.device)[None, :, None]              # (1, KV, 1)
-    kk = pool.k_codes[pgk, offk, kvb].float() * pool.k_scale[pgk, offk, kvb][..., None]
-    vv = pool.v_codes[pgk, offk, kvb].float() * pool.v_scale[pgk, offk, kvb][..., None]
+    kc, vc = pool.k_codes[pgk, offk, kvb], pool.v_codes[pgk, offk, kvb]
+    mode = pool.kv_pool_dtype
+    if mode == "int4":
+        kc, vc = qz.unpack_int4(kc), qz.unpack_int4(vc)
+    soff = offk if mode == "int8" else torch.zeros_like(offk)           # per-block scales
+    kk = kc.float() * pool.k_scale[pgk, soff, kvb][..., None]
+    vv = vc.float() * pool.v_scale[pgk, soff, kvb][..., None]
     qg = q.reshape(s_, kv, h // kv, hd).float()
     s = torch.einsum("bkgd,bksd->bkgs", qg, kk) / math.sqrt(hd)
     vmask = valid[:, None, None, :]

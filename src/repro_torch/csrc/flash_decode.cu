@@ -1,14 +1,21 @@
-// Kernels B2, B6 and B8: exact sparse attention over int8 K/V with
-// per-token scales, for Hopper (sm_90a).
+// Kernels B2, B6 and B8: exact sparse attention over quantized K/V, for
+// Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_decode/kernel.py::
-// sparse_flash_decode_paged_pallas (int8 branch: per-token scales). Row
+// sparse_flash_decode_paged_pallas, all three branches of its pool
+// (`_paged_step`): int8 codes with per-token scales; f16 values and packed
+// int4 codes (two signed nibbles per byte along HD, the even channel in the
+// low nibble), each with ONE scale per (block, kv head). Row
 // b = slot*KV + kv (kv = b % KV) holds G query heads; it walks its list of
 // counts[b] physical blocks pblk[b, :]. Per block: s = (q . k_int8) *
 // k_scale * 1/sqrt(HD), masked to -1e30 outside blk_mask, online softmax
 // (running max m, sum l) and acc += p * (v_int8 * v_scale), all f32; the
 // output is acc / max(l, 1e-20). Padded list entries (n >= counts[b]) are
-// never read.
+// never read. The per-block branches (template CODE = half or nibble,
+// PER_BLOCK) read the block's one scale word and multiply in the
+// reference's order, s * (k_scale * 1/sqrt(HD)); int4 nibbles are unpacked
+// in registers as they are loaded (sign-extended), so only the packed
+// bytes cross HBM.
 //
 // B6 replaces sparse_flash_decode_paged_partials_pallas: the same kernel
 // (template flag PARTIALS) stopped before the normalization, writing the
@@ -24,8 +31,9 @@
 // last run may be short); every row runs all its runs. The scale is a
 // multiply by 1/sqrt(HD), as in the TPU kernel.
 //
-// Bound on this card: bytes — the int8 K and V rows of the selected blocks
-// plus their scales, read once; the math is 4 flops per byte. Design: one
+// Bound on this card: bytes — the K and V rows of the selected blocks (1 B,
+// 2 B or 1/2 B per element) plus their scales, read once; the math is 4-16
+// flops per byte. Design: one
 // CTA per row (the loop over the row's blocks replaces the TPU's sequential
 // grid axis; nothing carries between CTAs), blockDim = HD threads. Warps
 // score tokens (a lane per channel group, shuffle reduction), scores and
@@ -34,23 +42,44 @@
 // version: a row's blocks are processed one after another, so few CTAs
 // (slots*KV) are in flight; splitting rows across CTAs is later work.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+// K/V storage of the pool (template CODE)
+constexpr int CODE_INT8 = 0;     // int8 codes, (·, HD)
+constexpr int CODE_HALF = 1;     // f16 values, (·, HD)
+constexpr int CODE_NIBBLE = 2;   // packed int4 codes, (·, HD/2) bytes
+
+// Element d of the code row starting at element `row` * HD, as f32.
+template <int CODE>
+__device__ __forceinline__ float load_code(const void* __restrict__ codes, size_t row,
+                                           int HD, int d) {
+  if (CODE == CODE_HALF) return __half2float(((const __half*)codes)[row * HD + d]);
+  if (CODE == CODE_NIBBLE) {
+    const int b = ((const int8_t*)codes)[row * (HD >> 1) + (d >> 1)];
+    const int hi = b >> 4;                        // arithmetic: sign-extended
+    const int lo = b - hi * 16;                   // [0, 15]
+    return (float)((d & 1) ? hi : lo - ((lo & 8) << 1));
+  }
+  return (float)((const int8_t*)codes)[row * HD + d];
+}
+
 // Paged (FLAT false): row b walks physical blocks pblk[b, :counts[b]] of
 // the (P, BS, KV, HD) pool at kv head b % KV; bmask is (BH, NSB, BS).
 // FLAT: row b walks its own C gathered tokens of the (BH, C, HD) arrays in
 // runs of BS (KV = 1, NSB = ceil(C / BS)); bmask is the (BH, C) mask.
-template <int G, bool PARTIALS, bool FLAT>
+// PER_BLOCK (paged only): scales are (P, 1, KV), one word per (block, kv).
+template <int G, bool PARTIALS, bool FLAT, int CODE, bool PER_BLOCK>
 __global__ void sparse_flash_decode_paged_kernel(
     const float* __restrict__ q,          // (BH, G, HD)
-    const int8_t* __restrict__ k_codes,   // (P, BS, KV, HD) | FLAT: (BH, C, HD)
-    const float* __restrict__ k_scale,    // (P, BS, KV)     | FLAT: (BH, C)
-    const int8_t* __restrict__ v_codes,   // (P, BS, KV, HD) | FLAT: (BH, C, HD)
-    const float* __restrict__ v_scale,    // (P, BS, KV)     | FLAT: (BH, C)
+    const void* __restrict__ k_codes,     // (P, BS, KV, HD | HD/2) | FLAT: (BH, C, HD)
+    const float* __restrict__ k_scale,    // (P, BS | 1, KV)        | FLAT: (BH, C)
+    const void* __restrict__ v_codes,     // (P, BS, KV, HD | HD/2) | FLAT: (BH, C, HD)
+    const float* __restrict__ v_scale,    // (P, BS | 1, KV)        | FLAT: (BH, C)
     const int32_t* __restrict__ pblk,     // (BH, NSB)       [paged]
     const int32_t* __restrict__ counts,   // (BH,)           [paged]
     const uint8_t* __restrict__ bmask,    // (BH, NSB, BS)   | FLAT: (BH, C)
@@ -83,19 +112,21 @@ __global__ void sparse_flash_decode_paged_kernel(
   const int cnt = FLAT ? NSB : counts[b];
   for (int n = 0; n < cnt; ++n) {
     // the run's first row and its token count
-    const size_t base = FLAT ? (size_t)b * C + (size_t)n * BS
-                             : (size_t)pblk[(size_t)b * NSB + n] * BS * KV + kv;
+    const size_t pb = FLAT ? 0 : (size_t)pblk[(size_t)b * NSB + n];
+    const size_t base = FLAT ? (size_t)b * C + (size_t)n * BS : pb * BS * KV + kv;
     const int nt = FLAT ? min(BS, C - n * BS) : BS;
     const uint8_t* mk = bmask + (FLAT ? (size_t)b * C : (size_t)b * NSB * BS) + (size_t)n * BS;
+    // per-block branches: the block's one scale word per kv head
+    const float ks_blk = PER_BLOCK ? k_scale[pb * KV + kv] : 0.f;
+    const float vs_blk = PER_BLOCK ? v_scale[pb * KV + kv] : 0.f;
     // scores of the run's tokens: one warp per token
     for (int t = warp; t < nt; t += nwarps) {
       const size_t row = base + t * tstride;
-      const int8_t* kr = k_codes + row * HD;
       float part[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) part[g] = 0.f;
       for (int d = lane; d < HD; d += 32) {
-        const float kd = (float)kr[d];
+        const float kd = load_code<CODE>(k_codes, row, HD, d);
         for (int g = 0; g < G; ++g) part[g] += q_sh[g * HD + d] * kd;
       }
       for (int g = 0; g < G; ++g) {
@@ -105,8 +136,11 @@ __global__ void sparse_flash_decode_paged_kernel(
         part[g] = x;
       }
       if (lane == 0) {
-        const float ks = k_scale[row];
-        for (int g = 0; g < G; ++g) p_sh[g * BS + t] = mk[t] ? part[g] * ks * scale : NEG;
+        for (int g = 0; g < G; ++g) {
+          const float sc = PER_BLOCK ? part[g] * (ks_blk * scale)    // the reference's order
+                                     : part[g] * k_scale[row] * scale;
+          p_sh[g * BS + t] = mk[t] ? sc : NEG;
+        }
       }
     }
     __syncthreads();
@@ -133,7 +167,8 @@ __global__ void sparse_flash_decode_paged_kernel(
     }
     for (int t = 0; t < nt; ++t) {
       const size_t row = base + t * tstride;
-      const float vv = (float)v_codes[row * HD + tid] * v_scale[row];
+      const float vv = load_code<CODE>(v_codes, row, HD, tid) * (PER_BLOCK ? vs_blk
+                                                                           : v_scale[row]);
       for (int g = 0; g < G; ++g) acc[g] += p_sh[g * BS + t] * vv;
     }
     __syncthreads();   // p_sh is rewritten by the next block
@@ -150,7 +185,7 @@ __global__ void sparse_flash_decode_paged_kernel(
   }
 }
 
-template <bool PARTIALS, bool FLAT>
+template <bool PARTIALS, bool FLAT, int CODE, bool PER_BLOCK>
 int launch(const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
            const void* v_scale, const void* pblk, const void* counts, const void* bmask,
            void* out, void* m_out, void* l_out, int BH, int G, int HD, int BS, int KV,
@@ -159,9 +194,10 @@ int launch(const void* q, const void* k_codes, const void* k_scale, const void* 
   const size_t smem = (size_t)(G * HD + G * BS) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
 #define B2_LAUNCH(GG)                                                              \
-  sparse_flash_decode_paged_kernel<GG, PARTIALS, FLAT><<<BH, HD, smem, st>>>(      \
-      (const float*)q, (const int8_t*)k_codes, (const float*)k_scale,              \
-      (const int8_t*)v_codes, (const float*)v_scale, (const int32_t*)pblk,         \
+  sparse_flash_decode_paged_kernel<GG, PARTIALS, FLAT, CODE, PER_BLOCK>           \
+      <<<BH, HD, smem, st>>>(                                                      \
+      (const float*)q, k_codes, (const float*)k_scale,                             \
+      v_codes, (const float*)v_scale, (const int32_t*)pblk,                        \
       (const int32_t*)counts, (const uint8_t*)bmask, (float*)out, (float*)m_out,   \
       (float*)l_out, HD, BS, KV, NSB, C, scale)
   switch (G) {
@@ -177,26 +213,47 @@ int launch(const void* q, const void* k_codes, const void* k_scale, const void* 
 
 constexpr int FLAT_RUN = 32;                // tokens per run of a B8 row
 
+// The paged kernels' branch by the pool's storage code: int8 (per-token
+// scales), half or nibble (per-block scales).
+template <bool PARTIALS>
+int launch_paged(int code, const void* q, const void* k_codes, const void* k_scale,
+                 const void* v_codes, const void* v_scale, const void* pblk, const void* counts,
+                 const void* bmask, void* out, void* m_out, void* l_out, int BH, int G, int HD,
+                 int BS, int KV, int NSB, float scale, void* stream) {
+#define B2_BRANCH(CC, PB)                                                          \
+  launch<PARTIALS, false, CC, PB>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, \
+                                  bmask, out, m_out, l_out, BH, G, HD, BS, KV, NSB,    \
+                                  NSB * BS, scale, stream)
+  switch (code) {
+    case CODE_INT8: return B2_BRANCH(CODE_INT8, false);
+    case CODE_HALF: return B2_BRANCH(CODE_HALF, true);
+    case CODE_NIBBLE: return B2_BRANCH(CODE_NIBBLE, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef B2_BRANCH
+}
+
 }  // namespace
 
+// code: 0 int8 (per-token scales), 1 f16, 2 packed int4 (per-block scales)
 extern "C" int sparse_flash_decode_paged(const void* q, const void* k_codes,
                                          const void* k_scale, const void* v_codes,
                                          const void* v_scale, const void* pblk,
                                          const void* counts, const void* bmask, void* out,
                                          int BH, int G, int HD, int BS, int KV, int NSB,
-                                         float scale, void* stream) {
-  return launch<false, false>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask,
-                              out, nullptr, nullptr, BH, G, HD, BS, KV, NSB, NSB * BS,
-                              scale, stream);
+                                         float scale, int code, void* stream) {
+  return launch_paged<false>(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts,
+                             bmask, out, nullptr, nullptr, BH, G, HD, BS, KV, NSB, scale,
+                             stream);
 }
 
 extern "C" int sparse_flash_decode_paged_partials(
     const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
     const void* v_scale, const void* pblk, const void* counts, const void* bmask, void* acc,
-    void* m, void* l, int BH, int G, int HD, int BS, int KV, int NSB, float scale,
+    void* m, void* l, int BH, int G, int HD, int BS, int KV, int NSB, float scale, int code,
     void* stream) {
-  return launch<true, false>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, acc,
-                             m, l, BH, G, HD, BS, KV, NSB, NSB * BS, scale, stream);
+  return launch_paged<true>(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask,
+                            acc, m, l, BH, G, HD, BS, KV, NSB, scale, stream);
 }
 
 extern "C" int sparse_flash_decode(const void* q, const void* k_codes, const void* k_scale,
@@ -205,7 +262,7 @@ extern "C" int sparse_flash_decode(const void* q, const void* k_codes, const voi
                                    void* stream) {
   if (C < 1) return (int)cudaErrorInvalidValue;
   const int bs = C < FLAT_RUN ? C : FLAT_RUN;
-  return launch<false, true>(q, k_codes, k_scale, v_codes, v_scale, nullptr, nullptr, mask,
+  return launch<false, true, CODE_INT8, false>(q, k_codes, k_scale, v_codes, v_scale, nullptr, nullptr, mask,
                              out, nullptr, nullptr, BH, G, HD, bs, 1, (C + bs - 1) / bs, C,
                              scale, stream);
 }

@@ -37,6 +37,16 @@
 // each CTA fences its histogram adds and takes a ticket from a per-row
 // counter, and the CTA that draws the last ticket reads the complete
 // histogram back (through L2) and runs the reverse scan.
+//
+// B10 replaces src/repro/kernels/maxpool/kernel.py::maxpool_pallas: the
+// stride-1 max-pool of (BH, N) uint8 bins on its own, zero past the row's
+// ends (the reuse tree's shift fill). B11 replaces
+// src/repro/kernels/hist_topk/kernel.py::hist_threshold_pallas: the 256-bin
+// histogram of (BH, N) uint8 bins and its reverse scan to the threshold.
+// Both are B9's stages without the binning, built from the same device
+// functions (window_max, flush_histogram, last_cta_threshold) and the same
+// CTA shape: a run of B9_RUN positions per CTA, the row's last CTA scans.
+// Bound: bytes (1 B in and 1 B out per position for B10, 1 B in for B11).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,6 +55,48 @@
 namespace {
 
 constexpr int NUM_BINS = 256;
+
+// max over the 2*HALO + 1 bins starting at b
+__device__ __forceinline__ int window_max(const int32_t* b, int HALO) {
+  int p = b[0];
+  for (int o = 1; o <= 2 * HALO; ++o) p = max(p, b[o]);
+  return p;
+}
+
+// add a CTA's shared histogram into the row's zeroed global one
+__device__ __forceinline__ void flush_histogram(const int32_t* hist_sh, int32_t* hist_row) {
+  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) {
+    if (hist_sh[i]) atomicAdd(&hist_row[i], hist_sh[i]);
+  }
+}
+
+// After flush_histogram: the row's CTA that draws the last ticket reads the
+// complete histogram back and writes the threshold, the largest bin whose
+// reverse cumulative count is at least k, never below 1. hist_sh is reused
+// as scratch. Every thread of the CTA must call it.
+__device__ void last_cta_threshold(int32_t* hist_sh, const int32_t* hist_row, int k,
+                                   unsigned int* ticket_row, int32_t* thr_row) {
+  __shared__ bool last;
+  __threadfence();                          // this CTA's adds before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket_row, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = __ldcg(&hist_row[i]);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int cum = 0, t = 0;
+    for (int b = NUM_BINS - 1; b >= 0; --b) {
+      cum += hist_sh[b];
+      if (cum >= k) {
+        t = b;
+        break;
+      }
+    }
+    *thr_row = max(t, 1);
+  }
+}
 
 __global__ void paged_fused_select_kernel(
     const float* __restrict__ scores,       // (S, KV, MB, BS)
@@ -96,17 +148,13 @@ __global__ void paged_fused_select_kernel(
     const size_t pos = (size_t)(j0 + jb) * BS + t;
     const int32_t* b = buf + jb * W + t;    // window [t - HALO, t + HALO] of the block
     int p = b[HALO];
-    if (p > 0) {
-      for (int o = 0; o <= 2 * HALO; ++o) p = max(p, b[o]);
-    }
+    if (p > 0) p = window_max(b, HALO);
     if (force[(size_t)s * MB * BS + pos] && blk_valid[(size_t)s * MB * BS + pos]) p = 255;
     pooled[(size_t)row * MB * BS + pos] = (uint8_t)p;
     atomicAdd(&hist_sh[p], 1);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) {
-    if (hist_sh[i]) atomicAdd(&hist[(size_t)row * NUM_BINS + i], hist_sh[i]);
-  }
+  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
 }
 
 constexpr int B9_THREADS = 256;
@@ -133,7 +181,6 @@ __global__ void fused_bin_pool_threshold_kernel(
   extern __shared__ int32_t fsh[];
   int32_t* hist_sh = fsh;                   // (256)
   int32_t* buf = fsh + NUM_BINS;            // (HALO + run + HALO) bins
-  __shared__ bool last;
   const int row = blockIdx.y;
   const int c0 = blockIdx.x * B9_RUN;
   const int nb = min(B9_RUN, N - c0);
@@ -148,38 +195,52 @@ __global__ void fused_bin_pool_threshold_kernel(
   __syncthreads();
   for (int e = threadIdx.x; e < nb; e += blockDim.x) {
     int p = buf[HALO + e];
-    if (p > 0) {
-      for (int o = 0; o <= 2 * HALO; ++o) p = max(p, buf[e + o]);
-    }
+    if (p > 0) p = window_max(buf + e, HALO);
     pooled[(size_t)row * N + c0 + e] = (uint8_t)p;
     atomicAdd(&hist_sh[p], 1);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) {
-    if (hist_sh[i]) atomicAdd(&hist[(size_t)row * NUM_BINS + i], hist_sh[i]);
+  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
+  last_cta_threshold(hist_sh, hist + (size_t)row * NUM_BINS, k[row], ticket + row, thr + row);
+}
+
+// B10: pooled[r, n] = max(bins[r, n - HALO .. n + HALO]), 0 past the ends
+__global__ void maxpool_u8_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
+                                  uint8_t* __restrict__ pooled,      // (BH, N)
+                                  int N, int HALO) {
+  extern __shared__ int32_t msh[];          // (HALO + run + HALO) bins
+  const int row = blockIdx.y;
+  const int c0 = blockIdx.x * B9_RUN;
+  const int nb = min(B9_RUN, N - c0);
+  const uint8_t* x = bins + (size_t)row * N;
+  for (int e = threadIdx.x; e < nb + 2 * HALO; e += blockDim.x) {
+    const int p = c0 - HALO + e;
+    msh[e] = (p >= 0 && p < N) ? x[p] : 0;
   }
-  __threadfence();                          // this CTA's adds before its ticket
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&ticket[row], 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) {
-    hist_sh[i] = __ldcg(&hist[(size_t)row * NUM_BINS + i]);
+  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
+    pooled[(size_t)row * N + c0 + e] = (uint8_t)window_max(msh + e, HALO);
   }
+}
+
+// B11: hist[r] = the 256-bin histogram of bins[r], thr[r] its threshold for k[r]
+__global__ void hist_threshold_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
+                                      const int32_t* __restrict__ k,     // (BH,)
+                                      int32_t* __restrict__ hist,        // (BH, 256), zeroed
+                                      int32_t* __restrict__ thr,         // (BH,)
+                                      unsigned int* __restrict__ ticket, // (BH,), zeroed
+                                      int N) {
+  __shared__ int32_t hist_sh[NUM_BINS];
+  const int row = blockIdx.y;
+  const int c0 = blockIdx.x * B9_RUN;
+  const int nb = min(B9_RUN, N - c0);
+  const uint8_t* x = bins + (size_t)row * N + c0;
+  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int kk = k[row];
-    int cum = 0, t = 0;
-    for (int b = NUM_BINS - 1; b >= 0; --b) {
-      cum += hist_sh[b];
-      if (cum >= kk) {
-        t = b;
-        break;
-      }
-    }
-    thr[row] = max(t, 1);
-  }
+  for (int e = threadIdx.x; e < nb; e += blockDim.x) atomicAdd(&hist_sh[x[e]], 1);
+  __syncthreads();
+  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
+  last_cta_threshold(hist_sh, hist + (size_t)row * NUM_BINS, k[row], ticket + row, thr + row);
 }
 
 }  // namespace
@@ -212,5 +273,25 @@ extern "C" int fused_bin_pool_threshold(const void* scores, const void* lo, cons
       (const float*)scores, (const float*)lo, (const float*)hi, (const int32_t*)k,
       (const int32_t*)lengths, (uint8_t*)pooled, (int32_t*)hist, (int32_t*)thr,
       (unsigned int*)ticket, N, HALO);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int maxpool_u8(const void* bins, void* pooled, int BH, int N, int HALO,
+                          void* stream) {
+  if (HALO < 1 || HALO > B9_RUN || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + B9_RUN - 1) / B9_RUN, BH);
+  const size_t smem = ((size_t)B9_RUN + 2 * HALO) * sizeof(int32_t);
+  maxpool_u8_kernel<<<grid, B9_THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, (uint8_t*)pooled, N, HALO);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hist_threshold(const void* bins, const void* k, void* hist, void* thr,
+                              void* ticket, int BH, int N, void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + B9_RUN - 1) / B9_RUN, BH);
+  hist_threshold_kernel<<<grid, B9_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, (const int32_t*)k, (int32_t*)hist, (int32_t*)thr,
+      (unsigned int*)ticket, N);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
-"""Kernels B2, B6 and B8: exact sparse attention over int8 K/V, their plain
-PyTorch versions, and the paged front-ends.
+"""Kernels B2, B6 and B8: exact sparse attention over quantized K/V, their
+plain PyTorch versions, and the paged front-ends.
 
-B2 replaces `repro/kernels/flash_decode/kernel.py::sparse_flash_decode_paged_pallas`
-(int8 branch). Each row b = slot·KV + kv walks its list of ``counts[b]``
-physical blocks; per block: int8 K·q dot, per-token scale and 1/sqrt(HD),
-the selection mask, online softmax and the V sum, all in f32, normalised
-with ``max(l, 1e-20)``. B6 replaces `sparse_flash_decode_paged_partials_pallas`:
+B2 replaces `repro/kernels/flash_decode/kernel.py::sparse_flash_decode_paged_pallas`.
+Each row b = slot·KV + kv walks its list of ``counts[b]`` physical blocks;
+per block: K·q dot, scale and 1/sqrt(HD), the selection mask, online
+softmax and the V sum, all in f32, normalised with ``max(l, 1e-20)``. The
+pool's three storage modes are three branches of one kernel: int8 codes
+with per-token scales (``s * ks * scale``), and f16 values or packed int4
+codes with one scale per (block, kv head) (``s * (ks * scale)``, the
+reference's order). B6 replaces `sparse_flash_decode_paged_partials_pallas`:
 the same walk stopped before the normalisation, returning the online-softmax
 state (acc, m, l) a block-sharded rank contributes to the cross-rank merge.
 B8 replaces `sparse_flash_decode_pallas`: the same math over rows already
@@ -13,6 +16,8 @@ gathered into (BH, C, ·) arrays (the contiguous tick), scaled by a multiply
 with 1/sqrt(HD) as the TPU kernel does.
 
 CUDA source of all three: ``repro_torch/csrc/flash_decode.cu`` (one template).
+Launch counters: ``sparse_flash_decode_paged`` / ``…_partials`` for the
+int8 branch, with ``[fp16]`` or ``[int4]`` appended for the others.
 """
 
 from __future__ import annotations
@@ -23,34 +28,58 @@ import torch
 
 from repro_torch.core.cache import _localize_pages
 from repro_torch.core.histogram_topk import compact_indices
+from repro_torch.core.quantization import unpack_int4
 from repro_torch.kernels import common
 
 NEG_INF = -1e30
 GROUPS = (1, 2, 4, 8)    # query heads per kv head the CUDA kernel is built for
+CODES = {"int8": 0, "fp16": 1, "int4": 2}   # the kernel's storage branch
 
 
-def sparse_flash_decode_paged_plain(q, k_codes, k_scale, v_codes, v_scale, pblk,
-                                    blk_mask, num_kv: int) -> torch.Tensor:
-    """Plain version (mirrors the reference `sparse_flash_decode_paged_ref`):
-    gather each row's listed blocks, then softmax attention over the
-    flattened (BH, NSB·BS) stream with the block masks."""
+def _counter(name: str, kv_dtype: str) -> str:
+    return name if kv_dtype == "int8" else f"{name}[{kv_dtype}]"
+
+
+def _paged_scores_plain(q, k_codes, k_scale, v_codes, v_scale, pblk, blk_mask, num_kv,
+                        kv_dtype):
+    """The plain versions' shared front: gather each row's listed blocks
+    (int4 unpacked, per-block scales broadcast over the block's tokens) and
+    score them. Returns (masked scores (BH, G, C), V (BH, C, HD) f32, mask
+    (BH, 1, C)) over the flattened (BH, NSB·BS) stream."""
     bh, g, hd = q.shape
     bs = k_codes.shape[1]
     nsb = pblk.shape[1]
     kvb = (torch.arange(bh, device=q.device) % num_kv)[:, None, None]
     tok = torch.arange(bs, device=q.device)[None, None, :]
     pb = pblk.long()[:, :, None]
-    kc = k_codes[pb, tok, kvb].reshape(bh, nsb * bs, hd).float()
-    vc = v_codes[pb, tok, kvb].reshape(bh, nsb * bs, hd).float()
-    ks = k_scale[pb, tok, kvb].reshape(bh, nsb * bs)
-    vs = v_scale[pb, tok, kvb].reshape(bh, nsb * bs)
+    kc, vc = k_codes[pb, tok, kvb], v_codes[pb, tok, kvb]
+    if kv_dtype == "int4":
+        kc, vc = unpack_int4(kc), unpack_int4(vc)
+    kc = kc.reshape(bh, nsb * bs, hd).float()
+    vc = vc.reshape(bh, nsb * bs, hd).float()
+    stok = tok if kv_dtype == "int8" else torch.zeros_like(tok)
+    ks = k_scale[pb, stok, kvb].reshape(bh, nsb * bs)
+    vs = v_scale[pb, stok, kvb].reshape(bh, nsb * bs)
     mask = blk_mask.reshape(bh, 1, nsb * bs)
-    s = torch.einsum("bgd,bcd->bgc", q.float(), kc) * ks[:, None, :] / math.sqrt(hd)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = torch.einsum("bgd,bcd->bgc", q.float(), kc)
+    if kv_dtype == "int8":
+        s = s * ks[:, None, :] / math.sqrt(hd)
+    else:
+        s = s * (ks[:, None, :] * (1.0 / math.sqrt(hd)))     # the kernels' per-block order
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), vc * vs[..., None], mask
+
+
+def sparse_flash_decode_paged_plain(q, k_codes, k_scale, v_codes, v_scale, pblk,
+                                    blk_mask, num_kv: int,
+                                    kv_dtype: str = "int8") -> torch.Tensor:
+    """Plain version (mirrors the reference `sparse_flash_decode_paged_ref`):
+    gather each row's listed blocks, then softmax attention over the
+    flattened (BH, NSB·BS) stream with the block masks."""
+    s, v, mask = _paged_scores_plain(q, k_codes, k_scale, v_codes, v_scale, pblk, blk_mask,
+                                     num_kv, kv_dtype)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = torch.where(mask, p, torch.zeros_like(p))
     l = p.sum(-1, keepdim=True)
-    v = vc * vs[..., None]
     return torch.einsum("bgc,bcd->bgd", p, v) / torch.clamp_min(l, 1e-20)
 
 
@@ -99,20 +128,26 @@ def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Te
 
 
 def _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, blk_mask,
-                       num_kv):
-    """Validate the CUDA operands shared by B2 and B6; returns (BH, G, HD)."""
+                       num_kv, kv_dtype):
+    """Validate the CUDA operands shared by B2 and B6 in pool mode
+    ``kv_dtype``; returns (BH, G, HD)."""
     bh, g, hd = q.shape
     p, bs = k_codes.shape[:2]
     nsb = pblk.shape[1]
     dev = q.device
+    if kv_dtype not in CODES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     if hd % 32 or hd > 1024 or g not in GROUPS:
         raise ValueError(f"kernels B2/B6 need HD a multiple of 32 (≤1024) and G in "
                          f"{GROUPS}; got HD={hd}, G={g}")
+    code_dt = torch.float16 if kv_dtype == "fp16" else torch.int8
+    code_shape = (p, bs, num_kv, hd // 2 if kv_dtype == "int4" else hd)
+    scale_shape = (p, bs if kv_dtype == "int8" else 1, num_kv)
     common.require(q, "q", torch.float32, (bh, g, hd), dev)
-    common.require(k_codes, "k_codes", torch.int8, (p, bs, num_kv, hd), dev)
-    common.require(k_scale, "k_scale", torch.float32, (p, bs, num_kv), dev)
-    common.require(v_codes, "v_codes", torch.int8, (p, bs, num_kv, hd), dev)
-    common.require(v_scale, "v_scale", torch.float32, (p, bs, num_kv), dev)
+    common.require(k_codes, "k_codes", code_dt, code_shape, dev)
+    common.require(k_scale, "k_scale", torch.float32, scale_shape, dev)
+    common.require(v_codes, "v_codes", code_dt, code_shape, dev)
+    common.require(v_scale, "v_scale", torch.float32, scale_shape, dev)
     common.require(pblk, "pblk", torch.int32, (bh, nsb), dev)
     common.require(counts, "counts", torch.int32, (bh,), dev)
     common.require(blk_mask, "blk_mask", torch.bool, (bh, nsb, bs), dev)
@@ -122,54 +157,41 @@ def _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, blk_
 def sparse_flash_decode_paged_kernel(q, k_codes, k_scale, v_codes, v_scale, pblk,
                                      counts, blk_mask, num_kv: int,
                                      kv_dtype: str = "int8") -> torch.Tensor:
-    """q (BH, G, HD) f32 with BH = slots·KV (kv = row % KV); k/v codes
-    (P, BS, KV, HD) int8 + scales (P, BS, KV) f32; pblk (BH, NSB) int32;
-    counts (BH,) int32; blk_mask (BH, NSB, BS) bool → (BH, G, HD) f32.
-    CPU tensors take the plain version; CUDA tensors launch kernel B2."""
-    if kv_dtype != "int8":
-        raise NotImplementedError(
-            f"kernel B2 has no {kv_dtype!r} branch yet (fp16/int4 pools come with "
-            "the tiered-pool slice)")
+    """q (BH, G, HD) f32 with BH = slots·KV (kv = row % KV); the pool's K/V
+    in mode ``kv_dtype``: int8 codes (P, BS, KV, HD) + scales (P, BS, KV),
+    f16 values (P, BS, KV, HD) or packed int4 codes (P, BS, KV, HD/2) +
+    scales (P, 1, KV); pblk (BH, NSB) int32; counts (BH,) int32; blk_mask
+    (BH, NSB, BS) bool → (BH, G, HD) f32. CPU tensors take the plain
+    version; CUDA tensors launch kernel B2's branch for the mode."""
     if q.device.type == "cpu":
         return sparse_flash_decode_paged_plain(q, k_codes, k_scale, v_codes, v_scale,
-                                               pblk, blk_mask, num_kv)
+                                               pblk, blk_mask, num_kv, kv_dtype)
     bh, g, hd = _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts,
-                                   blk_mask, num_kv)
+                                   blk_mask, num_kv, kv_dtype)
     out = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
     fn = common.load("flash_decode", "sparse_flash_decode_paged",
-                     [common.P] * 9 + [common.I] * 6 + [common.F, common.P])
+                     [common.P] * 9 + [common.I] * 6 + [common.F, common.I, common.P])
     err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
              v_scale.data_ptr(), pblk.data_ptr(), counts.data_ptr(),
              blk_mask.data_ptr(), out.data_ptr(), bh, g, hd, k_codes.shape[1], num_kv,
-             pblk.shape[1], 1.0 / math.sqrt(hd), common.stream_ptr(out))
-    common.check(err, "sparse_flash_decode_paged")
-    common.LAUNCHES["sparse_flash_decode_paged"] += 1
+             pblk.shape[1], 1.0 / math.sqrt(hd), CODES[kv_dtype], common.stream_ptr(out))
+    name = _counter("sparse_flash_decode_paged", kv_dtype)
+    common.check(err, name)
+    common.LAUNCHES[name] += 1
     return out
 
 
 def sparse_flash_decode_paged_partials_plain(q, k_codes, k_scale, v_codes, v_scale, pblk,
-                                             blk_mask, num_kv: int):
+                                             blk_mask, num_kv: int, kv_dtype: str = "int8"):
     """Plain version (mirrors the reference `sparse_flash_decode_paged_partials_ref`):
     the gather of `sparse_flash_decode_paged_plain`, then the unnormalised
     softmax state. Rows with nothing selected give (0, NEG_INF, 0)."""
-    bh, g, hd = q.shape
-    bs = k_codes.shape[1]
-    nsb = pblk.shape[1]
-    kvb = (torch.arange(bh, device=q.device) % num_kv)[:, None, None]
-    tok = torch.arange(bs, device=q.device)[None, None, :]
-    pb = pblk.long()[:, :, None]
-    kc = k_codes[pb, tok, kvb].reshape(bh, nsb * bs, hd).float()
-    vc = v_codes[pb, tok, kvb].reshape(bh, nsb * bs, hd).float()
-    ks = k_scale[pb, tok, kvb].reshape(bh, nsb * bs)
-    vs = v_scale[pb, tok, kvb].reshape(bh, nsb * bs)
-    mask = blk_mask.reshape(bh, 1, nsb * bs)
-    s = torch.einsum("bgd,bcd->bgc", q.float(), kc) * ks[:, None, :] / math.sqrt(hd)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s, v, mask = _paged_scores_plain(q, k_codes, k_scale, v_codes, v_scale, pblk, blk_mask,
+                                     num_kv, kv_dtype)
     m = s.amax(-1)                     # all-masked rows: exactly NEG_INF
     p = torch.exp(s - m[..., None])
     p = torch.where(mask, p, torch.zeros_like(p))
-    acc = torch.einsum("bgc,bcd->bgd", p, vc * vs[..., None])
-    return acc, m, p.sum(-1)
+    return torch.einsum("bgc,bcd->bgd", p, v), m, p.sum(-1)
 
 
 def sparse_flash_decode_paged_partials_kernel(q, k_codes, k_scale, v_codes, v_scale, pblk,
@@ -177,27 +199,26 @@ def sparse_flash_decode_paged_partials_kernel(q, k_codes, k_scale, v_codes, v_sc
                                               kv_dtype: str = "int8"):
     """B2's operands → (acc (BH, G, HD), m (BH, G), l (BH, G)) f32, the
     unnormalised online-softmax state. CPU tensors take the plain version;
-    CUDA tensors launch kernel B6."""
-    if kv_dtype != "int8":
-        raise NotImplementedError(
-            f"kernel B6 has no {kv_dtype!r} branch yet (fp16/int4 pools come with "
-            "the tiered-pool slice)")
+    CUDA tensors launch kernel B6's branch for the pool mode ``kv_dtype``."""
     if q.device.type == "cpu":
         return sparse_flash_decode_paged_partials_plain(q, k_codes, k_scale, v_codes,
-                                                        v_scale, pblk, blk_mask, num_kv)
+                                                        v_scale, pblk, blk_mask, num_kv,
+                                                        kv_dtype)
     bh, g, hd = _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts,
-                                   blk_mask, num_kv)
+                                   blk_mask, num_kv, kv_dtype)
     acc = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, g), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, g), dtype=torch.float32, device=q.device)
     fn = common.load("flash_decode", "sparse_flash_decode_paged_partials",
-                     [common.P] * 11 + [common.I] * 6 + [common.F, common.P])
+                     [common.P] * 11 + [common.I] * 6 + [common.F, common.I, common.P])
     err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
              v_scale.data_ptr(), pblk.data_ptr(), counts.data_ptr(), blk_mask.data_ptr(),
              acc.data_ptr(), m.data_ptr(), l.data_ptr(), bh, g, hd, k_codes.shape[1],
-             num_kv, pblk.shape[1], 1.0 / math.sqrt(hd), common.stream_ptr(acc))
-    common.check(err, "sparse_flash_decode_paged_partials")
-    common.LAUNCHES["sparse_flash_decode_paged_partials"] += 1
+             num_kv, pblk.shape[1], 1.0 / math.sqrt(hd), CODES[kv_dtype],
+             common.stream_ptr(acc))
+    name = _counter("sparse_flash_decode_paged_partials", kv_dtype)
+    common.check(err, name)
+    common.LAUNCHES[name] += 1
     return acc, m, l
 
 

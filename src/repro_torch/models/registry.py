@@ -22,6 +22,9 @@ class ModelAPI(NamedTuple):
     write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx) -> pool
     map_block: Callable[..., Any]          # (pool, slot, logical_block, page) -> pool
     reset_slot: Callable[..., Any]         # (pool, slot) -> pool, contiguous or paged
+    read_block: Callable[..., Any]         # (pool, page) -> payload (storage format)
+    write_block: Callable[..., Any]        # (pool, page, payload) -> pool
+    selection_hist: Callable[..., Any]     # (pool) -> (slots, MB) int32
 
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
@@ -56,4 +59,6 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 
     return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
                     init_paged_state, transformer.lm_write_into_slot,
-                    transformer.lm_map_block, transformer.lm_reset_slot)
+                    transformer.lm_map_block, transformer.lm_reset_slot,
+                    transformer.lm_read_block, transformer.lm_write_block,
+                    transformer.lm_selection_hist)

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
     PagedSalcaCache, empty_cache, empty_paged_cache, free_pages, map_block, prefill_into_pages,
-    reset_slot, write_prefill_into_slot)
+    read_block_rows, reset_slot, write_block_rows, write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -56,8 +56,9 @@ def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState
 
 def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: int,
                         num_blocks: int, device, ctx: DecodeCtx | None = None) -> LMState:
-    """Pooled decode state: one paged block pool per layer. With ``ctx``
-    each pool holds only this rank's ``num_blocks / world_size`` blocks."""
+    """Pooled decode state: one paged block pool per layer, storing K/V in
+    ``cfg.kv_pool_dtype`` (the engine's knob). With ``ctx`` each pool holds
+    only this rank's ``num_blocks / world_size`` blocks."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
     max_blocks = -(-max_seq // block_size)
     local = None
@@ -97,6 +98,29 @@ def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMS
     for c in pool.caches:
         map_block(c, slot, logical_block, page)
     return pool
+
+
+def lm_read_block(pool: LMState, page: int) -> tuple:
+    """Host-spill transport, read side: the data rows of physical block
+    ``page`` in every layer's pool, in storage format (views; the caller
+    copies them out), one tuple of seven per layer."""
+    return tuple(read_block_rows(c, page) for c in pool.caches)
+
+
+def lm_write_block(pool: LMState, page: int, payload: tuple) -> LMState:
+    """Host-spill transport, write side: install a payload captured by
+    `lm_read_block` into block ``page`` of every layer. Data only; the page
+    tables and refcounts are `lm_map_block`'s. In place."""
+    for c, rows in zip(pool.caches, payload):
+        write_block_rows(c, page, rows)
+    return pool
+
+
+def lm_selection_hist(pool: LMState) -> torch.Tensor:
+    """Cumulative selected-token counts per (slot, logical block), summed
+    over the layers — the signal of the host-spill demotion policy.
+    Returns (slots, MB) int32."""
+    return torch.stack([c.sel_hist for c in pool.caches]).sum(0, dtype=torch.int32)
 
 
 def lm_reset_slot(pool: LMState, slot: int) -> LMState:

@@ -15,6 +15,7 @@ Tasks:
 """
 
 import dataclasses
+import os
 import pathlib
 import sys
 
@@ -83,9 +84,14 @@ def main() -> int:
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
-    dist.destroy_process_group()
+    dist.barrier()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no process-group teardown: under load, gloo's teardown can abort a rank
+    # whose peer closed its sockets first, after both results were written
+    os._exit(code)

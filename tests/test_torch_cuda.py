@@ -1,4 +1,5 @@
-"""Card-only checks of the port's CUDA kernels (B1-B9) against their plain versions.
+"""Card-only checks of the port's CUDA kernels (B1-B11, B2/B6's storage
+branches) against their plain versions.
 
 Marked ``cuda``: they skip on a machine without a CUDA device and run on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -285,3 +286,119 @@ def test_b9_kernel_bitwise(dev, bh, n, window):
     for t, p in zip(fused_bin_pool_threshold(*args, window=window),
                     fused_bin_pool_threshold_plain(*args, window=window)):
         assert torch.equal(t, p)
+
+
+def _mode_pools(mode, dev, seed=7, slots=3, max_seq=128, bs=16, lengths=(40, 0, 100)):
+    """A pool in storage mode ``mode`` built on the CPU from prefills over
+    scrambled blocks, and the same pool copied to the card."""
+    import dataclasses
+
+    from repro_torch.core import cache as tc
+    from repro_torch.core.selection import SalcaParams
+    gen = torch.Generator().manual_seed(seed)
+    mb = max_seq // bs
+    cpu = tc.empty_paged_cache(slots * mb, bs, slots, mb, 2, 32, 16, kv_pool_dtype=mode)
+    perm = torch.randperm(slots * mb, generator=gen).to(torch.int32)
+    for s, n in enumerate(lengths):
+        if n:
+            need = -(-n // bs)
+            k, v = (torch.randn((1, n, 2, 32), generator=gen) for _ in range(2))
+            src = tc.prefill_cache(k, v, max_seq=max_seq, params=SalcaParams(k=24, k_cap=48))
+            pages = torch.full((mb,), -1, dtype=torch.int32)
+            pages[:need] = perm[s * mb: s * mb + need]
+            tc.prefill_into_pages(cpu, src, s, pages)
+    card = dataclasses.replace(
+        cpu, data={f: t.to(dev) for f, t in cpu.data.items()},
+        **{f: getattr(cpu, f).to(dev) for f in ("heavy_idx", "length", "page_table",
+                                                 "refcount", "sel_hist")})
+    return cpu, card, perm
+
+
+@pytest.mark.parametrize("mode", ["fp16", "int4"])
+def test_b2_b6_per_block_branches_match_plain(dev, mode):
+    """B2's and B6's fp16/int4 branches (f16 values or nibbles unpacked in
+    the kernel, one scale word per block) against their plain versions on
+    the same card inputs, with the launch counted under the branch's name."""
+    from repro_torch.core.attention import salca_decode_attention_paged
+    from repro_torch.core.selection import SalcaParams
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_decode.ops import (
+        _selected_block_plan, sparse_flash_decode_paged_kernel,
+        sparse_flash_decode_paged_partials_kernel, sparse_flash_decode_paged_partials_plain,
+        sparse_flash_decode_paged_plain)
+    _, pool, _ = _mode_pools(mode, dev)
+    q = torch.randn((3, 4, 32), generator=torch.Generator(device=dev).manual_seed(8),
+                    device=dev)
+    _, sel = salca_decode_attention_paged(q, pool, SalcaParams(k=24, k_cap=48),
+                                          return_selection=True)
+    pblk, counts, bmask = _selected_block_plan(pool, sel)
+    ops = (q.reshape(6, 2, 32), pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk)
+    n0 = LAUNCHES[f"sparse_flash_decode_paged[{mode}]"]
+    out = sparse_flash_decode_paged_kernel(*ops, counts, bmask, 2, mode)
+    assert LAUNCHES[f"sparse_flash_decode_paged[{mode}]"] == n0 + 1
+    torch.testing.assert_close(out, sparse_flash_decode_paged_plain(*ops, bmask, 2, mode),
+                               rtol=1e-5, atol=1e-5)
+    got = sparse_flash_decode_paged_partials_kernel(*ops, counts, bmask, 2, mode)
+    want = sparse_flash_decode_paged_partials_plain(*ops, bmask, 2, mode)
+    # acc's rounding scales with sum(p·|v|) (see test_b6_kernel_matches_plain)
+    from repro_torch.core.quantization import pack_int4, unpack_int4
+    vabs = ops[3].abs() if mode == "fp16" else pack_int4(unpack_int4(ops[3]).abs())
+    mag = sparse_flash_decode_paged_partials_plain(*ops[:3], vabs, *ops[4:], bmask, 2, mode)[0]
+    empty = counts == 0
+    for t, p, scale in zip(got, want, (mag, want[1].abs(), want[2])):
+        assert torch.equal(t[empty], p[empty])
+        assert ((t - p).abs()[~empty] <= 1e-5 + 1e-5 * scale[~empty]).all()
+
+
+@pytest.mark.parametrize("bh,n,window,k", [(1, 512, 3, 16), (2, 4096, 7, 200),
+                                           (3, 8192, 11, 1024), (32, 8192, 7, 409),
+                                           (2, 1000, 7, 5000)])
+def test_b10_b11_kernels_bitwise(dev, bh, n, window, k):
+    """B10 (max-pool) and B11 (histogram + threshold) equal their plain
+    versions bit for bit, a ragged last run (N = 1000) and a k above N
+    (threshold clamped to 1) included."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.hist_topk.ops import hist_threshold, hist_threshold_plain
+    from repro_torch.kernels.maxpool.ops import maxpool_int8, maxpool_int8_plain
+    bins = torch.randint(0, 256, (bh, n), generator=torch.Generator(device=dev).manual_seed(9),
+                         device=dev, dtype=torch.uint8)
+    n0 = dict(LAUNCHES)
+    assert torch.equal(maxpool_int8(bins, window), maxpool_int8_plain(bins, window))
+    kk = torch.full((bh,), k, dtype=torch.int32, device=dev)
+    for t, p in zip(hist_threshold(bins, k), hist_threshold_plain(bins, kk)):
+        assert torch.equal(t, p)
+    assert LAUNCHES["maxpool_int8"] == n0.get("maxpool_int8", 0) + 1
+    assert LAUNCHES["hist_threshold"] == n0.get("hist_threshold", 0) + 1
+
+
+def test_int4_pack_and_append_on_card_bitwise_equals_cpu(dev):
+    """Nibble packing over the full code range and every byte, and the int4
+    pool's prefill transcode and block append (scale growth, rescale,
+    resets at fresh blocks, a dropped write into the sink) give the same
+    bits on the card as on the CPU (where they match the reference)."""
+    from repro_torch.core import cache as tc
+    from repro_torch.core import quantization as qz
+    c = torch.arange(-7, 8, dtype=torch.int8)
+    codes = torch.stack([c.repeat_interleave(15), c.repeat(15)], -1).reshape(3, 150)
+    every = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8).reshape(2, 128)
+    assert torch.equal(qz.pack_int4(codes.to(dev)).cpu(), qz.pack_int4(codes))
+    assert torch.equal(qz.unpack_int4(every.to(dev)).cpu(), qz.unpack_int4(every))
+    cpu, card, perm = _mode_pools("int4", dev)
+    gen = torch.Generator().manual_seed(10)
+    cpu.length[1] = -1                      # a masked slot: its writes go to the sink
+    card.length[1] = -1
+    fresh = perm[8:10].tolist()             # slot 1's unused blocks
+    for i in range(30):
+        k, v = (torch.randn((3, 2, 32), generator=gen) * (4.0 if i % 5 == 2 else 0.5)
+                for _ in range(2))
+        cur = int(cpu.length[0])
+        if cur % 16 == 0 and int(cpu.page_table[0, cur // 16]) < 0:
+            b = fresh.pop(0)
+            tc.map_block(cpu, 0, cur // 16, b)
+            tc.map_block(card, 0, cur // 16, b)
+        tc.append_token_paged(cpu, k, v)
+        tc.append_token_paged(card, k.to(dev), v.to(dev))
+    for f in cpu.data:
+        assert torch.equal(card.data[f][:-1].cpu(), cpu.data[f][:-1]), f
+    for f in ("length", "page_table", "refcount"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f

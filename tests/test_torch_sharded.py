@@ -472,17 +472,23 @@ def test_allocator_matches_reference_pop_order(n_shards):
 
 
 def test_ctx_validation(engine_weights, world1):
-    """An uneven split, a mismatched backend and the knobs of later slices
-    raise; so does a multi-rank world without a store."""
+    """An uneven split, a mismatched backend, host spill over more than one
+    rank and the knobs of later slices raise; so does a multi-rank world
+    without a store."""
     _, tp = engine_weights
     three = DecodeCtx(world1.group, 0, 3, "gloo")
     with pytest.raises(ValueError, match="divide evenly"):
         TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, num_blocks=8, device="cpu",
                 ctx=three)
-    for kw in ({"prefix_sharing": True}, {"host_spill": True}, {"kv_pool_dtype": "int4"}):
-        with pytest.raises(NotImplementedError):
-            TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, device="cpu", ctx=world1,
-                    **kw)
+    with pytest.raises(NotImplementedError):
+        TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, device="cpu", ctx=world1,
+                prefix_sharing=True)
+    # the reference's rule: host spill needs selection histograms, which the
+    # island does not record, so a pool over more than one rank refuses it
+    two = DecodeCtx(world1.group, 0, 2, "gloo")
+    with pytest.raises(ValueError, match="host_spill"):
+        TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, num_blocks=8, device="cpu",
+                ctx=two, host_spill=True)
     with pytest.raises(RuntimeError, match="nccl"):
         pmin(torch.zeros(3), world1._replace(backend="nccl"))
     with pytest.raises(ValueError, match="store"):
