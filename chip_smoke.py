@@ -14,9 +14,13 @@ Phases (any failure raises and the script exits non-zero):
    bounds and B5 bin/pool/histogram: bit-identical; B2 sparse decode
    attention and B6 its unnormalised partials: f32, in each of the pool's
    storage branches int8, fp16 and int4; B3 causal prefill attention:
-   bf16), the contiguous tick's (B7 flat scores in both of its chains and
+   bf16 on the tensor cores, with its TFLOP/s, its time over SDPA's and
+   the count of HMMA/HGMMA lines in its library's SASS, which must not be
+   0), the contiguous tick's (B7 flat scores in both of its chains and
    B9 bin/pool/histogram/threshold: bit-identical; B8 sparse decode
-   attention over gathered rows: f32), and B10 (max-pool) and B11
+   attention over gathered rows, split over output channels: f32, with
+   SDPA over the dequantized rows as its yardstick, timed without and
+   with the dequantization), and B10 (max-pool) and B11
    (histogram + threshold), bit-identical, driven once through their
    public entry points; then check the whole serving path on a small
    input — paged, contiguous, a fp16 pool, and an int4 pool with the host
@@ -52,6 +56,7 @@ from __future__ import annotations
 
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -128,6 +133,46 @@ def kernel_ms(fn, kernel_name: str, iters: int) -> float:
         raise RuntimeError(f"the profiler recorded no device time for {kernel_name}")
     # per recorded launch: the trace can miss some of the ``iters`` launches
     return total_us / launches / 1e3
+
+
+def kernel_ctas(fn, kernel_name: str) -> int:
+    """CTAs of one launch of the CUDA kernel named ``kernel_name``: the
+    product of the grid that the profiler's trace records for it. Raises
+    when the trace holds no such launch or no grid."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    grids = [e["args"]["grid"] for e in events
+             if str(e.get("cat", "")).lower() == "kernel" and kernel_name in e.get("name", "")
+             and "grid" in e.get("args", {})]
+    if not grids:
+        raise RuntimeError(f"the profiler's trace holds no grid for {kernel_name}")
+    return int(np.prod(grids[0]))
+
+
+def sass_tensor_core_count(name: str) -> int:
+    """Lines of the SASS of kernel library ``name`` that hold a tensor-core
+    instruction (HMMA, HGMMA), from ``cuobjdump -sass``."""
+    from repro_torch.kernels import common
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(common.BUILD_DIR / f"lib{name}.so")],
+                         capture_output=True, text=True, check=True, timeout=120).stdout
+    return sum(1 for line in out.splitlines() if "HMMA" in line or "HGMMA" in line)
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -295,24 +340,34 @@ def check_flat_kernels(dev, cfg, lengths, iters=20):
     live = int(sel.mask.sum())
     b8_bytes = live * (2 * hd + 8) + bh * c + 2 * 4 * b8_args[0].numel()
     bms, bby = bound(b8_bytes, live * (h // kv) * hd * 4, "f32")
-    # the yardstick: one SDPA call over the gathered rows, dequantized beforehand
-    kd = (kc.float() * ks[..., None]).reshape(bh, 1, c, hd)
-    vd = (vc.float() * vs[..., None]).reshape(bh, 1, c, hd)
+    # the yardsticks: one SDPA call over the gathered rows, dequantized
+    # beforehand, and the dequantization and the SDPA call timed together
     qq = b8_args[0].reshape(bh, 1, h // kv, hd)
     am = sel.mask.reshape(bh, 1, 1, c)
+
+    def dequant():
+        return ((kc.float() * ks[..., None]).reshape(bh, 1, c, hd),
+                (vc.float() * vs[..., None]).reshape(bh, 1, c, hd))
+
+    kd, vd = dequant()
     lib = events_ms(lambda: F.scaled_dot_product_attention(qq, kd, vd, attn_mask=am), iters)
+    lib_dq = events_ms(lambda: F.scaled_dot_product_attention(qq, *dequant(), attn_mask=am),
+                       iters)
     recs.append(dict(name="sparse_flash_decode", route="cuda",
                      source="src/repro_torch/csrc/flash_decode.cu",
                      replaces="src/repro/kernels/flash_decode/kernel.py:73",
                      launches=None, max_abs_err=err8,
                      tolerance=f"{B2_ATOL:g} + {B2_RTOL:g}*|plain|", err_over_tol=ratio8,
                      ms=kernel_ms(lambda: fd.sparse_flash_decode(*b8_args),
-                                  "sparse_flash_decode_paged_kernel", iters),
+                                  "sparse_flash_decode_flat_kernel", iters),
                      plain_ms=events_ms(lambda: fd.sparse_flash_decode_plain(*b8_args),
                                         max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=lib,
                      library_call="scaled_dot_product_attention on the gathered rows, "
                                   "dequantized beforehand (dequantization not timed)",
+                     library_with_dequant_ms=lib_dq,
+                     ctas=kernel_ctas(lambda: fd.sparse_flash_decode(*b8_args),
+                                      "sparse_flash_decode_flat_kernel"),
                      selected_rows=live, capacity=bh * c))
 
     # the contiguous tick against the paged tick on the same tokens: the
@@ -441,7 +496,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
     if not ratio3 <= 1.0:
         raise AssertionError(f"B3: |kernel - plain| reaches {ratio3:.3g}x its bound "
                              f"{B3_ATOL:g} + 2^-7·|plain| (max abs err {err3})")
-    ms = kernel_ms(lambda: fp.flash_attention(q3, k3, v3), "flash_prefill_kernel",
+    ms = kernel_ms(lambda: fp.flash_attention(q3, k3, v3), "flash_prefill_bf16_kernel",
                    max(2, iters // 4))
     kr = k3.repeat_interleave(h // kv, 0)[None]
     vr = v3.repeat_interleave(h // kv, 0)[None]
@@ -450,13 +505,18 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
     b3_bytes = 2 * (2 * q3.numel() + k3.numel() + v3.numel())
     b3_ops = 4 * hd * h * t * (t + 1) // 2
     bms, bby = bound(b3_bytes, b3_ops, "bf16")
+    hmma = sass_tensor_core_count("flash_prefill")
+    if hmma < 1:
+        raise AssertionError("B3: the SASS of libflash_prefill.so holds no HMMA/HGMMA")
     recs.append(dict(name="flash_prefill", route="cuda",
                      source="src/repro_torch/csrc/flash_prefill.cu",
                      replaces="src/repro/kernels/flash_prefill/kernel.py:98",
                      launches=None, max_abs_err=err3,
                      tolerance=f"{B3_ATOL:g} + 2^-7*|plain|", err_over_tol=ratio3, ms=ms,
                      plain_ms=events_ms(lambda: fp.flash_attention_plain(q3, k3, v3), 2),
-                     bound_ms=bms, bound_by=bby, library_ms=lib))
+                     bound_ms=bms, bound_by=bby, library_ms=lib,
+                     tflops=b3_ops / ms / 1e9, ms_over_library=ms / lib,
+                     sass_tensor_core_instructions=hmma))
     return recs
 
 

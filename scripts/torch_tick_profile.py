@@ -2,7 +2,7 @@
 """Where a decode tick of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded | --contiguous]
-        [--kv-dtype int8|fp16|int4]
+        [--kv-dtype int8|fp16|int4] [--prefill]
 
 Serves the main path of chip_smoke.py (its model, engine settings and
 requests, imported from there) — the paged tick; with ``--sharded`` the
@@ -12,8 +12,10 @@ paged pool's storage — warms up for 3 ticks, then profiles
 ``--ticks`` decode ticks with torch.profiler. Prints the host wall time per tick, the device
 time per tick (sum of kernel times; kernels of one stream do not overlap),
 the device busy share, launches per tick, the kernels with the most device
-time and the host operators with the most self CPU time. Needs a CUDA
-device.
+time and the host operators with the most self CPU time. With
+``--prefill`` it profiles the admission of the four prompts in place of the
+ticks (after a warm-up admission of a 64-token prompt on another engine),
+and every number is per prefill. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,15 +43,18 @@ def main() -> int:
                       help="profile ServingEngine(paged=False), the contiguous slot pool")
     ap.add_argument("--kv-dtype", choices=("int8", "fp16", "int4"), default="int8",
                     help="the paged pool's K/V storage")
+    ap.add_argument("--prefill", action="store_true",
+                    help="profile the four prompts' prefills (their admission), not ticks")
     args = ap.parse_args()
     if args.contiguous and args.kv_dtype != "int8":
         ap.error("--kv-dtype names the paged pool's storage")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
+    import numpy as np
     from chip_smoke import NEW_TOKENS, SERVE, main_path_model, main_path_requests
     from repro_torch.distributed.sharding import init_decode_ctx
-    from repro_torch.runtime.serve import ServingEngine
+    from repro_torch.runtime.serve import Request, ServingEngine
     if WARM_TICKS + args.ticks > NEW_TOKENS - 1:
         ap.error(f"--ticks: the requests decode {NEW_TOKENS - 1} ticks, "
                  f"{WARM_TICKS} of them warm-up")
@@ -57,21 +62,34 @@ def main() -> int:
     dev = "cuda"
     cfg, params = main_path_model(dev)
     ctx = init_decode_ctx(dev) if args.sharded else None
-    engine = ServingEngine(cfg, params, device=dev, ctx=ctx,
-                           **dict(SERVE, paged=not args.contiguous,
-                                  **({} if args.contiguous else {"kv_pool_dtype": args.kv_dtype})))
-    for r in main_path_requests(cfg.vocab_size):
+    serve = dict(SERVE, paged=not args.contiguous,
+                 **({} if args.contiguous else {"kv_pool_dtype": args.kv_dtype}))
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    reqs = main_path_requests(cfg.vocab_size)
+    for r in reqs:
         engine.submit(r)
-    engine._admit()
-    for _ in range(WARM_TICKS):
-        engine._tick()
+    if args.prefill:        # the warm-up admission: module loading, cuBLAS handles
+        warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+        warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
+            0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
+        warm._admit()
+        del warm
+        steps, unit = len(reqs), "prefill"
+    else:
+        engine._admit()
+        for _ in range(WARM_TICKS):
+            engine._tick()
+        steps, unit = args.ticks, "tick"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for _ in range(args.ticks):
-            engine._tick()
+        if args.prefill:
+            engine._admit()
+        else:
+            for _ in range(args.ticks):
+                engine._tick()
         torch.cuda.synchronize()
-        wall = (time.time() - t0) / args.ticks
+        wall = (time.time() - t0) / steps
     rows, host = [], []
     device_us = 0.0
     launches = 0
@@ -88,14 +106,16 @@ def main() -> int:
     tick = ("sharded (one rank)" if args.sharded else
             "contiguous" if args.contiguous else "paged unsharded")
     out = {"tick": tick, "kv_pool_dtype": None if args.contiguous else args.kv_dtype,
-           "wall_ms_per_tick": wall * 1e3,
-           "device_ms_per_tick": device_us / args.ticks / 1e3,
-           "device_busy_share": device_us / 1e3 / args.ticks / (wall * 1e3),
-           "kernel_launches_per_tick": launches / args.ticks,
-           "top": [{"kernel": k[:90], "ms_per_tick": dt / args.ticks / 1e3,
-                    "launches_per_tick": n / args.ticks} for dt, n, k in rows[:15]],
-           "top_host": [{"op": k[:90], "self_cpu_ms_per_tick": dt / args.ticks / 1e3,
-                         "calls_per_tick": n / args.ticks} for dt, n, k in host[:15]]}
+           "profiled": f"{steps} {unit}s" + (f" (prompts {[len(r.prompt) for r in reqs]})"
+                                             if args.prefill else ""),
+           f"wall_ms_per_{unit}": wall * 1e3,
+           f"device_ms_per_{unit}": device_us / steps / 1e3,
+           "device_busy_share": device_us / 1e3 / steps / (wall * 1e3),
+           f"kernel_launches_per_{unit}": launches / steps,
+           "top": [{"kernel": k[:90], f"ms_per_{unit}": dt / steps / 1e3,
+                    f"launches_per_{unit}": n / steps} for dt, n, k in rows[:15]],
+           "top_host": [{"op": k[:90], f"self_cpu_ms_per_{unit}": dt / steps / 1e3,
+                         f"calls_per_{unit}": n / steps} for dt, n, k in host[:15]]}
     print(json.dumps(out, indent=1))
     print(f"gpu: {torch.cuda.get_device_name(0)}")
     return 0

@@ -4,7 +4,8 @@ Each CUDA source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds). The build
 runs at first use, into ``build/kernels/`` at the repository root; all
-sources compile in parallel, one ``nvcc`` process each.
+sources compile in parallel, one ``nvcc`` process each. A library is rebuilt
+when its source or a ``csrc`` header the source includes is newer.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 `check` raises when it is not 0. Wrappers count their launches in
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -73,16 +75,26 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
+def _inputs(name: str) -> list[Path]:
+    """The CUDA source of kernel library ``name`` and the ``csrc`` headers
+    it includes (``#include "x.cuh"``, one level: headers include none)."""
     src = CSRC / SOURCES[name]
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return [src] + [CSRC / h for h in re.findall(r'^#include "([^"]+)"', src.read_text(),
+                                                  flags=re.M)]
+
+
+def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a header it includes."""
+    lib = _lib_path(name)
+    return not lib.exists() or any(lib.stat().st_mtime < p.stat().st_mtime
+                                   for p in _inputs(name))
 
 
 def build_kernels(names=None) -> float:
     """Compile the named kernels (default: all) that are missing or older
-    than their source, all ``nvcc`` processes started together. Returns the
-    wall seconds spent; raises with the compiler output on failure."""
+    than their source or its headers, all ``nvcc`` processes started
+    together. Returns the wall seconds spent; raises with the compiler
+    output on failure."""
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if _stale(n)]
     if not todo:

@@ -13,9 +13,13 @@ the same walk stopped before the normalisation, returning the online-softmax
 state (acc, m, l) a block-sharded rank contributes to the cross-rank merge.
 B8 replaces `sparse_flash_decode_pallas`: the same math over rows already
 gathered into (BH, C, ·) arrays (the contiguous tick), scaled by a multiply
-with 1/sqrt(HD) as the TPU kernel does.
+with 1/sqrt(HD) as the TPU kernel does; its own kernel walks each row as
+B2 walks its blocks (runs of 32 tokens, in order) over a (BH, HD/32) grid,
+each CTA accumulating 32 output channels, so its results are those of one
+CTA walking the whole row, bit for bit.
 
-CUDA source of all three: ``repro_torch/csrc/flash_decode.cu`` (one template).
+CUDA source of all three: ``repro_torch/csrc/flash_decode.cu`` (B2/B6 one
+template, B8 its own kernel).
 Launch counters: ``sparse_flash_decode_paged`` / ``…_partials`` for the
 int8 branch, with ``[fp16]`` or ``[int4]`` appended for the others.
 """
@@ -34,6 +38,7 @@ from repro_torch.kernels import common
 NEG_INF = -1e30
 GROUPS = (1, 2, 4, 8)    # query heads per kv head the CUDA kernel is built for
 CODES = {"int8": 0, "fp16": 1, "int4": 2}   # the kernel's storage branch
+FLAT_CHUNK = 64          # tokens kernel B8 stages per step (B8_CH in flash_decode.cu)
 
 
 def _counter(name: str, kv_dtype: str) -> str:
@@ -116,6 +121,9 @@ def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Te
     common.require(v_codes, "v_codes", torch.int8, (bh, c, hd), dev)
     common.require(v_scale, "v_scale", torch.float32, (bh, c), dev)
     common.require(mask, "mask", torch.bool, (bh, c), dev)
+    if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16:
+        raise ValueError("kernel B8 copies K/V codes in 16-byte units: k_codes and "
+                         "v_codes must start 16-byte aligned")
     out = torch.empty((bh, g, hd), dtype=torch.float32, device=dev)
     fn = common.load("flash_decode", "sparse_flash_decode",
                      [common.P] * 7 + [common.I] * 4 + [common.F, common.P])

@@ -59,6 +59,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     common.require(q, "q", q.dtype, (bh, t, hd), dev)
     common.require(k, "k", q.dtype, (bkv, s_len, hd), dev)
     common.require(v, "v", q.dtype, (bkv, s_len, hd), dev)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("kernel B3 (bf16) copies q, k and v in 16-byte units: they "
+                         "must start 16-byte aligned")
     out = torch.empty_like(q)
     fn = common.load("flash_prefill", "flash_prefill",
                      [common.P] * 4 + [common.I] * 9 + [common.F, common.P])

@@ -83,14 +83,21 @@ def test_b2_kernel_matches_plain(dev):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype,t,window,q_offset,hd", [
-    (torch.float32, 100, 0, 0, 32), (torch.float32, 64, 16, 0, 64),
-    (torch.float32, 48, 0, 80, 128), (torch.bfloat16, 300, 0, 0, 128)])
-def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd):
+@pytest.mark.parametrize("dtype,t,window,q_offset,hd,groups", [
+    (torch.float32, 100, 0, 0, 32, 2), (torch.float32, 64, 16, 0, 64, 2),
+    (torch.float32, 48, 0, 80, 128, 2), (torch.bfloat16, 300, 0, 0, 128, 2),
+    # the bf16 branch (tensor cores, 64-row query tiles, 64-key tiles):
+    # every HD, T ragged against the tiles and T < 16, a q_offset with
+    # S > T, windows crossing tile edges, groups 1, 2 and 8
+    (torch.bfloat16, 77, 0, 0, 32, 1), (torch.bfloat16, 100, 0, 0, 64, 8),
+    (torch.bfloat16, 5, 0, 0, 128, 2), (torch.bfloat16, 48, 0, 80, 128, 2),
+    (torch.bfloat16, 300, 100, 0, 64, 1), (torch.bfloat16, 200, 70, 130, 128, 8),
+    (torch.bfloat16, 1030, 0, 0, 128, 8)])
+def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
     from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
     gen = torch.Generator(device=dev).manual_seed(2)
     s_len = t + q_offset
-    q = torch.randn((4, t, hd), generator=gen, device=dev).to(dtype)
+    q = torch.randn((2 * groups, t, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((2, s_len, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((2, s_len, hd), generator=gen, device=dev).to(dtype)
     kw = dict(causal=True, window=window, q_offset=q_offset)
@@ -248,17 +255,31 @@ def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
 
 
 @pytest.mark.parametrize("bh,g,c,hd,density", [
-    (1, 1, 256, 64, 1.0), (2, 4, 512, 128, 0.7), (3, 2, 100, 128, 0.3), (2, 8, 256, 256, 0.9)])
+    (1, 1, 256, 64, 1.0), (2, 4, 512, 128, 0.7), (3, 2, 100, 128, 0.3), (2, 8, 256, 256, 0.9),
+    # with bh >= 4 the last rows are edge rows of B8's 64-token staging
+    # chunks: live only in the last chunk, one live token, nothing live
+    (4, 2, 40, 128, 0.5), (5, 2, 200, 128, 0.5), (4, 8, 300, 256, 0.6),
+    (4, 1, 1000, 32, 0.2), (6, 4, 512, 64, 0.05),
+    # HD 1024: the chunk's staged codes take over 48 KB of shared memory
+    (2, 8, 130, 1024, 0.5)])
 def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     """B8 within 1e-5 + 1e-5·|plain| (f32, other summation order), C not a
     multiple of 32 included; a row with nothing selected is exactly zero."""
-    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode, sparse_flash_decode_plain
+    from repro_torch.kernels.flash_decode.ops import (
+        FLAT_CHUNK, sparse_flash_decode, sparse_flash_decode_plain)
     gen = torch.Generator(device=dev).manual_seed(9)
     kc, vc = (torch.randint(-127, 128, (bh, c, hd), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand((bh, c), generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2))
     mask = torch.rand((bh, c), generator=gen, device=dev) < density
     mask[:, 0] = True
+    if bh >= 4:
+        last = (c - 1) // FLAT_CHUNK * FLAT_CHUNK          # the last chunk's first token
+        mask[-3] = False
+        mask[-3, last:] = torch.rand((c - last,), generator=gen, device=dev) < 0.5
+        mask[-3, c - 1] = True
+        mask[-2] = False
+        mask[-2, int(torch.randint(0, c, (1,), generator=gen, device=dev))] = True
     mask[-1] = False
     q = torch.randn((bh, g, hd), generator=gen, device=dev)
     args = (q, kc, ks, vc, vs, mask)
@@ -266,6 +287,66 @@ def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     ref = sparse_flash_decode_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
     assert (out[-1] == 0).all()
+
+
+@pytest.mark.parametrize("g,hd,c", [(2, 128, 512), (8, 64, 150), (1, 256, 96)])
+def test_b8_equals_b2_bitwise_on_the_same_runs(dev, g, hd, c):
+    """Where a row's gathered tokens are B2's blocks in order, masked at the
+    same positions (blocks of 32; dead positions, a dead block and a short
+    last run included), B8 walks B2's runs and gives B2's output bit for
+    bit; an all-masked row is zero in both."""
+    from repro_torch.kernels.flash_decode.ops import (
+        sparse_flash_decode, sparse_flash_decode_paged_kernel)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bs, kv, bh = 32, 2, 4
+    nsb = -(-c // bs)
+    p = bh * nsb + 3
+    kc, vc = (torch.randint(-127, 128, (p, bs, kv, hd), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((p, bs, kv), generator=gen, device=dev) * 0.02 + 1e-3
+              for _ in range(2))
+    pblk = torch.randperm(p, generator=gen, device=dev)[:bh * nsb].reshape(bh, nsb)
+    mask = torch.rand((bh, c), generator=gen, device=dev) < 0.7
+    mask[0, bs:2 * bs] = False                     # a dead block inside row 0
+    mask[-1] = False
+    bmask = torch.zeros((bh, nsb * bs), dtype=torch.bool, device=dev)
+    bmask[:, :c] = mask
+    # row b's tokens in block order: pool[pblk[b, n], t, b % kv]
+    rows = (pblk.long()[:, :, None], torch.arange(bs, device=dev)[None, None, :],
+            (torch.arange(bh, device=dev) % kv)[:, None, None])
+    gk, gks, gv, gvs = (x[rows].reshape(bh, nsb * bs, *x.shape[3:])[:, :c].contiguous()
+                        for x in (kc, ks, vc, vs))
+    q = torch.randn((bh, g, hd), generator=gen, device=dev)
+    out2 = sparse_flash_decode_paged_kernel(
+        q, kc, ks, vc, vs, pblk.to(torch.int32),
+        torch.full((bh,), nsb, dtype=torch.int32, device=dev),
+        bmask.reshape(bh, nsb, bs), kv)
+    out8 = sparse_flash_decode(q, gk, gks, gv, gvs, mask)
+    assert torch.equal(out8, out2)
+    assert (out8[-1] == 0).all()
+
+
+def test_b3_b8_refuse_misaligned_operands(dev):
+    """B3's bf16 branch and B8 copy their operands in 16-byte units: a
+    contiguous view that does not start 16-byte aligned is refused with a
+    ValueError instead of faulting on the card."""
+    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+
+    def off_by_one(shape, dtype):
+        n = math.prod(shape)
+        return torch.zeros(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+
+    k = torch.zeros((2, 64, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(off_by_one((4, 64, 32), torch.bfloat16), k, k)
+    bh, g, c, hd = 2, 2, 64, 32
+    q = torch.zeros((bh, g, hd), device=dev)
+    ks = torch.ones((bh, c), device=dev)
+    vc = torch.zeros((bh, c, hd), dtype=torch.int8, device=dev)
+    mask = torch.ones((bh, c), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        sparse_flash_decode(q, off_by_one((bh, c, hd), torch.int8), ks, vc, ks, mask)
 
 
 @pytest.mark.parametrize("bh,n,window", [(2, 1024, 7), (1, 4096, 1), (3, 2050, 11), (4, 8192, 7)])

@@ -47,3 +47,34 @@ def test_entry_points_default_to_cuda():
     eng = ServingEngine(cfg, params, max_seq=64, block_size=16, device="cpu")
     assert eng.device.type == "cpu"
     assert np.all(eng._mask == 0)
+
+
+def test_kernel_build_staleness_follows_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when its source or a csrc header the
+    source includes is newer than it; every header the real sources
+    include exists."""
+    import os
+
+    from repro_torch.kernels import common
+    for name in common.SOURCES:
+        assert all(p.exists() for p in common._inputs(name)), name
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "helper.cuh").write_text("#pragma once\n")
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "helper.cuh"\n')
+    monkeypatch.setattr(common, "CSRC", csrc)
+    monkeypatch.setattr(common, "BUILD_DIR", build)
+    monkeypatch.setattr(common, "SOURCES", {"k": "k.cu"})
+    assert common._stale("k")                                   # no library yet
+    lib = build / "libk.so"
+    lib.write_bytes(b"")
+    os.utime(csrc / "k.cu", (100, 100))
+    os.utime(csrc / "helper.cuh", (100, 100))
+    os.utime(lib, (200, 200))
+    assert not common._stale("k")
+    os.utime(csrc / "helper.cuh", (300, 300))                  # the header changed
+    assert common._stale("k")
+    os.utime(csrc / "helper.cuh", (100, 100))
+    os.utime(csrc / "k.cu", (300, 300))                         # the source changed
+    assert common._stale("k")
