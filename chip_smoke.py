@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
    the roofline bound — the paged kernels (B1 paged scores, B4 scores +
    bounds and B5 bin/pool/histogram: bit-identical; B2 sparse decode
    attention and B6 its unnormalised partials: f32, in each of the pool's
-   storage branches int8, fp16 and int4; B3 causal prefill attention:
+   storage branches int8, fp16 and int4, split over output channels with
+   their CTA count from the trace, B2 with SDPA over the listed blocks
+   as its yardstick, timed without and with the gather and the
+   dequantization; B3 causal prefill attention:
    bf16 on the tensor cores, with its TFLOP/s, its time over SDPA's and
    the count of HMMA/HGMMA lines in its library's SASS, which must not be
    0), the contiguous tick's (B7 flat scores in both of its chains and
@@ -111,58 +114,114 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, kernel_name: str, iters: int) -> float:
-    """Device time per launch of the CUDA kernel named ``kernel_name``, from
-    the profiler's trace (averaged over the launches it recorded). Raises
-    when the trace holds no device time for it."""
+# A profiler session whose launches sit at its very edges can lose them from
+# the trace (seen after phase 3's checks: ``scripts/torch_profiler_coverage.py``),
+# so each session idles this long before its first launch and after its last;
+# a trace that still holds too few launches is taken again, at most this often.
+PROFILE_IDLE_S = 0.05
+PROFILE_ATTEMPTS = 3
+
+
+def _profiled(fn, kernel_name: str, launches: int, read):
+    """``read(prof)`` of a CUDA profiler session over ``launches`` calls of
+    ``fn``. A session whose ``read`` gives None (the trace lost launches) is
+    taken again, with a line on stdout, at most PROFILE_ATTEMPTS times in
+    all; raises when none gave a value."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, launches = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total_us += (getattr(e, "device_time_total", 0)
-                         or getattr(e, "cuda_time_total", 0))
-            launches += e.count
-    if total_us <= 0:
-        raise RuntimeError(f"the profiler recorded no device time for {kernel_name}")
-    # per recorded launch: the trace can miss some of the ``iters`` launches
-    return total_us / launches / 1e3
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_IDLE_S)
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_IDLE_S)
+        value = read(prof)
+        if value is not None:
+            return value
+        print(f"profiler: session {attempt + 1} lost launches of {kernel_name}", flush=True)
+    raise RuntimeError(f"the profiler's trace held too few launches of {kernel_name} "
+                       f"in {PROFILE_ATTEMPTS} sessions")
+
+
+def kernel_ms(fn, kernel_name: str, iters: int) -> float:
+    """Device time per launch of the CUDA kernel named ``kernel_name``, from
+    the profiler's trace of ``iters`` calls of ``fn``, which must hold a
+    launch with device time for each call."""
+    def per_launch(prof):
+        total_us, launches = 0.0, 0
+        for e in prof.key_averages():
+            if kernel_name in e.key:
+                total_us += (getattr(e, "device_time_total", 0)
+                             or getattr(e, "cuda_time_total", 0))
+                launches += e.count
+        return total_us / launches / 1e3 if launches >= iters and total_us > 0 else None
+    return _profiled(fn, kernel_name, iters, per_launch)
 
 
 def kernel_ctas(fn, kernel_name: str) -> int:
     """CTAs of one launch of the CUDA kernel named ``kernel_name``: the
-    product of the grid that the profiler's trace records for it. Raises
-    when the trace holds no such launch or no grid."""
+    product of the grid that the profiler's trace of one call of ``fn``
+    records for it."""
     import os
     import tempfile
 
+    def ctas(prof):
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.unlink(path)
+        grids = [e["args"]["grid"] for e in events
+                 if str(e.get("cat", "")).lower() == "kernel"
+                 and kernel_name in e.get("name", "") and "grid" in e.get("args", {})]
+        return int(np.prod(grids[0])) if grids else None
+    return _profiled(fn, kernel_name, 1, ctas)
+
+
+def b2_yardstick(qr, pool, pblk, counts, bmask, kv, mode, iters) -> dict:
+    """B2's yardstick, timed for the table and used nowhere in the port: one
+    scaled_dot_product_attention call over each row's listed blocks (the
+    lists cut to the longest one), gathered and dequantized beforehand (int4
+    unpacked, per-block scales broadcast), with the block masks as
+    attn_mask — alone, and with the gather and the dequantization."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.unlink(path)
-    grids = [e["args"]["grid"] for e in events
-             if str(e.get("cat", "")).lower() == "kernel" and kernel_name in e.get("name", "")
-             and "grid" in e.get("args", {})]
-    if not grids:
-        raise RuntimeError(f"the profiler's trace holds no grid for {kernel_name}")
-    return int(np.prod(grids[0]))
+    import torch.nn.functional as F
+    from repro_torch.core.quantization import unpack_int4
+    bh, g, hd = qr.shape
+    bs, nsb = pool.k_codes.shape[1], int(counts.max())
+    pblk, bmask = pblk[:, :nsb], bmask[:, :nsb]
+    dev = qr.device
+    kvb = (torch.arange(bh, device=dev) % kv)[:, None, None]
+    tok = torch.arange(bs, device=dev)[None, None, :]
+    stok = tok if mode == "int8" else torch.zeros_like(tok)
+    qq = qr.reshape(bh, 1, g, hd)
+    am = bmask.reshape(bh, 1, 1, nsb * bs)
+
+    def gather():
+        pb = pblk.long()[:, :, None]
+        out = []
+        for codes, scale in ((pool.k_codes, pool.k_scale), (pool.v_codes, pool.v_scale)):
+            c = codes[pb, tok, kvb]
+            c = unpack_int4(c) if mode == "int4" else c
+            out.append((c.float() * scale[pb, stok, kvb][..., None]).reshape(bh, 1, nsb * bs, hd))
+        return out
+
+    kd, vd = gather()
+    return dict(
+        library_ms=events_ms(lambda: F.scaled_dot_product_attention(qq, kd, vd, attn_mask=am),
+                             iters),
+        library_call="scaled_dot_product_attention over the listed blocks, gathered and "
+                     "dequantized beforehand (not timed)",
+        library_with_gather_ms=events_ms(
+            lambda: F.scaled_dot_product_attention(qq, *gather(), attn_mask=am), iters))
 
 
 def sass_tensor_core_count(name: str) -> int:
@@ -475,7 +534,10 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
                      plain_ms=events_ms(lambda: fd.sparse_flash_decode_paged_plain(
                          qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk,
                          bmask, kv), max(2, iters // 10)),
-                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     bound_ms=bms, bound_by=bby,
+                     **b2_yardstick(qr, pool, pblk, counts, bmask, kv, "int8", iters),
+                     ctas=kernel_ctas(lambda: fd.sparse_flash_decode_paged_kernel(*b2_args),
+                                      "sparse_flash_decode_paged_kernel"),
                      selected_blocks=live, rows=int(counts.numel())))
     recs += check_sharded_kernels(dev, pool, q, b1_args, params, iters)
     del pool
@@ -637,6 +699,8 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                      plain_ms=events_ms(lambda: fd.sparse_flash_decode_paged_partials_plain(
                          *kvargs, bmask, kv), max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: fd.sparse_flash_decode_paged_partials_kernel(
+                         *kvargs, counts, bmask, kv), "sparse_flash_decode_paged_kernel"),
                      selected_blocks=live, rows=int(counts.numel())))
     return recs
 
@@ -716,7 +780,10 @@ def check_tiered_kernels(dev, cfg, lengths, iters=20):
                              err_over_tol=ratio,
                              ms=kernel_ms(kern, "sparse_flash_decode_paged_kernel", iters),
                              plain_ms=events_ms(plain_fn, max(2, iters // 10)),
-                             bound_ms=bms, bound_by=bby, library_ms=None,
+                             bound_ms=bms, bound_by=bby,
+                             **(dict(library_ms=None) if partials else b2_yardstick(
+                                 qr, pool, pblk, counts, bmask, kv, mode, iters)),
+                             ctas=kernel_ctas(kern, "sparse_flash_decode_paged_kernel"),
                              selected_blocks=live, rows=int(counts.numel())))
         if live_rows[False] != live_rows[True]:
             raise AssertionError(f"{mode}: the one-rank plan lists {live_rows[True]} blocks, "

@@ -14,11 +14,11 @@
 // never read. The per-block branches (template CODE = half or nibble,
 // PER_BLOCK) read the block's one scale word and multiply in the
 // reference's order, s * (k_scale * 1/sqrt(HD)); int4 nibbles are unpacked
-// in registers as they are loaded (sign-extended), so only the packed
-// bytes cross HBM.
+// in registers from shared memory (sign-extended), so only the packed bytes
+// cross HBM.
 //
 // B6 replaces sparse_flash_decode_paged_partials_pallas: the same kernel
-// (template flag PARTIALS) stopped before the normalization, writing the
+// (given m_out and l_out) stopped before the normalization, writing the
 // online-softmax state (acc, m, l) that the block-sharded tick merges
 // across ranks. A row with counts[b] == 0 (this rank owns none of its
 // selected blocks) writes acc = 0, m = -1e30, l = 0, which vanish in the
@@ -26,14 +26,30 @@
 //
 // Bound on this card: bytes — the K and V rows of the selected blocks (1 B,
 // 2 B or 1/2 B per element) plus their scales, read once; the math is 4-16
-// flops per byte. Design of B2/B6: one
-// CTA per row (the loop over the row's blocks replaces the TPU's sequential
-// grid axis; nothing carries between CTAs), blockDim = HD threads. Warps
-// score tokens (a lane per channel group, shuffle reduction), scores and
-// probabilities go through shared memory, and thread d accumulates output
-// channel d in registers, so V rows are read coalesced. Simple first
-// version: a row's blocks are processed one after another, so few CTAs
-// (slots*KV) are in flight; B8's channel split below is their next step.
+// flops per byte. Design of B2/B6 (B8's, carried over to the block lists):
+// the walk is one CTA's block loop — block by block in list order, the
+// block's scores (lane d sums channels d, d + 32, ..., then the xor tree),
+// its max, mnew = max(m, mx), corr = exp(m - mnew), p, the block's sum in
+// token order, l = l * corr + sum, acc *= corr, acc += p * v in token order —
+// and the parallelism comes from the output channels: the grid is
+// (slices, BH), each CTA accumulating W = 32 * cpl output channels of every
+// query row of its row (cpl = 1 up to HD 256, so HD / 32 CTAs per row, 128 at
+// the main path; above, at most 8 slices with cpl channels per lane). The CTA
+// reads its row's block list itself. Its 16 warps form a pipeline over steps
+// of whole blocks (about two scoring passes, 224 tokens at G = 2): 16-byte
+// cp.async copies bring step s + 2 (K rows, the CTA's V slice, scales, mask
+// rows) into rings while the 16 - G scoring warps score step s + 1 (the xor
+// trees of 16 dot products at once, halving: tree_sums) and compute each
+// block's max, running max, corr, p and sum — none of which depends on acc —
+// and warp g walks query row g through step s: l, the rescale and lane d's
+// channels of p * v, dequantizing v as it reads it. So the output is that of
+// one CTA walking the row, bit for bit. A row's longest list sets the
+// kernel's time, and every CTA of a row scores the whole row, which bounds it
+// now. A first version that shared the scores across a row's CTAs
+// through a thread-block cluster (each scoring 1/slices of the tokens,
+// written into every CTA's ring through distributed shared memory) paid a
+// cluster barrier per block and was slower (PERF.md). f32 throughout (G <= 8
+// query rows of an f32 q).
 //
 // B8 replaces sparse_flash_decode_pallas (the contiguous tick): the same math
 // over rows already gathered into (BH, C, HD) int8 codes with (BH, C) scales
@@ -58,10 +74,8 @@
 // the paged ticks part only where the block masks move a rescale point. A
 // split over C with a merge of per-chunk (acc, m, l) partials rounds
 // independently of B2 and measurably widened their gap (PERF.md). Every CTA of
-// a row scores the whole row, which bounds the kernel now; sharing the scores
-// across the row's CTAs (a thread-block cluster) is the next step. f32
-// throughout: with G <= 8 query rows and an f32 q, tensor cores would need q
-// rounded. HD is a multiple of 32 up to 1024 and G is 1, 2, 4 or 8, as before.
+// a row scores the whole row, as B2's do. HD is a multiple of 32 up to 1024
+// and G is 1, 2, 4 or 8, as before.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -77,25 +91,110 @@ constexpr int CODE_INT8 = 0;     // int8 codes, (·, HD)
 constexpr int CODE_HALF = 1;     // f16 values, (·, HD)
 constexpr int CODE_NIBBLE = 2;   // packed int4 codes, (·, HD/2) bytes
 
-// Element d of the code row starting at element `row` * HD, as f32.
+constexpr int B2_THREADS = 512;    // 16 warps: G walk, the others score
+constexpr int B2_STEP = 128;       // tokens per step at least (whole scoring passes, blocks)
+constexpr int B2_MAX_SLICES = 8;   // CTAs per row at most
+constexpr int B2_SMEM_MAX = 232448;   // shared memory one CTA may use (227 KB)
+constexpr unsigned FULL = 0xffffffffu;
+
+// Element d of a staged code row (`row` points at its first byte), as f32.
 template <int CODE>
-__device__ __forceinline__ float load_code(const void* __restrict__ codes, size_t row,
-                                           int HD, int d) {
-  if (CODE == CODE_HALF) return __half2float(((const __half*)codes)[row * HD + d]);
+__device__ __forceinline__ float code_at(const unsigned char* row, int d) {
+  if (CODE == CODE_HALF) return __half2float(((const __half*)row)[d]);
   if (CODE == CODE_NIBBLE) {
-    const int b = ((const int8_t*)codes)[row * (HD >> 1) + (d >> 1)];
+    const int b = ((const int8_t*)row)[d >> 1];
     const int hi = b >> 4;                        // arithmetic: sign-extended
     const int lo = b - hi * 16;                   // [0, 15]
     return (float)((d & 1) ? hi : lo - ((lo & 8) << 1));
   }
-  return (float)((const int8_t*)codes)[row * HD + d];
+  return (float)((const int8_t*)row)[d];
 }
 
-// Row b walks physical blocks pblk[b, :counts[b]] of the (P, BS, KV, HD)
-// pool at kv head b % KV; bmask is (BH, NSB, BS). PER_BLOCK: scales are
-// (P, 1, KV), one word per (block, kv).
-template <int G, bool PARTIALS, int CODE, bool PER_BLOCK>
-__global__ void sparse_flash_decode_paged_kernel(
+// The warp sums of a lane's C values x[0..C) (C a power of two), each in
+// the xor tree's order — pairs of lanes 16 apart first, then 8, ... — as
+// `x += shfl_xor(x, o)` level by level gives, but halving: at each level a
+// lane keeps half its values, adds its partner's copy of them and sends the
+// other half, so C - 1 + (5 - log2 C) shuffles replace 5 C. The total of
+// value lane >> (5 - log2 C) ends in x[0]. Every addition pairs the same two
+// partial sums as the full tree does, so each total is the tree's, bit for
+// bit (float addition commutes).
+template <int C>
+__device__ __forceinline__ void tree_sums(float* x, int lane, int o) {
+  if constexpr (C > 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const float send = upper ? x[j] : x[j + C / 2];
+      const float keep = upper ? x[j + C / 2] : x[j];
+      x[j] = keep + __shfl_xor_sync(FULL, send, o);
+    }
+    tree_sums<C / 2>(x, lane, o >> 1);
+  } else {
+    for (; o > 0; o >>= 1) x[0] += __shfl_xor_sync(FULL, x[0], o);
+  }
+}
+
+// How a row's output channels split over its CTAs: `cpl` channels per lane,
+// W = 32 * cpl per CTA, `slices` CTAs (the last one may hold fewer than W
+// channels when HD / 32 is not a multiple of cpl).
+struct B2Split {
+  int cpl, w, slices;
+  __host__ __device__ explicit B2Split(int HD) {
+    const int n = HD / 32;
+    cpl = (n + B2_MAX_SLICES - 1) / B2_MAX_SLICES;
+    w = 32 * cpl;
+    slices = (n + cpl - 1) / cpl;
+  }
+};
+
+// Shared memory of a B2/B6 CTA staging `nb` blocks (T = nb * BS tokens) per
+// step: rings of the staged step (K rows, K scales and mask rows two deep,
+// read by the scoring warps; the V slice and its scales three deep, read by
+// the walking warps a step later), of its scores / probabilities and of the
+// per-block softmax terms (corr, the running max, the block sum); the
+// scoring warps' block maxima and running max; q; the row's block list.
+struct B2Layout {
+  int k, v, ks, vs, mk, q, p, terms, mx, mrun, list, bytes;
+  __host__ __device__ B2Layout(int G, int HD, int BS, int NSB, int code, int w, int nb) {
+    const int T = nb * BS;
+    const int krow = code == CODE_HALF ? 2 * HD : code == CODE_NIBBLE ? HD / 2 : HD;
+    const int vrow = code == CODE_HALF ? 2 * w : code == CODE_NIBBLE ? w / 2 : w;
+    const int nscale = code == CODE_INT8 ? T : nb;
+    k = 0;                                           // (2, T, krow) bytes
+    v = k + 2 * T * krow;                            // (3, T, vrow) bytes
+    ks = v + 3 * T * vrow;                           // f32 (2, T | nb)
+    vs = ks + 2 * 4 * nscale;                        // f32 (3, T | nb)
+    mk = vs + 3 * 4 * nscale;                        // u8 (2, T)
+    q = (mk + 2 * T + 15) & ~15;                     // f32 (G, HD)
+    p = q + 4 * G * HD;                              // f32 (2, G, T): scores, then p
+    terms = p + 4 * 2 * G * T;                       // f32 (2, 3, nb, G): corr, mnew, sum
+    mx = terms + 4 * 2 * 3 * nb * G;                 // f32 (nb, G)
+    mrun = mx + 4 * nb * G;                          // f32 (G)
+    list = mrun + 4 * G;                             // i32 (NSB)
+    bytes = list + 4 * NSB;
+  }
+};
+
+// Blocks per step: as many whole blocks as fit in the first multiple of a
+// scoring pass (the tokens the scoring warps dot at once) at or above
+// B2_STEP tokens, at least one; fewer while the layout exceeds the CTA's
+// shared memory; 0 if even one block does not fit.
+inline int b2_blocks_per_step(int G, int HD, int BS, int NSB, int code) {
+  const B2Split sp(HD);
+  const int pass = (16 / G) * (B2_THREADS / 32 - G);
+  const int want = pass * ((B2_STEP + pass - 1) / pass);
+  for (int nb = want / BS > 1 ? want / BS : 1; nb > 0; --nb)
+    if (B2Layout(G, HD, BS, NSB, code, sp.w, nb).bytes <= B2_SMEM_MAX) return nb;
+  return 0;
+}
+
+// Row b = blockIdx.y walks physical blocks pblk[b, :counts[b]] of the
+// (P, BS, KV, ·) pool at kv head b % KV; bmask is (BH, NSB, BS). PER_BLOCK:
+// scales are (P, 1, KV), one word per (block, kv). CTA blockIdx.x
+// accumulates channels [x * W, x * W + W); CPL (1 or 4) bounds cpl. With
+// m_out set (B6) it writes the unnormalised state, else the output.
+template <int G, int CODE, bool PER_BLOCK, int CPL>
+__global__ void __launch_bounds__(B2_THREADS) sparse_flash_decode_paged_kernel(
     const float* __restrict__ q,          // (BH, G, HD)
     const void* __restrict__ k_codes,     // (P, BS, KV, HD | HD/2)
     const float* __restrict__ k_scale,    // (P, BS | 1, KV)
@@ -104,144 +203,289 @@ __global__ void sparse_flash_decode_paged_kernel(
     const int32_t* __restrict__ pblk,     // (BH, NSB)
     const int32_t* __restrict__ counts,   // (BH,)
     const uint8_t* __restrict__ bmask,    // (BH, NSB, BS)
-    float* __restrict__ out,              // (BH, G, HD): output, or acc if PARTIALS
-    float* __restrict__ m_out,            // (BH, G)  [PARTIALS]
-    float* __restrict__ l_out,            // (BH, G)  [PARTIALS]
-    int HD, int BS, int KV, int NSB, float scale) {
-  extern __shared__ float sh[];
-  float* q_sh = sh;               // (G, HD)
-  float* p_sh = sh + G * HD;      // (G, BS): scores, then probabilities
-  const int b = blockIdx.x;
-  const int kv = b % KV;
-  const size_t tstride = KV;      // rows between consecutive tokens of a block
-  const int tid = threadIdx.x;    // output channel
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+    float* __restrict__ out,              // (BH, G, HD): output, or acc (B6)
+    float* __restrict__ m_out,            // (BH, G), B6 only (else null)
+    float* __restrict__ l_out,            // (BH, G), B6 only
+    int HD, int BS, int KV, int NSB, float scale, int NB) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NWARPS = B2_THREADS / 32, NSCORE = NWARPS - G;
+  constexpr int TOK = 16 / G;                 // tokens a scoring warp dots at once (a pass)
+  const bool partials = m_out != nullptr;
+  const B2Split sp(HD);
+  const int W = CPL == 1 ? 32 : sp.w, cpl = CPL == 1 ? 1 : sp.cpl;
+  const int T = NB * BS;
+  const B2Layout L(G, HD, BS, NSB, CODE, W, NB);
+  const int krow = CODE == CODE_HALF ? 2 * HD : CODE == CODE_NIBBLE ? HD / 2 : HD;
+  const int vrow = CODE == CODE_HALF ? 2 * W : CODE == CODE_NIBBLE ? W / 2 : W;
+  const int nscale = PER_BLOCK ? NB : T;
+  float* q_sh = (float*)(smem + L.q);
+  float* mx_sh = (float*)(smem + L.mx);
+  float* mrun = (float*)(smem + L.mrun);
+  int32_t* list = (int32_t*)(smem + L.list);
   const float NEG = -1e30f;
-
-  for (int i = tid; i < G * HD; i += blockDim.x) q_sh[i] = q[(size_t)b * G * HD + i];
-  float m[G], l[G], acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
+  const int b = blockIdx.y, kv = b % KV, d0 = blockIdx.x * W;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cnt = counts[b];
+  const int nsteps = (cnt + NB - 1) / NB;
+  auto nblk = [&](int s) { return min(NB, cnt - s * NB); };
+  for (int i = tid; i < cnt; i += B2_THREADS) list[i] = pblk[(size_t)b * NSB + i];
+  for (int i = tid; i < G * HD; i += B2_THREADS) q_sh[i] = q[(size_t)b * G * HD + i];
+  if (tid < G) mrun[tid] = NEG;
   __syncthreads();
 
-  const int cnt = counts[b];
-  for (int n = 0; n < cnt; ++n) {
-    // the block's first row
-    const size_t pb = (size_t)pblk[(size_t)b * NSB + n];
-    const size_t base = pb * BS * KV + kv;
-    const int nt = BS;
-    const uint8_t* mk = bmask + (size_t)b * NSB * BS + (size_t)n * BS;
-    // per-block branches: the block's one scale word per kv head
-    const float ks_blk = PER_BLOCK ? k_scale[pb * KV + kv] : 0.f;
-    const float vs_blk = PER_BLOCK ? v_scale[pb * KV + kv] : 0.f;
-    // scores of the run's tokens: one warp per token
-    for (int t = warp; t < nt; t += nwarps) {
-      const size_t row = base + t * tstride;
-      float part[G];
+  // stage step s's blocks (their K rows, this CTA's V slice, the scales,
+  // the mask rows) into ring slots s & 1 (V and its scales: s % 3); token u
+  // of the step is token u % BS of its block u / BS
+  auto stage = [&](int s) {
+    const int buf = s & 1, vbuf = s % 3, n0 = s * NB, tn = nblk(s) * BS;
+    const unsigned char* kg = (const unsigned char*)k_codes;
+    const unsigned char* vg = (const unsigned char*)v_codes;
+    auto row = [&](int u) {                   // pool row of token u: (pb, t, kv)
+      const int blk = u / BS;
+      return ((size_t)list[n0 + blk] * BS + (u - blk * BS)) * KV + kv;
+    };
+    const uint32_t ka = smem_addr(smem + L.k + buf * T * krow);
+    const int kchunks = krow / 16;
+    for (int i = tid; i < tn * kchunks; i += B2_THREADS) {
+      const int u = i / kchunks;
+      cp_async16(ka + 16 * i, kg + row(u) * krow + 16 * (i - u * kchunks), true);
+    }
+    const uint32_t va = smem_addr(smem + L.v + vbuf * T * vrow);
+    const int vchunks = vrow / 16, dbyte = CODE == CODE_HALF ? 2 * d0
+                                         : CODE == CODE_NIBBLE ? d0 / 2 : d0;
+    for (int i = tid; i < tn * vchunks; i += B2_THREADS) {
+      const int u = i / vchunks, off = dbyte + 16 * (i - u * vchunks);
+      const bool ok = off < krow;             // the last slice may end early
+      cp_async16(va + 16 * i, vg + row(u) * krow + (ok ? off : 0), ok);
+    }
+    const uint32_t ksa = smem_addr(smem + L.ks + buf * 4 * nscale);
+    const uint32_t vsa = smem_addr(smem + L.vs + vbuf * 4 * nscale);
+    if (PER_BLOCK) {
+      for (int i = tid; i < 2 * nblk(s); i += B2_THREADS) {
+        const size_t w = (size_t)list[n0 + (i >> 1)] * KV + kv;
+        if (i & 1) cp_async4(vsa + 4 * (i >> 1), v_scale + w);
+        else cp_async4(ksa + 4 * (i >> 1), k_scale + w);
+      }
+    } else {
+      for (int i = tid; i < 2 * tn; i += B2_THREADS) {
+        const int u = i >> 1;
+        if (i & 1) cp_async4(vsa + 4 * u, v_scale + row(u));
+        else cp_async4(ksa + 4 * u, k_scale + row(u));
+      }
+    }
+    unsigned char* mk = smem + L.mk + buf * T;
+    const uint8_t* mg = bmask + ((size_t)b * NSB + n0) * BS;   // the step's rows are adjacent
+    if ((BS & 3) == 0) {
+      for (int i = tid; i < tn / 4; i += B2_THREADS) cp_async4(smem_addr(mk + 4 * i), mg + 4 * i);
+    } else {
+      for (int u = tid; u < tn; u += B2_THREADS) mk[u] = mg[u];
+    }
+    cp_async_commit();
+  };
+
+  // the scoring warps' barrier (named barrier 1; the walking warps go on)
+  auto score_sync = [&]() {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NSCORE * 32));
+  };
+
+  // scoring warps, on staged step s: the scores, one token per warp in B2's
+  // order (lane d sums channels d, d + 32, ..., then the xor tree, TOK
+  // tokens at once); then, per (block, query row), the block's max, the
+  // running max and corr = exp(m - mnew) in block order, p and the block's
+  // sum in token order — the walk's terms, which depend on no acc
+  auto score = [&](int s) {
+    const int buf = s & 1, sw = warp - G, nb = nblk(s), tn = nb * BS;
+    const unsigned char* k_sh = smem + L.k + buf * T * krow;
+    const float* ks_sh = (const float*)(smem + L.ks + buf * 4 * nscale);
+    const unsigned char* mk = smem + L.mk + buf * T;
+    float* p_sh = (float*)(smem + L.p) + buf * G * T;
+    float* terms = (float*)(smem + L.terms) + buf * 3 * NB * G;   // corr, mnew, sum
+    constexpr int SHIFT = 5 - 4;              // log2(32 / (TOK * G)), TOK * G = 16
+    const int mine = lane >> SHIFT;           // the value whose total this lane ends with
+    for (int u0 = sw; u0 < tn; u0 += TOK * NSCORE) {
+      float part[TOK * G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
+      for (int i = 0; i < TOK * G; ++i) part[i] = 0.f;
+#pragma unroll 4
       for (int d = lane; d < HD; d += 32) {
-        const float kd = load_code<CODE>(k_codes, row, HD, d);
-        for (int g = 0; g < G; ++g) part[g] += q_sh[g * HD + d] * kd;
-      }
-      for (int g = 0; g < G; ++g) {
-        float x = part[g];
+        float qd[G];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-        part[g] = x;
+        for (int g = 0; g < G; ++g) qd[g] = q_sh[g * HD + d];
+#pragma unroll
+        for (int k = 0; k < TOK; ++k) {
+          const int u = u0 + k * NSCORE;
+          const float kd = u < tn ? code_at<CODE>(k_sh + u * krow, d) : 0.f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) part[k * G + g] += qd[g] * kd;
+        }
       }
+      tree_sums<TOK * G>(part, lane, 16);
+      const int k = mine / G, g = mine - k * G, u = u0 + k * NSCORE;
+      if ((lane & ((1 << SHIFT) - 1)) == 0 && u < tn) {
+        const float sc = PER_BLOCK ? part[0] * (ks_sh[u / BS] * scale)   // the reference's order
+                                   : part[0] * ks_sh[u] * scale;
+        p_sh[g * T + u] = mk[u] ? sc : NEG;
+      }
+    }
+    score_sync();
+    for (int task = sw; task < nb * G; task += NSCORE) {     // the block maxima
+      const int k = task / G, g = task - k * G;
+      float mx = NEG;
+      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, p_sh[g * T + k * BS + t]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      if (lane == 0) mx_sh[k * G + g] = mx;
+    }
+    score_sync();
+    if (sw == 0 && lane < G) {                // the running max, block by block
+      float m = mrun[lane];
+      for (int k = 0; k < nb; ++k) {
+        const float mnew = fmaxf(m, mx_sh[k * G + lane]);
+        terms[k * G + lane] = expf(m - mnew);
+        terms[(NB + k) * G + lane] = mnew;
+        m = mnew;
+      }
+      mrun[lane] = m;
+    }
+    score_sync();
+    for (int task = sw; task < nb * G; task += NSCORE) {     // p and the block sums
+      const int k = task / G, g = task - k * G;
+      float* pg = p_sh + g * T + k * BS;
+      const float mnew = terms[(NB + k) * G + g];
+      for (int t = lane; t < BS; t += 32) pg[t] = mk[k * BS + t] ? expf(pg[t] - mnew) : 0.f;
+      __syncwarp();
       if (lane == 0) {
-        for (int g = 0; g < G; ++g) {
-          const float sc = PER_BLOCK ? part[g] * (ks_blk * scale)    // the reference's order
-                                     : part[g] * k_scale[row] * scale;
-          p_sh[g * BS + t] = mk[t] ? sc : NEG;
+        float ps = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < BS; ++t) ps += pg[t];
+        terms[(2 * NB + k) * G + g] = ps;
+      }
+    }
+  };
+
+  // walking warp g, on scored step s: query row g block by block as B2's
+  // loop — l = l * corr + sum, acc *= corr, then lane d's channels of
+  // p * v in token order, v dequantized as B2 dequantizes (code * scale)
+  float m = NEG, l = 0.f, acc[CPL];           // row `warp`'s walk
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
+  auto walk = [&](int s) {
+    const int buf = s & 1, nb = nblk(s);
+    const float* pg = (const float*)(smem + L.p) + (buf * G + warp) * T;
+    const unsigned char* v_sh = smem + L.v + (s % 3) * T * vrow;
+    const float* vs_sh = (const float*)(smem + L.vs + (s % 3) * 4 * nscale);
+    const float* terms = (const float*)(smem + L.terms) + buf * 3 * NB * G;
+    for (int k = 0; k < nb; ++k) {
+      const float corr = terms[k * G + warp];
+      l = l * corr + terms[(2 * NB + k) * G + warp];
+      m = terms[(NB + k) * G + warp];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[j] *= corr;
+      const int u0 = k * BS;
+      const float vsk = PER_BLOCK ? vs_sh[k] : 0.f;
+      if (CPL == 1) {
+#pragma unroll 8
+        for (int u = u0; u < u0 + BS; ++u) {
+          const float vv = code_at<CODE>(v_sh + u * vrow, lane) * (PER_BLOCK ? vsk : vs_sh[u]);
+          acc[0] += pg[u] * vv;
+        }
+      } else {
+        for (int u = u0; u < u0 + BS; ++u) {
+          const float pu = pg[u], vsu = PER_BLOCK ? vsk : vs_sh[u];
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            if (j < cpl) acc[j] += pu * (code_at<CODE>(v_sh + u * vrow, 32 * j + lane) * vsu);
         }
       }
     }
+  };
+
+  // the pipeline: while the walking warps walk step s, the scoring warps
+  // score step s + 1 and step s + 2 is being copied in
+  if (nsteps > 0) {
+    stage(0);
+    if (nsteps > 1) stage(1);
+    if (nsteps > 1) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
-    float mnew[G], corr[G];
-    for (int g = 0; g < G; ++g) {
-      float mx = NEG;
-      for (int t = 0; t < nt; ++t) mx = fmaxf(mx, p_sh[g * BS + t]);
-      mnew[g] = fmaxf(m[g], mx);
-      corr[g] = expf(m[g] - mnew[g]);
-    }
+    if (warp >= G) score(0);
     __syncthreads();
-    for (int i = tid; i < G * BS; i += blockDim.x) {
-      const int g = i / BS;
-      const int t = i % BS;
-      if (t < nt) p_sh[i] = mk[t] ? expf(p_sh[i] - mnew[g]) : 0.f;
-    }
-    __syncthreads();
-    for (int g = 0; g < G; ++g) {
-      float ps = 0.f;
-      for (int t = 0; t < nt; ++t) ps += p_sh[g * BS + t];
-      l[g] = l[g] * corr[g] + ps;
-      m[g] = mnew[g];
-      acc[g] *= corr[g];
-    }
-    for (int t = 0; t < nt; ++t) {
-      const size_t row = base + t * tstride;
-      const float vv = load_code<CODE>(v_codes, row, HD, tid) * (PER_BLOCK ? vs_blk
-                                                                           : v_scale[row]);
-      for (int g = 0; g < G; ++g) acc[g] += p_sh[g * BS + t] * vv;
-    }
-    __syncthreads();   // p_sh is rewritten by the next block
   }
-  for (int g = 0; g < G; ++g) {
-    out[((size_t)b * G + g) * HD + tid] = PARTIALS ? acc[g] : acc[g] / fmaxf(l[g], 1e-20f);
+  for (int s = 0; s < nsteps; ++s) {
+    if (s + 2 < nsteps) stage(s + 2);          // into slots that score(s) and walk(s - 1) read
+    if (s + 2 < nsteps) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();                           // step s + 1 has landed
+    if (warp >= G) {
+      if (s + 1 < nsteps) score(s + 1);
+    } else {
+      walk(s);
+    }
+    __syncthreads();                           // the slots are rewritten next
   }
-  if (PARTIALS && tid == 0) {   // every thread holds the same (m, l)
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      m_out[(size_t)b * G + g] = m[g];
-      l_out[(size_t)b * G + g] = l[g];
+  if (warp < G) {
+    for (int j = 0; j < cpl; ++j) {
+      const int c = d0 + 32 * j + lane;
+      if (c < HD) out[((size_t)b * G + warp) * HD + c] = partials ? acc[j]
+                                                                  : acc[j] / fmaxf(l, 1e-20f);
+    }
+    if (partials && blockIdx.x == 0 && lane == 0) {   // every CTA holds the same (m, l)
+      m_out[(size_t)b * G + warp] = m;
+      l_out[(size_t)b * G + warp] = l;
     }
   }
 }
 
-template <bool PARTIALS, int CODE, bool PER_BLOCK>
+// The launch of one branch: grid (slices, BH), 512 threads.
+template <int CODE, bool PER_BLOCK>
 int launch(const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
            const void* v_scale, const void* pblk, const void* counts, const void* bmask,
            void* out, void* m_out, void* l_out, int BH, int G, int HD, int BS, int KV,
            int NSB, float scale, void* stream) {
-  if (HD % 32 != 0 || HD > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(G * HD + G * BS) * sizeof(float);
+  if (HD % 32 != 0 || HD > 1024 || BS < 1 || BH < 1) return (int)cudaErrorInvalidValue;
+  const B2Split sp(HD);
+  const int nb = b2_blocks_per_step(G, HD, BS, NSB, CODE);
+  if (nb < 1) return (int)cudaErrorInvalidValue;    // one block's rows exceed shared memory
+  const int smem = B2Layout(G, HD, BS, NSB, CODE, sp.w, nb).bytes;
+  const dim3 grid(sp.slices, BH);
   cudaStream_t st = (cudaStream_t)stream;
-#define B2_LAUNCH(GG)                                                              \
-  sparse_flash_decode_paged_kernel<GG, PARTIALS, CODE, PER_BLOCK>                 \
-      <<<BH, HD, smem, st>>>(                                                      \
-      (const float*)q, k_codes, (const float*)k_scale,                             \
-      v_codes, (const float*)v_scale, (const int32_t*)pblk,                        \
-      (const int32_t*)counts, (const uint8_t*)bmask, (float*)out, (float*)m_out,   \
-      (float*)l_out, HD, BS, KV, NSB, scale)
-  switch (G) {
-    case 1: B2_LAUNCH(1); break;
-    case 2: B2_LAUNCH(2); break;
-    case 4: B2_LAUNCH(4); break;
-    case 8: B2_LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
+  // the attribute is set on every launch (cheap; it is per device)
+#define B2_LAUNCH(GG, CC)                                                               \
+  do {                                                                                  \
+    auto* fn = sparse_flash_decode_paged_kernel<GG, CODE, PER_BLOCK, CC>;               \
+    const cudaError_t e =                                                               \
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);    \
+    if (e != cudaSuccess) return (int)e;                                                \
+    fn<<<grid, B2_THREADS, smem, st>>>(                                                 \
+        (const float*)q, k_codes, (const float*)k_scale, v_codes, (const float*)v_scale, \
+        (const int32_t*)pblk, (const int32_t*)counts, (const uint8_t*)bmask, (float*)out, \
+        (float*)m_out, (float*)l_out, HD, BS, KV, NSB, scale, nb);                      \
+  } while (0)
+#define B2_GROUPS(CC)                              \
+  switch (G) {                                     \
+    case 1: B2_LAUNCH(1, CC); break;               \
+    case 2: B2_LAUNCH(2, CC); break;               \
+    case 4: B2_LAUNCH(4, CC); break;               \
+    case 8: B2_LAUNCH(8, CC); break;               \
+    default: return (int)cudaErrorInvalidValue;    \
   }
+  if (sp.cpl == 1) {
+    B2_GROUPS(1)
+  } else {
+    B2_GROUPS(4)
+  }
+#undef B2_GROUPS
 #undef B2_LAUNCH
   return (int)cudaGetLastError();
 }
 
 // The paged kernels' branch by the pool's storage code: int8 (per-token
 // scales), half or nibble (per-block scales).
-template <bool PARTIALS>
 int launch_paged(int code, const void* q, const void* k_codes, const void* k_scale,
                  const void* v_codes, const void* v_scale, const void* pblk, const void* counts,
                  const void* bmask, void* out, void* m_out, void* l_out, int BH, int G, int HD,
                  int BS, int KV, int NSB, float scale, void* stream) {
 #define B2_BRANCH(CC, PB)                                                          \
-  launch<PARTIALS, CC, PB>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, \
-                           out, m_out, l_out, BH, G, HD, BS, KV, NSB, scale, stream)
+  launch<CC, PB>(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask,        \
+                 out, m_out, l_out, BH, G, HD, BS, KV, NSB, scale, stream)
   switch (code) {
     case CODE_INT8: return B2_BRANCH(CODE_INT8, false);
     case CODE_HALF: return B2_BRANCH(CODE_HALF, true);
@@ -490,9 +734,8 @@ extern "C" int sparse_flash_decode_paged(const void* q, const void* k_codes,
                                          const void* counts, const void* bmask, void* out,
                                          int BH, int G, int HD, int BS, int KV, int NSB,
                                          float scale, int code, void* stream) {
-  return launch_paged<false>(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts,
-                             bmask, out, nullptr, nullptr, BH, G, HD, BS, KV, NSB, scale,
-                             stream);
+  return launch_paged(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, out,
+                      nullptr, nullptr, BH, G, HD, BS, KV, NSB, scale, stream);
 }
 
 extern "C" int sparse_flash_decode_paged_partials(
@@ -500,8 +743,8 @@ extern "C" int sparse_flash_decode_paged_partials(
     const void* v_scale, const void* pblk, const void* counts, const void* bmask, void* acc,
     void* m, void* l, int BH, int G, int HD, int BS, int KV, int NSB, float scale, int code,
     void* stream) {
-  return launch_paged<true>(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask,
-                            acc, m, l, BH, G, HD, BS, KV, NSB, scale, stream);
+  return launch_paged(code, q, k_codes, k_scale, v_codes, v_scale, pblk, counts, bmask, acc,
+                      m, l, BH, G, HD, BS, KV, NSB, scale, stream);
 }
 
 extern "C" int sparse_flash_decode(const void* q, const void* k_codes, const void* k_scale,

@@ -159,6 +159,10 @@ def _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, blk_
     common.require(pblk, "pblk", torch.int32, (bh, nsb), dev)
     common.require(counts, "counts", torch.int32, (bh,), dev)
     common.require(blk_mask, "blk_mask", torch.bool, (bh, nsb, bs), dev)
+    if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16 or blk_mask.data_ptr() % 4:
+        raise ValueError("kernels B2/B6 copy K/V codes in 16-byte units and mask rows in "
+                         "4-byte units: k_codes and v_codes must start 16-byte aligned, "
+                         "blk_mask 4-byte aligned")
     return bh, g, hd
 
 

@@ -46,12 +46,16 @@ def main() -> None:
     if args.local:
         cfg = cfg.reduced()
     max_seq = args.max_seq or (args.prompt_len + args.new_tokens + 8)
-    max_seq = -(-max_seq // args.block_size) * args.block_size
+    max_seq = ((max_seq + 127) // 128) * 128        # as the reference launcher rounds
+    paged = args.paged or args.sharded
+    if paged and max_seq % args.block_size:
+        ap.error(f"--block-size {args.block_size} must divide max_seq {max_seq} (the "
+                 f"requested length rounded up to a multiple of 128)")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_lm_params(cfg, gen, args.device)
     ctx = init_decode_ctx(args.device) if args.sharded else None
     engine = ServingEngine(cfg, params, max_seq=max_seq, slots=args.slots,
-                           paged=args.paged or args.sharded, block_size=args.block_size,
+                           paged=paged, block_size=args.block_size,
                            device=args.device, ctx=ctx)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):

@@ -191,18 +191,19 @@ class ServeStats:
     pcie_bytes: int = 0        # block bytes × moves
 
     def summary(self) -> dict:
-        """The reference's summary keys that this port has; the block-pool
-        keys only for a paged engine, as there."""
+        """The reference's summary keys that this port has, rounded as there
+        (seconds to 4 places, ms and utilisations to 3); the block-pool keys
+        only for a paged engine, the shard keys only over several shards."""
         out = {
-            "completed": self.completed, "prefill_s": self.prefill_s,
-            "decode_s": self.decode_s, "decode_steps": self.decode_steps,
+            "completed": self.completed, "prefill_s": round(self.prefill_s, 4),
+            "decode_s": round(self.decode_s, 4), "decode_steps": self.decode_steps,
             "ticks": self.ticks, "decode_calls": self.decode_calls,
             "tokens_generated": self.tokens_generated,
-            "decode_ms_per_step": 1e3 * self.decode_s / max(self.decode_steps, 1),
-            "decode_ms_per_tick": 1e3 * self.decode_s / max(self.ticks, 1),
+            "decode_ms_per_step": round(1e3 * self.decode_s / max(self.decode_steps, 1), 3),
+            "decode_ms_per_tick": round(1e3 * self.decode_s / max(self.ticks, 1), 3),
             "decode_tokens_per_s": self.decode_steps / self.decode_s if self.decode_s else 0.0,
-            "mean_queue_wait_s": self.queue_wait_s / max(self.admissions, 1),
-            "mean_ttft_s": self.ttft_s / max(self.ttft_count, 1),
+            "mean_queue_wait_s": round(self.queue_wait_s / max(self.admissions, 1), 4),
+            "mean_ttft_s": round(self.ttft_s / max(self.ttft_count, 1), 4),
             "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
             "overflows": self.overflows, "dropped_writes": self.dropped_writes,
             "prefill_tokens": self.prefill_tokens,
@@ -210,10 +211,14 @@ class ServeStats:
         if self.block_pool_size:
             out.update(block_pool_size=self.block_pool_size,
                        peak_blocks_in_use=self.peak_blocks_in_use,
-                       block_utilization=self.peak_blocks_in_use / self.block_pool_size)
+                       block_utilization=round(self.peak_blocks_in_use / self.block_pool_size,
+                                               3))
             if self.shards > 1:
                 out.update(shards=self.shards,
-                           peak_shard_blocks_in_use=self.peak_shard_blocks_in_use)
+                           peak_shard_blocks_in_use=self.peak_shard_blocks_in_use,
+                           shard_block_utilization=round(
+                               self.peak_shard_blocks_in_use
+                               / (self.block_pool_size // self.shards), 3))
             if self.host_spill:
                 out.update(hot_blocks=self.hot_blocks, cold_blocks=self.cold_blocks,
                            peak_cold_blocks=self.peak_cold_blocks, demotions=self.demotions,
@@ -331,7 +336,10 @@ class ServingEngine:
         return self._alloc.free_ids()
 
     # ------------------------------------------------------------------
-    def submit(self, req: Request) -> None:
+    def submit(self, req: Request) -> bool:
+        """Enqueue a request; returns True (the reference's bounded queue,
+        which returns False when it sheds one, is not ported yet). A
+        malformed request raises."""
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(f"request {req.rid}: prompt({len(req.prompt)}) + "
                              f"max_new_tokens({req.max_new_tokens}) exceeds "
@@ -343,6 +351,7 @@ class ServingEngine:
             raise ValueError(f"request {req.rid}: needs {self._blocks_for(lifetime)} "
                              f"blocks over its lifetime but the pool has {self.num_blocks}")
         self._queue.append(req)
+        return True
 
     def _blocks_for(self, tokens: int) -> int:
         return max(1, -(-tokens // self.block_size))

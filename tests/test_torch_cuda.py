@@ -289,7 +289,7 @@ def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     assert (out[-1] == 0).all()
 
 
-@pytest.mark.parametrize("g,hd,c", [(2, 128, 512), (8, 64, 150), (1, 256, 96)])
+@pytest.mark.parametrize("g,hd,c", [(2, 128, 512), (8, 64, 150), (1, 256, 96), (4, 128, 300)])
 def test_b8_equals_b2_bitwise_on_the_same_runs(dev, g, hd, c):
     """Where a row's gathered tokens are B2's blocks in order, masked at the
     same positions (blocks of 32; dead positions, a dead block and a short
@@ -324,6 +324,65 @@ def test_b8_equals_b2_bitwise_on_the_same_runs(dev, g, hd, c):
     out8 = sparse_flash_decode(q, gk, gks, gv, gvs, mask)
     assert torch.equal(out8, out2)
     assert (out8[-1] == 0).all()
+
+
+def _random_rows(dev, mode, bh=6, g=2, hd=128, bs=32, kv=2, nsb=5, seed=12):
+    """B2/B6 operands over a random pool in storage mode ``mode``: random
+    codes (int4: any byte), scales per token (int8) or per block, lists of
+    random length over scrambled blocks (row 0 lists nothing, row 1 all nsb)
+    and random block masks, False past each row's count."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = bh * nsb + 3
+    width = hd // 2 if mode == "int4" else hd
+    if mode == "fp16":
+        kc, vc = (torch.randn((p, bs, kv, hd), generator=gen, device=dev).half()
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randint(-128, 128, (p, bs, kv, width), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+    srows = bs if mode == "int8" else 1
+    ks, vs = (torch.rand((p, srows, kv), generator=gen, device=dev) * 0.02 + 1e-3
+              for _ in range(2))
+    pblk = torch.randperm(p, generator=gen, device=dev)[:bh * nsb].reshape(bh, nsb)
+    counts = torch.randint(1, nsb + 1, (bh,), generator=gen, device=dev)
+    counts[0], counts[1] = 0, nsb
+    live = torch.arange(nsb, device=dev)[None, :] < counts[:, None]
+    bmask = (torch.rand((bh, nsb, bs), generator=gen, device=dev) < 0.6) & live[..., None]
+    q = torch.randn((bh, g, hd), generator=gen, device=dev)
+    return (q, kc, ks, vc, vs, pblk.to(torch.int32), counts.to(torch.int32), bmask, kv, mode)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp16", "int4"])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_b2_equals_normalised_b6_bitwise(dev, mode, bs):
+    """B2 is B6's walk normalised: its output equals acc / max(l, 1e-20) of
+    B6 bit for bit in every branch, a row that lists nothing included."""
+    from repro_torch.kernels.flash_decode.ops import (
+        sparse_flash_decode_paged_kernel, sparse_flash_decode_paged_partials_kernel)
+    args = _random_rows(dev, mode, bs=bs)
+    out = sparse_flash_decode_paged_kernel(*args)
+    acc, m, l = sparse_flash_decode_paged_partials_kernel(*args)
+    assert torch.equal(out, acc / torch.clamp_min(l, 1e-20)[..., None])
+    assert (out[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()
+
+
+@pytest.mark.parametrize("mode,hd,bs,g", [("int8", 512, 32, 2), ("fp16", 512, 16, 4),
+                                          ("int4", 288, 20, 1), ("int8", 128, 48, 8),
+                                          ("fp16", 96, 6, 2), ("int4", 64, 24, 2)])
+def test_b2_b6_wide_heads_and_odd_blocks_match_plain(dev, mode, hd, bs, g):
+    """HD 512 (eight CTAs of 64 channels per row, the cap), HD 288 (a last
+    CTA of 32 of its 64 channels), blocks of 6-48 tokens (a mask row copied
+    byte by byte, a max over two lane passes, steps of 2-21 blocks): B2
+    within 1e-5 + 1e-5·|plain| of its plain version, and B6 normalised
+    equal to B2."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    args = _random_rows(dev, mode, g=g, hd=hd, bs=bs, nsb=4)
+    q, kc, ks, vc, vs, pblk, counts, bmask, kv, _ = args
+    out = fd.sparse_flash_decode_paged_kernel(*args)
+    want = fd.sparse_flash_decode_paged_plain(q, kc, ks, vc, vs, pblk, bmask, kv, mode)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    acc, _, l = fd.sparse_flash_decode_paged_partials_kernel(*args)
+    assert torch.equal(out, acc / torch.clamp_min(l, 1e-20)[..., None])
 
 
 def test_b3_b8_refuse_misaligned_operands(dev):
