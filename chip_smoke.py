@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with kernel, plain and library times and
    the roofline bound — the paged kernels (B1 paged scores, B4 scores +
-   bounds and B5 bin/pool/histogram: bit-identical; B2 sparse decode
+   bounds and B5 bin/pool/histogram: bit-identical, B1 and B4 with their
+   CTA counts from the trace, and the share of B4's (slot, block) pairs
+   that hold no valid token printed apart; B2 sparse decode
    attention and B6 its unnormalised partials: f32, in each of the pool's
    storage branches int8, fp16 and int4, split over output channels with
    their CTA count from the trace, B2 with SDPA over the listed blocks
@@ -50,7 +52,8 @@ Phases (any failure raises and the script exits non-zero):
    block round trip, wave admission, pressure and policy demotion,
    promotion, transfer bytes, a drained pool).
 
-It prints a ``{"kernels": [...]}`` line and, last, the
+It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
+its path, and ``launches_per_call`` over all eight runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -487,7 +490,8 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
     if not torch.equal(out, plain):
         raise AssertionError(f"B1: kernel differs from plain version on "
                              f"{int((out != plain).sum())} of {out.numel()} scores")
-    ms = kernel_ms(lambda: se.paged_score_estimate(*b1_args), "paged_score_kernel", iters)
+    ms = kernel_ms(lambda: se.paged_score_estimate(*b1_args), "paged_score_estimate_kernel",
+                   iters)
     blocks = int(torch.unique(pages).numel())
     g = qc.shape[2]
     b1_bytes = (blocks * bs * kv * (pool.feat_words.shape[-1] * 4 + 8)   # words, scale, zero
@@ -501,7 +505,9 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20):
                      tolerance="bit-identical", err_over_tol=0.0, ms=ms,
                      plain_ms=events_ms(lambda: se.paged_score_estimate_plain(*b1_args),
                                         max(2, iters // 10)),
-                     bound_ms=bms, bound_by=bby, library_ms=None))
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: se.paged_score_estimate(*b1_args),
+                                      "paged_score_estimate_kernel")))
 
     # B2 — on the selection this query makes over this pool
     params = salca_params_for(cfg, mseq)
@@ -625,11 +631,18 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                      replaces="src/repro/kernels/score_est/kernel.py:164",
                      launches=None, max_abs_err=0.0, tolerance="bit-identical",
                      err_over_tol=0.0,
-                     ms=kernel_ms(lambda: se.paged_score_bounds(*b4_args), "paged_score_kernel",
-                                  iters),
+                     ms=kernel_ms(lambda: se.paged_score_bounds(*b4_args),
+                                  "paged_score_bounds_kernel", iters),
                      plain_ms=events_ms(lambda: se.paged_score_bounds_plain(*b4_args),
                                         max(2, iters // 10)),
-                     bound_ms=bms, bound_by=bby, library_ms=None))
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: se.paged_score_bounds(*b4_args),
+                                      "paged_score_bounds_kernel")))
+    # a property of the operands, not a reading of the kernel: B4 reads no
+    # feature of a block whose validity row is all zero
+    print(f"B4 operands: invalid_block_share="
+          f"{float((~blk_valid.any(-1)).float().mean()):.6g} of {blk_valid.shape[0] * mb} "
+          f"(slot, block) pairs", flush=True)
 
     # B5 — halo columns as the one-rank all-reduce leaves them: each block's
     # neighbours' edge bins under the global affine
@@ -1289,6 +1302,9 @@ def main() -> int:
     for r in recs:
         if r["name"] not in ("maxpool_int8", "hist_threshold"):
             r["launches"] = runs[home.get(r["name"], "int8")].get(r["name"], 0)
+            r["launches_per_call"] = sum(run.get(r["name"], 0) for run in runs.values())
+        else:
+            r["launches_per_call"] = r["launches"]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on its main path")
     print(json.dumps({"kernels": recs}), flush=True)

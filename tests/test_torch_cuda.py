@@ -137,6 +137,97 @@ def test_b4_kernel_bitwise(dev, g, bf16):
     assert torch.isposinf(out[1][1]).all()        # slot 1: nothing valid
 
 
+def _score_operands(dev, seed, kv, g, r, bs, slots=4, max_seq=1024,
+                    lengths=(1000, 0, 700, 77)):
+    """B1's operands on a random pool of ``slots`` × ``max_seq`` tokens, and
+    a B4 validity mask that holds every case the kernel treats apart: slot
+    0 stored up to a partly valid last block, slot 1 empty, slot 2 owning
+    every other block (a two-rank stripe), slot 3 with its first block
+    masked inside a valid run."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = _pool(dev, gen, slots=slots, max_seq=max_seq, bs=bs, kv=kv, hd=2 * r, r=r,
+                 lengths=lengths)
+    qc = torch.randint(-3, 4, (slots, kv, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((slots, kv, g), generator=gen, device=dev)
+    qsum = qc.to(torch.int32).sum(-1, dtype=torch.int32)
+    b1 = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero,
+          pool.clamped_pages())
+    valid = _blk_valid(pool)
+    mb = pool.max_blocks
+    valid[2] &= (torch.arange(mb, device=dev) % 2 == 0)[:, None]
+    valid[3, 0] = False
+    return b1, valid
+
+
+@pytest.mark.parametrize("kv,g,r,bs,bf16", [
+    (8, 1, 64, 32, True),     # the main path (qwen3-0.6b, group-summed query): registers
+    (8, 1, 64, 32, False),
+    (8, 1, 16, 32, True),     # the reduced config; from here on the wide layout
+    (8, 1, 32, 32, True),     # head dim 64
+    (8, 1, 128, 32, False),   # head dim 256
+    (8, 2, 64, 32, True),     # qwen3-0.6b without the group sum
+    (8, 2, 64, 32, False),
+    (8, 2, 32, 32, False),
+    (8, 4, 16, 32, True),
+    (8, 4, 32, 32, False),
+    (8, 4, 64, 32, True),     # qwen3-8b
+    (10, 4, 64, 32, True),    # phi3-medium: threads not a multiple of 32
+    (8, 2, 128, 32, True),
+    (8, 4, 128, 32, False),
+    (8, 2, 64, 16, True),
+    (8, 2, 64, 64, False),
+    (1, 2, 64, 32, True),
+])
+def test_b1_b4_bitwise_at_serving_shapes(dev, kv, g, r, bs, bf16):
+    """B1 and B4 equal their plain versions bit for bit at the serving
+    models' widths, in both the register and the wide layout; B4 on a mask
+    with a partly valid block, an all-invalid block inside a valid slot, a
+    two-rank stripe and an empty slot, whose bounds are exactly lo = +inf
+    and hi = SCORE_NEG_INF."""
+    from repro_torch.core.quantization import SCORE_NEG_INF
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.score_est import ops as se
+    b1, valid = _score_operands(dev, 13, kv, g, r, bs)
+    n0 = dict(LAUNCHES)
+    assert torch.equal(se.paged_score_estimate(*b1, bf16=bf16),
+                       se.paged_score_estimate_plain(*b1, bf16=bf16))
+    out = se.paged_score_bounds(*b1, valid, bf16=bf16)
+    for t, p in zip(out, se.paged_score_bounds_plain(*b1, valid, bf16=bf16)):
+        assert torch.equal(t, p)
+    assert torch.isposinf(out[1][1]).all()
+    assert (out[2][1] == SCORE_NEG_INF).all()
+    assert torch.isfinite(out[1][[0, 2, 3]]).all()
+    assert LAUNCHES["paged_score_estimate"] == n0.get("paged_score_estimate", 0) + 1
+    assert LAUNCHES["paged_score_bounds"] == n0.get("paged_score_bounds", 0) + 1
+
+
+@pytest.mark.parametrize("case", ["unaligned", "kv1030"])
+def test_b1_b4_wide_layout_cases_bitwise(dev, case):
+    """Shapes and operands off the register layout still launch the kernel
+    and equal the plain versions: query codes and key words off their
+    vector alignment at the main path's G and r, and more kv heads than a
+    CTA has threads (each thread's kv head changes from task to task)."""
+    from repro_torch.kernels.score_est import ops as se
+    if case == "unaligned":
+        b1, valid = _score_operands(dev, 14, 8, 1, 64, 32, max_seq=512,
+                                    lengths=(500, 0, 300, 40))
+        qc, words = b1[0], b1[3]
+        qbuf = torch.empty(qc.numel() + 1, dtype=torch.int8, device=dev)
+        qbuf[1:] = qc.reshape(-1)
+        wbuf = torch.empty(words.numel() + 1, dtype=torch.int32, device=dev)
+        wbuf[1:] = words.reshape(-1)
+        args = (qbuf[1:].view(qc.shape), *b1[1:3], wbuf[1:].view(words.shape), *b1[4:])
+        assert args[0].data_ptr() % 16 and args[3].data_ptr() % 16
+    else:
+        b1, valid = _score_operands(dev, 15, 1030, 1, 16, 16, max_seq=64,
+                                    lengths=(60, 0, 40, 20))
+        args = b1
+    assert torch.equal(se.paged_score_estimate(*args), se.paged_score_estimate_plain(*b1))
+    for t, p in zip(se.paged_score_bounds(*args, valid),
+                    se.paged_score_bounds_plain(*b1, valid)):
+        assert torch.equal(t, p)
+
+
 @pytest.mark.parametrize("window", [1, 7])
 def test_b5_kernel_bitwise(dev, window):
     from repro_torch.kernels.selection_fused.ops import (
