@@ -11,9 +11,10 @@ Phases (any failure raises and the script exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with kernel, plain and library times and
    the roofline bound — the paged kernels (B1 paged scores, B4 scores +
-   bounds and B5 bin/pool/histogram: bit-identical, B1 and B4 with their
-   CTA counts from the trace, and the share of B4's (slot, block) pairs
-   that hold no valid token printed apart; B2 sparse decode
+   bounds and B5 bin/pool/histogram: bit-identical, with their CTA counts
+   from the trace, B5 also timed with the L2 flushed before each call, and
+   the share of B4's (slot, block) pairs that hold no valid token printed
+   apart; B2 sparse decode
    attention and B6 its unnormalised partials: f32, in each of the pool's
    storage branches int8, fp16 and int4, split over output channels with
    their CTA count from the trace, B2 with SDPA over the listed blocks
@@ -21,8 +22,9 @@ Phases (any failure raises and the script exits non-zero):
    dequantization; B3 causal prefill attention:
    bf16 on the tensor cores, with its TFLOP/s, its time over SDPA's and
    the count of HMMA/HGMMA lines in its library's SASS, which must not be
-   0), the contiguous tick's (B7 flat scores in both of its chains and
-   B9 bin/pool/histogram/threshold: bit-identical; B8 sparse decode
+   0), the contiguous tick's (B7 flat scores in both of its chains, with
+   its CTA count and its time on a flushed L2, and B9
+   bin/pool/histogram/threshold: bit-identical; B8 sparse decode
    attention over gathered rows, split over output channels: f32, with
    SDPA over the dequantized rows as its yardstick, timed without and
    with the dequantization), and B10 (max-pool) and B11
@@ -164,6 +166,23 @@ def kernel_ms(fn, kernel_name: str, iters: int) -> float:
                 launches += e.count
         return total_us / launches / 1e3 if launches >= iters and total_us > 0 else None
     return _profiled(fn, kernel_name, iters, per_launch)
+
+
+# written between the calls of a cold-L2 timing: more than the H100's 50 MB L2
+L2_FLUSH_BYTES = 64 << 20
+
+
+def cold_kernel_ms(fn, kernel_name: str, iters: int) -> float:
+    """`kernel_ms` of ``fn`` with the L2 cache flushed before each call: an
+    L2_FLUSH_BYTES buffer is written between the calls (its fill kernel is
+    not counted: `kernel_ms` reads ``kernel_name``'s launches only)."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def cold():
+        flush.fill_(1)
+        fn()
+    return kernel_ms(cold, kernel_name, iters)
 
 
 def kernel_ctas(fn, kernel_name: str) -> int:
@@ -351,11 +370,15 @@ def check_flat_kernels(dev, cfg, lengths, iters=20):
                      tolerance="bit-identical (bf16 and f32 chains)", err_over_tol=0.0,
                      ms=kernel_ms(lambda: se.flat_score_estimate(*b7_args), "flat_score_kernel",
                                   iters),
+                     cold_ms=cold_kernel_ms(lambda: se.flat_score_estimate(*b7_args),
+                                            "flat_score_kernel", iters),
                      f32_chain_ms=kernel_ms(lambda: se.score_estimate(*op_args),
                                             "flat_score_kernel", iters),
                      plain_ms=events_ms(lambda: se.flat_score_estimate_plain(*b7_args),
                                         max(2, iters // 10)),
-                     bound_ms=bms, bound_by=bby, library_ms=None))
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: se.flat_score_estimate(*b7_args),
+                                      "flat_score_kernel")))
 
     # B9 — on the bounds and cleaned offset `fused_select_flat` passes it
     params = salca_params_for(cfg, n)
@@ -657,9 +680,12 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
     b5_args = (sm.reshape(s, kv, mb, bs), lo, hi, from_left, from_right, blk_valid, force)
     out5 = sf.paged_fused_select(*b5_args, window=w)
     _check_exact("B5", out5, sf.paged_fused_select_plain(*b5_args, window=w))
-    b5_bytes = (4 * sm.numel() + 8 * s * kv + 2 * from_left.numel() + 2 * blk_valid.numel()
-                + out5[0].numel() + 4 * out5[1].numel())
-    b5_ops = sm.numel() * (w + 8)        # bin (5 f32 ops), pool (w max), force, count
+    # what these operands need read: every validity byte; scores and force
+    # bytes at valid positions, halo columns of blocks with a valid position
+    n_valid, n_live = int(blk_valid.sum()), int(blk_valid.any(-1).sum())
+    b5_bytes = (blk_valid.numel() + n_valid * (4 * kv + 1) + 2 * halo * kv * n_live
+                + 8 * s * kv + out5[0].numel() + 4 * out5[1].numel())
+    b5_ops = n_valid * kv * (w + 8)      # bin (5 f32 ops), pool (w max), force, count
     bms, bby = bound(b5_bytes, b5_ops, "f32")
     recs.append(dict(name="paged_fused_select", route="cuda",
                      source="src/repro_torch/csrc/selection_fused.cu",
@@ -668,9 +694,13 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                      err_over_tol=0.0,
                      ms=kernel_ms(lambda: sf.paged_fused_select(*b5_args, window=w),
                                   "paged_fused_select_kernel", iters),
+                     cold_ms=cold_kernel_ms(lambda: sf.paged_fused_select(*b5_args, window=w),
+                                            "paged_fused_select_kernel", iters),
                      plain_ms=events_ms(lambda: sf.paged_fused_select_plain(*b5_args, window=w),
                                         max(2, iters // 10)),
-                     bound_ms=bms, bound_by=bby, library_ms=None))
+                     bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: sf.paged_fused_select(*b5_args, window=w),
+                                      "paged_fused_select_kernel")))
 
     # B6 — partials over the rank-local plan of the selection B5 leads to
     t = ht.locate_threshold(out5[1], params.k)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Kernels B2 and B6, and B1 and B4, against other checkouts', bit for
+"""Kernels B1, B2, B4, B5, B6 and B7 against other checkouts', bit for
 bit, on chip_smoke.py's operands.
 
     python3 scripts/torch_b2_ab.py --tree DIR [DIR ...]
 
-Runs chip_smoke.py's phase-3 checks of B1, B2, B4 and B6 (B2 and B6 in the
-int8 branch, then the fp16 and int4 branches) and records the operands of
-the first launch of each of the eight rows (B1, B4, and B2 and B6 in each
-storage mode). Then, on those operands:
+Runs chip_smoke.py's phase-3 checks of the paged, block-sharded, contiguous
+and tiered kernels and records the operands of the first launch of each of
+eleven rows: B1, B4, B5, B7 in the contiguous tick's bf16 chain and in the
+reference op's f32 chain, and B2 and B6 in each storage mode (int8, fp16,
+int4). Then, on those operands:
 
 - this checkout's kernels, timed from the profiler's trace, with their CTA
   count;
@@ -30,19 +31,26 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# wrapper module → a name that the CUDA symbol of its kernels holds in both trees
-KERNELS = {"flash_decode": "sparse_flash_decode_paged_kernel", "score_est": "paged_score"}
-# recorded wrappers: (module, function); B2/B6 are recorded per storage mode
-WRAPPERS = (("flash_decode", "sparse_flash_decode_paged_kernel"),
-            ("flash_decode", "sparse_flash_decode_paged_partials_kernel"),
-            ("score_est", "paged_score_estimate"), ("score_est", "paged_score_bounds"))
+# recorded wrappers: (module, function) → a name that the CUDA symbol of
+# the wrapper's kernel holds in every tree compared; B2/B6 are recorded per
+# storage mode, B7 per chain
+KERNELS = {
+    ("flash_decode", "sparse_flash_decode_paged_kernel"): "sparse_flash_decode_paged_kernel",
+    ("flash_decode", "sparse_flash_decode_paged_partials_kernel"):
+        "sparse_flash_decode_paged_kernel",                       # B6 runs B2's kernel
+    ("score_est", "paged_score_estimate"): "paged_score_estimate_kernel",
+    ("score_est", "paged_score_bounds"): "paged_score_bounds_kernel",
+    ("score_est", "flat_score_estimate"): "flat_score",
+    ("selection_fused", "paged_fused_select"): "paged_fused_select_kernel",
+}
 ITERS = 20
 
 
 def modules():
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.score_est import ops as se
-    return {"flash_decode": fd, "score_est": se}
+    from repro_torch.kernels.selection_fused import ops as sf
+    return {"flash_decode": fd, "score_est": se, "selection_fused": sf}
 
 
 def run_rows(mods, cs, rows) -> dict:
@@ -53,7 +61,8 @@ def run_rows(mods, cs, rows) -> dict:
         fn = getattr(mods[mod], fname)
         res = fn(*args, **kw)
         out[name] = dict(out=res if isinstance(res, tuple) else (res,),
-                         ms=cs.kernel_ms(lambda: fn(*args, **kw), KERNELS[mod], ITERS))
+                         ms=cs.kernel_ms(lambda: fn(*args, **kw), KERNELS[mod, fname],
+                                         ITERS))
     return out
 
 
@@ -66,7 +75,7 @@ def child(tree: Path, ops_file: Path, out_file: Path) -> int:
     mods = modules()
     for m in mods.values():
         assert Path(m.__file__).resolve().is_relative_to(tree), m.__file__
-    common.build_kernels(list(KERNELS))
+    common.build_kernels(list(mods))
     rows = torch.load(ops_file, map_location="cuda")
     res = run_rows(mods, cs, rows)
     torch.save({k: dict(out=[t.cpu() for t in v["out"]], ms=v["ms"]) for k, v in res.items()},
@@ -77,7 +86,7 @@ def child(tree: Path, ops_file: Path, out_file: Path) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, nargs="+", required=True,
-                    help="roots of the checkouts whose B1, B2, B4 and B6 this one is held to")
+                    help="roots of the checkouts whose kernels this one is held to")
     ap.add_argument("--child", nargs=2, type=Path, metavar=("OPERANDS", "OUT"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -105,29 +114,32 @@ def main() -> int:
                 base = fname.removesuffix("_kernel")
                 name = mods[mod]._counter(base, args[9] if len(args) > 9
                                           else kw.get("kv_dtype", "int8"))
+            elif fname == "flat_score_estimate":
+                name = f"{fname}[{'bf16' if kw.get('bf16', True) else 'f32'}]"
             rows.setdefault(name, (mod, fname, args, kw))
             return fn(*args, **kw)
         return run
 
-    orig = {w: getattr(mods[w[0]], w[1]) for w in WRAPPERS}
+    orig = {w: getattr(mods[w[0]], w[1]) for w in KERNELS}
     for (mod, fname), fn in orig.items():
         setattr(mods[mod], fname, recorder(mod, fname, fn))
     try:
         cfg = get_config("qwen3-0.6b")
         lengths = [n + cs.NEW_TOKENS for n in cs.PROMPTS]
         cs.check_kernels("cuda", cfg, lengths=lengths, prompt_len=max(cs.PROMPTS))
+        cs.check_flat_kernels("cuda", cfg, lengths=lengths)
         cs.check_tiered_kernels("cuda", cfg, lengths=lengths)
     finally:
         for (mod, fname), fn in orig.items():
             setattr(mods[mod], fname, fn)
-    assert len(rows) == 8, sorted(rows)
+    assert len(rows) == 11, sorted(rows)
 
     # this tree's kernels first: after the child has profiled, sessions of
     # this process lost every launch of B1 (PERF.md)
     mine = run_rows(mods, cs, rows)
     for name, (mod, fname, args, kw) in rows.items():
         fn = getattr(mods[mod], fname)
-        mine[name]["ctas"] = cs.kernel_ctas(lambda: fn(*args, **kw), KERNELS[mod])
+        mine[name]["ctas"] = cs.kernel_ctas(lambda: fn(*args, **kw), KERNELS[mod, fname])
     work = ROOT / "build" / "b2_ab"
     work.mkdir(parents=True, exist_ok=True)
     ops_file = work / "operands.pt"

@@ -31,38 +31,43 @@
 // not contract it into an FMA); on, it is the pinned chain of B1, i.e. the
 // flat selection.estimate_relevance under bf16_collectives=True. The chain
 // itself exists once (score_chain), for B1, B4 and B7; the bf16 flag is a
-// template parameter of all three.
+// template parameter of all three. B7 scores every position of the stream:
+// it has no lengths operand, as the reference kernel has none.
 //
 // Bound on this card: bytes. Per (token, kv head) it reads 16 B of words
 // plus 8 B of scale/zero (plus 1 B of validity per token for B4) and does
 // 64 small integer MACs, far below the ~300 ops/byte where compute would
-// bind; at the main path's shapes (262,144 records, 3.3 MB) the bound is
-// ~1 us, so the kernels are latency- and instruction-bound.
+// bind; at the main paths' shapes (B1/B4: 262,144 records, 3.3 MB; B7:
+// 7.3 MB) the bound is 1-2 us, so the kernels are latency- and
+// instruction-bound.
 //
-// B1/B4 design (one template, two kernels so that a trace names each): the
+// Design (one template, three kernels so that a trace names each): the
 // integer dot runs on __dp4a. (word >> 2j) & 0x03030303 holds codes j, j+4,
 // j+8 and j+12 of a word as bytes; the query's matching four codes are packed
 // into one int32 once (pack_query), so one word costs 4 dp4a per query row
-// and is unpacked once for all G rows of its group. CTA (x, s) takes NB
-// logical blocks of slot s (NB·BS ≈ 4 tokens per thread per kv head); a task
-// is (kv head, group of 4 consecutive tokens): its 4 records' loads are
-// issued together (one 16 B load of words at r = 64, and the scale and zero),
-// the 4 scores go out as one float4. Threads are a multiple of KV and keep
-// one kv head, with kv fastest across lanes, so a warp reads whole 128 B
-// rows of the (P, BS, KV, .) layout. At the main path's shape (G 1, r 64:
-// qwen3-0.6b with the group-summed query; aligned operands) the packed query
-// sits in registers, where it takes about 0.8 of the wide layout's time
-// (PERF.md, PR 17); every other shape keeps it in shared memory as int4 rows
-// padded to an odd count, so the rows that a quarter-warp reads fall in
-// distinct banks. B7's stream is flat: one CTA per (batch row, run of
-// tokens), threads token-major with the kv head fastest, the (KV, G, r)
-// query codes in shared memory, the dot as plain int32 MACs. No tensor
-// cores: a 16-row MMA over G = 2 query rows would be 1/8 used.
+// and is unpacked once for all G rows of its group. A task is (kv head,
+// group of 4 consecutive tokens): its 4 records' loads are issued together
+// (one 16 B load of words at r = 64, and the scale and zero), the 4 scores
+// go out as one float4. Threads are a multiple of KV and keep one kv head,
+// with kv fastest across lanes, so a warp reads whole 128 B rows of the
+// (., KV, .) layouts. B1/B4: CTA (x, s) takes NB logical blocks of slot s
+// (NB·BS ≈ 4 tokens per thread per kv head), the token's record found
+// through the page table. B7: CTA (x, b) takes the same count of tokens of
+// batch row b, the record found through the batch / token / kv-head
+// strides, and the query's code sums computed in the kernel (a dot with a
+// word of all-one codes). At the main paths' shape (G 1, r 64: qwen3-0.6b
+// with the group-summed query; aligned operands) the packed query sits in
+// registers, where it takes about 0.8 of the wide layout's time (PERF.md);
+// every other shape keeps it in shared memory as int4 rows padded to an odd
+// count, so the rows that a quarter-warp reads fall in distinct banks. No
+// tensor cores: a 16-row MMA over G = 2 query rows would be 1/8 used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -139,29 +144,47 @@ __device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, uint3
   }
 }
 
-// B1 (BOUNDS false) and B4 (BOUNDS true). CTA (x, s) scores logical blocks
-// [x*NB, x*NB + NB) of slot s: groups of 4 consecutive tokens, each group
-// × kv head one task of 4 records. GT > 0: the register layout (kv fixed per
-// thread, G = GT and W = WT words per record, the packed query in GT*WT int4
-// registers, 16 B word loads; instantiated at GT 1, WT 4). GT = 0: the wide
-// layout (runtime G and W; the packed query of every kv head in shared
-// memory, rows of (G*W)|1 int4 so that the rows of a quarter-warp fall in
-// distinct banks).
-template <bool BOUNDS, bool BF16, int GT, int WT>
-__device__ __forceinline__ void paged_score_body(
+// The code sum of a packed query row of W words: its dot with a key word
+// whose 16 codes are all 1 (exact, like every dp4a sum).
+__device__ __forceinline__ int code_sum(const int4* q, int W) {
+  int acc = 0;
+  for (int wi = 0; wi < W; ++wi) acc = dot_word(0x55555555u, q[wi], acc);
+  return acc;
+}
+
+enum Kind { PAGED, BOUNDS, FLAT };
+
+// B7's record addresses, in elements of each tensor
+struct FlatStrides {
+  long long w_sb, w_sn, w_skv, a_sb, a_sn, a_skv, z_sb, z_sn, z_skv;
+};
+
+// B1 (PAGED), B4 (BOUNDS) and B7 (FLAT). CTA (x, s) scores the tokens
+// [x*NB*BS, x*NB*BS + NB*BS) of row s: logical blocks of slot s for B1/B4,
+// batch row s of the stream for B7 (which runs at BS 1, MB = N). Groups of 4
+// consecutive tokens, each group × kv head one task of 4 records. GT > 0:
+// the register layout (kv fixed per thread, G = GT and W = WT words per
+// record, the packed query in GT*WT int4 registers, 16 B word loads;
+// instantiated at GT 1, WT 4). GT = 0: the wide layout (runtime G and W; the
+// packed query of every kv head in shared memory, rows of (G*W)|1 int4 so
+// that the rows of a quarter-warp fall in distinct banks).
+template <Kind K, bool BF16, int GT, int WT>
+__device__ __forceinline__ void score_body(
     const int8_t* __restrict__ q_codes,     // (S, KV, G, R)
     const float* __restrict__ q_scale,      // (S, KV, G)
-    const int32_t* __restrict__ q_sums,     // (S, KV, G)
-    const uint32_t* __restrict__ words,     // (P, BS, KV, R/16)
+    const int32_t* __restrict__ q_sums,     // (S, KV, G)          [PAGED, BOUNDS]
+    const uint32_t* __restrict__ words,     // (P, BS, KV, R/16)   [FLAT: strides fs]
     const float* __restrict__ feat_scale,   // (P, BS, KV)
     const float* __restrict__ feat_zero,    // (P, BS, KV)
-    const int32_t* __restrict__ pages,      // (S, MB), clamped >= 0
-    const uint8_t* __restrict__ blk_valid,  // (S, MB, BS)   [BOUNDS]
+    const int32_t* __restrict__ pages,      // (S, MB), clamped >= 0  [PAGED, BOUNDS]
+    const uint8_t* __restrict__ blk_valid,  // (S, MB, BS)         [BOUNDS]
     float* __restrict__ out,                // (S, KV, MB*BS)
-    float* __restrict__ lo,                 // (S, KV)       [BOUNDS]
-    float* __restrict__ hi,                 // (S, KV)       [BOUNDS]
-    int KV, int G_, int R, int BS, int MB, int NB, int vec_out) {
+    float* __restrict__ lo,                 // (S, KV)             [BOUNDS]
+    float* __restrict__ hi,                 // (S, KV)             [BOUNDS]
+    int KV, int G_, int R, int BS, int MB, int NB, int vec_out, FlatStrides fs) {
   constexpr bool REGS = GT > 0;
+  constexpr bool FLAT_ = K == FLAT;
+  constexpr bool BOUNDS_ = K == BOUNDS;
   extern __shared__ int4 smem[];
   const int G = REGS ? GT : G_;
   const int W = REGS ? WT : R / 16;
@@ -175,10 +198,10 @@ __device__ __forceinline__ void paged_score_body(
   const int ngrp = (ntok + 3) >> 2;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t N = (size_t)MB * BS;
-  const int32_t* pg = pages + (size_t)s * MB + j0;
-  const uint8_t* vrow = BOUNDS ? blk_valid + (size_t)s * N + (size_t)j0 * BS : nullptr;
+  const int32_t* pg = FLAT_ ? nullptr : pages + (size_t)s * MB + j0;
+  const uint8_t* vrow = BOUNDS_ ? blk_valid + (size_t)s * N + (size_t)j0 * BS : nullptr;
 
-  if (BOUNDS) {
+  if (BOUNDS_) {
     for (int i = tid; i < KV; i += nt) {
       lo_sh[i] = KEY_POS_INF;
       hi_sh[i] = KEY_NEG_INF;
@@ -197,7 +220,7 @@ __device__ __forceinline__ void paged_score_body(
       q_sh[(i / (G * W)) * QS + i % (G * W)] = pack_query(make_int4(c[0], c[1], c[2], c[3]));
     }
   }
-  if (BOUNDS || !REGS) __syncthreads();
+  if (BOUNDS_ || !REGS) __syncthreads();
 
   const bool fixed_kv = nt % KV == 0;       // always for the register layout
   int lo_k = KEY_POS_INF, hi_k = KEY_NEG_INF;
@@ -214,7 +237,8 @@ __device__ __forceinline__ void paged_score_body(
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
       sq[g] = __ldg(q_scale + ((size_t)s * KV + kv0) * GT + g);
-      qm[g] = (float)__ldg(q_sums + ((size_t)s * KV + kv0) * GT + g);
+      qm[g] = FLAT_ ? (float)code_sum(qp + g * WT, WT)
+                    : (float)__ldg(q_sums + ((size_t)s * KV + kv0) * GT + g);
     }
   }
 
@@ -224,17 +248,33 @@ __device__ __forceinline__ void paged_score_body(
     const int kv = REGS ? kv0 : task % KV;
     const int grp = REGS ? task : task / KV;
     const int T0 = grp * 4;
-    const int b0 = T0 / BS;
-    const int t0 = T0 - b0 * BS;
     bool use[4];
-    size_t row[4];
+    size_t wo[4], ao[4], zo[4];   // the records' words, scale and zero offsets
+    if constexpr (FLAT_) {
+      const long long n = (long long)j0 + T0;
+      const long long wb = s * fs.w_sb + n * fs.w_sn + kv * fs.w_skv;
+      const long long ab = s * fs.a_sb + n * fs.a_sn + kv * fs.a_skv;
+      const long long zb = s * fs.z_sb + n * fs.z_sn + kv * fs.z_skv;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int t = t0 + k, b = b0;
-      while (t >= BS) { t -= BS; ++b; }
-      const bool in = T0 + k < ntok;     // the page and validity loads go out together
-      row[k] = in ? ((size_t)__ldg(pg + b) * BS + t) * KV + kv : 0;
-      use[k] = in && (!BOUNDS || __ldg(vrow + T0 + k) != 0);
+      for (int k = 0; k < 4; ++k) {
+        use[k] = T0 + k < ntok;
+        wo[k] = use[k] ? (size_t)(wb + k * fs.w_sn) : 0;
+        ao[k] = use[k] ? (size_t)(ab + k * fs.a_sn) : 0;
+        zo[k] = use[k] ? (size_t)(zb + k * fs.z_sn) : 0;
+      }
+    } else {
+      const int b0 = T0 / BS;
+      const int t0 = T0 - b0 * BS;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int t = t0 + k, b = b0;
+        while (t >= BS) { t -= BS; ++b; }
+        const bool in = T0 + k < ntok;   // the page and validity loads go out together
+        const size_t row = in ? ((size_t)__ldg(pg + b) * BS + t) * KV + kv : 0;
+        use[k] = in && (!BOUNDS_ || __ldg(vrow + T0 + k) != 0);
+        wo[k] = row * W;
+        ao[k] = zo[k] = row;
+      }
     }
     float sc[4];
     if constexpr (REGS) {
@@ -243,14 +283,14 @@ __device__ __forceinline__ void paged_score_body(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (use[k]) {
-          load_words<WT>(words + row[k] * WT, w[k]);
-          a[k] = __ldg(feat_scale + row[k]);
-          z[k] = __ldg(feat_zero + row[k]);
+          load_words<WT>(words + wo[k], w[k]);
+          a[k] = __ldg(feat_scale + ao[k]);
+          z[k] = __ldg(feat_zero + zo[k]);
         }
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        sc[k] = BOUNDS ? SCORE_NEG_INF : 0.f;
+        sc[k] = BOUNDS_ ? SCORE_NEG_INF : 0.f;
         if (use[k]) {
           int dot[GT];
 #pragma unroll
@@ -274,17 +314,18 @@ __device__ __forceinline__ void paged_score_body(
       const size_t qi = ((size_t)s * KV + kv) * G;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        sc[k] = BOUNDS ? SCORE_NEG_INF : 0.f;
+        sc[k] = BOUNDS_ ? SCORE_NEG_INF : 0.f;
         if (use[k]) {
-          const uint32_t* wp = words + row[k] * W;
-          const float a = __ldg(feat_scale + row[k]);
-          const float z = __ldg(feat_zero + row[k]);
+          const uint32_t* wp = words + wo[k];
+          const float a = __ldg(feat_scale + ao[k]);
+          const float z = __ldg(feat_zero + zo[k]);
           float acc = 0.f;
           for (int g = 0; g < G; ++g) {
             int dot = 0;
             for (int wi = 0; wi < W; ++wi) dot = dot_word(__ldg(wp + wi), qrow[g * W + wi], dot);
-            const float v = score_chain(__ldg(q_scale + qi + g), a, (float)dot, z,
-                                        (float)__ldg(q_sums + qi + g), BF16);
+            const int qm_g = FLAT_ ? code_sum(qrow + g * W, W) : __ldg(q_sums + qi + g);
+            const float v = score_chain(__ldg(q_scale + qi + g), a, (float)dot, z, (float)qm_g,
+                                        BF16);
             acc = (g == 0) ? v : __fadd_rn(acc, v);
           }
           sc[k] = acc;
@@ -299,7 +340,7 @@ __device__ __forceinline__ void paged_score_body(
       for (int k = 0; k < 4; ++k)
         if (T0 + k < ntok) orow[k] = sc[k];
     }
-    if (BOUNDS) {
+    if (BOUNDS_) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (T0 + k < ntok) {
@@ -317,7 +358,7 @@ __device__ __forceinline__ void paged_score_body(
     }
   }
 
-  if (BOUNDS) {
+  if (BOUNDS_) {
     if (fixed_kv) {
       if (32 % KV == 0) {       // full warps; lane % KV is the kv head
         for (int off = 16; off >= KV; off >>= 1) {
@@ -341,90 +382,43 @@ __device__ __forceinline__ void paged_score_body(
   }
 }
 
-// Two kernels, one per replaced TPU kernel, so that a trace names each.
+// Three kernels, one per replaced TPU kernel, so that a trace names each.
 #define SCORE_ARGS                                                                       \
   const int8_t *__restrict__ q_codes, const float *__restrict__ q_scale,                 \
       const int32_t *__restrict__ q_sums, const uint32_t *__restrict__ words,            \
       const float *__restrict__ feat_scale, const float *__restrict__ feat_zero,         \
       const int32_t *__restrict__ pages, const uint8_t *__restrict__ blk_valid,          \
       float *__restrict__ out, float *__restrict__ lo, float *__restrict__ hi, int KV,   \
-      int G, int R, int BS, int MB, int NB, int vec_out
+      int G, int R, int BS, int MB, int NB, int vec_out, FlatStrides fs
 #define SCORE_PASS                                                                       \
   q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages, blk_valid, out, lo, hi, \
-      KV, G, R, BS, MB, NB, vec_out
+      KV, G, R, BS, MB, NB, vec_out, fs
 
 template <bool BF16, int GT, int WT>
 __global__ void __launch_bounds__(GT > 0 ? 256 : 1024) paged_score_estimate_kernel(SCORE_ARGS) {
-  paged_score_body<false, BF16, GT, WT>(SCORE_PASS);
+  score_body<PAGED, BF16, GT, WT>(SCORE_PASS);
 }
 
 template <bool BF16, int GT, int WT>
 __global__ void __launch_bounds__(GT > 0 ? 256 : 1024) paged_score_bounds_kernel(SCORE_ARGS) {
-  paged_score_body<true, BF16, GT, WT>(SCORE_PASS);
+  score_body<BOUNDS, BF16, GT, WT>(SCORE_PASS);
 }
 
-// B7: row r = b * KV + kv of the (B * KV, N) output. CTA (x, b) scores
-// tokens [x * TN, x * TN + TN) of batch row b for every kv head.
-template <bool BF16>
-__global__ void flat_score_kernel(
-    const int8_t* __restrict__ q_codes,     // (B * KV, G, R)
-    const float* __restrict__ q_scale,      // (B * KV, G)
-    const uint32_t* __restrict__ words,     // [b * w_sb + n * w_sn + kv * w_skv + i]
-    const float* __restrict__ feat_scale,   // [b * a_sb + n * a_sn + kv * a_skv]
-    const float* __restrict__ feat_zero,    // [b * z_sb + n * z_sn + kv * z_skv]
-    float* __restrict__ out,                // (B * KV, N)
-    int KV, int G, int R, int N, int TN,
-    long long w_sb, long long w_sn, long long w_skv,
-    long long a_sb, long long a_sn, long long a_skv,
-    long long z_sb, long long z_sn, long long z_skv) {
-  extern __shared__ int32_t qsum_sh[];      // (KV, G) code sums, then the codes
-  int8_t* q_sh = (int8_t*)(qsum_sh + KV * G);   // (KV, G, R) of batch row b
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * TN;
-  const int W = R / 16;
-  const int nq = KV * G * R;
-  for (int i = threadIdx.x; i < nq; i += blockDim.x) q_sh[i] = q_codes[(size_t)b * nq + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < KV * G; i += blockDim.x) {
-    int sum = 0;
-    for (int c = 0; c < R; ++c) sum += q_sh[i * R + c];
-    qsum_sh[i] = sum;
-  }
-  __syncthreads();
-  const int nn = min(TN, N - n0);
-  for (int idx = threadIdx.x; idx < nn * KV; idx += blockDim.x) {
-    const int n = n0 + idx / KV;
-    const int kv = idx % KV;
-    const uint32_t* w = words + b * w_sb + n * w_sn + kv * w_skv;
-    const float a = feat_scale[b * a_sb + n * a_sn + kv * a_skv];
-    const float z = feat_zero[b * z_sb + n * z_sn + kv * z_skv];
-    float acc = 0.f;
-    for (int g = 0; g < G; ++g) {
-      const int8_t* q = q_sh + (kv * G + g) * R;
-      int dot = 0;
-      for (int wi = 0; wi < W; ++wi) {
-        const uint32_t word = w[wi];
-#pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          dot += (int)((word >> (2 * c)) & 3u) * (int)q[wi * 16 + c];
-        }
-      }
-      const size_t qi = ((size_t)b * KV + kv) * G + g;
-      const float sc = score_chain(q_scale[qi], a, (float)dot, z, (float)qsum_sh[kv * G + g],
-                                   BF16);
-      acc = (g == 0) ? sc : __fadd_rn(acc, sc);
-    }
-    out[((size_t)b * KV + kv) * N + n] = acc;
-  }
+template <bool BF16, int GT, int WT>
+__global__ void __launch_bounds__(GT > 0 ? 256 : 1024) flat_score_kernel(SCORE_ARGS) {
+  score_body<FLAT, BF16, GT, WT>(SCORE_PASS);
 }
 
-constexpr int SCORE_CTA = 256;      // threads per CTA of B1/B4 (at most 256 below KV 256)
+constexpr int SCORE_CTA = 256;      // threads per CTA (at most 256 below KV 256)
 
-template <bool BOUNDS, bool BF16>
-int launch_paged(const void* q_codes, const void* q_scale, const void* q_sums, const void* words,
+// Launch kernel K over S rows of MB blocks of BS tokens (B7: S batch rows
+// of MB = N tokens, BS 1). ``regs``: the caller's operands allow the
+// register layout at G 1, W 4 (aligned query codes and words).
+template <Kind K, bool BF16>
+int launch_score(const void* q_codes, const void* q_scale, const void* q_sums, const void* words,
                  const void* feat_scale, const void* feat_zero, const void* pages,
                  const void* blk_valid, void* out, void* lo, void* hi, int S, int KV, int G,
-                 int R, int BS, int MB, cudaStream_t st) {
+                 int R, int BS, int MB, bool regs, FlatStrides fs, cudaStream_t st) {
   const int W = R / 16;
   // threads: a multiple of KV (each thread keeps one kv head), ~SCORE_CTA
   const int nt = KV <= 1024 ? KV * (KV < SCORE_CTA ? SCORE_CTA / KV : 1) : SCORE_CTA;
@@ -433,43 +427,44 @@ int launch_paged(const void* q_codes, const void* q_scale, const void* q_sums, c
   const int nb = tokens / BS > 1 ? tokens / BS : 1;
   const dim3 grid((MB + nb - 1) / nb, S);
   const auto aligned = [](const void* p, int bytes) { return (uintptr_t)p % bytes == 0; };
-  const bool regs = G == 1 && W == 4 && KV <= 256 && aligned(q_codes, 16) && aligned(words, 16);
-  const int vec_out = BS % 4 == 0 && aligned(out, 16);
-#define SCORE_LAUNCH(GG, WW, SMEM)                                                         \
-  do {                                                                                     \
-    if constexpr (BOUNDS)                                                                \
-      paged_score_bounds_kernel<BF16, GG, WW><<<grid, nt, SMEM, st>>>(                    \
-          (const int8_t*)q_codes, (const float*)q_scale, (const int32_t*)q_sums,           \
-          (const uint32_t*)words, (const float*)feat_scale, (const float*)feat_zero,       \
-          (const int32_t*)pages, (const uint8_t*)blk_valid, (float*)out, (float*)lo,       \
-          (float*)hi, KV, G, R, BS, MB, nb, vec_out);                                      \
-    else                                                                                   \
-      paged_score_estimate_kernel<BF16, GG, WW><<<grid, nt, SMEM, st>>>(                  \
-          (const int8_t*)q_codes, (const float*)q_scale, (const int32_t*)q_sums,           \
-          (const uint32_t*)words, (const float*)feat_scale, (const float*)feat_zero,       \
-          (const int32_t*)pages, nullptr, (float*)out, nullptr, nullptr, KV, G, R, BS, MB, \
-          nb, vec_out);                                                                    \
-    return (int)cudaGetLastError();                                                        \
-  } while (0)
-  const size_t bounds_smem = BOUNDS ? 2 * KV * sizeof(int) : 0;
-  // the main path's shape: the register layout
-  if (regs) SCORE_LAUNCH(1, 4, bounds_smem);
+  regs = regs && G == 1 && W == 4 && KV <= 256 && aligned(q_codes, 16) && aligned(words, 16);
+  const int vec_out = (K == FLAT ? MB : BS) % 4 == 0 && aligned(out, 16);
+  const auto run = [&](auto fn, size_t smem) {
+    fn<<<grid, nt, smem, st>>>(
+        (const int8_t*)q_codes, (const float*)q_scale, (const int32_t*)q_sums,
+        (const uint32_t*)words, (const float*)feat_scale, (const float*)feat_zero,
+        (const int32_t*)pages, (const uint8_t*)blk_valid, (float*)out, (float*)lo, (float*)hi,
+        KV, G, R, BS, MB, nb, vec_out, fs);
+    return (int)cudaGetLastError();
+  };
+  const auto kernel = [](auto gt, auto wt) {
+    constexpr int GG = decltype(gt)::value, WW = decltype(wt)::value;
+    if constexpr (K == PAGED) return &paged_score_estimate_kernel<BF16, GG, WW>;
+    else if constexpr (K == BOUNDS) return &paged_score_bounds_kernel<BF16, GG, WW>;
+    else return &flat_score_kernel<BF16, GG, WW>;
+  };
+  const size_t bounds_smem = K == BOUNDS ? 2 * KV * sizeof(int) : 0;
+  // the main paths' shape: the register layout
+  if (regs)
+    return run(kernel(std::integral_constant<int, 1>{}, std::integral_constant<int, 4>{}),
+               bounds_smem);
   // every other shape: the wide layout, the packed query in shared memory
-  SCORE_LAUNCH(0, 0, (size_t)KV * ((G * W) | 1) * sizeof(int4) + bounds_smem);
-#undef SCORE_LAUNCH
+  return run(kernel(std::integral_constant<int, 0>{}, std::integral_constant<int, 0>{}),
+             (size_t)KV * ((G * W) | 1) * sizeof(int4) + bounds_smem);
 }
 
-template <bool BOUNDS>
+template <Kind K>
 int launch(const void* q_codes, const void* q_scale, const void* q_sums, const void* words,
            const void* feat_scale, const void* feat_zero, const void* pages,
-           const void* blk_valid, void* out, void* lo, void* hi, int S, int KV, int G,
-           int R, int BS, int MB, int bf16, void* stream) {
-  return bf16 ? launch_paged<BOUNDS, true>(q_codes, q_scale, q_sums, words, feat_scale,
-                                           feat_zero, pages, blk_valid, out, lo, hi, S, KV, G,
-                                           R, BS, MB, (cudaStream_t)stream)
-              : launch_paged<BOUNDS, false>(q_codes, q_scale, q_sums, words, feat_scale,
-                                            feat_zero, pages, blk_valid, out, lo, hi, S, KV, G,
-                                            R, BS, MB, (cudaStream_t)stream);
+           const void* blk_valid, void* out, void* lo, void* hi, int S, int KV, int G, int R,
+           int BS, int MB, bool regs, FlatStrides fs, int bf16, void* stream) {
+  const auto go = [&](auto flag) {
+    return launch_score<K, decltype(flag)::value>(q_codes, q_scale, q_sums, words, feat_scale,
+                                                  feat_zero, pages, blk_valid, out, lo, hi, S,
+                                                  KV, G, R, BS, MB, regs, fs,
+                                                  (cudaStream_t)stream);
+  };
+  return bf16 ? go(std::true_type{}) : go(std::false_type{});
 }
 
 }  // namespace
@@ -479,8 +474,9 @@ extern "C" int paged_score_estimate(const void* q_codes, const void* q_scale,
                                     const void* feat_scale, const void* feat_zero,
                                     const void* pages, void* out, int S, int KV, int G,
                                     int R, int BS, int MB, int bf16, void* stream) {
-  return launch<false>(q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages,
-                       nullptr, out, nullptr, nullptr, S, KV, G, R, BS, MB, bf16, stream);
+  return launch<PAGED>(q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages, nullptr,
+                       out, nullptr, nullptr, S, KV, G, R, BS, MB, true, FlatStrides{}, bf16,
+                       stream);
 }
 
 extern "C" int paged_score_bounds(const void* q_codes, const void* q_scale,
@@ -489,8 +485,9 @@ extern "C" int paged_score_bounds(const void* q_codes, const void* q_scale,
                                   const void* pages, const void* blk_valid, void* out,
                                   void* lo, void* hi, int S, int KV, int G, int R, int BS,
                                   int MB, int bf16, void* stream) {
-  return launch<true>(q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages,
-                      blk_valid, out, lo, hi, S, KV, G, R, BS, MB, bf16, stream);
+  return launch<BOUNDS>(q_codes, q_scale, q_sums, words, feat_scale, feat_zero, pages,
+                        blk_valid, out, lo, hi, S, KV, G, R, BS, MB, true, FlatStrides{}, bf16,
+                        stream);
 }
 
 // B7. Strides are in elements of each tensor; the output is (B * KV, N).
@@ -500,22 +497,12 @@ extern "C" int flat_score_estimate(const void* q_codes, const void* q_scale, con
                                    long long w_sn, long long w_skv, long long a_sb,
                                    long long a_sn, long long a_skv, long long z_sb,
                                    long long z_sn, long long z_skv, int bf16, void* stream) {
-  if (R % 16 != 0 || KV < 1 || KV > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const int tn = (1024 + KV - 1) / KV;      // tokens per CTA: ~1024 (token, kv) records
-  const dim3 grid((N + tn - 1) / tn, B);
-  const size_t smem = (size_t)KV * G * sizeof(int32_t) + (size_t)KV * G * R;
-  cudaStream_t st = (cudaStream_t)stream;
-#define B7_LAUNCH(FLAG)                                                                  \
-  flat_score_kernel<FLAG><<<grid, threads, smem, st>>>(                                  \
-      (const int8_t*)q_codes, (const float*)q_scale, (const uint32_t*)words,             \
-      (const float*)feat_scale, (const float*)feat_zero, (float*)out, KV, G, R, N, tn,   \
-      w_sb, w_sn, w_skv, a_sb, a_sn, a_skv, z_sb, z_sn, z_skv)
-  if (bf16) {
-    B7_LAUNCH(true);
-  } else {
-    B7_LAUNCH(false);
-  }
-#undef B7_LAUNCH
-  return (int)cudaGetLastError();
+  if (R % 16 != 0 || KV < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  // 16 B word loads need every record 16 B apart from the first
+  const auto by4 = [](long long stride, int size) { return size == 1 || stride % 4 == 0; };
+  const bool regs = by4(w_sb, B) && by4(w_sn, N) && by4(w_skv, KV);
+  return launch<FLAT>(q_codes, q_scale, nullptr, words, feat_scale, feat_zero, nullptr, nullptr,
+                      out, nullptr, nullptr, B, KV, G, R, 1, N, regs,
+                      FlatStrides{w_sb, w_sn, w_skv, a_sb, a_sn, a_skv, z_sb, z_sn, z_skv}, bf16,
+                      stream);
 }

@@ -27,9 +27,28 @@
 //
 // Bound on this card: bytes — 4 B of score in (plus 2 B of valid/force for
 // B5) and 1 B of pooled bin out per position; a few dozen integer ops each.
-// Design: one CTA per (run of positions, row), one thread per position. The
-// run's bins and their halo columns sit in shared memory for the pool; the
-// histogram accumulates in shared memory and is added into the zeroed
+//
+// B5 design: the positions of a row go to warps in items (32 consecutive
+// positions where the block size divides 32, else one block), three per
+// warp, dealt round the row's CTAs (16 CTAs of 8 warps per row at the main
+// path's 8,192 positions), each warp's items' loads issued together. A warp
+// reads an item's validity first (a byte per lane, a ballot): at the main
+// path about 64 % of the (slot, block) pairs hold nothing valid, and such an
+// item stores zero bins and adds its positions to bin 0, reading no score,
+// halo column or force byte. Elsewhere a lane bins its own position and
+// takes the window max from its neighbours with shuffles, the block's edge
+// lanes from the halo columns that lanes t < HALO of the block hold (any
+// other block size: the block's bins and halo columns staged per warp in
+// shared memory). No CTA barrier: each warp adds its pooled bins to the
+// zeroed global histogram one run of equal neighbouring lanes at a time,
+// and its bin-0 count once. Measured against other shapes (PERF.md):
+// a cluster of a row's CTAs summing their shared histograms through
+// distributed shared memory, which writes the histogram whole and needs no
+// zeroing, cost ~1.5 us more at the same CTA shape.
+//
+// B9 design: one CTA per (run of positions, row), one thread per position.
+// The run's bins and their halo columns sit in shared memory for the pool;
+// the histogram accumulates in shared memory and is added into the zeroed
 // global histogram with one atomic per non-empty bin (exact integer counts,
 // so the order of the adds does not matter). The TPU kernels carry the
 // histogram in scratch across their sequential block axis; here the runs of
@@ -98,7 +117,47 @@ __device__ void last_cta_threshold(int32_t* hist_sh, const int32_t* hist_row, in
   }
 }
 
-__global__ void paged_fused_select_kernel(
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int B5_WARPS = 8;                 // warps per CTA
+constexpr int B5_WARP_ITEMS = 3;            // a warp's items, their loads issued together
+
+// binning_affine's bin of one valid score (IEEE division, ties to even)
+__device__ __forceinline__ int bin_of(float x, float offset, float scale) {
+  const float y = __fdiv_rn(__fsub_rn(x, offset), scale);
+  return (int)fminf(fmaxf(__fadd_rn(rintf(y), 1.f), 1.f), 255.f);
+}
+
+// Add the warp's 32 values p (a bin, or NUM_BINS for no position) to a row's
+// histogram: equal neighbouring lanes form a run, whose first lane adds the
+// run's length (pooling makes runs; exact integer counts). Bin 0, the most
+// common, is left to the caller: the count of its lanes is returned.
+__device__ __forceinline__ int count_runs(int p, int32_t* hist_row) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(FULL, p, 1);
+  const bool head = lane == 0 || p != prev;
+  const unsigned heads = __ballot_sync(FULL, head);
+  if (head && p > 0 && p < NUM_BINS) {
+    const unsigned later = heads & ~((2u << lane) - 1u);
+    atomicAdd(&hist_row[p], (later ? __ffs(later) - 1 : 32) - lane);
+  }
+  return __popc(__ballot_sync(FULL, p == 0));
+}
+
+// B5. Grid (CPR, S*KV): a row's warp items are dealt round its CPR CTAs and
+// their warps, warp w of CTA x taking items x + CPR*(w + B5_WARPS*k) for k <
+// B5_WARP_ITEMS, so that a slot's valid prefix spreads evenly over them.
+// SHFL (block size SEG, a power of two <= 32): an item is a warp unit, 32
+// consecutive positions (32/SEG whole blocks); a lane holds one position,
+// takes its block's halo columns from the lanes t < HALO of its segment and
+// pools with shuffles. Otherwise an item is one block, binned into the
+// warp's stage in shared memory and pooled from there in chunks of 32.
+// Either way a warp reads the validity first: an item with nothing valid
+// gets zero bins and adds its positions to bin 0, reading no score, halo
+// column or force byte; elsewhere scores and force bytes are read at valid
+// positions only. The histogram is the zeroed global one: runs go to it
+// with atomics, bin 0 once per warp.
+template <bool SHFL>
+__global__ void __launch_bounds__(B5_WARPS * 32) paged_fused_select_kernel(
     const float* __restrict__ scores,       // (S, KV, MB, BS)
     const float* __restrict__ lo,           // (S, KV)
     const float* __restrict__ hi,           // (S, KV)
@@ -108,53 +167,113 @@ __global__ void paged_fused_select_kernel(
     const uint8_t* __restrict__ force,      // (S, MB, BS)
     uint8_t* __restrict__ pooled,           // (S, KV, MB, BS)
     int32_t* __restrict__ hist,             // (S, KV, 256), zeroed
-    int KV, int MB, int BS, int HALO, int BPC) {
-  extern __shared__ int32_t sh[];
-  int32_t* hist_sh = sh;                    // (256)
-  int32_t* buf = sh + NUM_BINS;             // (BPC, HALO + BS + HALO)
+    int KV, int MB, int BS, int HALO) {
+  extern __shared__ uint8_t stage[];        // !SHFL: per warp, HALO + BS + HALO bins
   const int row = blockIdx.y;               // s * KV + kv
   const int s = row / KV;
-  const int j0 = blockIdx.x * BPC;
-  const int nb = min(BPC, MB - j0);
-  const int W = BS + 2 * HALO;
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = 0;
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t N = (size_t)MB * BS;
+  const float* srow = scores + (size_t)row * N;
+  const uint8_t* vrow = blk_valid + (size_t)s * N;
+  const uint8_t* frow = force + (size_t)s * N;
+  const uint8_t* lrow = from_left + (size_t)row * MB * HALO;
+  const uint8_t* rrow = from_right + (size_t)row * MB * HALO;
+  uint8_t* prow = pooled + (size_t)row * N;
+  int32_t* hrow = hist + (size_t)row * NUM_BINS;
   const float l = lo[row];
   const float offset = isfinite(l) ? l : 0.f;
   const float scale = fmaxf(__fdiv_rn(__fsub_rn(hi[row], offset), 254.f), 1e-6f);
-  for (int e = threadIdx.x; e < nb * BS; e += blockDim.x) {
-    const int jb = e / BS;
-    const int t = e % BS;
-    const size_t pos = (size_t)(j0 + jb) * BS + t;
-    int bin = 0;
-    if (blk_valid[(size_t)s * MB * BS + pos]) {
-      const float x = __fdiv_rn(__fsub_rn(scores[(size_t)row * MB * BS + pos], offset), scale);
-      bin = (int)fminf(fmaxf(__fadd_rn(rintf(x), 1.f), 1.f), 255.f);
+  const int first = blockIdx.x + gridDim.x * warp, stride = gridDim.x * B5_WARPS;
+  int zeros = 0;                            // this warp's positions in bin 0
+  if constexpr (SHFL) {
+    const int SEG = BS;
+    const int units = (int)((N + 31) / 32);
+    const int base = lane & ~(SEG - 1), t = lane & (SEG - 1);
+    const unsigned seg_bits = SEG == 32 ? FULL : ((1u << SEG) - 1u) << base;
+    int v[B5_WARP_ITEMS];
+    unsigned any[B5_WARP_ITEMS];
+#pragma unroll
+    for (int k = 0; k < B5_WARP_ITEMS; ++k) {
+      const size_t pos = (size_t)(first + k * stride) * 32 + lane;
+      v[k] = first + k * stride < units && pos < N ? vrow[pos] : 0;
     }
-    buf[jb * W + HALO + t] = bin;
+#pragma unroll
+    for (int k = 0; k < B5_WARP_ITEMS; ++k) any[k] = __ballot_sync(FULL, v[k]);
+    float x[B5_WARP_ITEMS];
+    int f[B5_WARP_ITEMS], halo[B5_WARP_ITEMS];
+#pragma unroll
+    for (int k = 0; k < B5_WARP_ITEMS; ++k) {
+      const size_t pos = (size_t)(first + k * stride) * 32 + lane;
+      x[k] = v[k] ? srow[pos] : 0.f;
+      f[k] = v[k] ? frow[pos] : 0;
+      halo[k] = 0;
+      if (t < HALO && (any[k] & seg_bits)) {
+        const size_t h = pos / SEG * HALO + t;
+        halo[k] = lrow[h] | (rrow[h] << 8);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < B5_WARP_ITEMS; ++k) {
+      const int u = first + k * stride;
+      if (u >= units) break;
+      const size_t pos = (size_t)u * 32 + lane;
+      const bool in = pos < N;
+      if (!any[k]) {
+        if (in) prow[pos] = 0;
+        zeros += N - (size_t)u * 32 < 32 ? (int)(N - (size_t)u * 32) : 32;
+        continue;
+      }
+      const int bin = v[k] ? bin_of(x[k], offset, scale) : 0;
+      // lane t's bin in byte 0, from_left[t] and from_right[t] in bytes 1 and 2
+      const int pk = bin | (halo[k] << 8);
+      int p = bin;
+      for (int d = 1; d <= HALO; ++d) {
+        const int il = t - d, ir = t + d;
+        const int vl = __shfl_sync(FULL, pk, base + (il >= 0 ? il : HALO + il));
+        const int vr = __shfl_sync(FULL, pk, base + (ir < SEG ? ir : ir - SEG));
+        p = max(p, il >= 0 ? vl & 255 : (vl >> 8) & 255);
+        p = max(p, ir < SEG ? vr & 255 : (vr >> 16) & 255);
+      }
+      if (bin == 0) p = 0;                  // pooling never revives a masked slot
+      if (v[k] && f[k]) p = 255;
+      if (in) prow[pos] = (uint8_t)p;
+      zeros += count_runs(in ? p : NUM_BINS, hrow);
+    }
+  } else {
+    uint8_t* st = stage + (size_t)warp * ((BS + 2 * HALO + 15) & ~15);
+    for (int j = first; j < MB; j += stride) {
+      const size_t b0 = (size_t)j * BS;
+      bool any = false;
+      for (int t = lane; t < BS; t += 32) any |= vrow[b0 + t] != 0;
+      if (!__any_sync(FULL, any)) {
+        for (int t = lane; t < BS; t += 32) prow[b0 + t] = 0;
+        zeros += BS;
+        continue;
+      }
+      for (int t = lane; t < BS; t += 32)
+        st[HALO + t] = vrow[b0 + t] ? (uint8_t)bin_of(srow[b0 + t], offset, scale) : 0;
+      for (int c = lane; c < HALO; c += 32) {
+        st[c] = lrow[(size_t)j * HALO + c];
+        st[HALO + BS + c] = rrow[(size_t)j * HALO + c];
+      }
+      __syncwarp();
+      for (int t0 = 0; t0 < BS; t0 += 32) {
+        const int t = t0 + lane;
+        int p = NUM_BINS;
+        if (t < BS) {
+          p = st[HALO + t];
+          if (p > 0) {                      // window [t - HALO, t + HALO] of the block
+            for (int o = 0; o <= 2 * HALO; ++o) p = max(p, (int)st[t + o]);
+          }
+          if (vrow[b0 + t] && frow[b0 + t]) p = 255;
+          prow[b0 + t] = (uint8_t)p;
+        }
+        zeros += count_runs(p, hrow);
+      }
+      __syncwarp();                         // the stage is rewritten for the next block
+    }
   }
-  for (int e = threadIdx.x; e < nb * HALO; e += blockDim.x) {
-    const int jb = e / HALO;
-    const int c = e % HALO;
-    const size_t src = ((size_t)row * MB + j0 + jb) * HALO + c;
-    buf[jb * W + c] = from_left[src];
-    buf[jb * W + HALO + BS + c] = from_right[src];
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < nb * BS; e += blockDim.x) {
-    const int jb = e / BS;
-    const int t = e % BS;
-    const size_t pos = (size_t)(j0 + jb) * BS + t;
-    const int32_t* b = buf + jb * W + t;    // window [t - HALO, t + HALO] of the block
-    int p = b[HALO];
-    if (p > 0) p = window_max(b, HALO);
-    if (force[(size_t)s * MB * BS + pos] && blk_valid[(size_t)s * MB * BS + pos]) p = 255;
-    pooled[(size_t)row * MB * BS + pos] = (uint8_t)p;
-    atomicAdd(&hist_sh[p], 1);
-  }
-  __syncthreads();
-  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
+  if (lane == 0 && zeros) atomicAdd(&hrow[0], zeros);
 }
 
 constexpr int B9_THREADS = 256;
@@ -250,15 +369,23 @@ extern "C" int paged_fused_select(const void* scores, const void* lo, const void
                                   const void* blk_valid, const void* force, void* pooled,
                                   void* hist, int S, int KV, int MB, int BS, int HALO,
                                   void* stream) {
-  const int bpc = BS >= 256 ? 1 : 256 / BS;   // blocks per CTA
-  int threads = bpc * BS;
-  threads = threads > 256 ? 256 : ((threads + 31) / 32) * 32;
-  const dim3 grid((MB + bpc - 1) / bpc, S * KV);
-  const size_t smem = (NUM_BINS + (size_t)bpc * (BS + 2 * HALO)) * sizeof(int32_t);
-  paged_fused_select_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  if (BS < 1 || MB < 1 || HALO < 0 || HALO > BS) return (int)cudaErrorInvalidValue;
+  const bool shfl = BS <= 32 && (BS & (BS - 1)) == 0;
+  // warp items: units of 32 positions, or blocks; B5_WARP_ITEMS per warp
+  const long long items = shfl ? ((long long)MB * BS + 31) / 32 : MB;
+  const long long per_cta = (long long)B5_WARPS * B5_WARP_ITEMS;
+  const dim3 grid((unsigned)((items + per_cta - 1) / per_cta), S * KV);
+  const size_t smem = shfl ? 0 : (size_t)B5_WARPS * ((BS + 2 * HALO + 15) & ~15);
+  const auto kernel = shfl ? &paged_fused_select_kernel<true> : &paged_fused_select_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, B5_WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const float*)scores, (const float*)lo, (const float*)hi, (const uint8_t*)from_left,
       (const uint8_t*)from_right, (const uint8_t*)blk_valid, (const uint8_t*)force,
-      (uint8_t*)pooled, (int32_t*)hist, KV, MB, BS, HALO, bpc);
+      (uint8_t*)pooled, (int32_t*)hist, KV, MB, BS, HALO);
   return (int)cudaGetLastError();
 }
 

@@ -253,6 +253,75 @@ def test_b5_kernel_bitwise(dev, window):
         assert torch.equal(t, p)
 
 
+def _b5_operands(dev, seed, s, kv, mb, bs, window, empty_share=0.64):
+    """B5's operands with every case the kernel treats apart: per slot, about
+    ``empty_share`` of the blocks hold nothing valid, interleaved with partly
+    and fully valid ones; the last slot holds nothing (lo = +inf); force set
+    on valid and on invalid positions; random halo columns."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    empty = torch.rand((s, mb, 1), generator=gen, device=dev) < empty_share
+    part = torch.rand((s, mb, 1), generator=gen, device=dev) < 0.5
+    valid = ~empty & (~part | (torch.rand((s, mb, bs), generator=gen, device=dev) < 0.7))
+    valid[-1] = False
+    scores = torch.randn((s, kv, mb, bs), generator=gen, device=dev) * 3
+    scores = torch.where(valid[:, None], scores, torch.full_like(scores, -3.0e38))
+    vmin = torch.where(valid[:, None], scores, torch.full_like(scores, float("inf")))
+    lo = vmin.amin((2, 3)) - 0.5                             # +inf on the empty slot
+    hi = scores.amax((2, 3)) + torch.rand((s, kv), generator=gen, device=dev)
+    halo = max(window // 2, 1)
+    fl, fr = (torch.randint(0, 256, (s, kv, mb, halo), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(2))
+    force = torch.rand((s, mb, bs), generator=gen, device=dev) < 0.1
+    force[:, 0, :4] = True                                   # sink columns
+    return scores, lo, hi, fl, fr, valid, force
+
+
+@pytest.mark.parametrize("s,kv,mb,bs,window", [
+    (4, 8, 256, 32, 7),       # the main path: S 4 x KV 8 rows of 256 blocks of 32
+    (4, 8, 256, 32, 1),
+    (4, 8, 256, 32, 3),
+    (3, 2, 77, 32, 7),        # MB not a multiple of a CTA's 24 warp units
+    (2, 2, 2000, 32, 7),      # 84 CTAs per row
+    (3, 2, 100, 16, 7),       # two blocks per warp unit
+    (1, 1, 5000, 8, 5),
+    (2, 3, 33, 16, 33),       # halo = block size
+    (3, 2, 40, 64, 7),        # a warp per block, staged in shared memory
+    (2, 2, 20, 128, 7),
+    (3, 2, 50, 12, 7),        # a block size that is not a multiple of 4
+    (3, 2, 50, 12, 3),
+])
+def test_b5_bitwise_at_serving_shapes(dev, s, kv, mb, bs, window):
+    """B5 equals its plain version bit for bit on empty blocks interleaved
+    with partly valid ones, an all-empty slot, force on valid and invalid
+    positions, at the main path's shape and at other block sizes and
+    windows; and its outputs do not depend on what the memory they are
+    given held: the blocks that the wrapper's outputs land on were filled
+    with 0xFF just before."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.selection_fused.ops import (
+        paged_fused_select, paged_fused_select_plain)
+    args = _b5_operands(dev, 21 + mb, s, kv, mb, bs, window)
+    want = paged_fused_select_plain(*args, window=window)
+    # the outputs' blocks, filled with 0xFF and freed; a guard after each
+    # keeps a freed block from merging with its neighbours, so that the
+    # wrapper's allocations of the same sizes take them
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk, guards = [], []
+    for t in want:
+        junk.append(torch.full_like(t, 255 if t.dtype == torch.uint8 else -1))
+        guards.append(torch.empty(1, device=dev))
+    hist_ptr = junk[1].data_ptr()
+    del junk
+    n0 = LAUNCHES["paged_fused_select"]
+    got = paged_fused_select(*args, window=window)
+    assert LAUNCHES["paged_fused_select"] == n0 + 1
+    assert got[1].data_ptr() == hist_ptr
+    for t, p in zip(got, want):
+        assert torch.equal(t, p)
+    assert (got[1].sum(-1) == mb * bs).all()
+
+
 def test_b6_kernel_matches_plain(dev):
     """Partials over a rank-local plan (half the pool's blocks), so some
     rows own nothing: those are exactly (0, -1e30, 0); the rest within
@@ -343,6 +412,40 @@ def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
     fz = torch.randn((bh, n), generator=gen, device=dev)
     assert torch.equal(score_estimate(qc, qs, words, fs, fz),
                        score_estimate_plain(qc, qs, words, fs, fz))
+
+
+@pytest.mark.parametrize("b,kv,g,r,n,unaligned,bf16", [
+    (4, 8, 1, 64, 8192, False, True),    # the main path: registers, float4 stores
+    (4, 8, 1, 64, 8192, False, False),
+    (4, 8, 1, 64, 1001, True, True),     # words one word off: the wide layout
+    (2, 1, 1, 64, 999, False, False),    # KV 1 (the reference op's form), N % 4 != 0
+    (3, 10, 1, 64, 514, False, True),    # KV 10: 250 threads
+    (2, 10, 2, 32, 300, False, False),
+    (2, 8, 2, 64, 1030, False, True),
+    (2, 4, 8, 128, 257, False, False),
+    (1, 1030, 1, 16, 37, False, True),   # more kv heads than a CTA has threads
+])
+def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf16):
+    """B7 on B1's template: the register layout at G 1 / r 64 with aligned
+    operands, the wide layout for every other shape and for a ``words`` view
+    that starts one word off its 16 B alignment; both chains, bit for bit."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.score_est.ops import flat_score_estimate, flat_score_estimate_plain
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shape = (b, n, kv, r // 16)
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (math.prod(shape) + 1,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    words = flat[1:].view(shape) if unaligned else flat[:-1].view(shape)
+    assert (words.data_ptr() % 16 != 0) == unaligned
+    fs = torch.rand((b, n, kv), generator=gen, device=dev)
+    fz = torch.randn((b, n, kv), generator=gen, device=dev)
+    qc = torch.randint(-3, 4, (b, kv, g, r), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((b, kv, g), generator=gen, device=dev)
+    args = (qc, qs, words, fs, fz)
+    n0 = LAUNCHES["score_estimate"]
+    out = flat_score_estimate(*args, bf16=bf16)
+    assert LAUNCHES["score_estimate"] == n0 + 1
+    assert torch.equal(out, flat_score_estimate_plain(*args, bf16=bf16))
 
 
 @pytest.mark.parametrize("bh,g,c,hd,density", [

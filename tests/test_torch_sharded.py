@@ -158,6 +158,34 @@ def test_b5_plain_bitwise_vs_pallas(rng, window):
         np.testing.assert_array_equal(tn(t), np.asarray(j))
 
 
+@pytest.mark.parametrize("window", [1, 3, 7])
+def test_b5_plain_bitwise_vs_pallas_on_empty_blocks(rng, window):
+    """The cases the card kernel takes a shortcut on: blocks with nothing
+    valid interleaved with partly valid ones (their bins are all 0 and
+    their positions count to bin 0 whatever the halo columns and force
+    bytes hold), and force set on invalid positions (never 255)."""
+    x = _select_inputs(rng, window, mb=8)
+    s, mb, bs = x["blk_valid"].shape
+    empty = np.zeros((s, mb), bool)
+    empty[:, 1::2] = True                             # every other block
+    empty[1, :3] = True                               # and a run of three
+    x["blk_valid"] = x["blk_valid"] & ~empty[..., None]
+    x["blk_valid"][0, 2, :5] = False                  # a partly valid block
+    x["scores"] = np.where(x["blk_valid"][:, None], x["scores"], np.float32(-3.0e38))
+    x["force"] = rng.random((s, mb, bs)) < 0.3
+    assert (x["force"] & ~x["blk_valid"]).any() and (x["force"] & x["blk_valid"]).any()
+    names = list(x)
+    pal = paged_fused_select_pallas(*(jnp.asarray(x[n]) for n in names), window=window,
+                                    interpret=True)
+    out = paged_fused_select(*(tt(x[n]) for n in names), window=window)
+    for t, j in zip(out, pal):
+        np.testing.assert_array_equal(tn(t), np.asarray(j))
+    pooled = tn(out[0])
+    assert (pooled.transpose(0, 2, 1, 3)[empty] == 0).all()        # (slot, block) first
+    assert (pooled[np.broadcast_to((x["force"] & x["blk_valid"])[:, None], pooled.shape)]
+            == 255).all()
+
+
 @pytest.mark.parametrize("g", [1, 2])
 def test_b6_plain_vs_pallas(rng, g):
     p, bs, kv, hd, bh, nsb = 12, 16, 2, 32, 6, 4
