@@ -24,12 +24,13 @@ Phases (any failure raises and the script exits non-zero):
    the count of HMMA/HGMMA lines in its library's SASS, which must not be
    0), the contiguous tick's (B7 flat scores in both of its chains, with
    its CTA count and its time on a flushed L2, and B9
-   bin/pool/histogram/threshold: bit-identical; B8 sparse decode
+   bin/pool/histogram/threshold: bit-identical, likewise with its CTA
+   count and cold time; B8 sparse decode
    attention over gathered rows, split over output channels: f32, with
    SDPA over the dequantized rows as its yardstick, timed without and
    with the dequantization), and B10 (max-pool) and B11
    (histogram + threshold), bit-identical, driven once through their
-   public entry points; then check the whole serving path on a small
+   public entry points, with their CTA counts and cold times; then check the whole serving path on a small
    input — paged, contiguous, a fp16 pool, and an int4 pool with the host
    tier on a pool small enough that blocks demote and promote: the port
    on the card against the port's plain versions on the CPU (greedy
@@ -392,8 +393,11 @@ def check_flat_kernels(dev, cfg, lengths, iters=20):
                cache.length.repeat_interleave(kv))
     out9 = sf.fused_bin_pool_threshold(*b9_args, window=w)
     _check_exact("B9", out9, sf.fused_bin_pool_threshold_plain(*b9_args, window=w))
-    b9_bytes = 4 * bh * n + 16 * bh + bh * n + 4 * out9[1].numel() + 4 * bh
-    bms, bby = bound(b9_bytes, bh * n * (w + 8), "f32")    # bin, pool, count
+    # what these operands need: the scores below each row's length, the row
+    # parameters (lo, hi, k, length), the pooled bins, histogram and threshold
+    n_valid = int(b9_args[4].clamp(0, n).sum())
+    b9_bytes = 4 * n_valid + 16 * bh + bh * n + 4 * out9[1].numel() + 4 * bh
+    bms, bby = bound(b9_bytes, n_valid * (w + 8), "f32")    # bin, pool, count
     recs.append(dict(name="fused_bin_pool_threshold", route="cuda",
                      source="src/repro_torch/csrc/selection_fused.cu",
                      replaces="src/repro/kernels/selection_fused/kernel.py:90",
@@ -401,9 +405,13 @@ def check_flat_kernels(dev, cfg, lengths, iters=20):
                      err_over_tol=0.0,
                      ms=kernel_ms(lambda: sf.fused_bin_pool_threshold(*b9_args, window=w),
                                   "fused_bin_pool_threshold_kernel", iters),
+                     cold_ms=cold_kernel_ms(lambda: sf.fused_bin_pool_threshold(
+                         *b9_args, window=w), "fused_bin_pool_threshold_kernel", iters),
                      plain_ms=events_ms(lambda: sf.fused_bin_pool_threshold_plain(
                          *b9_args, window=w), max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=None,
+                     ctas=kernel_ctas(lambda: sf.fused_bin_pool_threshold(*b9_args, window=w),
+                                      "fused_bin_pool_threshold_kernel"),
                      thresholds=sorted({int(t) for t in out9[2].tolist()})))
 
     # B8 — over the rows that selection gathers
@@ -882,9 +890,10 @@ def check_bin_kernels(dev, iters=50):
                          launches=launches.get(name, 0), max_abs_err=0.0,
                          tolerance="bit-identical", err_over_tol=0.0,
                          ms=kernel_ms(fn, kname, iters),
+                         cold_ms=cold_kernel_ms(fn, kname, iters),
                          plain_ms=events_ms(plain, max(2, iters // 10)),
                          bound_ms=bms, bound_by=bby, library_ms=events_ms(lib, iters),
-                         library_call=call))
+                         library_call=call, ctas=kernel_ctas(fn, kname)))
     print(f"B10/B11 drive: launches {launches}; thresholds "
           f"{sorted({int(t) for t in thr.tolist()})}", flush=True)
     return recs

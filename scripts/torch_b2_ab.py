@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Kernels B1, B2, B4, B5, B6 and B7 against other checkouts', bit for
-bit, on chip_smoke.py's operands.
+"""Kernels B1, B2, B4, B5, B6, B7, B9 and B11 against other checkouts', bit
+for bit, on chip_smoke.py's operands.
 
-    python3 scripts/torch_b2_ab.py --tree DIR [DIR ...]
+    python3 scripts/torch_b2_ab.py --tree DIR [DIR ...] [--rows NAME ...]
 
-Runs chip_smoke.py's phase-3 checks of the paged, block-sharded, contiguous
-and tiered kernels and records the operands of the first launch of each of
-eleven rows: B1, B4, B5, B7 in the contiguous tick's bf16 chain and in the
-reference op's f32 chain, and B2 and B6 in each storage mode (int8, fp16,
-int4). Then, on those operands:
+Runs chip_smoke.py's phase-3 checks of the paged, block-sharded, contiguous,
+tiered and bin kernels and records the operands of the first launch of each
+of thirteen rows: B1, B4, B5, B7 in the contiguous tick's bf16 chain and in
+the reference op's f32 chain, B2 and B6 in each storage mode (int8, fp16,
+int4), B9 and B11. Then, on those operands:
 
 - this checkout's kernels, timed from the profiler's trace, with their CTA
   count;
@@ -19,7 +19,7 @@ int4). Then, on those operands:
 
 and prints, per row and tree, whether the outputs are ``torch.equal`` to
 that tree's, and the times; the last line is one JSON object with all of
-it. Needs a CUDA device.
+it. ``--rows NAME ...`` compares only the named rows. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,15 +42,18 @@ KERNELS = {
     ("score_est", "paged_score_bounds"): "paged_score_bounds_kernel",
     ("score_est", "flat_score_estimate"): "flat_score",
     ("selection_fused", "paged_fused_select"): "paged_fused_select_kernel",
+    ("selection_fused", "fused_bin_pool_threshold"): "fused_bin_pool_threshold_kernel",
+    ("hist_topk", "hist_threshold"): "hist_threshold_kernel",
 }
 ITERS = 20
 
 
 def modules():
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.hist_topk import ops as ht
     from repro_torch.kernels.score_est import ops as se
     from repro_torch.kernels.selection_fused import ops as sf
-    return {"flash_decode": fd, "score_est": se, "selection_fused": sf}
+    return {"flash_decode": fd, "score_est": se, "selection_fused": sf, "hist_topk": ht}
 
 
 def run_rows(mods, cs, rows) -> dict:
@@ -75,7 +78,7 @@ def child(tree: Path, ops_file: Path, out_file: Path) -> int:
     mods = modules()
     for m in mods.values():
         assert Path(m.__file__).resolve().is_relative_to(tree), m.__file__
-    common.build_kernels(list(mods))
+    common.build_kernels()
     rows = torch.load(ops_file, map_location="cuda")
     res = run_rows(mods, cs, rows)
     torch.save({k: dict(out=[t.cpu() for t in v["out"]], ms=v["ms"]) for k, v in res.items()},
@@ -87,6 +90,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, nargs="+", required=True,
                     help="roots of the checkouts whose kernels this one is held to")
+    ap.add_argument("--rows", nargs="+", metavar="NAME",
+                    help="compare only these rows (default: all thirteen)")
     ap.add_argument("--child", nargs=2, type=Path, metavar=("OPERANDS", "OUT"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -129,10 +134,16 @@ def main() -> int:
         cs.check_kernels("cuda", cfg, lengths=lengths, prompt_len=max(cs.PROMPTS))
         cs.check_flat_kernels("cuda", cfg, lengths=lengths)
         cs.check_tiered_kernels("cuda", cfg, lengths=lengths)
+        cs.check_bin_kernels("cuda")
     finally:
         for (mod, fname), fn in orig.items():
             setattr(mods[mod], fname, fn)
-    assert len(rows) == 11, sorted(rows)
+    assert len(rows) == 13, sorted(rows)
+    if a.rows:
+        unknown = set(a.rows) - set(rows)
+        if unknown:
+            ap.error(f"unknown rows {sorted(unknown)}; rows: {sorted(rows)}")
+        rows = {name: row for name, row in rows.items() if name in a.rows}
 
     # this tree's kernels first: after the child has profiled, sessions of
     # this process lost every launch of B1 (PERF.md)

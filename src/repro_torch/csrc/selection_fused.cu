@@ -19,14 +19,15 @@
 // of the flat (BH, N) scores: scale = max((hi - lo) / 254, 1e-6) with the
 // `lo` operand used raw (the caller passes binning_affine's cleaned
 // offset), bins = clip(rint((score - lo) / scale) + 1, 1, 255) below
-// lengths[r] and 0 past it; the max-pool's halo columns are bins recomputed
-// from the neighbouring positions' scores in memory, 0 past the row's ends;
-// a pooled bin is 0 where its centre bin is 0; then the 256-bin histogram
+// lengths[r] and 0 past it; a stride-1 max-pool along the row, whose
+// window reads 0 past the row's ends; a pooled bin is 0 where its centre
+// bin is 0; then the 256-bin histogram
 // and the threshold: the largest bin whose reverse cumulative count is at
 // least k[r], never below 1 (histogram_topk.locate_threshold).
 //
-// Bound on this card: bytes — 4 B of score in (plus 2 B of valid/force for
-// B5) and 1 B of pooled bin out per position; a few dozen integer ops each.
+// Bound on this card: bytes — 4 B of score in per valid position (plus 2 B
+// of valid/force per position for B5) and 1 B of pooled bin out per
+// position; a few dozen integer ops each.
 //
 // B5 design: the positions of a row go to warps in items (32 consecutive
 // positions where the block size divides 32, else one block), three per
@@ -46,26 +47,44 @@
 // distributed shared memory, which writes the histogram whole and needs no
 // zeroing, cost ~1.5 us more at the same CTA shape.
 //
-// B9 design: one CTA per (run of positions, row), one thread per position.
-// The run's bins and their halo columns sit in shared memory for the pool;
-// the histogram accumulates in shared memory and is added into the zeroed
-// global histogram with one atomic per non-empty bin (exact integer counts,
-// so the order of the adds does not matter). The TPU kernels carry the
-// histogram in scratch across their sequential block axis; here the runs of
-// a row are parallel CTAs, so B9 hands the threshold to the row's last CTA:
-// each CTA fences its histogram adds and takes a ticket from a per-row
-// counter, and the CTA that draws the last ticket reads the complete
-// histogram back (through L2) and runs the reverse scan.
+// B9 design: one CTA of 640 threads per row, each taking words of 4
+// consecutive positions. Only the row's valid prefix, min(lengths[r], N)
+// positions, is read: up to four words' scores per thread, their loads
+// issued together, 16 B each where the row is 16 B aligned (N % 4 == 0 and
+// an aligned base; scalar loads otherwise). Each position is binned once
+// into a uint8 stage in shared memory, with zero bytes before position 0
+// and past the prefix. The window max is taken from the staged words four
+// positions at a time: for the main path's window 7 from three words whose
+// middle word lies in all four windows (pool7), for any other window as a
+// byte-wise __vmaxu4 over funnel-shifted words. Each pooled bin goes to a
+// shared histogram by an atomic; positions past the prefix get none: every
+// valid bin is >= 1 and pools to >= 1, so bin 0 counts N - min(len, N).
+// After a barrier warp 0 scans the histogram to the threshold
+// (warp_threshold) while the other warps write the histogram whole and zero
+// the bins past the prefix (16 B stores): no global atomics, no ticket,
+// nothing zeroed beforehand, one launch per call. A prefix whose stage does
+// not fit the opt-in shared memory is walked in chunks, each carrying the
+// previous chunk's edge bins. Measured against other shapes (PERF.md):
+// several CTAs per row merging through global atomics and a self-resetting
+// ticket, runs of equal bins added as one (across a warp or within a word),
+// per-warp sub-histograms, and 256-1,024 threads were all slower.
 //
 // B10 replaces src/repro/kernels/maxpool/kernel.py::maxpool_pallas: the
 // stride-1 max-pool of (BH, N) uint8 bins on its own, zero past the row's
-// ends (the reuse tree's shift fill). B11 replaces
-// src/repro/kernels/hist_topk/kernel.py::hist_threshold_pallas: the 256-bin
-// histogram of (BH, N) uint8 bins and its reverse scan to the threshold.
-// Both are B9's stages without the binning, built from the same device
-// functions (window_max, flush_histogram, last_cta_threshold) and the same
-// CTA shape: a run of B9_RUN positions per CTA, the row's last CTA scans.
-// Bound: bytes (1 B in and 1 B out per position for B10, 1 B in for B11).
+// ends (the reuse tree's shift fill); a run of B10_RUN positions and its
+// halo per CTA in shared memory. Bound: bytes (1 B in, 1 B out per position).
+//
+// B11 replaces src/repro/kernels/hist_topk/kernel.py::hist_threshold_pallas:
+// the 256-bin histogram of (BH, N) uint8 bins and its reverse scan to the
+// threshold. One CTA of 512 threads per row: two 16 B loads per thread
+// issued together from the row's first 16 B boundary (the few bytes before
+// it and after the last whole 16 B one at a time); each warp adds its bins
+// to its own 1 KB sub-histogram in shared memory, an atomic per bin, so
+// that a skewed row does not serialise the CTA on a few words; the
+// sub-histograms are summed once and finish_row writes the histogram and
+// the threshold as in B9. Bound: bytes (1 B in per position). Runs of equal
+// bins merged across a warp's lanes, or 16 equal bins of a load added as
+// one, cost more than they saved on uniform bins (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,41 +99,6 @@ __device__ __forceinline__ int window_max(const int32_t* b, int HALO) {
   int p = b[0];
   for (int o = 1; o <= 2 * HALO; ++o) p = max(p, b[o]);
   return p;
-}
-
-// add a CTA's shared histogram into the row's zeroed global one
-__device__ __forceinline__ void flush_histogram(const int32_t* hist_sh, int32_t* hist_row) {
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) {
-    if (hist_sh[i]) atomicAdd(&hist_row[i], hist_sh[i]);
-  }
-}
-
-// After flush_histogram: the row's CTA that draws the last ticket reads the
-// complete histogram back and writes the threshold, the largest bin whose
-// reverse cumulative count is at least k, never below 1. hist_sh is reused
-// as scratch. Every thread of the CTA must call it.
-__device__ void last_cta_threshold(int32_t* hist_sh, const int32_t* hist_row, int k,
-                                   unsigned int* ticket_row, int32_t* thr_row) {
-  __shared__ bool last;
-  __threadfence();                          // this CTA's adds before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket_row, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = __ldcg(&hist_row[i]);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int cum = 0, t = 0;
-    for (int b = NUM_BINS - 1; b >= 0; --b) {
-      cum += hist_sh[b];
-      if (cum >= k) {
-        t = b;
-        break;
-      }
-    }
-    *thr_row = max(t, 1);
-  }
 }
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -276,52 +260,199 @@ __global__ void __launch_bounds__(B5_WARPS * 32) paged_fused_select_kernel(
   if (lane == 0 && zeros) atomicAdd(&hrow[0], zeros);
 }
 
-constexpr int B9_THREADS = 256;
-constexpr int B9_RUN = 1024;                // positions per CTA
-
-__device__ __forceinline__ int32_t flat_bin(const float* __restrict__ row, int p, int N,
-                                            int len, float lo, float scale) {
-  if (p < 0 || p >= N || p >= len) return 0;
-  const float x = __fdiv_rn(__fsub_rn(row[p], lo), scale);
-  return (int32_t)fminf(fmaxf(__fadd_rn(rintf(x), 1.f), 1.f), 255.f);
+// One warp's threshold of a row's 256-bin histogram in shared memory (16 B
+// aligned): the largest bin whose reverse cumulative count reaches k, never
+// below 1. Lane l takes bins 8l .. 8l + 7: suffix sums in the lane, then the
+// later lanes' totals by shuffles. The suffix sums fall as the bin grows, so
+// the bins that reach k are 0 .. t and t + 1 is their count.
+__device__ __forceinline__ int warp_threshold(const int32_t* hist_sh, int k) {
+  const int lane = threadIdx.x & 31;
+  const int4 a = reinterpret_cast<const int4*>(hist_sh)[2 * lane];
+  const int4 b = reinterpret_cast<const int4*>(hist_sh)[2 * lane + 1];
+  int s[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 6; i >= 0; --i) s[i] += s[i + 1];
+  int later = s[0];                         // this lane's and the later lanes' total
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_down_sync(FULL, later, d);
+    if (lane + d < 32) later += v;
+  }
+  later -= s[0];
+  int reached = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) reached += s[i] + later >= k;
+  return max(__reduce_add_sync(FULL, reached) - 1, 1);
 }
 
-__global__ void fused_bin_pool_threshold_kernel(
+// zero n bytes from p: single bytes up to the first 16 B boundary, 16 B
+// stores, single bytes after the last whole 16 B; thread u of `threads`
+__device__ __forceinline__ void zero_bytes(uint8_t* p, int n, int u, int threads) {
+  const int head = min((int)((16 - ((uintptr_t)p & 15)) & 15), n);
+  const int nvec = (n - head) >> 4;
+  for (int i = u; i < head; i += threads) p[i] = 0;
+  uint4* pv = reinterpret_cast<uint4*>(p + head);
+  for (int i = u; i < nvec; i += threads) pv[i] = make_uint4(0, 0, 0, 0);
+  for (int i = head + 16 * nvec + u; i < n; i += threads) p[i] = 0;
+}
+
+// Warp 0 writes the row's threshold; the other warps write its histogram
+// (16 B stores) and zero the n pooled bins from z. After a barrier.
+__device__ __forceinline__ void finish_row(const int32_t* hist_sh, int k, int32_t* hist_row,
+                                           int32_t* thr_row, uint8_t* z, int n) {
+  const int t = threadIdx.x;
+  if (t < 32) {
+    const int tr = warp_threshold(hist_sh, k);
+    if (t == 0) *thr_row = tr;
+  } else {
+    for (int i = t - 32; i < NUM_BINS / 4; i += blockDim.x - 32)
+      reinterpret_cast<int4*>(hist_row)[i] = reinterpret_cast<const int4*>(hist_sh)[i];
+    zero_bytes(z, n, t - 32, blockDim.x - 32);
+  }
+}
+
+constexpr int B9_THREADS = 640;
+constexpr int B9_BATCH = 4;                 // stage words per thread whose loads go out together
+constexpr int B9_SLACK = 16;                // stage bytes read past its end, never used
+
+// the scores of positions x .. x + 3 of a row below m (x % 4 == 0; 0 at or
+// past m, where nothing is read): one 16 B load where VEC and x + 4 <= m
+template <bool VEC>
+__device__ __forceinline__ void load_word(const float* __restrict__ srow, int x, int m,
+                                          float (&f)[4]) {
+  if (VEC && x + 4 <= m) {
+    const float4 q = *reinterpret_cast<const float4*>(srow + x);
+    f[0] = q.x, f[1] = q.y, f[2] = q.z, f[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = x + i < m ? srow[x + i] : 0.f;
+  }
+}
+
+// the bins of those positions packed in a word (position x in the low
+// byte, 0 at or past m)
+__device__ __forceinline__ uint32_t bin_word(const float (&f)[4], int x, int m, float offset,
+                                             float scale) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (x + i < m) w |= (uint32_t)bin_of(f[i], offset, scale) << (8 * i);
+  }
+  return w;
+}
+
+// Window 7 over the bytes c0 .. c11 of the words a0, a1, a2 (c0 the low
+// byte of a0): byte i of the result is max(c[1 + i] .. c[7 + i]). Every
+// window holds all of a1, whose max is taken once.
+__device__ __forceinline__ uint32_t pool7(uint32_t a0, uint32_t a1, uint32_t a2) {
+  const auto c = [](uint32_t w, int i) { return (w >> (8 * i)) & 255u; };
+  const uint32_t mid = max(__vimax3_u32(c(a1, 0), c(a1, 1), c(a1, 2)), c(a1, 3));
+  const uint32_t l = max(c(a0, 2), c(a0, 3)), r = max(c(a2, 0), c(a2, 1));
+  return __vimax3_u32(mid, c(a0, 1), l) | __vimax3_u32(mid, l, c(a2, 0)) << 8 |
+         __vimax3_u32(mid, c(a0, 3), r) << 16 | __vimax3_u32(mid, r, c(a2, 2)) << 24;
+}
+
+// B9. Grid (BH,). The stage holds the bins of positions c0 - PAD ..
+// c0 + C + PAD of the current chunk (PAD = HALO rounded up to 4), position
+// x at byte PAD + x - c0. VEC: N % 4 == 0 and the scores 16 B aligned.
+// HC: HALO known at compile time (3, the main path's window 7, pooled by
+// pool7), or -1.
+template <bool VEC, int HC>
+__global__ void __launch_bounds__(B9_THREADS) fused_bin_pool_threshold_kernel(
     const float* __restrict__ scores,       // (BH, N)
     const float* __restrict__ lo,           // (BH,)
     const float* __restrict__ hi,           // (BH,)
     const int32_t* __restrict__ k,          // (BH,)
     const int32_t* __restrict__ lengths,    // (BH,)
     uint8_t* __restrict__ pooled,           // (BH, N)
-    int32_t* __restrict__ hist,             // (BH, 256), zeroed
+    int32_t* __restrict__ hist,             // (BH, 256)
     int32_t* __restrict__ thr,              // (BH,)
-    unsigned int* __restrict__ ticket,      // (BH,), zeroed
-    int N, int HALO) {
-  extern __shared__ int32_t fsh[];
-  int32_t* hist_sh = fsh;                   // (256)
-  int32_t* buf = fsh + NUM_BINS;            // (HALO + run + HALO) bins
-  const int row = blockIdx.y;
-  const int c0 = blockIdx.x * B9_RUN;
-  const int nb = min(B9_RUN, N - c0);
-  const float* s = scores + (size_t)row * N;
-  const float l = lo[row];
-  const float scale = fmaxf(__fdiv_rn(__fsub_rn(hi[row], l), 254.f), 1e-6f);
-  const int len = lengths[row];
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = 0;
-  for (int e = threadIdx.x; e < nb + 2 * HALO; e += blockDim.x) {
-    buf[e] = flat_bin(s, c0 - HALO + e, N, len, l, scale);
+    int N, int halo, int C) {               // C: positions per chunk, a multiple of 4
+  extern __shared__ uint32_t words_sh[];    // the stage: (PAD + C + PAD + B9_SLACK) bytes
+  __shared__ __align__(16) int32_t hist_sh[NUM_BINS];
+  const int row = blockIdx.x, t = threadIdx.x;
+  const int HALO = HC >= 0 ? HC : halo;
+  const int PAD = (HALO + 3) & ~3;
+  const float* srow = scores + (size_t)row * N;
+  uint8_t* prow = pooled + (size_t)row * N;
+  const float offset = lo[row];
+  const float scale = fmaxf(__fdiv_rn(__fsub_rn(hi[row], offset), 254.f), 1e-6f);
+  const int m = min(max(lengths[row], 0), N);
+  const int kr = k[row];
+  const int m4 = (m + 3) & ~3;
+  for (int i = t; i < NUM_BINS; i += B9_THREADS) hist_sh[i] = i == 0 ? N - m : 0;
+  uint32_t carry = 0;
+  for (int c0 = 0; c0 < m; c0 += C) {
+    // stage: zeros before position 0, or the previous chunk's edge words;
+    // then the bins of the positions up to the chunk's end + PAD
+    const int fresh = c0 == 0 ? PAD / 4 : PAD / 2;
+    if (c0 == 0) {
+      for (int j = t; j < fresh; j += B9_THREADS) words_sh[j] = 0;
+    } else if (t < fresh) {
+      words_sh[t] = carry;
+    }
+    const int words = (2 * PAD + min(C, m4 - c0)) / 4;
+    for (int j0 = fresh + t; j0 < words; j0 += B9_BATCH * B9_THREADS) {
+      float f[B9_BATCH][4];
+#pragma unroll
+      for (int u = 0; u < B9_BATCH; ++u) {
+        const int j = j0 + u * B9_THREADS;
+        load_word<VEC>(srow, c0 - PAD + 4 * j, j < words ? m : 0, f[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < B9_BATCH; ++u) {
+        const int j = j0 + u * B9_THREADS;
+        if (j < words) words_sh[j] = bin_word(f[u], c0 - PAD + 4 * j, m, offset, scale);
+      }
+    }
+    __syncthreads();
+    // pool and count the words of positions 4w .. 4w + 3
+    const int w1 = (min(c0 + C, m) + 3) / 4;
+    for (int w = c0 / 4 + t; w < w1; w += B9_THREADS) {
+      uint32_t p = 0;
+      if constexpr (HC == 3) {
+        const int lw = w - c0 / 4;          // positions 4w - 4 .. 4w + 7 in 3 words
+        p = pool7(words_sh[lw], words_sh[lw + 1], words_sh[lw + 2]);
+      } else {
+        // the 4 bytes from stage byte b + o are the o-th shift of the window
+        const int b = PAD - HALO + 4 * (w - c0 / 4);
+        int wi = b >> 2, sh = (b & 3) * 8;
+        uint32_t a0 = words_sh[wi], a1 = words_sh[wi + 1];
+        for (int o = 0; o <= 2 * HALO; ++o) {
+          p = __vmaxu4(p, __funnelshift_r(a0, a1, sh));
+          sh += 8;
+          if (sh == 32) {
+            sh = 0;
+            a0 = a1;
+            a1 = words_sh[++wi + 1];
+          }
+        }
+      }
+      const int x = 4 * w;
+      if (x + 4 > m) p &= (1u << (8 * (m - x))) - 1u;     // zero where the centre is 0
+      if (VEC) {
+        *reinterpret_cast<uint32_t*>(prow + x) = p;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (x + i < N) prow[x + i] = (uint8_t)(p >> (8 * i));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (x + i < m) atomicAdd(&hist_sh[(p >> (8 * i)) & 255u], 1);
+      }
+    }
+    if (c0 + C < m && t < PAD / 2) carry = words_sh[C / 4 + t];
+    __syncthreads();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
-    int p = buf[HALO + e];
-    if (p > 0) p = window_max(buf + e, HALO);
-    pooled[(size_t)row * N + c0 + e] = (uint8_t)p;
-    atomicAdd(&hist_sh[p], 1);
-  }
-  __syncthreads();
-  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
-  last_cta_threshold(hist_sh, hist + (size_t)row * NUM_BINS, k[row], ticket + row, thr + row);
+  if (m == 0) __syncthreads();
+  finish_row(hist_sh, kr, hist + (size_t)row * NUM_BINS, thr + row, prow + min(m4, N),
+             N - min(m4, N));
 }
+
+constexpr int B10_THREADS = 256;
+constexpr int B10_RUN = 1024;               // positions per CTA
 
 // B10: pooled[r, n] = max(bins[r, n - HALO .. n + HALO]), 0 past the ends
 __global__ void maxpool_u8_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
@@ -329,8 +460,8 @@ __global__ void maxpool_u8_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
                                   int N, int HALO) {
   extern __shared__ int32_t msh[];          // (HALO + run + HALO) bins
   const int row = blockIdx.y;
-  const int c0 = blockIdx.x * B9_RUN;
-  const int nb = min(B9_RUN, N - c0);
+  const int c0 = blockIdx.x * B10_RUN;
+  const int nb = min(B10_RUN, N - c0);
   const uint8_t* x = bins + (size_t)row * N;
   for (int e = threadIdx.x; e < nb + 2 * HALO; e += blockDim.x) {
     const int p = c0 - HALO + e;
@@ -342,24 +473,61 @@ __global__ void maxpool_u8_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
   }
 }
 
-// B11: hist[r] = the 256-bin histogram of bins[r], thr[r] its threshold for k[r]
-__global__ void hist_threshold_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
-                                      const int32_t* __restrict__ k,     // (BH,)
-                                      int32_t* __restrict__ hist,        // (BH, 256), zeroed
-                                      int32_t* __restrict__ thr,         // (BH,)
-                                      unsigned int* __restrict__ ticket, // (BH,), zeroed
-                                      int N) {
-  __shared__ int32_t hist_sh[NUM_BINS];
-  const int row = blockIdx.y;
-  const int c0 = blockIdx.x * B9_RUN;
-  const int nb = min(B9_RUN, N - c0);
-  const uint8_t* x = bins + (size_t)row * N + c0;
-  for (int i = threadIdx.x; i < NUM_BINS; i += blockDim.x) hist_sh[i] = 0;
+constexpr int B11_THREADS = 512;
+constexpr int B11_WARPS = B11_THREADS / 32;
+constexpr int B11_VEC = 2;                  // 16 B loads per thread issued together
+
+// B11. Grid (BH,): hist[r] = the 256-bin histogram of bins[r], thr[r] its
+// threshold for k[r] (k_all for every row where k is null)
+__global__ void __launch_bounds__(B11_THREADS) hist_threshold_kernel(
+    const uint8_t* __restrict__ bins,       // (BH, N)
+    const int32_t* __restrict__ k,          // (BH,) or null
+    int k_all,
+    int32_t* __restrict__ hist,             // (BH, 256)
+    int32_t* __restrict__ thr,              // (BH,)
+    int N) {
+  __shared__ __align__(16) int32_t sub[B11_WARPS][NUM_BINS];
+  const int row = blockIdx.x, t = threadIdx.x;
+  const uint8_t* x = bins + (size_t)row * N;
+  const int kr = k ? k[row] : k_all;
+  const int head = min((int)((16 - ((uintptr_t)x & 15)) & 15), N);
+  const int nvec = (N - head) >> 4;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4 q[B11_VEC];
+#pragma unroll
+  for (int u = 0; u < B11_VEC; ++u) {
+    const int i = t + u * B11_THREADS;
+    q[u] = i < nvec ? xv[i] : make_uint4(0, 0, 0, 0);
+  }
+  for (int i = t; i < B11_WARPS * NUM_BINS / 4; i += B11_THREADS)
+    reinterpret_cast<int4*>(&sub[0][0])[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) atomicAdd(&hist_sh[x[e]], 1);
+  int32_t* mine = sub[t >> 5];
+  for (int i0 = 0; i0 < nvec; i0 += B11_VEC * B11_THREADS) {
+#pragma unroll
+    for (int u = 0; u < B11_VEC; ++u) {
+      const int i = i0 + t + u * B11_THREADS;
+      if (i0 > 0) q[u] = i < nvec ? xv[i] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < B11_VEC; ++u) {
+      if (i0 + t + u * B11_THREADS >= nvec) break;
+      const uint32_t wd[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b) atomicAdd(&mine[(wd[b >> 2] >> (8 * (b & 3))) & 255u], 1);
+    }
+  }
+  for (int i = t; i < head; i += B11_THREADS) atomicAdd(&mine[x[i]], 1);
+  for (int i = head + 16 * nvec + t; i < N; i += B11_THREADS) atomicAdd(&mine[x[i]], 1);
   __syncthreads();
-  flush_histogram(hist_sh, hist + (size_t)row * NUM_BINS);
-  last_cta_threshold(hist_sh, hist + (size_t)row * NUM_BINS, k[row], ticket + row, thr + row);
+  if (t < NUM_BINS) {
+    int h = 0;
+#pragma unroll
+    for (int w = 0; w < B11_WARPS; ++w) h += sub[w][t];
+    sub[0][t] = h;
+  }
+  __syncthreads();
+  finish_row(sub[0], kr, hist + (size_t)row * NUM_BINS, thr + row, nullptr, 0);
 }
 
 }  // namespace
@@ -391,34 +559,56 @@ extern "C" int paged_fused_select(const void* scores, const void* lo, const void
 
 extern "C" int fused_bin_pool_threshold(const void* scores, const void* lo, const void* hi,
                                         const void* k, const void* lengths, void* pooled,
-                                        void* hist, void* thr, void* ticket, int BH, int N,
-                                        int HALO, void* stream) {
-  if (HALO < 0 || HALO > B9_RUN) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + B9_RUN - 1) / B9_RUN, BH);
-  const size_t smem = (NUM_BINS + (size_t)B9_RUN + 2 * HALO) * sizeof(int32_t);
-  fused_bin_pool_threshold_kernel<<<grid, B9_THREADS, smem, (cudaStream_t)stream>>>(
+                                        void* hist, void* thr, int BH, int N, int HALO,
+                                        void* stream) {
+  if (HALO < 0 || HALO > 1024 || N < 1) return (int)cudaErrorInvalidValue;
+  const int pad = (HALO + 3) & ~3;
+  // one chunk holds the whole row where its stage fits the opt-in shared memory
+  int chunk = (N + 3) & ~3;
+  size_t smem = (size_t)2 * pad + chunk + B9_SLACK;
+  if (smem > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int budget = optin - NUM_BINS * 4 - 1024;   // static + margin
+    if ((long long)smem > budget) {
+      chunk = (budget - 2 * pad - B9_SLACK) / 128 * 128;   // >= 2 * pad: carries stay apart
+      smem = (size_t)2 * pad + chunk + B9_SLACK;
+    }
+  }
+  const bool vec = N % 4 == 0 && ((uintptr_t)scores & 15) == 0;
+  const auto kernel =
+      HALO == 3 ? (vec ? &fused_bin_pool_threshold_kernel<true, 3>
+                       : &fused_bin_pool_threshold_kernel<false, 3>)
+                : (vec ? &fused_bin_pool_threshold_kernel<true, -1>
+                       : &fused_bin_pool_threshold_kernel<false, -1>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<BH, B9_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)scores, (const float*)lo, (const float*)hi, (const int32_t*)k,
-      (const int32_t*)lengths, (uint8_t*)pooled, (int32_t*)hist, (int32_t*)thr,
-      (unsigned int*)ticket, N, HALO);
+      (const int32_t*)lengths, (uint8_t*)pooled, (int32_t*)hist, (int32_t*)thr, N, HALO, chunk);
   return (int)cudaGetLastError();
 }
 
 extern "C" int maxpool_u8(const void* bins, void* pooled, int BH, int N, int HALO,
                           void* stream) {
-  if (HALO < 1 || HALO > B9_RUN || N < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + B9_RUN - 1) / B9_RUN, BH);
-  const size_t smem = ((size_t)B9_RUN + 2 * HALO) * sizeof(int32_t);
-  maxpool_u8_kernel<<<grid, B9_THREADS, smem, (cudaStream_t)stream>>>(
+  if (HALO < 1 || HALO > B10_RUN || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + B10_RUN - 1) / B10_RUN, BH);
+  const size_t smem = ((size_t)B10_RUN + 2 * HALO) * sizeof(int32_t);
+  maxpool_u8_kernel<<<grid, B10_THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)bins, (uint8_t*)pooled, N, HALO);
   return (int)cudaGetLastError();
 }
 
-extern "C" int hist_threshold(const void* bins, const void* k, void* hist, void* thr,
-                              void* ticket, int BH, int N, void* stream) {
+extern "C" int hist_threshold(const void* bins, const void* k, int k_all, void* hist,
+                              void* thr, int BH, int N, void* stream) {
   if (N < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + B9_RUN - 1) / B9_RUN, BH);
-  hist_threshold_kernel<<<grid, B9_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, (const int32_t*)k, (int32_t*)hist, (int32_t*)thr,
-      (unsigned int*)ticket, N);
+  hist_threshold_kernel<<<BH, B11_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, (const int32_t*)k, k_all, (int32_t*)hist, (int32_t*)thr, N);
   return (int)cudaGetLastError();
 }

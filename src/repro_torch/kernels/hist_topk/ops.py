@@ -9,9 +9,12 @@ Integer counts, so the kernel equals the plain version bit for bit. No
 serving path calls it (the ticks count inside kernels B5 and B9).
 
 CUDA source: ``repro_torch/csrc/selection_fused.cu``
-(``hist_threshold_kernel``: shared-memory histograms per run of 1024
-positions, added into the row's histogram by atomics; the row's last CTA,
-by an atomic ticket, scans the threshold).
+(``hist_threshold_kernel``: one CTA per row, 16 B loads, a sub-histogram in
+shared memory per warp, summed once; the CTA writes the histogram whole and
+one warp scans the threshold). A call is one launch: no output is zeroed
+beforehand, and an int ``k`` goes to the kernel by value: that route
+exists only to save the launch that copies k to the card, and a tensor
+``k`` goes by pointer.
 """
 
 from __future__ import annotations
@@ -33,17 +36,18 @@ def hist_threshold(bins: torch.Tensor, k):
     threshold (BH,) int32). CPU tensors take the plain version; CUDA
     tensors launch kernel B11."""
     bh, n = bins.shape
-    k = torch.as_tensor(k, dtype=torch.int32, device=bins.device).expand(bh).contiguous()
+    by_value = isinstance(k, int) and bins.device.type != "cpu"   # no device copy of k
+    if not by_value:
+        k = torch.as_tensor(k, dtype=torch.int32, device=bins.device).expand(bh).contiguous()
     if bins.device.type == "cpu":
         return hist_threshold_plain(bins, k)
     common.require(bins, "bins", torch.uint8, (bh, n), bins.device)
-    hist = torch.zeros((bh, 256), dtype=torch.int32, device=bins.device)
+    hist = torch.empty((bh, 256), dtype=torch.int32, device=bins.device)
     thr = torch.empty((bh,), dtype=torch.int32, device=bins.device)
-    ticket = torch.zeros((bh,), dtype=torch.int32, device=bins.device)
-    fn = common.load("selection_fused", "hist_threshold", [common.P] * 5 + [common.I] * 2
-                     + [common.P])
-    err = fn(bins.data_ptr(), k.data_ptr(), hist.data_ptr(), thr.data_ptr(),
-             ticket.data_ptr(), bh, n, common.stream_ptr(hist))
+    fn = common.load("selection_fused", "hist_threshold",
+                     [common.P] * 2 + [common.I] + [common.P] * 2 + [common.I] * 2 + [common.P])
+    err = fn(bins.data_ptr(), None if by_value else k.data_ptr(), k if by_value else 0,
+             hist.data_ptr(), thr.data_ptr(), bh, n, common.stream_ptr(hist))
     common.check(err, "hist_threshold")
     common.LAUNCHES["hist_threshold"] += 1
     return hist, thr

@@ -11,7 +11,9 @@ the histogram's all-reduce.
 B9 replaces `fused_bin_pool_threshold_pallas`: phases 2-3 of the contiguous
 tick over flat (BH, N) scores — binning with the given (lo, hi) and a
 length mask, a stride-1 max-pool along the row, the 256-bin histogram and
-the threshold, in one launch.
+the threshold. One CTA per row reads the scores below the row's length
+only, writes the histogram whole and scans its own threshold, so a call is
+one launch: no output is zeroed beforehand.
 
 CUDA source of both: ``repro_torch/csrc/selection_fused.cu``; their outputs
 are bit-identical to the plain versions below.
@@ -114,14 +116,13 @@ def fused_bin_pool_threshold(scores, lo, hi, k, lengths, window: int = 7):
     common.require(k, "k", torch.int32, (bh,), dev)
     common.require(lengths, "lengths", torch.int32, (bh,), dev)
     pooled = torch.empty((bh, n), dtype=torch.uint8, device=dev)
-    hist = torch.zeros((bh, 256), dtype=torch.int32, device=dev)
+    hist = torch.empty((bh, 256), dtype=torch.int32, device=dev)
     thr = torch.empty((bh,), dtype=torch.int32, device=dev)
-    ticket = torch.zeros((bh,), dtype=torch.int32, device=dev)
     fn = common.load("selection_fused", "fused_bin_pool_threshold",
-                     [common.P] * 9 + [common.I] * 3 + [common.P])
+                     [common.P] * 8 + [common.I] * 3 + [common.P])
     err = fn(scores.data_ptr(), lo.data_ptr(), hi.data_ptr(), k.data_ptr(),
              lengths.data_ptr(), pooled.data_ptr(), hist.data_ptr(), thr.data_ptr(),
-             ticket.data_ptr(), bh, n, halo, common.stream_ptr(pooled))
+             bh, n, halo, common.stream_ptr(pooled))
     common.check(err, "fused_bin_pool_threshold")
     common.LAUNCHES["fused_bin_pool_threshold"] += 1
     return pooled, hist, thr

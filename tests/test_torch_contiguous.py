@@ -195,13 +195,23 @@ def test_b8_plain_vs_ref_and_pallas(rng, bh, g, c, hd, density):
         assert (out[0] == 0).all()
 
 
-@pytest.mark.parametrize("bh,n,window,block", [
-    (2, 1024, 7, 512), (1, 4096, 1, 4096), (3, 2048, 11, 1024), (2, 512, 3, 128)])
-def test_b9_plain_bitwise_vs_pallas(rng, bh, n, window, block):
+@pytest.mark.parametrize("bh,n,window,block,lengths", [
+    pytest.param(2, 1024, 7, 512, None, id="2-1024-7-512"),
+    pytest.param(1, 4096, 1, 4096, None, id="1-4096-1-4096"),
+    pytest.param(3, 2048, 11, 1024, None, id="3-2048-11-1024"),
+    pytest.param(2, 512, 3, 128, None, id="2-512-3-128"),
+    pytest.param(3, 1024, 7, 256, (0, 1, 1024), id="lengths-0-1-N"),
+    pytest.param(4, 512, 7, 512, (1, 0, 3, 512), id="lengths-0-1-3-N-window7")])
+def test_b9_plain_bitwise_vs_pallas(rng, bh, n, window, block, lengths):
     """Pooled bins, histogram and threshold, at the shapes of
-    tests/test_kernels.py (ragged lengths, halos across the Pallas blocks)."""
+    tests/test_kernels.py (ragged lengths, halos across the Pallas blocks)
+    and at rows of length 0, 1 and N; and the count the CUDA kernel writes
+    for bin 0 without reading a score: every valid bin is >= 1 and pools to
+    >= 1, so hist[:, 0] == N - min(len, N)."""
     scores = (rng.normal(size=(bh, n)) * 4).astype(np.float32)
-    lengths = rng.integers(n // 2, n + 1, size=(bh,)).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(n // 2, n + 1, size=(bh,)).astype(np.int32)
+    lengths = np.asarray(lengths, np.int32)
     pos = np.arange(n)[None, :]
     lo = np.where(pos < lengths[:, None], scores, np.inf).min(-1).astype(np.float32)
     hi = np.where(pos < lengths[:, None], scores, -np.inf).max(-1).astype(np.float32)
@@ -212,6 +222,7 @@ def test_b9_plain_bitwise_vs_pallas(rng, bh, n, window, block):
     got = sf_ops.fused_bin_pool_threshold(*(tt(a) for a in args), window=window)
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(tn(g_), np.asarray(w_))
+    np.testing.assert_array_equal(tn(got[1])[:, 0], n - np.minimum(lengths, n))
 
 
 # ---------------------------------------------------------------------------

@@ -602,24 +602,92 @@ def test_b3_b8_refuse_misaligned_operands(dev):
         sparse_flash_decode(q, off_by_one((bh, c, hd), torch.int8), ks, vc, ks, mask)
 
 
-@pytest.mark.parametrize("bh,n,window", [(2, 1024, 7), (1, 4096, 1), (3, 2050, 11), (4, 8192, 7)])
-def test_b9_kernel_bitwise(dev, bh, n, window):
+@pytest.mark.parametrize("bh,n,window,lengths,k", [
+    (2, 1024, 7, None, None), (1, 4096, 1, None, None), (3, 2050, 11, None, None),
+    (4, 8192, 7, None, None),
+    (3, 8192, 7, (0, 1, 8192), None),                   # rows of length 0, 1 and N
+    (9, 4096, 7, (3, 4, 5, 15, 16, 17, 31, 32, 33), None),  # 16 B and 32-position edges
+    (4, 1001, 7, (1001, 997, 15, 17), None),            # N % 4 != 0: the scalar path
+    (2, 4096, 67, (4096, 2049), None), (2, 4096, 129, (4095, 1), None),  # HALO 33, 64
+    (2, 300_000, 7, (300_000, 262_147), None),          # chunked: the row exceeds the stage
+    (2, 250_002, 129, (250_002, 249_999), None),        # chunked, N % 4 != 0, wide halo
+    (3, 2048, 7, None, 0), (3, 2048, 7, None, 5000)])   # k = 0, k > N
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_b9_kernel_bitwise(dev, monkeypatch, bh, n, window, lengths, k, unaligned):
     """Pooled bins, histogram and threshold bit for bit: ragged lengths,
-    one empty row, halos across the CTAs' runs."""
-    from repro_torch.kernels.selection_fused.ops import (
-        fused_bin_pool_threshold, fused_bin_pool_threshold_plain)
+    one empty row, halos across the CTAs' runs, and scores 4 B off a 16 B
+    boundary (the scalar path). The outputs land on 0xFF-filled memory, so a
+    position the kernel does not write shows."""
+    from repro_torch.kernels.selection_fused import ops as sf
     gen = torch.Generator(device=dev).manual_seed(10)
-    scores = torch.randn((bh, n), generator=gen, device=dev) * 4
-    lengths = torch.randint(n // 2, n + 1, (bh,), generator=gen, device=dev,
-                            dtype=torch.int32)
-    lengths[0] = 0
+    buf = torch.randn((bh * n + 1,), generator=gen, device=dev) * 4
+    scores = (buf[1:] if unaligned else buf[:-1]).view(bh, n)
+    if lengths is None:
+        lengths = torch.randint(n // 2, n + 1, (bh,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        lengths[0] = 0
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     lo = scores.amin(-1) - 0.25
     hi = scores.amax(-1)
-    k = torch.full((bh,), max(8, n // 16), dtype=torch.int32, device=dev)
+    k = torch.full((bh,), max(8, n // 16) if k is None else k, dtype=torch.int32, device=dev)
     args = (scores, lo, hi, k, lengths)
-    for t, p in zip(fused_bin_pool_threshold(*args, window=window),
-                    fused_bin_pool_threshold_plain(*args, window=window)):
+    real_empty = torch.empty
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", lambda *a, **kw: real_empty(*a, **kw).fill_(-1))
+        got = sf.fused_bin_pool_threshold(*args, window=window)
+    for t, p in zip(got, sf.fused_bin_pool_threshold_plain(*args, window=window)):
         assert torch.equal(t, p)
+
+
+@pytest.mark.parametrize("wrapper", ["fused_bin_pool_threshold", "hist_threshold",
+                                     "maxpool_int8"])
+def test_b9_b10_b11_one_launch_per_call(dev, wrapper):
+    """A call of each wrapper is one kernel in the profiler's trace: no fill,
+    no memset, no copy (B11 with an int k, as the public API calls it)."""
+    import json
+    import os
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.hist_topk.ops import hist_threshold
+    from repro_torch.kernels.maxpool.ops import maxpool_int8
+    from repro_torch.kernels.selection_fused.ops import fused_bin_pool_threshold
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bh, n = 32, 8192
+    scores = torch.randn((bh, n), generator=gen, device=dev)
+    lo, hi = scores.amin(-1), scores.amax(-1)
+    k = torch.full((bh,), 409, dtype=torch.int32, device=dev)
+    lengths = torch.randint(1, n, (bh,), generator=gen, device=dev, dtype=torch.int32)
+    bins = torch.randint(0, 256, (bh, n), generator=gen, device=dev, dtype=torch.uint8)
+    call, kernel = {
+        "fused_bin_pool_threshold": (lambda: fused_bin_pool_threshold(scores, lo, hi, k, lengths),
+                                     "fused_bin_pool_threshold_kernel"),
+        "hist_threshold": (lambda: hist_threshold(bins, 409), "hist_threshold_kernel"),
+        "maxpool_int8": (lambda: maxpool_int8(bins, 7), "maxpool_u8_kernel")}[wrapper]
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):              # a profiler session can lose its launches (PERF.md)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.unlink(path)
+        device = [e["name"] for e in events
+                  if str(e.get("cat", "")).lower() in ("kernel", "gpu_memset", "gpu_memcpy")]
+        if device:
+            break
+    assert len(device) == 1 and kernel in device[0], device
 
 
 def _mode_pools(mode, dev, seed=7, slots=3, max_seq=128, bs=16, lengths=(40, 0, 100)):
@@ -684,25 +752,40 @@ def test_b2_b6_per_block_branches_match_plain(dev, mode):
         assert ((t - p).abs()[~empty] <= 1e-5 + 1e-5 * scale[~empty]).all()
 
 
-@pytest.mark.parametrize("bh,n,window,k", [(1, 512, 3, 16), (2, 4096, 7, 200),
-                                           (3, 8192, 11, 1024), (32, 8192, 7, 409),
-                                           (2, 1000, 7, 5000)])
-def test_b10_b11_kernels_bitwise(dev, bh, n, window, k):
+@pytest.mark.parametrize("bh,n,window,k,kind", [
+    (1, 512, 3, 16, "random"), (2, 4096, 7, 200, "random"), (3, 8192, 11, 1024, "random"),
+    (32, 8192, 7, 409, "random"), (2, 1000, 7, 5000, "random"),
+    (4, 8192, 7, 409, "equal"), (4, 8192, 7, 409, "zero"), (3, 1000, 7, 100, "zero"),
+    (4, 8192, 7, 409, "runs"), (3, 1000, 7, 50, "runs"), (256, 8192, 7, 409, "random"),
+    (256, 2048, 7, 100, "runs")])
+def test_b10_b11_kernels_bitwise(dev, bh, n, window, k, kind):
     """B10 (max-pool) and B11 (histogram + threshold) equal their plain
     versions bit for bit, a ragged last run (N = 1000) and a k above N
-    (threshold clamped to 1) included."""
+    (threshold clamped to 1) included, on uniform bins and on skewed ones:
+    every bin equal, all zero, and pooled rows (long runs of equal bins,
+    zero past a length)."""
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.hist_topk.ops import hist_threshold, hist_threshold_plain
     from repro_torch.kernels.maxpool.ops import maxpool_int8, maxpool_int8_plain
-    bins = torch.randint(0, 256, (bh, n), generator=torch.Generator(device=dev).manual_seed(9),
-                         device=dev, dtype=torch.uint8)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bins = torch.randint(0, 256, (bh, n), generator=gen, device=dev, dtype=torch.uint8)
+    if kind == "equal":
+        bins.fill_(173)
+    elif kind == "zero":
+        bins.zero_()
+    elif kind == "runs":
+        bins = maxpool_int8_plain(bins, 7)
+        bins[torch.arange(n, device=dev)[None, :] >= torch.randint(
+            0, n + 1, (bh, 1), generator=gen, device=dev)] = 0
     n0 = dict(LAUNCHES)
     assert torch.equal(maxpool_int8(bins, window), maxpool_int8_plain(bins, window))
     kk = torch.full((bh,), k, dtype=torch.int32, device=dev)
-    for t, p in zip(hist_threshold(bins, k), hist_threshold_plain(bins, kk)):
-        assert torch.equal(t, p)
+    want = hist_threshold_plain(bins, kk)
+    for kernel_k in (k, kk):        # an int, by value; a (BH,) tensor, by pointer
+        for t, p in zip(hist_threshold(bins, kernel_k), want):
+            assert torch.equal(t, p)
     assert LAUNCHES["maxpool_int8"] == n0.get("maxpool_int8", 0) + 1
-    assert LAUNCHES["hist_threshold"] == n0.get("hist_threshold", 0) + 1
+    assert LAUNCHES["hist_threshold"] == n0.get("hist_threshold", 0) + 2
 
 
 def test_int4_pack_and_append_on_card_bitwise_equals_cpu(dev):

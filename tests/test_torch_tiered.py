@@ -249,9 +249,27 @@ def test_b10_plain_bitwise_vs_pallas(rng, bh, n, window, block):
     np.testing.assert_array_equal(tn(maxpool_int8(tt(bins), window)), np.asarray(want))
 
 
-@pytest.mark.parametrize("bh,n,k", [(1, 256, 16), (4, 4096, 200), (2, 8192, 1024)])
-def test_b11_plain_bitwise_vs_pallas(rng, bh, n, k):
-    bins = rng.integers(0, 256, size=(bh, n)).astype(np.uint8)
+def _skewed_bins(rng, bh, n):
+    """Bins as pooling leaves them: most of a row in bin 0 past its length,
+    long runs of equal bins below it, one row all one bin."""
+    out = np.zeros((bh, n), np.uint8)
+    for r in range(bh):
+        length = int(rng.integers(n // 4, n // 2))
+        runs = np.repeat(rng.integers(1, 256, size=length // 7 + 1), 7)[:length]
+        out[r, :length] = runs
+    out[-1] = 200
+    return out
+
+
+@pytest.mark.parametrize("bh,n,k,skewed", [
+    pytest.param(1, 256, 16, False, id="1-256-16"),
+    pytest.param(4, 4096, 200, False, id="4-4096-200"),
+    pytest.param(2, 8192, 1024, False, id="2-8192-1024"),
+    pytest.param(3, 4096, 200, True, id="skewed-4096-200"),
+    pytest.param(3, 1024, 5000, True, id="skewed-k-above-N")])
+def test_b11_plain_bitwise_vs_pallas(rng, bh, n, k, skewed):
+    bins = (_skewed_bins(rng, bh, n) if skewed
+            else rng.integers(0, 256, size=(bh, n)).astype(np.uint8))
     jh, jt = hist_threshold_pallas(jnp.asarray(bins), jnp.full((bh,), k, jnp.int32),
                                    interpret=True)
     th, tt_ = hist_threshold(tt(bins), k)
