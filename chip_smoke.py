@@ -38,7 +38,13 @@ Phases (any failure raises and the script exits non-zero):
 4. serve full-width qwen3-0.6b (random bf16 weights from a seed) through
    ``ServingEngine(paged=True, slots=4, max_seq=8192, block_size=32)``:
    4 requests of 2048-4096-token prompts × 16 new tokens, with every
-   kernel's launch counter set to 0 just before and read just after; then
+   kernel's launch counter set to 0 just before and read just after; the
+   tick of every unsharded run is a CUDA graph after its first, eager, call
+   (`runtime.steps`; a replay counts one tick's launches); the same run
+   again with the engine built under `steps.eager()` must give the same
+   greedy tokens and every logits row bit for bit (each run's ms per tick,
+   first, capture and replay ticks, kernel-wrapper launches per replay and
+   peak memory are printed); then
    serve the same requests again through the block-sharded tick,
    ``ServingEngine(paged=True, ctx=...)`` over a world of one rank (nccl):
    B4, B5 and B6 replace B1 and B2, and the greedy tokens must equal the
@@ -56,7 +62,7 @@ Phases (any failure raises and the script exits non-zero):
    promotion, transfer bytes, a drained pool).
 
 It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all eight runs) and, last, the
+its path, and ``launches_per_call`` over all nine runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -987,48 +993,60 @@ def main_path_requests(vocab_size: int):
                     max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
 
 
-def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, **engine_kw):
+def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run=False,
+                    **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
     the contiguous tick; ``engine_kw`` adds the tiered pool's knobs
-    (``kv_pool_dtype``, ``host_spill``, ...). ``force`` ({rid: tokens})
+    (``kv_pool_dtype``, ``host_spill``, ...). Without ``ctx`` the tick is a
+    CUDA graph after its first call (`runtime.steps`); ``eager_run`` builds
+    the engines under `steps.eager()` instead. ``force`` ({rid: tokens})
     feeds the engine those tokens in place of its own picks (teacher
     forcing); ``probe`` (a `SpillProbe`) is installed on the engine before
     the run and checks it after. Returns the launch counts of the run, its
-    summary, the engine's own greedy picks per request and, for every
-    generated token (request, index), the logits row it was drawn from, on
-    the host (index 0: the prefill's row)."""
+    summary (with each tick's wall ms: the first eager, the second the
+    capture where the step is graphed), the engine's own greedy picks per
+    request and, for every generated token (request, index), the logits row
+    it was drawn from, on the host (index 0: the prefill's row)."""
+    import contextlib
     import gc
 
     import torch
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.runtime.steps import eager
     gc.collect()              # an earlier run's engine (its hooks form a cycle)
     torch.cuda.empty_cache()
     cfg, params = main_path_model(dev)
     serve = dict(SERVE, paged=paged, **engine_kw)
+    building = eager if eager_run else contextlib.nullcontext
 
     # warm-up on a separate engine (module loading, cuBLAS handles, the
     # communicator of the first all-reduce)
-    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    with building():
+        warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
         0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
     warm.run()
     del warm
     torch.cuda.synchronize()
 
-    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    with building():
+        engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     reqs = main_path_requests(cfg.vocab_size)
     for r in reqs:
         engine.submit(r)
-    ticks, rows, own = [], {}, {}
+    ticks, rows, own, tick_ms = [], {}, {}, []
     orig_decode, orig_prefill, orig_next = engine._decode, engine._prefill, engine._next_token
 
     def decode(*a):
         who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
+        t0 = time.perf_counter()
         nxt, logits = orig_decode(*a)
         # to pinned host memory, ready when the engine reads ``nxt``
         ticks.append((who, logits.to("cpu", non_blocking=True)))
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
         return nxt, logits
 
     def prefill(req):
@@ -1078,9 +1096,18 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, **engine_
     summary = stats.summary()
     if probe is not None:
         summary.update(probe.finish(engine))
+    step = engine._step
+    if step.graphed != (ctx is None and not eager_run) or (step.graphed and step._graph is None):
+        raise AssertionError(f"tick graphed={step.graphed}, captured="
+                             f"{step._graph is not None}: every unsharded tick after the "
+                             f"first must replay a CUDA graph, every other run stay eager")
     summary.update(wall_s=wall, peak_mem_gb=peak,
                    ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS),
-                   launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels})
+                   launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels},
+                   graphed=step.graphed, tick_ms=tick_ms,
+                   replay_ms_median=float(np.median(tick_ms[2:])) if step.graphed else None,
+                   launches_per_replay=(sum(step.launches_per_tick.values())
+                                        if step.launches_per_tick else None))
     picks = [[own[(r.rid, j)] for j in range(len(r.output))] for r in reqs]
     return launches, summary, picks, rows
 
@@ -1247,12 +1274,35 @@ def check_contiguous_logits(tokens, trace, picks_c, trace_c) -> dict:
     return worst
 
 
+def check_graphed_against_eager(tokens, trace, tokens_e, trace_e) -> int:
+    """The graphed paged run against the same run built under
+    `steps.eager()`: the greedy tokens must be equal and every logits row
+    (prefill rows included) bit for bit. Returns the rows compared."""
+    import torch
+    where = first_divergence(tokens, tokens_e)
+    if where is not None:
+        raise AssertionError(f"graphed vs eager: greedy tokens part at (request, token) "
+                             f"{where}")
+    if trace.keys() != trace_e.keys():
+        raise AssertionError("graphed vs eager: the runs drew different tokens' rows")
+    differ = [k for k in trace if not torch.equal(trace[k], trace_e[k])]
+    if differ:
+        raise AssertionError(f"graphed vs eager: {len(differ)} of {len(trace)} logits rows "
+                             f"differ, first at (request, token) {min(differ)}")
+    return len(trace)
+
+
 def print_serve(label: str, summary: dict) -> None:
+    ticks = summary["tick_ms"]
+    graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
+             f"replays median {summary['replay_ms_median']:.2f} ms, "
+             f"wrapper launches per replay {summary['launches_per_replay']}"
+             if summary["graphed"] else f"eager, ticks median {np.median(ticks):.2f} ms")
     print(f"serve qwen3-0.6b {label}: ms/tick={summary['decode_ms_per_tick']:.2f} "
           f"decode tok/s={summary['decode_tokens_per_s']:.1f} "
           f"mean TTFT s={summary['mean_ttft_s']:.3f} prefill_s={summary['prefill_s']:.3f} "
           f"peak mem GB={summary['peak_mem_gb']:.2f} "
-          f"launches/tick={json.dumps(summary['launches_per_tick'])}", flush=True)
+          f"launches/tick={json.dumps(summary['launches_per_tick'])}; {graph}", flush=True)
     print(f"serve stats {label}: {json.dumps(summary)}", flush=True)
 
 
@@ -1298,6 +1348,14 @@ def main() -> int:
 
     launches, summary, tokens, trace = serve_main_path(dev)                # phase 4
     print_serve("paged", summary)
+    launches_e, summary_e, tokens_e, trace_e = serve_main_path(dev, eager_run=True)
+    print_serve("paged, eager (built under steps.eager())", summary_e)
+    rows = check_graphed_against_eager(tokens, trace, tokens_e, trace_e)
+    print(f"graphed vs eager (paged int8): greedy tokens identical, {rows} logits rows bit "
+          f"for bit; ms per tick eager {np.median(summary_e['tick_ms']):.2f}, graphed "
+          f"replay {summary['replay_ms_median']:.2f} (median); wrapper launches per replay "
+          f"{summary['launches_per_replay']}; peak memory GB eager "
+          f"{summary_e['peak_mem_gb']:.3f}, graphed {summary['peak_mem_gb']:.3f}", flush=True)
     ctx = init_decode_ctx(dev)
     launches_sh, summary_sh, tokens_sh, _ = serve_main_path(dev, ctx)
     print_serve("paged sharded (one rank, nccl)", summary_sh)
@@ -1316,7 +1374,8 @@ def main() -> int:
           f"(limit {CONTIG_LOGIT_ULPS})", flush=True)
     # the tiered pool: fp16 and int4 pools, each unsharded and block-sharded
     # (tokens must agree), then int4 with the host tier on a small pool
-    runs = {"int8": launches, "int8 sharded": launches_sh, "contiguous": launches_c}
+    runs = {"int8": launches, "int8 eager": launches_e, "int8 sharded": launches_sh,
+            "contiguous": launches_c}
     for mode in ("fp16", "int4"):
         runs[mode], summary_m, tokens_m, _ = serve_main_path(dev, kv_pool_dtype=mode)
         print_serve(f"paged {mode}", summary_m)

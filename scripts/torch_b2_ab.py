@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Kernels B1, B2, B4, B5, B6, B7, B9 and B11 against other checkouts', bit
-for bit, on chip_smoke.py's operands.
+"""Kernels B1, B2, B4, B5, B6, B7, B9, B10 and B11 against other checkouts',
+bit for bit, on chip_smoke.py's operands.
 
     python3 scripts/torch_b2_ab.py --tree DIR [DIR ...] [--rows NAME ...]
 
 Runs chip_smoke.py's phase-3 checks of the paged, block-sharded, contiguous,
 tiered and bin kernels and records the operands of the first launch of each
-of thirteen rows: B1, B4, B5, B7 in the contiguous tick's bf16 chain and in
+of fourteen rows: B1, B4, B5, B7 in the contiguous tick's bf16 chain and in
 the reference op's f32 chain, B2 and B6 in each storage mode (int8, fp16,
-int4), B9 and B11. Then, on those operands:
+int4), B9, B10 and B11. Then, on those operands:
 
 - this checkout's kernels, timed from the profiler's trace, with their CTA
   count;
@@ -44,6 +44,7 @@ KERNELS = {
     ("selection_fused", "paged_fused_select"): "paged_fused_select_kernel",
     ("selection_fused", "fused_bin_pool_threshold"): "fused_bin_pool_threshold_kernel",
     ("hist_topk", "hist_threshold"): "hist_threshold_kernel",
+    ("maxpool", "maxpool_int8"): "maxpool_u8_kernel",
 }
 ITERS = 20
 
@@ -51,9 +52,11 @@ ITERS = 20
 def modules():
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.hist_topk import ops as ht
+    from repro_torch.kernels.maxpool import ops as mp
     from repro_torch.kernels.score_est import ops as se
     from repro_torch.kernels.selection_fused import ops as sf
-    return {"flash_decode": fd, "score_est": se, "selection_fused": sf, "hist_topk": ht}
+    return {"flash_decode": fd, "score_est": se, "selection_fused": sf, "hist_topk": ht,
+            "maxpool": mp}
 
 
 def run_rows(mods, cs, rows) -> dict:
@@ -91,7 +94,7 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, nargs="+", required=True,
                     help="roots of the checkouts whose kernels this one is held to")
     ap.add_argument("--rows", nargs="+", metavar="NAME",
-                    help="compare only these rows (default: all thirteen)")
+                    help="compare only these rows (default: all fourteen)")
     ap.add_argument("--child", nargs=2, type=Path, metavar=("OPERANDS", "OUT"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -138,7 +141,7 @@ def main() -> int:
     finally:
         for (mod, fname), fn in orig.items():
             setattr(mods[mod], fname, fn)
-    assert len(rows) == 13, sorted(rows)
+    assert len(rows) == 14, sorted(rows)
     if a.rows:
         unknown = set(a.rows) - set(rows)
         if unknown:

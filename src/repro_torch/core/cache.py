@@ -489,7 +489,7 @@ def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
     rc = pool.refcount[page.clamp_min(0).long()]
     ok = (cur >= 0) & (cur < pool.max_seq) & (page >= 0) & (rc <= 1)
     local = _localize_pages(page, block_range)
-    pg = torch.where(ok & (local >= 0), local, pool.sink).long()
+    pg = local.masked_fill_(~(ok & (local >= 0)), pool.sink).long()   # local: a temporary
     off = torch.remainder(cur, bs).long()
     k8, v8, words, fs, fz = _encode_tokens(k[:, None], v[:, None], pool.heavy_idx)
     vals = {"feat_words": words, "feat_scale": fs, "feat_zero": fz}
@@ -503,7 +503,7 @@ def append_token_paged(pool: PagedSalcaCache, k: torch.Tensor,
             _int4_block_append(pool.data[c], pool.data[sc], tok, pg, off)
     for f, val in vals.items():
         pool.data[f][pg, off] = val[:, 0].to(pool.data[f].dtype)
-    pool.length = torch.where(ok, cur + 1, cur)
+    pool.length.add_(ok)
     return pool
 
 

@@ -32,10 +32,14 @@ def histogram256(bins: torch.Tensor) -> torch.Tensor:
 
 
 def locate_threshold(hist: torch.Tensor, k) -> torch.Tensor:
-    """Largest bin T with ``count(bins ≥ T) ≥ k``, clamped to ≥ 1."""
+    """Largest bin T with ``count(bins ≥ T) ≥ k``, clamped to ≥ 1. An int
+    ``k`` is compared as a Python scalar (no tensor is made of it); a per-row
+    ``k`` (...,) as a tensor."""
     rev_cum = torch.flip(torch.cumsum(torch.flip(hist, [-1]), dim=-1), [-1])
-    k = torch.as_tensor(k, device=hist.device)
-    reached = rev_cum >= k[..., None]
+    if isinstance(k, int):
+        reached = rev_cum >= k
+    else:
+        reached = rev_cum >= torch.as_tensor(k, device=hist.device)[..., None]
     bin_ids = torch.arange(NUM_BINS, dtype=torch.int32, device=hist.device)
     t = torch.where(reached, bin_ids, torch.zeros_like(bin_ids)).amax(dim=-1)
     return torch.clamp_min(t, 1).to(torch.int32)

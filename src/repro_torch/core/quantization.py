@@ -34,11 +34,17 @@ _CONSTS: dict = {}
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` with IEEE division on every device: the divisor is a 0-dim
     tensor on x's device (cached), which no backend rewrites into a
-    multiplication by ``1/c``."""
+    multiplication by ``1/c``. It is made by a fill, not copied from the
+    host, and never while a CUDA graph is being captured: the eager first
+    tick of a graphed step (`runtime.steps`) makes every one the tick uses,
+    and one made during capture would live in the graph's memory."""
     key = (c, x.dtype, x.device)
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.tensor(c, dtype=x.dtype, device=x.device)
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"div_const({c}, {x.dtype}): constant first needed while "
+                               "capturing a CUDA graph; run the step eagerly once first")
+        t = _CONSTS[key] = torch.full((), c, dtype=x.dtype, device=x.device)
     return x / t
 
 

@@ -71,8 +71,21 @@
 //
 // B10 replaces src/repro/kernels/maxpool/kernel.py::maxpool_pallas: the
 // stride-1 max-pool of (BH, N) uint8 bins on its own, zero past the row's
-// ends (the reuse tree's shift fill); a run of B10_RUN positions and its
-// halo per CTA in shared memory. Bound: bytes (1 B in, 1 B out per position).
+// ends (the reuse tree's shift fill). Bound: bytes (1 B in, 1 B out per
+// position). A row is cut into 16 B vectors from its first 16 B boundary
+// (the few bytes before it and after the last whole vector form a partial
+// vector each, read and written a byte at a time, 0 outside the row); the
+// output rows share the input rows' alignment (the wrapper allocates them
+// so), so every whole vector is one 16 B load and one 16 B store. A thread
+// owns one vector. Windows up to 33 (HALO <= 16) pool in registers: the
+// halo words come from the neighbouring lanes by shuffles and, at a warp's
+// edges, from one extra vector load; the max runs byte-wise on words
+// (__vmaxu4 over funnel-shifted words, the offsets known at compile time),
+// window 7 by B9's pool7. Wider windows stage a CTA's run of vectors and
+// its halo as uint8 in shared memory and pool by doubling (m_2s[b] =
+// max(m_s[b], m_s[b + s]), log2(window) steps over the whole stage), the
+// window then the max of two overlapping power-of-two windows, so the cost
+// per position grows with log2(window), not with the window.
 //
 // B11 replaces src/repro/kernels/hist_topk/kernel.py::hist_threshold_pallas:
 // the 256-bin histogram of (BH, N) uint8 bins and its reverse scan to the
@@ -93,13 +106,6 @@
 namespace {
 
 constexpr int NUM_BINS = 256;
-
-// max over the 2*HALO + 1 bins starting at b
-__device__ __forceinline__ int window_max(const int32_t* b, int HALO) {
-  int p = b[0];
-  for (int o = 1; o <= 2 * HALO; ++o) p = max(p, b[o]);
-  return p;
-}
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int B5_WARPS = 8;                 // warps per CTA
@@ -451,26 +457,141 @@ __global__ void __launch_bounds__(B9_THREADS) fused_bin_pool_threshold_kernel(
              N - min(m4, N));
 }
 
-constexpr int B10_THREADS = 256;
-constexpr int B10_RUN = 1024;               // positions per CTA
+constexpr int B10_THREADS = 256;           // register path: a vector (16 positions) per thread
+constexpr int B10_WIDE_THREADS = 256;      // staged path: likewise, plus the stage's halo
 
-// B10: pooled[r, n] = max(bins[r, n - HALO .. n + HALO]), 0 past the ends
-__global__ void maxpool_u8_kernel(const uint8_t* __restrict__ bins,  // (BH, N)
-                                  uint8_t* __restrict__ pooled,      // (BH, N)
-                                  int N, int HALO) {
-  extern __shared__ int32_t msh[];          // (HALO + run + HALO) bins
-  const int row = blockIdx.y;
-  const int c0 = blockIdx.x * B10_RUN;
-  const int nb = min(B10_RUN, N - c0);
-  const uint8_t* x = bins + (size_t)row * N;
-  for (int e = threadIdx.x; e < nb + 2 * HALO; e += blockDim.x) {
-    const int p = c0 - HALO + e;
-    msh[e] = (p >= 0 && p < N) ? x[p] : 0;
+// A row of n bins at x as 16 B vectors: h bytes before its first 16 B
+// boundary, nvec whole vectors from there; vector v holds positions
+// h + 16v .. h + 16v + 15 (v = -1: the head, v = nvec: the tail).
+struct RowVecs {
+  int h, nvec, lo, hi;                     // lo .. hi: the vectors holding a position
+  __device__ __forceinline__ RowVecs(const uint8_t* x, int n) {
+    h = min((int)((16 - ((uintptr_t)x & 15)) & 15), n);
+    nvec = (n - h) >> 4;
+    lo = h ? -1 : 0;
+    hi = ((n - h) & 15) ? nvec : nvec - 1;
   }
+};
+
+// vector v of the row (any v): one 16 B load where it is whole, else byte
+// loads, 0 outside the row
+__device__ __forceinline__ uint4 load_vec(const uint8_t* __restrict__ x, int n,
+                                          const RowVecs& r, int v) {
+  if (v >= 0 && v < r.nvec) return reinterpret_cast<const uint4*>(x + r.h)[v];
+  uint32_t w[4] = {0, 0, 0, 0};
+  const int p0 = r.h + 16 * v;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int p = p0 + i;
+    if (p >= 0 && p < n) w[i >> 2] |= (uint32_t)x[p] << (8 * (i & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// write vector v's positions inside the row (y aligned as x)
+__device__ __forceinline__ void store_vec(uint8_t* __restrict__ y, int n, const RowVecs& r,
+                                          int v, const uint32_t (&w)[4]) {
+  if (v >= 0 && v < r.nvec) {
+    reinterpret_cast<uint4*>(y + r.h)[v] = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+  const int p0 = r.h + 16 * v;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int p = p0 + i;
+    if (p >= 0 && p < n) y[p] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
+  }
+}
+
+// the 4 bytes from byte b of the word array a (a[i] holds bytes 4i .. 4i + 3)
+__device__ __forceinline__ uint32_t bytes_at(const uint32_t* a, int b) {
+  const int i = b >> 2, sh = (b & 3) * 8;
+  return sh ? __funnelshift_r(a[i], a[i + 1], sh) : a[i];
+}
+
+// B10, HALO <= 16. Grid (ceil(vectors / B10_THREADS), BH): thread g of a row
+// pools vector lo + g. Its words w[NW .. NW + 3], the last NW words of the
+// vector before in w[0 .. NW - 1] and the first NW of the vector after in
+// w[NW + 4 ..], from the neighbouring lanes (lanes 0 and 31 load them).
+template <int HALO>
+__global__ void __launch_bounds__(B10_THREADS) maxpool_u8_kernel(
+    const uint8_t* __restrict__ bins,      // (BH, N)
+    uint8_t* __restrict__ pooled,          // (BH, N), aligned as bins
+    int N) {
+  constexpr int NW = (HALO + 3) / 4;
+  const int lane = threadIdx.x & 31;
+  const uint8_t* x = bins + (size_t)blockIdx.y * N;
+  const RowVecs r(x, N);
+  const int v = r.lo + blockIdx.x * B10_THREADS + threadIdx.x;
+  if (v - lane > r.hi) return;             // the whole warp past the row
+  const uint4 q = load_vec(x, N, r, v);
+  uint4 e = make_uint4(0, 0, 0, 0);
+  if (lane == 0) e = load_vec(x, N, r, v - 1);
+  if (lane == 31) e = load_vec(x, N, r, v + 1);
+  const uint32_t own[4] = {q.x, q.y, q.z, q.w}, edge[4] = {e.x, e.y, e.z, e.w};
+  uint32_t w[2 * NW + 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[NW + i] = own[i];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t l = __shfl_up_sync(FULL, own[4 - NW + i], 1);
+    const uint32_t rt = __shfl_down_sync(FULL, own[i], 1);
+    w[i] = lane == 0 ? edge[4 - NW + i] : l;
+    w[NW + 4 + i] = lane == 31 ? edge[i] : rt;
+  }
+  uint32_t out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (HALO == 3) {
+      out[j] = pool7(w[NW + j - 1], w[NW + j], w[NW + j + 1]);
+    } else {
+      uint32_t p = 0;
+#pragma unroll
+      for (int o = -HALO; o <= HALO; ++o) p = __vmaxu4(p, bytes_at(w, 4 * (NW + j) + o));
+      out[j] = p;
+    }
+  }
+  if (v <= r.hi) store_vec(pooled + (size_t)blockIdx.y * N, N, r, v, out);
+}
+
+// B10, HALO > 16. Grid (ceil(vectors / B10_WIDE_THREADS), BH): a CTA pools
+// the row's vectors v0 .. v0 + B10_WIDE_THREADS - 1, staged with HV vectors
+// of halo on each side. The doubling leaves m_P (P: the largest power of two
+// <= 2 HALO + 1) in the stage; position q pools max(m_P[q - HALO],
+// m_P[q + HALO - P + 1]), two windows that together cover q's.
+__global__ void __launch_bounds__(B10_WIDE_THREADS) maxpool_u8_wide_kernel(
+    const uint8_t* __restrict__ bins,      // (BH, N)
+    uint8_t* __restrict__ pooled,          // (BH, N), aligned as bins
+    int N, int HALO, int HV, int P) {
+  extern __shared__ uint4 stage_v[];       // two stages of SV vectors
+  const int t = threadIdx.x;
+  const uint8_t* x = bins + (size_t)blockIdx.y * N;
+  const RowVecs r(x, N);
+  const int v0 = r.lo + blockIdx.x * B10_WIDE_THREADS;
+  if (v0 > r.hi) return;
+  const int SV = B10_WIDE_THREADS + 2 * HV;
+  uint32_t* a = reinterpret_cast<uint32_t*>(stage_v);
+  uint32_t* b = a + 4 * SV;
+  for (int i = t; i < SV; i += B10_WIDE_THREADS) stage_v[i] = load_vec(x, N, r, v0 - HV + i);
   __syncthreads();
-  for (int e = threadIdx.x; e < nb; e += blockDim.x) {
-    pooled[(size_t)row * N + c0 + e] = (uint8_t)window_max(msh + e, HALO);
+  const int words = 4 * SV;
+  for (int s = 1; s < P; s <<= 1) {        // a: m_s -> b: m_2s; words past the stage read 0
+    for (int i = t; i < words; i += B10_WIDE_THREADS) {
+      const int k = i + (s >> 2), sh = (s & 3) * 8;
+      const uint32_t lo = k < words ? a[k] : 0u, hi = k + 1 < words ? a[k + 1] : 0u;
+      b[i] = __vmaxu4(a[i], sh ? __funnelshift_r(lo, hi, sh) : lo);
+    }
+    __syncthreads();
+    uint32_t* tmp = a;
+    a = b;
+    b = tmp;
   }
+  uint32_t out[4];
+  const int q = 16 * (HV + t);             // this thread's vector in the stage
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    out[j] = __vmaxu4(bytes_at(a, q + 4 * j - HALO), bytes_at(a, q + 4 * j + HALO - P + 1));
+  if (v0 + t <= r.hi) store_vec(pooled + (size_t)blockIdx.y * N, N, r, v0 + t, out);
 }
 
 constexpr int B11_THREADS = 512;
@@ -597,11 +718,33 @@ extern "C" int fused_bin_pool_threshold(const void* scores, const void* lo, cons
 
 extern "C" int maxpool_u8(const void* bins, void* pooled, int BH, int N, int HALO,
                           void* stream) {
-  if (HALO < 1 || HALO > B10_RUN || N < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + B10_RUN - 1) / B10_RUN, BH);
-  const size_t smem = ((size_t)B10_RUN + 2 * HALO) * sizeof(int32_t);
-  maxpool_u8_kernel<<<grid, B10_THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, (uint8_t*)pooled, N, HALO);
+  if (HALO < 1 || HALO > 1024 || N < 1 || BH < 1) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)bins ^ (uintptr_t)pooled) & 15) return (int)cudaErrorMisalignedAddress;
+  // vectors per row: N / 16 where every row starts on a 16 B boundary, else
+  // at most a partial head, the whole vectors and a partial tail
+  const int vecs = ((uintptr_t)bins & 15) == 0 && N % 16 == 0 ? N / 16 : (N + 15) / 16 + 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (HALO > 16) {
+    const int hv = (HALO + 15) / 16;
+    int p = 1;
+    while (2 * p <= 2 * HALO + 1) p *= 2;
+    const size_t smem = (size_t)2 * (B10_WIDE_THREADS + 2 * hv) * 16;
+    const dim3 grid((vecs + B10_WIDE_THREADS - 1) / B10_WIDE_THREADS, BH);
+    maxpool_u8_wide_kernel<<<grid, B10_WIDE_THREADS, smem, st>>>(
+        (const uint8_t*)bins, (uint8_t*)pooled, N, HALO, hv, p);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((vecs + B10_THREADS - 1) / B10_THREADS, BH);
+  const uint8_t* x = (const uint8_t*)bins;
+  uint8_t* y = (uint8_t*)pooled;
+  switch (HALO) {
+#define B10_CASE(H) \
+    case H: maxpool_u8_kernel<H><<<grid, B10_THREADS, 0, st>>>(x, y, N); break;
+    B10_CASE(1) B10_CASE(2) B10_CASE(3) B10_CASE(4) B10_CASE(5) B10_CASE(6) B10_CASE(7)
+    B10_CASE(8) B10_CASE(9) B10_CASE(10) B10_CASE(11) B10_CASE(12) B10_CASE(13)
+    B10_CASE(14) B10_CASE(15) B10_CASE(16)
+#undef B10_CASE
+  }
   return (int)cudaGetLastError();
 }
 

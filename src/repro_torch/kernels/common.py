@@ -10,7 +10,10 @@ when its source or a ``csrc`` header the source includes is newer.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 `check` raises when it is not 0. Wrappers count their launches in
 `LAUNCHES` — one per kernel launch, nowhere else — so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. The count means launches executed:
+a serving tick captured as a CUDA graph (`runtime.steps`) takes back what
+its wrappers counted during the capture, which executes nothing, and adds
+that one tick's launches on every replay.
 """
 
 from __future__ import annotations

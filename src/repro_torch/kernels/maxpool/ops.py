@@ -7,9 +7,12 @@ of (BH, N) bins pools ``window`` (odd) neighbours, zero past the row's
 ends. Max is exact, so the kernel equals the plain version bit for bit.
 No serving path calls it (the ticks pool inside kernels B5 and B9).
 
-CUDA source: ``repro_torch/csrc/selection_fused.cu`` (``maxpool_u8_kernel``,
-one CTA per run of 1024 positions of a row, the run and its halo in shared
-memory).
+CUDA source: ``repro_torch/csrc/selection_fused.cu``: a thread per 16 B
+vector of a row, 256 per CTA; windows up to 33 pool in registers
+(``maxpool_u8_kernel``: halo words by shuffles, byte-wise max on words),
+wider ones by doubling over a uint8 stage in shared memory
+(``maxpool_u8_wide_kernel``, log2(window) steps). The output is allocated
+16 B-aligned as the input is, so both move in whole 16 B vectors.
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ def maxpool_int8(bins: torch.Tensor, window: int) -> torch.Tensor:
         return maxpool_int8_plain(bins, window)
     bh, n = bins.shape
     common.require(bins, "bins", torch.uint8, (bh, n), bins.device)
-    out = torch.empty_like(bins)
+    # the output rows start at the input rows' offset from a 16 B boundary
+    skew = bins.data_ptr() % 16
+    out = torch.empty((bh * n + 16,), dtype=torch.uint8, device=bins.device)
+    out = out[(skew - out.data_ptr()) % 16:][:bh * n].view(bh, n)
     fn = common.load("selection_fused", "maxpool_u8", [common.P] * 2 + [common.I] * 3
                      + [common.P])
     err = fn(bins.data_ptr(), out.data_ptr(), bh, n, window // 2, common.stream_ptr(out))

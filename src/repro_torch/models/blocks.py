@@ -60,17 +60,16 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
     s = x.shape[0]
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
-    write_pos = torch.where(active, pos, -1).to(torch.int32)
-    valid_len = torch.where(active, pos + 1, 0).to(torch.int32)
-    pool.length = write_pos
+    inactive = ~active
+    pool.length.copy_(pos).masked_fill_(inactive, -1)
     if ctx is not None:
         append_token_paged(pool, k, v, block_range=local_block_range(pool.num_blocks, ctx))
-        pool.length = valid_len
+        torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
         o = (sp_salca_decode_paged(q, pool, salca, ctx) if cfg.salca
              else sp_dense_decode_paged(q, pool, ctx))
         return o.to(x.dtype).reshape(s, -1) @ params["wo"]
     append_token_paged(pool, k, v)
-    pool.length = valid_len
+    torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
     if cfg.salca:
         o, sel = salca_decode_attention_paged(q, pool, salca, return_selection=True)
         record_selection(pool, sel.indices, sel.mask)
@@ -89,9 +88,10 @@ def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
     s = x.shape[0]
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
-    cache.length.copy_(torch.where(active, pos, cache.max_seq))
+    inactive = ~active
+    cache.length.copy_(pos).masked_fill_(inactive, cache.max_seq)
     append_token(cache, k, v)
-    cache.length.copy_(torch.where(active, pos + 1, 0))
+    torch.add(pos, 1, out=cache.length).masked_fill_(inactive, 0)
     if cfg.salca:
         o = salca_decode_attention(q, cache, salca)
     else:

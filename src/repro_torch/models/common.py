@@ -13,6 +13,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+# -1e30 as each compute dtype holds it (float16: -inf), as a Python float
+_VOCAB_FILL = {dt: float(torch.tensor(-1e30, dtype=dt)) for dt in _DTYPES.values()}
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,9 +53,9 @@ def lm_logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def vocab_mask_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """-1e30 on the padded vocab slots."""
+    """-1e30 on the padded vocab slots (a fill by a Python scalar: no host
+    data becomes a tensor, so the tick stays capturable)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
     v = torch.arange(cfg.padded_vocab, device=logits.device)
-    return torch.where(v < cfg.vocab_size, logits,
-                       torch.tensor(-1e30, dtype=logits.dtype, device=logits.device))
+    return logits.masked_fill(v >= cfg.vocab_size, _VOCAB_FILL[logits.dtype])

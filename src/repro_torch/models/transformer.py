@@ -141,7 +141,9 @@ def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.
     state). Inactive slots write nothing and hold their cursor; their
     logits are garbage the caller ignores. The state's caches are the
     contiguous slot pool or paged pools; ``ctx``: the paged pools are
-    block-sharded over its ranks (the logits are identical on every rank)."""
+    block-sharded over its ranks (the logits are identical on every rank).
+    Every state tensor is updated in place, never rebound, so a CUDA graph
+    of the step (`runtime.steps`) stays valid across ticks."""
     h = embed_tokens(params["embed"], token).to(cdtype(cfg))
     pos = state.pos
     salca = B.salca_params_for(cfg, max(state.caches[0].max_seq, 128))
@@ -149,5 +151,5 @@ def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.
         h = B.block_decode(layer, h, pool, cfg, pos, salca, active, ctx)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = vocab_mask_logits(lm_logits(params["embed"], h, cfg), cfg)
-    state.pos = pos + active.to(torch.int32)
+    state.pos.add_(active)
     return logits, state

@@ -4,7 +4,10 @@ Port of the reference `runtime/serve.py`. The engine keeps ONE pooled
 decode state. Admission is FIFO: a request is prefilled alone (batch 1,
 kernel B3) and written into a free slot of that state; each tick makes
 exactly ONE decode call that advances all active slots under an
-active-slot mask. Sampling is greedy (argmax).
+active-slot mask (`runtime.steps`: on the card, one CUDA graph replay
+without ``ctx``). Sampling is greedy (argmax). Every write into the state
+— admission, growth, release, host-tier moves — is in place: the state's
+tensors are the ones the tick's graph was captured over.
 
 Contiguous slot pool (``paged=False``, the default, as in the reference):
 every layer's cache is a dense ``(slots, max_seq, ·)`` `SalcaCache`; the
@@ -69,6 +72,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import DecodeCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
+from repro_torch.runtime.steps import ServeDecodeStep
 
 # reference knob → the port slice (ROADMAP Queue A) that brings it
 _LATER = {
@@ -293,6 +297,8 @@ class ServingEngine:
         self.host_spill = host_spill
         if not paged:
             self._state = self.api.init_state(slots, max_seq, self.device)
+            self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
+                                         self.device)
             return
         if max_seq % block_size:
             raise ValueError(f"block_size {block_size} must divide max_seq {max_seq}")
@@ -308,6 +314,8 @@ class ServingEngine:
         self._refcount = np.zeros((self.num_blocks,), np.int64)  # host mirror
         self._state = self.api.init_paged_state(slots, max_seq, block_size,
                                                 self.num_blocks, self.device, ctx)
+        self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
+                                     self.device, ctx)
         if host_spill:
             if self.n_shards > 1:
                 raise ValueError("host_spill is not supported on a block-sharded pool: the "
@@ -391,7 +399,7 @@ class ServingEngine:
             for rows in self.api.read_block(self._state, blk))
         # resurrect priority: the block's cumulative selection count
         self._spill_score[(slot, logical)] = float(self._hist_snap[slot, logical])
-        self._state = self.api.map_block(self._state, slot, logical, SPILLED)
+        self.api.map_block(self._state, slot, logical, SPILLED)
         self._refcount[blk] -= 1
         self._alloc.release(blk)
         held[logical] = SPILLED
@@ -409,8 +417,8 @@ class ServingEngine:
         if fresh is None:
             return False
         blk, = fresh
-        self._state = self.api.write_block(self._state, blk, payload)
-        self._state = self.api.map_block(self._state, slot, logical, blk)
+        self.api.write_block(self._state, blk, payload)
+        self.api.map_block(self._state, slot, logical, blk)
         self._refcount[blk] += 1
         self._slot_blocks[slot][logical] = blk
         del self._spilled[(slot, logical)]
@@ -506,7 +514,7 @@ class ServingEngine:
                 self.stats.admissions += 1
                 self.stats.queue_wait_s += t0 - req.submitted
                 logits_row, state1 = self._prefill(req)
-                self._state = self.api.write_into_slot(self._state, state1, slot)
+                self.api.write_into_slot(self._state, state1, slot)
                 self._activate(req, slot, logits_row)
                 continue
             req = self._queue[0]
@@ -551,8 +559,7 @@ class ServingEngine:
                 held[j] = b
                 self._refcount[b] += 1
             self._note_block_usage()
-            self._state = self.api.write_into_pages(self._state, state1, slot, pages,
-                                                    self.ctx)
+            self.api.write_into_pages(self._state, state1, slot, pages, self.ctx)
             lo += w
             if lo < need:
                 for j in range(lo - w, lo):
@@ -602,7 +609,7 @@ class ServingEngine:
                 self._hist_snap[slot] = 0
                 self._cold_streak[slot] = 0
             self._note_block_usage()
-        self._state = self.api.reset_slot(self._state, slot)
+        self.api.reset_slot(self._state, slot)
 
     def _grow_or_overflow(self) -> None:
         """Before a tick every active slot must be able to store its next KV
@@ -632,7 +639,7 @@ class ServingEngine:
                 blk, = self._alloc.alloc(1, prefer=self._alloc.shard_of(held[-1]))
                 self._refcount[blk] += 1
                 held.append(blk)
-                self._state = self.api.map_block(self._state, slot, logical, blk)
+                self.api.map_block(self._state, slot, logical, blk)
                 self._note_block_usage()
                 continue
             self.stats.overflows += 1
@@ -640,12 +647,9 @@ class ServingEngine:
             self._finish(slot, req, now, "overflow")
 
     def _decode(self, tokens: np.ndarray, mask: np.ndarray):
-        """The tick's one decode call: (greedy next tokens (S,), logits (S, V_pad))."""
-        tok = torch.from_numpy(tokens).to(self.device)
-        act = torch.from_numpy(mask).to(self.device)
-        logits, self._state = self.api.decode_step(self.params, self._state, tok, act,
-                                                   self.ctx)
-        return logits.argmax(dim=-1), logits
+        """The tick's one decode call (`runtime.steps`: a CUDA graph replay on
+        the card without ``ctx``): (greedy next tokens (S,), logits (S, V_pad))."""
+        return self._step(tokens, mask)
 
     def _tick(self) -> None:
         self._promote_resurrected()

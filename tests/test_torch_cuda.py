@@ -788,6 +788,109 @@ def test_b10_b11_kernels_bitwise(dev, bh, n, window, k, kind):
     assert LAUNCHES["hist_threshold"] == n0.get("hist_threshold", 0) + 2
 
 
+@pytest.mark.parametrize("n", [1, 17, 1000, 4097, 8192])
+@pytest.mark.parametrize("window", [3, 7, 9, 33, 35, 129, 2049])
+def test_b10_kernel_bitwise(dev, monkeypatch, window, n):
+    """B10 equals its plain version bit for bit: windows pooled in registers
+    (3-33; 7 by pool7) and by doubling in shared memory (35-2049), rows of 1,
+    17 and 1000 bins (partial head and tail vectors), 4097 and 8192 (across
+    CTAs), 1, 32 and 256 rows, rows that start off a 16 B boundary, on
+    uniform, equal, zero and pooled bins. The outputs land on 0xFF-filled
+    memory, so a position the kernel does not write shows."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.maxpool.ops import maxpool_int8, maxpool_int8_plain
+    gen = torch.Generator(device=dev).manual_seed(13)
+    real_empty = torch.empty
+    for bh in (1, 32, 256):
+        buf = torch.randint(0, 256, (bh * n + 16,), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        for skew in (0, 5):
+            bins = buf[skew:skew + bh * n].view(bh, n)
+            for kind in ("random", "equal", "zero", "runs"):
+                if kind == "equal":
+                    bins.fill_(173)
+                elif kind == "zero":
+                    bins.zero_()
+                elif kind == "runs":
+                    bins.copy_(maxpool_int8_plain(torch.randint(
+                        0, 256, (bh, n), generator=gen, device=dev, dtype=torch.uint8), 7))
+                    bins[torch.arange(n, device=dev)[None, :] >= torch.randint(
+                        0, n + 1, (bh, 1), generator=gen, device=dev)] = 0
+                n0 = LAUNCHES["maxpool_int8"]
+                with monkeypatch.context() as mp:
+                    mp.setattr(torch, "empty", lambda *a, **kw: real_empty(*a, **kw).fill_(-1))
+                    got = maxpool_int8(bins, window)
+                assert LAUNCHES["maxpool_int8"] == n0 + 1
+                assert got.data_ptr() % 16 == bins.data_ptr() % 16
+                assert torch.equal(got, maxpool_int8_plain(bins, window)), (bh, skew, kind)
+
+
+def _graphed_and_eager_runs(dev, engine_kw):
+    """The same requests through an engine whose step replays a CUDA graph
+    and through one built under `steps.eager()`: per run, the greedy tokens,
+    every tick's logits (the slots' mask beside them), the launch counts and
+    the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.runtime.steps import eager
+    from repro_torch.weights import init_lm_params
+    cfg = get_config("qwen3-0.6b").reduced()
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (150, 200, 170)]
+    runs = []
+    for graphed in (True, False):
+        kw = dict(max_seq=256, slots=2, block_size=32, device=dev, **engine_kw)
+        if graphed:
+            eng = ServingEngine(cfg, params, **kw)
+        else:
+            with eager():
+                eng = ServingEngine(cfg, params, **kw)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        ticks = []
+        orig = eng._decode
+
+        def rec(tok, act, orig=orig, ticks=ticks):
+            nxt, logits = orig(tok, act)
+            ticks.append((act.copy(), logits))
+            return nxt, logits
+
+        eng._decode = rec
+        reset_launches()
+        eng.run()
+        torch.cuda.synchronize()
+        runs.append(([r.output for r in reqs], ticks, dict(LAUNCHES), eng._step))
+    return runs
+
+
+@pytest.mark.parametrize("engine_kw", [
+    dict(paged=True), dict(paged=True, kv_pool_dtype="fp16"),
+    dict(paged=True, kv_pool_dtype="int4"),
+    dict(paged=True, kv_pool_dtype="int4", host_spill=True, num_blocks=8, demote_after=1,
+         spill_keep_recent=2),
+    dict(paged=False)], ids=["int8", "fp16", "int4", "int4_spill", "contiguous"])
+def test_graphed_engine_equals_eager(dev, engine_kw):
+    """The engine's tick as a CUDA graph (the first tick eager, the second
+    captured, then replays) against the same engine built under
+    `steps.eager()`: greedy tokens identical, every tick's logits bit for
+    bit (kept across ticks: the step hands out copies of its static
+    outputs), and the launch counts equal — a replay counts one tick's
+    launches, the capture none."""
+    (tok_g, ticks_g, launches_g, step_g), (tok_e, ticks_e, launches_e, step_e) = \
+        _graphed_and_eager_runs(dev, engine_kw)
+    assert step_g.graphed and step_g._graph is not None and not step_e.graphed
+    assert tok_g == tok_e
+    assert len(ticks_g) == len(ticks_e) >= 3
+    for (act_g, lg_g), (act_e, lg_e) in zip(ticks_g, ticks_e):
+        assert (act_g == act_e).all() and torch.equal(lg_g, lg_e)
+    assert launches_g == launches_e
+    per_tick = step_g.launches_per_tick
+    assert per_tick and all(launches_e[k] == n * len(ticks_e) for k, n in per_tick.items())
+
+
 def test_int4_pack_and_append_on_card_bitwise_equals_cpu(dev):
     """Nibble packing over the full code range and every byte, and the int4
     pool's prefill transcode and block append (scale growth, rescale,
