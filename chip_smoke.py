@@ -59,10 +59,19 @@ Phases (any failure raises and the script exits non-zero):
    to the unsharded run's), and ``kv_pool_dtype="int4", host_spill=True``
    on SPILL_RUN's 200-block pool, checked by `SpillProbe` (a bit-exact
    block round trip, wave admission, pressure and policy demotion,
-   promotion, transfer bytes, a drained pool).
+   promotion, transfer bytes, a drained pool). Last, prefix sharing with
+   copy on write: the model with ``salca_static_channels`` serves a
+   SHARED_PREFIX-token prefix with three distinct SHARED_TAIL-token tails
+   and a fourth request repeating the first prompt, on SHARED_BLOCKS
+   blocks with ``prefix_sharing=True`` (graphed tick), then on the default
+   pool without sharing (the twin: greedy tokens identical, every logits
+   row bit for bit, the same launches per tick), then shared again over
+   the one-rank nccl world (tokens identical); the sharing counts must be
+   the ones the lengths give (SHARED_COUNTS), and the one copy on write is
+   profiled (launches, ms).
 
 It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all nine runs) and, last, the
+its path, and ``launches_per_call`` over all twelve runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -103,6 +112,16 @@ SMALL_SPILL = dict(kv_pool_dtype="int4", host_spill=True, num_blocks=8, demote_a
 # (SpillProbe; PERF.md)
 SPILL_RUN = dict(kv_pool_dtype="int4", host_spill=True, num_blocks=200, demote_after=1,
                  spill_keep_recent=48)
+# prefix sharing at full width: a 2048-token prefix (64 blocks) and tails of
+# 522, so every prompt is 2570 tokens (cuBLAS sees the same prefill shapes
+# in the shared run and its twin) and ends in a partial block (2570 =
+# 80·32 + 10): the repeated prompt's first decode write is copied on write.
+# 128 blocks; the unshared twin needs 4 × 81 = 324.
+SHARED_PREFIX, SHARED_TAIL, SHARED_BLOCKS = 2048, 522, 128
+# shared 64 + 64 + 81, one hit per later request, one copy; peak 81 + 17 +
+# 17 + 0 + the copy
+SHARED_COUNTS = dict(shared_blocks=209, prefix_hits=3, cow_copies=1,
+                     effective_blocks_saved=208, peak_blocks_in_use=116)
 
 
 def gpu_line() -> str:
@@ -993,8 +1012,21 @@ def main_path_requests(vocab_size: int):
                     max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPTS)]
 
 
+def shared_prefix_requests(vocab_size: int):
+    """The prefix-sharing run's requests: a SHARED_PREFIX-token prefix drawn
+    from seed 0, three distinct SHARED_TAIL-token tails after it, and a
+    fourth request with the first one's prompt; NEW_TOKENS new tokens each."""
+    from repro_torch.runtime.serve import Request
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab_size, SHARED_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab_size, SHARED_TAIL).astype(np.int32)])
+               for _ in range(3)]
+    prompts.append(prompts[0].copy())
+    return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+
+
 def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run=False,
-                    **engine_kw):
+                    shared_prefix=False, **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
     the contiguous tick; ``engine_kw`` adds the tiered pool's knobs
@@ -1003,21 +1035,31 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     the engines under `steps.eager()` instead. ``force`` ({rid: tokens})
     feeds the engine those tokens in place of its own picks (teacher
     forcing); ``probe`` (a `SpillProbe`) is installed on the engine before
-    the run and checks it after. Returns the launch counts of the run, its
+    the run and checks it after. ``shared_prefix`` serves the model with
+    static heavy channels on `shared_prefix_requests` (the engine's
+    ``prefix_sharing`` comes in ``engine_kw``); a copy on write is then
+    profiled (``cow_service`` in the summary: its launches on the device and
+    its ms, host clock between two synchronizations, under the profiler).
+    Returns the launch counts of the run, its
     summary (with each tick's wall ms: the first eager, the second the
     capture where the step is graphed), the engine's own greedy picks per
     request and, for every generated token (request, index), the logits row
     it was drawn from, on the host (index 0: the prefill's row)."""
     import contextlib
+    import dataclasses
     import gc
 
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
     from repro_torch.runtime.steps import eager
     gc.collect()              # an earlier run's engine (its hooks form a cycle)
     torch.cuda.empty_cache()
     cfg, params = main_path_model(dev)
+    if shared_prefix:
+        cfg = dataclasses.replace(cfg, salca_static_channels=True)
     serve = dict(SERVE, paged=paged, **engine_kw)
     building = eager if eager_run else contextlib.nullcontext
 
@@ -1033,7 +1075,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
 
     with building():
         engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
-    reqs = main_path_requests(cfg.vocab_size)
+    reqs = (shared_prefix_requests if shared_prefix else main_path_requests)(cfg.vocab_size)
     for r in reqs:
         engine.submit(r)
     ticks, rows, own, tick_ms = [], {}, {}, []
@@ -1058,7 +1100,21 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
         own[(req.rid, len(req.output))] = tok
         return orig_next(req, tok if force is None else force[req.rid][len(req.output)])
 
+    cow = []
+
+    def cow_block(*a, real=engine.api.cow_block):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = real(*a)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        cow.append({"ms": ms, "launches": sum(e.device_type == DeviceType.CUDA
+                                              for e in prof.events())})
+        return out
+
     engine._decode, engine._prefill, engine._next_token = decode, prefill, next_token
+    engine.api = engine.api._replace(cow_block=cow_block)
     if probe is not None:
         probe.install(engine)
     torch.cuda.reset_peak_memory_stats()
@@ -1069,7 +1125,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     wall = time.time() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    assert stats.completed == len(PROMPTS), stats.summary()
+    assert stats.completed == len(reqs), stats.summary()
     assert all(len(r.output) == NEW_TOKENS and r.stop_reason == "length" for r in reqs)
     assert stats.decode_calls == stats.ticks > 0, stats.summary()
     for who, logits in ticks:
@@ -1102,7 +1158,8 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                              f"{step._graph is not None}: every unsharded tick after the "
                              f"first must replay a CUDA graph, every other run stay eager")
     summary.update(wall_s=wall, peak_mem_gb=peak,
-                   ttft_s=[r.ttft_s for r in reqs], prompts=list(PROMPTS),
+                   ttft_s=[r.ttft_s for r in reqs], prompts=[len(r.prompt) for r in reqs],
+                   cow_service=cow,
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels},
                    graphed=step.graphed, tick_ms=tick_ms,
                    replay_ms_median=float(np.median(tick_ms[2:])) if step.graphed else None,
@@ -1166,11 +1223,11 @@ class SpillProbe:
             real_policy()
             phase["now"] = "pressure"
 
-        def install(slot, need, state1):
-            if need > eng._alloc.total_free:          # the prompt admits in waves
+        def install(slot, shared, need, state1):
+            if need - len(shared) > eng._alloc.total_free:   # the prompt admits in waves
                 self.events["wave_admissions"] += 1
                 phase["now"] = "wave"
-            real_install(slot, need, state1)
+            real_install(slot, shared, need, state1)
             phase["now"] = "pressure"
 
         def tick():
@@ -1274,22 +1331,64 @@ def check_contiguous_logits(tokens, trace, picks_c, trace_c) -> dict:
     return worst
 
 
-def check_graphed_against_eager(tokens, trace, tokens_e, trace_e) -> int:
-    """The graphed paged run against the same run built under
-    `steps.eager()`: the greedy tokens must be equal and every logits row
-    (prefill rows included) bit for bit. Returns the rows compared."""
+def check_bitwise(label: str, tokens, trace, tokens_e, trace_e) -> int:
+    """Two runs of the same requests that must agree exactly (the graphed
+    paged run and the same built under `steps.eager()`; the shared run and
+    its unshared twin): the greedy tokens must be equal and every logits
+    row (prefill rows included) bit for bit. Returns the rows compared."""
     import torch
     where = first_divergence(tokens, tokens_e)
     if where is not None:
-        raise AssertionError(f"graphed vs eager: greedy tokens part at (request, token) "
-                             f"{where}")
+        raise AssertionError(f"{label}: greedy tokens part at (request, token) {where}")
     if trace.keys() != trace_e.keys():
-        raise AssertionError("graphed vs eager: the runs drew different tokens' rows")
+        raise AssertionError(f"{label}: the runs drew different tokens' rows")
     differ = [k for k in trace if not torch.equal(trace[k], trace_e[k])]
     if differ:
-        raise AssertionError(f"graphed vs eager: {len(differ)} of {len(trace)} logits rows "
-                             f"differ, first at (request, token) {min(differ)}")
+        raise AssertionError(f"{label}: {len(differ)} of {len(trace)} logits rows differ, "
+                             f"first at (request, token) {min(differ)}")
     return len(trace)
+
+
+def check_prefix_sharing(dev, ctx, runs: dict) -> None:
+    """Phase 4's prefix-sharing runs (module docstring); adds their launch
+    counts to ``runs``."""
+    runs["int8 shared"], shared, tokens, trace = serve_main_path(
+        dev, shared_prefix=True, prefix_sharing=True, num_blocks=SHARED_BLOCKS)
+    print_serve(f"paged int8 + prefix sharing on {SHARED_BLOCKS} blocks", shared)
+    runs["int8 shared twin"], twin, tokens_t, trace_t = serve_main_path(dev, shared_prefix=True)
+    print_serve("paged int8, the same requests unshared on the default pool", twin)
+    runs["int8 shared sharded"], sharded, tokens_s, _ = serve_main_path(
+        dev, ctx, shared_prefix=True, prefix_sharing=True, num_blocks=SHARED_BLOCKS)
+    print_serve("paged int8 + prefix sharing, sharded (one rank, nccl)", sharded)
+    counts = {k: shared[k] for k in SHARED_COUNTS}
+    print(f"prefix sharing: {json.dumps(counts)} (predicted {json.dumps(SHARED_COUNTS)}); "
+          f"memory_saved_tokens {shared['memory_saved_tokens']}; peak blocks "
+          f"{shared['peak_blocks_in_use']} of {SHARED_BLOCKS}, unshared twin "
+          f"{twin['peak_blocks_in_use']} of {twin['block_pool_size']}; peak memory GB "
+          f"{shared['peak_mem_gb']:.3f} / twin {twin['peak_mem_gb']:.3f}", flush=True)
+    if counts != SHARED_COUNTS:
+        raise AssertionError(f"prefix sharing: counts {counts} != {SHARED_COUNTS}")
+    if (sharded["shared_blocks"], sharded["cow_copies"]) != (counts["shared_blocks"],
+                                                             counts["cow_copies"]):
+        raise AssertionError(f"prefix sharing, sharded: {sharded}")
+    rows = check_bitwise("shared vs unshared twin", tokens, trace, tokens_t, trace_t)
+    if (shared["launches_per_tick"], shared["launches_per_replay"]) != (
+            twin["launches_per_tick"], twin["launches_per_replay"]):
+        raise AssertionError(f"prefix sharing changed the tick: launches per tick "
+                             f"{shared['launches_per_tick']} / replay "
+                             f"{shared['launches_per_replay']} vs the twin's "
+                             f"{twin['launches_per_tick']} / {twin['launches_per_replay']}")
+    if first_divergence(tokens, tokens_s) is not None:
+        raise AssertionError(f"prefix sharing: the sharded run's tokens differ at (request, "
+                             f"token) {first_divergence(tokens, tokens_s)}")
+    cow = shared["cow_service"]
+    print(f"shared vs unshared twin: greedy tokens identical, {rows} logits rows bit for bit; "
+          f"sharded shared tokens identical; TTFT s {shared['mean_ttft_s']:.3f} / twin "
+          f"{twin['mean_ttft_s']:.3f}; replay ms (median) {shared['replay_ms_median']:.2f} / twin "
+          f"{twin['replay_ms_median']:.2f}; wrapper launches per replay "
+          f"{shared['launches_per_replay']} / twin {twin['launches_per_replay']}; copy on "
+          f"write: {json.dumps(cow)} unsharded, {json.dumps(sharded['cow_service'])} sharded",
+          flush=True)
 
 
 def print_serve(label: str, summary: dict) -> None:
@@ -1350,7 +1449,7 @@ def main() -> int:
     print_serve("paged", summary)
     launches_e, summary_e, tokens_e, trace_e = serve_main_path(dev, eager_run=True)
     print_serve("paged, eager (built under steps.eager())", summary_e)
-    rows = check_graphed_against_eager(tokens, trace, tokens_e, trace_e)
+    rows = check_bitwise("graphed vs eager", tokens, trace, tokens_e, trace_e)
     print(f"graphed vs eager (paged int8): greedy tokens identical, {rows} logits rows bit "
           f"for bit; ms per tick eager {np.median(summary_e['tick_ms']):.2f}, graphed "
           f"replay {summary['replay_ms_median']:.2f} (median); wrapper launches per replay "
@@ -1388,6 +1487,7 @@ def main() -> int:
         print(f"{mode}: sharded vs unsharded greedy tokens: identical", flush=True)
     runs["int4 spill"], summary_sp, _, _ = serve_main_path(dev, probe=SpillProbe(), **SPILL_RUN)
     print_serve(f"paged int4 + host spill {json.dumps(SPILL_RUN)}", summary_sp)
+    check_prefix_sharing(dev, ctx, runs)
     # each kernel's launches on the run of its path (B10/B11: their phase-3 drive)
     home = {"sparse_flash_decode_paged[fp16]": "fp16",
             "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",

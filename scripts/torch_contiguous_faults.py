@@ -15,8 +15,11 @@ into one slot of the contiguous tick:
 
 Prints, per run, the largest logits difference of every request in bf16
 ulps of the top logit, and whether ``check_contiguous_logits`` accepts
-it. Fails unless the fault-free run passes and every fault fails. Needs a
-CUDA device; the source files are not changed.
+it. Fails unless the fault-free run passes and every fault fails. The
+contiguous engines are built under `steps.eager()`: a fault reads a cursor
+on the host, which a CUDA graph capture refuses (the graphed tick equals
+the eager one bit for bit, chip_smoke's check). Needs a CUDA device; the
+source files are not changed.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ def main() -> int:
     wrong = []
     for name, patch in faults.items():
         blocks.append_token, att.gather_selected = patch
-        _, _, picks, rows = cs.serve_main_path("cuda", paged=False,
+        _, _, picks, rows = cs.serve_main_path("cuda", paged=False, eager_run=True,
                                                force=dict(enumerate(tokens)))
         worst = [max(float((rows[(i, j)].float() - trace[(i, j)].float()).abs().max())
                      / cs.bf16_ulp(trace[(i, j)]) for j in range(len(x)))

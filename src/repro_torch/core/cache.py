@@ -415,10 +415,15 @@ def _refcount_add(refcount: torch.Tensor, pages: torch.Tensor, delta: int) -> No
 
 
 def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
-                       pages, block_range=None) -> PagedSalcaCache:
+                       pages, block_range=None, n_shared: int = 0) -> PagedSalcaCache:
     """Write a batch=1 contiguous cache into the physical blocks named by
     ``pages`` (MB,) (-1 = not allocated: the write is dropped) and install
     the page table for ``slot``, which must be unmapped. In place.
+
+    Prefix sharing: the first ``n_shared`` entries of ``pages`` name blocks
+    that already hold this prompt's prefix (another request wrote them).
+    They are mapped and counted in ``refcount`` but not written: their rows
+    go to the sink, as those of -1 pages do.
 
     The int8 K/V rows are transcoded into the pool's mode: fp16 stores the
     dequantized rows verbatim (the unit scales stay), int4 requantizes each
@@ -439,7 +444,8 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     dev = pool.refcount.device
     pages = torch.as_tensor(pages, dtype=torch.int32).to(dev)
     local = _localize_pages(pages, block_range)
-    sink = torch.where(local >= 0, local, pool.sink).long()
+    writable = torch.arange(mb, device=dev) >= n_shared
+    sink = torch.where((local >= 0) & writable, local, pool.sink).long()
     pad = pool.max_seq - src.max_seq
 
     def to_blocks(f):     # (1, src_seq, KV, ·) → (MB, BS, KV, ·)
@@ -557,6 +563,75 @@ def free_pages(pool: PagedSalcaCache, slot: int, block_range=None) -> PagedSalca
     pool.length[slot] = 0
     pool.page_table[slot] = PAGE_UNMAPPED
     pool.sel_hist[slot] = 0
+    return pool
+
+
+def share_blocks(pool: PagedSalcaCache, src_slot: int, n_blocks: int,
+                 dst_slot: int) -> PagedSalcaCache:
+    """Map the first ``n_blocks`` logical blocks of ``src_slot`` into
+    ``dst_slot``, which must be unmapped: the prefix-sharing primitive. No
+    data moves; each aliased block gains a reference, which makes it
+    copy-on-write for both slots. ``dst_slot`` adopts ``src_slot``'s heavy
+    set (the shared feature rows are encoded with it) and a length covering
+    the shared tokens, ``min(src length, n_blocks·BS)``. In place.
+
+    It writes only metadata, which a block-sharded rank holds replicated,
+    so it applies unchanged to a rank's share of a pool."""
+    take = torch.arange(pool.max_blocks, device=pool.page_table.device) < n_blocks
+    src_row = pool.page_table[src_slot].clone()
+    _refcount_add(pool.refcount, torch.where(take, src_row, PAGE_UNMAPPED), +1)
+    pool.page_table[dst_slot] = torch.where(take, src_row, pool.page_table[dst_slot])
+    pool.heavy_idx[dst_slot] = pool.heavy_idx[src_slot]
+    pool.length[dst_slot] = torch.clamp_max(pool.length[src_slot], n_blocks * pool.block_size)
+    pool.sel_hist[dst_slot] = 0
+    return pool
+
+
+def cow_block(pool: PagedSalcaCache, slot: int, logical_block: int, new_page: int,
+              block_range=None, group=None) -> PagedSalcaCache:
+    """Copy-on-write service: copy all seven data fields of the block mapped
+    at (``slot``, ``logical_block``) into the fresh physical block
+    ``new_page``, remap only this slot's page-table entry and move one
+    reference from the old block to the copy (the old block stays with its
+    other owners). An unmapped entry is a no-op. In place; the int4 scale
+    words travel with their codes. It reads the old page id on the host
+    (it runs between ticks, never inside one).
+
+    With ``block_range`` the pool is this rank's share of a block-sharded
+    pool whose page table and refcount are replicated (as in
+    `prefill_into_pages`): the metadata moves on every rank, the data only
+    on the owners. When the old and the new block live on different ranks,
+    the old block's owner broadcasts its rows over ``group`` (the default
+    process group when None) and the new block's owner writes them, so
+    every rank of the group must make the same call."""
+    old = int(pool.page_table[slot, logical_block])
+    if old < 0:
+        return pool
+    lo, hi = (0, pool.num_blocks) if block_range is None else block_range
+    per_rank = hi - lo
+    src_rank, dst_rank, rank = old // per_rank, new_page // per_rank, lo // per_rank
+    if src_rank == dst_rank:
+        if rank == src_rank:
+            write_block_rows(pool, new_page - lo, read_block_rows(pool, old - lo))
+    else:
+        import torch.distributed as dist
+        # the rows as bytes, so that every field travels bit for bit in one call
+        shapes = [(pool.data[f].shape[1:], pool.data[f].dtype) for f in _DATA_FIELDS]
+        sizes = [pool.data[f][0].numel() * pool.data[f].element_size() for f in _DATA_FIELDS]
+        if rank == src_rank:
+            buf = torch.cat([r.contiguous().view(torch.uint8).reshape(-1)
+                             for r in read_block_rows(pool, old - lo)])
+        else:
+            buf = torch.empty(sum(sizes), dtype=torch.uint8, device=pool.refcount.device)
+        src = src_rank if group is None else dist.get_global_rank(group, src_rank)
+        dist.broadcast(buf, src=src, group=group)
+        if rank == dst_rank:
+            rows = [part.view(dt).reshape(shape)
+                    for part, (shape, dt) in zip(torch.split(buf, sizes), shapes)]
+            write_block_rows(pool, new_page - lo, rows)
+    pool.refcount[old] -= 1
+    pool.refcount[new_page] += 1
+    pool.page_table[slot, logical_block] = new_page
     return pool
 
 

@@ -1,7 +1,8 @@
 """Global-attention ("A") block of the dense LM: prefill and decode.
 
 Port of the reference `models/blocks.py` for the dense LM: the
-`salca_params_for` rule, the A-block prefill (dense causal attention
+`salca_params_for` rule, the static heavy set of
+``salca_static_channels``, the A-block prefill (dense causal attention
 through kernel B3, then `prefill_cache`) and three branches of
 `_attn_decode` (append, Salca selection, sparse attention): over the
 contiguous slot pool, over a paged pool on one device, or — given a
@@ -19,6 +20,7 @@ from repro_torch.core.attention import (
 from repro_torch.core.cache import (
     PagedSalcaCache, SalcaCache, append_token, append_token_paged, prefill_cache,
     record_selection)
+from repro_torch.core.heavy_channels import top_channels
 from repro_torch.core.selection import SalcaParams
 from repro_torch.core.sp_decode import sp_dense_decode_paged, sp_salca_decode_paged
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
@@ -33,6 +35,23 @@ def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
                        pool_window=cfg.salca_pool_window, use_pool=cfg.salca_use_pool)
 
 
+def static_heavy_idx(attn_params: dict, cfg: ModelConfig, sp: SalcaParams,
+                     batch: int) -> torch.Tensor | None:
+    """The request-independent heavy set of ``cfg.salca_static_channels``:
+    per kv head the top-r channels by key-projection weight mass
+    Σ_d |W_k[d, ·, j]|, or by the layer's ``calib_salience`` leaf when it
+    carries one; ties go to the lower index, as in ``jax.lax.top_k``.
+    Returns (B, KV, R) int32 broadcast over the batch, or None for the
+    paper's per-input identification. A static set is what lets requests
+    whose prompts diverge share the feature rows of a common prefix."""
+    if not cfg.salca_static_channels:
+        return None
+    sal = attn_params.get("calib_salience")
+    sal = attn_params["wk"].float().abs().sum(dim=0) if sal is None else sal.float()
+    idx = top_channels(sal, sp.r(cfg.resolved_head_dim))                  # (KV, R)
+    return idx[None].expand((batch,) + idx.shape)
+
+
 def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int):
     """x (B, T, D) → (x_out, SalcaCache of the layer's K/V padded to max_seq)."""
     t = x.shape[1]
@@ -42,7 +61,9 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int)
     o = prefill_attention(q, k, v)
     x = x + o.reshape(x.shape[0], t, -1) @ params["attn"]["wo"]
     f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
-    cache = prefill_cache(k, v, max_seq=max_seq, params=salca_params_for(cfg, max_seq))
+    sp = salca_params_for(cfg, max_seq)
+    cache = prefill_cache(k, v, max_seq=max_seq, params=sp,
+                          heavy_idx=static_heavy_idx(params["attn"], cfg, sp, x.shape[0]))
     return x + f, cache
 
 
@@ -110,7 +131,8 @@ def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: tor
     if isinstance(pool, SalcaCache):
         if ctx is not None:
             raise NotImplementedError("the sequence-sharded contiguous tick (flat sp_* "
-                                      "decode) is not ported yet; ROADMAP A.9")
+                                      "decode) is not ported yet; it comes with the port "
+                                      "of the reference's sequence-sharded flat decode")
         h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active)
     else:
         h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx)

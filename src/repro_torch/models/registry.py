@@ -19,8 +19,10 @@ class ModelAPI(NamedTuple):
     init_state: Callable[..., Any]         # (slots, max_seq, device) -> contiguous pool
     write_into_slot: Callable[..., Any]    # (pool, src, slot) -> pool
     init_paged_state: Callable[..., Any]   # (slots, max_seq, block_size, num_blocks, device, ctx)
-    write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx) -> pool
+    write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx, n_shared) -> pool
     map_block: Callable[..., Any]          # (pool, slot, logical_block, page) -> pool
+    share_blocks: Callable[..., Any]       # (pool, src_slot, n_blocks, dst_slot) -> pool
+    cow_block: Callable[..., Any]          # (pool, slot, logical_block, new_page, ctx) -> pool
     reset_slot: Callable[..., Any]         # (pool, slot) -> pool, contiguous or paged
     read_block: Callable[..., Any]         # (pool, page) -> payload (storage format)
     write_block: Callable[..., Any]        # (pool, page, payload) -> pool
@@ -34,8 +36,6 @@ def unsupported_reason(cfg: ModelConfig) -> str | None:
     if set(cfg.layer_pattern) != {"A"}:
         return (f"layer pattern {cfg.layer_pattern!r}: only global-attention "
                 "stacks are ported so far")
-    if cfg.salca_static_channels:
-        return "salca_static_channels comes with the prefix-sharing slice of the port"
     return None
 
 
@@ -59,6 +59,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 
     return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
                     init_paged_state, transformer.lm_write_into_slot,
-                    transformer.lm_map_block, transformer.lm_reset_slot,
+                    transformer.lm_map_block, transformer.lm_share_blocks,
+                    transformer.lm_cow_block, transformer.lm_reset_slot,
                     transformer.lm_read_block, transformer.lm_write_block,
                     transformer.lm_selection_hist)

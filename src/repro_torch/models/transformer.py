@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
-    PagedSalcaCache, empty_cache, empty_paged_cache, free_pages, map_block, prefill_into_pages,
-    read_block_rows, reset_slot, write_block_rows, write_prefill_into_slot)
+    PagedSalcaCache, cow_block, empty_cache, empty_paged_cache, free_pages, map_block,
+    prefill_into_pages, read_block_rows, reset_slot, share_blocks, write_block_rows,
+    write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -74,20 +75,22 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
 
 
 def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
-                       ctx: DecodeCtx | None = None) -> LMState:
+                       ctx: DecodeCtx | None = None, n_shared: int = 0) -> LMState:
     """Install a batch=1 prefill state into row ``slot``. In place.
 
     Contiguous pools take ``pages=None`` (`write_prefill_into_slot`); paged
     pools take the same physical blocks ``pages`` (MB,) in every layer
     (`prefill_into_pages`) — with ``ctx`` the prefill is replicated and each
-    rank writes only the blocks it owns."""
+    rank writes only the blocks it owns. ``n_shared`` marks the leading
+    entries of ``pages`` as prefix-shared: mapped and counted in every
+    layer, not written."""
     for dst, s in zip(pool.caches, src.caches):
         if isinstance(dst, PagedSalcaCache):
             if pages is None:
                 raise ValueError("paged cache substate requires a pages array "
                                  "(use write_into_pages)")
             block_range = None if ctx is None else local_block_range(dst.num_blocks, ctx)
-            prefill_into_pages(dst, s, slot, pages, block_range)
+            prefill_into_pages(dst, s, slot, pages, block_range, n_shared)
         else:
             write_prefill_into_slot(dst, s, slot)
     pool.pos[slot] = src.pos[0]
@@ -97,6 +100,31 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
 def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMState:
     for c in pool.caches:
         map_block(c, slot, logical_block, page)
+    return pool
+
+
+def lm_share_blocks(pool: LMState, src_slot: int, n_blocks: int, dst_slot: int) -> LMState:
+    """Prefix sharing: alias the first ``n_blocks`` logical blocks of
+    ``src_slot`` into ``dst_slot`` in every layer's pool (the same block ids
+    in every layer; `core.cache.share_blocks`). In place."""
+    for c in pool.caches:
+        share_blocks(c, src_slot, n_blocks, dst_slot)
+    return pool
+
+
+def lm_cow_block(pool: LMState, slot: int, logical_block: int, new_page: int,
+                 ctx: DecodeCtx | None = None) -> LMState:
+    """Copy-on-write service in every layer's pool: copy the shared block
+    mapped at (``slot``, ``logical_block``) into ``new_page`` and remap only
+    this slot's entry (`core.cache.cow_block`). With ``ctx`` every rank
+    makes the call and the rows cross ranks when the two blocks' owners
+    differ. In place."""
+    for c in pool.caches:
+        if ctx is None:
+            cow_block(c, slot, logical_block, new_page)
+        else:
+            cow_block(c, slot, logical_block, new_page,
+                      local_block_range(c.num_blocks, ctx), ctx.group)
     return pool
 
 

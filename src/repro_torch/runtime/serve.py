@@ -34,6 +34,22 @@ list per shard (`ShardedBlockAllocator`): admission takes blocks from the
 least-loaded shards, so one request can span shards; growth prefers the
 shard holding the slot's tail block.
 
+Prefix sharing (``prefix_sharing=True``, paged only) maps identical
+prompt prefixes (system prompts, few-shot headers) onto the same physical
+blocks, as in the reference. A radix map keys each full block of a
+prompt, and a prompt's partial last block, by the SHA-1 digest of the
+token ids up to its end and names the block that holds it. Admission
+prefills the queue head once (stashed across head-of-line retries), maps
+the longest matched prefix by reference and charges only the rest against
+the free list; a matched block is shared only while its owner's heavy sets
+equal the request's, as the packed features are encoded against them
+(``salca_static_channels`` makes them request-independent). Release
+decrements a host mirror of the refcount and frees a block, and prunes its
+radix entry, at zero. Before a tick a slot whose cursor block is shared
+gets a private copy (`core.cache.cow_block`): the write that the append
+would drop lands in the copy. Sharing is only between requests resident
+at the same time.
+
 Tiered KV memory (paged only): ``kv_pool_dtype`` picks the pool's K/V
 storage — "int8" (the default), "fp16" or "int4" (`core.cache`); the
 2-bit feature stream, and so the selection, is the same in every mode.
@@ -55,12 +71,14 @@ its island records no selection histograms.
 
 Knobs that the reference rejects without ``paged=True`` raise its
 `ValueError`s; knobs of the reference engine that later slices port raise
-`NotImplementedError` naming that slice instead of being ignored.
+`NotImplementedError` naming the reference feature that brings them instead
+of being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -74,13 +92,12 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.runtime.steps import ServeDecodeStep
 
-# reference knob → the port slice (ROADMAP Queue A) that brings it
+# reference knob → the reference feature whose port brings it
 _LATER = {
-    "prefix_sharing": "A.7 (prefix sharing with copy-on-write)",
-    "prefix_cache": "A.7 (persistent prefix cache)",
-    "prefill_chunk": "A.7 (chunked prefill and preemption)",
-    "preempt": "A.7 (chunked prefill and preemption)",
-    "faults": "A.7 (fault injection, deadlines and the auditor)",
+    "prefix_cache": "the reference's persistent prefix cache",
+    "prefill_chunk": "the reference's chunked prefill and preemption",
+    "preempt": "the reference's chunked prefill and preemption",
+    "faults": "the reference's fault injection, deadlines and auditor",
 }
 SPILLED = -1     # a slot's logical block that lives in the host tier
 
@@ -97,11 +114,29 @@ class Request:
     done_time: float | None = None
     stop_reason: str | None = None     # "length" | "stop" | "overflow"
     output: list = field(default_factory=list)
+    shared_blocks: int = 0             # blocks admitted by prefix sharing
     token_times: list = field(default_factory=list)
+    # host-side stashes kept across head-of-line retries: the prompt's
+    # prefix digests and its heavy-set bytes
+    _digests: tuple | None = field(default=None, repr=False, compare=False)
+    _heavy: bytes | None = field(default=None, repr=False, compare=False)
+
+    @property
+    def queue_wait_s(self) -> float | None:
+        """Submit → admission (None until then): one admission cycle, as
+        long as preemption is not ported."""
+        return None if self.admitted is None else max(self.admitted - self.submitted, 0.0)
 
     @property
     def ttft_s(self) -> float | None:
         return None if self.first_token_time is None else self.first_token_time - self.submitted
+
+    def stats(self) -> dict:
+        """Per-request stats, the reference's keys (``preemptions`` is 0:
+        preemption is not ported)."""
+        return {"rid": self.rid, "prompt_tokens": int(len(self.prompt)),
+                "output_tokens": len(self.output), "stop_reason": self.stop_reason,
+                "queue_wait_s": self.queue_wait_s, "ttft_s": self.ttft_s, "preemptions": 0}
 
 
 class ShardedBlockAllocator:
@@ -185,6 +220,10 @@ class ServeStats:
     peak_blocks_in_use: int = 0
     shards: int = 1                      # pool shards (the ctx's world size)
     peak_shard_blocks_in_use: int = 0    # hottest single shard at peak (shards > 1)
+    # prefix sharing (zero unless prefix_sharing=True)
+    shared_blocks: int = 0     # blocks admitted by reference instead of written
+    cow_copies: int = 0        # shared blocks copied on their first write
+    prefix_hits: int = 0       # requests that shared at least one block
     # tiered KV memory (zero unless host_spill=True)
     host_spill: bool = False
     hot_blocks: int = 0        # device-resident blocks in use (last sample)
@@ -196,8 +235,9 @@ class ServeStats:
 
     def summary(self) -> dict:
         """The reference's summary keys that this port has, rounded as there
-        (seconds to 4 places, ms and utilisations to 3); the block-pool keys
-        only for a paged engine, the shard keys only over several shards."""
+        (seconds to 4 places, ms and utilisations to 3); the block-pool and
+        sharing keys only for a paged engine, the shard keys only over
+        several shards."""
         out = {
             "completed": self.completed, "prefill_s": round(self.prefill_s, 4),
             "decode_s": round(self.decode_s, 4), "decode_steps": self.decode_steps,
@@ -223,6 +263,11 @@ class ServeStats:
                            shard_block_utilization=round(
                                self.peak_shard_blocks_in_use
                                / (self.block_pool_size // self.shards), 3))
+            # each shared admission saved a block, each copy paid one back
+            saved = self.shared_blocks - self.cow_copies
+            out.update(shared_blocks=self.shared_blocks, cow_copies=self.cow_copies,
+                       prefix_hits=self.prefix_hits, effective_blocks_saved=saved,
+                       memory_saved_tokens=saved * self.block_size)
             if self.host_spill:
                 out.update(hot_blocks=self.hot_blocks, cold_blocks=self.cold_blocks,
                            peak_cold_blocks=self.peak_cold_blocks, demotions=self.demotions,
@@ -238,7 +283,8 @@ class ServingEngine:
     ``block_size`` tokens shared by ``slots`` request slots; ``block_size``
     must divide ``max_seq``; ``ctx`` (`distributed.sharding.DecodeCtx`)
     splits the pool's blocks across its ranks, and ``num_blocks`` must then
-    divide evenly by the world size. ``kv_pool_dtype`` and ``host_spill``
+    divide evenly by the world size. ``prefix_sharing``: common prompt
+    prefixes share blocks, copied on write. ``kv_pool_dtype`` and ``host_spill``
     (with ``demote_after``, ``spill_keep_recent``, ``promote_headroom``):
     the tiered pool of the module docstring. Runs on ``device`` ("cuda" by
     default, which raises on a machine without a card); ``device="cpu"``
@@ -273,16 +319,17 @@ class ServingEngine:
                     raise ValueError(f"{knob} requires paged=True{why}")
             if ctx is not None:
                 raise NotImplementedError("ctx with paged=False: the sequence-sharded "
-                                          "contiguous tick is not ported yet (ROADMAP A.9)")
+                                          "contiguous tick is not ported yet; it comes "
+                                          "with the port of the reference's "
+                                          "sequence-sharded flat decode")
         if prefix_cache and not prefix_sharing:
             raise ValueError("prefix_cache requires prefix_sharing=True")
-        asked = {"prefix_sharing": prefix_sharing, "prefix_cache": prefix_cache,
-                 "prefill_chunk": prefill_chunk is not None, "preempt": preempt,
-                 "faults": faults is not None}
+        asked = {"prefix_cache": prefix_cache, "prefill_chunk": prefill_chunk is not None,
+                 "preempt": preempt, "faults": faults is not None}
         for knob, on in asked.items():
             if on:
-                raise NotImplementedError(f"{knob}: not ported yet; comes with slice "
-                                          f"{_LATER[knob]}")
+                raise NotImplementedError(f"{knob}: not ported yet; comes with the port "
+                                          f"of {_LATER[knob]}")
         self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
         self.paged = paged
         self.api = get_model(cfg)
@@ -295,6 +342,9 @@ class ServingEngine:
         self.ctx = ctx
         self.n_shards = 1 if ctx is None else ctx.world_size
         self.host_spill = host_spill
+        self.prefix_sharing = prefix_sharing
+        # at most one request's prefill (the queue head's) waits for blocks
+        self._stash: tuple[Request, tuple] | None = None
         if not paged:
             self._state = self.api.init_state(slots, max_seq, self.device)
             self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
@@ -312,6 +362,10 @@ class ServingEngine:
         self._slot_blocks: dict[int, list[int]] = {}
         self._slot_pos: dict[int, int] = {}                      # next write position
         self._refcount = np.zeros((self.num_blocks,), np.int64)  # host mirror
+        # radix map: digest of a prompt prefix → (the block holding it, its
+        # owner's heavy-set bytes); and each published block's key
+        self._prefix_nodes: dict[bytes, tuple[int, bytes]] = {}
+        self._block_keys: dict[int, bytes] = {}
         self._state = self.api.init_paged_state(slots, max_seq, block_size,
                                                 self.num_blocks, self.device, ctx)
         self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
@@ -441,15 +495,16 @@ class ServingEngine:
 
     def _demote_candidates(self) -> list[tuple[int, int, int]]:
         """Eligible demotions, coldest first: (-streak, slot, logical) for
-        every mapped private block outside its slot's `spill_keep_recent`
-        trailing blocks (the cursor block among them)."""
+        every mapped private, unpublished block outside its slot's
+        `spill_keep_recent` trailing blocks (the cursor block among them)."""
         out = []
         for slot in self._active:
             held = self._slot_blocks[slot]
             n_blocks = self._blocks_for(max(self._slot_pos[slot], 1))
             for j in range(min(max(n_blocks - self.spill_keep_recent, 0), len(held))):
                 b = held[j]
-                if b != SPILLED and self._refcount[b] == 1:
+                # a shared or radix-published block must stay on the device
+                if b != SPILLED and self._refcount[b] == 1 and b not in self._block_keys:
                     out.append((-int(self._cold_streak[slot, j]), slot, j))
         out.sort()
         return out
@@ -499,71 +554,171 @@ class ServingEngine:
         self.stats.prefill_tokens += len(req.prompt)
         return logits_row, state1
 
+    def _ensure_prefill(self, req: Request):
+        """Prefill once per request: the result is stashed so that a queue
+        head waiting for blocks after the heavy-set gate does not pay it
+        twice. The stash holds one request's batch=1 state at most."""
+        if self._stash is None or self._stash[0] is not req:
+            self._stash = (req, self._prefill(req))
+        return self._stash[1]
+
+    def _begin_cycle(self, req: Request, t0: float) -> None:
+        """The first attempt that starts work on a request closes its queue
+        wait (the gate's prefill may start it on an attempt that then waits
+        for blocks)."""
+        if req.admitted is not None:
+            return
+        req.admitted = t0
+        self.stats.admissions += 1
+        self.stats.queue_wait_s += req.queue_wait_s
+
+    # -- prefix sharing ------------------------------------------------
+    def _request_digests(self, req: Request):
+        """Cumulative SHA-1 digests of the prompt's token-id bytes: one per
+        full block, and one of the whole prompt when it ends in a partial
+        block (digest j = sha1(prompt[:(j+1)·BS])). Kept on the request."""
+        if req._digests is None:
+            bs, prompt = self.block_size, req.prompt
+            buf = np.ascontiguousarray(prompt, np.int32).tobytes()
+            h = hashlib.sha1()
+            full_keys = []
+            for j in range(len(prompt) // bs):
+                h.update(buf[j * bs * 4:(j + 1) * bs * 4])
+                full_keys.append(h.copy().digest())
+            partial_key = None
+            if len(prompt) % bs:
+                h.update(buf[len(full_keys) * bs * 4:])
+                partial_key = h.digest()
+            req._digests = (full_keys, partial_key)
+        return req._digests
+
+    @staticmethod
+    def _heavy_bytes(state1) -> bytes:
+        """Every layer's heavy-channel indices of a batch=1 prefill, as bytes:
+        the identity that two requests must share to alias feature rows."""
+        return torch.stack([c.heavy_idx for c in state1.caches]).cpu().numpy().tobytes()
+
+    def _match_tokens(self, req: Request) -> list[tuple[bytes, int, bytes]]:
+        """Longest radix match on the token ids alone: full blocks first,
+        then, when every one matched, the whole prompt's partial block.
+        [(key, block, owner's heavy bytes), ...]."""
+        full_keys, partial_key = self._request_digests(req)
+        out = []
+        for key in full_keys:
+            node = self._prefix_nodes.get(key)
+            if node is None:
+                return out
+            out.append((key,) + node)
+        if partial_key is not None and partial_key in self._prefix_nodes:
+            out.append((partial_key,) + self._prefix_nodes[partial_key])
+        return out
+
+    def _register_blocks(self, req: Request, blocks: list[int], n_shared: int,
+                         heavy: bytes) -> None:
+        """Publish the request's private prompt blocks in the radix map (its
+        shared ones are published already)."""
+        full_keys, partial_key = self._request_digests(req)
+        keys = full_keys + ([partial_key] if partial_key is not None else [])
+        for j in range(n_shared, len(keys)):
+            if keys[j] not in self._prefix_nodes and blocks[j] not in self._block_keys:
+                self._prefix_nodes[keys[j]] = (blocks[j], heavy)
+                self._block_keys[blocks[j]] = keys[j]
+
+    def _prune_node(self, block: int) -> None:
+        key = self._block_keys.pop(block, None)
+        if key is not None:
+            self._prefix_nodes.pop(key, None)
+
     def _admit(self) -> None:
         """FIFO admission: prefill the queue head alone and write it into the
-        lowest free slot (paged: into freshly allocated blocks, waiting
-        head-of-line when the pool is short; with ``host_spill`` cold blocks
-        are demoted first and a prompt larger than the free pool admits in
-        waves)."""
+        lowest free slot (paged: into the blocks its matched prefix shares
+        and freshly allocated ones, waiting head-of-line when the pool is
+        short; with ``host_spill`` cold blocks are demoted first and a
+        prompt larger than the free pool admits in waves, unshared)."""
         while self._queue and self._free:
+            req = self._queue[0]
+            t0 = time.time()
             if not self.paged:
-                req = self._queue.popleft()
+                self._queue.popleft()
                 slot = self._free.pop()
-                t0 = time.time()
-                req.admitted = t0
-                self.stats.admissions += 1
-                self.stats.queue_wait_s += t0 - req.submitted
-                logits_row, state1 = self._prefill(req)
+                self._begin_cycle(req, t0)
+                logits_row, state1 = self._ensure_prefill(req)
                 self.api.write_into_slot(self._state, state1, slot)
+                self._stash = None
                 self._activate(req, slot, logits_row)
                 continue
-            req = self._queue[0]
-            need = self._blocks_for(len(req.prompt))
+            need_full = self._blocks_for(len(req.prompt))
+            shared: list[int] = []
+            if self.prefix_sharing:
+                cand = self._match_tokens(req)
+                if need_full - len(cand) > self._alloc.total_free:
+                    break          # short of blocks even if every match is shared
+                self._begin_cycle(req, t0)
+                _, state1 = self._ensure_prefill(req)
+                if req._heavy is None:
+                    req._heavy = self._heavy_bytes(state1)
+                for _, block, owner_heavy in cand:
+                    if owner_heavy != req._heavy:
+                        break      # the first heavy-set mismatch ends the share
+                    shared.append(block)
+            need = need_full - len(shared)
             if self.host_spill and need > self._alloc.total_free:
                 # admission pressure: cold blocks of active slots go to the
                 # host tier before the queue waits on the device pool
                 self._demote_for(need)
             free = self._alloc.total_free
-            if need > free and not (self.host_spill and free):
-                break          # head-of-line wait (the host tier needs one free block)
-            t0 = time.time()
+            if need > free:
+                if not (self.host_spill and free):
+                    break      # head-of-line wait (the host tier needs one free block)
+                shared = []    # wave admission writes the whole prompt privately
             self._queue.popleft()
             slot = self._free.pop()
-            req.admitted = t0
-            self.stats.admissions += 1
-            self.stats.queue_wait_s += t0 - req.submitted
-            logits_row, state1 = self._prefill(req)
+            self._begin_cycle(req, t0)
+            logits_row, state1 = self._ensure_prefill(req)
             self._slot_pos[slot] = len(req.prompt)
             if self.host_spill:
                 self._hist_snap[slot] = 0
                 self._cold_streak[slot] = 0
-            self._install_prompt(slot, need, state1)
+            self._install_prompt(slot, shared, need_full, state1)
+            if self.prefix_sharing:
+                req.shared_blocks = len(shared)
+                self.stats.shared_blocks += len(shared)
+                self.stats.prefix_hits += bool(shared)
+                if need <= free:       # a prompt admitted in waves is not published
+                    self._register_blocks(req, self._slot_blocks[slot], len(shared),
+                                          req._heavy)
+            self._stash = None
             self._activate(req, slot, logits_row)
 
-    def _install_prompt(self, slot: int, need: int, state1) -> None:
-        """Write a prefilled prompt into ``need`` freshly allocated blocks
-        (least-loaded shards first): in one write when the free pool covers
-        it; otherwise (host_spill) in free-pool-sized waves, each demoted to
-        the host before the next lands, the last — the recency tail with the
-        cursor block — staying hot. A write drops the rows of the blocks
-        outside its wave (their pages are -1)."""
-        held = [SPILLED] * need
+    def _install_prompt(self, slot: int, shared: list[int], need: int, state1) -> None:
+        """Write a prefilled prompt of ``need`` blocks into ``slot``: the
+        ``shared`` prefix blocks are mapped by reference, the rest written
+        into freshly allocated blocks (least-loaded shards first) — in one
+        write when the free pool covers them; otherwise (host_spill) in
+        free-pool-sized waves, each demoted to the host before the next
+        lands, the last — the recency tail with the cursor block — staying
+        hot. A write drops the rows of the blocks outside its wave (their
+        pages are -1)."""
+        n_shared = len(shared)
+        held = shared + [SPILLED] * (need - n_shared)
         self._slot_blocks[slot] = held
-        lo = 0
-        while lo < need:
+        for b in shared:
+            self._refcount[b] += 1
+        lo = n_shared
+        while True:
             w = min(self._alloc.total_free, need - lo)
-            ids = self._alloc.alloc(w)
-            pages = np.full((self.max_blocks,), -1, np.int32)
-            pages[lo:lo + w] = ids
-            for j, b in zip(range(lo, lo + w), ids):
-                held[j] = b
+            held[lo:lo + w] = self._alloc.alloc(w)
+            for b in held[lo:lo + w]:
                 self._refcount[b] += 1
             self._note_block_usage()
-            self.api.write_into_pages(self._state, state1, slot, pages, self.ctx)
+            pages = np.full((self.max_blocks,), -1, np.int32)
+            pages[:lo + w] = held[:lo + w]            # earlier waves: spilled, -1
+            self.api.write_into_pages(self._state, state1, slot, pages, self.ctx, n_shared)
             lo += w
-            if lo < need:
-                for j in range(lo - w, lo):
-                    self.demote_block(slot, j)
+            if lo == need:
+                return
+            for j in range(lo - w, lo):
+                self.demote_block(slot, j)
 
     def _next_token(self, req: Request, tok: int) -> int:
         self.stats.tokens_generated += 1
@@ -595,26 +750,40 @@ class ServingEngine:
         self._free.append(slot)
         self._free.sort(reverse=True)
         if self.paged:
-            for b in self._slot_blocks.pop(slot):
-                if b == SPILLED:
-                    continue                          # host-tier entry: no device block
-                self._refcount[b] -= 1
-                if self._refcount[b] == 0:
-                    self._alloc.release(b)
-            self._slot_pos.pop(slot)
-            if self.host_spill:
-                for key in [k for k in self._spilled if k[0] == slot]:
-                    del self._spilled[key]
-                    self._spill_score.pop(key, None)
-                self._hist_snap[slot] = 0
-                self._cold_streak[slot] = 0
-            self._note_block_usage()
+            self._release_blocks(slot)
         self.api.reset_slot(self._state, slot)
+
+    def _release_blocks(self, slot: int) -> None:
+        """Decref every block the slot holds; a block reaching 0 returns to
+        its shard's free list and leaves the radix map. Releasing a slot
+        that holds nothing is a no-op."""
+        blocks = self._slot_blocks.pop(slot, None)
+        if blocks is None:
+            return
+        for b in blocks:
+            if b == SPILLED:
+                continue                              # host-tier entry: no device block
+            self._refcount[b] -= 1
+            assert self._refcount[b] >= 0, f"block {b} refcount underflow"
+            if self._refcount[b] == 0:
+                self._alloc.release(b)
+                self._prune_node(b)
+        self._slot_pos.pop(slot, None)
+        if self.host_spill:
+            for key in [k for k in self._spilled if k[0] == slot]:
+                del self._spilled[key]
+                self._spill_score.pop(key, None)
+            self._hist_snap[slot] = 0
+            self._cold_streak[slot] = 0
+        self._note_block_usage()
 
     def _grow_or_overflow(self) -> None:
         """Before a tick every active slot must be able to store its next KV
-        write. Paged: a slot whose cursor crossed a block boundary maps one
-        fresh block in every layer, from the shard holding its tail block
+        write privately. Paged: a slot whose cursor crossed a block boundary
+        maps one fresh block in every layer; a slot whose cursor block is
+        shared (refcount > 1) takes one and gets a private copy of it
+        (`cow_block`), the write the append would otherwise drop. Either
+        block comes from the shard holding the slot's tail or faulted block
         when that shard has one; with ``host_spill`` a dry free list first
         demotes the coldest candidate. A slot that cannot (no block free, or
         a contiguous slot holding ``max_seq`` tokens) finishes with an
@@ -631,15 +800,24 @@ class ServingEngine:
             pos = self._slot_pos[slot]
             held = self._slot_blocks[slot]
             logical = pos // self.block_size
-            if pos < self.max_seq and logical < len(held):
-                continue
+            if pos < self.max_seq and logical < len(held) and held[logical] >= 0 \
+                    and self._refcount[held[logical]] <= 1:
+                continue                              # private room in place
             if pos < self.max_seq and self.host_spill:
                 self._demote_for(1)                   # growth pressure
             if pos < self.max_seq and self._alloc.total_free:
-                blk, = self._alloc.alloc(1, prefer=self._alloc.shard_of(held[-1]))
+                near = held[logical] if logical < len(held) else held[-1]
+                prefer = self._alloc.shard_of(near) if near >= 0 else None
+                blk, = self._alloc.alloc(1, prefer=prefer)
                 self._refcount[blk] += 1
-                held.append(blk)
-                self.api.map_block(self._state, slot, logical, blk)
+                if logical == len(held):              # growth
+                    held.append(blk)
+                    self.api.map_block(self._state, slot, logical, blk)
+                else:                                 # copy on write
+                    self._refcount[held[logical]] -= 1
+                    held[logical] = blk
+                    self.stats.cow_copies += 1
+                    self.api.cow_block(self._state, slot, logical, blk, self.ctx)
                 self._note_block_usage()
                 continue
             self.stats.overflows += 1

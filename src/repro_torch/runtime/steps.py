@@ -1,9 +1,9 @@
 """The serving decode tick: one call advances every active slot by one token.
 
 Port of the reference `runtime/steps.py::make_serve_decode_step` for one
-device, without the mesh plan and without ``nan_flags`` (ROADMAP A.4). The
-reference jits its tick, so shapes stay static and the serving engine pays
-one dispatch per tick. Here the tick — `models.transformer.lm_decode_step`
+device, without the mesh plan and without ``nan_flags`` (which come with
+the port of the reference's fault tolerance). The reference jits its tick,
+so shapes stay static and the serving engine pays one dispatch per tick. Here the tick — `models.transformer.lm_decode_step`
 and the greedy argmax — is captured once per engine as a CUDA graph and
 replayed:
 

@@ -11,7 +11,9 @@ Tasks:
   island  build this rank's share of a pool from replicated prefills and
           appends, then run the sharded Salca and dense ticks;
   engine  run `ServingEngine(ctx=...)` on a request trace, recording every
-          tick's logits and layer-0 page table.
+          tick's logits and layer-0 page table;
+  prefix  the engine task, and a pool-level copy on write across ranks in
+          every storage mode (`cow_block` with this rank's block range).
 """
 
 import dataclasses
@@ -51,7 +53,8 @@ def island(inp, ctx):
 def engine(inp, ctx):
     from repro_torch.configs import get_config
     from repro_torch.runtime.serve import Request, ServingEngine
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32",
+                              **inp.get("cfg", {}))
     eng = ServingEngine(cfg, inp["weights"], paged=True, device="cpu", ctx=ctx,
                         **inp["engine"])
     reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=inp["new_tokens"])
@@ -76,13 +79,41 @@ def engine(inp, ctx):
                 pools_ok=pools_ok)
 
 
+def cow(inp, ctx):
+    """Per storage mode: this rank's share of a pool built from a replicated
+    prefill, a shared slot, ``steps`` of `cow_block` (slot, logical, new
+    page) and one append; returns the rank's leaves."""
+    from repro_torch.core import cache as tc
+    from repro_torch.core.selection import SalcaParams
+    params = SalcaParams(**inp["params"])
+    nb, bs, slots, mb, kv, hd = inp["shape"]
+    br = local_block_range(nb, ctx)
+    out = {}
+    for mode in ("int8", "fp16", "int4"):
+        pool = tc.empty_paged_cache(nb, bs, slots, mb, kv, hd, params.r(hd), kv_pool_dtype=mode,
+                                    local_blocks=br[1] - br[0])
+        src = tc.prefill_cache(inp["k"], inp["v"], max_seq=mb * bs, params=params)
+        tc.prefill_into_pages(pool, src, 1, inp["pages"], block_range=br)
+        tc.share_blocks(pool, 1, 2, 0)
+        for slot, logical, page in inp["steps"]:
+            tc.cow_block(pool, slot, logical, page, br, ctx.group)
+        tc.append_token_paged(pool, inp["k1"], inp["v1"], block_range=br)
+        out[mode] = {f: getattr(pool, f).clone() for f in tc._DATA_FIELDS + (
+            "page_table", "length", "refcount", "heavy_idx")}
+    return out
+
+
+def prefix(inp, ctx):
+    return dict(engine(inp, ctx), cow=cow(inp["cow"], ctx))
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
     inp = torch.load(workdir / "in.pt", weights_only=False)
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
-    res = {"island": island, "engine": engine}[task](inp, ctx)
+    res = {"island": island, "engine": engine, "prefix": prefix}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

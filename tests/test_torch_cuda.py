@@ -7,6 +7,7 @@ The plain versions are held against the JAX reference by the CPU tests
 (tests/test_torch_kernels.py), so agreement here closes the chain.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -836,12 +837,20 @@ def _graphed_and_eager_runs(dev, engine_kw):
     from repro_torch.runtime.steps import eager
     from repro_torch.weights import init_lm_params
     cfg = get_config("qwen3-0.6b").reduced()
+    sharing = engine_kw.get("prefix_sharing", False)
+    # with prefix sharing: static heavy sets, and three resident requests of
+    # which two are identical (their partial block is copied on write) and
+    # the third shares their first 4 blocks
+    cfg = dataclasses.replace(cfg, salca_static_channels=sharing)
     params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (150, 200, 170)]
+    if sharing:
+        prompts = [prompts[0], prompts[0].copy(), np.concatenate([prompts[0][:128],
+                                                                  prompts[2][:42]])]
     runs = []
     for graphed in (True, False):
-        kw = dict(max_seq=256, slots=2, block_size=32, device=dev, **engine_kw)
+        kw = dict(dict(max_seq=256, slots=2, block_size=32, device=dev), **engine_kw)
         if graphed:
             eng = ServingEngine(cfg, params, **kw)
         else:
@@ -862,6 +871,8 @@ def _graphed_and_eager_runs(dev, engine_kw):
         reset_launches()
         eng.run()
         torch.cuda.synchronize()
+        if sharing:
+            assert eng.stats.prefix_hits == 2 and eng.stats.cow_copies == 1, eng.stats
         runs.append(([r.output for r in reqs], ticks, dict(LAUNCHES), eng._step))
     return runs
 
@@ -871,7 +882,8 @@ def _graphed_and_eager_runs(dev, engine_kw):
     dict(paged=True, kv_pool_dtype="int4"),
     dict(paged=True, kv_pool_dtype="int4", host_spill=True, num_blocks=8, demote_after=1,
          spill_keep_recent=2),
-    dict(paged=False)], ids=["int8", "fp16", "int4", "int4_spill", "contiguous"])
+    dict(paged=False), dict(paged=True, prefix_sharing=True, slots=3)],
+    ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under

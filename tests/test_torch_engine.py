@@ -127,7 +127,7 @@ def test_engine_overflow_and_validation(weights, rng):
     assert stats.dropped_writes == stats.overflows
     assert "overflow" in (ra.stop_reason, rb.stop_reason)
     assert sorted(eng._free_blocks) == [0, 1, 2]
-    for kw in ({"prefix_sharing": True}, {"preempt": True}, {"prefill_chunk": 8},
+    for kw in ({"preempt": True}, {"prefill_chunk": 8},
                {"prefix_cache": True, "prefix_sharing": True}, {"faults": object()}):
         with pytest.raises(NotImplementedError):
             TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,

@@ -96,9 +96,9 @@ def test_launcher_refuses_block_size_not_dividing_max_seq(monkeypatch, capsys):
 def _serve(engine_cls, req_cls, cfg, params, prompts, **kw):
     eng = engine_cls(cfg, params, max_seq=64, slots=2, paged=True, block_size=16,
                      num_blocks=8, **kw)
-    enqueued = [eng.submit(req_cls(rid=i, prompt=p.copy(), max_new_tokens=4))
-                for i, p in enumerate(prompts)]
-    return enqueued, eng.run().summary()
+    reqs = [req_cls(rid=i, prompt=p.copy(), max_new_tokens=4) for i, p in enumerate(prompts)]
+    enqueued = [eng.submit(r) for r in reqs]
+    return enqueued, eng.run().summary(), reqs
 
 
 TIMING = ("decode_tokens_per_s",)
@@ -114,12 +114,29 @@ def test_submit_and_summary_match_reference_on_one_trace(weights, rng):
     the same value (block use and utilisation included)."""
     jp, tp = weights
     prompts = [rng.integers(0, JCFG.vocab_size, n).astype(np.int32) for n in (12, 30, 20)]
-    jq, js = _serve(JEngine, JRequest, JCFG, jp, prompts)
-    tq, ts = _serve(TEngine, TRequest, TCFG, tp, prompts, device="cpu")
+    jq, js, _ = _serve(JEngine, JRequest, JCFG, jp, prompts)
+    tq, ts, _ = _serve(TEngine, TRequest, TCFG, tp, prompts, device="cpu")
     assert jq == [True] * 3 and all(q is True for q in tq)
     shared = sorted(k for k in set(js) & set(ts) if not _timing(k))
     assert "block_utilization" in shared and "peak_blocks_in_use" in shared
     assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
+
+
+def test_request_stats_match_reference_on_one_trace(weights, rng):
+    """`Request.stats()` and `Request.queue_wait_s` (ROADMAP C.5): both
+    engines' requests report the same keys, the same values apart from the
+    two times, and times that are set and consistent (the wait ends before
+    the first token); a request not yet admitted has no wait."""
+    jp, tp = weights
+    prompts = [rng.integers(0, JCFG.vocab_size, n).astype(np.int32) for n in (12, 30, 20)]
+    _, _, jr = _serve(JEngine, JRequest, JCFG, jp, prompts)
+    _, _, tr = _serve(TEngine, TRequest, TCFG, tp, prompts, device="cpu")
+    for j, t in zip(jr, tr):
+        js, ts = j.stats(), t.stats()
+        assert ts.keys() == js.keys()
+        assert {k: ts[k] for k in ts if not _timing(k)} == {k: js[k] for k in js if not _timing(k)}
+        assert 0.0 <= ts["queue_wait_s"] <= ts["ttft_s"] and ts["queue_wait_s"] == t.queue_wait_s
+    assert TRequest(rid=9, prompt=prompts[0]).queue_wait_s is None
 
 
 def test_summary_sharded_keys_and_rounding_match_reference():

@@ -500,17 +500,17 @@ def test_allocator_matches_reference_pop_order(n_shards):
 
 
 def test_ctx_validation(engine_weights, world1):
-    """An uneven split, a mismatched backend, host spill over more than one
-    rank and the knobs of later slices raise; so does a multi-rank world
-    without a store."""
+    """An uneven split, a mismatched backend and host spill over more than
+    one rank raise; so does a multi-rank world without a store. Prefix
+    sharing builds on a block-sharded pool, as in the reference."""
     _, tp = engine_weights
     three = DecodeCtx(world1.group, 0, 3, "gloo")
     with pytest.raises(ValueError, match="divide evenly"):
         TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, num_blocks=8, device="cpu",
                 ctx=three)
-    with pytest.raises(NotImplementedError):
-        TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, device="cpu", ctx=world1,
-                prefix_sharing=True)
+    eng = TEngine(TCFG, tp, max_seq=64, paged=True, block_size=16, device="cpu", ctx=world1,
+                  prefix_sharing=True)
+    assert eng.prefix_sharing and eng.ctx is world1
     # the reference's rule: host spill needs selection histograms, which the
     # island does not record, so a pool over more than one rank refuses it
     two = DecodeCtx(world1.group, 0, 2, "gloo")

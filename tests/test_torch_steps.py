@@ -29,20 +29,26 @@ CFG_PADDED = dataclasses.replace(CFG, vocab_size=CFG.padded_vocab - 12)
 POOLS = {"contiguous": dict(paged=False),
          "int8": dict(paged=True, block_size=16, num_blocks=12),
          "fp16": dict(paged=True, block_size=16, num_blocks=12, kv_pool_dtype="fp16"),
-         "int4": dict(paged=True, block_size=16, num_blocks=12, kv_pool_dtype="int4")}
+         "int4": dict(paged=True, block_size=16, num_blocks=12, kv_pool_dtype="int4"),
+         # two identical prompts on shared blocks: the engine's ticks copy the
+         # shared cursor block between ticks (copy on write)
+         "int8 shared": dict(paged=True, block_size=16, num_blocks=12, prefix_sharing=True)}
 # three ticks: both slots, the first alone, the second alone
 ACTIVE = ([True, True], [True, False], [False, True])
 
 
 def _engine(cfg, pool: str, seed: int = 0) -> ServingEngine:
     """An engine of 2 slots × 128 positions holding prompts of 40 and 70
-    tokens (admitted, not yet decoded)."""
+    tokens (admitted, not yet decoded); with prefix sharing, two identical
+    prompts of 40 tokens on the same 3 blocks."""
     params = init_lm_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     eng = ServingEngine(cfg, params, max_seq=128, slots=2, device="cpu", **POOLS[pool])
     rng = np.random.default_rng(seed)
-    for i, n in enumerate((40, 70)):
-        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                           max_new_tokens=8))
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 70)]
+    if eng.paged and eng.prefix_sharing:
+        prompts[1] = prompts[0].copy()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
     eng._admit()
     return eng
 
@@ -63,11 +69,16 @@ def _state_tensors(state) -> dict:
 
 def _rebound_after_ticks(eng) -> list:
     """The state tensors whose storage moved over three ticks of
-    `lm_decode_step` with slots going active and inactive."""
+    `lm_decode_step` with slots going active and inactive; with prefix
+    sharing, over three of the engine's own ticks, so that the copy on
+    write between them is covered."""
     where = {k: t.untyped_storage().data_ptr() for k, t in _state_tensors(eng._state).items()}
     for act in ACTIVE:
-        transformer.lm_decode_step(eng.params, eng.cfg, eng._state,
-                                   torch.from_numpy(eng._tokens.copy()), torch.tensor(act))
+        if eng.paged and eng.prefix_sharing:
+            eng._tick()
+        else:
+            transformer.lm_decode_step(eng.params, eng.cfg, eng._state,
+                                       torch.from_numpy(eng._tokens.copy()), torch.tensor(act))
     now = _state_tensors(eng._state)
     assert now.keys() == where.keys()
     return sorted(k for k, t in now.items() if t.untyped_storage().data_ptr() != where[k])
@@ -75,8 +86,11 @@ def _rebound_after_ticks(eng) -> list:
 
 @pytest.mark.parametrize("pool", list(POOLS))
 def test_ticks_update_every_state_tensor_in_place(pool):
-    eng = _engine(CFG, pool)
+    cfg = dataclasses.replace(CFG, salca_static_channels=True) if "shared" in pool else CFG
+    eng = _engine(cfg, pool)
     assert _rebound_after_ticks(eng) == []
+    if "shared" in pool:
+        assert eng.stats.shared_blocks == 3 and eng.stats.cow_copies == 1
 
 
 def test_in_place_check_catches_an_injected_rebinding(monkeypatch):
