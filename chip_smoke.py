@@ -68,10 +68,24 @@ Phases (any failure raises and the script exits non-zero):
    row bit for bit, the same launches per tick), then shared again over
    the one-rank nccl world (tokens identical); the sharing counts must be
    the ones the lengths give (SHARED_COUNTS), and the one copy on write is
-   profiled (launches, ms).
+   profiled (launches, ms). Then continuous batching (chunked prefill and
+   preemption), the model with ``salca_static_channels``, the main path's
+   prompts and SCHED_NEW new tokens: (a) monolithic admission, requests 2
+   and 3 submitted after the SCHED_LATE_TICK-th tick, driven by the
+   engine's `_admit` / `_tick`; (b) the same arrivals with
+   ``prefill_chunk=SCHED_CHUNK`` (B3 at ``q_offset`` > 0); (c)
+   ``preempt=True`` on SCHED_PREEMPT_BLOCKS blocks; (d) both on
+   SCHED_CHUNK_PREEMPT_BLOCKS blocks (the in-flight prefill is preempted);
+   (e) = (d) over the one-rank nccl world. (b), (c) and (d) must give (a)'s
+   greedy tokens and every logits row bit for bit (a replayed token's
+   rows included), (e) its tokens; (c)-(e) no overflow and preemptions,
+   (c) replayed tokens, (d) and (e) chunk stalls, every pool drained. It
+   prints the largest gap between fresh tokens of requests 0 and 1 while
+   the late prompts prefill, TTFT, ms per tick, peak memory and the
+   counts.
 
 It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all twelve runs) and, last, the
+its path, and ``launches_per_call`` over all seventeen runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -122,6 +136,20 @@ SHARED_PREFIX, SHARED_TAIL, SHARED_BLOCKS = 2048, 522, 128
 # 17 + 0 + the copy
 SHARED_COUNTS = dict(shared_blocks=209, prefix_hits=3, cow_copies=1,
                      effective_blocks_saved=208, peak_blocks_in_use=116)
+# continuous batching at full width: the model with salca_static_channels,
+# the main path's prompts (64, 96, 128 and 80 blocks of 32) and SCHED_NEW
+# new tokens, so that request 0's growth crosses a second block boundary
+# (positions 2048 and 2080) mid-run. SCHED_CHUNK is a multiple of B3's
+# 64-row query tile; it leaves ragged last chunks on 2048, 4096 and 2560.
+SCHED_NEW, SCHED_CHUNK, SCHED_LATE_TICK = 40, 384, 5
+# (c) monolithic admission: 64 + 96 + 128 blocks fill the pool, request 3
+# waits; the first tick's growth (request 0 at 2048) preempts request 2, an
+# active request with one recorded token
+SCHED_PREEMPT_BLOCKS = 288
+# (d) chunked: requests 0 and 1 active on 65 + 97 blocks, request 2's ten
+# chunks take the last 120 and its eleventh stalls; request 0's growth at
+# 2080 finds the pool dry and preempts the in-flight prefill
+SCHED_CHUNK_PREEMPT_BLOCKS = 282
 
 
 def gpu_line() -> str:
@@ -1025,6 +1053,19 @@ def shared_prefix_requests(vocab_size: int):
     return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
 
 
+def warm_up(cfg, params, dev, ctx, serve: dict) -> None:
+    """Serve one short request on a separate engine built like the measured
+    one: module loading, cuBLAS handles, the first all-reduce's communicator."""
+    import torch
+    from repro_torch.runtime.serve import Request, ServingEngine
+    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
+        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+
 def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run=False,
                     shared_prefix=False, **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
@@ -1063,15 +1104,8 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     serve = dict(SERVE, paged=paged, **engine_kw)
     building = eager if eager_run else contextlib.nullcontext
 
-    # warm-up on a separate engine (module loading, cuBLAS handles, the
-    # communicator of the first all-reduce)
     with building():
-        warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
-    warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
-        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
-    warm.run()
-    del warm
-    torch.cuda.synchronize()
+        warm_up(cfg, params, dev, ctx, serve)
 
     with building():
         engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
@@ -1391,6 +1425,213 @@ def check_prefix_sharing(dev, ctx, runs: dict) -> None:
           flush=True)
 
 
+def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
+    """Phase 4's continuous-batching runs: full-width qwen3-0.6b with
+    ``salca_static_channels``, the main path's prompts, SCHED_NEW new tokens,
+    ``engine_kw`` (``prefill_chunk``, ``preempt``, ``num_blocks``). ``late``:
+    requests 0 and 1 are submitted at the start and requests 2 and 3 after
+    the SCHED_LATE_TICK-th tick, the engine driven by its own `_admit` and
+    `_tick` (the reference battery's way); otherwise all four at the start
+    and `run`. Every kernel's launch counter is set to 0 just before the run
+    and read just after. Returns the launches, the summary (with per
+    request TTFT and the largest gap between consecutive fresh tokens after
+    the capture tick — with ``late``, while the late prompts prefill — ms
+    per tick, peak memory, B3's launches at ``q_offset`` > 0), the tokens,
+    and every logits row each token was drawn from, per (request, index),
+    in the order drawn (a replay draws a row again)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import attention
+    from repro_torch.runtime.serve import Request, ServingEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = main_path_model(dev)
+    cfg = dataclasses.replace(cfg, salca_static_channels=True)
+    serve = dict(SERVE, **engine_kw)
+    warm_up(cfg, params, dev, ctx, serve)
+
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
+    rows: dict = {}
+    tick_ms, tick_end = [], []
+    orig_decode, orig_activate = engine._decode, engine._activate
+
+    def decode(*a):
+        who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
+        t0 = time.perf_counter()
+        nxt, logits = orig_decode(*a)
+        host = logits.to("cpu", non_blocking=True)
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        tick_end.append(time.time())
+        for slot, rid, j in who:
+            rows.setdefault((rid, j), []).append(host[slot])
+        return nxt, logits
+
+    def activate(req, slot, logits_row):
+        rows.setdefault((req.rid, len(req.output)), []).append(torch.from_numpy(logits_row))
+        return orig_activate(req, slot, logits_row)
+
+    offsets = []
+    real_attn = attention.flash_attention_chunked
+
+    def chunked_attn(q, k, v, *, q_offset, **kw):
+        offsets.append(q_offset)
+        return real_attn(q, k, v, q_offset=q_offset, **kw)
+
+    engine._decode, engine._activate = decode, activate
+    attention.flash_attention_chunked = chunked_attn
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SCHED_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_start = time.time()
+    try:
+        if late:
+            for r in reqs[:2]:
+                r.submitted = time.time()
+                engine.submit(r)
+            t_late = None
+            while engine._queue or engine._active or engine._inflight is not None:
+                engine._admit()
+                if engine._active:
+                    engine._tick()
+                if t_late is None and engine.stats.ticks >= SCHED_LATE_TICK:
+                    t_late = time.time()
+                    for r in reqs[2:]:
+                        r.submitted = t_late
+                        engine.submit(r)
+        else:
+            for r in reqs:
+                r.submitted = time.time()
+                engine.submit(r)
+            engine.run()
+    finally:
+        attention.flash_attention_chunked = real_attn
+    torch.cuda.synchronize()
+    wall = time.time() - t_start
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = engine.stats
+    summary = stats.summary()
+    assert stats.completed == len(reqs), summary
+    assert all(len(r.output) == SCHED_NEW and r.stop_reason == "length" for r in reqs), summary
+    assert all(bool(torch.isfinite(x).all()) for rs in rows.values() for x in rs), \
+        "non-finite logits on the continuous-batching path"
+    assert sorted(engine._free_blocks) == list(range(engine.num_blocks)) and \
+        not engine._refcount.any(), "the pool did not drain"
+    nl = cfg.num_layers
+    tick_kernels = (("paged_score_estimate", "sparse_flash_decode_paged") if ctx is None else
+                    ("paged_score_bounds", "paged_fused_select",
+                     "sparse_flash_decode_paged_partials"))
+    want = {k: nl * stats.ticks for k in tick_kernels}
+    want["flash_prefill"] = nl * (stats.prefill_chunks if engine.prefill_chunk else
+                                  stats.admissions)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    if len(offsets) != want["flash_prefill"]:
+        raise AssertionError(f"B3 calls {len(offsets)} != its launches {want['flash_prefill']}")
+    if engine._step.graphed != (ctx is None):
+        raise AssertionError("every unsharded tick after the first must replay a CUDA graph")
+    # gaps between fresh tokens after the capture tick; with late arrivals,
+    # those that overlap the late prompts' prefills
+    lo = tick_end[1] if late is False else t_late
+    hi = max(r.first_token_time for r in reqs[2:]) if late else float("inf")
+    gaps = []
+    for r in reqs:
+        t = r.token_times
+        gaps.append(max((1e3 * (b - a) for a, b in zip(t, t[1:]) if b > lo and a < hi),
+                        default=0.0))
+    summary.update(wall_s=wall, peak_mem_gb=peak, ttft_s=[r.ttft_s for r in reqs],
+                   max_gap_ms=gaps, b3_q_offset_launches=sum(o > 0 for o in offsets),
+                   graphed=engine._step.graphed, tick_ms=tick_ms,
+                   tick_ms_median=float(np.median(tick_ms[2:] if engine._step.graphed
+                                                  else tick_ms)),
+                   preempted=[r.preemptions for r in reqs])
+    return dict(launches=launches, summary=summary, tokens=[r.output for r in reqs], rows=rows)
+
+
+def compare_scheduled(label: str, base: dict, other: dict) -> int:
+    """A continuous-batching run against run (a), the monolithic twin: the
+    same greedy tokens, and every logits row the run drew (a replayed
+    token's twice) bit for bit equal to (a)'s row for the same request and
+    index. Returns the rows compared."""
+    import torch
+    where = first_divergence(base["tokens"], other["tokens"])
+    if where is not None:
+        raise AssertionError(f"{label}: greedy tokens part from (a)'s at (request, token) "
+                             f"{where}")
+    n, differ, worst = 0, [], 0.0
+    for key, rs in other["rows"].items():
+        want = base["rows"][key][0]
+        for r in rs:
+            n += 1
+            if not torch.equal(r, want):
+                differ.append(key)
+                worst = max(worst, float((r.float() - want.float()).abs().max())
+                            / bf16_ulp(want))
+    if differ:
+        raise AssertionError(f"{label}: {len(differ)} of {n} logits rows differ from (a)'s, "
+                             f"first at (request, token) {min(differ)}, up to {worst:.3g} "
+                             f"bf16 ulps")
+    return n
+
+
+def check_scheduler(dev, ctx, runs: dict) -> None:
+    """Phase 4's continuous-batching runs (module docstring); adds their
+    launch counts to ``runs``."""
+    a = serve_scheduler(dev, late=True)
+    b = serve_scheduler(dev, late=True, prefill_chunk=SCHED_CHUNK)
+    c = serve_scheduler(dev, preempt=True, num_blocks=SCHED_PREEMPT_BLOCKS)
+    d = serve_scheduler(dev, prefill_chunk=SCHED_CHUNK, preempt=True,
+                        num_blocks=SCHED_CHUNK_PREEMPT_BLOCKS)
+    e = serve_scheduler(dev, ctx, prefill_chunk=SCHED_CHUNK, preempt=True,
+                        num_blocks=SCHED_CHUNK_PREEMPT_BLOCKS)
+    labels = {"a": "(a) monolithic, late arrivals, 1,024 blocks",
+              "b": f"(b) prefill_chunk={SCHED_CHUNK}, late arrivals, 1,024 blocks",
+              "c": f"(c) preempt, {SCHED_PREEMPT_BLOCKS} blocks",
+              "d": f"(d) prefill_chunk={SCHED_CHUNK} + preempt, "
+                   f"{SCHED_CHUNK_PREEMPT_BLOCKS} blocks",
+              "e": "(e) = (d), sharded (one rank, nccl)"}
+    keys = ("prefill_chunks", "chunk_stalls", "preemptions", "replayed_tokens", "overflows",
+            "admissions", "ticks", "peak_blocks_in_use", "preempted", "b3_q_offset_launches",
+            "max_gap_ms", "ttft_s", "tick_ms_median", "decode_ms_per_tick", "peak_mem_gb",
+            "wall_s")
+    for name, res in zip("abcde", (a, b, c, d, e)):
+        sm = res["summary"]
+        runs[f"sched {name}"] = res["launches"]
+        print(f"scheduler {labels[name]}: {json.dumps({k: sm[k] for k in keys})}", flush=True)
+        print(f"serve stats scheduler {name}: {json.dumps(sm)}", flush=True)
+    for name, res, gate in (("c", c, ("preemptions", "replayed_tokens")),
+                            ("d", d, ("preemptions", "chunk_stalls")),
+                            ("e", e, ("preemptions", "chunk_stalls"))):
+        sm = res["summary"]
+        if sm["overflows"] or not all(sm[k] > 0 for k in gate):
+            raise AssertionError(f"scheduler ({name}): overflows {sm['overflows']}, "
+                                 f"{ {k: sm[k] for k in gate} }: needs 0 and > 0")
+    if not (b["summary"]["prefill_chunks"] > len(PROMPTS)
+            and b["summary"]["b3_q_offset_launches"] > 0):
+        raise AssertionError("scheduler (b): the prompts were not chunked")
+    compared = {name: compare_scheduled(labels[name], a, res)
+                for name, res in (("b", b), ("c", c), ("d", d))}
+    if first_divergence(a["tokens"], e["tokens"]) is not None:
+        raise AssertionError(f"scheduler (e): tokens part from (a)'s at (request, token) "
+                             f"{first_divergence(a['tokens'], e['tokens'])}")
+    sa, sb = a["summary"], b["summary"]
+    print(f"scheduler: (b), (c), (d) against (a): greedy tokens identical, logits rows bit "
+          f"for bit {json.dumps(compared)}; (e) tokens identical. Largest gap between fresh "
+          f"tokens of requests 0 and 1 while requests 2 and 3 prefill: (a) "
+          f"{sa['max_gap_ms'][0]:.1f} / {sa['max_gap_ms'][1]:.1f} ms, (b) "
+          f"{sb['max_gap_ms'][0]:.1f} / {sb['max_gap_ms'][1]:.1f} ms; TTFT of requests 2 and 3: "
+          f"(a) {sa['ttft_s'][2]:.3f} / {sa['ttft_s'][3]:.3f} s, (b) {sb['ttft_s'][2]:.3f} / "
+          f"{sb['ttft_s'][3]:.3f} s; replay ms (median) (a) {sa['tick_ms_median']:.2f}, (b) "
+          f"{sb['tick_ms_median']:.2f}; peak memory GB (a) {sa['peak_mem_gb']:.3f}, (b) "
+          f"{sb['peak_mem_gb']:.3f}", flush=True)
+
+
 def print_serve(label: str, summary: dict) -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -1488,6 +1729,7 @@ def main() -> int:
     runs["int4 spill"], summary_sp, _, _ = serve_main_path(dev, probe=SpillProbe(), **SPILL_RUN)
     print_serve(f"paged int4 + host spill {json.dumps(SPILL_RUN)}", summary_sp)
     check_prefix_sharing(dev, ctx, runs)
+    check_scheduler(dev, ctx, runs)
     # each kernel's launches on the run of its path (B10/B11: their phase-3 drive)
     home = {"sparse_flash_decode_paged[fp16]": "fp16",
             "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",

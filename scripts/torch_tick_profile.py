@@ -2,7 +2,7 @@
 """Where a decode tick of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded | --contiguous]
-        [--kv-dtype int8|fp16|int4] [--prefill] [--eager]
+        [--kv-dtype int8|fp16|int4] [--prefill [--chunk N]] [--eager]
 
 Serves the main path of chip_smoke.py (its model, engine settings and
 requests, imported from there) — the paged tick; with ``--sharded`` the
@@ -21,7 +21,10 @@ the peak device memory, the kernels with the most device time and the
 host operators with the most self CPU time. With
 ``--prefill`` it profiles the admission of the four prompts in place of the
 ticks (after a warm-up admission of a 64-token prompt on another engine),
-and every number is per prefill. Needs a CUDA device.
+and every number is per prefill; ``--chunk N`` admits them by chunks of N
+tokens (``prefill_chunk=N``, the model with ``salca_static_channels``, as
+chip_smoke's continuous-batching runs) and every number is per chunk. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -62,15 +65,20 @@ def main() -> int:
                     help="the paged pool's K/V storage")
     ap.add_argument("--prefill", action="store_true",
                     help="profile the four prompts' prefills (their admission), not ticks")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="with --prefill: admit by chunks of this many tokens")
     ap.add_argument("--eager", action="store_true",
                     help="build the engine under steps.eager(): no CUDA graph of the tick")
     args = ap.parse_args()
     if args.contiguous and args.kv_dtype != "int8":
         ap.error("--kv-dtype names the paged pool's storage")
+    if args.chunk is not None and not args.prefill:
+        ap.error("--chunk profiles a chunked prefill: it needs --prefill")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     import contextlib
+    import dataclasses
 
     import numpy as np
     from chip_smoke import NEW_TOKENS, SERVE, main_path_model, main_path_requests
@@ -87,6 +95,9 @@ def main() -> int:
     ctx = init_decode_ctx(dev) if args.sharded else None
     serve = dict(SERVE, paged=not args.contiguous,
                  **({} if args.contiguous else {"kv_pool_dtype": args.kv_dtype}))
+    if args.chunk is not None:
+        cfg = dataclasses.replace(cfg, salca_static_channels=True)
+        serve.update(prefill_chunk=args.chunk)
     with eager() if args.eager else contextlib.nullcontext():
         engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     reqs = main_path_requests(cfg.vocab_size)
@@ -96,7 +107,8 @@ def main() -> int:
         warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
         warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
             0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
-        warm._admit()
+        while warm._queue or warm._inflight is not None:
+            warm._admit()
         del warm
         steps, unit = len(reqs), "prefill"
     else:
@@ -109,7 +121,11 @@ def main() -> int:
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        if args.prefill:
+        if args.chunk is not None:     # one chunk per pass, no tick between them
+            while engine._queue or engine._inflight is not None:
+                engine._admit()
+            steps, unit = engine.stats.prefill_chunks, "chunk"
+        elif args.prefill:
             engine._admit()
         else:
             for _ in range(args.ticks):
@@ -135,6 +151,7 @@ def main() -> int:
     out = {"tick": tick, "kv_pool_dtype": None if args.contiguous else args.kv_dtype,
            "profiled": f"{steps} {unit}s" + (f" (prompts {[len(r.prompt) for r in reqs]})"
                                              if args.prefill else ""),
+           "prefill_chunk": args.chunk,
            f"wall_ms_per_{unit}": wall * 1e3,
            f"device_ms_per_{unit}": device_us / steps / 1e3,
            "device_busy_share": device_us / 1e3 / steps / (wall * 1e3),

@@ -3,7 +3,8 @@
 Port of the reference `core/cache.py`: the contiguous int8 cache
 (`SalcaCache`: a prefill's cache, and the slot pool of the contiguous
 engine with its primitives) and the paged block pool (`PagedSalcaCache`
-and its primitives) in its three storage modes, ``kv_pool_dtype``:
+and its primitives, the chunked prefill's streaming install among them)
+in its three storage modes, ``kv_pool_dtype``:
 
 * ``"int8"`` — int8 codes (P, BS, KV, HD) with per-token scales (P, BS, KV);
 * ``"fp16"`` — f16 values (P, BS, KV, HD) with unit per-block scales
@@ -470,6 +471,64 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     pool.page_table[slot] = pages
     _refcount_add(pool.refcount, pages, +1)
     pool.sel_hist[slot] = 0
+    return pool
+
+
+def prefill_chunk_into_pages(pool: PagedSalcaCache, k: torch.Tensor, v: torch.Tensor,
+                             heavy_idx: torch.Tensor, slot: int, pages, start: int,
+                             n_shared: int = 0, block_range=None) -> PagedSalcaCache:
+    """Stream one prefill chunk's raw K/V (1, C, KV, HD), logical positions
+    [start, start+C), into a partially filled slot (reference
+    `prefill_chunk_into_pages`). ``heavy_idx`` (1, KV, R) is the static
+    heavy set (chunked prefill needs ``salca_static_channels``). Encoding is
+    per token (`_encode_tokens`), so the rows equal those a monolithic
+    `prefill_into_pages` of the prompt writes, bit for bit. In place: the
+    graphed tick reads these tensors where it captured them.
+
+    ``pages`` (MB,) is the page row mapped so far: the ``n_shared`` shared
+    prefix blocks (mapped, never written), a physical id for every fresh
+    block covered through this chunk, -1 beyond. The row is replaced whole.
+    The refcount counts every shared block on the first chunk (start 0) and
+    each fresh block on the chunk that first covers it, so a preemption's
+    `free_pages` undoes exactly what was charged. ``length`` is set to
+    start+C: a tick rewrites a masked slot's length, so the engine carries
+    the cursor in ``start``, never in the pool. int8 and fp16 pools; int4
+    raises, as in the reference (its per-block scale is not
+    chunk-incremental). With ``block_range`` (a block-sharded rank) only
+    the owned blocks are written; page table and refcount take global ids."""
+    if pool.kv_pool_dtype == "int4":
+        raise ValueError("chunked prefill does not support int4 pools "
+                         "(per-block requantization is not chunk-incremental)")
+    if k.shape[0] != 1:
+        raise ValueError(f"chunk must have batch 1, got {k.shape[0]}")
+    bs, mb = pool.block_size, pool.max_blocks
+    c = k.shape[1]
+    dev = pool.refcount.device
+    pages = torch.as_tensor(pages, dtype=torch.int32).to(dev)
+    k8, v8, words, fs, fz = _encode_tokens(k, v, heavy_idx)
+    rows = start + torch.arange(c, device=dev)
+    blk = torch.clamp_max(torch.div(rows, bs, rounding_mode="floor"), mb - 1)
+    pg = _localize_pages(pages, block_range)[blk]
+    tgt = torch.where((pg >= 0) & (blk >= n_shared), pg, pool.sink).long()
+    off = torch.remainder(rows, bs)
+    vals = {"feat_words": words, "feat_scale": fs, "feat_zero": fz}
+    if pool.kv_pool_dtype == "int8":
+        vals.update(k_codes=k8.codes, k_scale=k8.scale, v_codes=v8.codes, v_scale=v8.scale)
+    else:             # fp16: the dequantized int8 rows; the unit scales stay
+        vals.update(k_codes=k8.codes.float() * k8.scale[..., None],
+                    v_codes=v8.codes.float() * v8.scale[..., None])
+    for f, val in vals.items():
+        pool.data[f][tgt, off] = val[0].to(pool.data[f].dtype)
+    first = start == 0
+    bidx = torch.arange(mb, device=dev)
+    newly = (bidx >= n_shared) & (bidx >= -(-start // bs)) & (bidx < -(-(start + c) // bs))
+    if first:
+        newly |= bidx < n_shared
+        pool.heavy_idx[slot] = heavy_idx[0]
+        pool.sel_hist[slot] = 0
+    _refcount_add(pool.refcount, torch.where(newly, pages, PAGE_UNMAPPED), +1)
+    pool.length[slot] = start + c
+    pool.page_table[slot] = pages
     return pool
 
 

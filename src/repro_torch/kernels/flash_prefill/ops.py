@@ -1,11 +1,13 @@
 """Kernel B3: dense causal flash attention for prefill, and its plain version.
 
 Replaces `repro/kernels/flash_prefill/kernel.py::flash_attention_pallas`
-(the JAX model runs its XLA twin `models/attention.py::flash_attention_xla`).
-Query rows sit at absolute positions [q_offset, q_offset+T) over keys
-[0, S); ``window`` > 0 keeps only keys with ``kpos > qpos - window``. GQA
-is index arithmetic: query row-group bh reads K/V row-group bh // G.
-CUDA source: ``repro_torch/csrc/flash_prefill.cu``.
+(the JAX model runs its XLA twin `models/attention.py::flash_attention_xla`)
+and, for chunked prefill, the reference's `flash_attention_chunked`
+(`repro/kernels/flash_prefill/ops.py`). Query rows sit at absolute
+positions [q_offset, q_offset+T) over keys [0, S); ``window`` > 0 keeps
+only keys with ``kpos > qpos - window``. GQA is index arithmetic: query
+row-group bh reads K/V row-group bh // G. CUDA source:
+``repro_torch/csrc/flash_prefill.cu``.
 """
 
 from __future__ import annotations
@@ -71,3 +73,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     common.check(err, "flash_prefill")
     common.LAUNCHES["flash_prefill"] += 1
     return out
+
+
+def flash_attention_chunked(q, k, v, *, q_offset: int, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """Chunked-prefill attention: a chunk of queries q (BH, C, HD) at
+    absolute positions [q_offset, q_offset+C) over the prompt's key buffers
+    k/v (BKV, S, HD), filled through row q_offset+C (later rows are never
+    weighed: B3 stops at the chunk's last query position, the plain version
+    masks them). Each output row equals the row at the same position of
+    `flash_attention` over the whole prompt: the row visits the same key
+    tiles in the same order, and a masked key adds an exact zero."""
+    if k.shape[1] < q_offset + q.shape[1]:
+        raise ValueError(f"chunk at [{q_offset}, {q_offset + q.shape[1]}) needs keys through "
+                         f"its last position; the buffer holds {k.shape[1]}")
+    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -1,4 +1,5 @@
-"""GQA attention layer: QKV projection and prefill attention through kernel B3.
+"""GQA attention layer: QKV projection and prefill attention through kernel B3,
+whole or by chunks.
 
 Port of the reference `models/attention.py` for the serving path. Weight
 layouts are the reference's: wq (D, H, HD), wk/wv (D, KV, HD), wo (H·HD, D).
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_prefill.ops import flash_attention
+from repro_torch.kernels.flash_prefill.ops import flash_attention_chunked
 from repro_torch.models.common import rmsnorm, rope
 
 
@@ -30,15 +31,20 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
+def fold_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, N, HD) → (B·N, T, HD), contiguous: kernel B3's operand layout."""
+    b, t, n, hd = x.shape
+    return x.transpose(1, 2).reshape(b * n, t, hd).contiguous()
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0) -> torch.Tensor:
-    """Causal attention of q (B, T, H, HD) over k/v (B, T, KV, HD) through
-    kernel B3 in its (B·H, T, HD) layout. Returns (B, T, H, HD), q dtype."""
+                      window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Causal attention of q (B, T, H, HD), at absolute positions
+    [q_offset, q_offset+T), over keys k/v (B·KV, S, HD) in B3's layout
+    (`fold_heads`), filled through row q_offset+T: the whole prompt
+    (q_offset 0, S = T) or one chunk of it over the prompt's buffers
+    (`flash_attention_chunked`). Returns (B, T, H, HD), q dtype."""
     b, t, h, hd = q.shape
-    kv = k.shape[2]
-
-    def fold(x, n):
-        return x.transpose(1, 2).reshape(b * n, t, hd).contiguous()
-
-    o = flash_attention(fold(q, h), fold(k, kv), fold(v, kv), causal=True, window=window)
+    o = flash_attention_chunked(fold_heads(q), k, v, q_offset=q_offset, causal=True,
+                                window=window)
     return o.reshape(b, h, t, hd).transpose(1, 2)

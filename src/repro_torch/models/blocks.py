@@ -3,8 +3,8 @@
 Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the static heavy set of
 ``salca_static_channels``, the A-block prefill (dense causal attention
-through kernel B3, then `prefill_cache`) and three branches of
-`_attn_decode` (append, Salca selection, sparse attention): over the
+through kernel B3, then `prefill_cache`), its chunked form, and three
+branches of `_attn_decode` (append, Salca selection, sparse attention): over the
 contiguous slot pool, over a paged pool on one device, or — given a
 `DecodeCtx` — over a block-sharded paged pool.
 """
@@ -24,7 +24,7 @@ from repro_torch.core.heavy_channels import top_channels
 from repro_torch.core.selection import SalcaParams
 from repro_torch.core.sp_decode import sp_dense_decode_paged, sp_salca_decode_paged
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
-from repro_torch.models.attention import prefill_attention, qkv_project
+from repro_torch.models.attention import fold_heads, prefill_attention, qkv_project
 from repro_torch.models.common import glu_apply, rmsnorm
 
 
@@ -58,13 +58,38 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int)
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     positions = torch.arange(t, device=x.device)
     q, k, v = qkv_project(params["attn"], xn, cfg, positions)
-    o = prefill_attention(q, k, v)
+    o = prefill_attention(q, fold_heads(k), fold_heads(v))
     x = x + o.reshape(x.shape[0], t, -1) @ params["attn"]["wo"]
     f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
     sp = salca_params_for(cfg, max_seq)
     cache = prefill_cache(k, v, max_seq=max_seq, params=sp,
                           heavy_idx=static_heavy_idx(params["attn"], cfg, sp, x.shape[0]))
     return x + f, cache
+
+
+def block_prefill_chunk(params: dict, x: torch.Tensor, kbuf: torch.Tensor,
+                        vbuf: torch.Tensor, t0: int, cfg: ModelConfig):
+    """One layer's chunked-prefill step (reference `block_prefill_chunk`).
+
+    ``x`` (1, C, D): the chunk's activations at positions [t0, t0+C);
+    ``kbuf``/``vbuf`` (KV, T, HD): the prompt's full-precision K/V in B3's
+    operand layout (the reference carries (1, T, KV, HD)), rows [0, t0)
+    filled by earlier chunks. The chunk's k/v land in rows [t0, t0+C) in
+    place, and its queries attend over the whole buffers with the causal
+    mask shifted by t0: each row equals `block_prefill`'s row at the same
+    position (`flash_attention_chunked`). Returns (x_out, kbuf, vbuf, k, v)
+    with the chunk's raw k/v (1, C, KV, HD) for the pool install
+    (`cache.prefill_chunk_into_pages`)."""
+    c = x.shape[1]
+    xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    positions = t0 + torch.arange(c, device=x.device)
+    q, k, v = qkv_project(params["attn"], xn, cfg, positions)
+    kbuf[:, t0:t0 + c] = k[0].transpose(0, 1)
+    vbuf[:, t0:t0 + c] = v[0].transpose(0, 1)
+    o = prefill_attention(q, kbuf, vbuf, q_offset=t0)
+    x = x + o.reshape(1, c, -1) @ params["attn"]["wo"]
+    f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
+    return x + f, kbuf, vbuf, k, v
 
 
 def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,

@@ -27,6 +27,14 @@ class ModelAPI(NamedTuple):
     read_block: Callable[..., Any]         # (pool, page) -> payload (storage format)
     write_block: Callable[..., Any]        # (pool, page, payload) -> pool
     selection_hist: Callable[..., Any]     # (pool) -> (slots, MB) int32
+    # chunked prefill: a cursor, one budgeted chunk streamed into the paged
+    # pool, and why a config cannot use it; the static heavy sets by layer
+    prefill_begin: Callable[..., Any]      # (t_total, device) -> cursor
+    prefill_chunk: Callable[..., Any]      # (params, pool, tokens, cursor, slot, pages,
+    #                                         n_shared, max_seq, *, final, ctx)
+    #                                         -> (logits | None, pool, cursor)
+    prefill_chunk_unsupported: Callable[..., Any]   # () -> str | None
+    static_heavy: Callable[..., Any]       # (params, max_seq) -> per-layer sets | None
 
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
@@ -57,9 +65,24 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         return transformer.lm_init_paged_state(cfg, slots, max_seq, block_size,
                                                num_blocks, device, ctx)
 
+    def prefill_begin(t_total, device):
+        return transformer.lm_prefill_begin(cfg, t_total, device)
+
+    def prefill_chunk(params, pool, tokens, cursor, slot, pages, n_shared, max_seq, *,
+                      final, ctx=None):
+        return transformer.lm_prefill_chunk(params, cfg, pool, tokens, cursor, slot, pages,
+                                            n_shared, max_seq, final=final, ctx=ctx)
+
+    def prefill_chunk_unsupported():
+        return transformer.lm_prefill_chunk_unsupported(cfg)
+
+    def static_heavy(params, max_seq):
+        return transformer.lm_static_heavy(params, cfg, max_seq)
+
     return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
                     init_paged_state, transformer.lm_write_into_slot,
                     transformer.lm_map_block, transformer.lm_share_blocks,
                     transformer.lm_cow_block, transformer.lm_reset_slot,
                     transformer.lm_read_block, transformer.lm_write_block,
-                    transformer.lm_selection_hist)
+                    transformer.lm_selection_hist, prefill_begin, prefill_chunk,
+                    prefill_chunk_unsupported, static_heavy)

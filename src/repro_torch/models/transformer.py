@@ -1,5 +1,5 @@
-"""Decoder-only LM over a stack of "A" blocks: prefill, pooled decode
-state (contiguous slot pool or paged) and the decode step.
+"""Decoder-only LM over a stack of "A" blocks: prefill (whole or by chunks),
+pooled decode state (contiguous slot pool or paged) and the decode step.
 
 Port of the reference `models/transformer.py` for the dense LM. Where the
 reference scans stacked per-period states, the port keeps a Python list
@@ -15,8 +15,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
     PagedSalcaCache, cow_block, empty_cache, empty_paged_cache, free_pages, map_block,
-    prefill_into_pages, read_block_rows, reset_slot, share_blocks, write_block_rows,
-    write_prefill_into_slot)
+    prefill_chunk_into_pages, prefill_into_pages, read_block_rows, reset_slot, share_blocks,
+    write_block_rows, write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -43,6 +43,91 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: in
     logits = vocab_mask_logits(lm_logits(params["embed"], h[:, -1], cfg), cfg)
     pos = torch.full((h.shape[0],), tokens.shape[1], dtype=torch.int32, device=h.device)
     return logits, LMState(caches, pos)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (reference `models/transformer.py`, "Chunked prefill"): a
+# prompt streams into its paged slot in C-token chunks between decode ticks.
+# Each chunk attends over full-precision K/V buffers carried from chunk to
+# chunk (not the quantized pool), so every activation row, the final logits
+# and every pool row equal the monolithic `lm_prefill`'s.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PrefillCursor:
+    """One request's chunked prefill in flight (batch 1): per layer the
+    prompt's full-precision (kbuf, vbuf), each (KV, T, HD) in kernel B3's
+    operand layout (the reference: (1, T, KV, HD)), rows [0, t0) filled;
+    and ``t0``, the logical position of the next chunk."""
+    kv: list
+    t0: int = 0
+
+
+def lm_prefill_chunk_unsupported(cfg: ModelConfig) -> str | None:
+    """Why chunked prefill cannot run for ``cfg``; None when it can."""
+    if set(cfg.layer_pattern) != {"A"}:
+        return (f"layer pattern {cfg.layer_pattern!r} has non-global layers; "
+                'chunked prefill supports all-"A" stacks only')
+    if cfg.moe:
+        return "MoE routing is not guaranteed chunk-invariant"
+    if cfg.frontend != "none":
+        return "modality frontends are not supported by chunked prefill"
+    if not cfg.salca_static_channels:
+        return ("per-input heavy-channel identification needs the full "
+                "prompt's K at once; chunked prefill requires "
+                "cfg.salca_static_channels")
+    return None
+
+
+def lm_prefill_begin(cfg: ModelConfig, t_total: int, device) -> PrefillCursor:
+    """A fresh cursor for a prompt of ``t_total`` tokens: zero buffers."""
+    def buf():
+        return torch.zeros((cfg.num_kv_heads, t_total, cfg.resolved_head_dim),
+                           dtype=cdtype(cfg), device=device)
+    return PrefillCursor([(buf(), buf()) for _ in range(cfg.num_layers)])
+
+
+def lm_prefill_chunk(params: dict, cfg: ModelConfig, pool: LMState, tokens: torch.Tensor,
+                     cursor: PrefillCursor, slot: int, pages, n_shared: int, max_seq: int,
+                     *, final: bool, ctx: DecodeCtx | None = None):
+    """Advance a chunked prefill by one chunk: ``tokens`` (1, C) at logical
+    positions [t0, t0+C). Streams the chunk's K/V into row ``slot`` of every
+    layer's paged pool (`prefill_chunk_into_pages`; with ``ctx`` each rank
+    writes the blocks it owns) — the engine keeps the slot masked off until
+    the final chunk — and carries the buffers forward. Returns (logits,
+    pool, cursor): the (1, V_pad) next-token logits on the final chunk,
+    where ``pos[slot]`` is set in place to where `lm_prefill` +
+    `lm_write_into_slot` would leave it; None otherwise. In place."""
+    reason = lm_prefill_chunk_unsupported(cfg)
+    if reason is not None:
+        raise ValueError(f"chunked prefill unsupported: {reason}")
+    h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
+    t0, c = cursor.t0, tokens.shape[1]
+    sp = B.salca_params_for(cfg, max_seq)
+    pages = torch.as_tensor(pages, dtype=torch.int32).to(pool.pos.device)
+    for layer, dst, (kb, vb) in zip(params["layers"], pool.caches, cursor.kv):
+        h, _, _, k, v = B.block_prefill_chunk(layer, h, kb, vb, t0, cfg)
+        block_range = None if ctx is None else local_block_range(dst.num_blocks, ctx)
+        prefill_chunk_into_pages(dst, k, v, B.static_heavy_idx(layer["attn"], cfg, sp, 1),
+                                 slot, pages, t0, n_shared, block_range)
+    logits = None
+    if final:
+        h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        logits = vocab_mask_logits(lm_logits(params["embed"], h[:, -1], cfg), cfg)
+        pool.pos[slot] = t0 + c
+    cursor.t0 = t0 + c
+    return logits, pool, cursor
+
+
+def lm_static_heavy(params: dict, cfg: ModelConfig, max_seq: int):
+    """The static heavy sets per layer, each (1, KV, R) int32 — the layout
+    of a batch=1 prefill state's ``heavy_idx`` leaves, so the engine hashes
+    a chunked admission's sets as it hashes a monolithic one's. None
+    without ``salca_static_channels``."""
+    if not cfg.salca_static_channels:
+        return None
+    sp = B.salca_params_for(cfg, max_seq)
+    return tuple(B.static_heavy_idx(layer["attn"], cfg, sp, 1) for layer in params["layers"])
 
 
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState:
@@ -153,7 +238,8 @@ def lm_selection_hist(pool: LMState) -> torch.Tensor:
 
 def lm_reset_slot(pool: LMState, slot: int) -> LMState:
     """Free row ``slot``: caches marked empty (paged: page table unmapped and
-    blocks decref'd), the position cursor zeroed. In place."""
+    blocks decref'd), the position cursor zeroed. In place; resetting a
+    free row again changes nothing (its page-table row is unmapped)."""
     for c in pool.caches:
         if isinstance(c, PagedSalcaCache):
             free_pages(c, slot)

@@ -69,10 +69,27 @@ block is not rewritten before its bytes have left. A block-sharded pool
 (``ctx`` over more than one rank) refuses ``host_spill``, as the reference:
 its island records no selection histograms.
 
-Knobs that the reference rejects without ``paged=True`` raise its
-`ValueError`s; knobs of the reference engine that later slices port raise
-`NotImplementedError` naming the reference feature that brings them instead
-of being ignored.
+Continuous batching (paged only), as in the reference: ``prefill_chunk=C``
+streams a prompt into its reserved slot in C-token chunks, one chunk per
+scheduler pass between decode ticks of the other slots, so a long prompt
+stalls their token streams for one chunk instead of one whole prefill. At
+most one prefill is in flight; its slot stays masked off until the final
+chunk activates it, each chunk charges the blocks it first covers, and a
+dry free list stalls the chunk (decode keeps running). Each chunk runs
+kernel B3 over the prompt's full-precision K/V buffers with the causal mask
+shifted by the chunk's offset, so its rows, and the pool rows it writes,
+equal the monolithic prefill's. It needs ``salca_static_channels`` (the
+per-input heavy sets need the whole prompt's K) and an int8 or fp16 pool.
+``preempt=True`` answers a dry free list at block growth by preempting the
+newest occupant — an active slot or the in-flight prefill — instead of an
+``overflow`` stop: its blocks are released, and its request goes back to
+the queue head, re-prefills its prompt and is force-fed its recorded tokens
+through ordinary ticks, so its output equals a never-preempted run's. A
+request's queue wait sums over its admission cycles.
+
+Knobs that the reference rejects raise its `ValueError`s; knobs of the
+reference engine that later slices port raise `NotImplementedError` naming
+the reference feature that brings them instead of being ignored.
 """
 
 from __future__ import annotations
@@ -95,8 +112,6 @@ from repro_torch.runtime.steps import ServeDecodeStep
 # reference knob → the reference feature whose port brings it
 _LATER = {
     "prefix_cache": "the reference's persistent prefix cache",
-    "prefill_chunk": "the reference's chunked prefill and preemption",
-    "preempt": "the reference's chunked prefill and preemption",
     "faults": "the reference's fault injection, deadlines and auditor",
 }
 SPILLED = -1     # a slot's logical block that lives in the host tier
@@ -115,28 +130,36 @@ class Request:
     stop_reason: str | None = None     # "length" | "stop" | "overflow"
     output: list = field(default_factory=list)
     shared_blocks: int = 0             # blocks admitted by prefix sharing
-    token_times: list = field(default_factory=list)
+    preemptions: int = 0               # times evicted and requeued
+    token_times: list = field(default_factory=list)   # wall time per fresh token
     # host-side stashes kept across head-of-line retries: the prompt's
     # prefix digests and its heavy-set bytes
     _digests: tuple | None = field(default=None, repr=False, compare=False)
     _heavy: bytes | None = field(default=None, repr=False, compare=False)
+    # preemption: the recorded output to force-feed after the re-prefill,
+    # the queue wait summed over admission cycles, the requeue time, and
+    # whether the current cycle has counted its wait
+    _replay: list | None = field(default=None, repr=False, compare=False)
+    _queue_wait: float = field(default=0.0, repr=False, compare=False)
+    _requeued_at: float | None = field(default=None, repr=False, compare=False)
+    _cycle_started: bool = field(default=False, repr=False, compare=False)
 
     @property
     def queue_wait_s(self) -> float | None:
-        """Submit → admission (None until then): one admission cycle, as
-        long as preemption is not ported."""
-        return None if self.admitted is None else max(self.admitted - self.submitted, 0.0)
+        """Time spent queued, summed over the first submission and every
+        preemption requeue (None until work starts)."""
+        return None if self.admitted is None else self._queue_wait
 
     @property
     def ttft_s(self) -> float | None:
         return None if self.first_token_time is None else self.first_token_time - self.submitted
 
     def stats(self) -> dict:
-        """Per-request stats, the reference's keys (``preemptions`` is 0:
-        preemption is not ported)."""
+        """Per-request stats, the reference's keys."""
         return {"rid": self.rid, "prompt_tokens": int(len(self.prompt)),
                 "output_tokens": len(self.output), "stop_reason": self.stop_reason,
-                "queue_wait_s": self.queue_wait_s, "ttft_s": self.ttft_s, "preemptions": 0}
+                "queue_wait_s": self.queue_wait_s, "ttft_s": self.ttft_s,
+                "preemptions": self.preemptions}
 
 
 class ShardedBlockAllocator:
@@ -206,14 +229,19 @@ class ServeStats:
     decode_calls: int = 0      # decode dispatches (== ticks by design)
     completed: int = 0
     tokens_generated: int = 0  # includes the prefill-produced first token
-    queue_wait_s: float = 0.0
-    ttft_s: float = 0.0
-    admissions: int = 0
-    ttft_count: int = 0
+    queue_wait_s: float = 0.0  # summed over admission cycles
+    ttft_s: float = 0.0        # summed over first tokens
+    admissions: int = 0        # admission cycles begun (re-admissions count)
+    ttft_count: int = 0        # requests that produced a first token
     peak_active_slots: int = 0
     overflows: int = 0
     dropped_writes: int = 0
-    prefill_tokens: int = 0
+    # continuous batching (zero unless prefill_chunk / preempt are set)
+    preemptions: int = 0       # occupants evicted to free blocks and requeued
+    replayed_tokens: int = 0   # recorded tokens force-fed after a re-prefill
+    prefill_chunks: int = 0    # chunk steps run
+    chunk_stalls: int = 0      # chunk passes that waited on the block pool
+    prefill_tokens: int = 0    # prompt tokens prefilled (whole and by chunks)
     block_pool_size: int = 0
     block_size: int = 0
     blocks_in_use: int = 0
@@ -250,6 +278,8 @@ class ServeStats:
             "mean_ttft_s": round(self.ttft_s / max(self.ttft_count, 1), 4),
             "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
             "overflows": self.overflows, "dropped_writes": self.dropped_writes,
+            "preemptions": self.preemptions, "replayed_tokens": self.replayed_tokens,
+            "prefill_chunks": self.prefill_chunks, "chunk_stalls": self.chunk_stalls,
             "prefill_tokens": self.prefill_tokens,
         }
         if self.block_pool_size:
@@ -275,6 +305,20 @@ class ServeStats:
         return out
 
 
+@dataclass
+class _InflightPrefill:
+    """The one chunked prefill in flight. Its slot is reserved (out of the
+    free list) and masked off until the final chunk; ``_slot_blocks`` and
+    ``_slot_pos`` hold what its chunks have charged and written, so a
+    preemption releases exactly that."""
+    req: Request
+    slot: int
+    cursor: object                      # `models.transformer.PrefillCursor`
+    consumed: int = 0                   # prompt tokens prefilled so far
+    n_shared: int = 0                   # radix-matched prefix blocks
+    pages: np.ndarray | None = None     # the page row mapped so far (-1 beyond)
+
+
 class ServingEngine:
     """Slot-pooled continuous-batching engine.
 
@@ -286,7 +330,9 @@ class ServingEngine:
     divide evenly by the world size. ``prefix_sharing``: common prompt
     prefixes share blocks, copied on write. ``kv_pool_dtype`` and ``host_spill``
     (with ``demote_after``, ``spill_keep_recent``, ``promote_headroom``):
-    the tiered pool of the module docstring. Runs on ``device`` ("cuda" by
+    the tiered pool of the module docstring. ``prefill_chunk`` (a chunk's
+    tokens) and ``preempt``: continuous batching, as the module docstring
+    says. Runs on ``device`` ("cuda" by
     default, which raises on a machine without a card); ``device="cpu"``
     runs every kernel's plain version.
     """
@@ -301,6 +347,8 @@ class ServingEngine:
                  spill_keep_recent: int = 2, promote_headroom: int = 1,
                  prefill_chunk: int | None = None, preempt: bool = False, faults=None):
         self.device = resolve_device(device)
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         # the reference's ValueErrors for knobs that need the paged pool
         if kv_pool_dtype is not None and kv_pool_dtype != cfg.kv_pool_dtype:
             if not paged:
@@ -324,8 +372,7 @@ class ServingEngine:
                                           "sequence-sharded flat decode")
         if prefix_cache and not prefix_sharing:
             raise ValueError("prefix_cache requires prefix_sharing=True")
-        asked = {"prefix_cache": prefix_cache, "prefill_chunk": prefill_chunk is not None,
-                 "preempt": preempt, "faults": faults is not None}
+        asked = {"prefix_cache": prefix_cache, "faults": faults is not None}
         for knob, on in asked.items():
             if on:
                 raise NotImplementedError(f"{knob}: not ported yet; comes with the port "
@@ -333,6 +380,20 @@ class ServingEngine:
         self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
         self.paged = paged
         self.api = get_model(cfg)
+        if prefill_chunk is not None:
+            if host_spill:
+                raise ValueError("prefill_chunk cannot combine with host_spill's wave "
+                                 "admission (one pressure valve per engine; use preempt "
+                                 "instead)")
+            reason = self.api.prefill_chunk_unsupported()
+            if reason is not None:
+                raise ValueError(f"chunked prefill unsupported: {reason}")
+            if cfg.kv_pool_dtype == "int4":
+                raise ValueError("chunked prefill does not support int4 pools "
+                                 "(per-block requantization is not chunk-incremental)")
+        self.prefill_chunk, self.preempt = prefill_chunk, preempt
+        self._inflight: _InflightPrefill | None = None
+        self._static_heavy_cache: bytes | None = None
         self.stats = ServeStats()
         self._queue: deque[Request] = deque()
         self._active: dict[int, Request] = {}
@@ -557,20 +618,33 @@ class ServingEngine:
     def _ensure_prefill(self, req: Request):
         """Prefill once per request: the result is stashed so that a queue
         head waiting for blocks after the heavy-set gate does not pay it
-        twice. The stash holds one request's batch=1 state at most."""
+        twice. The stash holds one request's batch=1 state at most; another
+        request taking the head (a preemption's requeue) replaces it."""
         if self._stash is None or self._stash[0] is not req:
             self._stash = (req, self._prefill(req))
         return self._stash[1]
 
+    def _drop_stash(self, req: Request) -> None:
+        """Free the prefill stash if it holds ``req``'s state."""
+        if self._stash is not None and self._stash[0] is req:
+            self._stash = None
+
     def _begin_cycle(self, req: Request, t0: float) -> None:
-        """The first attempt that starts work on a request closes its queue
-        wait (the gate's prefill may start it on an attempt that then waits
-        for blocks)."""
-        if req.admitted is not None:
+        """Open one admission cycle: close the queue wait that began at the
+        submission (first cycle) or at the preemption's requeue (later
+        ones). ``submitted`` and ``admitted`` are never reset, so TTFT
+        counts from the submission; the wait adds up over cycles. Once per
+        cycle: the gate's prefill may start work on an attempt that then
+        waits for blocks."""
+        if req._cycle_started:
             return
-        req.admitted = t0
+        req._cycle_started = True
+        wait = max(t0 - (req.submitted if req._requeued_at is None else req._requeued_at), 0.0)
+        req._queue_wait += wait
+        self.stats.queue_wait_s += wait
         self.stats.admissions += 1
-        self.stats.queue_wait_s += req.queue_wait_s
+        if req.admitted is None:
+            req.admitted = t0
 
     # -- prefix sharing ------------------------------------------------
     def _request_digests(self, req: Request):
@@ -634,7 +708,14 @@ class ServingEngine:
         lowest free slot (paged: into the blocks its matched prefix shares
         and freshly allocated ones, waiting head-of-line when the pool is
         short; with ``host_spill`` cold blocks are demoted first and a
-        prompt larger than the free pool admits in waves, unshared)."""
+        prompt larger than the free pool admits in waves, unshared). With
+        ``prefill_chunk`` one pass runs one chunk instead
+        (`_advance_prefill`). The reference's zero-prefill warm hit
+        (``_try_adopt``) and cache reclaim come with its persistent prefix
+        cache; its deadline shedding with its request lifecycle."""
+        if self.prefill_chunk is not None:
+            self._advance_prefill()
+            return
         while self._queue and self._free:
             req = self._queue[0]
             t0 = time.time()
@@ -644,7 +725,7 @@ class ServingEngine:
                 self._begin_cycle(req, t0)
                 logits_row, state1 = self._ensure_prefill(req)
                 self.api.write_into_slot(self._state, state1, slot)
-                self._stash = None
+                self._drop_stash(req)
                 self._activate(req, slot, logits_row)
                 continue
             need_full = self._blocks_for(len(req.prompt))
@@ -687,7 +768,7 @@ class ServingEngine:
                 if need <= free:       # a prompt admitted in waves is not published
                     self._register_blocks(req, self._slot_blocks[slot], len(shared),
                                           req._heavy)
-            self._stash = None
+            self._drop_stash(req)
             self._activate(req, slot, logits_row)
 
     def _install_prompt(self, slot: int, shared: list[int], need: int, state1) -> None:
@@ -721,16 +802,29 @@ class ServingEngine:
                 self.demote_block(slot, j)
 
     def _next_token(self, req: Request, tok: int) -> int:
-        self.stats.tokens_generated += 1
-        req.token_times.append(time.time())
+        """The request's next token: inside its preemption replay window the
+        recorded one (force-fed, so the continuation is exact; not counted
+        as generated, no new timestamp), the greedy ``tok`` otherwise."""
+        idx = len(req.output)
+        if req._replay is not None and idx < len(req._replay):
+            tok = int(req._replay[idx])
+            self.stats.replayed_tokens += 1
+        else:
+            req._replay = None
+            self.stats.tokens_generated += 1
+            req.token_times.append(time.time())
         req.output.append(tok)
         return tok
 
     def _activate(self, req: Request, slot: int, logits_row: np.ndarray) -> None:
+        """Make a prefilled request live (monolithic admission or the final
+        chunk): its first (or replayed) token, the slot masked on, the stop
+        rules. TTFT is stamped on the first activation only."""
         tok = self._next_token(req, int(np.argmax(logits_row)))
-        req.first_token_time = time.time()
-        self.stats.ttft_s += req.ttft_s
-        self.stats.ttft_count += 1
+        if req.first_token_time is None:
+            req.first_token_time = time.time()
+            self.stats.ttft_s += req.ttft_s
+            self.stats.ttft_count += 1
         self._active[slot] = req
         self._tokens[slot] = tok
         self._mask[slot] = True
@@ -742,6 +836,8 @@ class ServingEngine:
             self._finish(slot, req, time.time(), "length")
 
     def _finish(self, slot: int, req: Request, now: float, reason: str) -> None:
+        if self._active.get(slot) is not req:
+            return                      # finished already (racing finishers)
         req.done_time = now
         req.stop_reason = reason
         self.stats.completed += 1
@@ -756,7 +852,8 @@ class ServingEngine:
     def _release_blocks(self, slot: int) -> None:
         """Decref every block the slot holds; a block reaching 0 returns to
         its shard's free list and leaves the radix map. Releasing a slot
-        that holds nothing is a no-op."""
+        that holds nothing (an overflow finish racing a preemption) is a
+        no-op."""
         blocks = self._slot_blocks.pop(slot, None)
         if blocks is None:
             return
@@ -777,6 +874,153 @@ class ServingEngine:
             self._cold_streak[slot] = 0
         self._note_block_usage()
 
+    # -- preemption ----------------------------------------------------
+    def _pick_victim(self) -> int | None:
+        """The pool's lowest-priority occupant: the latest-submitted request
+        (ties to the highest rid) among the active slots and the in-flight
+        prefill — the newest arrival gives its blocks back first."""
+        cands = [(req.submitted, req.rid, slot) for slot, req in self._active.items()]
+        if self._inflight is not None:
+            inf = self._inflight
+            cands.append((inf.req.submitted, inf.req.rid, inf.slot))
+        return max(cands)[2] if cands else None
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict one occupant (an active slot or the in-flight prefill) and
+        requeue its request at the queue head. The unmap takes the
+        overflow finish's idempotent paths (`_release_blocks`, and
+        ``reset_slot``'s `free_pages`), so a preemption racing a finish or
+        another reset of the slot frees nothing twice. The recorded output
+        becomes the replay window: the re-admission re-prefills the prompt
+        and force-feeds the recorded tokens through ordinary ticks, which
+        write the same KV again, so the output equals a never-preempted
+        run's."""
+        now = time.time()
+        if self._inflight is not None and self._inflight.slot == slot:
+            req = self._inflight.req
+            self._inflight = None       # drops the cursor's buffers
+        else:
+            req = self._active.pop(slot)
+        self._mask[slot] = False
+        self.stats.preemptions += 1
+        req.preemptions += 1
+        # keep the longest record: a request preempted again while replaying
+        # must not cut its window to the part replayed so far
+        if not (req._replay is not None and len(req._replay) >= len(req.output)):
+            req._replay = list(req.output) or None
+        req.output = []
+        req.shared_blocks = 0
+        req._requeued_at = now
+        req._cycle_started = False
+        self._drop_stash(req)
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+        self._release_blocks(slot)
+        self.api.reset_slot(self._state, slot)
+        self._queue.appendleft(req)
+
+    def _preempt_for_blocks(self, needy_slot: int) -> bool:
+        """Preempt victims until the free list holds a block (a victim's
+        blocks may all be shared: go on). False once ``needy_slot`` itself
+        was preempted, or when no victim is left. (The reference first
+        drains its persistent prefix cache's pins, which come with that
+        cache.)"""
+        while not self._alloc.total_free:
+            victim = self._pick_victim()
+            if victim is None:
+                return False
+            self._preempt_slot(victim)
+            if victim == needy_slot:
+                return False
+        return True
+
+    # -- chunked prefill -------------------------------------------------
+    def _static_heavy_bytes(self) -> bytes:
+        """The heavy-set bytes of the sharing gate for a chunked admission:
+        the static sets from the weights (chunked prefill needs static
+        channels, so every request's are the same), in `_heavy_bytes`'s
+        layout, so both admission paths publish interchangeable radix
+        entries. Computed once."""
+        if self._static_heavy_cache is None:
+            parts = self.api.static_heavy(self.params, self.max_seq)
+            self._static_heavy_cache = torch.stack(parts).cpu().numpy().tobytes()
+        return self._static_heavy_cache
+
+    def _advance_prefill(self) -> None:
+        """One budgeted prefill chunk per scheduler pass (the reference's
+        `_advance_prefill`). Starting a prefill pops the queue head, reserves
+        a slot (masked off until the final chunk), radix-matches the prompt
+        and pins every shared prefix block at once (a lazy pin would let the
+        owner free a block this prefill still maps). Each pass then charges
+        the fresh blocks the next ``prefill_chunk`` tokens first cover and
+        runs one chunk step, which streams the chunk's K/V into the slot's
+        blocks. A dry free list stalls the chunk (decode goes on and frees or
+        preempts blocks): the in-flight request is the newest occupant, so
+        preempting others for it would invert priority. The final chunk
+        gives the first-token logits and activates the slot as monolithic
+        admission does. The chunk step runs eagerly. (The reference's zero-
+        prefill warm hit and cache reclaim come with its persistent prefix
+        cache; its deadline abort and ``prefill_chunk`` fault site with its
+        request lifecycle.)"""
+        if self._inflight is None:
+            if not (self._queue and self._free):
+                return
+            req = self._queue.popleft()
+            self._begin_cycle(req, time.time())
+            slot = self._free.pop()
+            shared: list[int] = []
+            if self.prefix_sharing:
+                req._heavy = self._static_heavy_bytes()
+                for _, block, owner_heavy in self._match_tokens(req):
+                    if owner_heavy != req._heavy:
+                        break           # unreachable with static channels
+                    shared.append(block)
+            pages = np.full((self.max_blocks,), -1, np.int32)
+            pages[:len(shared)] = shared
+            for b in shared:            # the first chunk counts them on the device
+                self._refcount[b] += 1
+            self._inflight = _InflightPrefill(
+                req, slot, self.api.prefill_begin(len(req.prompt), self.device),
+                n_shared=len(shared), pages=pages)
+            self._slot_blocks[slot] = list(shared)
+            self._slot_pos[slot] = 0
+        inf = self._inflight
+        req, slot = inf.req, inf.slot
+        c = min(self.prefill_chunk, len(req.prompt) - inf.consumed)
+        held = self._slot_blocks[slot]
+        fresh = self._alloc.alloc(max(self._blocks_for(inf.consumed + c) - len(held), 0))
+        if fresh is None:
+            self.stats.chunk_stalls += 1            # pool dry: try again next pass
+            return
+        for j, b in enumerate(fresh, start=len(held)):
+            inf.pages[j] = b
+            self._refcount[b] += 1
+        held.extend(fresh)
+        self._note_block_usage()
+        t0 = time.time()
+        final = inf.consumed + c == len(req.prompt)
+        tokens = torch.from_numpy(np.asarray(req.prompt[inf.consumed:inf.consumed + c],
+                                             np.int32)[None]).to(self.device)
+        logits, _, _ = self.api.prefill_chunk(self.params, self._state, tokens, inf.cursor,
+                                              slot, inf.pages, inf.n_shared, self.max_seq,
+                                              final=final, ctx=self.ctx)
+        inf.consumed += c
+        self._slot_pos[slot] = inf.consumed
+        self.stats.prefill_chunks += 1
+        self.stats.prefill_tokens += c
+        if not final:
+            self.stats.prefill_s += time.time() - t0
+            return
+        logits_row = logits[0].float().cpu().numpy()         # waits for the device
+        self.stats.prefill_s += time.time() - t0
+        self._inflight = None
+        if self.prefix_sharing:
+            req.shared_blocks = inf.n_shared
+            self.stats.shared_blocks += inf.n_shared
+            self.stats.prefix_hits += bool(inf.n_shared)
+            self._register_blocks(req, held, inf.n_shared, req._heavy)
+        self._activate(req, slot, logits_row)
+
     def _grow_or_overflow(self) -> None:
         """Before a tick every active slot must be able to store its next KV
         write privately. Paged: a slot whose cursor crossed a block boundary
@@ -787,9 +1031,14 @@ class ServingEngine:
         when that shard has one; with ``host_spill`` a dry free list first
         demotes the coldest candidate. A slot that cannot (no block free, or
         a contiguous slot holding ``max_seq`` tokens) finishes with an
-        ``overflow`` stop and the write that could not land is counted."""
+        ``overflow`` stop and the write that could not land is counted. With
+        ``preempt`` a dry free list preempts the newest occupant (this slot,
+        maybe) instead: a request alone always fits the pool (`submit`), so
+        a preempting engine never stops one with ``overflow``."""
         now = time.time()
         for slot, req in list(self._active.items()):
+            if self._active.get(slot) is not req:
+                continue                              # preempted in this pass
             if not self.paged:
                 if len(req.prompt) + len(req.output) - 1 < self.max_seq:
                     continue
@@ -805,6 +1054,12 @@ class ServingEngine:
                 continue                              # private room in place
             if pos < self.max_seq and self.host_spill:
                 self._demote_for(1)                   # growth pressure
+            if pos < self.max_seq and self.preempt and not self._alloc.total_free:
+                if not self._preempt_for_blocks(slot):
+                    continue                          # this slot was the victim
+                if logical < len(held) and held[logical] >= 0 \
+                        and self._refcount[held[logical]] <= 1:
+                    continue                          # a victim's release made it private
             if pos < self.max_seq and self._alloc.total_free:
                 near = held[logical] if logical < len(held) else held[-1]
                 prefer = self._alloc.shard_of(near) if near >= 0 else None
@@ -858,7 +1113,8 @@ class ServingEngine:
 
     def run(self, max_ticks: int = 10_000) -> ServeStats:
         ticks = 0
-        while (self._queue or self._active) and ticks < max_ticks:
+        while (self._queue or self._active or self._inflight is not None) \
+                and ticks < max_ticks:
             self._admit()
             if self._active:
                 self._tick()

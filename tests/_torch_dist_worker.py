@@ -13,7 +13,9 @@ Tasks:
   engine  run `ServingEngine(ctx=...)` on a request trace, recording every
           tick's logits and layer-0 page table;
   prefix  the engine task, and a pool-level copy on write across ranks in
-          every storage mode (`cow_block` with this rank's block range).
+          every storage mode (`cow_block` with this rank's block range);
+  scheduler  the engine task on a chunked, preempting engine, recording
+          the page row of every chunk step.
 """
 
 import dataclasses
@@ -50,7 +52,7 @@ def island(inp, ctx):
     return dict(out=out, dense=dense, sel=tuple(sel), leaves=leaves)
 
 
-def engine(inp, ctx):
+def engine(inp, ctx, hook=None):
     from repro_torch.configs import get_config
     from repro_torch.runtime.serve import Request, ServingEngine
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32",
@@ -61,6 +63,8 @@ def engine(inp, ctx):
             for i, p in enumerate(inp["prompts"])]
     for r in reqs:
         eng.submit(r)
+    if hook is not None:
+        hook(eng)
     ticks = []
     orig = eng._decode
 
@@ -107,13 +111,29 @@ def prefix(inp, ctx):
     return dict(engine(inp, ctx), cow=cow(inp["cow"], ctx))
 
 
+def scheduler(inp, ctx):
+    chunks = []
+
+    def hook(eng):
+        real = eng.api.prefill_chunk
+
+        def chunk(params, pool, tokens, cursor, slot, pages, *a, **kw):
+            chunks.append(pages.copy())
+            return real(params, pool, tokens, cursor, slot, pages, *a, **kw)
+
+        eng.api = eng.api._replace(prefill_chunk=chunk)
+
+    return dict(engine(inp, ctx, hook), chunk_pages=chunks)
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
     inp = torch.load(workdir / "in.pt", weights_only=False)
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
-    res = {"island": island, "engine": engine, "prefix": prefix}[task](inp, ctx)
+    res = {"island": island, "engine": engine, "prefix": prefix,
+           "scheduler": scheduler}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

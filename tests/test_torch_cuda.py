@@ -110,6 +110,37 @@ def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_offset,c", [(384, 384), (200, 300), (0, 384)],
+                         ids=["offset384", "offset200", "offset0"])
+def test_b3_chunk_rows_equal_whole_prompt_bitwise(dev, dtype, q_offset, c):
+    """Chunked prefill's attention (`flash_attention_chunked`): a chunk of
+    ``c`` query rows at ``q_offset`` over the prompt's key buffers, filled
+    through the chunk's last row and zero beyond (the cursor's state), gives
+    the rows of the whole-prompt call at the same positions bit for bit —
+    at an offset on B3's 64-row query tiles and at one (200) off them,
+    whose tiles then shift against the whole prompt's. Qwen3-0.6b's heads
+    (16 query, 8 kv, HD 128) over a 1,000-token prompt."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_chunked
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t, hd = 1000, 128
+    q = torch.randn((16, t, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((8, t, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((8, t, hd), generator=gen, device=dev).to(dtype)
+    whole = flash_attention(q, k, v)
+    end = q_offset + c
+    kbuf, vbuf = torch.zeros_like(k), torch.zeros_like(v)
+    kbuf[:, :end], vbuf[:, :end] = k[:, :end], v[:, :end]
+    n0 = LAUNCHES["flash_prefill"]
+    rows = flash_attention_chunked(q[:, q_offset:end].contiguous(), kbuf, vbuf,
+                                   q_offset=q_offset)
+    assert LAUNCHES["flash_prefill"] == n0 + 1
+    differ = (rows != whole[:, q_offset:end]).any(-1).sum().item()
+    print(f"B3 chunk at {q_offset} (+{c}), {dtype}: {differ} of {16 * c} rows differ")
+    assert differ == 0
+
+
 def _blk_valid(pool):
     """Owned-and-stored columns (S, MB, BS) of a pool at one rank; slot 1
     holds nothing, so its row is all masked."""
@@ -838,13 +869,19 @@ def _graphed_and_eager_runs(dev, engine_kw):
     from repro_torch.weights import init_lm_params
     cfg = get_config("qwen3-0.6b").reduced()
     sharing = engine_kw.get("prefix_sharing", False)
+    chunked = engine_kw.get("prefill_chunk") is not None
     # with prefix sharing: static heavy sets, and three resident requests of
     # which two are identical (their partial block is copied on write) and
-    # the third shares their first 4 blocks
-    cfg = dataclasses.replace(cfg, salca_static_channels=sharing)
+    # the third shares their first 4 blocks; with chunks of 96 (static heavy
+    # sets too) the first prompt is 158 tokens: its growth at 160, on the
+    # third tick, finds the 11 blocks dry while the second prompt's last
+    # chunk is pending and preempts that in-flight prefill (the capture tick
+    # ran beside it, masked off); its re-admission's chunks run beside replays
+    cfg = dataclasses.replace(cfg, salca_static_channels=sharing or chunked)
     params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (150, 200, 170)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in ((158 if chunked else 150), 200, 170)]
     if sharing:
         prompts = [prompts[0], prompts[0].copy(), np.concatenate([prompts[0][:128],
                                                                   prompts[2][:42]])]
@@ -859,12 +896,13 @@ def _graphed_and_eager_runs(dev, engine_kw):
         reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
-        ticks = []
+        ticks, inflight = [], []
         orig = eng._decode
 
-        def rec(tok, act, orig=orig, ticks=ticks):
+        def rec(tok, act, orig=orig, ticks=ticks, inflight=inflight, eng=eng):
             nxt, logits = orig(tok, act)
             ticks.append((act.copy(), logits))
+            inflight.append(eng._inflight is not None and not act[eng._inflight.slot])
             return nxt, logits
 
         eng._decode = rec
@@ -873,6 +911,9 @@ def _graphed_and_eager_runs(dev, engine_kw):
         torch.cuda.synchronize()
         if sharing:
             assert eng.stats.prefix_hits == 2 and eng.stats.cow_copies == 1, eng.stats
+        if chunked:
+            assert eng.stats.preemptions > 0 and eng.stats.overflows == 0, eng.stats
+            assert any(inflight[2:]), "no replayed tick ran beside an in-flight prefill"
         runs.append(([r.output for r in reqs], ticks, dict(LAUNCHES), eng._step))
     return runs
 
@@ -882,8 +923,11 @@ def _graphed_and_eager_runs(dev, engine_kw):
     dict(paged=True, kv_pool_dtype="int4"),
     dict(paged=True, kv_pool_dtype="int4", host_spill=True, num_blocks=8, demote_after=1,
          spill_keep_recent=2),
-    dict(paged=False), dict(paged=True, prefix_sharing=True, slots=3)],
-    ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared"])
+    dict(paged=False), dict(paged=True, prefix_sharing=True, slots=3),
+    dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11),
+    dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11, kv_pool_dtype="fp16")],
+    ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared",
+         "int8_chunk_preempt", "fp16_chunk_preempt"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under

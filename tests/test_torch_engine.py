@@ -114,7 +114,8 @@ def test_engine_parity_with_reference(weights, rng, max_seq, bs, lens, atol):
 
 def test_engine_overflow_and_validation(weights, rng):
     """Block exhaustion finishes a request with an `overflow` stop (no silent
-    clip); the knobs of later slices raise instead of being ignored."""
+    clip); the knobs of later slices raise instead of being ignored, and the
+    continuous-batching knobs, ported, build or refuse as the reference."""
     _, tp = weights
     eng = TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS, num_blocks=3,
                   device="cpu")
@@ -127,10 +128,15 @@ def test_engine_overflow_and_validation(weights, rng):
     assert stats.dropped_writes == stats.overflows
     assert "overflow" in (ra.stop_reason, rb.stop_reason)
     assert sorted(eng._free_blocks) == [0, 1, 2]
-    for kw in ({"preempt": True}, {"prefill_chunk": 8},
-               {"prefix_cache": True, "prefix_sharing": True}, {"faults": object()}):
+    for kw in ({"prefix_cache": True, "prefix_sharing": True}, {"faults": object()}):
         with pytest.raises(NotImplementedError):
             TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
                     device="cpu", **kw)
+    # ported: preemption builds; chunks refuse per-input heavy sets, as the reference
+    assert TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                   device="cpu", preempt=True).preempt
+    with pytest.raises(ValueError, match="salca_static_channels"):
+        TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS, device="cpu",
+                prefill_chunk=8)
     with pytest.raises(ValueError):
         TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=24, device="cpu")

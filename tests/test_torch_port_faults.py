@@ -122,6 +122,34 @@ def test_submit_and_summary_match_reference_on_one_trace(weights, rng):
     assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
 
 
+def test_summary_matches_reference_on_a_preempting_trace(weights, rng):
+    """Both paged engines, chunked (8 tokens) and preempting, on a pool of 5
+    blocks for prompts of 40, 30 and 20 tokens (8 new each): the second
+    request's growth past 32 tokens finds the pool dry and preempts it. Every summary key both have, timings
+    aside — preemptions, replayed_tokens, prefill_chunks and chunk_stalls
+    among them — holds the same value, and so do the requests' stats."""
+    jp, tp = weights
+    prompts = [rng.integers(0, JCFG.vocab_size, n).astype(np.int32) for n in (40, 30, 20)]
+    runs = []
+    for eng_cls, req_cls, cfg, params, extra in ((JEngine, JRequest, JCFG, jp, {}),
+                                                 (TEngine, TRequest, TCFG, tp, {"device": "cpu"})):
+        eng = eng_cls(dataclasses.replace(cfg, salca_static_channels=True), params, max_seq=64,
+                      slots=2, paged=True, block_size=16, num_blocks=5, prefill_chunk=8,
+                      preempt=True, **extra)
+        reqs = [req_cls(rid=i, prompt=p.copy(), max_new_tokens=8) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        runs.append((eng.run().summary(), [r.stats() for r in reqs]))
+    (js, jr), (ts, tr) = runs
+    shared = sorted(k for k in set(js) & set(ts) if not _timing(k))
+    assert {"preemptions", "replayed_tokens", "prefill_chunks", "chunk_stalls"} <= set(shared)
+    assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
+    assert ts["preemptions"] > 0 and ts["prefill_chunks"] > 0 and ts["overflows"] == 0
+    for j, t in zip(jr, tr):
+        assert {k: t[k] for k in t if not _timing(k)} == {k: j[k] for k in j if not _timing(k)}
+    assert sum(t["preemptions"] for t in tr) == ts["preemptions"]
+
+
 def test_request_stats_match_reference_on_one_trace(weights, rng):
     """`Request.stats()` and `Request.queue_wait_s` (ROADMAP C.5): both
     engines' requests report the same keys, the same values apart from the

@@ -1,7 +1,9 @@
 """The port's serving tick (`repro_torch.runtime.steps`) on the CPU, and what
 a CUDA graph of it needs from the tick: every state tensor updated in place
 across ticks (a replay writes to the addresses its capture saw), and no
-tensor made of host data inside the tick (a capture would freeze it).
+tensor made of host data inside the tick (a capture would freeze it); the
+state also keeps its storage across a chunked prefill's installs and a
+preemption's reset, which run between replays.
 
 The engines serve qwen3-0.6b.reduced() at float32 compute with the port's
 own random weights; the step's graph runs only on the card
@@ -91,6 +93,28 @@ def test_ticks_update_every_state_tensor_in_place(pool):
     assert _rebound_after_ticks(eng) == []
     if "shared" in pool:
         assert eng.stats.shared_blocks == 3 and eng.stats.cow_copies == 1
+
+
+def test_chunk_installs_and_preemption_keep_state_in_place():
+    """A chunked, preempting engine on 8 blocks of 16 (prompts of 40 and 70
+    tokens, 12 new each): chunk installs while the other slot ticks with the
+    in-flight prefill masked off, the preemption of the second request when
+    the first grows past 48 tokens (its reset), the re-admission's chunks
+    and replay. Every state tensor keeps its storage throughout."""
+    cfg = dataclasses.replace(CFG, salca_static_channels=True)
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServingEngine(cfg, params, max_seq=128, slots=2, device="cpu", paged=True,
+                        block_size=16, num_blocks=8, prefill_chunk=16, preempt=True)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((40, 70)):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                           max_new_tokens=12))
+    where = {k: t.untyped_storage().data_ptr() for k, t in _state_tensors(eng._state).items()}
+    eng.run()
+    now = _state_tensors(eng._state)
+    assert sorted(k for k, t in now.items() if t.untyped_storage().data_ptr() != where[k]) == []
+    assert eng.stats.preemptions == 1 and eng.stats.replayed_tokens > 0
+    assert eng.stats.prefill_chunks > 8 and eng.stats.overflows == 0
 
 
 def test_in_place_check_catches_an_injected_rebinding(monkeypatch):
