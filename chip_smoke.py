@@ -82,10 +82,29 @@ Phases (any failure raises and the script exits non-zero):
    (c) replayed tokens, (d) and (e) chunk stalls, every pool drained. It
    prints the largest gap between fresh tokens of requests 0 and 1 while
    the late prompts prefill, TTFT, ms per tick, peak memory and the
-   counts.
+   counts. Last, the request lifecycle and fault tolerance: (f) the main
+   path sampled (``greedy=False, seed=0``, requests 0 and 2 at temperature
+   0.8, 1 and 3 at 0), graphed and again built under `steps.eager()`:
+   tokens identical and every logits row bit for bit, requests 1 and 3
+   equal to the greedy run's tokens, the host ms of a sampled token and of
+   the logits copy printed; (g) run (b) with ``audit_every=1`` and a seeded
+   `FaultPlan` (`sched_faults`: the allocator, the chunk step and one
+   poisoned flag of request 1): requests 0, 2 and 3 give (b)'s tokens and
+   rows bit for bit, request 1 ends with ``error``, every site fired and
+   every tick's audit is clean; (h) the fp16 main path with NaN written into
+   request 2's V codes of layer 0 after the 5th tick: the graph's ``finite``
+   output drops request 2's flag on one replayed tick, request 2 ends with
+   ``error`` and every other row equals the clean fp16 run's bit for bit;
+   (i) (b)'s engine with ``max_queue=4``: a fifth request is shed, a sixth
+   with ``deadline_ms=1`` expires in the queue, request 3 is cancelled in
+   its chunked prefill, requests 0-2 give (b)'s tokens and rows, the pool
+   drains and the audit is clean; (j) SPILL_RUN with every promotion
+   failing (``spill_max_retries=1``): blocks pin cold, ticks run degraded,
+   no promotion lands, the audit stays clean; (k) = (g) at one nccl rank:
+   (g)'s tokens, stop reasons and fired faults.
 
 It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all seventeen runs) and, last, the
+its path, and ``launches_per_call`` over all twenty-four runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -1058,7 +1077,9 @@ def warm_up(cfg, params, dev, ctx, serve: dict) -> None:
     one: module loading, cuBLAS handles, the first all-reduce's communicator."""
     import torch
     from repro_torch.runtime.serve import Request, ServingEngine
-    warm = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    # a fault plan counts its opportunities: it stays the measured engine's
+    warm = ServingEngine(cfg, params, device=dev, ctx=ctx,
+                         **{k: v for k, v in serve.items() if k != "faults"})
     warm.submit(Request(rid=-1, prompt=np.random.default_rng(1).integers(
         0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2))
     warm.run()
@@ -1067,7 +1088,8 @@ def warm_up(cfg, params, dev, ctx, serve: dict) -> None:
 
 
 def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run=False,
-                    shared_prefix=False, **engine_kw):
+                    shared_prefix=False, temperatures=None, hook=None, stops=None,
+                    **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
     the contiguous tick; ``engine_kw`` adds the tiered pool's knobs
@@ -1081,11 +1103,16 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     ``prefix_sharing`` comes in ``engine_kw``); a copy on write is then
     profiled (``cow_service`` in the summary: its launches on the device and
     its ms, host clock between two synchronizations, under the profiler).
-    Returns the launch counts of the run, its
+    ``temperatures`` sets the requests' (with ``greedy=False`` in
+    ``engine_kw``: sampled runs); ``hook(engine)`` runs on the built engine
+    just before the run; ``stops`` ({rid: reason}, default "length") the
+    stop reasons the run must give. Returns the launch counts of the run, its
     summary (with each tick's wall ms: the first eager, the second the
-    capture where the step is graphed), the engine's own greedy picks per
-    request and, for every generated token (request, index), the logits row
-    it was drawn from, on the host (index 0: the prefill's row)."""
+    capture where the step is graphed; each tick's finite flags; with
+    sampling the host ms of each sampled token), the engine's own picks per
+    request (greedy or sampled, before any forcing) and, for every
+    generated token (request, index), the logits row it was drawn from, on
+    the host (index 0: the prefill's row)."""
     import contextlib
     import dataclasses
     import gc
@@ -1110,29 +1137,44 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     with building():
         engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
     reqs = (shared_prefix_requests if shared_prefix else main_path_requests)(cfg.vocab_size)
+    for r, t in zip(reqs, temperatures or ()):
+        r.temperature = t
     for r in reqs:
         engine.submit(r)
-    ticks, rows, own, tick_ms = [], {}, {}, []
+    ticks, rows, own, tick_ms, flags, sample_ms = [], {}, {}, [], [], []
     orig_decode, orig_prefill, orig_next = engine._decode, engine._prefill, engine._next_token
+    orig_sample = engine._sample
 
     def decode(*a):
         who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
         t0 = time.perf_counter()
-        nxt, logits = orig_decode(*a)
+        nxt, logits, finite = orig_decode(*a)
         # to pinned host memory, ready when the engine reads ``nxt``
         ticks.append((who, logits.to("cpu", non_blocking=True)))
+        flags.append(finite.to("cpu", non_blocking=True))
         torch.cuda.synchronize()
         tick_ms.append(1e3 * (time.perf_counter() - t0))
-        return nxt, logits
+        return nxt, logits, finite
 
     def prefill(req):
         row, st = orig_prefill(req)
         rows[(req.rid, 0)] = torch.from_numpy(row)
         return row, st
 
-    def next_token(req, tok):
-        own[(req.rid, len(req.output))] = tok
-        return orig_next(req, tok if force is None else force[req.rid][len(req.output)])
+    def next_token(req, logits_row, greedy_tok=None):
+        idx = len(req.output)
+        if force is not None:
+            own[(req.rid, idx)] = greedy_tok if logits_row is None else int(np.argmax(logits_row))
+            return orig_next(req, None, greedy_tok=force[req.rid][idx])
+        own[(req.rid, idx)] = tok = orig_next(req, logits_row, greedy_tok)
+        return tok
+
+    def sample(req, logits_row):
+        t0 = time.perf_counter()
+        tok = orig_sample(req, logits_row)
+        if not engine.greedy and req.temperature > 0:
+            sample_ms.append(1e3 * (time.perf_counter() - t0))
+        return tok
 
     cow = []
 
@@ -1148,9 +1190,12 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
         return out
 
     engine._decode, engine._prefill, engine._next_token = decode, prefill, next_token
+    engine._sample = sample
     engine.api = engine.api._replace(cow_block=cow_block)
     if probe is not None:
         probe.install(engine)
+    if hook is not None:
+        hook(engine)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
@@ -1160,13 +1205,19 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert stats.completed == len(reqs), stats.summary()
-    assert all(len(r.output) == NEW_TOKENS and r.stop_reason == "length" for r in reqs)
+    want_stops = [(stops or {}).get(r.rid, "length") for r in reqs]
+    if [r.stop_reason for r in reqs] != want_stops:
+        raise AssertionError(f"stop reasons {[r.stop_reason for r in reqs]} != {want_stops}")
+    assert all(len(r.output) == NEW_TOKENS for r in reqs if r.stop_reason == "length")
     assert stats.decode_calls == stats.ticks > 0, stats.summary()
     for who, logits in ticks:
         for slot, rid, j in who:
             rows[(rid, j)] = logits[slot]
-    assert all(bool(torch.isfinite(r).all()) for r in rows.values()), \
-        "non-finite logits on the main path"
+    # a quarantined request's last row (the one its flag dropped on) is the
+    # only row that may be non-finite
+    bad = {k for k, r in rows.items() if not bool(torch.isfinite(r).all())}
+    if bad - {(r.rid, len(r.output)) for r in reqs if r.stop_reason == "error"}:
+        raise AssertionError(f"non-finite logits on the main path at {sorted(bad)}")
     nl = cfg.num_layers
     branch = {"int8": ""}.get(engine_kw.get("kv_pool_dtype", "int8"),
                               f"[{engine_kw.get('kv_pool_dtype')}]")
@@ -1196,6 +1247,9 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                    cow_service=cow,
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels},
                    graphed=step.graphed, tick_ms=tick_ms,
+                   finite=[{rid: bool(fl[slot]) for slot, rid, _ in who}
+                           for (who, _), fl in zip(ticks, flags)], sample_ms=sample_ms,
+                   nonfinite_rows=sorted(bad),
                    replay_ms_median=float(np.median(tick_ms[2:])) if step.graphed else None,
                    launches_per_replay=(sum(step.launches_per_tick.values())
                                         if step.launches_per_tick else None))
@@ -1221,9 +1275,17 @@ class SpillProbe:
       policy and at least one promotion happened, ``pcie_bytes`` equals
       (demotions + promotions) × the block bytes, every request ended with
       ``length`` and no overflow, and the pool drained (all blocks free,
-      refcounts 0, no spilled payload left, every layer's invariants).
+      refcounts 0, no spilled payload left, every layer's invariants and the
+      engine's audit clean).
+    * ``faulted``: the engine fails every promotion (a ``spill_transfer``
+      fault plan): no round trip is made; instead of a promotion, a block
+      must be pinned cold while its request runs, with retries and degraded
+      ticks counted, and no promotion may land.
     """
     COLD = 8
+
+    def __init__(self, faulted: bool = False):
+        self.faulted = faulted
 
     def install(self, eng) -> None:
         import torch
@@ -1231,6 +1293,7 @@ class SpillProbe:
         self.events = {"pressure": 0, "policy": 0, "wave": 0, "wave_admissions": 0}
         self.hist_s, self.hist_calls = 0.0, 0
         self.roundtrip = None
+        self.peak_pinned_cold = 0
         real_hist, real_policy = eng._sel_hist_fn, eng._spill_policy
         real_demote, real_install, real_tick = eng.demote_block, eng._install_prompt, eng._tick
         real_streaks = eng._update_cold_streaks
@@ -1248,26 +1311,28 @@ class SpillProbe:
             self.hist_s += time.perf_counter() - t0
             self.hist_calls += 1
 
-        def demote(slot, logical):
-            self.events[phase["now"]] += 1
-            return real_demote(slot, logical)
+        def demote(slot, logical, _inject=True):
+            done = real_demote(slot, logical, _inject)
+            self.events[phase["now"]] += done
+            return done
 
         def policy():
             phase["now"] = "policy"
             real_policy()
             phase["now"] = "pressure"
 
-        def install(slot, shared, need, state1):
-            if need - len(shared) > eng._alloc.total_free:   # the prompt admits in waves
+        def install(slot, shared, need, state1, fresh):
+            if fresh is None:                 # the prompt admits in waves
                 self.events["wave_admissions"] += 1
                 phase["now"] = "wave"
-            real_install(slot, shared, need, state1)
+            real_install(slot, shared, need, state1, fresh)
             phase["now"] = "pressure"
 
         def tick():
-            if self.roundtrip is None:
+            if self.roundtrip is None and not self.faulted:
                 self.roundtrip = self._roundtrip(eng, real_demote)
             real_tick()
+            self.peak_pinned_cold = max(self.peak_pinned_cold, len(eng._pinned_cold))
 
         eng._sel_hist_fn, eng._spill_policy, eng.demote_block = hist, policy, demote
         eng._install_prompt, eng._tick, eng._update_cold_streaks = install, tick, streaks
@@ -1293,11 +1358,17 @@ class SpillProbe:
     def finish(self, eng) -> dict:
         st = eng.stats
         ev = self.events
-        if not (ev["wave_admissions"] >= 1 and ev["pressure"] >= 1 and ev["policy"] >= 1
-                and st.promotions >= 1):
+        if not (ev["wave_admissions"] >= 1 and ev["pressure"] >= 1 and ev["policy"] >= 1):
             raise AssertionError(f"host tier: wave admission, pressure and policy demotion "
-                                 f"and a promotion must all happen; got {ev}, "
-                                 f"{st.promotions} promotions")
+                                 f"must all happen; got {ev}")
+        if not self.faulted and st.promotions < 1:
+            raise AssertionError("host tier: no promotion happened")
+        if self.faulted and not (st.promotions == 0 and self.peak_pinned_cold >= 1
+                                 and st.retries > 0 and st.degraded_ticks > 0):
+            raise AssertionError(f"host tier under promote faults: promotions {st.promotions} "
+                                 f"(needs 0), peak pinned cold {self.peak_pinned_cold}, "
+                                 f"retries {st.retries}, degraded ticks {st.degraded_ticks} "
+                                 f"(need > 0)")
         if st.pcie_bytes != (st.demotions + st.promotions) * eng._block_bytes:
             raise AssertionError(f"pcie_bytes {st.pcie_bytes} != (demotions + promotions) "
                                  f"× {eng._block_bytes}")
@@ -1310,8 +1381,11 @@ class SpillProbe:
             rep = pool.check_invariants(free_blocks=free, host_refcount=eng._refcount)
             if not rep.ok:
                 raise AssertionError(f"pool invariants after the run: {rep.violations}")
+        rep = eng.check_invariants()
+        if not rep.ok:
+            raise AssertionError(f"the engine's audit after the run: {rep}")
         return {"spill_events": dict(ev), "roundtrip": self.roundtrip,
-                "block_bytes": eng._block_bytes,
+                "block_bytes": eng._block_bytes, "peak_pinned_cold": self.peak_pinned_cold,
                 "cold_streak_update_ms_per_tick": 1e3 * self.hist_s / max(self.hist_calls, 1)}
 
 
@@ -1425,20 +1499,24 @@ def check_prefix_sharing(dev, ctx, runs: dict) -> None:
           flush=True)
 
 
-def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
+def serve_scheduler(dev, ctx=None, late=False, hook=None, stops=None, **engine_kw) -> dict:
     """Phase 4's continuous-batching runs: full-width qwen3-0.6b with
     ``salca_static_channels``, the main path's prompts, SCHED_NEW new tokens,
     ``engine_kw`` (``prefill_chunk``, ``preempt``, ``num_blocks``). ``late``:
     requests 0 and 1 are submitted at the start and requests 2 and 3 after
     the SCHED_LATE_TICK-th tick, the engine driven by its own `_admit` and
     `_tick` (the reference battery's way); otherwise all four at the start
-    and `run`. Every kernel's launch counter is set to 0 just before the run
-    and read just after. Returns the launches, the summary (with per
+    and the same loop. ``hook(engine, reqs, n)`` runs before the first pass
+    (n = 0) and after every pass n (the lifecycle run submits and cancels
+    there); ``stops`` ({rid: reason}, default "length") the stop reasons the
+    run must give. Every kernel's launch counter is set to 0 just before the
+    run and read just after. Returns the launches, the summary (with per
     request TTFT and the largest gap between consecutive fresh tokens after
     the capture tick — with ``late``, while the late prompts prefill — ms
     per tick, peak memory, B3's launches at ``q_offset`` > 0), the tokens,
     and every logits row each token was drawn from, per (request, index),
-    in the order drawn (a replay draws a row again)."""
+    in the order drawn (a replay draws a row again), with the stop
+    reasons, the fault plan's fired log and the audits' results."""
     import dataclasses
     import gc
 
@@ -1461,16 +1539,17 @@ def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
     orig_decode, orig_activate = engine._decode, engine._activate
 
     def decode(*a):
-        who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
+        who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()
+               if engine._mask[slot]]
         t0 = time.perf_counter()
-        nxt, logits = orig_decode(*a)
+        nxt, logits, finite = orig_decode(*a)
         host = logits.to("cpu", non_blocking=True)
         torch.cuda.synchronize()
         tick_ms.append(1e3 * (time.perf_counter() - t0))
         tick_end.append(time.time())
         for slot, rid, j in who:
             rows.setdefault((rid, j), []).append(host[slot])
-        return nxt, logits
+        return nxt, logits, finite
 
     def activate(req, slot, logits_row):
         rows.setdefault((req.rid, len(req.output)), []).append(torch.from_numpy(logits_row))
@@ -1483,32 +1562,40 @@ def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
         offsets.append(q_offset)
         return real_attn(q, k, v, q_offset=q_offset, **kw)
 
-    engine._decode, engine._activate = decode, activate
+    audit_ms = []
+
+    def audit(real=engine.check_invariants):
+        t0 = time.perf_counter()
+        rep = real()
+        audit_ms.append(1e3 * (time.perf_counter() - t0))
+        return rep
+
+    engine._decode, engine._activate, engine.check_invariants = decode, activate, audit
     attention.flash_attention_chunked = chunked_attn
     reqs = [Request(rid=i, prompt=p, max_new_tokens=SCHED_NEW) for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t_start = time.time()
     try:
-        if late:
-            for r in reqs[:2]:
-                r.submitted = time.time()
-                engine.submit(r)
-            t_late = None
-            while engine._queue or engine._active or engine._inflight is not None:
-                engine._admit()
-                if engine._active:
-                    engine._tick()
-                if t_late is None and engine.stats.ticks >= SCHED_LATE_TICK:
-                    t_late = time.time()
-                    for r in reqs[2:]:
-                        r.submitted = t_late
-                        engine.submit(r)
-        else:
-            for r in reqs:
-                r.submitted = time.time()
-                engine.submit(r)
-            engine.run()
+        t_late = None
+        for r in reqs[:2] if late else reqs:
+            r.submitted = time.time()
+            engine.submit(r)
+        passes = 0
+        if hook is not None:
+            hook(engine, reqs, passes)
+        while engine._queue or engine._active or engine._inflight is not None:
+            engine._admit()
+            if engine._active:
+                engine._tick()
+            passes += 1
+            if late and t_late is None and engine.stats.ticks >= SCHED_LATE_TICK:
+                t_late = time.time()
+                for r in reqs[2:]:
+                    r.submitted = t_late
+                    engine.submit(r)
+            if hook is not None:
+                hook(engine, reqs, passes)
     finally:
         attention.flash_attention_chunked = real_attn
     torch.cuda.synchronize()
@@ -1517,12 +1604,18 @@ def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = engine.stats
     summary = stats.summary()
-    assert stats.completed == len(reqs), summary
-    assert all(len(r.output) == SCHED_NEW and r.stop_reason == "length" for r in reqs), summary
+    want_stops = [(stops or {}).get(r.rid, "length") for r in reqs]
+    if [r.stop_reason for r in reqs] != want_stops:
+        raise AssertionError(f"stop reasons {[r.stop_reason for r in reqs]} != {want_stops}")
+    assert stats.completed == sum(r.admitted is not None for r in reqs), summary
+    assert stats.admissions == stats.completed + stats.preemptions, summary
+    assert all(len(r.output) == SCHED_NEW for r in reqs if r.stop_reason == "length"), summary
     assert all(bool(torch.isfinite(x).all()) for rs in rows.values() for x in rs), \
         "non-finite logits on the continuous-batching path"
     assert sorted(engine._free_blocks) == list(range(engine.num_blocks)) and \
         not engine._refcount.any(), "the pool did not drain"
+    if stats.audit_failures or not engine.check_invariants().ok:
+        raise AssertionError(f"the audit failed: {engine.last_audit}")
     nl = cfg.num_layers
     tick_kernels = (("paged_score_estimate", "sparse_flash_decode_paged") if ctx is None else
                     ("paged_score_bounds", "paged_fused_select",
@@ -1550,20 +1643,32 @@ def serve_scheduler(dev, ctx=None, late=False, **engine_kw) -> dict:
                    graphed=engine._step.graphed, tick_ms=tick_ms,
                    tick_ms_median=float(np.median(tick_ms[2:] if engine._step.graphed
                                                   else tick_ms)),
-                   preempted=[r.preemptions for r in reqs])
-    return dict(launches=launches, summary=summary, tokens=[r.output for r in reqs], rows=rows)
+                   preempted=[r.preemptions for r in reqs],
+                   audit_ms_median=float(np.median(audit_ms)) if audit_ms else None,
+                   faults=engine._faults.counts() if engine._faults is not None else {})
+    return dict(launches=launches, summary=summary, tokens=[r.output for r in reqs], rows=rows,
+                stops=[r.stop_reason for r in reqs],
+                fired=engine._faults.fired_log if engine._faults is not None else [])
 
 
-def compare_scheduled(label: str, base: dict, other: dict) -> int:
-    """A continuous-batching run against run (a), the monolithic twin: the
-    same greedy tokens, and every logits row the run drew (a replayed
-    token's twice) bit for bit equal to (a)'s row for the same request and
-    index. Returns the rows compared."""
+def compare_scheduled(label: str, base: dict, other: dict, whole=None) -> int:
+    """A continuous-batching run against run (a), the monolithic twin (or
+    another base run): the same greedy tokens, and every logits row the run
+    drew (a replayed token's twice) bit for bit equal to the base's row for
+    the same request and index. ``whole``: the requests whose tokens must
+    be the base's whole (default all of the base's); any other request's
+    tokens must be a prefix of the base's (one ended early). Returns the
+    rows compared."""
     import torch
-    where = first_divergence(base["tokens"], other["tokens"])
+    whole = range(len(base["tokens"])) if whole is None else whole
+    where = first_divergence([base["tokens"][i] for i in whole],
+                             [other["tokens"][i] for i in whole])
     if where is not None:
-        raise AssertionError(f"{label}: greedy tokens part from (a)'s at (request, token) "
-                             f"{where}")
+        raise AssertionError(f"{label}: greedy tokens part from the base's at (request, "
+                             f"token) {where}")
+    for i, (x, y) in enumerate(zip(base["tokens"], other["tokens"])):
+        if y != x[:len(y)]:
+            raise AssertionError(f"{label}: request {i}'s tokens are not a prefix of the base's")
     n, differ, worst = 0, [], 0.0
     for key, rs in other["rows"].items():
         want = base["rows"][key][0]
@@ -1580,9 +1685,9 @@ def compare_scheduled(label: str, base: dict, other: dict) -> int:
     return n
 
 
-def check_scheduler(dev, ctx, runs: dict) -> None:
+def check_scheduler(dev, ctx, runs: dict) -> dict:
     """Phase 4's continuous-batching runs (module docstring); adds their
-    launch counts to ``runs``."""
+    launch counts to ``runs``; returns run (b)."""
     a = serve_scheduler(dev, late=True)
     b = serve_scheduler(dev, late=True, prefill_chunk=SCHED_CHUNK)
     c = serve_scheduler(dev, preempt=True, num_blocks=SCHED_PREEMPT_BLOCKS)
@@ -1630,6 +1735,170 @@ def check_scheduler(dev, ctx, runs: dict) -> None:
           f"{sb['ttft_s'][3]:.3f} s; replay ms (median) (a) {sa['tick_ms_median']:.2f}, (b) "
           f"{sb['tick_ms_median']:.2f}; peak memory GB (a) {sa['peak_mem_gb']:.3f}, (b) "
           f"{sb['peak_mem_gb']:.3f}", flush=True)
+    return b
+
+
+def sched_faults():
+    """Run (g)'s fault plan, built anew for each engine that takes it: the
+    allocator reports an empty pool (p 0.3, at most 4 times), a chunk step
+    fails (p 0.3, at most 3), and request 1's logits row is poisoned once,
+    after its 5th opportunity."""
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    return FaultPlan(seed=0, specs=(
+        FaultSpec("alloc_exhausted", p=0.3, max_fires=4),
+        FaultSpec("prefill_chunk", p=0.3, max_fires=3),
+        FaultSpec("decode_logits", p=1.0, rids=(1,), after=5, max_fires=1)))
+
+
+def poison_after(after: int, rid: int):
+    """A hook of `serve_main_path`: after the engine's ``after``-th decode,
+    write NaN into every V code of request ``rid``'s blocks in layer 0 of
+    an fp16 pool, in place (the graph reads them at its captured
+    addresses)."""
+    def hook(engine):
+        real = engine._tick
+
+        def tick():
+            real()
+            if engine.stats.ticks == after and not engine._poisoned:
+                slot = next(s for s, r in engine._active.items() if r.rid == rid)
+                blocks = [b for b in engine._slot_blocks[slot] if b >= 0]
+                engine._state.caches[0].data["v_codes"][blocks] = float("nan")
+                engine._poisoned = blocks
+
+        engine._poisoned = None
+        engine._tick = tick
+    return hook
+
+
+def lifecycle_hook(prompt_len: int):
+    """Run (i)'s hook of `serve_scheduler`: before the first pass the queue
+    holds the four prompts, so a fifth request (rid 4) is shed by
+    ``max_queue=4``; after the first pass (request 0 in flight) a sixth
+    (rid 5) with ``deadline_ms=1`` joins the queue behind three prompts and
+    expires there; request 3 is cancelled once its chunked prefill has run
+    a chunk."""
+    from repro_torch.runtime.serve import Request
+    prompts = np.random.default_rng(2).integers(0, 1000, (2, prompt_len)).astype(np.int32)
+
+    def hook(engine, reqs, n):
+        if n == 0:
+            reqs.append(Request(rid=4, prompt=prompts[0], max_new_tokens=SCHED_NEW))
+            if engine.submit(reqs[-1]):
+                raise AssertionError("lifecycle: a fifth request was not shed")
+        elif n == 1:
+            reqs.append(Request(rid=5, prompt=prompts[1], max_new_tokens=SCHED_NEW,
+                                deadline_ms=1.0))
+            if not engine.submit(reqs[-1]):
+                raise AssertionError("lifecycle: the sixth request was shed")
+        inf = engine._inflight
+        if inf is not None and inf.req.rid == 3 and inf.consumed > 0:
+            engine.cancel(3)
+    return hook
+
+
+def check_lifecycle(dev, ctx, runs: dict, main_tokens, fp16, b: dict) -> None:
+    """Phase 4's lifecycle and fault runs (f)-(k) (module docstring); adds
+    their launch counts to ``runs``. ``main_tokens``: the greedy main run's
+    tokens; ``fp16``: the clean fp16 run's (tokens, rows); ``b``: run (b)."""
+    import torch
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    # (f) sampling, graphed and eager
+    temps = (0.8, 0.0, 0.8, 0.0)
+    runs["f sampled"], f, tok_f, rows_f = serve_main_path(dev, greedy=False, seed=0,
+                                                          temperatures=temps)
+    print_serve("(f) sampled, temperatures 0.8 / 0 / 0.8 / 0, seed 0", f)
+    runs["f sampled eager"], f_e, tok_fe, rows_fe = serve_main_path(
+        dev, eager_run=True, greedy=False, seed=0, temperatures=temps)
+    print_serve("(f) sampled, eager (built under steps.eager())", f_e)
+    n_f = check_bitwise("(f) sampled graphed vs eager", tok_f, rows_f, tok_fe, rows_fe)
+    if [tok_f[1], tok_f[3]] != [main_tokens[1], main_tokens[3]]:
+        raise AssertionError("(f): the temperature-0 requests part from the greedy run: "
+                             f"{first_divergence([main_tokens[1], main_tokens[3]], [tok_f[1], tok_f[3]])}")
+    row = torch.stack([rows_f[(0, 1)]] * 4).to(dev)
+    copy_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row.float().cpu().numpy()
+        copy_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"(f) sampled: graphed vs eager tokens identical, {n_f} logits rows bit for bit; "
+          f"requests 1 and 3 (temperature 0) equal the greedy run's tokens; requests 0 and 2 "
+          f"part from it at {first_divergence(main_tokens, tok_f)}; host ms per sampled token "
+          f"(float64 gumbel over {rows_f[(0, 0)].numel()} columns + argmax) median "
+          f"{np.median(f['sample_ms']):.3f} over {len(f['sample_ms'])}; logits copy (4 rows, "
+          f"bf16 → f32 → host) median {np.median(copy_ms):.3f} ms; replay ms (median) "
+          f"{f['replay_ms_median']:.2f} against the greedy run's", flush=True)
+    # (g) faults on (b)'s engine, audited every tick
+    g = serve_scheduler(dev, late=True, prefill_chunk=SCHED_CHUNK, audit_every=1,
+                        faults=sched_faults(), stops={1: "error"})
+    runs["g faults"] = g["launches"]
+    n_g = compare_scheduled("(g) faults vs (b)", b, g, whole=(0, 2, 3))
+    sg, sb = g["summary"], b["summary"]
+    keys = ("faults", "faults_injected", "errors", "retries", "degraded_ticks", "chunk_stalls",
+            "audits", "audit_failures", "audit_ms_median", "ticks", "prefill_chunks",
+            "max_gap_ms", "ttft_s", "tick_ms_median", "wall_s")
+    print(f"(g) faults on (b)'s engine: {json.dumps({k: sg.get(k) for k in keys})}; stops "
+          f"{g['stops']}; requests 0, 2, 3 give (b)'s tokens, {n_g} logits rows bit for bit; "
+          f"(b): largest gap {sb['max_gap_ms']}, TTFT {sb['ttft_s']}, wall {sb['wall_s']:.3f} s",
+          flush=True)
+    print(f"serve stats (g): {json.dumps(sg)}", flush=True)
+    if not (sg["faults"].get("alloc_exhausted") and sg["faults"].get("prefill_chunk")
+            and sg["errors"] == 1 and sg["audits"] == sg["ticks"]):
+        raise AssertionError(f"(g): every site must fire, one error, an audit per tick: {sg}")
+    # (h) a real NaN through the graph's finite output
+    runs["h nan"], h, tok_h, rows_h = serve_main_path(
+        dev, kv_pool_dtype="fp16", hook=poison_after(5, 2), stops={2: "error"})
+    print_serve("(h) fp16, NaN in request 2's V codes of layer 0 after the 5th tick", h)
+    dropped = [t for t, fl in enumerate(h["finite"]) if not all(fl.values())]
+    if not (h["errors"] == 1 and "faults_injected" not in h and len(dropped) == 1
+            and dropped[0] >= 2 and h["nonfinite_rows"] == [(2, len(tok_h[2]))]):
+        raise AssertionError(f"(h): the NaN must drop one flag of request 2 on a replayed "
+                             f"tick and end it with an error: ticks {dropped}, "
+                             f"{h['nonfinite_rows']}, {h['errors']} errors")
+    tok_c, rows_c = fp16
+    others = {k: r for k, r in rows_h.items() if k not in h["nonfinite_rows"]}
+    n_h = check_bitwise("(h) vs the clean fp16 run",
+                        [tok_h[i] for i in (0, 1, 3)], others,
+                        [tok_c[i] for i in (0, 1, 3)], {k: rows_c[k] for k in others})
+    if tok_h[2] != tok_c[2][:len(tok_h[2])]:
+        raise AssertionError("(h): request 2's tokens before the NaN part from the clean run")
+    print(f"(h) real NaN: request 2 stopped 'error' on tick {dropped[0]} (a graph replay; "
+          f"finite {h['finite'][dropped[0]]}); requests 0, 1, 3 and request 2 before the "
+          f"NaN: {n_h} logits rows bit for bit with the clean fp16 run", flush=True)
+    # (i) the lifecycle on (b)'s engine
+    i_run = serve_scheduler(dev, prefill_chunk=SCHED_CHUNK, max_queue=4, audit_every=1,
+                            hook=lifecycle_hook(PROMPTS[0]),
+                            stops={3: "cancelled", 4: "rejected", 5: "deadline"})
+    runs["i lifecycle"] = i_run["launches"]
+    si = i_run["summary"]
+    n_i = compare_scheduled("(i) lifecycle vs (b)", b, dict(i_run, tokens=i_run["tokens"][:4]),
+                            whole=(0, 1, 2))
+    if (si["cancellations"], si["rejections"], si["deadline_stops"]) != (1, 1, 1):
+        raise AssertionError(f"(i): one cancel, one shed, one deadline expected: {si}")
+    print(f"(i) lifecycle: stops {i_run['stops']}; cancellations / rejections / deadline "
+          f"stops {si['cancellations']} / {si['rejections']} / {si['deadline_stops']}; "
+          f"admissions {si['admissions']} = completed {si['completed']}; audits "
+          f"{si['audits']} clean; requests 0-2 give (b)'s tokens, {n_i} rows bit for bit; "
+          f"the pool drained", flush=True)
+    # (j) host-tier transfer retries: every promotion fails
+    plan_j = FaultPlan(seed=0, specs=(FaultSpec("spill_transfer", p=1.0, direction="promote"),))
+    runs["j spill faults"], j, _, _ = serve_main_path(
+        dev, probe=SpillProbe(faulted=True), faults=plan_j, spill_max_retries=1,
+        audit_every=1, **SPILL_RUN)
+    print_serve(f"(j) int4 + host spill, every promotion failing, spill_max_retries=1", j)
+    print(f"(j) spill retries: {json.dumps({k: j.get(k) for k in ('retries', 'degraded_ticks', 'demotions', 'promotions', 'faults_injected', 'audits', 'audit_failures', 'peak_pinned_cold', 'spill_events')})}",
+          flush=True)
+    # (k) = (g) at one nccl rank
+    k = serve_scheduler(dev, ctx, late=True, prefill_chunk=SCHED_CHUNK, audit_every=1,
+                        faults=sched_faults(), stops={1: "error"})
+    runs["k faults sharded"] = k["launches"]
+    if (k["tokens"], k["stops"], k["fired"]) != (g["tokens"], g["stops"], g["fired"]):
+        raise AssertionError(f"(k): tokens, stops or faults part from (g)'s: {k['stops']}, "
+                             f"{first_divergence(g['tokens'], k['tokens'])}")
+    print(f"(k) = (g) sharded (one rank, nccl): tokens, stop reasons and the {len(k['fired'])} "
+          f"fired faults equal (g)'s; ms per tick (median) {k['summary']['tick_ms_median']:.2f}",
+          flush=True)
 
 
 def print_serve(label: str, summary: dict) -> None:
@@ -1716,8 +1985,10 @@ def main() -> int:
     # (tokens must agree), then int4 with the host tier on a small pool
     runs = {"int8": launches, "int8 eager": launches_e, "int8 sharded": launches_sh,
             "contiguous": launches_c}
+    clean = {}
     for mode in ("fp16", "int4"):
-        runs[mode], summary_m, tokens_m, _ = serve_main_path(dev, kv_pool_dtype=mode)
+        runs[mode], summary_m, tokens_m, clean[mode] = serve_main_path(dev, kv_pool_dtype=mode)
+        clean[mode] = (tokens_m, clean[mode])
         print_serve(f"paged {mode}", summary_m)
         runs[f"{mode} sharded"], summary_ms, tokens_ms, _ = serve_main_path(
             dev, ctx, kv_pool_dtype=mode)
@@ -1729,7 +2000,8 @@ def main() -> int:
     runs["int4 spill"], summary_sp, _, _ = serve_main_path(dev, probe=SpillProbe(), **SPILL_RUN)
     print_serve(f"paged int4 + host spill {json.dumps(SPILL_RUN)}", summary_sp)
     check_prefix_sharing(dev, ctx, runs)
-    check_scheduler(dev, ctx, runs)
+    b = check_scheduler(dev, ctx, runs)
+    check_lifecycle(dev, ctx, runs, tokens, clean["fp16"], b)
     # each kernel's launches on the run of its path (B10/B11: their phase-3 drive)
     home = {"sparse_flash_decode_paged[fp16]": "fp16",
             "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",

@@ -291,13 +291,27 @@ class PagedSalcaCache:
         """Page table with unmapped entries clamped to block 0 for reads."""
         return torch.clamp_min(self.page_table, 0)
 
-    def check_invariants(self, free_blocks=None, host_refcount=None) -> "InvariantReport":
-        """Audit of the pool's bookkeeping (host-side, one device sync):
-        refcount == page-table references, ids in range, cursors in
-        [0, max_seq], mapped entries contiguous from logical 0, and — when
-        given — the free list disjoint from every mapped block and covering
-        every unreferenced block, the host refcount mirror equal to the
-        device's. Never raises; returns an `InvariantReport`."""
+    def check_invariants(self, free_blocks=None, host_refcount=None,
+                         allow_holes: bool = False) -> "InvariantReport":
+        """Audit of the pool's bookkeeping (host-side, one device sync for
+        the three metadata tensors), the reference's checks:
+
+        * ``refcount[b]`` equals the number of page-table entries mapping
+          block ``b``: no leaked or phantom references;
+        * refcounts are non-negative, page-table entries are -1 or a block
+          id, ``0 <= length <= max_seq``;
+        * ``free_blocks`` (the engine's free list), when given, is free of
+          duplicates, in range, disjoint from every mapped block and covers
+          every unreferenced block;
+        * ``host_refcount`` (the engine's mirror), when given, equals the
+          device refcount;
+        * each slot's mapped entries run from logical 0 with no hole below
+          a mapped one, unless ``allow_holes`` (the host tier unmaps cold
+          blocks below the cursor).
+
+        The reference's ``cache_pinned`` argument (blocks held by its
+        persistent prefix cache) comes with the port of that cache. Never
+        raises; returns an `InvariantReport`."""
         pt = self.page_table.cpu().numpy()
         rc = self.refcount.cpu().numpy()
         ln = self.length.cpu().numpy()
@@ -305,7 +319,8 @@ class PagedSalcaCache:
         rep = InvariantReport(checked={"slots": self.num_slots, "blocks": p,
                                        "max_blocks": mb})
         if ((ln < 0) | (ln > self.max_seq)).any():
-            rep.fail(f"length out of [0, {self.max_seq}]")
+            bad = np.where((ln < 0) | (ln > self.max_seq))[0]
+            rep.fail(f"length out of [0, {self.max_seq}] at slots {bad.tolist()}")
         if (rc < 0).any():
             rep.fail(f"negative refcount at blocks {np.where(rc < 0)[0].tolist()}")
         if ((pt < PAGE_UNMAPPED) | (pt >= p)).any():
@@ -314,32 +329,42 @@ class PagedSalcaCache:
         derived = np.bincount(pt[pt >= 0], minlength=p).astype(rc.dtype)
         if not (derived == rc).all():
             bad = np.where(derived != rc)[0]
-            rep.fail(f"refcount mismatch at blocks {bad.tolist()[:8]}")
-        if host_refcount is not None and not (np.asarray(host_refcount) == rc).all():
-            rep.fail("host refcount mirror diverges from device")
+            rep.fail(f"refcount mismatch at blocks {bad.tolist()[:8]}: "
+                     f"device={rc[bad].tolist()[:8]} page-table={derived[bad].tolist()[:8]}")
+        if host_refcount is not None:
+            hrc = np.asarray(host_refcount)
+            if hrc.shape != (p,) or not (hrc == rc).all():
+                bad = np.where(hrc != rc)[0] if hrc.shape == (p,) else []
+                rep.fail(f"host refcount mirror diverges from device at blocks {list(bad)[:8]}")
         if free_blocks is not None:
             free = np.asarray(list(free_blocks), dtype=np.int64)
             if len(set(free.tolist())) != len(free):
                 rep.fail("duplicate ids in the free list")
-            elif free.size and ((free < 0) | (free >= p)).any():
+            if free.size and ((free < 0) | (free >= p)).any():
                 rep.fail("free-list id outside the pool")
             else:
                 free_mask = np.zeros(p, bool)
                 free_mask[free] = True
                 if (free_mask & (derived > 0)).any():
-                    rep.fail("free ∩ mapped ≠ ∅")
+                    rep.fail(f"free ∩ mapped ≠ ∅: blocks "
+                             f"{np.where(free_mask & (derived > 0))[0].tolist()[:8]}")
                 if (~free_mask & (derived == 0)).any():
-                    rep.fail(f"leaked blocks: "
+                    rep.fail(f"leaked blocks (unreferenced, not free): "
                              f"{np.where(~free_mask & (derived == 0))[0].tolist()[:8]}")
-        mapped = pt >= 0
-        first_unmapped = np.where(mapped.all(axis=1), mb, np.argmin(mapped, axis=1))
-        if (mapped & (np.arange(mb)[None, :] >= first_unmapped[:, None])).any():
-            rep.fail("page-table hole below a mapped block")
+        if not allow_holes:
+            mapped = pt >= 0
+            first_unmapped = np.where(mapped.all(axis=1), mb, np.argmin(mapped, axis=1))
+            tail = mapped & (np.arange(mb)[None, :] >= first_unmapped[:, None])
+            if tail.any():
+                rep.fail(f"page-table hole below a mapped block at slots "
+                         f"{np.where(tail.any(axis=1))[0].tolist()}")
         return rep
 
 
 @dataclass
 class InvariantReport:
+    """The result of a `PagedSalcaCache.check_invariants` audit, or of the
+    engine's audit that merges several of them."""
     violations: list = field(default_factory=list)
     checked: dict = field(default_factory=dict)
 
@@ -349,6 +374,17 @@ class InvariantReport:
 
     def fail(self, msg: str) -> None:
         self.violations.append(msg)
+
+    def merge(self, other: "InvariantReport", prefix: str = "") -> None:
+        for v in other.violations:
+            self.violations.append(f"{prefix}{v}" if prefix else v)
+        for k, v in other.checked.items():
+            self.checked.setdefault(k, v)
+
+    def __repr__(self) -> str:
+        state = "ok" if self.ok else f"{len(self.violations)} violation(s)"
+        body = "".join(f"\n  - {v}" for v in self.violations)
+        return f"InvariantReport({state}, checked={self.checked}){body}"
 
 
 def empty_paged_cache(num_blocks: int, block_size: int, slots: int,

@@ -5,9 +5,12 @@ decode state. Admission is FIFO: a request is prefilled alone (batch 1,
 kernel B3) and written into a free slot of that state; each tick makes
 exactly ONE decode call that advances all active slots under an
 active-slot mask (`runtime.steps`: on the card, one CUDA graph replay
-without ``ctx``). Sampling is greedy (argmax). Every write into the state
-— admission, growth, release, host-tier moves — is in place: the state's
-tensors are the ones the tick's graph was captured over.
+without ``ctx``). Sampling is greedy (argmax, on the device) unless
+``greedy=False``: a request with ``temperature > 0`` then draws its token on
+the host from its logits row in float64 with Gumbel noise from the engine's
+generator (``seed``), as the reference does. Every write into the state —
+admission, growth, release, host-tier moves, aborts — is in place: the
+state's tensors are the ones the tick's graph was captured over.
 
 Contiguous slot pool (``paged=False``, the default, as in the reference):
 every layer's cache is a dense ``(slots, max_seq, ·)`` `SalcaCache`; the
@@ -87,9 +90,31 @@ the queue head, re-prefills its prompt and is force-fed its recorded tokens
 through ordinary ticks, so its output equals a never-preempted run's. A
 request's queue wait sums over its admission cycles.
 
-Knobs that the reference rejects raise its `ValueError`s; knobs of the
-reference engine that later slices port raise `NotImplementedError` naming
-the reference feature that brings them instead of being ignored.
+Failure model, as in the reference: every failure path degrades instead of
+crashing. A request may carry ``deadline_ms`` (expiry ends it with
+``stop_reason="deadline"`` and full block, stash and radix cleanup, wherever
+it is: queued, mid-chunked-prefill or resident); ``cancel(rid)`` works on
+queued, in-flight and resident requests; a bounded queue (``max_queue``)
+sheds new submits with ``stop_reason="rejected"``. A failed host-tier
+transfer retries with capped exponential backoff (``spill_max_retries``,
+``spill_backoff_base``, ``spill_backoff_cap``, in ticks); a promotion that
+runs out of retries pins the block cold — unmapped, so the selection never
+reads it and decode goes on with sparser attention (`stats.degraded_ticks`
+counts such ticks) — and a demotion that runs out pins it hot. A slot
+whose logits row comes back non-finite (the tick's ``finite`` output) is
+quarantined with ``stop_reason="error"`` without touching the tick's other
+slots. A seeded `runtime.faults.FaultPlan` (``faults=``) injects all of
+these deterministically; ``audit_every`` runs `check_invariants` (the
+pools' refcounts against their page tables and the host mirror, free ∩
+mapped = ∅, cursor bounds, host against device page tables, the spill
+mirror) every N ticks and raises on a violation; ``monitor`` /
+``heartbeat_path`` record every tick's time in a `runtime.monitor.StepMonitor`
+(straggler flags, a heartbeat file).
+
+Knobs that the reference rejects raise its `ValueError`s; the one knob of
+the reference engine that a later slice ports, ``prefix_cache``, raises
+`NotImplementedError` naming the reference feature that brings it instead
+of being ignored.
 """
 
 from __future__ import annotations
@@ -104,15 +129,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cache import InvariantReport
 from repro_torch.distributed.sharding import DecodeCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
-from repro_torch.runtime.steps import ServeDecodeStep
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.runtime.monitor import NaNGuard, StepMonitor
+from repro_torch.runtime.steps import ServeDecodeStep, to_host
 
 # reference knob → the reference feature whose port brings it
 _LATER = {
     "prefix_cache": "the reference's persistent prefix cache",
-    "faults": "the reference's fault injection, deadlines and auditor",
 }
 SPILLED = -1     # a slot's logical block that lives in the host tier
 
@@ -123,11 +150,16 @@ class Request:
     prompt: np.ndarray                 # (T,) int32
     max_new_tokens: int = 16
     stop_token: int | None = None
+    temperature: float = 0.0           # 0: greedy; > 0: sampled (greedy=False)
+    deadline_ms: float | None = None   # wall-clock budget from submission
     submitted: float = field(default_factory=time.time)
     admitted: float | None = None
     first_token_time: float | None = None
     done_time: float | None = None
-    stop_reason: str | None = None     # "length" | "stop" | "overflow"
+    # "length" | "stop"; capacity: "overflow"; lifecycle: "deadline" |
+    # "cancelled" | "rejected" (shed by the bounded queue); fault: "error"
+    # (the slot's logits row was not finite)
+    stop_reason: str | None = None
     output: list = field(default_factory=list)
     shared_blocks: int = 0             # blocks admitted by prefix sharing
     preemptions: int = 0               # times evicted and requeued
@@ -260,12 +292,28 @@ class ServeStats:
     demotions: int = 0         # block moves device → host
     promotions: int = 0        # block moves host → device
     pcie_bytes: int = 0        # block bytes × moves
+    # request lifecycle and fault tolerance; `admissions` still equals
+    # `completed + preemptions` at drain: a deadline, cancel or error stop
+    # of a request whose cycle began counts in `completed`, a request ended
+    # in the queue before any work only in its own counter
+    deadline_stops: int = 0    # deadline expiries (queued, in flight, resident)
+    cancellations: int = 0     # cancel() calls that ended a request
+    rejections: int = 0        # submits shed by the bounded queue
+    errors: int = 0            # slots quarantined on a non-finite logits row
+    retries: int = 0           # failed transfers and chunk steps left to retry
+    degraded_ticks: int = 0    # ticks with a stalled slot or a cold-pinned block
+    faults_injected: int = 0   # FaultPlan injections that fired
+    audits: int = 0            # integrity audits run (audit_every)
+    audit_failures: int = 0    # audits that reported violations
+    straggler_ticks: int = 0   # ticks the StepMonitor flagged slow
+    tick_ewma_s: float = 0.0   # the monitor's tick-time EWMA (0: no monitor)
 
     def summary(self) -> dict:
         """The reference's summary keys that this port has, rounded as there
-        (seconds to 4 places, ms and utilisations to 3); the block-pool and
-        sharing keys only for a paged engine, the shard keys only over
-        several shards."""
+        (seconds to 4 places, ms and utilisations to 3); the fault, audit and
+        monitor keys only when they have counted, the block-pool and sharing
+        keys only for a paged engine, the shard keys only over several
+        shards."""
         out = {
             "completed": self.completed, "prefill_s": round(self.prefill_s, 4),
             "decode_s": round(self.decode_s, 4), "decode_steps": self.decode_steps,
@@ -281,7 +329,17 @@ class ServeStats:
             "preemptions": self.preemptions, "replayed_tokens": self.replayed_tokens,
             "prefill_chunks": self.prefill_chunks, "chunk_stalls": self.chunk_stalls,
             "prefill_tokens": self.prefill_tokens,
+            "deadline_stops": self.deadline_stops, "cancellations": self.cancellations,
+            "rejections": self.rejections, "errors": self.errors, "retries": self.retries,
+            "degraded_ticks": self.degraded_ticks,
         }
+        if self.faults_injected:
+            out["faults_injected"] = self.faults_injected
+        if self.audits:
+            out.update(audits=self.audits, audit_failures=self.audit_failures)
+        if self.tick_ewma_s:
+            out.update(straggler_ticks=self.straggler_ticks,
+                       tick_ewma_ms=round(1e3 * self.tick_ewma_s, 3))
         if self.block_pool_size:
             out.update(block_pool_size=self.block_pool_size,
                        peak_blocks_in_use=self.peak_blocks_in_use,
@@ -332,9 +390,12 @@ class ServingEngine:
     (with ``demote_after``, ``spill_keep_recent``, ``promote_headroom``):
     the tiered pool of the module docstring. ``prefill_chunk`` (a chunk's
     tokens) and ``preempt``: continuous batching, as the module docstring
-    says. Runs on ``device`` ("cuda" by
-    default, which raises on a machine without a card); ``device="cpu"``
-    runs every kernel's plain version.
+    says. ``greedy`` / ``seed``: sampling (the module docstring);
+    ``max_queue``, ``faults``, ``audit_every``, ``spill_max_retries``,
+    ``spill_backoff_base``, ``spill_backoff_cap``, ``monitor`` and
+    ``heartbeat_path``: the failure model of the module docstring. Runs on
+    ``device`` ("cuda" by default, which raises on a machine without a
+    card); ``device="cpu"`` runs every kernel's plain version.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int, slots: int = 4,
@@ -345,8 +406,21 @@ class ServingEngine:
                  prefix_cache: bool = False, kv_pool_dtype: str | None = None,
                  host_spill: bool = False, demote_after: int = 4,
                  spill_keep_recent: int = 2, promote_headroom: int = 1,
-                 prefill_chunk: int | None = None, preempt: bool = False, faults=None):
+                 prefill_chunk: int | None = None, preempt: bool = False,
+                 greedy: bool = True, seed: int = 0, max_queue: int | None = None,
+                 faults: FaultPlan | None = None, audit_every: int | None = None,
+                 spill_max_retries: int = 3, spill_backoff_base: int = 1,
+                 spill_backoff_cap: int = 8, monitor: StepMonitor | None = None,
+                 heartbeat_path: str | None = None):
         self.device = resolve_device(device)
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if audit_every is not None and audit_every < 1:
+            raise ValueError(f"audit_every must be >= 1, got {audit_every}")
+        if spill_max_retries < 0 or spill_backoff_base < 1 \
+                or spill_backoff_cap < spill_backoff_base:
+            raise ValueError("need spill_max_retries >= 0 and "
+                             "1 <= spill_backoff_base <= spill_backoff_cap")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         # the reference's ValueErrors for knobs that need the paged pool
@@ -372,11 +446,9 @@ class ServingEngine:
                                           "sequence-sharded flat decode")
         if prefix_cache and not prefix_sharing:
             raise ValueError("prefix_cache requires prefix_sharing=True")
-        asked = {"prefix_cache": prefix_cache, "faults": faults is not None}
-        for knob, on in asked.items():
-            if on:
-                raise NotImplementedError(f"{knob}: not ported yet; comes with the port "
-                                          f"of {_LATER[knob]}")
+        if prefix_cache:
+            raise NotImplementedError(f"prefix_cache: not ported yet; comes with the port "
+                                      f"of {_LATER['prefix_cache']}")
         self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
         self.paged = paged
         self.api = get_model(cfg)
@@ -395,6 +467,37 @@ class ServingEngine:
         self._inflight: _InflightPrefill | None = None
         self._static_heavy_cache: bytes | None = None
         self.stats = ServeStats()
+        self.greedy = greedy
+        self._rng = np.random.default_rng(seed)
+        # the failure model: the queue bound, the fault plan, the audit
+        self.max_queue = max_queue
+        self._faults = faults
+        self.audit_every = audit_every
+        self.last_audit = None          # the latest InvariantReport
+        self._audited_tick = -1         # each tick index is audited once
+        self.spill_max_retries = spill_max_retries
+        self.spill_backoff_base = spill_backoff_base
+        self.spill_backoff_cap = spill_backoff_cap
+        # patience 1: a non-finite logits row cannot give a token
+        self._nan_guard = NaNGuard(patience=1)
+        self.monitor = monitor
+        if monitor is None and heartbeat_path is not None:
+            self.monitor = StepMonitor(heartbeat_path=heartbeat_path)
+        elif monitor is not None and heartbeat_path is not None \
+                and monitor.heartbeat_path is None:
+            monitor.heartbeat_path = heartbeat_path
+        # slots whose growth a fault denied: masked off for one tick, re-armed
+        # after it; the slots the last tick decoded (the audit compares only
+        # their cursors with the device lengths)
+        self._stalled: set[int] = set()
+        self._last_decoded: set[int] = set()
+        # host-tier transfer retries by (slot, logical): failures in a row,
+        # the tick a retry is due, and the blocks pinned after the retries
+        # ran out (cold: stays spilled and unselectable; hot: stays resident)
+        self._xfer_attempts: dict[tuple[int, int], int] = {}
+        self._xfer_retry_at: dict[tuple[int, int], int] = {}
+        self._pinned_cold: set[tuple[int, int]] = set()
+        self._pinned_hot: set[tuple[int, int]] = set()
         self._queue: deque[Request] = deque()
         self._active: dict[int, Request] = {}
         self._free = sorted(range(slots), reverse=True)          # pop() → lowest
@@ -460,9 +563,10 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> bool:
-        """Enqueue a request; returns True (the reference's bounded queue,
-        which returns False when it sheds one, is not ported yet). A
-        malformed request raises."""
+        """Enqueue a request. Returns False when the bounded queue sheds it
+        (``stop_reason="rejected"``): under overload the queue wait, and so
+        every admitted request's TTFT, stays bounded. A malformed request
+        raises."""
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(f"request {req.rid}: prompt({len(req.prompt)}) + "
                              f"max_new_tokens({req.max_new_tokens}) exceeds "
@@ -473,8 +577,130 @@ class ServingEngine:
         if self.paged and not self.host_spill and self._blocks_for(lifetime) > self.num_blocks:
             raise ValueError(f"request {req.rid}: needs {self._blocks_for(lifetime)} "
                              f"blocks over its lifetime but the pool has {self.num_blocks}")
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            req.done_time = time.time()
+            req.stop_reason = "rejected"
+            self.stats.rejections += 1
+            return False
         self._queue.append(req)
         return True
+
+    def cancel(self, rid: int) -> bool:
+        """End a request by id wherever it is: queued (removed), in its
+        chunked prefill (its slot, charged blocks and cursor released) or
+        resident (finished through the release path). False when no live
+        request has that id."""
+        now = time.time()
+        for req in self._queue:
+            if req.rid == rid:
+                self._queue.remove(req)
+                self._terminate_queued(req, now, "cancelled")
+                self.stats.cancellations += 1
+                return True
+        if self._inflight is not None and self._inflight.req.rid == rid:
+            self._abort_inflight(now, "cancelled")
+            self.stats.cancellations += 1
+            return True
+        for slot, req in list(self._active.items()):
+            if req.rid == rid:
+                self._finish(slot, req, now, "cancelled")
+                self.stats.cancellations += 1
+                return True
+        return False
+
+    # -- deadlines and ends in the queue -------------------------------
+    @staticmethod
+    def _expired(req: Request, now: float) -> bool:
+        return req.deadline_ms is not None and (now - req.submitted) * 1e3 >= req.deadline_ms
+
+    def _terminate_queued(self, req: Request, now: float, reason: str) -> None:
+        """End a request that is still queued. If its admission cycle began
+        (the prefix-sharing gate's prefill starts work on the queue head
+        before its blocks are there), the cycle closes in `completed`, so
+        ``admissions == completed + preemptions`` holds at drain."""
+        req.done_time = now
+        req.stop_reason = reason
+        self._drop_stash(req)
+        if req._cycle_started:
+            self.stats.completed += 1
+
+    def _abort_inflight(self, now: float, reason: str) -> None:
+        """Tear down the in-flight chunked prefill: its reserved slot, the
+        blocks its chunks charged and its cursor are released (the slot's
+        reset is in place); its admission cycle closes in `completed`."""
+        inf = self._inflight
+        self._inflight = None           # drops the cursor's buffers
+        req = inf.req
+        req.done_time = now
+        req.stop_reason = reason
+        self.stats.completed += 1
+        self._free.append(inf.slot)
+        self._free.sort(reverse=True)
+        self._release_blocks(inf.slot)
+        self.api.reset_slot(self._state, inf.slot)
+
+    def _shed_expired_queue(self) -> None:
+        """Drop queued requests whose deadline passed: a prefill for a
+        request nobody waits for only delays the live ones behind it."""
+        if not any(r.deadline_ms is not None for r in self._queue):
+            return
+        now = time.time()
+        keep: deque[Request] = deque()
+        while self._queue:
+            req = self._queue.popleft()
+            if self._expired(req, now):
+                self._terminate_queued(req, now, "deadline")
+                self.stats.deadline_stops += 1
+            else:
+                keep.append(req)
+        self._queue = keep
+
+    # -- fault injection -------------------------------------------------
+    def _fault(self, site: str, **ctx) -> bool:
+        """Consult the engine's `FaultPlan` at one injection site."""
+        if self._faults is not None and self._faults.fires(site, **ctx):
+            self.stats.faults_injected += 1
+            return True
+        return False
+
+    def _alloc_blocks(self, need: int, prefer: int | None = None) -> list[int] | None:
+        """The allocator behind the ``alloc_exhausted`` site: a fired fault
+        makes this call report an empty pool, and the caller takes the path
+        a dry pool takes (admission waits, a chunk stalls, growth stalls the
+        slot)."""
+        if need > 0 and self._fault("alloc_exhausted", need=need):
+            return None
+        return self._alloc.alloc(need, prefer)
+
+    def _stall(self, slot: int) -> None:
+        """Pause one active slot for this tick: masked off, so the tick
+        neither reads nor writes it and its cursor holds; its tokens go on,
+        bit for bit, once the fault clears."""
+        self._mask[slot] = False
+        self._stalled.add(slot)
+
+    def _xfer_failed(self, key: tuple[int, int], pin: str) -> None:
+        """One failed host-tier transfer: back off base·2^(n-1) ticks
+        (capped); once the retries ran out, pin the block where it is —
+        ``cold`` (stays spilled and unselectable) or ``hot`` (stays
+        resident)."""
+        self.stats.retries += 1
+        n = self._xfer_attempts.get(key, 0) + 1
+        self._xfer_attempts[key] = n
+        if n > self.spill_max_retries:
+            (self._pinned_cold if pin == "cold" else self._pinned_hot).add(key)
+            self._xfer_retry_at.pop(key, None)
+        else:
+            self._xfer_retry_at[key] = self.stats.ticks + min(
+                self.spill_backoff_base * 2 ** (n - 1), self.spill_backoff_cap)
+
+    def _xfer_ok(self, key: tuple[int, int]) -> None:
+        self._xfer_attempts.pop(key, None)
+        self._xfer_retry_at.pop(key, None)
+
+    def _xfer_blocked(self, key: tuple[int, int]) -> bool:
+        """True while a key backs off (its retry is not due yet)."""
+        return self._xfer_retry_at.get(key, -1) > self.stats.ticks
 
     def _blocks_for(self, tokens: int) -> int:
         return max(1, -(-tokens // self.block_size))
@@ -501,14 +727,23 @@ class ServingEngine:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         return h.copy_(t, non_blocking=True)
 
-    def demote_block(self, slot: int, logical: int) -> bool:
+    def demote_block(self, slot: int, logical: int, _inject: bool = True) -> bool:
         """Move one mapped private block device → host: copy its rows in
         storage format to pinned host memory, unmap the page-table entry
-        (the block becomes unselectable) and free the physical block."""
+        (the block becomes unselectable) and free the physical block. False
+        when the transfer fails (the ``spill_transfer`` site): the block
+        stays resident and intact, and its key backs off and in the end
+        pins hot. ``_inject=False`` skips the site (wave admission's
+        demotions, one transaction with the install)."""
         held = self._slot_blocks[slot]
         blk = held[logical]
         assert blk >= 0 and self._refcount[blk] == 1, \
             f"demote needs a mapped private block, got ({slot}, {logical}) -> {blk}"
+        if _inject and self._fault("spill_transfer", direction="demote", slot=slot,
+                                   logical=logical):
+            self._xfer_failed((slot, logical), pin="hot")
+            return False
+        self._xfer_ok((slot, logical))
         self._spilled[(slot, logical)] = tuple(
             tuple(self._to_host(t) for t in rows)
             for rows in self.api.read_block(self._state, blk))
@@ -526,11 +761,17 @@ class ServingEngine:
     def promote_block(self, slot: int, logical: int) -> bool:
         """Move one spilled block host → device into a fresh physical block
         and remap it (bit-exact: storage format both ways). False when no
-        block is free."""
+        block is free or the transfer fails (the ``spill_transfer`` site):
+        the key backs off and, its retries run out, pins cold — the payload
+        stays on the host and the block unselectable."""
         payload = self._spilled[(slot, logical)]
-        fresh = self._alloc.alloc(1)
+        if self._fault("spill_transfer", direction="promote", slot=slot, logical=logical):
+            self._xfer_failed((slot, logical), pin="cold")
+            return False
+        fresh = self._alloc_blocks(1)
         if fresh is None:
             return False
+        self._xfer_ok((slot, logical))
         blk, = fresh
         self.api.write_block(self._state, blk, payload)
         self.api.map_block(self._state, slot, logical, blk)
@@ -564,8 +805,11 @@ class ServingEngine:
             n_blocks = self._blocks_for(max(self._slot_pos[slot], 1))
             for j in range(min(max(n_blocks - self.spill_keep_recent, 0), len(held))):
                 b = held[j]
-                # a shared or radix-published block must stay on the device
-                if b != SPILLED and self._refcount[b] == 1 and b not in self._block_keys:
+                # a shared or radix-published block must stay on the device;
+                # so must one pinned hot or backing off
+                if b != SPILLED and self._refcount[b] == 1 and b not in self._block_keys \
+                        and (slot, j) not in self._pinned_hot \
+                        and not self._xfer_blocked((slot, j)):
                     out.append((-int(self._cold_streak[slot, j]), slot, j))
         out.sort()
         return out
@@ -583,12 +827,14 @@ class ServingEngine:
     def _promote_resurrected(self) -> None:
         """Pre-tick promotion pass: while more than `promote_headroom` blocks
         are free, bring back each active slot's spilled block with the
-        highest score — at most one per slot per tick."""
+        highest score — at most one per slot per tick; a block pinned cold
+        or backing off waits."""
         if not (self.host_spill and self._spilled):
             return
         best: dict[int, tuple[float, int]] = {}
         for (slot, j), score in self._spill_score.items():
-            if slot in self._active:
+            if slot in self._active and (slot, j) not in self._pinned_cold \
+                    and not self._xfer_blocked((slot, j)):
                 cur = best.get(slot)
                 if cur is None or (score, -j) > (cur[0], -cur[1]):
                     best[slot] = (score, j)
@@ -710,9 +956,10 @@ class ServingEngine:
         short; with ``host_spill`` cold blocks are demoted first and a
         prompt larger than the free pool admits in waves, unshared). With
         ``prefill_chunk`` one pass runs one chunk instead
-        (`_advance_prefill`). The reference's zero-prefill warm hit
-        (``_try_adopt``) and cache reclaim come with its persistent prefix
-        cache; its deadline shedding with its request lifecycle."""
+        (`_advance_prefill`). Queued requests past their deadline are shed
+        first. The reference's zero-prefill warm hit (``_try_adopt``) and
+        cache reclaim come with its persistent prefix cache."""
+        self._shed_expired_queue()
         if self.prefill_chunk is not None:
             self._advance_prefill()
             return
@@ -747,11 +994,15 @@ class ServingEngine:
                 # admission pressure: cold blocks of active slots go to the
                 # host tier before the queue waits on the device pool
                 self._demote_for(need)
-            free = self._alloc.total_free
-            if need > free:
-                if not (self.host_spill and free):
+            fresh = None
+            if self.host_spill and need > self._alloc.total_free:
+                if not self._alloc.total_free:
                     break      # head-of-line wait (the host tier needs one free block)
                 shared = []    # wave admission writes the whole prompt privately
+            else:
+                fresh = self._alloc_blocks(need)
+                if fresh is None:
+                    break      # head-of-line wait
             self._queue.popleft()
             slot = self._free.pop()
             self._begin_cycle(req, t0)
@@ -760,26 +1011,27 @@ class ServingEngine:
             if self.host_spill:
                 self._hist_snap[slot] = 0
                 self._cold_streak[slot] = 0
-            self._install_prompt(slot, shared, need_full, state1)
+            self._install_prompt(slot, shared, need_full, state1, fresh)
             if self.prefix_sharing:
                 req.shared_blocks = len(shared)
                 self.stats.shared_blocks += len(shared)
                 self.stats.prefix_hits += bool(shared)
-                if need <= free:       # a prompt admitted in waves is not published
+                if fresh is not None:  # a prompt admitted in waves is not published
                     self._register_blocks(req, self._slot_blocks[slot], len(shared),
                                           req._heavy)
             self._drop_stash(req)
             self._activate(req, slot, logits_row)
 
-    def _install_prompt(self, slot: int, shared: list[int], need: int, state1) -> None:
+    def _install_prompt(self, slot: int, shared: list[int], need: int, state1,
+                        fresh: list[int] | None) -> None:
         """Write a prefilled prompt of ``need`` blocks into ``slot``: the
         ``shared`` prefix blocks are mapped by reference, the rest written
-        into freshly allocated blocks (least-loaded shards first) — in one
-        write when the free pool covers them; otherwise (host_spill) in
-        free-pool-sized waves, each demoted to the host before the next
-        lands, the last — the recency tail with the cursor block — staying
-        hot. A write drops the rows of the blocks outside its wave (their
-        pages are -1)."""
+        into the ``fresh`` blocks the admission allocated (least-loaded
+        shards first) in one write; with ``fresh=None`` (host_spill) into
+        blocks allocated in free-pool-sized waves, each demoted to the host
+        before the next lands, the last — the recency tail with the cursor
+        block — staying hot. A write drops the rows of the blocks outside
+        its wave (their pages are -1)."""
         n_shared = len(shared)
         held = shared + [SPILLED] * (need - n_shared)
         self._slot_blocks[slot] = held
@@ -787,8 +1039,10 @@ class ServingEngine:
             self._refcount[b] += 1
         lo = n_shared
         while True:
-            w = min(self._alloc.total_free, need - lo)
-            held[lo:lo + w] = self._alloc.alloc(w)
+            ids = fresh if fresh is not None else self._alloc.alloc(
+                min(self._alloc.total_free, need - lo))
+            w = len(ids)
+            held[lo:lo + w] = ids
             for b in held[lo:lo + w]:
                 self._refcount[b] += 1
             self._note_block_usage()
@@ -799,18 +1053,33 @@ class ServingEngine:
             if lo == need:
                 return
             for j in range(lo - w, lo):
-                self.demote_block(slot, j)
+                self.demote_block(slot, j, _inject=False)
 
-    def _next_token(self, req: Request, tok: int) -> int:
+    def _sample(self, req: Request, logits_row: np.ndarray) -> int:
+        """The request's token from a (V_pad,) logits row: the argmax, or
+        with ``greedy=False`` and a temperature > 0 the argmax of the row
+        over the temperature in float64 plus one Gumbel draw per column
+        from the engine's generator (the reference's draws, in its order)."""
+        temp = 0.0 if self.greedy else req.temperature
+        if temp <= 0.0:
+            return int(np.argmax(logits_row))
+        z = logits_row.astype(np.float64) / temp
+        return int(np.argmax(z + self._rng.gumbel(size=z.shape)))
+
+    def _next_token(self, req: Request, logits_row: np.ndarray | None,
+                    greedy_tok: int | None = None) -> int:
         """The request's next token: inside its preemption replay window the
-        recorded one (force-fed, so the continuation is exact; not counted
-        as generated, no new timestamp), the greedy ``tok`` otherwise."""
+        recorded one (force-fed, never sampled again, so the continuation is
+        exact under temperature too; not counted as generated, no new
+        timestamp); otherwise a sample of ``logits_row``, or the tick's
+        greedy ``greedy_tok`` when no row is given."""
         idx = len(req.output)
         if req._replay is not None and idx < len(req._replay):
             tok = int(req._replay[idx])
             self.stats.replayed_tokens += 1
         else:
             req._replay = None
+            tok = int(greedy_tok) if logits_row is None else self._sample(req, logits_row)
             self.stats.tokens_generated += 1
             req.token_times.append(time.time())
         req.output.append(tok)
@@ -820,7 +1089,7 @@ class ServingEngine:
         """Make a prefilled request live (monolithic admission or the final
         chunk): its first (or replayed) token, the slot masked on, the stop
         rules. TTFT is stamped on the first activation only."""
-        tok = self._next_token(req, int(np.argmax(logits_row)))
+        tok = self._next_token(req, logits_row)
         if req.first_token_time is None:
             req.first_token_time = time.time()
             self.stats.ttft_s += req.ttft_s
@@ -843,6 +1112,8 @@ class ServingEngine:
         self.stats.completed += 1
         del self._active[slot]
         self._mask[slot] = False
+        self._stalled.discard(slot)
+        self._nan_guard.reset_slot(slot)
         self._free.append(slot)
         self._free.sort(reverse=True)
         if self.paged:
@@ -872,6 +1143,12 @@ class ServingEngine:
                 self._spill_score.pop(key, None)
             self._hist_snap[slot] = 0
             self._cold_streak[slot] = 0
+            # transfer retries and pins belong to one occupancy
+            for d in (self._xfer_attempts, self._xfer_retry_at):
+                for key in [k for k in d if k[0] == slot]:
+                    del d[key]
+            self._pinned_cold = {k for k in self._pinned_cold if k[0] != slot}
+            self._pinned_hot = {k for k in self._pinned_hot if k[0] != slot}
         self._note_block_usage()
 
     # -- preemption ----------------------------------------------------
@@ -902,6 +1179,8 @@ class ServingEngine:
         else:
             req = self._active.pop(slot)
         self._mask[slot] = False
+        self._stalled.discard(slot)
+        self._nan_guard.reset_slot(slot)
         self.stats.preemptions += 1
         req.preemptions += 1
         # keep the longest record: a request preempted again while replaying
@@ -958,10 +1237,14 @@ class ServingEngine:
         preempts blocks): the in-flight request is the newest occupant, so
         preempting others for it would invert priority. The final chunk
         gives the first-token logits and activates the slot as monolithic
-        admission does. The chunk step runs eagerly. (The reference's zero-
-        prefill warm hit and cache reclaim come with its persistent prefix
-        cache; its deadline abort and ``prefill_chunk`` fault site with its
-        request lifecycle.)"""
+        admission does. The chunk step runs eagerly. An in-flight prefill
+        past its deadline is aborted first; a chunk failed by the
+        ``prefill_chunk`` site charged and wrote nothing, so the next pass
+        retries it exactly. (The reference's zero-prefill warm hit and cache
+        reclaim come with its persistent prefix cache.)"""
+        if self._inflight is not None and self._expired(self._inflight.req, time.time()):
+            self.stats.deadline_stops += 1
+            self._abort_inflight(time.time(), "deadline")
         if self._inflight is None:
             if not (self._queue and self._free):
                 return
@@ -986,9 +1269,12 @@ class ServingEngine:
             self._slot_pos[slot] = 0
         inf = self._inflight
         req, slot = inf.req, inf.slot
+        if self._fault("prefill_chunk", rid=req.rid, consumed=inf.consumed):
+            self.stats.retries += 1                 # the step failed before it ran
+            return
         c = min(self.prefill_chunk, len(req.prompt) - inf.consumed)
         held = self._slot_blocks[slot]
-        fresh = self._alloc.alloc(max(self._blocks_for(inf.consumed + c) - len(held), 0))
+        fresh = self._alloc_blocks(max(self._blocks_for(inf.consumed + c) - len(held), 0))
         if fresh is None:
             self.stats.chunk_stalls += 1            # pool dry: try again next pass
             return
@@ -1034,7 +1320,9 @@ class ServingEngine:
         ``overflow`` stop and the write that could not land is counted. With
         ``preempt`` a dry free list preempts the newest occupant (this slot,
         maybe) instead: a request alone always fits the pool (`submit`), so
-        a preempting engine never stops one with ``overflow``."""
+        a preempting engine never stops one with ``overflow``. A growth that
+        a fault denies (a failed demotion, an allocator reporting an empty
+        pool) stalls the slot for one tick (`_stall`)."""
         now = time.time()
         for slot, req in list(self._active.items()):
             if self._active.get(slot) is not req:
@@ -1052,8 +1340,13 @@ class ServingEngine:
             if pos < self.max_seq and logical < len(held) and held[logical] >= 0 \
                     and self._refcount[held[logical]] <= 1:
                 continue                              # private room in place
-            if pos < self.max_seq and self.host_spill:
-                self._demote_for(1)                   # growth pressure
+            if pos < self.max_seq and self.host_spill and not self._alloc.total_free:
+                # growth pressure; a failed demotion (a fault) is transient:
+                # the slot stalls one tick instead of overflowing
+                cand = self._demote_candidates()
+                if cand and not self.demote_block(cand[0][1], cand[0][2]):
+                    self._stall(slot)
+                    continue
             if pos < self.max_seq and self.preempt and not self._alloc.total_free:
                 if not self._preempt_for_blocks(slot):
                     continue                          # this slot was the victim
@@ -1063,7 +1356,13 @@ class ServingEngine:
             if pos < self.max_seq and self._alloc.total_free:
                 near = held[logical] if logical < len(held) else held[-1]
                 prefer = self._alloc.shard_of(near) if near >= 0 else None
-                blk, = self._alloc.alloc(1, prefer=prefer)
+                got = self._alloc_blocks(1, prefer=prefer)
+                if got is None:
+                    # a fault reported an empty pool: the slot cannot land its
+                    # next write, so it pauses one tick and nothing is lost
+                    self._stall(slot)
+                    continue
+                blk, = got
                 self._refcount[blk] += 1
                 if logical == len(held):              # growth
                     held.append(blk)
@@ -1081,35 +1380,162 @@ class ServingEngine:
 
     def _decode(self, tokens: np.ndarray, mask: np.ndarray):
         """The tick's one decode call (`runtime.steps`: a CUDA graph replay on
-        the card without ``ctx``): (greedy next tokens (S,), logits (S, V_pad))."""
+        the card without ``ctx``): (greedy next tokens (S,), logits (S, V_pad),
+        finite (S,))."""
         return self._step(tokens, mask)
 
     def _tick(self) -> None:
+        """ONE decode call advancing every active slot, between the
+        lifecycle's host work: resident requests past their deadline end,
+        cold blocks come back, slots grow (a denied growth stalls its slot
+        for this tick); after the call the per-slot quarantine and the
+        tokens, the degraded-tick count, the re-arming of stalled slots, the
+        spill policy and the audit."""
+        now = time.time()
+        for slot, req in list(self._active.items()):
+            if self._active.get(slot) is req and self._expired(req, now):
+                self.stats.deadline_stops += 1
+                self._finish(slot, req, now, "deadline")
         self._promote_resurrected()
         self._grow_or_overflow()
         if not self._active:
             return
-        self.stats.peak_active_slots = max(self.stats.peak_active_slots,
-                                           int(self._mask.sum()))
-        t0 = time.time()
-        nxt, _ = self._decode(self._tokens.copy(), self._mask.copy())
-        nxt_host = nxt.cpu().numpy()                          # waits for the device
-        self.stats.decode_s += time.time() - t0
-        self.stats.decode_calls += 1
-        self.stats.ticks += 1
-        self.stats.decode_steps += int(self._mask.sum())
-        now = time.time()
-        for slot in list(self._active):
-            req = self._active[slot]
-            if self.paged:
-                self._slot_pos[slot] += 1
-            tok = self._next_token(req, int(nxt_host[slot]))
-            self._tokens[slot] = tok
-            if req.stop_token is not None and tok == req.stop_token:
-                self._finish(slot, req, now, "stop")
-            elif len(req.output) >= req.max_new_tokens:
-                self._finish(slot, req, now, "length")
+        if self._mask.any():            # not every active slot is stalled
+            self.stats.peak_active_slots = max(self.stats.peak_active_slots,
+                                               int(self._mask.sum()))
+            self._last_decoded = set(np.flatnonzero(self._mask).tolist())
+            t0 = time.time()
+            nxt, logits, finite = self._decode(self._tokens.copy(), self._mask.copy())
+            nxt_host, finite_host = to_host(nxt, finite)    # one wait for the device
+            finite_host = finite_host.copy()                # the fault site writes it
+            tick_s = time.time() - t0
+            self.stats.decode_s += tick_s
+            self.stats.decode_calls += 1
+            self.stats.ticks += 1
+            self.stats.decode_steps += int(self._mask.sum())
+            if self.monitor is not None:
+                rec = self.monitor.record(self.stats.ticks, tick_s)
+                self.stats.tick_ewma_s = float(rec["ewma"] or 0.0)
+                self.stats.straggler_ticks += rec["flagged"]
+            # the decode_logits site poisons a slot's flag after the fact: the
+            # check below is the path a real non-finite row takes
+            if self._faults is not None:
+                for slot, req in list(self._active.items()):
+                    if slot not in self._stalled and self._fault(
+                            "decode_logits", rid=req.rid, slot=slot, tick=self.stats.ticks):
+                        finite_host[slot] = False
+            logits_host = None                  # reaches the host only to sample
+            now = time.time()
+            for slot in list(self._active):
+                req = self._active[slot]
+                if slot in self._stalled:
+                    continue                    # paused this tick: nothing advanced
+                if self.paged:
+                    self._slot_pos[slot] += 1
+                if not finite_host[slot] and self._nan_guard.check_slot(slot, False):
+                    # quarantine: this slot's request ends; the other rows
+                    # of the tick do not depend on it
+                    self.stats.errors += 1
+                    self._finish(slot, req, now, "error")
+                    continue
+                if self.greedy or req.temperature <= 0.0:
+                    tok = self._next_token(req, None, greedy_tok=int(nxt_host[slot]))
+                else:
+                    if logits_host is None:
+                        logits_host = logits.float().cpu().numpy()
+                    tok = self._next_token(req, logits_host[slot])
+                self._tokens[slot] = tok
+                if req.stop_token is not None and tok == req.stop_token:
+                    self._finish(slot, req, now, "stop")
+                elif len(req.output) >= req.max_new_tokens:
+                    self._finish(slot, req, now, "length")
+        # a tick with a stalled slot, or with a cold-pinned block of an active
+        # slot, served degraded: available, but paused or sparser
+        if self._stalled or any(k[0] in self._active for k in self._pinned_cold):
+            self.stats.degraded_ticks += 1
+        for slot in self._stalled:              # a stall lasts one tick
+            if slot in self._active:
+                self._mask[slot] = True
+        self._stalled.clear()
         self._spill_policy()
+        if self.audit_every and self.stats.ticks != self._audited_tick \
+                and self.stats.ticks % self.audit_every == 0:
+            self._audited_tick = self.stats.ticks
+            self.stats.audits += 1
+            rep = self.check_invariants()
+            self.last_audit = rep
+            if not rep.ok:
+                self.stats.audit_failures += 1
+                raise RuntimeError(f"integrity audit failed at tick {self.stats.ticks}: {rep}")
+
+    # -- the integrity audit ---------------------------------------------
+    def check_invariants(self) -> InvariantReport:
+        """Audit the engine's bookkeeping against the device state (the
+        reference's audit): every layer's pool passes
+        `PagedSalcaCache.check_invariants` against the free list and the
+        host refcount mirror (holes allowed with the host tier); every
+        allocator shard holds only its own ids; the host's `_slot_blocks`
+        rows equal layer 0's page table entry for entry; the host cursors
+        equal the device lengths of the slots the last tick decoded (a tick
+        zeroes a masked slot's length); every cursor lies in [0, max_seq];
+        with the host tier the SPILLED entries and the spill mirror name the
+        same blocks. The reference's checks of its persistent prefix cache
+        (cache pins, cold radix nodes) come with the port of that cache.
+        Reads device tensors: run it between ticks, never inside a
+        capture. Returns an `InvariantReport`."""
+        rep = InvariantReport()
+        if not self.paged:
+            rep.checked["paged"] = 0            # a contiguous engine: nothing to audit
+            return rep
+        inf = self._inflight
+        if inf is not None and inf.consumed == 0 and inf.n_shared > 0:
+            # the shared prefix is counted on the host when the prefill
+            # starts and on the device by its first chunk, not run yet
+            rep.checked["skipped"] = "inflight shared-pin window"
+            return rep
+        free = self._alloc.free_ids()
+        for sh in range(self.n_shards):
+            for b in self._alloc._free[sh]:
+                if self._alloc.shard_of(b) != sh:
+                    rep.fail(f"free id {b} filed under shard {sh}, owned by "
+                             f"{self._alloc.shard_of(b)}")
+        pools = self._state.caches
+        rep.checked["pools"] = len(pools)
+        for i, pool in enumerate(pools):
+            rep.merge(pool.check_invariants(free_blocks=free, host_refcount=self._refcount,
+                                            allow_holes=self.host_spill),
+                      prefix=f"pool[{i}]: ")
+        for key, (b, _) in self._prefix_nodes.items():
+            if self._block_keys.get(b) != key:
+                rep.fail(f"radix node block {b} not back-registered in _block_keys")
+        pt = pools[0].page_table.cpu().numpy()
+        ln = pools[0].length.cpu().numpy()
+        for slot in range(self.slots):
+            held = self._slot_blocks.get(slot)
+            if held is None:
+                if (pt[slot] >= 0).any():
+                    rep.fail(f"slot {slot} holds no blocks host-side but has mapped "
+                             f"page-table entries")
+                continue
+            for j in range(self.max_blocks):
+                want = -1 if j >= len(held) or held[j] == SPILLED else held[j]
+                if pt[slot, j] != want:
+                    rep.fail(f"slot {slot} logical {j}: host says {want}, device page "
+                             f"table says {int(pt[slot, j])}")
+                    break
+            pos = self._slot_pos.get(slot)
+            if pos is not None and slot in self._active and slot in self._last_decoded \
+                    and int(ln[slot]) != pos:
+                rep.fail(f"slot {slot}: host cursor {pos} != device length {int(ln[slot])}")
+            if pos is not None and not 0 <= pos <= self.max_seq:
+                rep.fail(f"slot {slot}: host cursor {pos} out of [0, {self.max_seq}]")
+        if self.host_spill:
+            cold = {(slot, j) for slot, held in self._slot_blocks.items()
+                    for j, b in enumerate(held) if b == SPILLED}
+            if cold != set(self._spilled):
+                rep.fail(f"spill-mirror mismatch: SPILLED entries {sorted(cold)} vs mirror "
+                         f"payloads {sorted(self._spilled)}")
+        return rep
 
     def run(self, max_ticks: int = 10_000) -> ServeStats:
         ticks = 0

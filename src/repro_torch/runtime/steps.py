@@ -1,11 +1,14 @@
 """The serving decode tick: one call advances every active slot by one token.
 
 Port of the reference `runtime/steps.py::make_serve_decode_step` for one
-device, without the mesh plan and without ``nan_flags`` (which come with
-the port of the reference's fault tolerance). The reference jits its tick,
-so shapes stay static and the serving engine pays one dispatch per tick. Here the tick — `models.transformer.lm_decode_step`
-and the greedy argmax — is captured once per engine as a CUDA graph and
-replayed:
+device, without the mesh plan, with ``nan_flags``: the tick returns the
+greedy next tokens, the logits and a per-slot flag that the slot's logits
+row is finite (the serving engine's quarantine signal, computed inside the
+tick so that it rides the tick's one device-to-host wait). The reference
+jits its tick, so shapes stay static and the serving engine pays one
+dispatch per tick. Here the tick — `models.transformer.lm_decode_step`,
+the greedy argmax and the finite flags — is captured once per engine as a
+CUDA graph and replayed:
 
 * on the CPU the step runs eagerly (the path the CPU tests take);
 * on the card with ``ctx=None`` (the paged pool in every storage mode, with
@@ -13,7 +16,8 @@ replayed:
   runs eagerly: it is the engine's real first tick, and it loads the
   kernels' libraries, cuBLAS's handles and the quantizers' constants. The
   second call captures the tick over static device buffers (the token and
-  active inputs, the logits and the next tokens) in a `torch.cuda.CUDAGraph`
+  active inputs; the next tokens, the logits and the finite flags) in a
+  `torch.cuda.CUDAGraph`
   and replays it; every later call copies the inputs from pinned host
   memory into the input buffers and replays. The outputs are copied out of
   the static buffers, so a caller may keep a tick's logits across ticks. A
@@ -65,7 +69,9 @@ def graphed(device, ctx=None) -> bool:
 class ServeDecodeStep:
     """The counterpart of the reference's ``make_serve_decode_step`` tick:
     ``step(token (S,) int32, active (S,) bool)`` (host arrays) →
-    ``(next_token (S,), logits (S, V_pad))`` on the device, advancing every
+    ``(next_token (S,), logits (S, V_pad), finite (S,) bool)`` on the
+    device — ``finite[s]``: every column of row ``s``, padded ones included,
+    is finite — advancing every
     active slot of ``state`` by one token (the module docstring says how it
     runs). ``decode_step(params, state, token, active, ctx)`` is the model's
     tick (`models.registry.ModelAPI.decode_step`); ``state`` is updated in
@@ -87,13 +93,13 @@ class ServeDecodeStep:
         self._copied = None          # an event after the last copy out of the staging
         self._calls = 0
         self._graph = None
-        self._out = None             # the graph's static (next_token, logits)
+        self._out = None             # the graph's static (next_token, logits, finite)
         self.launches_per_tick: Counter | None = None   # a replay's kernel launches
 
     def _tick(self):
         logits, _ = self._decode_step(self._params, self._state, self._tok, self._act,
                                       self._ctx)
-        return logits.argmax(dim=-1), logits
+        return logits.argmax(dim=-1), logits, torch.isfinite(logits).all(dim=-1)
 
     def _capture(self) -> None:
         before = Counter(LAUNCHES)
@@ -124,5 +130,15 @@ class ServeDecodeStep:
             self._capture()
         self._graph.replay()
         LAUNCHES.update(self.launches_per_tick)
-        nxt, logits = self._out
-        return nxt.clone(), logits.clone()
+        return tuple(t.clone() for t in self._out)
+
+
+def to_host(*tensors) -> list[np.ndarray]:
+    """Numpy copies of a tick's small outputs behind one wait for the
+    device: on a card each is copied into pinned memory without blocking and
+    the stream is synchronized once."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return [t.numpy() for t in tensors]
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]

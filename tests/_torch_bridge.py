@@ -44,3 +44,40 @@ def f32_configs():
     return (dataclasses.replace(jget("qwen3-0.6b").reduced(), dtype="float32"),
             dataclasses.replace(tget("qwen3-0.6b").reduced(), dtype="float32"))
 
+
+
+def int8_codes(rows: np.ndarray) -> np.ndarray:
+    """The int8 K/V codes of pool rows (..., HD): an int8 pool stores them;
+    an fp16 pool stores code × the row's scale, whose largest |code| is 127
+    (f16 rounding moves a ratio by at most 127·2^-10, well under a half)."""
+    if rows.dtype == np.int8:
+        return rows.astype(np.int16)
+    rows = np.nan_to_num(rows.astype(np.float32))     # a poisoned row: code 0
+    amax = np.abs(rows).max(-1, keepdims=True)
+    return np.round(rows * 127 / np.where(amax > 0, amax, 1)).astype(np.int16)
+
+
+def record_ticks(eng) -> list:
+    """Wrap a serving engine's decode call (the port's or the reference's):
+    per tick the slots' mask, the logits rows, and the int8 K/V codes (every
+    layer) of the blocks the active slots map."""
+    ticks, orig = [], eng._decode
+
+    def recording(*args):
+        out = orig(*args)
+        if torch.is_tensor(out[1]):
+            caches = eng._state.caches
+            codes = np.stack([torch.stack([getattr(c, f) for c in caches]).numpy()
+                              for f in ("k_codes", "v_codes")])
+            pt, lg = caches[0].page_table.numpy(), out[1].float().numpy()
+        else:
+            st = out[3].period_states[0]
+            codes = np.stack([np.asarray(st.k_codes), np.asarray(st.v_codes)])
+            pt, lg = np.asarray(st.page_table[0]), np.asarray(out[1])
+        mask = np.asarray(args[-1]).copy()
+        read = np.unique(pt[mask][pt[mask] >= 0])
+        ticks.append((mask, np.array(lg, np.float32), int8_codes(codes[:, :, read])))
+        return out
+
+    eng._decode = recording
+    return ticks

@@ -15,7 +15,9 @@ Tasks:
   prefix  the engine task, and a pool-level copy on write across ranks in
           every storage mode (`cow_block` with this rank's block range);
   scheduler  the engine task on a chunked, preempting engine, recording
-          the page row of every chunk step.
+          the page row of every chunk step;
+  lifecycle  the engine task under a fault plan that each rank builds from
+          the same seed, returning the faults it fired.
 """
 
 import dataclasses
@@ -69,9 +71,9 @@ def engine(inp, ctx, hook=None):
     orig = eng._decode
 
     def recording(tokens, mask):
-        nxt, logits = orig(tokens, mask)
-        ticks.append((mask.copy(), logits.clone(), eng._state.caches[0].page_table.clone()))
-        return nxt, logits
+        out = orig(tokens, mask)
+        ticks.append((mask.copy(), out[1].clone(), eng._state.caches[0].page_table.clone()))
+        return out
 
     eng._decode = recording
     stats = eng.run()
@@ -80,7 +82,7 @@ def engine(inp, ctx, hook=None):
                    for c in eng._state.caches)
     return dict(outputs=[r.output for r in reqs], stops=[r.stop_reason for r in reqs],
                 ticks=ticks, free=sorted(eng._free_blocks), stats=stats.summary(),
-                pools_ok=pools_ok)
+                pools_ok=pools_ok, audit_ok=eng.check_invariants().ok)
 
 
 def cow(inp, ctx):
@@ -126,6 +128,17 @@ def scheduler(inp, ctx):
     return dict(engine(inp, ctx, hook), chunk_pages=chunks)
 
 
+def lifecycle(inp, ctx):
+    """The engine task under a fault plan built on this rank from
+    ``inp["faults"]`` = (seed, [(site, kwargs)]); also returns the plan's
+    fired log."""
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    seed, specs = inp["faults"]
+    plan = FaultPlan(seed=seed, specs=tuple(FaultSpec(site=s, **kw) for s, kw in specs))
+    res = engine(dict(inp, engine=dict(inp["engine"], faults=plan)), ctx)
+    return dict(res, fired=plan.fired_log)
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
@@ -133,7 +146,7 @@ def main() -> int:
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine, "prefix": prefix,
-           "scheduler": scheduler}[task](inp, ctx)
+           "scheduler": scheduler, "lifecycle": lifecycle}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

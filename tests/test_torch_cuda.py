@@ -857,17 +857,37 @@ def test_b10_kernel_bitwise(dev, monkeypatch, window, n):
                 assert torch.equal(got, maxpool_int8_plain(bins, window)), (bh, skew, kind)
 
 
+def _poison_v_after(eng, after: int, rid: int) -> None:
+    """After the engine's ``after``-th tick, NaN into every V code of request
+    ``rid``'s blocks in layer 0 of its fp16 pool, in place."""
+    real = eng._tick
+
+    def tick():
+        real()
+        if eng.stats.ticks == after:
+            slot = next(s for s, r in eng._active.items() if r.rid == rid)
+            blocks = [b for b in eng._slot_blocks[slot] if b >= 0]
+            eng._state.caches[0].data["v_codes"][blocks] = float("nan")
+
+    eng._tick = tick
+
+
 def _graphed_and_eager_runs(dev, engine_kw):
     """The same requests through an engine whose step replays a CUDA graph
-    and through one built under `steps.eager()`: per run, the greedy tokens,
-    every tick's logits (the slots' mask beside them), the launch counts and
-    the step."""
+    and through one built under `steps.eager()`: per run, the tokens, every
+    tick's logits and finite flags (the slots' mask beside them), the launch
+    counts, the step and the stop reasons. ``engine_kw`` may also carry
+    ``temperature`` (requests 0 and 2 sample at it) and ``nan_after`` (NaN
+    into request 1's V codes after that tick)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
     from repro_torch.runtime.steps import eager
     from repro_torch.weights import init_lm_params
     cfg = get_config("qwen3-0.6b").reduced()
+    engine_kw = dict(engine_kw)
+    temperature = engine_kw.pop("temperature", 0.0)
+    nan_after = engine_kw.pop("nan_after", None)
     sharing = engine_kw.get("prefix_sharing", False)
     chunked = engine_kw.get("prefill_chunk") is not None
     # with prefix sharing: static heavy sets, and three resident requests of
@@ -893,19 +913,23 @@ def _graphed_and_eager_runs(dev, engine_kw):
         else:
             with eager():
                 eng = ServingEngine(cfg, params, **kw)
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6,
+                        temperature=temperature if i % 2 == 0 else 0.0)
+                for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         ticks, inflight = [], []
         orig = eng._decode
 
         def rec(tok, act, orig=orig, ticks=ticks, inflight=inflight, eng=eng):
-            nxt, logits = orig(tok, act)
-            ticks.append((act.copy(), logits))
+            nxt, logits, finite = orig(tok, act)
+            ticks.append((act.copy(), logits, finite))
             inflight.append(eng._inflight is not None and not act[eng._inflight.slot])
-            return nxt, logits
+            return nxt, logits, finite
 
         eng._decode = rec
+        if nan_after is not None:
+            _poison_v_after(eng, nan_after, 1)
         reset_launches()
         eng.run()
         torch.cuda.synchronize()
@@ -914,7 +938,8 @@ def _graphed_and_eager_runs(dev, engine_kw):
         if chunked:
             assert eng.stats.preemptions > 0 and eng.stats.overflows == 0, eng.stats
             assert any(inflight[2:]), "no replayed tick ran beside an in-flight prefill"
-        runs.append(([r.output for r in reqs], ticks, dict(LAUNCHES), eng._step))
+        runs.append(([r.output for r in reqs], ticks, dict(LAUNCHES), eng._step,
+                     [r.stop_reason for r in reqs]))
     return runs
 
 
@@ -925,26 +950,77 @@ def _graphed_and_eager_runs(dev, engine_kw):
          spill_keep_recent=2),
     dict(paged=False), dict(paged=True, prefix_sharing=True, slots=3),
     dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11),
-    dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11, kv_pool_dtype="fp16")],
+    dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11, kv_pool_dtype="fp16"),
+    dict(paged=True, greedy=False, seed=0, temperature=0.8),
+    dict(paged=True, kv_pool_dtype="fp16", nan_after=3)],
     ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared",
-         "int8_chunk_preempt", "fp16_chunk_preempt"])
+         "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under
-    `steps.eager()`: greedy tokens identical, every tick's logits bit for
-    bit (kept across ticks: the step hands out copies of its static
-    outputs), and the launch counts equal — a replay counts one tick's
-    launches, the capture none."""
-    (tok_g, ticks_g, launches_g, step_g), (tok_e, ticks_e, launches_e, step_e) = \
-        _graphed_and_eager_runs(dev, engine_kw)
+    `steps.eager()`: tokens identical (sampled ones too: equal rows draw
+    equal tokens from equal seeds), every tick's logits bit for bit (kept
+    across ticks: the step hands out copies of its static outputs) and its
+    finite flags equal, and the launch counts equal — a replay counts one
+    tick's launches, the capture none. With NaN in a slot's V codes that
+    slot's flag drops on a replay and in the eager run alike, its request
+    ends with "error", and every other row stays bit for bit."""
+    (tok_g, ticks_g, launches_g, step_g, stops_g), \
+        (tok_e, ticks_e, launches_e, step_e, stops_e) = _graphed_and_eager_runs(dev, engine_kw)
     assert step_g.graphed and step_g._graph is not None and not step_e.graphed
-    assert tok_g == tok_e
+    assert tok_g == tok_e and stops_g == stops_e
     assert len(ticks_g) == len(ticks_e) >= 3
-    for (act_g, lg_g), (act_e, lg_e) in zip(ticks_g, ticks_e):
-        assert (act_g == act_e).all() and torch.equal(lg_g, lg_e)
+    for (act_g, lg_g, fin_g), (act_e, lg_e, fin_e) in zip(ticks_g, ticks_e):
+        assert (act_g == act_e).all() and torch.equal(fin_g, fin_e)
+        torch.testing.assert_close(lg_g, lg_e, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(fin_g, torch.isfinite(lg_g).all(-1))
+    dropped = [t for t, (act, _, fin) in enumerate(ticks_g) if not fin[torch.from_numpy(act)
+                                                                        .to(fin.device)].all()]
+    if "nan_after" in engine_kw:
+        assert stops_g[1] == "error" and dropped == [engine_kw["nan_after"]]
+        assert dropped[0] >= 2                       # a replay, not the eager or capture tick
+    else:
+        assert not dropped and "error" not in stops_g
     assert launches_g == launches_e
     per_tick = step_g.launches_per_tick
     assert per_tick and all(launches_e[k] == n * len(ticks_e) for k, n in per_tick.items())
+
+
+def test_graphed_finite_is_a_static_output(dev):
+    """``finite`` is the captured graph's third static output: after the
+    capture every replay writes the same storage (the step hands out a
+    copy), and a NaN written into a slot's V codes between ticks drops that
+    slot's flag in the static buffer on the next replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.weights import init_lm_params
+    cfg = get_config("qwen3-0.6b").reduced()
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServingEngine(cfg, params, max_seq=256, slots=2, paged=True, block_size=32,
+                        device=dev, kv_pool_dtype="fp16")
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((150, 200)):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                           max_new_tokens=8))
+    eng._admit()
+    step, ptrs, seen = eng._step, [], []
+    real = eng._decode
+
+    def rec(tok, act):
+        out = real(tok, act)
+        if step._out is not None:
+            ptrs.append(step._out[2].data_ptr())
+            assert out[2].data_ptr() != ptrs[-1]
+            seen.append((step._out[2].clone(), out[2], bool(act[1])))
+        return out
+
+    eng._decode = rec
+    _poison_v_after(eng, 4, 1)
+    eng.run()
+    assert step._graph is not None and len(ptrs) >= 5 and len(set(ptrs)) == 1
+    assert all(torch.equal(static, handed) for static, handed, _ in seen)
+    assert [bool(static[1]) for static, _, active in seen if active].count(False) == 1
+    assert eng.stats.errors == 1
 
 
 def test_int4_pack_and_append_on_card_bitwise_equals_cpu(dev):

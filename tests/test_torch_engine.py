@@ -19,6 +19,7 @@ from repro.models import get_model as jget_model
 from repro.runtime.serve import Request as JRequest
 from repro.runtime.serve import ServingEngine as JEngine
 from repro_torch.models import get_model as tget_model
+from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.serve import Request as TRequest
 from repro_torch.runtime.serve import ServingEngine as TEngine
 from repro_torch.weights import params_from_numpy
@@ -114,8 +115,9 @@ def test_engine_parity_with_reference(weights, rng, max_seq, bs, lens, atol):
 
 def test_engine_overflow_and_validation(weights, rng):
     """Block exhaustion finishes a request with an `overflow` stop (no silent
-    clip); the knobs of later slices raise instead of being ignored, and the
-    continuous-batching knobs, ported, build or refuse as the reference."""
+    clip); the knob of a later slice (the persistent prefix cache) raises
+    instead of being ignored, and the ported knobs (a fault plan, preemption,
+    chunks) build or refuse as the reference."""
     _, tp = weights
     eng = TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS, num_blocks=3,
                   device="cpu")
@@ -128,10 +130,13 @@ def test_engine_overflow_and_validation(weights, rng):
     assert stats.dropped_writes == stats.overflows
     assert "overflow" in (ra.stop_reason, rb.stop_reason)
     assert sorted(eng._free_blocks) == [0, 1, 2]
-    for kw in ({"prefix_cache": True, "prefix_sharing": True}, {"faults": object()}):
-        with pytest.raises(NotImplementedError):
-            TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
-                    device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="persistent prefix cache"):
+        TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                device="cpu", prefix_cache=True, prefix_sharing=True)
+    # ported: the fault plan is the engine's
+    plan = FaultPlan()
+    assert TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                   device="cpu", faults=plan)._faults is plan
     # ported: preemption builds; chunks refuse per-input heavy sets, as the reference
     assert TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
                    device="cpu", preempt=True).preempt

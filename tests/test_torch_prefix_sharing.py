@@ -285,12 +285,12 @@ def test_host_spill_never_demotes_a_shared_or_published_block(weights):
         if eng_cls is TEngine:
             real_demote = eng.demote_block
 
-            def demote(slot, logical, eng=eng, real_demote=real_demote):
+            def demote(slot, logical, _inject=True, eng=eng, real_demote=real_demote):
                 b = eng._slot_blocks[slot][logical]
                 demoted.append(b)
                 assert eng._refcount[b] == 1 and b not in eng._block_keys, \
                     f"demoting block {b}: refcount {eng._refcount[b]}, published"
-                return real_demote(slot, logical)
+                return real_demote(slot, logical, _inject)
 
             eng.demote_block = demote
         reqs = [req_cls(rid=i, prompt=p.copy(), max_new_tokens=16) for i, p in enumerate(prompts)]

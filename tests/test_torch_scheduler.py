@@ -47,7 +47,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import POOL_FIELDS, f32_configs, tn, tt
+from _torch_bridge import POOL_FIELDS, f32_configs, record_ticks, tn, tt
 from repro.core import cache as jc
 from repro.models import blocks as jblocks
 from repro.models import get_model as jget_model
@@ -76,7 +76,7 @@ JCFG, TCFG = (dataclasses.replace(c, salca_static_channels=True) for c in (JF32,
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 # the engines' tick logits: LOGIT_TOL while the blocks the tick reads hold
 # the same int8 K/V codes in both pools (an fp16 pool's rows carry them
-# times a scale: `_int8_codes`); where the two packages' f32 forwards
+# times a scale: `_torch_bridge.int8_codes`); where the two packages' f32 forwards
 # round a K or V value to adjacent codes (tests/test_torch_prefix_sharing.py
 # allows 2e-4 for one such code, measured 1.34e-4), the codes may differ by
 # one step and the rows by CODE_STEP_TOL: measured up to 4.4e-4 (one code)
@@ -352,42 +352,6 @@ def _reset(eng, slot):
         eng._state = eng._reset(eng._state, jnp.int32(slot))
 
 
-def _int8_codes(rows: np.ndarray) -> np.ndarray:
-    """The int8 K/V codes of pool rows (..., HD): an int8 pool stores them;
-    an fp16 pool stores code × the row's scale, whose largest |code| is 127
-    (f16 rounding moves a ratio by at most 127·2^-10, well under a half)."""
-    if rows.dtype == np.int8:
-        return rows.astype(np.int16)
-    rows = rows.astype(np.float32)
-    amax = np.abs(rows).max(-1, keepdims=True)
-    return np.round(rows * 127 / np.where(amax > 0, amax, 1)).astype(np.int16)
-
-
-def _record(eng) -> list:
-    """Wrap the engine's decode call: every tick's mask, logits rows, and
-    the int8 K/V codes (every layer) of the blocks the active slots map."""
-    ticks, orig = [], eng._decode
-
-    def recording(*args):
-        out = orig(*args)
-        if torch.is_tensor(out[1]):
-            caches = eng._state.caches
-            codes = np.stack([torch.stack([getattr(c, f) for c in caches]).numpy()
-                              for f in ("k_codes", "v_codes")])
-            pt, lg = caches[0].page_table.numpy(), out[1].float().numpy()
-        else:
-            st = out[3].period_states[0]
-            codes = np.stack([np.asarray(st.k_codes), np.asarray(st.v_codes)])
-            pt, lg = np.asarray(st.page_table[0]), np.asarray(out[1])
-        mask = np.asarray(args[-1]).copy()
-        read = np.unique(pt[mask][pt[mask] >= 0])
-        ticks.append((mask, np.array(lg, np.float32), _int8_codes(codes[:, :, read])))
-        return out
-
-    eng._decode = recording
-    return ticks
-
-
 def _submit_all(eng, req_cls, prompts, max_new):
     reqs = [req_cls(rid=i, prompt=p.copy(), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
@@ -405,7 +369,7 @@ def _both(weights, drive, **kw):
     runs = []
     for kind, req_cls in (("jax", JRequest), ("port", TRequest)):
         eng = _engine(kind, weights, **kw)
-        ticks = _record(eng)
+        ticks = record_ticks(eng)
         reqs = drive(eng, req_cls)
         runs.append((eng, reqs, ticks, eng.stats.summary()))
     (je, jr, jt, js), (te, tr, tt_, ts) = runs
@@ -491,10 +455,12 @@ def test_constructor_refuses_like_reference(weights, kw, match):
 
 
 def test_later_knobs_left_unported():
-    """`prefill_chunk` and `preempt` are ported; the knobs of the later
-    slices still name their reference feature."""
+    """`prefill_chunk`, `preempt` and `faults` are ported; the knob of the
+    later slice, `prefix_cache`, still names its reference feature."""
     from repro_torch.runtime import serve
     assert "prefill_chunk" not in serve._LATER and "preempt" not in serve._LATER
+    assert "faults" not in serve._LATER
+    assert "persistent prefix cache" in serve._LATER["prefix_cache"]
 
 
 # ---------------------------------------------------------------------------

@@ -187,10 +187,11 @@ def test_cpu_step_equals_lm_decode_step_bitwise(pool):
     assert not eng._step.graphed
     for act in ACTIVE:
         tok = eng._tokens.copy()
-        nxt, logits = eng._decode(tok, np.array(act))
+        nxt, logits, finite = eng._decode(tok, np.array(act))
         want, _ = transformer.lm_decode_step(twin.params, twin.cfg, twin._state,
                                              torch.from_numpy(tok), torch.tensor(act))
         assert torch.equal(logits, want) and torch.equal(nxt, want.argmax(-1))
+        assert torch.equal(finite, torch.isfinite(want).all(-1))
         eng._tokens[:] = twin._tokens[:] = nxt.numpy()
     got, want = _state_tensors(eng._state), _state_tensors(twin._state)
     assert all(torch.equal(got[k], want[k]) for k in want)
