@@ -101,10 +101,31 @@ Phases (any failure raises and the script exits non-zero):
    drains and the audit is clean; (j) SPILL_RUN with every promotion
    failing (``spill_max_retries=1``): blocks pin cold, ticks run degraded,
    no promotion lands, the audit stays clean; (k) = (g) at one nccl rank:
-   (g)'s tokens, stop reasons and fired faults.
+   (g)'s tokens, stop reasons and fired faults. Last, the persistent prefix
+   cache: the model with ``salca_static_channels`` serves a visit trace,
+   two tenants' CACHE_HEADER-token headers with two users' CACHE_TAIL-token
+   tails each (2570-token prompts), twice over, tenant-major, each request
+   submitted alone once the engine drained (`serve_visits`): (l)
+   ``prefix_sharing=True, prefix_cache=True`` on CACHE_BLOCKS blocks against
+   a cold twin with ``prefix_sharing`` only (tokens and every logits row bit
+   for bit, the counts CACHE_COUNTS["l"], the second pass's median TTFT at
+   most CACHE_TTFT_RATIO × the first pass's, the replay median against the
+   twin's); (m) the same on CACHE_TIGHT_BLOCKS blocks against its own twin
+   (LRU eviction before each wait: CACHE_COUNTS["m"]); (n) = (m) with
+   ``host_spill`` (pins demoted to the cold tier and rehydrated on a hit:
+   CACHE_COUNTS["n"], every demotion a pin's, ``pcie_bytes`` = moves ×
+   block bytes; bit for bit against (m)'s twin); (o) = (l) with
+   ``prefill_chunk=SCHED_CHUNK, preempt=True`` against a chunked twin
+   (whether it equals (l)'s twin too is printed); (p) the first tenant's
+   user 0, user 1 and user 0 again at one nccl rank (B4-B6) against a
+   one-rank cold twin, its tokens (l)'s; (q) `api.calibrate` on the card
+   over the main path's four prompts cut to 2048 tokens, then (p)'s three
+   requests unsharded on the calibrated tree, cache against cold twin, bit
+   for bit with one zero-prefill hit; one adoption over every layer is
+   profiled (launches, ms). Each pool is flushed and must drain whole.
 
 It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all twenty-four runs) and, last, the
+its path, and ``launches_per_call`` over all thirty-five runs) and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -169,6 +190,33 @@ SCHED_PREEMPT_BLOCKS = 288
 # chunks take the last 120 and its eleventh stalls; request 0's growth at
 # 2080 finds the pool dry and preempts the in-flight prefill
 SCHED_CHUNK_PREEMPT_BLOCKS = 282
+# the persistent prefix cache at full width: the model with
+# salca_static_channels and an int8 pool; two tenants with distinct
+# CACHE_HEADER-token headers (64 blocks), each with two users whose distinct
+# CACHE_TAIL-token tails make 2570-token prompts (81 blocks, a partial last
+# block); CACHE_VISITS goes twice over the four prompts, tenant-major, each
+# request submitted alone once the engine drained
+CACHE_HEADER, CACHE_TAIL = 2048, 522
+CACHE_VISITS = (0, 1, 2, 3, 0, 1, 2, 3)
+# the counts the LRU rules give (PERF.md, PR 24): (l) on 256 blocks keeps
+# every pin (64 + 17 + 81 + 17 = 196 at the peak), hits the header twice in
+# the first pass and each prompt whole in the second (2·64 + 4·81 blocks);
+# (m) on 128 blocks evicts 51 or 17 pins before each admission from the
+# third on, so the second pass hits 30 or 64 blocks and never a whole
+# prompt; (n) = (m) with the host tier demotes those pins instead and
+# rehydrates them on the second pass's whole hits
+CACHE_COUNTS = {
+    "l": dict(cache_hits=6, cache_hit_blocks=452, zero_prefill_hits=4, cache_evictions=0,
+              peak_cache_blocks=196, prefix_hits=0, cow_copies=0),
+    "m": dict(cache_hits=6, cache_hit_blocks=316, zero_prefill_hits=0, cache_evictions=204,
+              peak_cache_blocks=128, prefix_hits=0, cow_copies=0),
+    "n": dict(cache_hits=6, cache_hit_blocks=452, zero_prefill_hits=4, cache_evictions=0,
+              peak_cache_blocks=128, prefix_hits=0, cow_copies=0, demotions=204,
+              promotions=136),
+}
+CACHE_BLOCKS, CACHE_TIGHT_BLOCKS = 256, 128
+# the reference's gate: the second pass's median TTFT over the first's
+CACHE_TTFT_RATIO = 0.6
 
 
 def gpu_line() -> str:
@@ -1901,6 +1949,326 @@ def check_lifecycle(dev, ctx, runs: dict, main_tokens, fp16, b: dict) -> None:
           flush=True)
 
 
+def cache_prompts(vocab_size: int) -> list:
+    """The visit trace's four prompts from seed 0, tenant-major: per tenant
+    a CACHE_HEADER-token header and two users' CACHE_TAIL-token tails."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(2):
+        header = rng.integers(0, vocab_size, CACHE_HEADER).astype(np.int32)
+        out += [np.concatenate([header, rng.integers(0, vocab_size, CACHE_TAIL).astype(np.int32)])
+                for _ in range(2)]
+    return out
+
+
+def serve_visits(dev, visits, ctx=None, params=None, **engine_kw) -> dict:
+    """Phase 4's persistent-prefix-cache runs: full-width qwen3-0.6b with
+    ``salca_static_channels`` (``params``: another tree, e.g. a calibrated
+    one) serves `cache_prompts` in the order ``visits``, each request
+    submitted alone once the engine drained, NEW_TOKENS new tokens each;
+    ``engine_kw`` adds ``prefix_sharing``, ``prefix_cache``, ``num_blocks``,
+    ``host_spill``, ``prefill_chunk``, ``preempt``. Every kernel's launch
+    counter is set to 0 just before and read just after. Each adoption is
+    timed between two synchronizations, and so is each demotion and
+    rehydration of the cold tier. The engine's cache is then flushed: the
+    pool must drain whole and audit clean. Returns the launches, the
+    summary (with per-visit TTFT, each tick's ms, the replay median, the
+    adoption, demotion and rehydration ms), the tokens, and every logits
+    row each token was drawn from per (visit, index) (index 0: the
+    prefill's or the kept row)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.runtime.serve import Request, ServingEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, base = main_path_model(dev)
+    cfg = dataclasses.replace(cfg, salca_static_channels=True)
+    params = base if params is None else params
+    serve = dict(SERVE, **engine_kw)
+    warm_up(cfg, params, dev, ctx, serve)
+    engine = ServingEngine(cfg, params, device=dev, ctx=ctx, **serve)
+    prompts = cache_prompts(cfg.vocab_size)
+    rows, tick_ms, prefills, timed = {}, [], [0], {"adopt": [], "demote": [], "promote": []}
+    orig_decode, orig_activate, orig_prefill = engine._decode, engine._activate, engine._prefill
+
+    def decode(*a):
+        who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()
+               if engine._mask[slot]]
+        t0 = time.perf_counter()
+        nxt, logits, finite = orig_decode(*a)
+        host = logits.to("cpu", non_blocking=True)
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for slot, rid, j in who:
+            rows[(rid, j)] = host[slot]
+        return nxt, logits, finite
+
+    def activate(req, slot, logits_row):
+        rows[(req.rid, len(req.output))] = torch.from_numpy(np.array(logits_row))
+        return orig_activate(req, slot, logits_row)
+
+    def prefill(req):
+        prefills[0] += 1
+        return orig_prefill(req)
+
+    def synced(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    engine._decode, engine._activate, engine._prefill = decode, activate, prefill
+    if engine._adopt is not None:
+        engine._adopt = synced("adopt", engine._adopt)
+    engine._demote_cache_block = synced("demote", engine._demote_cache_block)
+    # a rehydration's transfer (its demotion to make room, if any, is timed apart)
+    engine.api = engine.api._replace(write_block=synced("promote", engine.api.write_block))
+    policy, real_demote = [], engine.demote_block
+
+    def demote_block(*a, **kw):            # a policy or pressure demotion of a slot's block
+        policy.append(a)
+        return real_demote(*a, **kw)
+
+    engine.demote_block = demote_block
+    reqs = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_start = time.time()
+    for rid, v in enumerate(visits):
+        reqs.append(Request(rid=rid, prompt=prompts[v].copy(), max_new_tokens=NEW_TOKENS))
+        engine.submit(reqs[-1])
+        engine.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t_start
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = engine.stats
+    summary = stats.summary()
+    if [r.stop_reason for r in reqs] != ["length"] * len(reqs) or \
+            not all(len(r.output) == NEW_TOKENS for r in reqs):
+        raise AssertionError(f"visits: stop reasons {[r.stop_reason for r in reqs]}")
+    if not all(bool(torch.isfinite(x).all()) for x in rows.values()):
+        raise AssertionError("non-finite logits on the prefix-cache path")
+    if stats.overflows or stats.preemptions or policy:
+        raise AssertionError(f"visits: overflows {stats.overflows}, preemptions "
+                             f"{stats.preemptions}, policy demotions {len(policy)}: need 0")
+    rep = engine.check_invariants()
+    flushed = engine.flush_prefix_cache()
+    if not (rep.ok and engine.check_invariants().ok
+            and sorted(engine._free_blocks) == list(range(engine.num_blocks))
+            and not engine._refcount.any() and not engine._prefix_nodes):
+        raise AssertionError(f"visits: the audit or the flushed pool is not clean: {rep}")
+    nl = cfg.num_layers
+    tick_kernels = (("paged_score_estimate", "sparse_flash_decode_paged") if ctx is None else
+                    ("paged_score_bounds", "paged_fused_select",
+                     "sparse_flash_decode_paged_partials"))
+    want = {k: nl * stats.ticks for k in tick_kernels}
+    want["flash_prefill"] = nl * (prefills[0] + stats.prefill_chunks)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    if engine._step.graphed != (ctx is None):
+        raise AssertionError("every unsharded tick after the first must replay a CUDA graph")
+    summary.update(wall_s=wall, peak_mem_gb=peak, ttft_s=[r.ttft_s for r in reqs],
+                   prefills=prefills[0], flushed=flushed, tick_ms=tick_ms,
+                   graphed=engine._step.graphed,
+                   tick_ms_median=float(np.median(tick_ms[2:] if engine._step.graphed
+                                                  else tick_ms)),
+                   adopt_ms=timed["adopt"], demote_ms=timed["demote"],
+                   promote_ms=timed["promote"],
+                   block_bytes=getattr(engine, "_block_bytes", None),
+                   launches_per_replay=(sum(engine._step.launches_per_tick.values())
+                                        if engine._step.launches_per_tick else None))
+    return dict(launches=launches, summary=summary, tokens=[r.output for r in reqs], rows=rows)
+
+
+def check_visit_counts(label: str, sm: dict, want: dict) -> None:
+    got = {k: sm.get(k, 0) for k in want}
+    print(f"{label}: counts {json.dumps(got)} (predicted {json.dumps(want)})", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: counts {got} != predicted {want}")
+
+
+def ttft_medians(sm: dict) -> tuple:
+    """The first and second passes' median TTFT (s) and their ratio."""
+    n = len(sm["ttft_s"]) // 2
+    cold, warm = float(np.median(sm["ttft_s"][:n])), float(np.median(sm["ttft_s"][n:]))
+    return cold, warm, warm / cold
+
+
+def profile_adoption(dev, cfg, params) -> dict:
+    """One zero-prefill adoption over every layer, eager, under the
+    profiler: its launches on the device and its host ms between two
+    synchronizations (the first tenant's user 0 served, then adopted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve import Request, ServingEngine
+    engine = ServingEngine(cfg, params, device=dev, prefix_sharing=True, prefix_cache=True,
+                           num_blocks=CACHE_BLOCKS, **SERVE)
+    prompt = cache_prompts(cfg.vocab_size)[0]
+    engine.submit(Request(rid=0, prompt=prompt.copy(), max_new_tokens=2))
+    engine.run()
+    out, real = {}, engine._adopt
+
+    def adopt(*a):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = real(*a)
+            torch.cuda.synchronize()
+            out["ms"] = 1e3 * (time.perf_counter() - t0)
+        out["launches"] = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        return res
+
+    engine._adopt = adopt
+    engine.submit(Request(rid=1, prompt=prompt.copy(), max_new_tokens=2))
+    engine.run()
+    if engine.stats.zero_prefill_hits != 1 or "ms" not in out:
+        raise AssertionError(f"adoption profile: no zero-prefill hit ({engine.stats})")
+    engine.flush_prefix_cache()
+    return out
+
+
+def check_prefix_cache(dev, ctx, runs: dict) -> None:
+    """Phase 4's persistent-prefix-cache runs (l)-(q) (module docstring);
+    adds their launch counts to ``runs``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.registry import get_model
+    cache = dict(prefix_sharing=True, prefix_cache=True)
+    keys = ("cache_hits", "cache_hit_blocks", "zero_prefill_hits", "cache_evictions",
+            "peak_cache_blocks", "prefills", "prefill_chunks", "ticks", "tick_ms_median",
+            "adopt_ms", "ttft_s", "peak_mem_gb", "wall_s")
+    out = {}
+    for name, label, visits, kw in (
+            ("l", f"(l) prefix cache, {CACHE_BLOCKS} blocks", CACHE_VISITS,
+             dict(cache, num_blocks=CACHE_BLOCKS)),
+            ("l twin", f"(l)'s cold twin, prefix sharing only, {CACHE_BLOCKS} blocks",
+             CACHE_VISITS, dict(prefix_sharing=True, num_blocks=CACHE_BLOCKS)),
+            ("m", f"(m) prefix cache, {CACHE_TIGHT_BLOCKS} blocks", CACHE_VISITS,
+             dict(cache, num_blocks=CACHE_TIGHT_BLOCKS)),
+            ("m twin", f"(m)'s cold twin, {CACHE_TIGHT_BLOCKS} blocks", CACHE_VISITS,
+             dict(prefix_sharing=True, num_blocks=CACHE_TIGHT_BLOCKS)),
+            ("n", f"(n) prefix cache + host spill, {CACHE_TIGHT_BLOCKS} blocks", CACHE_VISITS,
+             dict(cache, num_blocks=CACHE_TIGHT_BLOCKS, host_spill=True)),
+            ("o", f"(o) = (l) with prefill_chunk={SCHED_CHUNK}, preempt", CACHE_VISITS,
+             dict(cache, num_blocks=CACHE_BLOCKS, prefill_chunk=SCHED_CHUNK, preempt=True)),
+            ("o twin", "(o)'s chunked cold twin", CACHE_VISITS,
+             dict(prefix_sharing=True, num_blocks=CACHE_BLOCKS, prefill_chunk=SCHED_CHUNK,
+                  preempt=True))):
+        out[name] = res = serve_visits(dev, visits, **kw)
+        runs[f"cache {name}"] = res["launches"]
+        sm = res["summary"]
+        print(f"{label}: {json.dumps({k: sm.get(k) for k in keys})}", flush=True)
+        print(f"serve stats {name}: {json.dumps(sm)}", flush=True)
+    l, lt, m, mt, n, o, ot = (out[k] for k in ("l", "l twin", "m", "m twin", "n", "o",
+                                               "o twin"))
+    # (l): bit for bit, the counts, the TTFT gate, the replay against the twin's
+    check_visit_counts("(l)", l["summary"], CACHE_COUNTS["l"])
+    n_l = check_bitwise("(l) cache vs cold twin", l["tokens"], l["rows"], lt["tokens"],
+                        lt["rows"])
+    cold, warm, ratio = ttft_medians(l["summary"])
+    cold_t, warm_t, ratio_t = ttft_medians(lt["summary"])
+    sl, slt = l["summary"], lt["summary"]
+    print(f"(l) cache vs cold twin: tokens identical, {n_l} logits rows bit for bit; median "
+          f"TTFT first pass {cold * 1e3:.2f} ms, second pass {warm * 1e3:.2f} ms, ratio "
+          f"{ratio:.4f} (gate {CACHE_TTFT_RATIO}); twin {cold_t * 1e3:.2f} / "
+          f"{warm_t * 1e3:.2f} ms ({ratio_t:.4f}); adoption ms {sl['adopt_ms']}; replay ms "
+          f"(median) {sl['tick_ms_median']:.3f} / twin {slt['tick_ms_median']:.3f}; wrapper "
+          f"launches per replay {sl['launches_per_replay']} / twin "
+          f"{slt['launches_per_replay']}; prefills {sl['prefills']} / twin {slt['prefills']}; "
+          f"prefill_s {sl['prefill_s']:.3f} / twin {slt['prefill_s']:.3f}", flush=True)
+    if ratio > CACHE_TTFT_RATIO:
+        raise AssertionError(f"(l): second-pass median TTFT {ratio:.3f}× the first pass's "
+                             f"> {CACHE_TTFT_RATIO}")
+    # (m), (n): bit for bit against (m)'s twin, evictions / demotions as predicted
+    check_visit_counts("(m)", m["summary"], CACHE_COUNTS["m"])
+    n_m = check_bitwise("(m) cache vs cold twin", m["tokens"], m["rows"], mt["tokens"],
+                        mt["rows"])
+    check_visit_counts("(n)", n["summary"], CACHE_COUNTS["n"])
+    n_n = check_bitwise("(n) cache + host spill vs (m)'s twin", n["tokens"], n["rows"],
+                        mt["tokens"], mt["rows"])
+    sn = n["summary"]
+    moves = sn["demotions"] + sn["promotions"]
+    if sn["pcie_bytes"] != moves * sn["block_bytes"] or sn["promotions"] < 1 \
+            or len(sn["demote_ms"]) != sn["demotions"]:
+        raise AssertionError(f"(n): pcie_bytes {sn['pcie_bytes']} != {moves} moves × "
+                             f"{sn['block_bytes']} B, or no promotion")
+    cold_n, warm_n, ratio_n = ttft_medians(sn)
+    cold_m, warm_m, ratio_m = ttft_medians(m["summary"])
+    print(f"(m) cache vs cold twin: tokens identical, {n_m} logits rows bit for bit; median "
+          f"TTFT {cold_m * 1e3:.2f} / {warm_m * 1e3:.2f} ms ({ratio_m:.4f}). (n) host spill "
+          f"vs (m)'s twin: tokens identical, {n_n} rows bit for bit; median TTFT "
+          f"{cold_n * 1e3:.2f} / {warm_n * 1e3:.2f} ms ({ratio_n:.4f}); block bytes "
+          f"{sn['block_bytes']}; demotions {sn['demotions']} (every one a pin's), promotions "
+          f"{sn['promotions']}, pcie_bytes {sn['pcie_bytes']}; ms per demotion median "
+          f"{np.median(sn['demote_ms']):.3f} (max {max(sn['demote_ms']):.3f}), per "
+          f"rehydration median {np.median(sn['promote_ms']):.3f} (max "
+          f"{max(sn['promote_ms']):.3f}), both between two synchronizations", flush=True)
+    # (o): chunked, bit for bit against its chunked twin; against (l)'s twin printed
+    check_visit_counts("(o)", o["summary"], CACHE_COUNTS["l"])
+    n_o = check_bitwise("(o) chunked cache vs chunked twin", o["tokens"], o["rows"],
+                        ot["tokens"], ot["rows"])
+    same = (o["tokens"] == lt["tokens"]
+            and all(torch.equal(o["rows"][k], lt["rows"][k]) for k in lt["rows"]))
+    print(f"(o) chunked cache vs its chunked twin: tokens identical, {n_o} rows bit for bit; "
+          f"equal to (l)'s monolithic twin: {same}; median TTFT "
+          f"{ttft_medians(o['summary'])[0] * 1e3:.2f} / "
+          f"{ttft_medians(o['summary'])[1] * 1e3:.2f} ms", flush=True)
+    # (p): the first tenant at one nccl rank: user 0, user 1, user 0 again
+    p = serve_visits(dev, (0, 1, 0), ctx, **cache, num_blocks=CACHE_BLOCKS)
+    pt = serve_visits(dev, (0, 1, 0), ctx, prefix_sharing=True, num_blocks=CACHE_BLOCKS)
+    runs["cache p sharded"], runs["cache p twin"] = p["launches"], pt["launches"]
+    sp = p["summary"]
+    print(f"serve stats p: {json.dumps(sp)}", flush=True)
+    n_p = check_bitwise("(p) sharded cache vs sharded cold twin", p["tokens"], p["rows"],
+                        pt["tokens"], pt["rows"])
+    if p["tokens"] != [l["tokens"][i] for i in (0, 1, 4)] or sp["zero_prefill_hits"] != 1:
+        raise AssertionError(f"(p): tokens part from (l)'s or no zero-prefill hit: {sp}")
+    print(f"(p) sharded (one rank, nccl) cache vs its cold twin: {n_p} logits rows bit for "
+          f"bit; tokens equal (l)'s; zero-prefill hits {sp['zero_prefill_hits']}; TTFT s "
+          f"{sp['ttft_s']}; ms per tick (median) {sp['tick_ms_median']:.2f}", flush=True)
+    # (q): calibrated static sets on the card, then (p)'s visits unsharded
+    cfg, params = main_path_model(dev)
+    cfg = dataclasses.replace(cfg, salca_static_channels=True)
+    api = get_model(cfg)
+    tokens = torch.from_numpy(np.stack([r.prompt[:2048] for r in
+                                        main_path_requests(cfg.vocab_size)])).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrated = api.calibrate(params, tokens)
+    torch.cuda.synchronize()
+    calib_ms = 1e3 * (time.perf_counter() - t0)
+    base = api.static_heavy(params, SERVE["max_seq"])
+    sets = api.static_heavy(calibrated, SERVE["max_seq"])
+    r = base[0].shape[-1]
+    moved = [int(r * base[0].shape[1] - sum(
+        len(set(a.tolist()) & set(b.tolist())) for a, b in zip(x[0], y[0])))
+        for x, y in zip(base, sets)]
+    q = serve_visits(dev, (0, 1, 0), params=calibrated, **cache, num_blocks=CACHE_BLOCKS)
+    qt = serve_visits(dev, (0, 1, 0), params=calibrated, prefix_sharing=True,
+                      num_blocks=CACHE_BLOCKS)
+    runs["cache q"], runs["cache q twin"] = q["launches"], qt["launches"]
+    n_q = check_bitwise("(q) calibrated cache vs cold twin", q["tokens"], q["rows"],
+                        qt["tokens"], qt["rows"])
+    if q["summary"]["zero_prefill_hits"] != 1:
+        raise AssertionError(f"(q): zero-prefill hits {q['summary']['zero_prefill_hits']} != 1")
+    prof = profile_adoption(dev, cfg, params)
+    print(f"(q) calibrate over (4, 2048) on the card: {calib_ms:.1f} ms; channels of the "
+          f"{base[0].shape[1]}×{r} per layer that differ from the weight-mass sets: {moved}; "
+          f"calibrated cache vs cold twin: {n_q} logits rows bit for bit, zero-prefill hits 1; "
+          f"one adoption over {cfg.num_layers} layers, eager, profiled: "
+          f"{prof['launches']} launches, {prof['ms']:.3f} ms", flush=True)
+
+
 def print_serve(label: str, summary: dict) -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -2002,6 +2370,7 @@ def main() -> int:
     check_prefix_sharing(dev, ctx, runs)
     b = check_scheduler(dev, ctx, runs)
     check_lifecycle(dev, ctx, runs, tokens, clean["fp16"], b)
+    check_prefix_cache(dev, ctx, runs)
     # each kernel's launches on the run of its path (B10/B11: their phase-3 drive)
     home = {"sparse_flash_decode_paged[fp16]": "fp16",
             "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",

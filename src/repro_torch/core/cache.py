@@ -292,7 +292,7 @@ class PagedSalcaCache:
         return torch.clamp_min(self.page_table, 0)
 
     def check_invariants(self, free_blocks=None, host_refcount=None,
-                         allow_holes: bool = False) -> "InvariantReport":
+                         allow_holes: bool = False, cache_pinned=None) -> "InvariantReport":
         """Audit of the pool's bookkeeping (host-side, one device sync for
         the three metadata tensors), the reference's checks:
 
@@ -302,16 +302,19 @@ class PagedSalcaCache:
           id, ``0 <= length <= max_seq``;
         * ``free_blocks`` (the engine's free list), when given, is free of
           duplicates, in range, disjoint from every mapped block and covers
-          every unreferenced block;
+          every unreferenced block that is not cache-pinned;
         * ``host_refcount`` (the engine's mirror), when given, equals the
           device refcount;
+        * ``cache_pinned`` (the blocks the engine's persistent prefix cache
+          holds after their last resident owner released them), when given,
+          is free of duplicates and in range, and each pin is unreferenced
+          (no page-table entry maps it) and off the free list: a pin is its
+          own accounting, so it is no leak;
         * each slot's mapped entries run from logical 0 with no hole below
           a mapped one, unless ``allow_holes`` (the host tier unmaps cold
           blocks below the cursor).
 
-        The reference's ``cache_pinned`` argument (blocks held by its
-        persistent prefix cache) comes with the port of that cache. Never
-        raises; returns an `InvariantReport`."""
+        Never raises; returns an `InvariantReport`."""
         pt = self.page_table.cpu().numpy()
         rc = self.refcount.cpu().numpy()
         ln = self.length.cpu().numpy()
@@ -336,6 +339,20 @@ class PagedSalcaCache:
             if hrc.shape != (p,) or not (hrc == rc).all():
                 bad = np.where(hrc != rc)[0] if hrc.shape == (p,) else []
                 rep.fail(f"host refcount mirror diverges from device at blocks {list(bad)[:8]}")
+        pinned_mask = np.zeros(p, bool)
+        if cache_pinned is not None:
+            pins = np.asarray(list(cache_pinned), dtype=np.int64)
+            rep.checked["cache_pinned"] = len(pins)
+            if len(set(pins.tolist())) != len(pins):
+                rep.fail("duplicate ids in the cache-pin set")
+            if pins.size and ((pins < 0) | (pins >= p)).any():
+                rep.fail("cache-pinned id outside the pool")
+                pins = pins[(pins >= 0) & (pins < p)]
+            pinned_mask[pins] = True
+            if (pinned_mask & (derived > 0)).any():
+                rep.fail(f"cache-pinned ∩ mapped ≠ ∅: blocks "
+                         f"{np.where(pinned_mask & (derived > 0))[0].tolist()[:8]} (a pin "
+                         f"holds no page-table reference)")
         if free_blocks is not None:
             free = np.asarray(list(free_blocks), dtype=np.int64)
             if len(set(free.tolist())) != len(free):
@@ -348,9 +365,13 @@ class PagedSalcaCache:
                 if (free_mask & (derived > 0)).any():
                     rep.fail(f"free ∩ mapped ≠ ∅: blocks "
                              f"{np.where(free_mask & (derived > 0))[0].tolist()[:8]}")
-                if (~free_mask & (derived == 0)).any():
-                    rep.fail(f"leaked blocks (unreferenced, not free): "
-                             f"{np.where(~free_mask & (derived == 0))[0].tolist()[:8]}")
+                if (free_mask & pinned_mask).any():
+                    rep.fail(f"cache-pinned ∩ free ≠ ∅: blocks "
+                             f"{np.where(free_mask & pinned_mask)[0].tolist()[:8]}")
+                orphan = ~free_mask & ~pinned_mask & (derived == 0)
+                if orphan.any():
+                    rep.fail(f"leaked blocks (unreferenced, not free, not cache-pinned): "
+                             f"{np.where(orphan)[0].tolist()[:8]}")
         if not allow_holes:
             mapped = pt >= 0
             first_unmapped = np.where(mapped.all(axis=1), mb, np.argmin(mapped, axis=1))
@@ -506,6 +527,32 @@ def prefill_into_pages(pool: PagedSalcaCache, src: SalcaCache, slot: int,
     pool.length[slot] = src.length[0]
     pool.page_table[slot] = pages
     _refcount_add(pool.refcount, pages, +1)
+    pool.sel_hist[slot] = 0
+    return pool
+
+
+def adopt_pages(pool: PagedSalcaCache, slot: int, pages, length: int,
+                heavy_idx: torch.Tensor, block_range=None) -> PagedSalcaCache:
+    """Map an already written prefix into ``slot`` without touching a data
+    row: the zero-prefill warm hit of the persistent prefix cache (reference
+    `adopt_pages`). Every block named by ``pages`` (MB,) (-1 beyond) still
+    holds the prompt's rows, written by an earlier prefill and kept under
+    the engine's cache pin, so only the metadata side of
+    `prefill_into_pages` runs: the page-table row, one reference per mapped
+    block, the cursor ``length``, the slot's heavy set ``heavy_idx`` (1, KV,
+    R) — the static set the rows were encoded against — and ``sel_hist``
+    zeroed. ``slot`` must be unmapped. In place: the graphed tick reads
+    these tensors where it captured them.
+
+    ``block_range``: the reference's layout with a sharded refcount, as in
+    `map_block` — the metadata is written everywhere, the references only
+    on the rank owning each block, at its local id."""
+    dev = pool.refcount.device
+    pages = torch.as_tensor(pages, dtype=torch.int32).to(dev)
+    pool.heavy_idx[slot] = heavy_idx[0]
+    pool.length[slot] = length
+    pool.page_table[slot] = pages
+    _refcount_add(pool.refcount, _localize_pages(pages, block_range), +1)
     pool.sel_hist[slot] = 0
     return pool
 

@@ -35,6 +35,11 @@ class ModelAPI(NamedTuple):
     #                                         -> (logits | None, pool, cursor)
     prefill_chunk_unsupported: Callable[..., Any]   # () -> str | None
     static_heavy: Callable[..., Any]       # (params, max_seq) -> per-layer sets | None
+    # the persistent prefix cache: install a cache-pinned, already written
+    # prompt into a slot by reference (metadata only, no prefill), and the
+    # static heavy sets from activation statistics over a calibration batch
+    adopt_pages: Callable[..., Any]        # (params, pool, slot, pages, length) -> pool
+    calibrate: Callable[..., Any]          # (params, tokens) -> params with calib_salience
 
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
@@ -79,10 +84,16 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     def static_heavy(params, max_seq):
         return transformer.lm_static_heavy(params, cfg, max_seq)
 
+    def adopt_pages(params, pool, slot, pages, length):
+        return transformer.lm_adopt_pages(params, cfg, pool, slot, pages, length)
+
+    def calibrate(params, tokens):
+        return transformer.lm_calibrate_static_heavy(params, cfg, tokens)
+
     return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
                     init_paged_state, transformer.lm_write_into_slot,
                     transformer.lm_map_block, transformer.lm_share_blocks,
                     transformer.lm_cow_block, transformer.lm_reset_slot,
                     transformer.lm_read_block, transformer.lm_write_block,
                     transformer.lm_selection_hist, prefill_begin, prefill_chunk,
-                    prefill_chunk_unsupported, static_heavy)
+                    prefill_chunk_unsupported, static_heavy, adopt_pages, calibrate)

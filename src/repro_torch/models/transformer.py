@@ -1,5 +1,7 @@
 """Decoder-only LM over a stack of "A" blocks: prefill (whole or by chunks),
-pooled decode state (contiguous slot pool or paged) and the decode step.
+pooled decode state (contiguous slot pool or paged), the zero-prefill
+adoption of a cached prompt, the calibration of the static heavy sets, and
+the decode step.
 
 Port of the reference `models/transformer.py` for the dense LM. Where the
 reference scans stacked per-period states, the port keeps a Python list
@@ -14,9 +16,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
-    PagedSalcaCache, cow_block, empty_cache, empty_paged_cache, free_pages, map_block,
-    prefill_chunk_into_pages, prefill_into_pages, read_block_rows, reset_slot, share_blocks,
-    write_block_rows, write_prefill_into_slot)
+    PagedSalcaCache, adopt_pages, cow_block, empty_cache, empty_paged_cache, free_pages,
+    map_block, prefill_chunk_into_pages, prefill_into_pages, read_block_rows, reset_slot,
+    share_blocks, write_block_rows, write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -128,6 +130,53 @@ def lm_static_heavy(params: dict, cfg: ModelConfig, max_seq: int):
         return None
     sp = B.salca_params_for(cfg, max_seq)
     return tuple(B.static_heavy_idx(layer["attn"], cfg, sp, 1) for layer in params["layers"])
+
+
+def lm_adopt_pages(params: dict, cfg: ModelConfig, pool: LMState, slot: int, pages,
+                   length: int) -> LMState:
+    """The zero-prefill warm hit (reference `lm_adopt_pages`): map an
+    already written, cache-pinned prompt into row ``slot`` of every layer's
+    paged pool without touching a data row — the page-table row, the
+    references, the cursor and each layer's static heavy set, the one the
+    kept rows were encoded against (so ``salca_static_channels`` is
+    required) — and set ``pos[slot] = length``. ``pages`` (MB,) covers
+    exactly the prompt's blocks (-1 beyond). It writes only metadata, which
+    a block-sharded rank holds replicated, so it applies unchanged to a
+    rank's share of a pool. In place."""
+    if not cfg.salca_static_channels:
+        raise ValueError("adopt_pages requires cfg.salca_static_channels: the kept rows "
+                         "were encoded against the static heavy-channel set")
+    paged = [c for c in pool.caches if isinstance(c, PagedSalcaCache)]
+    if not paged:
+        raise ValueError("adopt_pages requires a paged pool state")
+    sp = B.salca_params_for(cfg, paged[0].max_seq)
+    pages = torch.as_tensor(pages, dtype=torch.int32).to(pool.pos.device)
+    for layer, c in zip(params["layers"], pool.caches):
+        if isinstance(c, PagedSalcaCache):
+            adopt_pages(c, slot, pages, length, B.static_heavy_idx(layer["attn"], cfg, sp, 1))
+    pool.pos[slot] = length
+    return pool
+
+
+def lm_calibrate_static_heavy(params: dict, cfg: ModelConfig, tokens) -> dict:
+    """Static heavy channels from activations (reference
+    `lm_calibrate_static_heavy`): prefill a calibration batch ``tokens``
+    (B, T), and per layer sum |K| = |k_codes · k_scale| over the valid rows
+    of its cache into a (KV, HD) float32 salience, installed as the
+    layer's ``calib_salience`` leaf. `blocks.static_heavy_idx` prefers that
+    leaf over the weight mass Σ|W_k|, so the static sets follow the prompts
+    a deployment serves. Returns a new tree (the layers' dicts copied, the
+    tensors shared); ``params`` is left as it was."""
+    tokens = torch.as_tensor(tokens, dtype=torch.int32).to(params["embed"]["tok"].device)
+    _, state = lm_prefill(params, cfg, tokens, max_seq=tokens.shape[1])
+    layers = []
+    for layer, c in zip(params["layers"], state.caches):
+        k = c.k_codes.float() * c.k_scale[..., None]                    # (B, T, KV, HD)
+        valid = (torch.arange(k.shape[1], device=k.device)[None, :]
+                 < c.length[:, None]).float()
+        sal = (k.abs() * valid[..., None, None]).sum(dim=(0, 1))         # (KV, HD) f32
+        layers.append({**layer, "attn": {**layer["attn"], "calib_salience": sal}})
+    return {**params, "layers": layers}
 
 
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState:

@@ -50,8 +50,26 @@ equal the request's, as the packed features are encoded against them
 decrements a host mirror of the refcount and frees a block, and prunes its
 radix entry, at zero. Before a tick a slot whose cursor block is shared
 gets a private copy (`core.cache.cow_block`): the write that the append
-would drop lands in the copy. Sharing is only between requests resident
-at the same time.
+would drop lands in the copy.
+
+The persistent prefix cache (``prefix_cache=True``, with
+``prefix_sharing``) makes the radix map a cache across requests, as in the
+reference: a radix-published block whose last resident owner releases it
+stays mapped in the radix map under a host-side cache pin (its refcount
+stays 0; the allocator just does not get the id back), so a later request
+with the same prefix admits against it by reference. A prompt matched in
+full whose first-token logits row was kept admits with no prefill at all:
+a metadata-only ``adopt_pages`` maps its blocks (all-"A" stacks with
+``salca_static_channels``, where the kept rows carry the static heavy
+sets), and its TTFT shrinks to that call. Eviction is LRU by last hit, the
+deepest block first within a stamp, so a radix chain never loses an
+ancestor before its descendants; a pin is the cheapest block to reclaim,
+so admission, chunk charging, growth, copy on write and preemption drain
+the cache's cold end before any host-tier demotion or preemption. With
+``host_spill`` a squeezed pin demotes to a bounded host cold tier
+(``CACHE_COLD``) instead and is rehydrated on its next hit. The kept rows
+are what a cold prefill writes, so outputs equal a cold engine's. int4
+pools are refused: their append requantizes a whole partial block.
 
 Tiered KV memory (paged only): ``kv_pool_dtype`` picks the pool's K/V
 storage — "int8" (the default), "fp16" or "int4" (`core.cache`); the
@@ -111,10 +129,7 @@ mirror) every N ticks and raises on a violation; ``monitor`` /
 ``heartbeat_path`` record every tick's time in a `runtime.monitor.StepMonitor`
 (straggler flags, a heartbeat file).
 
-Knobs that the reference rejects raise its `ValueError`s; the one knob of
-the reference engine that a later slice ports, ``prefix_cache``, raises
-`NotImplementedError` naming the reference feature that brings it instead
-of being ignored.
+Knobs that the reference rejects raise its `ValueError`s.
 """
 
 from __future__ import annotations
@@ -137,11 +152,10 @@ from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.monitor import NaNGuard, StepMonitor
 from repro_torch.runtime.steps import ServeDecodeStep, to_host
 
-# reference knob → the reference feature whose port brings it
-_LATER = {
-    "prefix_cache": "the reference's persistent prefix cache",
-}
 SPILLED = -1     # a slot's logical block that lives in the host tier
+# a radix node whose cache-pinned block was demoted to the host cold tier
+# (`_cold_cache`): its key stays matchable and is rehydrated on a hit
+CACHE_COLD = -2
 
 
 @dataclass
@@ -280,10 +294,19 @@ class ServeStats:
     peak_blocks_in_use: int = 0
     shards: int = 1                      # pool shards (the ctx's world size)
     peak_shard_blocks_in_use: int = 0    # hottest single shard at peak (shards > 1)
-    # prefix sharing (zero unless prefix_sharing=True)
+    # prefix sharing (zero unless prefix_sharing=True): `shared_blocks` and
+    # `prefix_hits` count sharing between requests resident together; hits
+    # on the persistent cache are the `cache_*` counters
     shared_blocks: int = 0     # blocks admitted by reference instead of written
     cow_copies: int = 0        # shared blocks copied on their first write
-    prefix_hits: int = 0       # requests that shared at least one block
+    prefix_hits: int = 0       # requests that shared at least one resident block
+    # the persistent prefix cache (zero unless prefix_cache=True)
+    cache_hits: int = 0        # requests that took at least one cache-pinned block
+    cache_hit_blocks: int = 0  # cache-pinned blocks taken (refcount 0 → 1)
+    cache_evictions: int = 0   # pins and cold entries dropped under pressure
+    cache_pinned_blocks: int = 0   # pins held (last sample)
+    peak_cache_blocks: int = 0
+    zero_prefill_hits: int = 0     # prompts matched in full, admitted with no prefill
     # tiered KV memory (zero unless host_spill=True)
     host_spill: bool = False
     hot_blocks: int = 0        # device-resident blocks in use (last sample)
@@ -313,7 +336,7 @@ class ServeStats:
         (seconds to 4 places, ms and utilisations to 3); the fault, audit and
         monitor keys only when they have counted, the block-pool and sharing
         keys only for a paged engine, the shard keys only over several
-        shards."""
+        shards, the persistent cache's keys only once it has held a pin."""
         out = {
             "completed": self.completed, "prefill_s": round(self.prefill_s, 4),
             "decode_s": round(self.decode_s, 4), "decode_steps": self.decode_steps,
@@ -351,11 +374,19 @@ class ServeStats:
                            shard_block_utilization=round(
                                self.peak_shard_blocks_in_use
                                / (self.block_pool_size // self.shards), 3))
-            # each shared admission saved a block, each copy paid one back
-            saved = self.shared_blocks - self.cow_copies
+            # each shared or adopted admission saved a block, each copy paid
+            # one back
+            saved = self.shared_blocks + self.cache_hit_blocks - self.cow_copies
             out.update(shared_blocks=self.shared_blocks, cow_copies=self.cow_copies,
                        prefix_hits=self.prefix_hits, effective_blocks_saved=saved,
                        memory_saved_tokens=saved * self.block_size)
+            if self.cache_hits or self.cache_evictions or self.peak_cache_blocks:
+                out.update(cache_hits=self.cache_hits, cache_hit_blocks=self.cache_hit_blocks,
+                           cache_saved_tokens=self.cache_hit_blocks * self.block_size,
+                           cache_evictions=self.cache_evictions,
+                           cache_pinned_blocks=self.cache_pinned_blocks,
+                           peak_cache_blocks=self.peak_cache_blocks,
+                           zero_prefill_hits=self.zero_prefill_hits)
             if self.host_spill:
                 out.update(hot_blocks=self.hot_blocks, cold_blocks=self.cold_blocks,
                            peak_cold_blocks=self.peak_cold_blocks, demotions=self.demotions,
@@ -374,6 +405,8 @@ class _InflightPrefill:
     cursor: object                      # `models.transformer.PrefillCursor`
     consumed: int = 0                   # prompt tokens prefilled so far
     n_shared: int = 0                   # radix-matched prefix blocks
+    n_cache: int = 0                    # of those, taken from the cache's pins
+    shared_ids: list = field(default_factory=list)
     pages: np.ndarray | None = None     # the page row mapped so far (-1 beyond)
 
 
@@ -386,7 +419,8 @@ class ServingEngine:
     must divide ``max_seq``; ``ctx`` (`distributed.sharding.DecodeCtx`)
     splits the pool's blocks across its ranks, and ``num_blocks`` must then
     divide evenly by the world size. ``prefix_sharing``: common prompt
-    prefixes share blocks, copied on write. ``kv_pool_dtype`` and ``host_spill``
+    prefixes share blocks, copied on write; ``prefix_cache``: the persistent
+    prefix cache of the module docstring. ``kv_pool_dtype`` and ``host_spill``
     (with ``demote_after``, ``spill_keep_recent``, ``promote_headroom``):
     the tiered pool of the module docstring. ``prefill_chunk`` (a chunk's
     tokens) and ``preempt``: continuous batching, as the module docstring
@@ -445,10 +479,12 @@ class ServingEngine:
                                           "with the port of the reference's "
                                           "sequence-sharded flat decode")
         if prefix_cache and not prefix_sharing:
-            raise ValueError("prefix_cache requires prefix_sharing=True")
-        if prefix_cache:
-            raise NotImplementedError(f"prefix_cache: not ported yet; comes with the port "
-                                      f"of {_LATER['prefix_cache']}")
+            raise ValueError("prefix_cache requires prefix_sharing=True (the cache retains "
+                             "radix-mapped blocks past their last resident owner)")
+        if prefix_cache and cfg.kv_pool_dtype == "int4":
+            raise ValueError("prefix_cache does not support int4 pools: the in-place append "
+                             "requantizes a whole partial block, so retained prefix bytes "
+                             "would diverge from a cold prefill")
         self.cfg, self.params, self.max_seq, self.slots = cfg, params, max_seq, slots
         self.paged = paged
         self.api = get_model(cfg)
@@ -507,6 +543,13 @@ class ServingEngine:
         self.n_shards = 1 if ctx is None else ctx.world_size
         self.host_spill = host_spill
         self.prefix_sharing = prefix_sharing
+        self.prefix_cache = prefix_cache
+        # the zero-prefill warm hit: sound exactly where chunked prefill is
+        # (all-"A" stacks whose kept rows carry the static heavy sets); other
+        # configs still hit the cache, but re-prefill and map the matched
+        # blocks by reference
+        self._adopt = (self.api.adopt_pages if prefix_cache and cfg.salca_static_channels
+                       and self.api.prefill_chunk_unsupported() is None else None)
         # at most one request's prefill (the queue head's) waits for blocks
         self._stash: tuple[Request, tuple] | None = None
         if not paged:
@@ -530,6 +573,17 @@ class ServingEngine:
         # owner's heavy-set bytes); and each published block's key
         self._prefix_nodes: dict[bytes, tuple[int, bytes]] = {}
         self._block_keys: dict[int, bytes] = {}
+        # the persistent prefix cache: pinned block → its LRU stamp (the
+        # clock ticks once per release), each published block's logical
+        # depth (eviction takes the deepest of a stamp first), the
+        # first-token logits row per full-prompt key (what lets a full hit
+        # skip the prefill), and the host cold tier: key → (payload, heavy
+        # bytes, depth, stamp), its radix node holding CACHE_COLD
+        self._cached: dict[int, int] = {}
+        self._cache_clock = 0
+        self._node_depth: dict[int, int] = {}
+        self._logits_cache: dict[bytes, np.ndarray] = {}
+        self._cold_cache: dict[bytes, tuple] = {}
         self._state = self.api.init_paged_state(slots, max_seq, block_size,
                                                 self.num_blocks, self.device, ctx)
         self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
@@ -934,20 +988,31 @@ class ServingEngine:
         return out
 
     def _register_blocks(self, req: Request, blocks: list[int], n_shared: int,
-                         heavy: bytes) -> None:
+                         heavy: bytes, logits_row: np.ndarray | None = None) -> None:
         """Publish the request's private prompt blocks in the radix map (its
-        shared ones are published already)."""
+        shared ones are published already), each with its logical depth.
+        With the persistent cache the first-token logits row is kept under
+        the full-prompt key, so the same prompt later admits with no prefill
+        (`_try_adopt`): the row is a function of the prompt alone."""
         full_keys, partial_key = self._request_digests(req)
         keys = full_keys + ([partial_key] if partial_key is not None else [])
         for j in range(n_shared, len(keys)):
             if keys[j] not in self._prefix_nodes and blocks[j] not in self._block_keys:
                 self._prefix_nodes[keys[j]] = (blocks[j], heavy)
                 self._block_keys[blocks[j]] = keys[j]
+                self._node_depth[blocks[j]] = j
+        if self.prefix_cache and logits_row is not None and keys[-1] in self._prefix_nodes:
+            self._logits_cache[keys[-1]] = np.array(logits_row, copy=True)
 
     def _prune_node(self, block: int) -> None:
+        """Drop a block's radix entry with what hangs on its key: the logits
+        row, the depth and any cold payload."""
         key = self._block_keys.pop(block, None)
         if key is not None:
             self._prefix_nodes.pop(key, None)
+            self._logits_cache.pop(key, None)
+            self._cold_cache.pop(key, None)
+        self._node_depth.pop(block, None)
 
     def _admit(self) -> None:
         """FIFO admission: prefill the queue head alone and write it into the
@@ -957,8 +1022,9 @@ class ServingEngine:
         prompt larger than the free pool admits in waves, unshared). With
         ``prefill_chunk`` one pass runs one chunk instead
         (`_advance_prefill`). Queued requests past their deadline are shed
-        first. The reference's zero-prefill warm hit (``_try_adopt``) and
-        cache reclaim come with its persistent prefix cache."""
+        first. With the persistent cache a prompt matched in full admits with
+        no prefill (`_try_adopt`), cold matches are rehydrated, and the
+        cache's cold end is reclaimed before any demotion or wait."""
         self._shed_expired_queue()
         if self.prefill_chunk is not None:
             self._advance_prefill()
@@ -979,17 +1045,36 @@ class ServingEngine:
             shared: list[int] = []
             if self.prefix_sharing:
                 cand = self._match_tokens(req)
-                if need_full - len(cand) > self._alloc.total_free:
+                # what pressure could reclaim counts: every pin outside the
+                # match, less one block to rehydrate per cold match
+                cand_blocks = {b for _, b, _ in cand if b >= 0}
+                n_cold = sum(b == CACHE_COLD for _, b, _ in cand)
+                reclaim = sum(b not in cand_blocks for b in self._cached)
+                if need_full - len(cand) + n_cold > self._alloc.total_free + reclaim:
                     break          # short of blocks even if every match is shared
+                if self._try_adopt(req, cand, t0):
+                    continue       # a zero-prefill warm hit
                 self._begin_cycle(req, t0)
                 _, state1 = self._ensure_prefill(req)
                 if req._heavy is None:
                     req._heavy = self._heavy_bytes(state1)
-                for _, block, owner_heavy in cand:
+                hot = set(cand_blocks)
+                for key, block, owner_heavy in cand:
                     if owner_heavy != req._heavy:
                         break      # the first heavy-set mismatch ends the share
+                    if block == CACHE_COLD:
+                        # rehydrate (other pins may make room; the match's own
+                        # blocks are protected)
+                        block = self._promote_cached(key, protect=hot)
+                        if block is None:
+                            break  # too tight to rehydrate: the rest is prefilled
+                        hot.add(block)
                     shared.append(block)
             need = need_full - len(shared)
+            if need > self._alloc.total_free:
+                # the cheapest reclaim first: the cache's LRU end, never the
+                # admission's own hit
+                self._reclaim_cache(need, protect=set(shared))
             if self.host_spill and need > self._alloc.total_free:
                 # admission pressure: cold blocks of active slots go to the
                 # host tier before the queue waits on the device pool
@@ -1011,14 +1096,13 @@ class ServingEngine:
             if self.host_spill:
                 self._hist_snap[slot] = 0
                 self._cold_streak[slot] = 0
+            n_cache = self._take_pins(shared)
             self._install_prompt(slot, shared, need_full, state1, fresh)
             if self.prefix_sharing:
-                req.shared_blocks = len(shared)
-                self.stats.shared_blocks += len(shared)
-                self.stats.prefix_hits += bool(shared)
+                self._count_shared(req, len(shared), n_cache)
                 if fresh is not None:  # a prompt admitted in waves is not published
                     self._register_blocks(req, self._slot_blocks[slot], len(shared),
-                                          req._heavy)
+                                          req._heavy, logits_row)
             self._drop_stash(req)
             self._activate(req, slot, logits_row)
 
@@ -1122,20 +1206,30 @@ class ServingEngine:
 
     def _release_blocks(self, slot: int) -> None:
         """Decref every block the slot holds; a block reaching 0 returns to
-        its shard's free list and leaves the radix map. Releasing a slot
-        that holds nothing (an overflow finish racing a preemption) is a
-        no-op."""
+        its shard's free list and leaves the radix map — unless the
+        persistent cache is on and the block is radix-published: then it
+        stays mapped under a cache pin, one LRU stamp for the whole release.
+        Releasing a slot that holds nothing (an overflow finish racing a
+        preemption) is a no-op."""
         blocks = self._slot_blocks.pop(slot, None)
         if blocks is None:
             return
+        stamp = None
         for b in blocks:
             if b == SPILLED:
                 continue                              # host-tier entry: no device block
             self._refcount[b] -= 1
             assert self._refcount[b] >= 0, f"block {b} refcount underflow"
             if self._refcount[b] == 0:
-                self._alloc.release(b)
-                self._prune_node(b)
+                if self.prefix_cache and b in self._block_keys:
+                    if stamp is None:
+                        self._cache_clock += 1
+                        stamp = self._cache_clock
+                    self._cached[b] = stamp
+                    self._note_cache_usage()
+                else:
+                    self._alloc.release(b)
+                    self._prune_node(b)
         self._slot_pos.pop(slot, None)
         if self.host_spill:
             for key in [k for k in self._spilled if k[0] == slot]:
@@ -1150,6 +1244,191 @@ class ServingEngine:
             self._pinned_cold = {k for k in self._pinned_cold if k[0] != slot}
             self._pinned_hot = {k for k in self._pinned_hot if k[0] != slot}
         self._note_block_usage()
+
+    # -- the persistent prefix cache ------------------------------------
+    def _note_cache_usage(self) -> None:
+        n = len(self._cached)
+        self.stats.cache_pinned_blocks = n
+        self.stats.peak_cache_blocks = max(self.stats.peak_cache_blocks, n)
+
+    def _take_pins(self, blocks: list[int]) -> int:
+        """Pop the cache pins among ``blocks`` an admission maps (each goes
+        back to resident); returns how many it popped."""
+        n = sum(self._cached.pop(b, None) is not None for b in blocks)
+        self._note_cache_usage()
+        return n
+
+    def _count_shared(self, req: Request, n_shared: int, n_cache: int) -> None:
+        """An admission's sharing counts: ``n_cache`` of its ``n_shared``
+        mapped prefix blocks were cache pins, the rest resident."""
+        req.shared_blocks = n_shared
+        self.stats.shared_blocks += n_shared - n_cache
+        self.stats.cache_hit_blocks += n_cache
+        self.stats.prefix_hits += bool(n_shared - n_cache)
+        self.stats.cache_hits += bool(n_cache)
+
+    def _cache_victim(self, protect=frozenset()) -> int | None:
+        """The LRU pin: the oldest stamp first and, on a tie, the deepest
+        block. A block's owners own its ancestors too, so an ancestor's last
+        release comes at or after its descendants': this order never takes
+        an ancestor while a pinned descendant remains."""
+        cand = [(stamp, -self._node_depth.get(b, 0), b)
+                for b, stamp in self._cached.items() if b not in protect]
+        return min(cand)[2] if cand else None
+
+    def _evict_cache_block(self, protect=frozenset()) -> bool:
+        """Reclaim one pin outright: drop its radix entry and return the id
+        to its shard's list. The block is unmapped already (refcount 0), so
+        this is bookkeeping only. False when no pin is left."""
+        b = self._cache_victim(protect)
+        if b is None:
+            return False
+        del self._cached[b]
+        self._prune_node(b)
+        self._alloc.release(b)
+        self.stats.cache_evictions += 1
+        self._note_cache_usage()
+        self._note_block_usage()
+        return True
+
+    def _demote_cache_block(self, protect=frozenset()) -> bool:
+        """Move one pin's rows to the host cold tier (with ``host_spill``):
+        its radix key stays matchable under CACHE_COLD and is rehydrated on
+        its next hit. The tier holds at most ``num_blocks`` entries; past
+        that its LRU entry is dropped (an eviction)."""
+        b = self._cache_victim(protect)
+        if b is None:
+            return False
+        key = self._block_keys.pop(b)          # the physical id is about to be reused
+        heavy = self._prefix_nodes[key][1]
+        payload = tuple(tuple(self._to_host(t) for t in rows)
+                        for rows in self.api.read_block(self._state, b))
+        self._cold_cache[key] = (payload, heavy, self._node_depth.pop(b, 0), self._cached.pop(b))
+        self._prefix_nodes[key] = (CACHE_COLD, heavy)
+        self._alloc.release(b)
+        self.stats.demotions += 1
+        self.stats.pcie_bytes += self._block_bytes
+        if len(self._cold_cache) > self.num_blocks:
+            old = min(self._cold_cache,
+                      key=lambda k: (self._cold_cache[k][3], -self._cold_cache[k][2]))
+            self._prefix_nodes.pop(old, None)
+            self._logits_cache.pop(old, None)
+            del self._cold_cache[old]
+            self.stats.cache_evictions += 1
+        self._note_cache_usage()
+        self._note_block_usage()
+        return True
+
+    def _promote_cached(self, key: bytes, protect=frozenset()) -> int | None:
+        """Rehydrate one cold entry into a fresh block (a radix hit on a
+        demoted prefix; bit-exact, storage format both ways), pinned again
+        under its old stamp. A dry pool first reclaims other pins
+        (``protect``: the blocks the match in progress maps). None when no
+        block can be had, or the squeeze dropped this very entry: the
+        caller cuts its match there and prefills the rest."""
+        if key not in self._cold_cache:
+            return None
+        fresh = self._alloc.alloc(1)
+        if fresh is None:
+            self._reclaim_cache(1, protect=protect)
+            if key not in self._cold_cache:
+                return None
+            fresh = self._alloc.alloc(1)
+            if fresh is None:
+                return None
+        b, = fresh
+        payload, heavy, depth, stamp = self._cold_cache.pop(key)
+        self.api.write_block(self._state, b, payload)
+        self._prefix_nodes[key] = (b, heavy)
+        self._block_keys[b] = key
+        self._node_depth[b] = depth
+        self._cached[b] = stamp
+        self.stats.promotions += 1
+        self.stats.pcie_bytes += self._block_bytes
+        self._note_cache_usage()
+        self._note_block_usage()
+        return b
+
+    def _reclaim_cache(self, need: int, protect=frozenset()) -> None:
+        """Drain the cache's LRU end until ``need`` blocks are free or no
+        pin is left: with the host tier by demotion (the entry stays
+        warm), else by eviction. A pin costs no resident request anything,
+        so every pressure path calls this before host-tier demotion or
+        preemption."""
+        while self._alloc.total_free < need:
+            if self.host_spill and self._demote_cache_block(protect):
+                continue
+            if not self._evict_cache_block(protect):
+                return
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every entry of the persistent cache, its pins and its cold
+        payloads; returns how many. Resident requests and their radix
+        entries stay."""
+        if not self.paged:
+            return 0
+        n = 0
+        while self._evict_cache_block():
+            n += 1
+        for key in list(self._cold_cache):
+            self._prefix_nodes.pop(key, None)
+            self._logits_cache.pop(key, None)
+            del self._cold_cache[key]
+            self.stats.cache_evictions += 1
+            n += 1
+        return n
+
+    def _try_adopt(self, req: Request, cand: list, t0: float) -> bool:
+        """The zero-prefill warm hit: when the radix match covers the whole
+        prompt and its first-token logits row was kept, map the matched
+        blocks by reference (`adopt_pages`: metadata only, no prefill) and
+        activate the slot at once; the adoption's time counts in
+        ``prefill_s``. False — the caller prefills and still maps the match
+        by reference — when adoption is off for the config, the match is
+        partial, the row is missing, a heavy set differs or a cold entry
+        cannot be rehydrated (those rehydrated stay pinned for the
+        prefill path)."""
+        if self._adopt is None or len(cand) < self._blocks_for(len(req.prompt)):
+            return False
+        logits_row = self._logits_cache.get(cand[-1][0])
+        if logits_row is None:
+            return False
+        heavy = self._static_heavy_bytes()
+        if any(owner_heavy != heavy for _, _, owner_heavy in cand):
+            return False
+        blocks: list[int] = []
+        hot = {b for _, b, _ in cand if b >= 0}
+        for key, block, _ in cand:
+            if block == CACHE_COLD:
+                block = self._promote_cached(key, protect=hot)
+                if block is None:
+                    return False
+                hot.add(block)
+            blocks.append(block)
+        self._queue.popleft()
+        slot = self._free.pop()
+        self._begin_cycle(req, t0)
+        req._heavy = heavy
+        n_cache = self._take_pins(blocks)
+        for b in blocks:
+            self._refcount[b] += 1
+        plen = len(req.prompt)
+        pages = np.full((self.max_blocks,), -1, np.int32)
+        pages[:len(blocks)] = blocks
+        self._slot_blocks[slot] = list(blocks)
+        self._slot_pos[slot] = plen
+        if self.host_spill:
+            self._hist_snap[slot] = 0
+            self._cold_streak[slot] = 0
+        self._note_block_usage()
+        t1 = time.time()
+        self._adopt(self.params, self._state, slot, pages, plen)
+        self.stats.prefill_s += time.time() - t1
+        self._count_shared(req, len(blocks), n_cache)
+        self.stats.zero_prefill_hits += 1
+        self._drop_stash(req)
+        self._activate(req, slot, logits_row)
+        return True
 
     # -- preemption ----------------------------------------------------
     def _pick_victim(self) -> int | None:
@@ -1200,11 +1479,16 @@ class ServingEngine:
 
     def _preempt_for_blocks(self, needy_slot: int) -> bool:
         """Preempt victims until the free list holds a block (a victim's
-        blocks may all be shared: go on). False once ``needy_slot`` itself
-        was preempted, or when no victim is left. (The reference first
-        drains its persistent prefix cache's pins, which come with that
-        cache.)"""
+        blocks may all be shared: go on). Cache pins go first, demoted with
+        the host tier, else evicted: they are cheaper than any victim, and a
+        victim whose released blocks land in the cache is reclaimed on the
+        next pass instead of another victim. False once ``needy_slot``
+        itself was preempted, or when no victim is left."""
         while not self._alloc.total_free:
+            if self.host_spill and self._demote_cache_block():
+                continue
+            if self._evict_cache_block():
+                continue
             victim = self._pick_victim()
             if victim is None:
                 return False
@@ -1240,31 +1524,45 @@ class ServingEngine:
         admission does. The chunk step runs eagerly. An in-flight prefill
         past its deadline is aborted first; a chunk failed by the
         ``prefill_chunk`` site charged and wrote nothing, so the next pass
-        retries it exactly. (The reference's zero-prefill warm hit and cache
-        reclaim come with its persistent prefix cache.)"""
+        retries it exactly. With the persistent cache a prompt matched in
+        full admits with no prefill (`_try_adopt`) instead, a new prefill
+        takes its matched pins (rehydrating cold ones) and a chunk short of
+        blocks reclaims the cache's cold end before it stalls."""
         if self._inflight is not None and self._expired(self._inflight.req, time.time()):
             self.stats.deadline_stops += 1
             self._abort_inflight(time.time(), "deadline")
         if self._inflight is None:
             if not (self._queue and self._free):
                 return
+            if self.prefix_sharing and self._try_adopt(
+                    self._queue[0], self._match_tokens(self._queue[0]), time.time()):
+                return                  # a zero-prefill warm hit
             req = self._queue.popleft()
             self._begin_cycle(req, time.time())
             slot = self._free.pop()
             shared: list[int] = []
+            n_cache = 0
             if self.prefix_sharing:
                 req._heavy = self._static_heavy_bytes()
-                for _, block, owner_heavy in self._match_tokens(req):
+                cand = self._match_tokens(req)
+                hot = {b for _, b, _ in cand if b >= 0}
+                for key, block, owner_heavy in cand:
                     if owner_heavy != req._heavy:
                         break           # unreachable with static channels
+                    if block == CACHE_COLD:
+                        block = self._promote_cached(key, protect=hot)
+                        if block is None:
+                            break       # too tight to rehydrate
+                        hot.add(block)
                     shared.append(block)
+                n_cache = self._take_pins(shared)
             pages = np.full((self.max_blocks,), -1, np.int32)
             pages[:len(shared)] = shared
             for b in shared:            # the first chunk counts them on the device
                 self._refcount[b] += 1
             self._inflight = _InflightPrefill(
                 req, slot, self.api.prefill_begin(len(req.prompt), self.device),
-                n_shared=len(shared), pages=pages)
+                n_shared=len(shared), n_cache=n_cache, shared_ids=list(shared), pages=pages)
             self._slot_blocks[slot] = list(shared)
             self._slot_pos[slot] = 0
         inf = self._inflight
@@ -1274,7 +1572,12 @@ class ServingEngine:
             return
         c = min(self.prefill_chunk, len(req.prompt) - inf.consumed)
         held = self._slot_blocks[slot]
-        fresh = self._alloc_blocks(max(self._blocks_for(inf.consumed + c) - len(held), 0))
+        fresh_needed = max(self._blocks_for(inf.consumed + c) - len(held), 0)
+        if fresh_needed > self._alloc.total_free:
+            # a pin is cheaper than a lost chunk (this prefill's own shared
+            # prefix is protected)
+            self._reclaim_cache(fresh_needed, protect=set(inf.shared_ids))
+        fresh = self._alloc_blocks(fresh_needed)
         if fresh is None:
             self.stats.chunk_stalls += 1            # pool dry: try again next pass
             return
@@ -1301,10 +1604,8 @@ class ServingEngine:
         self.stats.prefill_s += time.time() - t0
         self._inflight = None
         if self.prefix_sharing:
-            req.shared_blocks = inf.n_shared
-            self.stats.shared_blocks += inf.n_shared
-            self.stats.prefix_hits += bool(inf.n_shared)
-            self._register_blocks(req, held, inf.n_shared, req._heavy)
+            self._count_shared(req, inf.n_shared, inf.n_cache)
+            self._register_blocks(req, held, inf.n_shared, req._heavy, logits_row)
         self._activate(req, slot, logits_row)
 
     def _grow_or_overflow(self) -> None:
@@ -1314,8 +1615,9 @@ class ServingEngine:
         shared (refcount > 1) takes one and gets a private copy of it
         (`cow_block`), the write the append would otherwise drop. Either
         block comes from the shard holding the slot's tail or faulted block
-        when that shard has one; with ``host_spill`` a dry free list first
-        demotes the coldest candidate. A slot that cannot (no block free, or
+        when that shard has one; a dry free list first reclaims the prefix
+        cache's cold end, then with ``host_spill`` demotes the coldest
+        candidate. A slot that cannot (no block free, or
         a contiguous slot holding ``max_seq`` tokens) finishes with an
         ``overflow`` stop and the write that could not land is counted. With
         ``preempt`` a dry free list preempts the newest occupant (this slot,
@@ -1340,6 +1642,8 @@ class ServingEngine:
             if pos < self.max_seq and logical < len(held) and held[logical] >= 0 \
                     and self._refcount[held[logical]] <= 1:
                 continue                              # private room in place
+            if pos < self.max_seq and not self._alloc.total_free:
+                self._reclaim_cache(1)                # the cheapest reclaim first
             if pos < self.max_seq and self.host_spill and not self._alloc.total_free:
                 # growth pressure; a failed demotion (a fault) is transient:
                 # the slot stalls one tick instead of overflowing
@@ -1479,10 +1783,11 @@ class ServingEngine:
         equal the device lengths of the slots the last tick decoded (a tick
         zeroes a masked slot's length); every cursor lies in [0, max_seq];
         with the host tier the SPILLED entries and the spill mirror name the
-        same blocks. The reference's checks of its persistent prefix cache
-        (cache pins, cold radix nodes) come with the port of that cache.
-        Reads device tensors: run it between ticks, never inside a
-        capture. Returns an `InvariantReport`."""
+        same blocks; every cache pin has host refcount 0, a radix entry and
+        is off the free list, and every radix node and cold payload
+        correspond both ways (a CACHE_COLD node to a payload, any other node
+        to its block's key). Reads device tensors: run it between ticks,
+        never inside a capture. Returns an `InvariantReport`."""
         rep = InvariantReport()
         if not self.paged:
             rep.checked["paged"] = 0            # a contiguous engine: nothing to audit
@@ -1503,11 +1808,28 @@ class ServingEngine:
         rep.checked["pools"] = len(pools)
         for i, pool in enumerate(pools):
             rep.merge(pool.check_invariants(free_blocks=free, host_refcount=self._refcount,
-                                            allow_holes=self.host_spill),
+                                            allow_holes=self.host_spill,
+                                            cache_pinned=self._cached.keys()),
                       prefix=f"pool[{i}]: ")
+        free_set = set(free)
+        for b in self._cached:
+            if self._refcount[b] != 0:
+                rep.fail(f"cache-pinned block {b} has host refcount {int(self._refcount[b])} "
+                         f"(a pin has no resident owner)")
+            if b not in self._block_keys:
+                rep.fail(f"cache-pinned block {b} has no radix registration")
+            if b in free_set:
+                rep.fail(f"cache-pinned block {b} is on the free list")
         for key, (b, _) in self._prefix_nodes.items():
-            if self._block_keys.get(b) != key:
+            if b == CACHE_COLD:
+                if key not in self._cold_cache:
+                    rep.fail("cold radix node without a cold-cache payload")
+            elif self._block_keys.get(b) != key:
                 rep.fail(f"radix node block {b} not back-registered in _block_keys")
+        for key in self._cold_cache:
+            node = self._prefix_nodes.get(key)
+            if node is None or node[0] != CACHE_COLD:
+                rep.fail("cold-cache payload without a CACHE_COLD radix node")
         pt = pools[0].page_table.cpu().numpy()
         ln = pools[0].length.cpu().numpy()
         for slot in range(self.slots):

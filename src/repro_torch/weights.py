@@ -33,17 +33,21 @@ def _check(cfg: ModelConfig) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's LM parameter tree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) → the port's tree on
-    ``device``, in the config's dtype."""
+    ``device``, in the config's dtype. A layer's ``calib_salience`` leaf
+    (`models.transformer.lm_calibrate_static_heavy`) stays float32, as the
+    reference takes its top-r in float32: rounded to the model's dtype, a
+    near-tie could pick another heavy set."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
 
-    def conv(a):
-        return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(dev, dt)
+    def conv(a, to=dt):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(dev, to)
 
     def layer(node, i):
         if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
+            return {k: (conv(np.asarray(v)[i], torch.float32) if k == "calib_salience"
+                        else layer(v, i)) for k, v in node.items()}
         return conv(np.asarray(node)[i])
 
     stacked = tree["periods"][0]

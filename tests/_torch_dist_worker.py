@@ -17,7 +17,10 @@ Tasks:
   scheduler  the engine task on a chunked, preempting engine, recording
           the page row of every chunk step;
   lifecycle  the engine task under a fault plan that each rank builds from
-          the same seed, returning the faults it fired.
+          the same seed, returning the faults it fired;
+  cache   a persistent-prefix-cache engine serving a visit trace one request
+          at a time, recording per visit the tokens and the pinned radix
+          keys, and every block the cache evicted (key and id).
 """
 
 import dataclasses
@@ -139,6 +142,46 @@ def lifecycle(inp, ctx):
     return dict(res, fired=plan.fired_log)
 
 
+def cache(inp, ctx):
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32",
+                              **inp.get("cfg", {}))
+    eng = ServingEngine(cfg, inp["weights"], paged=True, device="cpu", ctx=ctx,
+                        **inp["engine"])
+    victims, blocks, real = [], [], eng._cache_victim
+
+    def victim(protect=frozenset()):
+        b = real(protect)
+        if b is not None:
+            victims.append(eng._block_keys[b])
+            blocks.append(b)
+        return b
+
+    eng._cache_victim = victim
+    ticks, orig = [], eng._decode
+
+    def recording(tokens, mask):
+        out = orig(tokens, mask)
+        ticks.append((mask.copy(), out[1].clone(), eng._state.caches[0].page_table.clone()))
+        return out
+
+    eng._decode = recording
+    log = []
+    for rid, i in enumerate(inp["visits"]):
+        r = Request(rid=rid, prompt=inp["prompts"][i].copy(), max_new_tokens=inp["new_tokens"])
+        eng.submit(r)
+        eng.run()
+        log.append((r.output, sorted(eng._block_keys[b] for b in eng._cached)))
+    stats = dataclasses.asdict(eng.stats)
+    audit_ok = eng.check_invariants().ok
+    taken = dict(victims=list(victims), victim_blocks=list(blocks))   # not the flush's
+    eng.flush_prefix_cache()
+    drained = (eng.check_invariants().ok and sorted(eng._free_blocks) == list(
+        range(eng.num_blocks)) and not eng._refcount.any() and not eng._prefix_nodes)
+    return dict(taken, log=log, ticks=ticks, stats=stats, audit_ok=audit_ok, drained=drained)
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
@@ -146,7 +189,7 @@ def main() -> int:
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine, "prefix": prefix,
-           "scheduler": scheduler, "lifecycle": lifecycle}[task](inp, ctx)
+           "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

@@ -889,6 +889,10 @@ def _graphed_and_eager_runs(dev, engine_kw):
     temperature = engine_kw.pop("temperature", 0.0)
     nan_after = engine_kw.pop("nan_after", None)
     sharing = engine_kw.get("prefix_sharing", False)
+    # the persistent prefix cache: the requests arrive one at a time, each
+    # after the last drained, so the second (the first's prompt) is a
+    # zero-prefill adoption between replays and the third a partial hit
+    visits = engine_kw.get("prefix_cache", False)
     chunked = engine_kw.get("prefill_chunk") is not None
     # with prefix sharing: static heavy sets, and three resident requests of
     # which two are identical (their partial block is copied on write) and
@@ -916,8 +920,9 @@ def _graphed_and_eager_runs(dev, engine_kw):
         reqs = [Request(rid=i, prompt=p, max_new_tokens=6,
                         temperature=temperature if i % 2 == 0 else 0.0)
                 for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
+        if not visits:
+            for r in reqs:
+                eng.submit(r)
         ticks, inflight = [], []
         orig = eng._decode
 
@@ -931,9 +936,15 @@ def _graphed_and_eager_runs(dev, engine_kw):
         if nan_after is not None:
             _poison_v_after(eng, nan_after, 1)
         reset_launches()
-        eng.run()
+        for r in (reqs if visits else [None]):
+            if r is not None:
+                eng.submit(r)
+            eng.run()
         torch.cuda.synchronize()
-        if sharing:
+        if visits:
+            assert (eng.stats.zero_prefill_hits, eng.stats.cache_hits) == (1, 2), eng.stats
+            assert eng.stats.prefix_hits == 0 and eng.stats.cow_copies == 0, eng.stats
+        elif sharing:
             assert eng.stats.prefix_hits == 2 and eng.stats.cow_copies == 1, eng.stats
         if chunked:
             assert eng.stats.preemptions > 0 and eng.stats.overflows == 0, eng.stats
@@ -952,9 +963,10 @@ def _graphed_and_eager_runs(dev, engine_kw):
     dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11),
     dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11, kv_pool_dtype="fp16"),
     dict(paged=True, greedy=False, seed=0, temperature=0.8),
-    dict(paged=True, kv_pool_dtype="fp16", nan_after=3)],
+    dict(paged=True, kv_pool_dtype="fp16", nan_after=3),
+    dict(paged=True, prefix_sharing=True, prefix_cache=True)],
     ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared",
-         "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan"])
+         "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan", "warm_hit"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under
@@ -964,7 +976,9 @@ def test_graphed_engine_equals_eager(dev, engine_kw):
     finite flags equal, and the launch counts equal — a replay counts one
     tick's launches, the capture none. With NaN in a slot's V codes that
     slot's flag drops on a replay and in the eager run alike, its request
-    ends with "error", and every other row stays bit for bit."""
+    ends with "error", and every other row stays bit for bit. With the
+    persistent prefix cache the repeated prompt is adopted with no prefill
+    between replays, and its rows too are bit for bit."""
     (tok_g, ticks_g, launches_g, step_g, stops_g), \
         (tok_e, ticks_e, launches_e, step_e, stops_e) = _graphed_and_eager_runs(dev, engine_kw)
     assert step_g.graphed and step_g._graph is not None and not step_e.graphed
@@ -984,6 +998,93 @@ def test_graphed_engine_equals_eager(dev, engine_kw):
     assert launches_g == launches_e
     per_tick = step_g.launches_per_tick
     assert per_tick and all(launches_e[k] == n * len(ticks_e) for k, n in per_tick.items())
+
+
+def test_adoption_between_replays_keeps_captured_state(dev):
+    """A zero-prefill adoption (and a partial hit's prefill) between replays
+    of the captured tick: every tensor of the decode state stays at the
+    storage the capture saw, the graph is not captured again, and the
+    adopted request's tokens equal its first visit's."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.weights import init_lm_params
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), salca_static_channels=True)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServingEngine(cfg, params, max_seq=256, slots=2, paged=True, block_size=32,
+                        device=dev, prefix_sharing=True, prefix_cache=True)
+    rng = np.random.default_rng(0)
+    p0 = rng.integers(0, cfg.vocab_size, 150).astype(np.int32)
+    p1 = np.concatenate([p0[:128], rng.integers(0, cfg.vocab_size, 30).astype(np.int32)])
+
+    def tensors():
+        st = eng._state
+        out = {"pos": st.pos}
+        for i, c in enumerate(st.caches):
+            out.update({f"{i}.data.{f}": t for f, t in c.data.items()})
+            out.update({f"{i}.{f}": getattr(c, f) for f in
+                        ("heavy_idx", "length", "page_table", "refcount", "sel_hist")})
+        return {k: t.untyped_storage().data_ptr() for k, t in out.items()}
+
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=8) for i, p in enumerate((p0, p0, p1))]
+    eng.submit(reqs[0])
+    eng.run()
+    graph, where = eng._step._graph, tensors()
+    assert graph is not None
+    for r in reqs[1:]:
+        eng.submit(r)
+        eng.run()
+    torch.cuda.synchronize()
+    assert eng._step._graph is graph and tensors() == where
+    assert (eng.stats.zero_prefill_hits, eng.stats.cache_hits) == (1, 2)
+    assert reqs[1].output == reqs[0].output
+    assert eng.check_invariants().ok
+
+
+# card calibration against the CPU plain versions, f32: each K row's int8
+# codes may move by one step where the two forwards round a value to the
+# adjacent code; one step moves a channel's sum over B·T = 2·64 rows of
+# |code| ≈ 34 by ~2e-4 of it, so up to a few steps fit
+CARD_CALIB_RTOL = 2e-3
+
+
+def test_calibrate_on_card_matches_cpu(dev):
+    """`api.calibrate` on the card over a (2, 64) batch against the same
+    prefill on the CPU (plain versions): every layer's salience within
+    CARD_CALIB_RTOL and the heavy sets equal (the largest relative error and
+    the smallest top-r margin printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import salca_params_for
+    from repro_torch.models.registry import get_model
+    from repro_torch.weights import init_lm_params
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32",
+                              salca_static_channels=True)
+    api = get_model(cfg)
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree):
+        if torch.is_tensor(tree):
+            return tree.to(dev)
+        return ({k: to(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else [to(v) for v in tree])
+
+    card = to(params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    got = api.calibrate(card, tokens.to(dev))
+    want = api.calibrate(params, tokens)
+    r = salca_params_for(cfg, 256).r(cfg.resolved_head_dim)
+    worst, margin = 0.0, float("inf")
+    for g, w in zip(got["layers"], want["layers"]):
+        sg, sw = g["attn"]["calib_salience"].cpu(), w["attn"]["calib_salience"]
+        assert sg.dtype == torch.float32
+        torch.testing.assert_close(sg, sw, rtol=CARD_CALIB_RTOL, atol=0)
+        worst = max(worst, float(((sg - sw).abs() / sw.abs()).max()))
+        top = sw.sort(dim=-1, descending=True).values
+        margin = min(margin, float((top[:, r - 1] - top[:, r]).min()))
+    for a, b in zip(api.static_heavy(got, 256), api.static_heavy(want, 256)):
+        assert torch.equal(a.cpu(), b)
+    print(f"calibrate, card vs CPU: salience within {worst:.3e} relative; smallest top-r "
+          f"margin {margin:.3e}")
 
 
 def test_graphed_finite_is_a_static_output(dev):

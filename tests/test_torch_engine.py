@@ -115,9 +115,8 @@ def test_engine_parity_with_reference(weights, rng, max_seq, bs, lens, atol):
 
 def test_engine_overflow_and_validation(weights, rng):
     """Block exhaustion finishes a request with an `overflow` stop (no silent
-    clip); the knob of a later slice (the persistent prefix cache) raises
-    instead of being ignored, and the ported knobs (a fault plan, preemption,
-    chunks) build or refuse as the reference."""
+    clip); the ported knobs (the persistent prefix cache, a fault plan,
+    preemption, chunks) build or refuse as the reference."""
     _, tp = weights
     eng = TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS, num_blocks=3,
                   device="cpu")
@@ -130,9 +129,15 @@ def test_engine_overflow_and_validation(weights, rng):
     assert stats.dropped_writes == stats.overflows
     assert "overflow" in (ra.stop_reason, rb.stop_reason)
     assert sorted(eng._free_blocks) == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="persistent prefix cache"):
+    # ported: the persistent prefix cache builds, and refuses as the reference
+    assert TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                   device="cpu", prefix_cache=True, prefix_sharing=True).prefix_cache
+    with pytest.raises(ValueError, match="int4"):
         TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
-                device="cpu", prefix_cache=True, prefix_sharing=True)
+                device="cpu", prefix_cache=True, prefix_sharing=True, kv_pool_dtype="int4")
+    with pytest.raises(ValueError, match="prefix_sharing"):
+        TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,
+                device="cpu", prefix_cache=True)
     # ported: the fault plan is the engine's
     plan = FaultPlan()
     assert TEngine(TCFG, tp, max_seq=MAX_SEQ, slots=2, paged=True, block_size=BS,

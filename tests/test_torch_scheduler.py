@@ -455,12 +455,14 @@ def test_constructor_refuses_like_reference(weights, kw, match):
 
 
 def test_later_knobs_left_unported():
-    """`prefill_chunk`, `preempt` and `faults` are ported; the knob of the
-    later slice, `prefix_cache`, still names its reference feature."""
-    from repro_torch.runtime import serve
-    assert "prefill_chunk" not in serve._LATER and "preempt" not in serve._LATER
-    assert "faults" not in serve._LATER
-    assert "persistent prefix cache" in serve._LATER["prefix_cache"]
+    """The port's `ServingEngine.__init__` takes every parameter of the
+    reference's but ``fused_decode`` (the reference's unfused paged path,
+    not ported yet), and one of its own, ``device``."""
+    import inspect
+    ref = set(inspect.signature(JEngine.__init__).parameters)
+    port = set(inspect.signature(TEngine.__init__).parameters)
+    assert ref - port == {"fused_decode"}
+    assert port - ref == {"device"}
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 a CUDA graph of it needs from the tick: every state tensor updated in place
 across ticks (a replay writes to the addresses its capture saw), and no
 tensor made of host data inside the tick (a capture would freeze it); the
-state also keeps its storage across a chunked prefill's installs and a
-preemption's reset, which run between replays.
+state also keeps its storage across a chunked prefill's installs, a
+preemption's reset and the persistent prefix cache's adoptions and block
+moves, which run between replays.
 
 The engines serve qwen3-0.6b.reduced() at float32 compute with the port's
 own random weights; the step's graph runs only on the card
@@ -115,6 +116,31 @@ def test_chunk_installs_and_preemption_keep_state_in_place():
     assert sorted(k for k, t in now.items() if t.untyped_storage().data_ptr() != where[k]) == []
     assert eng.stats.preemptions == 1 and eng.stats.replayed_tokens > 0
     assert eng.stats.prefill_chunks > 8 and eng.stats.overflows == 0
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["adopt", "adopt_cold_tier"])
+def test_adoption_keeps_state_in_place(spill):
+    """The persistent prefix cache: a prompt served, a second one squeezing
+    its pins (evicted, or with the host tier demoted), the first again
+    (adopted with no prefill, its cold blocks rehydrated) and its ticks.
+    Every state tensor keeps its storage across the adoption, the block
+    moves and the ticks after them, which a replay of the captured tick
+    reads (the card's check: tests/test_torch_cuda.py)."""
+    cfg = dataclasses.replace(CFG, salca_static_channels=True)
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServingEngine(cfg, params, max_seq=128, slots=2, device="cpu", paged=True,
+                        block_size=16, num_blocks=5, prefix_sharing=True, prefix_cache=True,
+                        host_spill=spill)
+    rng = np.random.default_rng(0)
+    pa, pb = (rng.integers(0, cfg.vocab_size, 40).astype(np.int32) for _ in range(2))
+    where = {k: t.untyped_storage().data_ptr() for k, t in _state_tensors(eng._state).items()}
+    for i, p in enumerate((pa, pb, pa)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+        eng.run()
+    now = _state_tensors(eng._state)
+    assert sorted(k for k, t in now.items() if t.untyped_storage().data_ptr() != where[k]) == []
+    assert eng.stats.zero_prefill_hits == int(spill) and eng.stats.cache_hits == 1
+    assert (eng.stats.promotions > 0) == spill and (eng.stats.cache_evictions > 0) != spill
 
 
 def test_in_place_check_catches_an_injected_rebinding(monkeypatch):
