@@ -2,7 +2,7 @@
 """Where a decode tick of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/torch_tick_profile.py [--ticks 5] [--sharded | --contiguous]
-        [--kv-dtype int8|fp16|int4] [--prefill [--chunk N]] [--eager]
+        [--kv-dtype int8|fp16|int4] [--prefill [--chunk N]] [--eager] [--arch NAME]
 
 Serves the main path of chip_smoke.py (its model, engine settings and
 requests, imported from there) — the paged tick; with ``--sharded`` the
@@ -18,7 +18,16 @@ times; kernels of one stream do not overlap), the device busy share,
 launches per tick, the launches the kernel wrappers counted per tick
 (`kernels.common.LAUNCHES`) beside the trace's launches of those kernels,
 the peak device memory, the kernels with the most device time and the
-host operators with the most self CPU time. With
+host operators with the most self CPU time. ``--arch`` serves another
+full-width config (random bf16 weights from seed 0) on the same engine
+settings and requests; where it has sliding-window ring layers (gemma3-12b)
+it also times the first ring layer's attention, `models.blocks.attn_decode_contiguous`
+with kind "L" on the engine's own ring, positions and weights (the q/k/v
+projection, the append into the ring, the dequantization, the dense
+decode and the output projection, as the tick runs it): its device time
+from the profiler's trace of RING_CALLS calls, and by `chip_smoke.graph_ms`
+(one replay of a CUDA graph of the calls, the tick's own form), beside the
+count of ring layers. With
 ``--prefill`` it profiles the admission of the four prompts in place of the
 ticks (after a warm-up admission of a 64-token prompt on another engine),
 and every number is per prefill; ``--chunk N`` admits them by chunks of N
@@ -38,6 +47,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 WARM_TICKS = 3
+RING_CALLS = 20          # calls of one ring layer's attention, timed apart
 # kernel wrapper's launch counter (`LAUNCHES`, branch suffix dropped) → its
 # kernel's symbol in the trace
 _SYMBOL = {"paged_score_estimate": "paged_score_estimate_kernel",
@@ -69,6 +79,8 @@ def main() -> int:
                     help="with --prefill: admit by chunks of this many tokens")
     ap.add_argument("--eager", action="store_true",
                     help="build the engine under steps.eager(): no CUDA graph of the tick")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="the config served (full width, random weights)")
     args = ap.parse_args()
     if args.contiguous and args.kv_dtype != "int8":
         ap.error("--kv-dtype names the paged pool's storage")
@@ -81,7 +93,11 @@ def main() -> int:
     import dataclasses
 
     import numpy as np
-    from chip_smoke import NEW_TOKENS, SERVE, main_path_model, main_path_requests
+    from chip_smoke import (
+        NEW_TOKENS, SERVE, config_model, graph_ms, main_path_model, main_path_requests)
+    from repro_torch.core.cache import SalcaCache
+    from repro_torch.models.blocks import attn_decode_contiguous
+    from repro_torch.models.transformer import decode_salca_params
     from repro_torch.distributed.sharding import init_decode_ctx
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
@@ -91,7 +107,8 @@ def main() -> int:
                  f"{WARM_TICKS} of them warm-up")
 
     dev = "cuda"
-    cfg, params = main_path_model(dev)
+    cfg, params = (main_path_model(dev) if args.arch == "qwen3-0.6b"
+                   else config_model(dev, args.arch))
     ctx = init_decode_ctx(dev) if args.sharded else None
     serve = dict(SERVE, paged=not args.contiguous,
                  **({} if args.contiguous else {"kv_pool_dtype": args.kv_dtype}))
@@ -166,6 +183,31 @@ def main() -> int:
                     f"launches_per_{unit}": n / steps} for dt, n, k in rows[:15]],
            "top_host": [{"op": k[:90], f"self_cpu_ms_per_{unit}": dt / steps / 1e3,
                          f"calls_per_{unit}": n / steps} for dt, n, k in host[:15]]}
+    rings = [i for i, (c, kind) in enumerate(zip(engine._state.caches, cfg.block_kinds()))
+             if kind == "L" and isinstance(c, SalcaCache) and c.max_seq < SERVE["max_seq"]]
+    if rings:
+        # the first ring layer's attention on the engine's state (each call
+        # appends the same token again at the same position)
+        state, i = engine._state, rings[0]
+        ring, attn = state.caches[i], params["layers"][i]["attn"]
+        x = torch.randn((state.pos.shape[0], cfg.d_model), device=dev).to(
+            params["embed"]["tok"].dtype)
+        active = torch.ones_like(state.pos, dtype=torch.bool)
+        salca = decode_salca_params(cfg, state)
+
+        def ring_layer():
+            return attn_decode_contiguous(attn, x, ring, cfg, state.pos, salca, active, "L")
+        ring_layer()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as rprof:
+            for _ in range(RING_CALLS):
+                ring_layer()
+            torch.cuda.synchronize()
+        ring_us = sum(getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0) for e in rprof.key_averages())
+        out.update(arch=args.arch, ring_layers=len(rings), ring_slots=ring.max_seq,
+                   ring_layer_attention_device_ms=ring_us / RING_CALLS / 1e3,
+                   ring_layer_attention_graph_ms=graph_ms(ring_layer, RING_CALLS))
     print(json.dumps(out, indent=1))
     print(f"gpu: {torch.cuda.get_device_name(0)}")
     return 0

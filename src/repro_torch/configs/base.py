@@ -2,8 +2,8 @@
 
 Field names, defaults and `reduced()` match the JAX package's
 `configs/base.py`, so one architecture id means the same shapes on both
-sides. Only the dense LM of the first port slice reads most of these fields;
-the rest are kept so a config compares equal field for field.
+sides. The dense LM (global and sliding-window layers) reads most of these
+fields; the rest are kept so a config compares equal field for field.
 """
 
 from __future__ import annotations
@@ -100,6 +100,11 @@ class ModelConfig:
     @property
     def groups(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def block_kinds(self) -> list[str]:
+        """Expanded per-layer block kinds, pattern tiled to num_layers."""
+        p = self.layer_pattern
+        return [p[i % len(p)] for i in range(self.num_layers)]
 
     def reduced(self) -> "ModelConfig":
         """CPU test variant: same family and features, tiny dims."""

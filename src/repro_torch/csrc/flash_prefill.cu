@@ -28,13 +28,22 @@
 // grid is (BH, T/BQ) with the query tiles launched last-first, so the
 // longest rows of the causal triangle start first on the 132 SMs.
 //
-// f32: the first CUDA-core kernel, unchanged. f32 on the tensor cores is
+// Head dim 256 (gemma3): the bf16 branch keeps the O accumulator (128 f32
+// registers a thread) and streams BK = 32-key tiles, and reads Q's
+// fragments from shared memory in every tile instead of holding them in
+// registers (64 more a thread would spill); a CTA takes ~99 KB of shared
+// memory, two on an SM. The f32 branch gives a row four threads instead of
+// two and streams BK = 16-key tiles, so its tiles stay in 32 KB of static
+// shared memory and each thread holds 64 channels of q and of the
+// accumulator.
+//
+// f32: the first CUDA-core kernel. f32 on the tensor cores is
 // TF32 (10-bit mantissa), which would break the f32 contract (1e-5 against
 // the plain version; the small serving path's logits within 3e-4 of the
-// CPU). A CTA owns BQ = 64 query rows (two threads per row, each holding
-// half the channels of q and of the accumulator in registers) and streams
-// BK = 32-key tiles of K and V through shared memory as f32; float4 reads
-// of shared memory give 4 FMAs per load.
+// CPU). A CTA owns BQ = 64 query rows (TPR = 2 threads per row at HD <= 128,
+// each holding its share of the channels of q and of the accumulator in
+// registers) and streams BK = 32-key tiles of K and V through shared memory
+// as f32; float4 reads of shared memory give 4 FMAs per load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,22 +55,28 @@
 namespace {
 
 constexpr int BQ = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 2 * BQ;
 
-// Thread (row, h) owns channels {8*i + 4*h + c : i < HD/8, c < 4}.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+struct F32 {
+  static constexpr int TPR = HD > 128 ? 4 : 2;     // threads per query row
+  static constexpr int BK = HD > 128 ? 16 : 32;    // keys per tile
+  static constexpr int THREADS = TPR * BQ;
+};
+
+// Thread (row, h) owns channels {4*TPR*i + 4*h + c : i < HD/(4*TPR), c < 4}.
+template <int HD>
+__global__ void __launch_bounds__(F32<HD>::THREADS)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
                      int groups, int causal, int window, int q_offset, float scale) {
-  constexpr int NH = HD / 2;            // channels per thread
+  constexpr int TPR = F32<HD>::TPR, BK = F32<HD>::BK, THREADS = F32<HD>::THREADS;
+  constexpr int NH = HD / TPR;          // channels per thread
   __shared__ __align__(16) float ks[BK][HD];
   __shared__ __align__(16) float vs[BK][HD];
   const int bh = blockIdx.y;
   const int bkv = bh / groups;
-  const int row = threadIdx.x >> 1;
-  const int h = threadIdx.x & 1;
+  const int row = threadIdx.x / TPR;
+  const int h = threadIdx.x % TPR;
   const int qb = (int)blockIdx.x * BQ;   // first query row of the tile
   const int qi = qb + row;
   const bool row_ok = qi < Tq;
@@ -72,7 +87,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < NH / 4; ++i) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int d = 8 * i + 4 * h + c;
+      const int d = 4 * TPR * i + 4 * h + c;
       qr[4 * i + c] = row_ok ? q[((size_t)bh * Tq + qi) * HD + d] * scale : 0.f;
       acc[4 * i + c] = 0.f;
     }
@@ -108,11 +123,12 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < NH / 4; ++i) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][8 * i + 4 * h]);
+        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][4 * TPR * i + 4 * h]);
         part += qr[4 * i] * kk.x + qr[4 * i + 1] * kk.y + qr[4 * i + 2] * kk.z +
                 qr[4 * i + 3] * kk.w;
       }
       part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (TPR > 2) part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kpos = kb + j;
       const bool ok = kpos < S && (!causal || kpos <= qpos) &&
                       (window <= 0 || kpos > qpos - window);
@@ -133,7 +149,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ps += p;
 #pragma unroll
       for (int i = 0; i < NH / 4; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][8 * i + 4 * h]);
+        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][4 * TPR * i + 4 * h]);
         acc[4 * i] += p * vv.x;
         acc[4 * i + 1] += p * vv.y;
         acc[4 * i + 2] += p * vv.z;
@@ -150,7 +166,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < NH / 4; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int d = 8 * i + 4 * h + c;
+        const int d = 4 * TPR * i + 4 * h + c;
         out[((size_t)bh * Tq + qi) * HD + d] = acc[4 * i + c] * inv;
       }
     }
@@ -162,13 +178,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
                cudaStream_t st) {
   const dim3 grid((Tq + BQ - 1) / BQ, BH);
 #define B3_LAUNCH(D)                                                                   \
-  flash_prefill_kernel<D><<<grid, THREADS, 0, st>>>(                                   \
+  flash_prefill_kernel<D><<<grid, F32<D>::THREADS, 0, st>>>(                           \
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Tq, S, groups,   \
       causal, window, q_offset, scale)
   switch (HD) {
     case 32: B3_LAUNCH(32); break;
     case 64: B3_LAUNCH(64); break;
     case 128: B3_LAUNCH(128); break;
+    case 256: B3_LAUNCH(256); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef B3_LAUNCH
@@ -180,12 +197,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
 namespace tc {
 
 constexpr int BQ = 64;               // query rows per CTA
-constexpr int BK = 64;               // keys per tile
 constexpr int WARPS = BQ / 16;       // one warp per 16 query rows
 constexpr int THREADS = 32 * WARPS;
 
 template <int HD>
 struct Layout {
+  static constexpr int BK = HD > 128 ? 32 : 64;        // keys per tile
+  static constexpr bool Q_REGS = HD <= 128;            // Q's fragments held in registers
   static constexpr int LD = HD + 8;                   // padded row, elements
   static constexpr int Q_BYTES = BQ * LD * 2;
   static constexpr int TILE_BYTES = BK * LD * 2;      // one K or V tile
@@ -253,6 +271,7 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           float scale_log2) {
   using L = Layout<HD>;
   constexpr int LD = L::LD;
+  constexpr int BK = L::BK;
   constexpr int KSTEPS = HD / 16;    // k-steps of S = Q K^T
   constexpr int NT = BK / 8;         // 8-key column tiles of S
   constexpr int DT = HD / 8;         // 8-channel column tiles of O
@@ -282,7 +301,7 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[L::Q_REGS ? KSTEPS : 1][4];
   float o[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -305,10 +324,12 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (L::Q_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldsm_x4(qf[kk], q_sm + (uint32_t)(((16 * warp + a_row) * LD + 16 * kk + a_col) * 2));
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldsm_x4(qf[kk], q_sm + (uint32_t)(((16 * warp + a_row) * LD + 16 * kk + a_col) * 2));
+      }
     }
 
     // S = Q K^T (16 x BK per warp)
@@ -317,13 +338,16 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      if constexpr (!L::Q_REGS)    // this k-step's Q fragment, from shared memory
+        ldsm_x4(qf[0], q_sm + (uint32_t)(((16 * warp + a_row) * LD + 16 * kk + a_col) * 2));
+      const int qk = L::Q_REGS ? kk : 0;
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         uint32_t b[4];
         ldsm_x4(b, k_sm + stage +
                        (uint32_t)(((16 * jp + kb_row) * LD + 16 * kk + kb_col) * 2));
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * jp], qf[qk], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[qk], b[2], b[3]);
       }
     }
 
@@ -452,6 +476,8 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* 
     case 64: return tc::launch<64>(q, k, v, out, BH, Tq, S, groups, causal, window, q_offset,
                                    scale, st);
     case 128: return tc::launch<128>(q, k, v, out, BH, Tq, S, groups, causal, window,
+                                     q_offset, scale, st);
+    case 256: return tc::launch<256>(q, k, v, out, BH, Tq, S, groups, causal, window,
                                      q_offset, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

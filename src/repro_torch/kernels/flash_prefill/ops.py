@@ -20,7 +20,7 @@ from repro_torch.kernels import common
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

@@ -19,7 +19,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.distributed.sharding import init_decode_ctx
 from repro_torch.runtime.serve import Request, ServingEngine
 from repro_torch.weights import init_lm_params
@@ -27,7 +27,7 @@ from repro_torch.weights import init_lm_params
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_NAMES)
     ap.add_argument("--local", action="store_true", help="serve the reduced config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=4)

@@ -1,12 +1,20 @@
-"""Global-attention ("A") block of the dense LM: prefill and decode.
+"""Attention blocks of the dense LM, global ("A") and sliding-window ("L"):
+prefill and decode.
 
 Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the static heavy set of
-``salca_static_channels``, the A-block prefill (dense causal attention
-through kernel B3, then `prefill_cache`), its chunked form, and three
-branches of `_attn_decode` (append, Salca selection, sparse attention): over the
+``salca_static_channels``, `ring_size`, the block prefill (dense causal or
+windowed attention through kernel B3, then `prefill_cache`), the A block's
+chunked form, and three branches of `_attn_decode` (append, then Salca
+selection and sparse attention for "A", dense attention for "L"): over the
 contiguous slot pool, over a paged pool on one device, or — given a
 `DecodeCtx` — over a block-sharded paged pool.
+
+An "L" layer whose window is shorter than the context keeps a ring of
+W = ``cfg.local_window`` slots per request slot (a contiguous `SalcaCache`,
+on the paged engine too): token j lives at slot j % W, so the ring holds
+exactly the last min(pos + 1, W) tokens and needs no window mask. Salca
+accelerates the "A" layers only.
 """
 
 from __future__ import annotations
@@ -35,6 +43,19 @@ def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
                        pool_window=cfg.salca_pool_window, use_pool=cfg.salca_use_pool)
 
 
+def ring_size(cfg: ModelConfig, kind: str, max_seq: int) -> int:
+    """Cache length of a layer: a sliding-window ("L") layer keeps a
+    ``local_window``-slot ring instead of the full context when the window
+    is the shorter (the reference's default, ``PERF.ring_local_cache``)."""
+    if kind == "L" and 0 < cfg.local_window < max_seq:
+        return cfg.local_window
+    return max_seq
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.local_window if kind == "L" else 0
+
+
 def static_heavy_idx(attn_params: dict, cfg: ModelConfig, sp: SalcaParams,
                      batch: int) -> torch.Tensor | None:
     """The request-independent heavy set of ``cfg.salca_static_channels``:
@@ -52,17 +73,26 @@ def static_heavy_idx(attn_params: dict, cfg: ModelConfig, sp: SalcaParams,
     return idx[None].expand((batch,) + idx.shape)
 
 
-def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int):
-    """x (B, T, D) → (x_out, SalcaCache of the layer's K/V padded to max_seq)."""
+def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
+                  kind: str = "A"):
+    """x (B, T, D) → (x_out, SalcaCache of the layer's K/V): padded to
+    ``max_seq``, or for an "L" layer with a ring (`ring_size`) to its W
+    slots, holding the prompt's last W tokens at their ring slots."""
     t = x.shape[1]
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     positions = torch.arange(t, device=x.device)
     q, k, v = qkv_project(params["attn"], xn, cfg, positions)
-    o = prefill_attention(q, fold_heads(k), fold_heads(v))
+    o = prefill_attention(q, fold_heads(k), fold_heads(v), window=_window(cfg, kind))
     x = x + o.reshape(x.shape[0], t, -1) @ params["attn"]["wo"]
     f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
     sp = salca_params_for(cfg, max_seq)
-    cache = prefill_cache(k, v, max_seq=max_seq, params=sp,
+    w_ring = ring_size(cfg, kind, max_seq)
+    if w_ring < max_seq and t >= w_ring:
+        # token j at slot j % W, so decode's wrap stays aligned
+        base = t - w_ring
+        slot_tok = base + (torch.arange(w_ring, device=x.device) - base) % w_ring
+        k, v = k[:, slot_tok], v[:, slot_tok]
+    cache = prefill_cache(k, v, max_seq=w_ring, params=sp,
                           heavy_idx=static_heavy_idx(params["attn"], cfg, sp, x.shape[0]))
     return x + f, cache
 
@@ -94,16 +124,21 @@ def block_prefill_chunk(params: dict, x: torch.Tensor, kbuf: torch.Tensor,
 
 def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
                       cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                      active: torch.Tensor, ctx: DecodeCtx | None = None) -> torch.Tensor:
+                      active: torch.Tensor, ctx: DecodeCtx | None = None,
+                      kind: str = "A") -> torch.Tensor:
     """One token per slot: x (S, D) → attention output (S, D). Updates the
     layer's pool in place. Inactive slots write nothing (their write cursor
-    is forced out of range) and read as holding 0 tokens.
+    is forced out of range) and read as holding 0 tokens. An "A" layer runs
+    Salca (with ``cfg.salca``); an "L" layer, paged only when its window
+    spans the whole context (`ring_size`), attends densely over every valid
+    key: the reference's window mask would keep them all.
 
     With ``ctx`` the pool is this rank's share of a block-sharded pool: q,
     k and v are replicated (every rank runs the whole dense model), the
     append lands only on the rank owning the cursor's block, and the
     attention is the two-collective sharded tick (`core.sp_decode`)."""
     s = x.shape[0]
+    use_salca = cfg.salca and kind == "A"
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
     inactive = ~active
@@ -111,12 +146,12 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
     if ctx is not None:
         append_token_paged(pool, k, v, block_range=local_block_range(pool.num_blocks, ctx))
         torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
-        o = (sp_salca_decode_paged(q, pool, salca, ctx) if cfg.salca
+        o = (sp_salca_decode_paged(q, pool, salca, ctx) if use_salca
              else sp_dense_decode_paged(q, pool, ctx))
         return o.to(x.dtype).reshape(s, -1) @ params["wo"]
     append_token_paged(pool, k, v)
     torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
-    if cfg.salca:
+    if use_salca:
         o, sel = salca_decode_attention_paged(q, pool, salca, return_selection=True)
         record_selection(pool, sel.indices, sel.mask)
     else:
@@ -126,19 +161,31 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
 
 def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
                            cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                           active: torch.Tensor) -> torch.Tensor:
-    """One token per slot over the contiguous slot pool: x (S, D) →
-    attention output (S, D). Updates the layer's cache in place. Inactive
-    slots write nothing (their cursor is forced to ``max_seq``, where the
-    append drops the write) and read as holding 0 tokens."""
+                           active: torch.Tensor, kind: str = "A") -> torch.Tensor:
+    """One token per slot over the contiguous slot pool, or over an "L"
+    layer's ring: x (S, D) → attention output (S, D). Updates the layer's
+    cache in place. Inactive slots write nothing (their cursor is forced to
+    ``max_seq``, where the append drops the write) and read as holding 0
+    tokens. A ring (``cache.max_seq`` <= the window) writes at pos % W and
+    holds min(pos + 1, W) valid tokens, attended with no window mask over
+    its dequantized rows (plain torch ops, as the reference's XLA)."""
     s = x.shape[0]
+    window = _window(cfg, kind)
+    ring = window > 0 and cache.max_seq <= window
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
     inactive = ~active
-    cache.length.copy_(pos).masked_fill_(inactive, cache.max_seq)
+    if ring:
+        torch.remainder(pos, cache.max_seq, out=cache.length)
+    else:
+        cache.length.copy_(pos)
+    cache.length.masked_fill_(inactive, cache.max_seq)
     append_token(cache, k, v)
-    torch.add(pos, 1, out=cache.length).masked_fill_(inactive, 0)
-    if cfg.salca:
+    torch.add(pos, 1, out=cache.length)
+    if ring:
+        cache.length.clamp_max_(cache.max_seq)
+    cache.length.masked_fill_(inactive, 0)
+    if cfg.salca and kind == "A":
         o = salca_decode_attention(q, cache, salca)
     else:
         kd = cache.k_codes.float() * cache.k_scale[..., None]
@@ -149,18 +196,19 @@ def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
 
 def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: torch.Tensor,
                  salca: SalcaParams, active: torch.Tensor,
-                 ctx: DecodeCtx | None = None) -> torch.Tensor:
-    """x (S, D) → (S, D) over the layer's cache: a `SalcaCache` slot pool
-    (contiguous engine) or a `PagedSalcaCache` (``ctx``: block-sharded)."""
+                 ctx: DecodeCtx | None = None, kind: str = "A") -> torch.Tensor:
+    """x (S, D) → (S, D) over the layer's cache: a `SalcaCache` (the
+    contiguous engine's slot pool, or an "L" layer's ring) or a
+    `PagedSalcaCache` (``ctx``: block-sharded)."""
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if isinstance(pool, SalcaCache):
         if ctx is not None:
             raise NotImplementedError("the sequence-sharded contiguous tick (flat sp_* "
                                       "decode) is not ported yet; it comes with the port "
                                       "of the reference's sequence-sharded flat decode")
-        h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active)
+        h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active, kind)
     else:
-        h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx)
+        h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx, kind)
     x = x + h
     return x + glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps),
                          cfg.act)

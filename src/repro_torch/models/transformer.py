@@ -1,11 +1,17 @@
-"""Decoder-only LM over a stack of "A" blocks: prefill (whole or by chunks),
-pooled decode state (contiguous slot pool or paged), the zero-prefill
-adoption of a cached prompt, the calibration of the static heavy sets, and
-the decode step.
+"""Decoder-only LM over a stack of global ("A") and sliding-window ("L")
+attention blocks: prefill (whole, or by chunks for all-"A" stacks), pooled
+decode state (contiguous slot pool or paged), the zero-prefill adoption of
+a cached prompt, the calibration of the static heavy sets, and the decode
+step.
 
 Port of the reference `models/transformer.py` for the dense LM. Where the
-reference scans stacked per-period states, the port keeps a Python list
-with one entry per layer.
+reference scans stacked per-period states (one per position of the layer
+pattern, then the tail), the port keeps a Python list with one entry per
+layer, of kind ``cfg.block_kinds()[layer]``. An "L" layer's ring
+(`blocks.ring_size`) stays a contiguous `SalcaCache` on the paged engine
+too; the paged pool's helpers (growth, sharing, copy on write, the host
+tier's block moves, the selection histogram) pass it through, as the
+reference's ``_map_paged_substates`` does.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: in
     per-layer `SalcaCache`s)."""
     h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
     caches = []
-    for layer in params["layers"]:
-        h, cache = B.block_prefill(layer, h, cfg, max_seq)
+    for layer, kind in zip(params["layers"], cfg.block_kinds()):
+        h, cache = B.block_prefill(layer, h, cfg, max_seq, kind)
         caches.append(cache)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = vocab_mask_logits(lm_logits(params["embed"], h[:, -1], cfg), cfg)
@@ -146,7 +152,7 @@ def lm_adopt_pages(params: dict, cfg: ModelConfig, pool: LMState, slot: int, pag
     if not cfg.salca_static_channels:
         raise ValueError("adopt_pages requires cfg.salca_static_channels: the kept rows "
                          "were encoded against the static heavy-channel set")
-    paged = [c for c in pool.caches if isinstance(c, PagedSalcaCache)]
+    paged = _paged(pool)
     if not paged:
         raise ValueError("adopt_pages requires a paged pool state")
     sp = B.salca_params_for(cfg, paged[0].max_seq)
@@ -181,31 +187,52 @@ def lm_calibrate_static_heavy(params: dict, cfg: ModelConfig, tokens) -> dict:
 
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState:
     """Contiguous decode state: one empty ``(batch, max_seq, ·)`` cache per
-    layer (the contiguous engine's slot pool), cursors at 0."""
+    layer (the contiguous engine's slot pool; an "L" layer's ring has
+    `ring_size` slots), cursors at 0."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
-    caches = [empty_cache(batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim, r,
-                          device=device)
-              for _ in range(cfg.num_layers)]
+    caches = [empty_cache(batch, B.ring_size(cfg, kind, max_seq), cfg.num_kv_heads,
+                          cfg.resolved_head_dim, r, device=device)
+              for kind in cfg.block_kinds()]
     return LMState(caches, torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: int,
                         num_blocks: int, device, ctx: DecodeCtx | None = None) -> LMState:
     """Pooled decode state: one paged block pool per layer, storing K/V in
-    ``cfg.kv_pool_dtype`` (the engine's knob). With ``ctx`` each pool holds
-    only this rank's ``num_blocks / world_size`` blocks."""
+    ``cfg.kv_pool_dtype`` (the engine's knob); an "L" layer whose window is
+    shorter than ``max_seq`` keeps its ring instead, a contiguous
+    ``(slots, W, ·)`` cache (paging a ring buys nothing). With ``ctx`` each
+    pool holds only this rank's ``num_blocks / world_size`` blocks; a ring
+    there would need the sequence-sharded flat decode, which is not ported,
+    so a config with rings raises."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
     max_blocks = -(-max_seq // block_size)
+    rings = [B.ring_size(cfg, kind, max_seq) for kind in cfg.block_kinds()]
     local = None
     if ctx is not None:
+        if min(rings) < max_seq:
+            raise NotImplementedError(
+                f"{cfg.name}: the block-sharded tick over sliding-window ring layers "
+                f"(window {cfg.local_window} < max_seq {max_seq}) needs the "
+                "sequence-sharded flat decode, which is not ported yet")
         lo, hi = local_block_range(num_blocks, ctx)
         local = hi - lo
-    caches = [empty_paged_cache(num_blocks, block_size, slots, max_blocks,
-                                cfg.num_kv_heads, cfg.resolved_head_dim, r,
-                                kv_pool_dtype=cfg.kv_pool_dtype, device=device,
-                                local_blocks=local)
-              for _ in range(cfg.num_layers)]
-    return LMState(caches, torch.zeros(slots, dtype=torch.int32, device=device))
+
+    def cache(w):
+        if w < max_seq:
+            return empty_cache(slots, w, cfg.num_kv_heads, cfg.resolved_head_dim, r,
+                               device=device)
+        return empty_paged_cache(num_blocks, block_size, slots, max_blocks,
+                                 cfg.num_kv_heads, cfg.resolved_head_dim, r,
+                                 kv_pool_dtype=cfg.kv_pool_dtype, device=device,
+                                 local_blocks=local)
+    return LMState([cache(w) for w in rings],
+                   torch.zeros(slots, dtype=torch.int32, device=device))
+
+
+def _paged(pool: LMState) -> list:
+    """The state's paged pools, in layer order (rings left out)."""
+    return [c for c in pool.caches if isinstance(c, PagedSalcaCache)]
 
 
 def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
@@ -232,7 +259,9 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
 
 
 def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMState:
-    for c in pool.caches:
+    """On-demand growth: map ``logical_block`` of ``slot`` to block ``page``
+    in every paged layer. In place."""
+    for c in _paged(pool):
         map_block(c, slot, logical_block, page)
     return pool
 
@@ -240,8 +269,9 @@ def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMS
 def lm_share_blocks(pool: LMState, src_slot: int, n_blocks: int, dst_slot: int) -> LMState:
     """Prefix sharing: alias the first ``n_blocks`` logical blocks of
     ``src_slot`` into ``dst_slot`` in every layer's pool (the same block ids
-    in every layer; `core.cache.share_blocks`). In place."""
-    for c in pool.caches:
+    in every layer; `core.cache.share_blocks`). Rings pass through: the
+    admission's prefill writes them whole. In place."""
+    for c in _paged(pool):
         share_blocks(c, src_slot, n_blocks, dst_slot)
     return pool
 
@@ -253,7 +283,7 @@ def lm_cow_block(pool: LMState, slot: int, logical_block: int, new_page: int,
     this slot's entry (`core.cache.cow_block`). With ``ctx`` every rank
     makes the call and the rows cross ranks when the two blocks' owners
     differ. In place."""
-    for c in pool.caches:
+    for c in _paged(pool):
         if ctx is None:
             cow_block(c, slot, logical_block, new_page)
         else:
@@ -264,25 +294,25 @@ def lm_cow_block(pool: LMState, slot: int, logical_block: int, new_page: int,
 
 def lm_read_block(pool: LMState, page: int) -> tuple:
     """Host-spill transport, read side: the data rows of physical block
-    ``page`` in every layer's pool, in storage format (views; the caller
-    copies them out), one tuple of seven per layer."""
-    return tuple(read_block_rows(c, page) for c in pool.caches)
+    ``page`` in every paged layer's pool, in storage format (views; the
+    caller copies them out), one tuple of seven per paged layer."""
+    return tuple(read_block_rows(c, page) for c in _paged(pool))
 
 
 def lm_write_block(pool: LMState, page: int, payload: tuple) -> LMState:
     """Host-spill transport, write side: install a payload captured by
-    `lm_read_block` into block ``page`` of every layer. Data only; the page
-    tables and refcounts are `lm_map_block`'s. In place."""
-    for c, rows in zip(pool.caches, payload):
+    `lm_read_block` into block ``page`` of every paged layer. Data only;
+    the page tables and refcounts are `lm_map_block`'s. In place."""
+    for c, rows in zip(_paged(pool), payload):
         write_block_rows(c, page, rows)
     return pool
 
 
 def lm_selection_hist(pool: LMState) -> torch.Tensor:
     """Cumulative selected-token counts per (slot, logical block), summed
-    over the layers — the signal of the host-spill demotion policy.
+    over the paged layers — the signal of the host-spill demotion policy.
     Returns (slots, MB) int32."""
-    return torch.stack([c.sel_hist for c in pool.caches]).sum(0, dtype=torch.int32)
+    return torch.stack([c.sel_hist for c in _paged(pool)]).sum(0, dtype=torch.int32)
 
 
 def lm_reset_slot(pool: LMState, slot: int) -> LMState:
@@ -298,6 +328,17 @@ def lm_reset_slot(pool: LMState, slot: int) -> LMState:
     return pool
 
 
+def decode_salca_params(cfg: ModelConfig, state: LMState):
+    """The tick's `SalcaParams`, as the reference's `lm_decode_step` derives
+    them: from the first attention cache of its state, in its order
+    (pattern positions' stacked states, then the tail), whose first entry
+    is always layer 0's. Layer 0 of "LLLLLA" is an "L" layer, so where it
+    keeps a ring the global layers select with k and k_cap from
+    max(W, 128), not from ``max_seq`` (gemma3 at W 1024 and max_seq 8192:
+    k 128 and k_cap 256, where ``max_seq`` would give 409 and 512)."""
+    return B.salca_params_for(cfg, max(state.caches[0].max_seq, 128))
+
+
 def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.Tensor,
                    active: torch.Tensor, ctx: DecodeCtx | None = None):
     """One token for every active slot: token (S,) int → (logits (S, V_pad),
@@ -309,9 +350,9 @@ def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.
     of the step (`runtime.steps`) stays valid across ticks."""
     h = embed_tokens(params["embed"], token).to(cdtype(cfg))
     pos = state.pos
-    salca = B.salca_params_for(cfg, max(state.caches[0].max_seq, 128))
-    for layer, pool in zip(params["layers"], state.caches):
-        h = B.block_decode(layer, h, pool, cfg, pos, salca, active, ctx)
+    salca = decode_salca_params(cfg, state)
+    for layer, pool, kind in zip(params["layers"], state.caches, cfg.block_kinds()):
+        h = B.block_decode(layer, h, pool, cfg, pos, salca, active, ctx, kind)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = vocab_mask_logits(lm_logits(params["embed"], h, cfg), cfg)
     state.pos.add_(active)

@@ -15,8 +15,15 @@ state's tensors are the ones the tick's graph was captured over.
 Contiguous slot pool (``paged=False``, the default, as in the reference):
 every layer's cache is a dense ``(slots, max_seq, ·)`` `SalcaCache`; the
 prefill is copied into the slot's row, a finished slot is reset (length
-0), and the tick runs kernels B7, B9 and B8 in every layer. A slot that
-reached ``max_seq`` finishes with an ``overflow`` stop.
+0), and the tick runs kernels B7, B9 and B8 in every global ("A") layer.
+A slot that reached ``max_seq`` finishes with an ``overflow`` stop.
+
+Sliding-window ("L") layers (gemma3's "LLLLLA") keep a W-slot ring per slot
+wherever the window W is shorter than ``max_seq``, on both pools: the
+prefill writes the ring whole, the tick attends over it densely (no Salca,
+no kernel), and the paged pool's block operations pass it by. A ring
+needs the sequence-sharded flat decode under ``ctx``, which is not ported:
+such an engine raises when it is built.
 
 Paged pool (``paged=True``): every layer's attention cache is a shared
 physical block pool with per-slot page tables. Admission writes the
@@ -24,7 +31,7 @@ prompt into the ``ceil(prompt / block_size)`` blocks it takes from the
 free list and waits head-of-line while the pool cannot cover it. Each tick
 first grows every slot whose cursor crossed a block boundary by one block
 (or finishes it with an ``overflow`` stop when the free list is empty);
-the tick runs kernels B1 and B2 in every layer.
+the tick runs kernels B1 and B2 in every global layer.
 
 Block-sharded paged pool (``ctx=DecodeCtx(...)``): the physical block dim is
 split evenly across the ranks of the context's process group, each rank
@@ -144,7 +151,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cache import InvariantReport
+from repro_torch.core.cache import InvariantReport, PagedSalcaCache
 from repro_torch.distributed.sharding import DecodeCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
@@ -1804,7 +1811,8 @@ class ServingEngine:
                 if self._alloc.shard_of(b) != sh:
                     rep.fail(f"free id {b} filed under shard {sh}, owned by "
                              f"{self._alloc.shard_of(b)}")
-        pools = self._state.caches
+        # the paged layers' pools (an "L" layer's ring holds no blocks)
+        pools = [c for c in self._state.caches if isinstance(c, PagedSalcaCache)]
         rep.checked["pools"] = len(pools)
         for i, pool in enumerate(pools):
             rep.merge(pool.check_invariants(free_blocks=free, host_refcount=self._refcount,

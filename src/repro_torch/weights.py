@@ -9,8 +9,12 @@ The port's tree for the dense LM::
                  "ln2": {"scale"}, "ffn": {"glu": {"w_gate": (D, F),
                  "w_up": (D, F), "w_down": (F, D)}}}, ...]}
 
-Layouts are the reference's; its stacked ``periods`` leaves (leading layer
-axis) become one dict per layer.
+Layouts are the reference's. The reference stacks one tree per position of
+the layer pattern over the pattern's periods (``periods[i]``: leaves with a
+leading period axis) and keeps the layers past the last whole period in
+``tail``; the port keeps one dict per layer, layer l = ``periods[l % P][l //
+P]`` for P = len(pattern), then the tail in order. Global ("A") and
+sliding-window ("L") layers have the same parameters.
 """
 
 from __future__ import annotations
@@ -44,20 +48,31 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     def conv(a, to=dt):
         return torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(dev, to)
 
-    def layer(node, i):
-        if isinstance(node, dict):
-            return {k: (conv(np.asarray(v)[i], torch.float32) if k == "calib_salience"
-                        else layer(v, i)) for k, v in node.items()}
-        return conv(np.asarray(node)[i])
+    def pick(a, i):
+        return np.asarray(a) if i is None else np.asarray(a)[i]
 
-    stacked = tree["periods"][0]
-    n = np.asarray(stacked["ln1"]["scale"]).shape[0]
-    if n != cfg.num_layers or tree["tail"]:
-        raise ValueError(f"parameter tree has {n} stacked layers (+{len(tree['tail'])} "
-                         f"tail); config expects {cfg.num_layers}")
+    def layer(node, i):
+        """One layer's dict: entry ``i`` of a stacked period, or a tail
+        layer as it stands (``i`` None)."""
+        if isinstance(node, dict):
+            return {k: (conv(pick(v, i), torch.float32) if k == "calib_salience"
+                        else layer(v, i)) for k, v in node.items()}
+        return conv(pick(node, i))
+
+    # layer l of the reference's tree: periods[l % P][l // P], then the tail
+    periods, tail = tree["periods"], tree["tail"]
+    n_periods = np.asarray(periods[0]["ln1"]["scale"]).shape[0] if periods else 0
+    n = n_periods * len(periods) + len(tail)
+    if n != cfg.num_layers or (periods and len(periods) != len(cfg.layer_pattern)):
+        raise ValueError(f"parameter tree has {n_periods} periods of {len(periods)} layers "
+                         f"(+{len(tail)} tail); config expects {cfg.num_layers} layers of "
+                         f"pattern {cfg.layer_pattern!r}")
+    layers = [layer(periods[i % len(periods)], i // len(periods))
+              for i in range(n_periods * len(periods))]
+    layers += [layer(node, None) for node in tail]
     return {"embed": {k: conv(v) for k, v in tree["embed"].items()},
             "ln_f": {"scale": conv(tree["ln_f"]["scale"])},
-            "layers": [layer(stacked, i) for i in range(n)]}
+            "layers": layers}
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:

@@ -81,3 +81,65 @@ def record_ticks(eng) -> list:
 
     eng._decode = recording
     return ticks
+
+
+def layer_codes(state, cfg) -> np.ndarray:
+    """Every layer's int8 K then V codes (an fp16 pool's by `int8_codes`) as
+    one int16 vector, layer by layer: the port's state holds a list of
+    caches, the reference's stacks layer l at ``period_states[l % P][l //
+    P]`` and keeps the rest in its tail. Paged pools and sliding-window rings
+    alike."""
+    if hasattr(state, "caches"):
+        layers = state.caches
+        get = lambda c, f: getattr(c, f).numpy()                    # noqa: E731
+    else:
+        p, n = len(state.period_states), len(cfg.layer_pattern)
+        n_periods = cfg.num_layers // n if p else 0
+        layers = [(state.period_states[i % n], i // n) for i in range(n_periods * n)]
+        layers += [(st, None) for st in state.tail_states]
+        get = lambda c, f: np.asarray(getattr(c[0], f) if c[1] is None   # noqa: E731
+                                      else getattr(c[0], f)[c[1]])
+    return np.concatenate([int8_codes(get(c, f)).ravel()
+                           for f in ("k_codes", "v_codes") for c in layers])
+
+
+def record_code_ticks(eng, cfg) -> list:
+    """Wrap a serving engine's decode call (the port's or the reference's):
+    per tick the slots' mask, the logits rows and `layer_codes` of the state
+    the tick left."""
+    ticks, orig = [], eng._decode
+
+    def recording(*args):
+        out = orig(*args)
+        port = torch.is_tensor(out[1])
+        lg = out[1].float().numpy() if port else np.asarray(out[1])
+        ticks.append((np.asarray(args[-1]).copy(), np.array(lg, np.float32),
+                      layer_codes(eng._state if port else out[3], cfg)))
+        return out
+
+    eng._decode = recording
+    return ticks
+
+
+# The engines' tick logits (tests/test_torch_scheduler.py's policy): 1e-5
+# while both states hold the same int8 K/V codes; where the two packages'
+# f32 forwards round a stored K or V value to adjacent codes, the codes may
+# differ by one step and the rows by 1e-3 (one code moved the rows by up to
+# 1.7e-4 on the dense configs' traces, against O(0.1) for a wrong history).
+SAME_CODES_TOL = dict(rtol=1e-5, atol=1e-5)
+CODE_STEP_TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+def assert_code_ticks_close(jticks, tticks) -> int:
+    """Masks equal, codes at most one step apart, logits within the policy
+    above, tick for tick. Returns the number of ticks with a code step."""
+    assert len(jticks) == len(tticks)
+    stepped = 0
+    for (jm, jl, jc), (tm, tl, tc) in zip(jticks, tticks):
+        np.testing.assert_array_equal(jm, tm)
+        assert jc.shape == tc.shape
+        diff = int(np.abs(jc.astype(np.int32) - tc).max())
+        assert diff <= 1, f"stored codes {diff} steps apart"
+        stepped += diff > 0
+        np.testing.assert_allclose(tl[tm], jl[jm], **(CODE_STEP_TOL if diff else SAME_CODES_TOL))
+    return stepped

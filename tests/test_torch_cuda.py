@@ -93,7 +93,15 @@ def test_b2_kernel_matches_plain(dev):
     (torch.bfloat16, 77, 0, 0, 32, 1), (torch.bfloat16, 100, 0, 0, 64, 8),
     (torch.bfloat16, 5, 0, 0, 128, 2), (torch.bfloat16, 48, 0, 80, 128, 2),
     (torch.bfloat16, 300, 100, 0, 64, 1), (torch.bfloat16, 200, 70, 130, 128, 8),
-    (torch.bfloat16, 1030, 0, 0, 128, 8)])
+    (torch.bfloat16, 1030, 0, 0, 128, 8),
+    # head dim 256 (gemma3-12b, G 2): the bf16 branch's 32-key tiles with Q
+    # read from shared memory, the f32 branch's four threads per row and
+    # 16-key tiles; causal, gemma3's window of 1024 (tiles before it
+    # skipped), q_offset > 0, T ragged against every tile
+    (torch.bfloat16, 2100, 0, 0, 256, 2), (torch.bfloat16, 2100, 1024, 0, 256, 2),
+    (torch.bfloat16, 300, 0, 500, 256, 2), (torch.bfloat16, 77, 40, 0, 256, 1),
+    (torch.bfloat16, 5, 0, 0, 256, 8), (torch.float32, 300, 0, 0, 256, 2),
+    (torch.float32, 1500, 1024, 0, 256, 2), (torch.float32, 100, 30, 200, 256, 2)])
 def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
     from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -209,6 +217,7 @@ def _score_operands(dev, seed, kv, g, r, bs, slots=4, max_seq=1024,
     (8, 2, 64, 16, True),
     (8, 2, 64, 64, False),
     (1, 2, 64, 32, True),
+    (8, 2, 128, 32, False),   # gemma3-12b: head dim 256, G 2, W = r/16 = 8
 ])
 def test_b1_b4_bitwise_at_serving_shapes(dev, kv, g, r, bs, bf16):
     """B1 and B4 equal their plain versions bit for bit at the serving
@@ -456,6 +465,8 @@ def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
     (2, 8, 2, 64, 1030, False, True),
     (2, 4, 8, 128, 257, False, False),
     (1, 1030, 1, 16, 37, False, True),   # more kv heads than a CTA has threads
+    (4, 8, 2, 128, 8192, False, True),   # gemma3-12b's contiguous tick: HD 256, G 2
+    (4, 10, 4, 64, 3000, False, True),   # phi3-medium-14b
 ])
 def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf16):
     """B7 on B1's template: the register layout at G 1 / r 64 with aligned
@@ -487,7 +498,8 @@ def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf
     (4, 2, 40, 128, 0.5), (5, 2, 200, 128, 0.5), (4, 8, 300, 256, 0.6),
     (4, 1, 1000, 32, 0.2), (6, 4, 512, 64, 0.05),
     # HD 1024: the chunk's staged codes take over 48 KB of shared memory
-    (2, 8, 130, 1024, 0.5)])
+    (2, 8, 130, 1024, 0.5),
+    (32, 2, 544, 256, 0.3)])          # gemma3-12b: 4 slots x 8 kv heads, HD 256, G 2
 def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     """B8 within 1e-5 + 1e-5·|plain| (f32, other summation order), C not a
     multiple of 32 included; a row with nothing selected is exactly zero."""
@@ -594,7 +606,11 @@ def test_b2_equals_normalised_b6_bitwise(dev, mode, bs):
 
 @pytest.mark.parametrize("mode,hd,bs,g", [("int8", 512, 32, 2), ("fp16", 512, 16, 4),
                                           ("int4", 288, 20, 1), ("int8", 128, 48, 8),
-                                          ("fp16", 96, 6, 2), ("int4", 64, 24, 2)])
+                                          ("fp16", 96, 6, 2), ("int4", 64, 24, 2),
+                                          # gemma3-12b (HD 256, G 2); qwen3-8b and
+                                          # phi3-medium-14b (HD 128, G 4)
+                                          ("int8", 256, 32, 2), ("fp16", 256, 32, 2),
+                                          ("int4", 256, 32, 2), ("int8", 128, 32, 4)])
 def test_b2_b6_wide_heads_and_odd_blocks_match_plain(dev, mode, hd, bs, g):
     """HD 512 (eight CTAs of 64 channels per row, the cap), HD 288 (a last
     CTA of 32 of its 64 channels), blocks of 6-48 tokens (a mask row copied
@@ -877,15 +893,16 @@ def _graphed_and_eager_runs(dev, engine_kw):
     and through one built under `steps.eager()`: per run, the tokens, every
     tick's logits and finite flags (the slots' mask beside them), the launch
     counts, the step and the stop reasons. ``engine_kw`` may also carry
-    ``temperature`` (requests 0 and 2 sample at it) and ``nan_after`` (NaN
-    into request 1's V codes after that tick)."""
+    ``temperature`` (requests 0 and 2 sample at it), ``nan_after`` (NaN
+    into request 1's V codes after that tick) and ``arch`` (the reduced
+    config served, qwen3-0.6b by default)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
     from repro_torch.runtime.steps import eager
     from repro_torch.weights import init_lm_params
-    cfg = get_config("qwen3-0.6b").reduced()
     engine_kw = dict(engine_kw)
+    cfg = get_config(engine_kw.pop("arch", "qwen3-0.6b")).reduced()
     temperature = engine_kw.pop("temperature", 0.0)
     nan_after = engine_kw.pop("nan_after", None)
     sharing = engine_kw.get("prefix_sharing", False)
@@ -964,9 +981,17 @@ def _graphed_and_eager_runs(dev, engine_kw):
     dict(paged=True, prefill_chunk=96, preempt=True, num_blocks=11, kv_pool_dtype="fp16"),
     dict(paged=True, greedy=False, seed=0, temperature=0.8),
     dict(paged=True, kv_pool_dtype="fp16", nan_after=3),
-    dict(paged=True, prefix_sharing=True, prefix_cache=True)],
+    dict(paged=True, prefix_sharing=True, prefix_cache=True),
+    # gemma3-12b.reduced(): rings of 64 slots in ten of twelve layers, every
+    # prompt (150-200 tokens) wraps its ring; int8 and fp16 pools, the host
+    # tier on 8 blocks, the contiguous pool
+    dict(paged=True, arch="gemma3-12b"), dict(paged=True, arch="gemma3-12b", kv_pool_dtype="fp16"),
+    dict(paged=True, arch="gemma3-12b", host_spill=True, num_blocks=8, demote_after=1,
+         spill_keep_recent=2),
+    dict(paged=False, arch="gemma3-12b")],
     ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared",
-         "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan", "warm_hit"])
+         "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan", "warm_hit",
+         "gemma3_int8", "gemma3_fp16", "gemma3_spill", "gemma3_contiguous"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under
