@@ -30,7 +30,11 @@ Phases (any failure raises and the script exits non-zero):
    SDPA over the dequantized rows as its yardstick, timed without and
    with the dequantization), and B10 (max-pool) and B11
    (histogram + threshold), bit-identical, driven once through their
-   public entry points, with their CTA counts and cold times; at
+   public entry points, with their CTA counts and cold times; the
+   sequence-sharded flat tick's (B10 over the halo-padded bins and B11 on
+   the pooled ones, bit-identical, and B8's partials branch (acc, m, l)
+   over one rank's selection, at qwen3-0.6b's and gemma3-12b's contiguous
+   shapes: `check_sp_flat_kernels`); at
    gemma3-12b's shapes (HD 256, G 2, W = r/16 = 8; k and k_cap from its
    first layer's ring of 1024) B1 bit-identical, B2 int8 with its
    yardstick and B3 at HD 256, causal and under the window of 1024 (with
@@ -140,12 +144,30 @@ Phases (any failure raises and the script exits non-zero):
    tokens, its largest gap in bf16 ulps of the top logit printed (not a
    gate); (u) qwen3-8b, then phi3-medium-14b, on DENSE_SLOTS slots with
    DENSE_PROMPTS × DENSE_NEW_TOKENS, graphed, each bit for bit against its
-   eager twin.
+   eager twin. Last, the sharded leftovers (`check_flat_and_rings`): (v)
+   qwen3-0.6b through ``ServingEngine(paged=False, ctx=...)`` at one nccl
+   rank, the sequence-sharded flat tick (B7, B10, B11 and B8's partials
+   branch around the all-reduces), fed the paged run's tokens: every logits
+   row within CONTIG_LOGIT_ULPS of the contiguous run's, up to a request's
+   first tick where a row kept more than k_cap (the flat tick's capacity is
+   4·k_cap at one rank; `CapProbe` prints where), with its ms, launches and
+   collectives per tick; (w) gemma3-12b paged at one nccl rank (its 8 global
+   layers block-sharded, its 40 rings sequence-sharded), fed (r)'s tokens:
+   every logits row within CONTIG_LOGIT_ULPS of (r)'s (the rings' merge
+   sums in another order, and random weights put picks on 0-1-ulp ties);
+   (x) gemma3-12b paged under ``perf_flags(ring_local_cache=False)`` (40
+   full-context layers under the window mask; the global layers then take
+   k from max_seq, the reference's rule) and (x') its contiguous twin, both
+   fed (r)'s first RING_OFF_NEW_TOKENS tokens: every row of (x') within
+   CONTIG_LOGIT_ULPS of (x)'s; the gap to (r), peak memory and replay ms
+   against (r)'s printed, and one "L" layer's attention timed over the
+   full context and over its ring.
 
-It prints a ``{"kernels": [...]}`` line (each kernel's launches on the run of
-its path, and ``launches_per_call`` over all forty-two runs; a record at
-gemma3's shapes counts run (r)'s launches of its wrapper) and, last, the
-``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
+It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
+kernel's launches on the run of its path, and ``launches_per_call`` over
+all forty-six runs; a record at gemma3's shapes counts run (r)'s launches
+of its wrapper, B8's partials branch at gemma3's shapes run (v)'s) and,
+last, the ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
 
@@ -252,6 +274,8 @@ CACHE_TTFT_RATIO = 0.6
 GEMMA = "gemma3-12b"
 DENSE_ARCHS = ("qwen3-8b", "phi3-medium-14b")
 DENSE_SLOTS, DENSE_PROMPTS, DENSE_NEW_TOKENS = 2, (2048, 3072), 8
+# run (x)'s new tokens (gemma3-12b with full-context window layers)
+RING_OFF_NEW_TOKENS = 8
 # the tick of each of these runs profiled for its device time and kernel
 # launches: a replay where the tick is graphed (the third tick on)
 PROFILE_TICK = 4
@@ -1137,11 +1161,12 @@ def check_bin_kernels(dev, iters=50):
     """Phase 3a, B10 (max-pool) and B11 (histogram + threshold), the entry
     points `maxpool_int8` and `hist_threshold` of the reference's public
     kernel API, at (32, 8192) uint8 bins with window 7 and k = 409: each is
-    driven once with the launch counts at 0 (no serving path calls them, so
-    this drive is their path), then held bit for bit against its plain
-    version and timed. Library calls: `max_pool1d` on a float copy (the
-    bins are >= 0, so its -inf padding pools as the kernel's zero fill) and
-    `bincount` over row-offset bins (the histogram only)."""
+    driven once with the launch counts at 0 (``drive_launches`` in its
+    record; its ``launches`` are run (v)'s, the flat tick that serves
+    them), then held bit for bit against its plain version and timed.
+    Library calls: `max_pool1d` on a float copy (the bins are >= 0, so its
+    -inf padding pools as the kernel's zero fill) and `bincount` over
+    row-offset bins (the histogram only)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.common import LAUNCHES, reset_launches
@@ -1186,6 +1211,118 @@ def check_bin_kernels(dev, iters=50):
                          library_call=call, ctas=kernel_ctas(fn, kname)))
     print(f"B10/B11 drive: launches {launches}; thresholds "
           f"{sorted({int(t) for t in thr.tolist()})}", flush=True)
+    return recs
+
+
+def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
+                          run="sp contiguous", pooling=True):
+    """Phase 3a, the sequence-sharded flat tick's kernels at one rank on a
+    random slot pool at the serving shapes (the tick of run (v)): B7's
+    scores, the bins with the (all-reduced, here one rank's) affine, B10
+    over the halo-padded rows (zero halos: a world of one) and B11 on the
+    pooled rows, both bit-identical; then the rank's selection compacted
+    into its capacity, gathered, and B8's partials branch within
+    B2_ATOL + B2_RTOL·|plain| on acc, m and l (library: none). Another
+    model's shapes: ``tag`` and ``salca`` as in `check_kernels`
+    (``pooling=False``: B8's partials only); every record counts its
+    wrapper's launches on run ``run`` and is timed by `graph_ms` (phase 3
+    holds enough profiler sessions already)."""
+    import torch
+    from repro_torch.core import quantization as qz
+    from repro_torch.core.attention import gather_selected
+    from repro_torch.core.histogram_topk import Selection, compact_indices, locate_threshold
+    from repro_torch.core.selection import _quantized_query_groups, query_heavy_features
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.hist_topk import ops as htk
+    from repro_torch.kernels.maxpool import ops as mp
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.models.blocks import salca_params_for
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s, n = SERVE["slots"], SERVE["max_seq"]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bh, g = s * kv, h // kv
+    params = salca or salca_params_for(cfg, n)
+    cap = min(n, max(128, 4 * params.k_cap))                  # one rank's capacity
+    cache = random_cache(dev, gen, cfg, s, n, lengths)
+    q = torch.randn((s, h, hd), generator=gen, device=dev)
+    qc, qs, _ = _quantized_query_groups(query_heavy_features(q, cache.heavy_idx, g), kv)
+    scores = se.flat_score_estimate(qc, qs, cache.feat_words, cache.feat_scale,
+                                    cache.feat_zero, bf16=True)
+    valid = cache.valid_mask()[:, None, :]
+    lo = torch.where(valid, scores, torch.full_like(scores, float("inf"))).amin(-1)
+    hi = torch.where(valid, scores, torch.full_like(scores, -1e30)).amax(-1)
+    bins = qz.bins_from_bounds(scores, lo, hi, valid)
+    w, halo = params.pool_window, params.pool_window // 2
+    zeros = torch.zeros((s, kv, halo), dtype=torch.uint8, device=dev)
+    padded = torch.cat([zeros, bins, zeros], dim=-1).reshape(bh, n + 2 * halo)
+    recs, extra = [], {"run": run, "tick": "sequence-sharded flat (run (v))"}
+    pooled_p = mp.maxpool_int8(padded, w)
+    pooled = torch.where(valid, pooled_p[:, halo:-halo].reshape(s, kv, n),
+                         torch.zeros_like(bins)).reshape(bh, n).contiguous()
+    hist, _ = htk.hist_threshold(pooled, params.k)
+    if pooling:
+        _check_exact("B10 (halo-padded rows)", (pooled_p,), (mp.maxpool_int8_plain(padded, w),))
+        kk = torch.full((bh,), params.k, dtype=torch.int32, device=dev)
+        _check_exact("B11 (pooled rows)", (hist,), (htk.hist_threshold_plain(pooled, kk)[0],))
+        np_ = bh * (n + 2 * halo)
+        for name, fn, plain, nbytes, ops, replaces in (
+                ("maxpool_int8", lambda: mp.maxpool_int8(padded, w),
+                 lambda: mp.maxpool_int8_plain(padded, w), 2 * np_, np_ * (w - 1),
+                 "src/repro/kernels/maxpool/kernel.py:55"),
+                ("hist_threshold", lambda: htk.hist_threshold(pooled, params.k),
+                 lambda: htk.hist_threshold_plain(pooled, kk),
+                 bh * n + 4 * 256 * bh + 4 * bh, bh * n + bh * 256,
+                 "src/repro/kernels/hist_topk/kernel.py:57")):
+            bms, bby = bound(nbytes, ops, "f32")
+            rec = dict(name=f"{name}[sp_flat]{tag}", counter=name, route="cuda",
+                       source="src/repro_torch/csrc/selection_fused.cu", replaces=replaces,
+                       launches=None, max_abs_err=0.0, tolerance="bit-identical",
+                       err_over_tol=0.0, ms=graph_ms(fn, iters),
+                       plain_ms=events_ms(plain, max(2, iters // 10)), bound_ms=bms,
+                       bound_by=bby, library_ms=None,
+                       shape=[bh, n + 2 * halo if name == "maxpool_int8" else n], **extra)
+            rec["graph_ms"] = rec["ms"]
+            recs.append(rec)
+
+    # B8's partials branch over the rank's selection
+    t = locate_threshold(hist.reshape(s, kv, 256), params.k)
+    keep = pooled.reshape(s, kv, n) >= t[..., None].to(torch.uint8)
+    sel = Selection(*compact_indices(keep, cap), t)
+    kc, ks, vc, vs = gather_selected(cache, sel)
+    c = kc.shape[2]
+    args = (q.reshape(bh, g, hd).contiguous(), kc.reshape(bh, c, hd), ks.reshape(bh, c),
+            vc.reshape(bh, c, hd), vs.reshape(bh, c), sel.mask.reshape(bh, c))
+    got = fd.sparse_flash_decode_partials(*args)
+    want = fd.sparse_flash_decode_partials_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ratio = max(float(((a - b).abs() / (B2_ATOL + B2_RTOL * b.abs())).max())
+                for a, b in zip(got, want))
+    if not ratio <= 1.0:
+        raise AssertionError(f"B8 partials{tag}: |kernel - plain| reaches {ratio:.3g}x its "
+                             f"bound {B2_ATOL:g} + {B2_RTOL:g}·|plain| (max abs err {err})")
+    live = int(sel.mask.sum())
+    nbytes = live * (2 * hd + 8) + bh * c + 2 * 4 * args[0].numel() + 2 * 4 * bh * g
+    bms, bby = bound(nbytes, live * g * hd * 4, "f32")
+    fn = lambda: fd.sparse_flash_decode_partials(*args)         # noqa: E731
+    rec = dict(name="sparse_flash_decode_partials" + tag, counter="sparse_flash_decode_partials",
+               route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+               replaces="src/repro/kernels/flash_decode/kernel.py:73", launches=None,
+               max_abs_err=err, tolerance=f"{B2_ATOL:g} + {B2_RTOL:g}*|plain| (acc, m, l)",
+               err_over_tol=ratio, ms=graph_ms(fn, iters),
+               plain_ms=events_ms(lambda: fd.sparse_flash_decode_partials_plain(*args),
+                                  max(2, iters // 10)),
+               bound_ms=bms, bound_by=bby, library_ms=None,
+               library_call="none: no library call returns the unnormalised (acc, m, l)",
+               selected_rows=live,
+               capacity=bh * c, thresholds=sorted({int(x) for x in t.flatten().tolist()}),
+               **extra)
+    rec["graph_ms"] = rec["ms"]
+    if tag:
+        rec["note"] = ("no run serves this model through the flat tick: its launches are "
+                       "the wrapper's on run (v)")
+    recs.append(rec)
     return recs
 
 
@@ -1353,7 +1490,8 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                     **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
-    the contiguous tick; ``engine_kw`` adds the tiered pool's knobs
+    the contiguous tick, with both the sequence-sharded flat tick;
+    ``engine_kw`` adds the tiered pool's knobs
     (``kv_pool_dtype``, ``host_spill``, ...). Without ``ctx`` the tick is a
     CUDA graph after its first call (`runtime.steps`); ``eager_run`` builds
     the engines under `steps.eager()` instead. ``force`` ({rid: tokens})
@@ -1386,6 +1524,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.sharding import COLLECTIVES
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
     from repro_torch.runtime.steps import eager
@@ -1479,11 +1618,13 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
         hook(engine)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    COLLECTIVES.clear()
     t0 = time.time()
     stats = engine.run()
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(LAUNCHES)
+    collectives = dict(COLLECTIVES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert stats.completed == len(reqs), stats.summary()
     want_stops = [(stops or {}).get(r.rid, "length") for r in reqs]
@@ -1502,8 +1643,11 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     nl, na = cfg.num_layers, cfg.block_kinds().count("A")
     branch = {"int8": ""}.get(engine_kw.get("kv_pool_dtype", "int8"),
                               f"[{engine_kw.get('kv_pool_dtype')}]")
-    if not paged:
+    if not paged and ctx is None:
         tick_kernels = ("score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode")
+    elif not paged:
+        tick_kernels = ("score_estimate", "maxpool_int8", "hist_threshold",
+                        "sparse_flash_decode_partials")
     elif ctx is None:
         tick_kernels = ("paged_score_estimate", "sparse_flash_decode_paged" + branch)
     else:
@@ -1527,6 +1671,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                    ttft_s=[r.ttft_s for r in reqs], prompts=[len(r.prompt) for r in reqs],
                    cow_service=cow, profiled_tick=profiled,
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels},
+                   collectives_per_tick={k: v / stats.ticks for k, v in collectives.items()},
                    graphed=step.graphed, tick_ms=tick_ms,
                    finite=[{rid: bool(fl[slot]) for slot, rid, _ in who}
                            for (who, _), fl in zip(ticks, flags)], sample_ms=sample_ms,
@@ -1689,7 +1834,7 @@ def bf16_ulp(row) -> float:
 
 
 def check_contiguous_logits(tokens, trace, picks_c, trace_c, limit=CONTIG_LOGIT_ULPS,
-                            label="contiguous vs paged") -> dict:
+                            label="contiguous vs paged", skip=frozenset()) -> dict:
     """The contiguous run, fed the paged run's tokens, against the paged
     run. Both ticks select the same tokens and their attention differs only
     in summation order, so for every request and every step (the same
@@ -1698,7 +1843,8 @@ def check_contiguous_logits(tokens, trace, picks_c, trace_c, limit=CONTIG_LOGIT_
     ``limit=None`` only reports. Where the two
     greedy picks part, the paged run's top-two gap is printed; it is at
     most twice the rows' difference, so the check holds it to a near-tie.
-    Returns the largest difference per request, in ulps."""
+    Rows in ``skip`` ((request, token) keys) are reported, not gated.
+    Returns the largest difference per request, in ulps (gated rows)."""
     worst = {}
     for i, x in enumerate(tokens):
         most, parts = 0.0, []
@@ -1706,6 +1852,8 @@ def check_contiguous_logits(tokens, trace, picks_c, trace_c, limit=CONTIG_LOGIT_
             a, b = trace[(i, j)].float(), trace_c[(i, j)].float()
             ulp = bf16_ulp(a)
             d = float((a - b).abs().max()) / ulp
+            if (i, j) in skip:
+                continue
             if limit is not None and not d <= limit:
                 raise AssertionError(
                     f"{label}: request {i}, generated token {j}: logits differ "
@@ -2504,9 +2652,10 @@ def check_prefix_cache(dev, ctx, runs: dict) -> None:
           f"{prof['launches']} launches, {prof['ms']:.3f} ms", flush=True)
 
 
-def check_dense_configs(dev, runs: dict) -> None:
+def check_dense_configs(dev, runs: dict) -> tuple:
     """Phase 4's other dense configs (module docstring, runs (r)-(u)), one
-    model on the card at a time; adds their launch counts to ``runs``."""
+    model on the card at a time; adds their launch counts to ``runs``.
+    Returns run (r)'s (tokens, rows, summary)."""
     import gc
 
     import torch
@@ -2555,6 +2704,177 @@ def check_dense_configs(dev, runs: dict) -> None:
         del model
     gc.collect()
     torch.cuda.empty_cache()
+    return tok_r, tr_r, sum_r
+
+
+class CapProbe:
+    """Run (v)'s record of where the flat tick keeps more than the unsharded
+    tick can: a ``with`` block routes `models.blocks.sp_salca_decode`
+    through a wrapper that keeps each call's Selection counts (on the card,
+    read after the run), and `install` (a `serve_main_path` hook) opens one
+    record per tick of the measured engine with its slots' (slot, request,
+    tokens so far). A row whose count passed ``k_cap`` kept tokens that the
+    unsharded tick's capacity cuts (one rank's capacity is 4·k_cap)."""
+
+    def __init__(self, k_cap: int):
+        self.k_cap, self.ticks = k_cap, []
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        self._real = blocks.sp_salca_decode
+
+        def counting(*a, **kw):
+            out, sel = self._real(*a, return_selection=True, **kw)
+            if self.ticks:
+                self.ticks[-1][1].append(sel.count.amax(-1))
+            return out
+
+        blocks.sp_salca_decode = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.sp_salca_decode = self._real
+
+    def install(self, engine) -> None:
+        inner = engine._decode
+
+        def decode(tokens, mask):
+            who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()
+                   if mask[slot]]
+            self.ticks.append((who, []))
+            return inner(tokens, mask)
+
+        engine._decode = decode
+
+    def over(self) -> tuple[set, list]:
+        """(the (request, token) rows from each request's first tick over
+        k_cap on, whose histories part from the unsharded run's; the (tick,
+        request, token, kept) of every tick over it)."""
+        import torch
+        first, events = {}, []
+        for t, (who, counts) in enumerate(self.ticks):
+            kept = torch.stack(counts).amax(0).cpu()                  # (slots,)
+            for slot, rid, j in who:
+                if int(kept[slot]) > self.k_cap:
+                    first.setdefault(rid, j)
+                    events.append((t, rid, j, int(kept[slot])))
+        rows = {(rid, j) for rid, j0 in first.items() for j in range(j0, j0 + 10 ** 4)}
+        return rows, events
+
+
+def ring_layer_ms(dev, model, iters=20) -> dict:
+    """The attention of gemma3-12b's first "L" layer on the main path's
+    slots and lengths, on random contents, by `graph_ms` (its eager calls
+    are host-bound): over its ring of W rows (`attn_decode_contiguous`), and
+    with ``ring_local_cache=False`` over a full-context paged pool under the
+    window mask (`attn_decode_paged`)."""
+    import torch
+    from repro_torch.flags import perf_flags
+    from repro_torch.models.blocks import attn_decode_contiguous, attn_decode_paged
+    from repro_torch.models.common import cdtype
+    cfg, params = model
+    layer = params["layers"][cfg.block_kinds().index("L")]["attn"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    s, n, w = SERVE["slots"], SERVE["max_seq"], cfg.local_window
+    lengths = [p + NEW_TOKENS for p in PROMPTS]
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    active = torch.ones(s, dtype=torch.bool, device=dev)
+    x = torch.randn((s, cfg.d_model), generator=gen, device=dev).to(cdtype(cfg))
+    ring = random_cache(dev, gen, cfg, s, w, [w] * s)
+    full = random_pool(dev, gen, cfg, s, n, SERVE["block_size"], lengths)
+    salca = None                                       # an "L" layer selects nothing
+    out = {"ring_ms": graph_ms(lambda: attn_decode_contiguous(layer, x, ring, cfg, pos, salca,
+                                                              active, "L"), iters)}
+    with perf_flags(ring_local_cache=False):
+        out["full_context_ms"] = graph_ms(lambda: attn_decode_paged(
+            layer, x, full, cfg, pos, salca, active, None, "L"), iters)
+    return out
+
+
+def check_flat_and_rings(dev, ctx, runs: dict, tokens, trace_c, gemma_r) -> None:
+    """Phase 4's runs (v)-(x) (module docstring); adds their launch counts
+    to ``runs``. ``tokens``/``trace_c``: the paged run's tokens and the
+    contiguous run's rows; ``gemma_r``: run (r)'s (tokens, rows, summary)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.flags import perf_flags
+    from repro_torch.models.blocks import ring_size, salca_params_for
+    k_cap = salca_params_for(get_config("qwen3-0.6b"), SERVE["max_seq"]).k_cap
+    with CapProbe(k_cap) as probe:
+        runs["sp contiguous"], sum_v, picks_v, tr_v = serve_main_path(
+            dev, ctx, paged=False, force=dict(enumerate(tokens)), hook=probe.install)
+    print_serve("(v) contiguous, sequence-sharded flat tick (one rank, nccl; teacher-forced)",
+                sum_v)
+    skip, events = probe.over()
+    worst = check_contiguous_logits(tokens, trace_c, picks_v, tr_v, skip=skip,
+                                    label="(v) flat sequence-sharded vs contiguous")
+    gated = len(set(tr_v) - skip)
+    print(f"(v): {len(events)} (tick, request) steps kept more than k_cap {k_cap} in some "
+          f"row (one rank's capacity {min(SERVE['max_seq'], 4 * k_cap)}), the first "
+          f"{events[:6]}; {gated} of {len(tr_v)} logits rows gated, each within "
+          f"{max(worst.values()):.3g} bf16 ulps (limit {CONTIG_LOGIT_ULPS}); ms per tick "
+          f"{np.median(sum_v['tick_ms']):.2f} (median); launches per tick "
+          f"{json.dumps(sum_v['launches_per_tick'])}; collectives per tick "
+          f"{json.dumps(sum_v['collectives_per_tick'])}", flush=True)
+
+    tok_r, tr_r, sum_r = gemma_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = config_model(dev, GEMMA)
+    cfg = model[0]
+    rings = sum(ring_size(cfg, kind, SERVE["max_seq"]) < SERVE["max_seq"]
+                for kind in cfg.block_kinds())
+    kw = dict(model=model, prompts=PROMPTS)
+    # fed (r)'s tokens: the rings' merge sums in another order than (r)'s
+    # softmax, and random weights put many picks on 0-1-ulp ties
+    runs["gemma3 sharded"], sum_w, picks_w, tr_w = serve_main_path(
+        dev, ctx, force=dict(enumerate(tok_r)), **kw)
+    print_serve(f"(w) paged int8 at one nccl rank: block-sharded global layers, {rings} "
+                "sequence-sharded rings (teacher-forced on (r)'s tokens)", sum_w, GEMMA)
+    worst = check_contiguous_logits(tok_r, tr_r, picks_w, tr_w,
+                                    label=f"{GEMMA} (w) sharded vs (r)")
+    print(f"{GEMMA} (w) vs (r): every logits row within {max(worst.values()):.3g} bf16 ulps "
+          f"(limit {CONTIG_LOGIT_ULPS}); own picks equal (r)'s tokens: "
+          f"{first_divergence(tok_r, picks_w) is None}; ms per tick "
+          f"{np.median(sum_w['tick_ms']):.2f} (median, eager); collectives per tick "
+          f"{json.dumps(sum_w['collectives_per_tick'])}", flush=True)
+
+    # ring_local_cache=False: every "L" layer keeps the full context, and the
+    # first cache is no longer a ring, so the global layers select with k and
+    # k_cap from max_seq (the reference's rule): the paged run is held to its
+    # contiguous twin under the same flag, both fed (r)'s tokens
+    want = [t[:RING_OFF_NEW_TOKENS] for t in tok_r]
+    off = dict(force=dict(enumerate(want)), new_tokens=RING_OFF_NEW_TOKENS, **kw)
+    with perf_flags(ring_local_cache=False):
+        runs["gemma3 no ring"], sum_x, picks_x, tr_x = serve_main_path(dev, **off)
+        print_serve(f"(x) paged int8, ring_local_cache=False ({rings} full-context window "
+                    "layers; teacher-forced on (r)'s tokens)", sum_x, GEMMA)
+        runs["gemma3 no ring contiguous"], sum_xc, picks_xc, tr_xc = serve_main_path(
+            dev, paged=False, **off)
+        print_serve("(x') its contiguous twin, ring_local_cache=False", sum_xc, GEMMA)
+    worst_x = check_contiguous_logits(want, tr_x, picks_xc, tr_xc,
+                                      label=f"{GEMMA} (x') contiguous vs (x) paged, no rings")
+    worst = check_contiguous_logits(want, tr_r, picks_x, tr_x, limit=None,
+                                    label=f"{GEMMA} (x) no ring vs (r)")
+    layer = ring_layer_ms(dev, model)
+    print(f"{GEMMA} (x), {RING_OFF_NEW_TOKENS} tokens: every logits row of (x') within "
+          f"{max(worst_x.values()):.3g} bf16 ulps of (x)'s (limit {CONTIG_LOGIT_ULPS}); (x) "
+          f"against (r) (global layers at k {salca_params_for(cfg, SERVE['max_seq']).k}, not "
+          f"{salca_params_for(cfg, cfg.local_window).k}): logits within "
+          f"{max(worst.values()):.3g} bf16 ulps, own picks equal (r)'s tokens: "
+          f"{first_divergence(want, picks_x) is None} (reported, not gates); peak memory GB "
+          f"{sum_x['peak_mem_gb']:.3f} vs (r) {sum_r['peak_mem_gb']:.3f}; graphed replay ms per "
+          f"tick {sum_x['replay_ms_median']:.2f} vs (r) {sum_r['replay_ms_median']:.2f}; one "
+          f"\"L\" layer's attention {layer['full_context_ms']:.4f} ms over the full context "
+          f"vs {layer['ring_ms']:.4f} ms over its ring (x {rings} layers: "
+          f"{rings * layer['full_context_ms']:.2f} vs {rings * layer['ring_ms']:.2f} ms per "
+          f"tick)", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
@@ -2568,7 +2888,7 @@ def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
         graph += (f"; profiled tick {p['tick']}: device ms {p['device_ms']}, "
                   f"kernel launches {p['launches']}")
     print(f"serve {name} {label}: ms/tick={summary['decode_ms_per_tick']:.2f} "
-          f"decode tok/s={summary['decode_tokens_per_s']:.1f} "
+          f"decode tok/s={summary['decode_steps'] / max(summary['decode_s'], 1e-9):.1f} "
           f"mean TTFT s={summary['mean_ttft_s']:.3f} prefill_s={summary['prefill_s']:.3f} "
           f"peak mem GB={summary['peak_mem_gb']:.2f} "
           f"launches/tick={json.dumps(summary['launches_per_tick'])}; {graph}", flush=True)
@@ -2588,6 +2908,7 @@ def main() -> int:
     from repro_torch.models.blocks import ring_size, salca_params_for
 
     dev = "cuda"
+    t_start = time.time()
     print(gpu_line(), flush=True)                                          # phase 1
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -2605,6 +2926,7 @@ def main() -> int:
     recs += check_flat_kernels(dev, cfg, lengths=lengths)
     recs += check_tiered_kernels(dev, cfg, lengths=lengths)
     recs += check_bin_kernels(dev)
+    recs += check_sp_flat_kernels(dev, cfg, lengths=lengths)
     # gemma3-12b's shapes: B1 at W = 8, B2 at HD 256 and G 2 on the selection
     # its tick makes (k and k_cap from layer 0's ring of 1024:
     # `models.transformer.decode_salca_params`), B3 at HD 256, causal and
@@ -2621,6 +2943,8 @@ def main() -> int:
     # runs' (u) slots and lengths
     recs += check_flat_kernels(dev, gcfg, lengths=lengths, tag=f"[{GEMMA}]", salca=gsalca,
                                run="gemma3 contiguous")
+    recs += check_sp_flat_kernels(dev, gcfg, lengths=lengths, tag=f"[{GEMMA}]", salca=gsalca,
+                                  pooling=False)
     dense_lengths = [n + DENSE_NEW_TOKENS for n in DENSE_PROMPTS]
     for arch in DENSE_ARCHS:
         recs += check_kernels(dev, get_config(arch), lengths=dense_lengths,
@@ -2703,10 +3027,13 @@ def main() -> int:
     b = check_scheduler(dev, ctx, runs)
     check_lifecycle(dev, ctx, runs, tokens, clean["fp16"], b)
     check_prefix_cache(dev, ctx, runs)
-    check_dense_configs(dev, runs)
-    # each kernel's launches on the run of its path (B10/B11: their phase-3 drive;
-    # a record at another model's shapes: its `run`, under its wrapper's counter)
-    home = {"sparse_flash_decode_paged[fp16]": "fp16",
+    gemma_r = check_dense_configs(dev, runs)
+    check_flat_and_rings(dev, ctx, runs, tokens, trace_c, gemma_r)
+    # each kernel's launches on the run of its path (a record at another
+    # model's shapes: its `run`, under its wrapper's counter)
+    home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",
+            "sparse_flash_decode_partials": "sp contiguous",
+            "sparse_flash_decode_paged[fp16]": "fp16",
             "sparse_flash_decode_paged_partials[fp16]": "fp16 sharded",
             "sparse_flash_decode_paged[int4]": "int4 spill",
             "sparse_flash_decode_paged_partials[int4]": "int4 sharded",
@@ -2716,14 +3043,14 @@ def main() -> int:
             "sparse_flash_decode": "contiguous"}
     for r in recs:
         counter = r.get("counter", r["name"])
-        if r["name"] not in ("maxpool_int8", "hist_threshold"):
-            path = r.get("run") or home.get(r["name"], "int8")
-            r["launches"] = runs[path].get(counter, 0)
-            r["launches_per_call"] = sum(run.get(counter, 0) for run in runs.values())
-        else:
-            r["launches_per_call"] = r["launches"]
+        if r["name"] in ("maxpool_int8", "hist_threshold"):
+            r["drive_launches"] = r["launches"]       # phase 3's drive of the entry point
+        path = r.get("run") or home.get(r["name"], "int8")
+        r["launches"] = runs[path].get(counter, 0)
+        r["launches_per_call"] = sum(run.get(counter, 0) for run in runs.values())
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on its main path")
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

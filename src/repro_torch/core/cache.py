@@ -165,17 +165,27 @@ def append_token(cache: SalcaCache, k: torch.Tensor, v: torch.Tensor) -> SalcaCa
     return cache
 
 
-def write_prefill_into_slot(pool: SalcaCache, src: SalcaCache, slot: int) -> SalcaCache:
+def write_prefill_into_slot(pool: SalcaCache, src: SalcaCache, slot: int,
+                            row_range: tuple[int, int] | None = None) -> SalcaCache:
     """Write a batch=1 cache into row ``slot`` of a pooled cache: every field,
     the heavy-channel set and the length cursor included; other rows are
-    untouched. ``src`` must match ``pool`` on every trailing dim. In place."""
+    untouched. ``src`` must match ``pool`` on every trailing dim. In place.
+
+    With ``row_range`` = (lo, hi) the pool is one rank's share of a
+    sequence-sharded cache (`distributed.sharding.local_row_range`): only
+    ``src``'s rows [lo, hi) are written, and the length is this rank's part
+    of ``src``'s (the decode island recomputes it from the cursor anyway)."""
     if src.k_codes.shape[0] != 1:
         raise ValueError(f"src cache must have batch 1, got {src.k_codes.shape[0]}")
-    if pool.k_codes.shape[1:] != src.k_codes.shape[1:]:
+    lo, hi = (0, src.max_seq) if row_range is None else row_range
+    if (pool.k_codes.shape[1:] != (hi - lo,) + src.k_codes.shape[2:]
+            or hi > src.max_seq):
         raise ValueError(f"slot shape mismatch: pool {tuple(pool.k_codes.shape[1:])} "
-                         f"vs src {tuple(src.k_codes.shape[1:])}")
-    for p, x in zip(pool, src):
-        p[slot] = x[0].to(p.dtype)
+                         f"vs src {tuple(src.k_codes.shape[1:])} rows [{lo}, {hi})")
+    for f in _DATA_FIELDS:
+        getattr(pool, f)[slot] = getattr(src, f)[0, lo:hi]
+    pool.heavy_idx[slot] = src.heavy_idx[0].to(pool.heavy_idx.dtype)
+    pool.length[slot] = torch.clamp(src.length[0] - lo, 0, hi - lo)
     return pool
 
 

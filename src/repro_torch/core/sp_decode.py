@@ -1,8 +1,31 @@
-"""Salca decode over a block-sharded paged pool (the JAX package's
-`core/sp_decode.py`, block-sharded part).
+"""Sequence-sharded Salca decode (the JAX package's `core/sp_decode.py`):
+the flat tick over a contiguous cache split by rows, and the tick over a
+block-sharded paged pool.
 
-The physical block dim of every layer's pool is split across the ranks of
-a `DecodeCtx` (rank i holds global ids ``[i·P/n, (i+1)·P/n)``); page table,
+**Flat (sequence-sharded contiguous cache).** Every rank of a `DecodeCtx`
+holds rows ``[r·n_local, (r+1)·n_local)`` of every slot's cache (a ring of
+W rows: ``W / world`` of them); heavy sets, activations and the query are
+replicated. The paper's O(n) selection distributes without a sort:
+
+  B7   local relevance scores;
+  all-reduce  MIN/MAX of the (slot, kv head) score bounds → one global
+              INT8 affine, so every rank bins as the unsharded tick would;
+  exchange    the ``window // 2`` edge bins of both sequence neighbours
+              (the reference's ``ppermute`` halo; zeros at the global ends);
+  B10  max-pool over the halo-padded bins;
+  B11  the local 256-bin histogram; all-reduce SUM → one global threshold
+       (`locate_threshold`), then the local compaction into ``shard_cap``;
+  B8   exact attention over the gathered local selection, unnormalised
+       (its partials branch); all-reduce MAX of m, SUM of the rescaled l
+       and acc (online-softmax merge).
+
+`sp_dense_decode` is the dense (no selection) tick of the sliding-window
+layers, with the same merge. Every payload is O(256 + HD) per (slot, kv
+head), independent of the context length.
+
+**Block-sharded paged pool.** The physical block dim of every layer's pool
+is split across the ranks of a `DecodeCtx` (rank i holds global ids
+``[i·P/n, (i+1)·P/n)``); page table,
 lengths, heavy sets and refcount stay replicated, and every rank holds the
 whole query. A tick runs three kernel sweeps over the rank's own blocks
 around two small collective phases:
@@ -33,12 +56,149 @@ import torch
 
 from repro_torch.core import histogram_topk as ht
 from repro_torch.core import quantization as qz
-from repro_torch.core.cache import PagedSalcaCache, _resolve_pages
+from repro_torch.core.cache import PagedSalcaCache, SalcaCache, _resolve_pages, append_token
 from repro_torch.core.selection import (
-    SalcaParams, estimate_relevance_paged_bounds, query_heavy_features)
-from repro_torch.distributed.sharding import DecodeCtx, local_block_range, pmax, pmin, psum
+    SalcaParams, estimate_relevance, estimate_relevance_paged_bounds, query_heavy_features)
+from repro_torch.distributed.sharding import (
+    DecodeCtx, local_block_range, neighbour_edges, pmax, pmin, psum)
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# flat: a contiguous cache split by rows
+# ---------------------------------------------------------------------------
+
+def _halo_exchange(x: torch.Tensor, halo: int, ctx: DecodeCtx) -> torch.Tensor:
+    """x (..., n_local) → (..., n_local + 2·halo): the ``halo`` columns of
+    both sequence neighbours around this rank's, zero (the minimum bin) at
+    the global ends; a ring's halo does not wrap, as in the reference."""
+    from_left, from_right = neighbour_edges(x[..., -halo:], x[..., :halo], ctx)
+    if ctx.rank == 0:
+        from_left = torch.zeros_like(from_left)
+    if ctx.rank == ctx.world_size - 1:
+        from_right = torch.zeros_like(from_right)
+    return torch.cat([from_left, x, from_right], dim=-1)
+
+
+def local_lengths(global_len: torch.Tensor, n_local: int, ctx: DecodeCtx) -> torch.Tensor:
+    """This rank's valid lengths (B,) of a cache split by rows, from the
+    global cursor (B,): rank r holds ``[r·n_local, (r+1)·n_local)``."""
+    return torch.clamp(global_len - ctx.rank * n_local, 0, n_local).to(torch.int32)
+
+
+def sp_append_token(cache: SalcaCache, k: torch.Tensor, v: torch.Tensor,
+                    global_len: torch.Tensor, ctx: DecodeCtx) -> SalcaCache:
+    """Append one token's K/V (B, KV, HD) at the global cursor (B,): the
+    row lands on the one rank that holds it, the others drop the write (so
+    does every rank for a cursor of -1, an inactive slot). ``length`` ends
+    at this rank's valid length after the append. In place."""
+    n_local = cache.max_seq
+    off = ctx.rank * n_local
+    torch.sub(global_len, off, out=cache.length)        # out of [0, n_local): dropped
+    append_token(cache, k, v)
+    cache.length.copy_(torch.clamp(global_len + 1 - off, 0, n_local))
+    return cache
+
+
+def _merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+           ctx: DecodeCtx) -> torch.Tensor:
+    """The online-softmax merge of every rank's (acc (..., HD), m, l):
+    MAX of m, SUM of the rescaled l and acc; → acc / max(l, 1e-20)."""
+    corr = torch.exp(m - pmax(m.clone(), ctx))
+    l = psum(l * corr, ctx)
+    acc = psum(acc * corr[..., None], ctx)
+    return acc / torch.clamp_min(l, 1e-20)[..., None]
+
+
+def sp_dense_decode(q: torch.Tensor, cache: SalcaCache, ctx: DecodeCtx, window: int = 0,
+                    global_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense (no selection) decode of q (B, H, HD) over this rank's rows of
+    a sequence-sharded cache, merged across the ranks. ``window`` > 0 keeps
+    the global positions p > ``global_len`` - window (the reference's mask
+    with the valid length its island passes: the last window - 1 tokens)."""
+    b, h, hd = q.shape
+    kv = cache.num_kv_heads
+    n_local = cache.max_seq
+    valid = cache.valid_mask()                                          # (B, n_local)
+    if window > 0:
+        pos = ctx.rank * n_local + torch.arange(n_local, dtype=torch.int32, device=q.device)
+        valid = valid & (pos[None, :] > (global_len[:, None] - window))
+    k = cache.k_codes.float() * cache.k_scale[..., None]
+    v = cache.v_codes.float() * cache.v_scale[..., None]
+    qg = q.reshape(b, kv, h // kv, hd).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.transpose(1, 2)) / math.sqrt(hd)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    m = pmax(s.amax(-1), ctx)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = psum(p.sum(-1), ctx)
+    acc = psum(torch.einsum("bkgs,bksd->bkgd", p, v.transpose(1, 2)), ctx)
+    return (acc / torch.clamp_min(l, 1e-20)[..., None]).reshape(b, h, hd)
+
+
+def sp_salca_decode(q: torch.Tensor, cache: SalcaCache, params: SalcaParams, ctx: DecodeCtx,
+                    shard_cap: int | None = None, return_selection: bool = False):
+    """Salca decode attention of q (B, H, HD), replicated, over this rank's
+    rows of a sequence-sharded cache whose ``length`` holds this rank's
+    valid lengths (the module docstring's flat tick). ``shard_cap`` is the
+    rank's index capacity: by default 4·k_cap / world, at least 128, at
+    most n_local. Returns (B, H, HD) f32, identical on every rank (and this
+    rank's Selection, indices local, when asked). Sink and recent forcing
+    are not applied here, as in the reference."""
+    from repro_torch.core.attention import gather_selected
+    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode_partials
+    from repro_torch.kernels.hist_topk.ops import hist_threshold
+    from repro_torch.kernels.maxpool.ops import maxpool_int8
+    b, h, hd = q.shape
+    kv = cache.num_kv_heads
+    groups = h // kv
+    n_local = cache.max_seq
+    if shard_cap is None:
+        shard_cap = min(n_local, max(128, (4 * params.k_cap) // ctx.world_size))
+
+    # --- B7: local relevance scores ----------------------------------------
+    q_feat = query_heavy_features(q, cache.heavy_idx, groups)
+    scores = estimate_relevance(q_feat, cache.feat_words, cache.feat_scale,
+                                cache.feat_zero, groups)                 # (B, KV, n_local)
+    valid = cache.valid_mask()[:, None, :]                               # (B, 1, n_local)
+
+    # --- binning with the global affine --------------------------------------
+    lo = pmin(torch.where(valid, scores, torch.full_like(scores, float("inf"))).amin(-1), ctx)
+    hi = pmax(torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(-1), ctx)
+    bins = qz.bins_from_bounds(scores, lo, hi, valid)
+
+    # --- B10 over the halo-padded bins ----------------------------------------
+    if params.use_pool and params.pool_window > 1:
+        halo = params.pool_window // 2
+        padded = _halo_exchange(bins, halo, ctx).reshape(b * kv, n_local + 2 * halo)
+        pooled = maxpool_int8(padded, params.pool_window)[:, halo:-halo]
+        pooled = torch.where(valid, pooled.reshape(b, kv, n_local), torch.zeros_like(bins))
+    else:
+        pooled = bins
+
+    # --- B11: local histogram; global threshold; local compaction -------------
+    hist, _ = hist_threshold(pooled.reshape(b * kv, n_local).contiguous(), params.k)
+    hist = psum(hist.reshape(b, kv, ht.NUM_BINS), ctx)
+    t = ht.locate_threshold(hist, params.k)                              # (B, KV)
+    keep = pooled >= t[..., None].to(pooled.dtype)
+    indices, mask, count = ht.compact_indices(keep, shard_cap)
+    sel = ht.Selection(indices, mask, count, t)
+
+    # --- B8 partials + the online-softmax merge --------------------------------
+    kc, ks, vc, vs = gather_selected(cache, sel)                         # (B, KV, C, ·)
+    c = kc.shape[2]
+    acc, m, l = sparse_flash_decode_partials(
+        q.reshape(b * kv, groups, hd).float().contiguous(), kc.reshape(b * kv, c, hd),
+        ks.reshape(b * kv, c), vc.reshape(b * kv, c, hd), vs.reshape(b * kv, c),
+        mask.reshape(b * kv, c))
+    out = _merge(acc, m, l, ctx).reshape(b, h, hd)
+    return (out, sel) if return_selection else out
+
+
+# ---------------------------------------------------------------------------
+# block-sharded paged pool
+# ---------------------------------------------------------------------------
 
 
 def _shard_pool_view(pool: PagedSalcaCache, ctx: DecodeCtx):
@@ -129,19 +289,18 @@ def sp_salca_decode_paged(q: torch.Tensor, pool: PagedSalcaCache, params: SalcaP
 
     # --- B6 + collective 2: rank-local partials, online-softmax merge ------
     acc, m, l = sparse_flash_decode_paged_partials(q, pool, sel, block_range)
-    corr = torch.exp(m - pmax(m.clone(), ctx))
-    l = psum(l * corr, ctx)
-    acc = psum(acc * corr[..., None], ctx)
-    out = (acc / torch.clamp_min(l, 1e-20)[..., None]).reshape(s_, h, hd)
+    out = _merge(acc, m, l, ctx).reshape(s_, h, hd)
     return (out, sel) if return_selection else out
 
 
-def sp_dense_decode_paged(q: torch.Tensor, pool: PagedSalcaCache,
-                          ctx: DecodeCtx) -> torch.Tensor:
+def sp_dense_decode_paged(q: torch.Tensor, pool: PagedSalcaCache, ctx: DecodeCtx,
+                          window: int = 0,
+                          global_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Dense (no selection) decode of q (S, H, HD) over a block-sharded
-    pool (global attention), in every storage mode: each rank dequantizes
-    only the K/V it holds (unowned positions masked) and the partials merge
-    with the same online-softmax reduce."""
+    pool, in every storage mode: each rank dequantizes only the K/V it holds
+    (unowned positions masked) and the partials merge with the same
+    online-softmax reduce. ``window`` > 0 keeps the positions p >
+    ``global_pos`` - window (a sliding-window layer's full-context pool)."""
     s_, h, hd = q.shape
     kv = pool.num_kv_heads
     n = pool.max_seq
@@ -149,6 +308,9 @@ def sp_dense_decode_paged(q: torch.Tensor, pool: PagedSalcaCache,
     idx = torch.arange(n, dtype=torch.int32, device=q.device).expand(s_, n)
     pg, off, owned = _resolve_pages(pool, idx, block_range)             # (S, L)
     valid = pool.valid_mask() & owned
+    if window > 0:
+        pos = torch.arange(n, dtype=torch.int32, device=q.device)
+        valid = valid & (pos[None, :] > (global_pos[:, None] - window))
     pgk, offk = pg[:, None, :].long(), off[:, None, :].long()           # (S, 1, L)
     kvb = torch.arange(kv, device=q.device)[None, :, None]              # (1, KV, 1)
     kc, vc = pool.k_codes[pgk, offk, kvb], pool.v_codes[pgk, offk, kvb]

@@ -76,6 +76,11 @@
 // independently of B2 and measurably widened their gap (PERF.md). Every CTA of
 // a row scores the whole row, as B2's do. HD is a multiple of 32 up to 1024
 // and G is 1, 2, 4 or 8, as before.
+//
+// B8's partials branch (the sequence-sharded contiguous tick): the same kernel
+// given m_out and l_out writes the walk's unnormalised state (acc, m, l) in
+// place of the normalised output, as B6 is to B2; a row with nothing live
+// writes (0, -1e30, 0). Each rank merges it across ranks by pmax / psum.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -529,7 +534,9 @@ __global__ void __launch_bounds__(B8_THREADS) sparse_flash_decode_flat_kernel(
     const int8_t* __restrict__ v_codes,   // (BH, C, HD)
     const float* __restrict__ v_scale,    // (BH, C)
     const uint8_t* __restrict__ mask,     // (BH, C)
-    float* __restrict__ out,              // (BH, G, HD)
+    float* __restrict__ out,              // (BH, G, HD): normalised, or acc
+    float* __restrict__ m_out,            // (BH, G) or null: the partials branch
+    float* __restrict__ l_out,            // (BH, G) or null
     int HD, int C, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const B8Layout L(G, HD, C);
@@ -692,12 +699,23 @@ __global__ void __launch_bounds__(B8_THREADS) sparse_flash_decode_flat_kernel(
     }
     __syncthreads();                          // the slots are rewritten next
   }
-  if (warp < G) out[((size_t)b * G + warp) * HD + d0 + lane] = acc / fmaxf(l, 1e-20f);
+  if (warp < G) {
+    const size_t row = (size_t)b * G + warp;
+    if (m_out == nullptr) {
+      out[row * HD + d0 + lane] = acc / fmaxf(l, 1e-20f);
+    } else {                                 // the walk's state; an empty row: (0, -1e30, 0)
+      out[row * HD + d0 + lane] = acc;
+      if (blockIdx.y == 0 && lane == 0) {
+        m_out[row] = m;
+        l_out[row] = l;
+      }
+    }
+  }
 }
 
 int launch_flat(const void* q, const void* k_codes, const void* k_scale, const void* v_codes,
-                const void* v_scale, const void* mask, void* out, int BH, int G, int HD, int C,
-                float scale, void* stream) {
+                const void* v_scale, const void* mask, void* out, void* m_out, void* l_out,
+                int BH, int G, int HD, int C, float scale, void* stream) {
   if (C < 1 || HD % B8_SLICE != 0 || HD > 1024) return (int)cudaErrorInvalidValue;
   const int smem = B8Layout(G, HD, C).bytes;
   cudaStream_t st = (cudaStream_t)stream;
@@ -712,7 +730,7 @@ int launch_flat(const void* q, const void* k_codes, const void* k_scale, const v
     sparse_flash_decode_flat_kernel<GG><<<grid, B8_THREADS, smem, st>>>(                \
         (const float*)q, (const int8_t*)k_codes, (const float*)k_scale,                 \
         (const int8_t*)v_codes, (const float*)v_scale, (const uint8_t*)mask, (float*)out, \
-        HD, C, scale);                                                                  \
+        (float*)m_out, (float*)l_out, HD, C, scale);                                    \
   } while (0)
   switch (G) {
     case 1: B8_LAUNCH(1); break;
@@ -751,6 +769,16 @@ extern "C" int sparse_flash_decode(const void* q, const void* k_codes, const voi
                                    const void* v_codes, const void* v_scale, const void* mask,
                                    void* out, int BH, int G, int HD, int C, float scale,
                                    void* stream) {
-  return launch_flat(q, k_codes, k_scale, v_codes, v_scale, mask, out, BH, G, HD, C, scale,
-                     stream);
+  return launch_flat(q, k_codes, k_scale, v_codes, v_scale, mask, out, nullptr, nullptr, BH, G,
+                     HD, C, scale, stream);
+}
+
+// B8's partials branch: the walk's unnormalised state (acc, m, l)
+extern "C" int sparse_flash_decode_partials(const void* q, const void* k_codes,
+                                            const void* k_scale, const void* v_codes,
+                                            const void* v_scale, const void* mask, void* acc,
+                                            void* m, void* l, int BH, int G, int HD, int C,
+                                            float scale, void* stream) {
+  return launch_flat(q, k_codes, k_scale, v_codes, v_scale, mask, acc, m, l, BH, G, HD, C,
+                     scale, stream);
 }

@@ -5,6 +5,10 @@ reference's names and defaults (`repro/flags.py`):
   quantization (one integer dot per kv head instead of G).
 * ``bf16_collectives`` — run the relevance dequant chain with bf16 rounding
   pinned after every op (`core.quantization.dequant_score_chain`).
+* ``ring_local_cache`` — a sliding-window ("L") layer keeps a ring of
+  ``local_window`` rows instead of the full-context cache
+  (`models.blocks.ring_size`); off, it keeps the full context and its
+  decode masks to the trailing window.
 
 The reference's other flags steer paths the port does not have yet; they
 join with those paths, and setting an unknown flag raises.
@@ -20,6 +24,7 @@ from dataclasses import dataclass, fields
 class PerfFlags:
     bf16_collectives: bool = True
     group_sum_query: bool = True
+    ring_local_cache: bool = True
 
 
 PERF = PerfFlags()

@@ -16,12 +16,16 @@ gathered into (BH, C, ·) arrays (the contiguous tick), scaled by a multiply
 with 1/sqrt(HD) as the TPU kernel does; its own kernel walks each row as
 B2 walks its blocks (runs of 32 tokens, in order) over a (BH, HD/32) grid,
 each CTA accumulating 32 output channels, so its results are those of one
-CTA walking the whole row, bit for bit.
+CTA walking the whole row, bit for bit. B8's partials branch (the
+sequence-sharded contiguous tick, `core.sp_decode.sp_salca_decode`) is the
+same kernel stopped before the normalisation, returning (acc, m, l) as B6
+does for B2.
 
 CUDA source of all three: ``repro_torch/csrc/flash_decode.cu`` (B2/B6 one
 template, B8 its own kernel).
 Launch counters: ``sparse_flash_decode_paged`` / ``…_partials`` for the
-int8 branch, with ``[fp16]`` or ``[int4]`` appended for the others.
+int8 branch, with ``[fp16]`` or ``[int4]`` appended for the others;
+``sparse_flash_decode`` and ``sparse_flash_decode_partials`` for B8's two.
 """
 
 from __future__ import annotations
@@ -88,18 +92,26 @@ def sparse_flash_decode_paged_plain(q, k_codes, k_scale, v_codes, v_scale, pblk,
     return torch.einsum("bgc,bcd->bgd", p, v) / torch.clamp_min(l, 1e-20)
 
 
-def sparse_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:
-    """Plain version of B8 (mirrors the reference `sparse_flash_decode_ref`)."""
+def sparse_flash_decode_partials_plain(q, k_codes, k_scale, v_codes, v_scale, mask):
+    """Plain version of B8's partials branch: `sparse_flash_decode_plain`
+    stopped before the division, (acc (BH, G, HD), m (BH, G), l (BH, G)).
+    Rows with nothing selected give (0, NEG_INF, 0)."""
     hd = q.shape[-1]
     s = torch.einsum("bgd,bcd->bgc", q.float(), k_codes.float())
     s = s * k_scale[:, None, :] / math.sqrt(hd)
     m3 = mask[:, None, :]
     s = torch.where(m3, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    m = s.amax(-1)                     # all-masked rows: exactly NEG_INF
+    p = torch.exp(s - m[..., None])
     p = torch.where(m3, p, torch.zeros_like(p))
-    l = p.sum(-1, keepdim=True)
     v = v_codes.float() * v_scale[..., None]
-    return torch.einsum("bgc,bcd->bgd", p, v) / torch.clamp_min(l, 1e-20)
+    return torch.einsum("bgc,bcd->bgd", p, v), m, p.sum(-1)
+
+
+def sparse_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:
+    """Plain version of B8 (mirrors the reference `sparse_flash_decode_ref`)."""
+    acc, _, l = sparse_flash_decode_partials_plain(q, k_codes, k_scale, v_codes, v_scale, mask)
+    return acc / torch.clamp_min(l, 1e-20)[..., None]
 
 
 def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:
@@ -109,6 +121,42 @@ def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Te
     version; CUDA tensors launch kernel B8."""
     if q.device.type == "cpu":
         return sparse_flash_decode_plain(q, k_codes, k_scale, v_codes, v_scale, mask)
+    bh, g, hd = _check_b8_operands(q, k_codes, k_scale, v_codes, v_scale, mask)
+    out = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
+    fn = common.load("flash_decode", "sparse_flash_decode",
+                     [common.P] * 7 + [common.I] * 4 + [common.F, common.P])
+    err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+             v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), bh, g, hd,
+             k_codes.shape[1], 1.0 / math.sqrt(hd), common.stream_ptr(out))
+    common.check(err, "sparse_flash_decode")
+    common.LAUNCHES["sparse_flash_decode"] += 1
+    return out
+
+
+def sparse_flash_decode_partials(q, k_codes, k_scale, v_codes, v_scale, mask):
+    """B8's operands → (acc (BH, G, HD), m (BH, G), l (BH, G)) f32, the
+    unnormalised online-softmax state a sequence-sharded rank contributes to
+    the cross-rank merge; a row with nothing selected gives (0, NEG_INF, 0).
+    CPU tensors take the plain version; CUDA tensors launch B8's partials
+    branch."""
+    if q.device.type == "cpu":
+        return sparse_flash_decode_partials_plain(q, k_codes, k_scale, v_codes, v_scale, mask)
+    bh, g, hd = _check_b8_operands(q, k_codes, k_scale, v_codes, v_scale, mask)
+    acc = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((bh, g), dtype=torch.float32, device=q.device)
+    l = torch.empty((bh, g), dtype=torch.float32, device=q.device)
+    fn = common.load("flash_decode", "sparse_flash_decode_partials",
+                     [common.P] * 9 + [common.I] * 4 + [common.F, common.P])
+    err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+             v_scale.data_ptr(), mask.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             bh, g, hd, k_codes.shape[1], 1.0 / math.sqrt(hd), common.stream_ptr(acc))
+    common.check(err, "sparse_flash_decode_partials")
+    common.LAUNCHES["sparse_flash_decode_partials"] += 1
+    return acc, m, l
+
+
+def _check_b8_operands(q, k_codes, k_scale, v_codes, v_scale, mask):
+    """Validate B8's CUDA operands (both branches); returns (BH, G, HD)."""
     bh, g, hd = q.shape
     c = k_codes.shape[1]
     dev = q.device
@@ -124,15 +172,7 @@ def sparse_flash_decode(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Te
     if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16:
         raise ValueError("kernel B8 copies K/V codes in 16-byte units: k_codes and "
                          "v_codes must start 16-byte aligned")
-    out = torch.empty((bh, g, hd), dtype=torch.float32, device=dev)
-    fn = common.load("flash_decode", "sparse_flash_decode",
-                     [common.P] * 7 + [common.I] * 4 + [common.F, common.P])
-    err = fn(q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
-             v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), bh, g, hd, c,
-             1.0 / math.sqrt(hd), common.stream_ptr(out))
-    common.check(err, "sparse_flash_decode")
-    common.LAUNCHES["sparse_flash_decode"] += 1
-    return out
+    return bh, g, hd
 
 
 def _check_b2_operands(q, k_codes, k_scale, v_codes, v_scale, pblk, counts, blk_mask,

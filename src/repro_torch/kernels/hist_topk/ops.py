@@ -5,8 +5,11 @@ B11 replaces `repro/kernels/hist_topk/kernel.py::hist_threshold_pallas`,
 which the reference's public kernel API reaches as
 `repro.kernels.hist_threshold`: per row of (BH, N) bins, the histogram and
 the largest bin whose reverse cumulative count reaches k (never below 1).
-Integer counts, so the kernel equals the plain version bit for bit. No
-serving path calls it (the ticks count inside kernels B5 and B9).
+Integer counts, so the kernel equals the plain version bit for bit. The
+sequence-sharded flat tick counts each rank's pooled bins with it (its
+threshold comes from the all-reduced histogram instead,
+`core.sp_decode.sp_salca_decode`); the other ticks count inside kernels B5
+and B9.
 
 CUDA source: ``repro_torch/csrc/selection_fused.cu``
 (``hist_threshold_kernel``: one CTA per row, 16 B loads, a sub-histogram in

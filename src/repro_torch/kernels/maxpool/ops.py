@@ -5,7 +5,9 @@ B10 replaces `repro/kernels/maxpool/kernel.py::maxpool_pallas`, which the
 reference's public kernel API reaches as `repro.kernels.maxpool_int8`: row r
 of (BH, N) bins pools ``window`` (odd) neighbours, zero past the row's
 ends. Max is exact, so the kernel equals the plain version bit for bit.
-No serving path calls it (the ticks pool inside kernels B5 and B9).
+The sequence-sharded flat tick pools its halo-padded bins with it
+(`core.sp_decode.sp_salca_decode`); the other ticks pool inside kernels B5
+and B9.
 
 CUDA source: ``repro_torch/csrc/selection_fused.cu``: a thread per 16 B
 vector of a row, 256 per CTA; windows up to 33 pool in registers

@@ -5,10 +5,12 @@
 
 Serves the contiguous slot pool by default (kernels B7-B9 in the tick), as
 the reference launcher does; ``--paged`` serves the paged block pool
-(kernels B1, B2) and ``--sharded`` its block-sharded tick (kernels B4-B6)
-over a world of one rank — ``nccl`` on the card, ``gloo`` on the CPU
-(``--sharded`` implies ``--paged``). ``--local`` serves the reduced config;
-pass ``--device cpu`` to run on the CPU with the kernels' plain versions.
+(kernels B1, B2). ``--sharded`` runs the tick over a world of one rank —
+``nccl`` on the card, ``gloo`` on the CPU: on the contiguous pool the
+sequence-sharded flat tick (kernels B7, B10, B11 and B8's partials
+branch), with ``--paged`` the block-sharded tick (kernels B4-B6).
+``--local`` serves the reduced config; pass ``--device cpu`` to run on the
+CPU with the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true", help="paged block pool")
     ap.add_argument("--sharded", action="store_true",
-                    help="block-sharded paged pool over a world of one rank (implies --paged)")
+                    help="the sharded tick over a world of one rank: sequence-sharded "
+                         "contiguous cache, or with --paged the block-sharded pool")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -47,7 +50,7 @@ def main() -> None:
         cfg = cfg.reduced()
     max_seq = args.max_seq or (args.prompt_len + args.new_tokens + 8)
     max_seq = ((max_seq + 127) // 128) * 128        # as the reference launcher rounds
-    paged = args.paged or args.sharded
+    paged = args.paged
     if paged and max_seq % args.block_size:
         ap.error(f"--block-size {args.block_size} must divide max_seq {max_seq} (the "
                  f"requested length rounded up to a multiple of 128)")

@@ -5,16 +5,21 @@ Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the static heavy set of
 ``salca_static_channels``, `ring_size`, the block prefill (dense causal or
 windowed attention through kernel B3, then `prefill_cache`), the A block's
-chunked form, and three branches of `_attn_decode` (append, then Salca
+chunked form, and the four branches of `_attn_decode` (append, then Salca
 selection and sparse attention for "A", dense attention for "L"): over the
-contiguous slot pool, over a paged pool on one device, or — given a
-`DecodeCtx` — over a block-sharded paged pool.
+contiguous slot pool or a paged pool on one device, and — given a
+`DecodeCtx` — over a block-sharded paged pool or a contiguous cache split
+by rows (the sequence-sharded flat tick, `core.sp_decode.sp_salca_decode`).
 
 An "L" layer whose window is shorter than the context keeps a ring of
 W = ``cfg.local_window`` slots per request slot (a contiguous `SalcaCache`,
-on the paged engine too): token j lives at slot j % W, so the ring holds
-exactly the last min(pos + 1, W) tokens and needs no window mask. Salca
-accelerates the "A" layers only.
+on the paged engine too; ``PERF.ring_local_cache``, the default): token j
+lives at slot j % W, so the ring holds exactly the last min(pos + 1, W)
+tokens and needs no window mask. With the flag off it keeps the full
+context and its decode masks to the trailing window. Under a `DecodeCtx`
+every contiguous cache and ring is split by rows across the ranks (rank r
+holds ``[r·n/world, (r+1)·n/world)``), the reference's `cache_pspec`.
+Salca accelerates the "A" layers only.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from repro_torch.core.cache import (
     record_selection)
 from repro_torch.core.heavy_channels import top_channels
 from repro_torch.core.selection import SalcaParams
-from repro_torch.core.sp_decode import sp_dense_decode_paged, sp_salca_decode_paged
+from repro_torch.core.sp_decode import (
+    local_lengths, sp_append_token, sp_dense_decode, sp_dense_decode_paged, sp_salca_decode,
+    sp_salca_decode_paged)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models.attention import fold_heads, prefill_attention, qkv_project
 from repro_torch.models.common import glu_apply, rmsnorm
@@ -46,10 +53,20 @@ def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
 def ring_size(cfg: ModelConfig, kind: str, max_seq: int) -> int:
     """Cache length of a layer: a sliding-window ("L") layer keeps a
     ``local_window``-slot ring instead of the full context when the window
-    is the shorter (the reference's default, ``PERF.ring_local_cache``)."""
-    if kind == "L" and 0 < cfg.local_window < max_seq:
+    is the shorter and ``PERF.ring_local_cache`` is on (the default)."""
+    from repro_torch.flags import PERF
+    if kind == "L" and PERF.ring_local_cache and 0 < cfg.local_window < max_seq:
         return cfg.local_window
     return max_seq
+
+
+def global_rows(cache, ctx: DecodeCtx | None) -> int:
+    """A layer cache's logical length: a paged pool's ``max_seq``; a
+    contiguous cache's rows, times the world size under ``ctx`` (each rank
+    holds an even share of them)."""
+    if isinstance(cache, SalcaCache) and ctx is not None:
+        return cache.max_seq * ctx.world_size
+    return cache.max_seq
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -129,9 +146,9 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
     """One token per slot: x (S, D) → attention output (S, D). Updates the
     layer's pool in place. Inactive slots write nothing (their write cursor
     is forced out of range) and read as holding 0 tokens. An "A" layer runs
-    Salca (with ``cfg.salca``); an "L" layer, paged only when its window
-    spans the whole context (`ring_size`), attends densely over every valid
-    key: the reference's window mask would keep them all.
+    Salca (with ``cfg.salca``); an "L" layer, paged when it keeps the full
+    context (`ring_size`), attends densely over the valid keys at
+    positions p > pos - window.
 
     With ``ctx`` the pool is this rank's share of a block-sharded pool: q,
     k and v are replicated (every rank runs the whole dense model), the
@@ -139,6 +156,7 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
     attention is the two-collective sharded tick (`core.sp_decode`)."""
     s = x.shape[0]
     use_salca = cfg.salca and kind == "A"
+    window = _window(cfg, kind)
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
     inactive = ~active
@@ -147,7 +165,7 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
         append_token_paged(pool, k, v, block_range=local_block_range(pool.num_blocks, ctx))
         torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
         o = (sp_salca_decode_paged(q, pool, salca, ctx) if use_salca
-             else sp_dense_decode_paged(q, pool, ctx))
+             else sp_dense_decode_paged(q, pool, ctx, window=window, global_pos=pos))
         return o.to(x.dtype).reshape(s, -1) @ params["wo"]
     append_token_paged(pool, k, v)
     torch.add(pos, 1, out=pool.length).masked_fill_(inactive, 0)
@@ -155,26 +173,56 @@ def attn_decode_paged(params: dict, x: torch.Tensor, pool: PagedSalcaCache,
         o, sel = salca_decode_attention_paged(q, pool, salca, return_selection=True)
         record_selection(pool, sel.indices, sel.mask)
     else:
-        o = dense_decode_from_paged(q, pool, pool.valid_mask())
+        o = dense_decode_from_paged(q, pool, _window_mask(pool.valid_mask(), pos, window))
     return o.to(x.dtype).reshape(s, -1) @ params["wo"]
+
+
+def _window_mask(valid: torch.Tensor, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """``valid`` (S, N) restricted to the positions p > pos - window (a
+    sliding-window layer's full-context cache); ``window`` 0 keeps all."""
+    if window <= 0:
+        return valid
+    p = torch.arange(valid.shape[1], device=valid.device)
+    return valid & (p[None, :] > (pos[:, None] - window))
 
 
 def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
                            cfg: ModelConfig, pos: torch.Tensor, salca: SalcaParams,
-                           active: torch.Tensor, kind: str = "A") -> torch.Tensor:
+                           active: torch.Tensor, kind: str = "A",
+                           ctx: DecodeCtx | None = None) -> torch.Tensor:
     """One token per slot over the contiguous slot pool, or over an "L"
     layer's ring: x (S, D) → attention output (S, D). Updates the layer's
     cache in place. Inactive slots write nothing (their cursor is forced to
     ``max_seq``, where the append drops the write) and read as holding 0
-    tokens. A ring (``cache.max_seq`` <= the window) writes at pos % W and
-    holds min(pos + 1, W) valid tokens, attended with no window mask over
-    its dequantized rows (plain torch ops, as the reference's XLA)."""
+    tokens. A ring (rows <= the window) writes at pos % W and holds
+    min(pos + 1, W) valid tokens, attended with no window mask over its
+    dequantized rows (plain torch ops, as the reference's XLA); an "L"
+    layer with the full context masks to p > pos - window.
+
+    With ``ctx`` the cache holds this rank's rows (`global_rows`): an
+    inactive slot's cursor is -1, the append writes at the cursor and the
+    local lengths come from the valid length (the carried ``length`` is
+    never read), and attention is the sequence-sharded flat tick
+    (`core.sp_decode`)."""
     s = x.shape[0]
     window = _window(cfg, kind)
-    ring = window > 0 and cache.max_seq <= window
+    rows = global_rows(cache, ctx)
+    ring = window > 0 and rows <= window
     q, k, v = qkv_project(params, x[:, None], cfg, pos[:, None])
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]
     inactive = ~active
+    use_salca = cfg.salca and kind == "A"
+    if ctx is not None:
+        cursor = torch.remainder(pos, rows) if ring else pos.clone()
+        cursor.masked_fill_(inactive, -1)
+        valid_len = torch.clamp_max(pos + 1, rows) if ring else pos + 1
+        valid_len.masked_fill_(inactive, 0)
+        sp_append_token(cache, k, v, cursor, ctx)
+        cache.length.copy_(local_lengths(valid_len, cache.max_seq, ctx))
+        o = (sp_salca_decode(q, cache, salca, ctx) if use_salca else
+             sp_dense_decode(q, cache, ctx, window=0 if ring else window,
+                             global_len=valid_len))
+        return o.to(x.dtype).reshape(s, -1) @ params["wo"]
     if ring:
         torch.remainder(pos, cache.max_seq, out=cache.length)
     else:
@@ -185,12 +233,13 @@ def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
     if ring:
         cache.length.clamp_max_(cache.max_seq)
     cache.length.masked_fill_(inactive, 0)
-    if cfg.salca and kind == "A":
+    if use_salca:
         o = salca_decode_attention(q, cache, salca)
     else:
         kd = cache.k_codes.float() * cache.k_scale[..., None]
         vd = cache.v_codes.float() * cache.v_scale[..., None]
-        o = dense_decode_attention(q, kd, vd, cache.valid_mask())
+        o = dense_decode_attention(q, kd, vd,
+                                   _window_mask(cache.valid_mask(), pos, 0 if ring else window))
     return o.to(x.dtype).reshape(s, -1) @ params["wo"]
 
 
@@ -198,15 +247,12 @@ def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: tor
                  salca: SalcaParams, active: torch.Tensor,
                  ctx: DecodeCtx | None = None, kind: str = "A") -> torch.Tensor:
     """x (S, D) → (S, D) over the layer's cache: a `SalcaCache` (the
-    contiguous engine's slot pool, or an "L" layer's ring) or a
-    `PagedSalcaCache` (``ctx``: block-sharded)."""
+    contiguous engine's slot pool, or an "L" layer's ring; ``ctx``: split
+    by rows) or a `PagedSalcaCache` (``ctx``: block-sharded)."""
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if isinstance(pool, SalcaCache):
-        if ctx is not None:
-            raise NotImplementedError("the sequence-sharded contiguous tick (flat sp_* "
-                                      "decode) is not ported yet; it comes with the port "
-                                      "of the reference's sequence-sharded flat decode")
-        h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active, kind)
+        h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active, kind,
+                                   ctx)
     else:
         h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx, kind)
     x = x + h

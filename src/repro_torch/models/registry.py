@@ -16,8 +16,8 @@ from repro_torch.models import transformer
 class ModelAPI(NamedTuple):
     prefill: Callable[..., Any]            # (params, tokens, max_seq) -> (logits, state)
     decode_step: Callable[..., Any]        # (params, state, token, active, ctx) -> (logits, state)
-    init_state: Callable[..., Any]         # (slots, max_seq, device) -> contiguous pool
-    write_into_slot: Callable[..., Any]    # (pool, src, slot) -> pool
+    init_state: Callable[..., Any]         # (slots, max_seq, device, ctx) -> contiguous pool
+    write_into_slot: Callable[..., Any]    # (pool, src, slot, None, ctx) -> pool
     init_paged_state: Callable[..., Any]   # (slots, max_seq, block_size, num_blocks, device, ctx)
     write_into_pages: Callable[..., Any]   # (pool, src, slot, pages, ctx, n_shared) -> pool
     map_block: Callable[..., Any]          # (pool, slot, logical_block, page) -> pool
@@ -63,8 +63,8 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     def decode_step(params, state, token, active, ctx=None):
         return transformer.lm_decode_step(params, cfg, state, token, active, ctx)
 
-    def init_state(slots, max_seq, device):
-        return transformer.lm_init_state(cfg, slots, max_seq, device)
+    def init_state(slots, max_seq, device, ctx=None):
+        return transformer.lm_init_state(cfg, slots, max_seq, device, ctx)
 
     def init_paged_state(slots, max_seq, block_size, num_blocks, device, ctx=None):
         return transformer.lm_init_paged_state(cfg, slots, max_seq, block_size,

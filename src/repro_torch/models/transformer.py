@@ -25,7 +25,7 @@ from repro_torch.core.cache import (
     PagedSalcaCache, adopt_pages, cow_block, empty_cache, empty_paged_cache, free_pages,
     map_block, prefill_chunk_into_pages, prefill_into_pages, read_block_rows, reset_slot,
     share_blocks, write_block_rows, write_prefill_into_slot)
-from repro_torch.distributed.sharding import DecodeCtx, local_block_range
+from repro_torch.distributed.sharding import DecodeCtx, local_block_range, local_row_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
     cdtype, embed_tokens, lm_logits, rmsnorm, vocab_mask_logits)
@@ -185,13 +185,28 @@ def lm_calibrate_static_heavy(params: dict, cfg: ModelConfig, tokens) -> dict:
     return {**params, "layers": layers}
 
 
-def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> LMState:
+def _local_rows(cfg: ModelConfig, rows: int, max_seq: int, ctx: DecodeCtx | None) -> int:
+    """Rows of a layer's contiguous cache (or ring) on this rank: all of
+    them, or under ``ctx`` an even share; raises when they do not split."""
+    if ctx is None:
+        return rows
+    if rows % ctx.world_size:
+        what = f"the ring of {rows}" if rows < max_seq else f"max_seq {rows}"
+        raise ValueError(f"{cfg.name}: {what} does not split evenly across "
+                         f"{ctx.world_size} ranks (the sequence-sharded cache holds "
+                         "rows/world per rank)")
+    return rows // ctx.world_size
+
+
+def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device,
+                  ctx: DecodeCtx | None = None) -> LMState:
     """Contiguous decode state: one empty ``(batch, max_seq, ·)`` cache per
     layer (the contiguous engine's slot pool; an "L" layer's ring has
-    `ring_size` slots), cursors at 0."""
+    `ring_size` slots), cursors at 0. With ``ctx`` each cache holds only this
+    rank's rows (the sequence-sharded flat tick)."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
-    caches = [empty_cache(batch, B.ring_size(cfg, kind, max_seq), cfg.num_kv_heads,
-                          cfg.resolved_head_dim, r, device=device)
+    caches = [empty_cache(batch, _local_rows(cfg, B.ring_size(cfg, kind, max_seq), max_seq, ctx),
+                          cfg.num_kv_heads, cfg.resolved_head_dim, r, device=device)
               for kind in cfg.block_kinds()]
     return LMState(caches, torch.zeros(batch, dtype=torch.int32, device=device))
 
@@ -202,26 +217,21 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
     ``cfg.kv_pool_dtype`` (the engine's knob); an "L" layer whose window is
     shorter than ``max_seq`` keeps its ring instead, a contiguous
     ``(slots, W, ·)`` cache (paging a ring buys nothing). With ``ctx`` each
-    pool holds only this rank's ``num_blocks / world_size`` blocks; a ring
-    there would need the sequence-sharded flat decode, which is not ported,
-    so a config with rings raises."""
+    pool holds only this rank's ``num_blocks / world_size`` blocks and each
+    ring this rank's ``W / world_size`` rows (its decode is the
+    sequence-sharded flat tick)."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
     max_blocks = -(-max_seq // block_size)
     rings = [B.ring_size(cfg, kind, max_seq) for kind in cfg.block_kinds()]
     local = None
     if ctx is not None:
-        if min(rings) < max_seq:
-            raise NotImplementedError(
-                f"{cfg.name}: the block-sharded tick over sliding-window ring layers "
-                f"(window {cfg.local_window} < max_seq {max_seq}) needs the "
-                "sequence-sharded flat decode, which is not ported yet")
         lo, hi = local_block_range(num_blocks, ctx)
         local = hi - lo
 
     def cache(w):
         if w < max_seq:
-            return empty_cache(slots, w, cfg.num_kv_heads, cfg.resolved_head_dim, r,
-                               device=device)
+            return empty_cache(slots, _local_rows(cfg, w, max_seq, ctx), cfg.num_kv_heads,
+                               cfg.resolved_head_dim, r, device=device)
         return empty_paged_cache(num_blocks, block_size, slots, max_blocks,
                                  cfg.num_kv_heads, cfg.resolved_head_dim, r,
                                  kv_pool_dtype=cfg.kv_pool_dtype, device=device,
@@ -242,9 +252,9 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
     Contiguous pools take ``pages=None`` (`write_prefill_into_slot`); paged
     pools take the same physical blocks ``pages`` (MB,) in every layer
     (`prefill_into_pages`) — with ``ctx`` the prefill is replicated and each
-    rank writes only the blocks it owns. ``n_shared`` marks the leading
-    entries of ``pages`` as prefix-shared: mapped and counted in every
-    layer, not written."""
+    rank writes only the blocks it owns, and of a contiguous cache or a
+    ring only its rows. ``n_shared`` marks the leading entries of ``pages``
+    as prefix-shared: mapped and counted in every layer, not written."""
     for dst, s in zip(pool.caches, src.caches):
         if isinstance(dst, PagedSalcaCache):
             if pages is None:
@@ -253,7 +263,8 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
             block_range = None if ctx is None else local_block_range(dst.num_blocks, ctx)
             prefill_into_pages(dst, s, slot, pages, block_range, n_shared)
         else:
-            write_prefill_into_slot(dst, s, slot)
+            rows = None if ctx is None else local_row_range(s.max_seq, ctx)
+            write_prefill_into_slot(dst, s, slot, rows)
     pool.pos[slot] = src.pos[0]
     return pool
 
@@ -328,15 +339,16 @@ def lm_reset_slot(pool: LMState, slot: int) -> LMState:
     return pool
 
 
-def decode_salca_params(cfg: ModelConfig, state: LMState):
+def decode_salca_params(cfg: ModelConfig, state: LMState, ctx: DecodeCtx | None = None):
     """The tick's `SalcaParams`, as the reference's `lm_decode_step` derives
     them: from the first attention cache of its state, in its order
     (pattern positions' stacked states, then the tail), whose first entry
     is always layer 0's. Layer 0 of "LLLLLA" is an "L" layer, so where it
     keeps a ring the global layers select with k and k_cap from
     max(W, 128), not from ``max_seq`` (gemma3 at W 1024 and max_seq 8192:
-    k 128 and k_cap 256, where ``max_seq`` would give 409 and 512)."""
-    return B.salca_params_for(cfg, max(state.caches[0].max_seq, 128))
+    k 128 and k_cap 256, where ``max_seq`` would give 409 and 512). Under
+    ``ctx`` a contiguous cache counts the rows of every rank."""
+    return B.salca_params_for(cfg, max(B.global_rows(state.caches[0], ctx), 128))
 
 
 def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.Tensor,
@@ -345,12 +357,13 @@ def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.
     state). Inactive slots write nothing and hold their cursor; their
     logits are garbage the caller ignores. The state's caches are the
     contiguous slot pool or paged pools; ``ctx``: the paged pools are
-    block-sharded over its ranks (the logits are identical on every rank).
+    block-sharded over its ranks and the contiguous caches and rings split
+    by rows (the logits are identical on every rank).
     Every state tensor is updated in place, never rebound, so a CUDA graph
     of the step (`runtime.steps`) stays valid across ticks."""
     h = embed_tokens(params["embed"], token).to(cdtype(cfg))
     pos = state.pos
-    salca = decode_salca_params(cfg, state)
+    salca = decode_salca_params(cfg, state, ctx)
     for layer, pool, kind in zip(params["layers"], state.caches, cfg.block_kinds()):
         h = B.block_decode(layer, h, pool, cfg, pos, salca, active, ctx, kind)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)

@@ -21,9 +21,17 @@ A slot that reached ``max_seq`` finishes with an ``overflow`` stop.
 Sliding-window ("L") layers (gemma3's "LLLLLA") keep a W-slot ring per slot
 wherever the window W is shorter than ``max_seq``, on both pools: the
 prefill writes the ring whole, the tick attends over it densely (no Salca,
-no kernel), and the paged pool's block operations pass it by. A ring
-needs the sequence-sharded flat decode under ``ctx``, which is not ported:
-such an engine raises when it is built.
+no kernel), and the paged pool's block operations pass it by. Under
+``ctx`` every rank holds W / world of each ring's rows and the tick is the
+sequence-sharded flat tick. With ``flags.perf_flags(ring_local_cache=False)``
+an "L" layer keeps the full context instead, attended under the window mask.
+
+Sequence-sharded contiguous pool (``paged=False, ctx=DecodeCtx(...)``, the
+reference's flat ``sp_*`` decode): every rank holds ``max_seq / world``
+rows of each slot's cache, writes the rows of the replicated prefill that
+fall in its range, and runs the flat tick (kernels B7, B10, B11 and B8's
+partials branch around the all-reduces and the halo exchange of
+`core.sp_decode`); ``stats.shards`` stays 1, as it counts pool shards.
 
 Paged pool (``paged=True``): every layer's attention cache is a shared
 physical block pool with per-slot page tables. Admission writes the
@@ -339,7 +347,7 @@ class ServeStats:
     tick_ewma_s: float = 0.0   # the monitor's tick-time EWMA (0: no monitor)
 
     def summary(self) -> dict:
-        """The reference's summary keys that this port has, rounded as there
+        """The reference's summary keys, and only those, rounded as there
         (seconds to 4 places, ms and utilisations to 3); the fault, audit and
         monitor keys only when they have counted, the block-pool and sharing
         keys only for a paged engine, the shard keys only over several
@@ -351,14 +359,12 @@ class ServeStats:
             "tokens_generated": self.tokens_generated,
             "decode_ms_per_step": round(1e3 * self.decode_s / max(self.decode_steps, 1), 3),
             "decode_ms_per_tick": round(1e3 * self.decode_s / max(self.ticks, 1), 3),
-            "decode_tokens_per_s": self.decode_steps / self.decode_s if self.decode_s else 0.0,
             "mean_queue_wait_s": round(self.queue_wait_s / max(self.admissions, 1), 4),
             "mean_ttft_s": round(self.ttft_s / max(self.ttft_count, 1), 4),
             "admissions": self.admissions, "peak_active_slots": self.peak_active_slots,
             "overflows": self.overflows, "dropped_writes": self.dropped_writes,
             "preemptions": self.preemptions, "replayed_tokens": self.replayed_tokens,
             "prefill_chunks": self.prefill_chunks, "chunk_stalls": self.chunk_stalls,
-            "prefill_tokens": self.prefill_tokens,
             "deadline_stops": self.deadline_stops, "cancellations": self.cancellations,
             "rejections": self.rejections, "errors": self.errors, "retries": self.retries,
             "degraded_ticks": self.degraded_ticks,
@@ -421,11 +427,12 @@ class ServingEngine:
     """Slot-pooled continuous-batching engine.
 
     ``paged=False`` (the default): a contiguous ``(slots, max_seq, ·)`` cache
-    per layer. ``paged=True``: ``num_blocks`` physical blocks of
-    ``block_size`` tokens shared by ``slots`` request slots; ``block_size``
-    must divide ``max_seq``; ``ctx`` (`distributed.sharding.DecodeCtx`)
-    splits the pool's blocks across its ranks, and ``num_blocks`` must then
-    divide evenly by the world size. ``prefix_sharing``: common prompt
+    per layer; ``ctx`` (`distributed.sharding.DecodeCtx`) splits its rows
+    across the ranks (``max_seq`` and every ring must divide evenly).
+    ``paged=True``: ``num_blocks`` physical blocks of ``block_size`` tokens
+    shared by ``slots`` request slots; ``block_size`` must divide
+    ``max_seq``; ``ctx`` splits the pool's blocks across its ranks, and
+    ``num_blocks`` must then divide evenly by the world size. ``prefix_sharing``: common prompt
     prefixes share blocks, copied on write; ``prefix_cache``: the persistent
     prefix cache of the module docstring. ``kv_pool_dtype`` and ``host_spill``
     (with ``demote_after``, ``spill_keep_recent``, ``promote_headroom``):
@@ -480,11 +487,6 @@ class ServingEngine:
                      " (chunks stream into a partially-filled paged slot)")):
                 if on:
                     raise ValueError(f"{knob} requires paged=True{why}")
-            if ctx is not None:
-                raise NotImplementedError("ctx with paged=False: the sequence-sharded "
-                                          "contiguous tick is not ported yet; it comes "
-                                          "with the port of the reference's "
-                                          "sequence-sharded flat decode")
         if prefix_cache and not prefix_sharing:
             raise ValueError("prefix_cache requires prefix_sharing=True (the cache retains "
                              "radix-mapped blocks past their last resident owner)")
@@ -547,7 +549,8 @@ class ServingEngine:
         self._tokens = np.zeros((slots,), np.int32)
         self._mask = np.zeros((slots,), bool)
         self.ctx = ctx
-        self.n_shards = 1 if ctx is None else ctx.world_size
+        # pool shards: a contiguous cache split by rows has none to count
+        self.n_shards = 1 if ctx is None or not paged else ctx.world_size
         self.host_spill = host_spill
         self.prefix_sharing = prefix_sharing
         self.prefix_cache = prefix_cache
@@ -560,9 +563,9 @@ class ServingEngine:
         # at most one request's prefill (the queue head's) waits for blocks
         self._stash: tuple[Request, tuple] | None = None
         if not paged:
-            self._state = self.api.init_state(slots, max_seq, self.device)
+            self._state = self.api.init_state(slots, max_seq, self.device, ctx)
             self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
-                                         self.device)
+                                         self.device, ctx)
             return
         if max_seq % block_size:
             raise ValueError(f"block_size {block_size} must divide max_seq {max_seq}")
@@ -1044,7 +1047,7 @@ class ServingEngine:
                 slot = self._free.pop()
                 self._begin_cycle(req, t0)
                 logits_row, state1 = self._ensure_prefill(req)
-                self.api.write_into_slot(self._state, state1, slot)
+                self.api.write_into_slot(self._state, state1, slot, None, self.ctx)
                 self._drop_stash(req)
                 self._activate(req, slot, logits_row)
                 continue

@@ -1,8 +1,9 @@
-"""One rank of a multi-process check of the port's block-sharded decode.
+"""One rank of a multi-process check of the port's sharded decode.
 
     python tests/_torch_dist_worker.py <task> <workdir> <rank> <world>
 
-Spawned by tests/test_torch_sharded.py, one process per rank, all joined
+Spawned by tests/test_torch_sharded.py and the other tests/test_torch_*.py
+files, one process per rank, all joined
 over gloo through a `FileStore` in ``workdir`` (no TCP port). Reads the
 task's inputs from ``workdir/in.pt`` and writes this rank's results to
 ``workdir/out<rank>.pt``. Imports torch and the port only.
@@ -20,7 +21,15 @@ Tasks:
           the same seed, returning the faults it fired;
   cache   a persistent-prefix-cache engine serving a visit trace one request
           at a time, recording per visit the tokens and the pinned radix
-          keys, and every block the cache evicted (key and id).
+          keys, and every block the cache evicted (key and id);
+  sp_flat the sequence-sharded flat island on every case: this rank's rows
+          written from the replicated prefill, the append at the global
+          cursor, `sp_salca_decode` (with its bins, pooled bins, all-reduced
+          histogram and Selection) and `sp_dense_decode`;
+  sp_engine  `ServingEngine(ctx=...)` on each of a list of engine runs (the
+          contiguous cache split by rows, or paged with sequence-sharded
+          rings), recording per tick the logits and, per "A" layer, this
+          rank's selected counts.
 """
 
 import dataclasses
@@ -182,6 +191,107 @@ def cache(inp, ctx):
     return dict(taken, log=log, ticks=ticks, stats=stats, audit_ok=audit_ok, drained=drained)
 
 
+def sp_flat_case(case, ctx):
+    """One case of `tests/_torch_sp_reference.py`'s island on this rank."""
+    from repro_torch.core import cache as tc
+    from repro_torch.core import histogram_topk as tht
+    from repro_torch.core import quantization as tqz
+    from repro_torch.core import sp_decode as tsp
+    from repro_torch.core.selection import SalcaParams
+    from repro_torch.distributed.sharding import local_row_range
+    from repro_torch.kernels.hist_topk import ops as thk
+    params = SalcaParams(**case["params"])
+    k, v = torch.from_numpy(case["k"]), torch.from_numpy(case["v"])
+    b, _, kv, hd = k.shape
+    rows = local_row_range(case["rows"], ctx)
+    src = tc.prefill_cache(k, v, max_seq=case["rows"], params=params)
+    cache = tc.empty_cache(b, rows[1] - rows[0], kv, hd, params.r(hd))
+    for slot in range(b):
+        tc.write_prefill_into_slot(cache, tc.SalcaCache(*(x[slot:slot + 1] for x in src)),
+                                   slot, rows)
+    stash, real = {}, (tqz.bins_from_bounds, tht.locate_threshold, thk.hist_threshold)
+
+    def bins(*a):
+        stash["bins"] = out = real[0](*a)
+        return out
+
+    def locate(hist, k_):
+        stash["hist"] = hist.clone()
+        return real[1](hist, k_)
+
+    def counts(pooled, k_):
+        stash["pooled"] = pooled.clone()
+        return real[2](pooled, k_)
+
+    tqz.bins_from_bounds, tht.locate_threshold, thk.hist_threshold = bins, locate, counts
+    try:
+        wp = torch.as_tensor(case["cursor"], dtype=torch.int32)
+        vl = torch.as_tensor(case["valid_len"], dtype=torch.int32)
+        tsp.sp_append_token(cache, torch.from_numpy(case["k1"]), torch.from_numpy(case["v1"]),
+                            wp, ctx)
+        cache.length.copy_(tsp.local_lengths(vl, cache.max_seq, ctx))
+        q = torch.from_numpy(case["q"])
+        out, sel = tsp.sp_salca_decode(q, cache, params, ctx, shard_cap=case.get("shard_cap"),
+                                       return_selection=True)
+    finally:
+        tqz.bins_from_bounds, tht.locate_threshold, thk.hist_threshold = real
+    dense = tsp.sp_dense_decode(q, cache, ctx, window=case["window"], global_len=vl)
+    leaves = {f: getattr(cache, f).clone() for f in tc._DATA_FIELDS + ("length",)}
+    return dict(out=out, dense=dense, sel=tuple(sel), leaves=leaves, **stash)
+
+
+def sp_flat(inp, ctx):
+    return [sp_flat_case(c, ctx) for c in inp["cases"]]
+
+
+def sp_engine(inp, ctx):
+    """Each run of ``inp["runs"]``: (config name, engine kwargs, prompts,
+    new tokens, flags). Returns per run the outputs, each tick's mask,
+    logits and (slot, rid, tokens so far) of its active slots, and per tick
+    and "A" layer this rank's Selection counts."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.runtime.serve import Request, ServingEngine
+    out = []
+    real = blocks.sp_salca_decode
+    for arch, kw, prompts, new_tokens, perf in inp["runs"]:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        counts = []
+
+        def counting(*a, **k):
+            o, sel = real(*a, return_selection=True, **k)
+            counts[-1].append(sel.count.clone())
+            return o
+
+        with flags.perf_flags(**perf):
+            eng = ServingEngine(cfg, inp["weights"][arch], device="cpu", ctx=ctx, **kw)
+            reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=new_tokens)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            ticks, orig = [], eng._decode
+
+            def recording(tokens, mask):
+                counts.append([])
+                who = [(slot, req.rid, len(req.output)) for slot, req in eng._active.items()
+                       if mask[slot]]
+                res = orig(tokens, mask)
+                ticks.append((mask.copy(), res[1].clone(), who))
+                return res
+
+            eng._decode = recording
+            blocks.sp_salca_decode = counting
+            try:
+                stats = eng.run()
+            finally:
+                blocks.sp_salca_decode = real
+        out.append(dict(outputs=[r.output for r in reqs], ticks=ticks,
+                        counts=[torch.stack(c) if c else None for c in counts],
+                        stats=stats.summary()))
+    return out
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
@@ -189,7 +299,8 @@ def main() -> int:
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine, "prefix": prefix,
-           "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache}[task](inp, ctx)
+           "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache,
+           "sp_flat": sp_flat, "sp_engine": sp_engine}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

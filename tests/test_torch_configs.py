@@ -136,12 +136,12 @@ def test_registry_admits_global_and_local_layers_only():
             tget_model(dataclasses.replace(base, **kw))
 
 
-def test_gemma3_refuses_chunks_and_the_sharded_tick():
+def test_gemma3_refuses_chunks_and_serves_the_sharded_tick():
     """Chunked prefill: the reference's refusal, message for message (with
     static heavy channels, so the layer pattern is the reason). The
-    block-sharded tick over rings: `NotImplementedError` when the engine is
-    built, not mid-tick; a pool whose window spans max_seq has no ring and
-    builds."""
+    block-sharded tick over rings: the engine builds with its rings split
+    by rows (the sequence-sharded flat tick) and serves a request; a pool
+    whose window spans max_seq has no ring and builds."""
     jcfg, tcfg, jp, tp = _weights("gemma3-12b", salca_static_channels=True)
     kw = dict(max_seq=256, slots=2, paged=True, block_size=16, prefill_chunk=32)
     with pytest.raises(ValueError) as jerr:
@@ -151,9 +151,15 @@ def test_gemma3_refuses_chunks_and_the_sharded_tick():
     assert str(terr.value) == str(jerr.value)
     assert "non-global layers" in str(terr.value)
     ctx = init_decode_ctx("cpu")
-    with pytest.raises(NotImplementedError, match="sequence-sharded flat decode"):
-        TEngine(tcfg, tp, max_seq=256, slots=2, paged=True, block_size=16, device="cpu",
-                ctx=ctx)
+    eng = TEngine(tcfg, tp, max_seq=256, slots=2, paged=True, block_size=16, device="cpu",
+                  ctx=ctx)
+    rings = [c for c in eng._state.caches if not isinstance(c, PagedSalcaCache)]
+    assert len(rings) == tcfg.block_kinds().count("L") and rings[0].max_seq == 64
+    req = TRequest(rid=0, prompt=np.arange(90, dtype=np.int32) % tcfg.vocab_size,
+                   max_new_tokens=3)
+    eng.submit(req)
+    stats = eng.run()
+    assert stats.completed == 1 and len(req.output) == 3 and req.stop_reason == "length"
     eng = TEngine(tcfg, tp, max_seq=64, slots=2, paged=True, block_size=16, device="cpu",
                   ctx=ctx)
     assert all(isinstance(c, PagedSalcaCache) for c in eng._state.caches)

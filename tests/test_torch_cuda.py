@@ -1180,3 +1180,121 @@ def test_int4_pack_and_append_on_card_bitwise_equals_cpu(dev):
         assert torch.equal(card.data[f][:-1].cpu(), cpu.data[f][:-1]), f
     for f in ("length", "page_table", "refcount"):
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_b8_partials_branch_matches_plain(dev, g, hd):
+    """B8's partials branch (the sequence-sharded flat tick's phase 4): acc,
+    m and l within 1e-5 + 1e-5·|plain| of its plain version, a row with
+    nothing selected exactly (0, -1e30, 0), one launch counted; normalised
+    on the host, (acc / max(l, 1e-20)) equals B8's output bit for bit (one
+    walk, one division)."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_decode.ops import (
+        sparse_flash_decode, sparse_flash_decode_partials, sparse_flash_decode_partials_plain)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bh, c = 16, 300
+    kc, vc = (torch.randint(-127, 128, (bh, c, hd), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((bh, c), generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2))
+    mask = torch.rand((bh, c), generator=gen, device=dev) < 0.4
+    mask[-1] = False
+    q = torch.randn((bh, g, hd), generator=gen, device=dev)
+    args = (q, kc, ks, vc, vs, mask)
+    n0 = LAUNCHES["sparse_flash_decode_partials"]
+    acc, m, l = sparse_flash_decode_partials(*args)
+    assert LAUNCHES["sparse_flash_decode_partials"] == n0 + 1
+    for got, want in zip((acc, m, l), sparse_flash_decode_partials_plain(*args)):
+        torch.testing.assert_close(got[:-1], want[:-1], rtol=1e-5, atol=1e-5)
+    assert (acc[-1] == 0).all() and (m[-1] == -1e30).all() and (l[-1] == 0).all()
+    assert torch.equal(acc / torch.clamp_min(l, 1e-20)[..., None], sparse_flash_decode(*args))
+
+
+def _card_and_cpu_ctx(dev):
+    """The one-rank nccl world of the card, and a one-rank gloo group in it
+    for the same tick on CPU tensors."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import DecodeCtx, init_decode_ctx
+    ctx = init_decode_ctx(dev)
+    return ctx, DecodeCtx(dist.new_group([0], backend="gloo"), 0, 1, "gloo")
+
+
+def test_flat_sequence_sharded_tick_at_one_nccl_rank_matches_cpu(dev):
+    """One flat tick at one nccl rank (B7, B10 over the halo-padded bins,
+    B11, B8's partials branch, one launch each) against the same tick on
+    CPU tensors (plain versions, gloo): the Selection bit for bit, the
+    outputs and the dense tick within 1e-5."""
+    from repro_torch.core import cache as tc
+    from repro_torch.core.selection import SalcaParams
+    from repro_torch.core.sp_decode import sp_dense_decode, sp_salca_decode
+    from repro_torch.kernels.common import LAUNCHES
+    ctx, cpu_ctx = _card_and_cpu_ctx(dev)
+    gen = torch.Generator().manual_seed(22)
+    b, kv, hd, n = 3, 4, 128, 1024
+    params = SalcaParams(k=128, k_cap=256, pool_window=7)
+    k, v = torch.randn((b, n, kv, hd), generator=gen), torch.randn((b, n, kv, hd), generator=gen)
+    cpu = tc.prefill_cache(k, v, max_seq=n, params=params)
+    cpu.length.copy_(torch.tensor([1000, 600, 0], dtype=torch.int32))
+    card = tc.SalcaCache(*(x.to(dev) for x in cpu))
+    q = torch.randn((b, 2 * kv, hd), generator=gen)
+    names = ("score_estimate", "maxpool_int8", "hist_threshold", "sparse_flash_decode_partials")
+    before = {x: LAUNCHES[x] for x in names}
+    out, sel = sp_salca_decode(q.to(dev), card, params, ctx, return_selection=True)
+    assert {x: LAUNCHES[x] - before[x] for x in names} == dict.fromkeys(names, 1)
+    want, wsel = sp_salca_decode(q, cpu, params, cpu_ctx, return_selection=True)
+    for got, exp in zip(sel, wsel):
+        assert torch.equal(got.cpu(), exp)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-5)
+    vl = cpu.length.clone()
+    torch.testing.assert_close(sp_dense_decode(q.to(dev), card, ctx, 300, vl.to(dev)).cpu(),
+                               sp_dense_decode(q, cpu, cpu_ctx, 300, vl), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_gemma3_under_ctx_matches_unsharded_twin(dev, paged):
+    """gemma3-12b.reduced() (rings of 64 in ten of twelve layers) through
+    ``ctx`` at one nccl rank — paged: block-sharded "A" pools and
+    sequence-sharded rings; contiguous: the flat tick everywhere — against
+    its unsharded twin on the card: greedy tokens identical (contiguous: up
+    to a request's first tick whose rows kept more than k_cap, where the
+    unsharded tick cuts and the flat tick's capacity does not)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.weights import init_lm_params
+    ctx, _ = _card_and_cpu_ctx(dev)
+    cfg = dataclasses.replace(get_config("gemma3-12b").reduced(), dtype="float32")
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (100, 150, 40)]
+    kw = dict(paged=True, block_size=16) if paged else dict(paged=False)
+    k_cap = blocks.salca_params_for(cfg, 128).k_cap
+    over, real = {}, blocks.sp_salca_decode
+    outs = []
+    for c in (None, ctx):
+        eng = ServingEngine(cfg, params, max_seq=256, slots=2, device=dev, ctx=c, **kw)
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+
+        def counting(*a, eng=eng, **k):
+            o, sel = real(*a, return_selection=True, **k)
+            for slot, req in eng._active.items():
+                if int(sel.count[slot].max()) > k_cap:
+                    over.setdefault(req.rid, len(req.output))
+            return o
+
+        blocks.sp_salca_decode = counting
+        try:
+            eng.run()
+        finally:
+            blocks.sp_salca_decode = real
+        outs.append([r.output for r in reqs])
+    assert paged or len(over) < len(prompts)
+    for rid, (a, b) in enumerate(zip(*outs)):
+        n = over.get(rid, len(a))
+        assert a[:n] == b[:n], (rid, over)

@@ -101,11 +101,8 @@ def _serve(engine_cls, req_cls, cfg, params, prompts, **kw):
     return enqueued, eng.run().summary(), reqs
 
 
-TIMING = ("decode_tokens_per_s",)
-
-
 def _timing(key: str) -> bool:
-    return key.endswith("_s") or "_ms_" in key or key in TIMING
+    return key.endswith("_s") or "_ms_" in key
 
 
 def test_submit_and_summary_match_reference_on_one_trace(weights, rng):
@@ -117,6 +114,7 @@ def test_submit_and_summary_match_reference_on_one_trace(weights, rng):
     jq, js, _ = _serve(JEngine, JRequest, JCFG, jp, prompts)
     tq, ts, _ = _serve(TEngine, TRequest, TCFG, tp, prompts, device="cpu")
     assert jq == [True] * 3 and all(q is True for q in tq)
+    assert ts.keys() == js.keys()
     shared = sorted(k for k in set(js) & set(ts) if not _timing(k))
     assert "block_utilization" in shared and "peak_blocks_in_use" in shared
     assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
@@ -141,6 +139,7 @@ def test_summary_matches_reference_on_a_preempting_trace(weights, rng):
             eng.submit(r)
         runs.append((eng.run().summary(), [r.stats() for r in reqs]))
     (js, jr), (ts, tr) = runs
+    assert ts.keys() == js.keys()
     shared = sorted(k for k in set(js) & set(ts) if not _timing(k))
     assert {"preemptions", "replayed_tokens", "prefill_chunks", "chunk_stalls"} <= set(shared)
     assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
@@ -183,8 +182,37 @@ def test_summary_sharded_keys_and_rounding_match_reference():
                 peak_shard_blocks_in_use=25, block_size=16)
     j, t = JStats(**vals).summary(), TStats(**vals).summary()
     assert "shard_block_utilization" in t
+    assert t.keys() == j.keys()
     keys = sorted(set(j) & set(t))
     assert {k: t[k] for k in keys} == {k: j[k] for k in keys}
+
+
+@pytest.mark.parametrize("pool", ["unsharded", "paged", "sharded"])
+def test_summary_keys_equal_reference(pool):
+    """ROADMAP C.7: both packages' ServeStats filled with the same counters
+    (every field both have, the fault, audit and monitor counters nonzero)
+    give summaries with exactly the same keys, in the same order, and the
+    same values: a contiguous engine (no block pool), a paged one and one
+    over two pool shards. Both keep the ``prefill_tokens`` counter; neither
+    emits it."""
+    shared = ({f.name for f in dataclasses.fields(TStats)}
+              & {f.name for f in dataclasses.fields(JStats)})
+    vals = {}
+    for i, name in enumerate(sorted(shared)):
+        kind = type(getattr(TStats(), name))
+        vals[name] = (True if kind is bool else 1.0 / (7 + i) + i if kind is float
+                      else 3 * i + 1)
+    vals.update(shards=1, block_pool_size=0, block_size=16, peak_shard_blocks_in_use=25)
+    if pool != "unsharded":
+        vals.update(block_pool_size=64, peak_blocks_in_use=45)
+    if pool == "sharded":
+        vals.update(shards=2)
+    j = JStats(**vals).summary()
+    t = TStats(**vals).summary()
+    assert list(t) == list(j) and t == j
+    assert "prefill_tokens" not in t and vals["prefill_tokens"] > 0
+    assert ("block_pool_size" in t) == (pool != "unsharded")
+    assert ("shards" in t) == (pool == "sharded")
 
 
 # ---------------------------------------------------------------------------
