@@ -161,12 +161,37 @@ Phases (any failure raises and the script exits non-zero):
    fed (r)'s first RING_OFF_NEW_TOKENS tokens: every row of (x') within
    CONTIG_LOGIT_ULPS of (x)'s; the gap to (r), peak memory and replay ms
    against (r)'s printed, and one "L" layer's attention timed over the
-   full context and over its ring.
+   full context and over its ring. Then the reference's unfused baselines
+   (`check_unfused`): (y) the main path with ``fused_decode=False`` (B7
+   over the logical copy of the feature stream, B8 over the gathered rows),
+   graphed, fed the paged run's tokens: every logits row within
+   CONTIG_LOGIT_ULPS of the paged run's, the ms per tick against it, and
+   where the two runs' per-tick `sel_hist` part (reported: B8's roundings
+   move the next layer's query); (y'') its eager twin, every row bit for
+   bit, with `SameStateProbe` holding each layer's selection to the fused
+   route's on the same state; (y') the one-rank engine under
+   ``perf_flags(sharded_fused_decode=False)`` (the logical-gather island:
+   B7, B8's partials branch), fed the fused one-rank run's tokens, the same
+   probe against the fused island and its rows within CONTIG_LOGIT_ULPS;
+   and the MoE family (`check_moe`): (z) granite-moe-3b-a800m at full width
+   (32 layers, 24 H / 8 KV: G 3, HD 64; 40 experts padded to 48, top-8;
+   random bf16 weights from seed 0) on the main path's engine and prompts,
+   graphed, with the (token, choice) pairs its capacity drops in each
+   prefill (`DropProbe`); (z') its eager twin, bit for bit; (z'') its
+   contiguous twin and (z''') it at one nccl rank, both fed (z)'s tokens,
+   rows within CONTIG_LOGIT_ULPS; one MoE layer's FFN timed alone. Phase 3
+   holds granite's shapes too: B1, B2 and B3 at HD 64 and B4-B6 (records
+   tagged `[granite-moe-3b-a800m]`), its contiguous twin's B7, B9 and B8,
+   B8's partials branch at G 3, B2/B6's fp16 and int4 branches at G 3
+   (printed), B1/B4/B7 at r 32 with ``group_sum_query`` on and off, and the
+   paged tick's unfused route against the fused one on one pool
+   (`check_group_rows_and_baseline`).
 
 It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
 kernel's launches on the run of its path, and ``launches_per_call`` over
-all forty-six runs; a record at gemma3's shapes counts run (r)'s launches
-of its wrapper, B8's partials branch at gemma3's shapes run (v)'s) and,
+all fifty-three runs; a record at gemma3's or granite's shapes counts its
+run's launches of its wrapper ((r), (z), (z'') or (z''')), B8's partials
+branch at their shapes run (v)'s) and,
 last, the ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -272,6 +297,8 @@ CACHE_TTFT_RATIO = 0.6
 # wraps); qwen3-8b and phi3-medium-14b on DENSE_SLOTS slots, DENSE_PROMPTS ×
 # DENSE_NEW_TOKENS
 GEMMA = "gemma3-12b"
+# the MoE family (runs (z) to (z''')): granite-moe-3b-a800m at full width
+GRANITE = "granite-moe-3b-a800m"
 DENSE_ARCHS = ("qwen3-8b", "phi3-medium-14b")
 DENSE_SLOTS, DENSE_PROMPTS, DENSE_NEW_TOKENS = 2, (2048, 3072), 8
 # run (x)'s new tokens (gemma3-12b with full-context window layers)
@@ -723,7 +750,7 @@ def check_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None, run=None
 
 
 def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, sharded=True,
-                  slots=None, run=None):
+                  slots=None, run=None, sharded_run=None):
     """Phase 3a: each kernel against its plain version on the same inputs, at
     the main path's shapes. Returns one record per kernel (launch counts are
     filled in from the main path's run). Another model's shapes: ``tag``
@@ -731,8 +758,9 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
     the tick's `SalcaParams` where they are not max_seq's (gemma3's come
     from its first layer's ring), ``sharded=False`` leaves B4-B6 out,
     ``slots`` the run's slots (one length each), ``run`` names the phase-4
-    run whose launches the records count; a config with sliding-window
-    layers adds B3 under its window to B3's record."""
+    run whose launches the records count (``sharded_run`` B4-B6's); a
+    config with sliding-window layers adds B3 under its window to B3's
+    record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.selection import (
@@ -820,7 +848,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
                      selected_blocks=live, rows=int(counts.numel()), **home),
         lambda: fd.sparse_flash_decode_paged_kernel(*b2_args), iters))
     if sharded:
-        recs += check_sharded_kernels(dev, pool, q, b1_args, params, iters)
+        recs += check_sharded_kernels(dev, pool, q, b1_args, params, iters, tag, sharded_run)
     del pool
 
     # B3 — one layer's prefill attention of the longest prompt, bf16
@@ -940,10 +968,11 @@ def _check_exact(name, got, want):
                                  f"{int((a != b).sum())} of {a.numel()} elements")
 
 
-def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
+def check_sharded_kernels(dev, pool, q, b1_args, params, iters, tag="", run=None):
     """Phase 3a, the block-sharded tick's kernels at one rank on the main
     path's pool and query: B4 and B5 bit-identical, B6 within
-    B2_ATOL + B2_RTOL·scale on acc, m and l."""
+    B2_ATOL + B2_RTOL·scale on acc, m and l. Another model's shapes:
+    ``tag`` and ``run`` as in `check_kernels` (timed by `graph_ms`)."""
     import torch
     from repro_torch.core import histogram_topk as ht
     from repro_torch.core import quantization as qz
@@ -955,6 +984,8 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
     kv, hd, mb = pool.num_kv_heads, pool.head_dim, pool.max_blocks
     n = mb * bs
     recs = []
+    kernel_ms, kernel_ctas, cold_kernel_ms = record_timers(tag)
+    home = {"run": run} if run else {}
 
     # B4 — at one rank every mapped, stored position is owned and valid
     pos = torch.arange(n, device=dev).reshape(mb, bs)
@@ -969,7 +1000,7 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                 + 4 * pages.numel() + blk_valid.numel() + 4 * out4[0].numel() + 8 * s * kv)
     b4_ops = 2 * s * kv * qc.shape[2] * mb * bs * qc.shape[-1]
     bms, bby = bound(b4_bytes, b4_ops, "int8")
-    recs.append(dict(name="paged_score_bounds", route="cuda",
+    recs.append(dict(name="paged_score_bounds" + tag, counter="paged_score_bounds", route="cuda",
                      source="src/repro_torch/csrc/score_est.cu",
                      replaces="src/repro/kernels/score_est/kernel.py:164",
                      launches=None, max_abs_err=0.0, tolerance="bit-identical",
@@ -980,7 +1011,7 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                                         max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=None,
                      ctas=kernel_ctas(lambda: se.paged_score_bounds(*b4_args),
-                                      "paged_score_bounds_kernel")))
+                                      "paged_score_bounds_kernel"), **home))
     # a property of the operands, not a reading of the kernel: B4 reads no
     # feature of a block whose validity row is all zero
     print(f"B4 operands: invalid_block_share="
@@ -1007,7 +1038,7 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                 + 8 * s * kv + out5[0].numel() + 4 * out5[1].numel())
     b5_ops = n_valid * kv * (w + 8)      # bin (5 f32 ops), pool (w max), force, count
     bms, bby = bound(b5_bytes, b5_ops, "f32")
-    recs.append(dict(name="paged_fused_select", route="cuda",
+    recs.append(dict(name="paged_fused_select" + tag, counter="paged_fused_select", route="cuda",
                      source="src/repro_torch/csrc/selection_fused.cu",
                      replaces="src/repro/kernels/selection_fused/kernel.py:188",
                      launches=None, max_abs_err=0.0, tolerance="bit-identical",
@@ -1020,7 +1051,7 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                                         max(2, iters // 10)),
                      bound_ms=bms, bound_by=bby, library_ms=None,
                      ctas=kernel_ctas(lambda: sf.paged_fused_select(*b5_args, window=w),
-                                      "paged_fused_select_kernel")))
+                                      "paged_fused_select_kernel"), **home))
 
     # B6 — partials over the rank-local plan of the selection B5 leads to
     t = ht.locate_threshold(out5[1], params.k)
@@ -1050,7 +1081,8 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
     b6_bytes = (live * bs * (2 * hd + 8) + 2 * qr.numel() * 4 + 8 * qr.shape[0] * qr.shape[1]
                 + 4 * counts.numel() + live * (4 + bs))
     bms, bby = bound(b6_bytes, live * bs * (h // kv) * hd * 4, "f32")
-    recs.append(dict(name="sparse_flash_decode_paged_partials", route="cuda",
+    recs.append(dict(name="sparse_flash_decode_paged_partials" + tag,
+                     counter="sparse_flash_decode_paged_partials", route="cuda",
                      source="src/repro_torch/csrc/flash_decode.cu",
                      replaces="src/repro/kernels/flash_decode/kernel.py:276",
                      launches=None, max_abs_err=err6,
@@ -1064,7 +1096,10 @@ def check_sharded_kernels(dev, pool, q, b1_args, params, iters):
                      bound_ms=bms, bound_by=bby, library_ms=None,
                      ctas=kernel_ctas(lambda: fd.sparse_flash_decode_paged_partials_kernel(
                          *kvargs, counts, bmask, kv), "sparse_flash_decode_paged_kernel"),
-                     selected_blocks=live, rows=int(counts.numel())))
+                     selected_blocks=live, rows=int(counts.numel()), **home))
+    for rec in recs:
+        if tag:
+            rec["graph_ms"] = rec["ms"]
     return recs
 
 
@@ -1487,7 +1522,7 @@ def warm_up(cfg, params, dev, ctx, serve: dict) -> None:
 def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run=False,
                     shared_prefix=False, temperatures=None, hook=None, stops=None,
                     model=None, prompts=PROMPTS, new_tokens=NEW_TOKENS, profile_tick=None,
-                    **engine_kw):
+                    hists=None, **engine_kw):
     """Phase 4: full-width qwen3-0.6b through the port's engine — the paged
     unsharded tick, with ``ctx`` the block-sharded tick, with ``paged=False``
     the contiguous tick, with both the sequence-sharded flat tick;
@@ -1509,7 +1544,12 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     model than qwen3-0.6b, on ``prompts`` × ``new_tokens``: its tick kernels
     launch once per global ("A") layer, B3 once per layer; ``profile_tick``
     (an index) runs that tick under the profiler, whose device ms and
-    kernel launches the summary gives (``profiled_tick``). Returns the
+    kernel launches the summary gives (``profiled_tick``). ``hists`` (a
+    list) receives, after every tick, every paged layer's selection
+    histogram (`sel_hist`, stacked; a copy). ``fused_decode`` in
+    ``engine_kw``, or ``sharded_fused_decode`` off under ``ctx``, runs the
+    reference's unfused baseline: B7 and B8 (its partials branch under
+    ``ctx``) in place of B1 and B2 (B4-B6). Returns the
     launch counts of the run, its
     summary (with each tick's wall ms: the first eager, the second the
     capture where the step is graphed; each tick's finite flags; with
@@ -1525,6 +1565,7 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.flags import PERF
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.runtime.serve import Request, ServingEngine
     from repro_torch.runtime.steps import eager
@@ -1574,6 +1615,9 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
         flags.append(finite.to("cpu", non_blocking=True))
         torch.cuda.synchronize()
         tick_ms.append(1e3 * (time.perf_counter() - t0))
+        if hists is not None:
+            hists.append(torch.stack([c.sel_hist for c in engine._state.caches
+                                      if hasattr(c, "sel_hist")]).clone())
         return nxt, logits, finite
 
     def prefill(req):
@@ -1641,13 +1685,22 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     if bad - {(r.rid, len(r.output)) for r in reqs if r.stop_reason == "error"}:
         raise AssertionError(f"non-finite logits on the main path at {sorted(bad)}")
     nl, na = cfg.num_layers, cfg.block_kinds().count("A")
-    branch = {"int8": ""}.get(engine_kw.get("kv_pool_dtype", "int8"),
-                              f"[{engine_kw.get('kv_pool_dtype')}]")
+    mode = engine_kw.get("kv_pool_dtype", "int8")
+    branch = {"int8": ""}.get(mode, f"[{mode}]")
+    # the unfused baselines (at one rank the engine's knob steers the
+    # unsharded flag, as in the reference; the island follows its own flag)
+    knob = engine_kw.get("fused_decode")
+    unfused = paged and not (PERF.sharded_fused_decode if ctx is not None else
+                             PERF.paged_fused_decode if knob is None else knob)
     if not paged and ctx is None:
         tick_kernels = ("score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode")
     elif not paged:
         tick_kernels = ("score_estimate", "maxpool_int8", "hist_threshold",
                         "sparse_flash_decode_partials")
+    elif unfused:
+        tick_kernels = ("score_estimate",) + (
+            () if mode != "int8" else ("sparse_flash_decode",) if ctx is None
+            else ("sparse_flash_decode_partials",))
     elif ctx is None:
         tick_kernels = ("paged_score_estimate", "sparse_flash_decode_paged" + branch)
     else:
@@ -2877,6 +2930,318 @@ def check_flat_and_rings(dev, ctx, runs: dict, tokens, trace_c, gemma_r) -> None
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the unfused baselines and the MoE family (runs (y)-(z''')), and phase 3's
+# checks at granite-moe-3b-a800m's shapes
+# ---------------------------------------------------------------------------
+
+def check_group_rows_and_baseline(dev, cfg, mcfg, lengths, iters=20) -> list:
+    """Phase 3, printed: B1, B4 and B7 at ``mcfg``'s r (granite: r 32, two
+    words, the wide layout) with ``group_sum_query`` on (one query row per
+    kv head) and off (G rows), each bit for bit against its plain version;
+    then the paged tick's two routes at the main path's shapes on one
+    random pool (``cfg``): the unfused baseline (B7 over the logical copy
+    of the feature stream, B8 over the gathered rows) against the fused
+    tick (B1, B2) — selections bit for bit, outputs within
+    B2_ATOL + B2_RTOL·|fused| — and both timed by `graph_ms`."""
+    import torch
+    from repro_torch.core.attention import salca_decode_attention_paged
+    from repro_torch.core.selection import _quantized_query_groups, query_heavy_features
+    from repro_torch.flags import PERF, perf_flags
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.models.blocks import salca_params_for
+    lines = []
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s, mseq, bs = SERVE["slots"], SERVE["max_seq"], SERVE["block_size"]
+    h, kv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    pool = random_pool(dev, gen, mcfg, s, mseq, bs, lengths)
+    cache = random_cache(dev, gen, mcfg, s, mseq, lengths)
+    q = torch.randn((s, h, hd), generator=gen, device=dev)
+    mb = pool.max_blocks
+    pos = torch.arange(mseq, device=dev).reshape(mb, bs)
+    blk_valid = (pool.page_table >= 0)[..., None] & (pos[None] < pool.length[:, None, None])
+    for fold in (True, False):
+        with perf_flags(group_sum_query=fold):
+            qc, qs, qsum = _quantized_query_groups(
+                query_heavy_features(q, pool.heavy_idx, h // kv), kv)
+            b1 = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero,
+                  pool.clamped_pages())
+            what = f"at r {qc.shape[-1]}, G' {qc.shape[2]}"
+            _check_exact(f"B1 {what}", (se.paged_score_estimate(*b1, bf16=PERF.bf16_collectives),),
+                         (se.paged_score_estimate_plain(*b1, bf16=PERF.bf16_collectives),))
+            _check_exact(f"B4 {what}",
+                         se.paged_score_bounds(*b1, blk_valid, bf16=PERF.bf16_collectives),
+                         se.paged_score_bounds_plain(*b1, blk_valid,
+                                                     bf16=PERF.bf16_collectives))
+            fc, fs, _ = _quantized_query_groups(
+                query_heavy_features(q, cache.heavy_idx, h // kv), kv)
+            b7 = (fc, fs, cache.feat_words, cache.feat_scale, cache.feat_zero)
+            _check_exact(f"B7 {what}", (se.flat_score_estimate(*b7, bf16=True),),
+                         (se.flat_score_estimate_plain(*b7, bf16=True),))
+            lines.append(f"{mcfg.name}: B1, B4 and B7 {what} ({qc.shape[-1] // 16} words, "
+                         f"group_sum_query={fold}) bit for bit against their plain versions")
+    del pool, cache
+
+    pool = random_pool(dev, gen, cfg, s, mseq, bs, lengths)
+    q = torch.randn((s, cfg.num_heads, cfg.resolved_head_dim), generator=gen, device=dev)
+    params = salca_params_for(cfg, mseq)
+    fo, fsel = salca_decode_attention_paged(q, pool, params, True, fused=True)
+    uo, usel = salca_decode_attention_paged(q, pool, params, True, fused=False)
+    for a, b in zip(fsel, usel):
+        if not torch.equal(a, b):
+            raise AssertionError("the unfused paged tick's selection differs from the fused "
+                                 "tick's on the same pool")
+    ratio = float(((uo - fo).abs() / (B2_ATOL + B2_RTOL * fo.abs())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"unfused vs fused paged attention: {ratio:.3g}x the bound")
+    f_ms = graph_ms(lambda: salca_decode_attention_paged(q, pool, params, fused=True), iters)
+    u_ms = graph_ms(lambda: salca_decode_attention_paged(q, pool, params, fused=False), iters)
+    lines.append(f"paged attention of one layer at the main path's shapes: the unfused "
+                 f"baseline (B7 over the logical copy, B8 over the gathered rows) selects the "
+                 f"fused tick's tokens bit for bit, outputs within {ratio:.3g} of "
+                 f"{B2_ATOL:g} + {B2_RTOL:g}*|fused|; graph_ms fused {f_ms:.4f}, unfused "
+                 f"{u_ms:.4f} ({u_ms / f_ms:.2f}x)")
+    return lines
+
+
+class SameStateProbe:
+    """Holds every selection an attention entry of `models.blocks`
+    (``name``) makes on the unfused route to the fused route's on the same
+    state: a ``with`` block routes the entry through a wrapper that also
+    runs it with ``fused=True`` on the same operands (its launches and
+    collectives taken back out of the counts: it compares, it does not
+    serve) and counts on the device the Selection entries that differ.
+    Eager runs only (a replay reruns no Python)."""
+
+    def __init__(self, name: str):
+        self.name, self.calls, self.differ = name, 0, None
+
+    def __enter__(self):
+        from collections import Counter
+
+        from repro_torch.distributed.sharding import COLLECTIVES
+        from repro_torch.kernels.common import LAUNCHES
+        from repro_torch.models import blocks
+        self._real = real = getattr(blocks, self.name)
+
+        def probing(*a, return_selection=False, **kw):
+            out, sel = real(*a, return_selection=True, **kw)
+            launches, collectives = Counter(LAUNCHES), Counter(COLLECTIVES)
+            _, ref = real(*a, return_selection=True, **dict(kw, fused=True))
+            LAUNCHES.clear()
+            LAUNCHES.update(launches)
+            COLLECTIVES.clear()
+            COLLECTIVES.update(collectives)
+            n = sum((x != y).sum() for x, y in zip(sel, ref))
+            self.differ = n if self.differ is None else self.differ + n
+            self.calls += 1
+            return (out, sel) if return_selection else out
+
+        setattr(blocks, self.name, probing)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        setattr(blocks, self.name, self._real)
+
+    def check(self, label: str) -> None:
+        differ = int(self.differ) if self.calls else 0
+        if not self.calls or differ:
+            raise AssertionError(f"{label}: {differ} Selection entries over {self.calls} "
+                                 "calls differ from the fused route's on the same state")
+
+
+def hist_parting(a: list, b: list):
+    """Where two runs' per-tick `sel_hist` stacks (layers, slots, blocks)
+    first part: (tick, first layer) or None; and the share of equal
+    entries over all ticks."""
+    import torch
+    first, equal, total = None, 0, 0
+    for t, (x, y) in enumerate(zip(a, b)):
+        same = x == y
+        equal, total = equal + int(same.sum()), total + same.numel()
+        if first is None and not bool(same.all()):
+            first = (t, int((~same).flatten(1).any(1).nonzero()[0]))
+    return first, equal / max(total, 1)
+
+
+def check_unfused(dev, ctx, runs: dict, main: tuple, sharded: tuple) -> None:
+    """Phase 4's runs (y), (y'') and (y'): the reference's unfused baselines
+    on the main path (module docstring). ``main``/``sharded``: the fused
+    paged run's (tokens, rows, summary, per-tick `sel_hist` stacks) and the
+    fused one-rank run's (tokens, rows, summary)."""
+    from repro_torch.flags import perf_flags
+    tokens, trace, summary, hists = main
+    force = dict(enumerate(tokens))
+    hists_y = []
+    runs["int8 unfused"], sum_y, picks_y, tr_y = serve_main_path(
+        dev, force=force, fused_decode=False, hists=hists_y)
+    print_serve("(y) paged int8, fused_decode=False (teacher-forced on the paged run's "
+                "tokens)", sum_y)
+    worst = check_contiguous_logits(tokens, trace, picks_y, tr_y,
+                                    label="(y) unfused vs fused paged")
+    parting, share = hist_parting(hists, hists_y)
+    with SameStateProbe("salca_decode_attention_paged") as probe:
+        runs["int8 unfused eager"], sum_ye, picks_ye, tr_ye = serve_main_path(
+            dev, force=force, fused_decode=False, eager_run=True)
+    probe.check("(y'') unfused eager")
+    rows = check_bitwise("(y) graphed vs (y'') eager, unfused", picks_y, tr_y, picks_ye, tr_ye)
+    print(f"(y) unfused vs fused: every logits row within {max(worst.values()):.3g} bf16 ulps "
+          f"(limit {CONTIG_LOGIT_ULPS}); (y'') its eager twin: {rows} rows bit for bit, and "
+          f"in each of its {probe.calls} calls the unfused selection equals the fused "
+          f"route's on the same state; the runs' sel_hist part first at (tick, layer) "
+          f"{parting} ({share:.4f} of the entries equal: the layers pass B8's and B2's "
+          f"roundings on to the next layer's query); graphed replay ms per tick unfused "
+          f"{sum_y['replay_ms_median']:.2f} vs fused {summary['replay_ms_median']:.2f} "
+          f"({sum_y['replay_ms_median'] / summary['replay_ms_median']:.2f}x); wrapper "
+          f"launches per replay {sum_y['launches_per_replay']} vs "
+          f"{summary['launches_per_replay']}; peak memory GB {sum_y['peak_mem_gb']:.3f} vs "
+          f"{summary['peak_mem_gb']:.3f}", flush=True)
+
+    tokens_sh, trace_sh, summary_sh = sharded
+    with perf_flags(sharded_fused_decode=False), \
+            SameStateProbe("sp_salca_decode_paged") as probe:
+        runs["int8 sharded gather"], sum_g, picks_g, tr_g = serve_main_path(
+            dev, ctx, force=dict(enumerate(tokens_sh)))
+    print_serve("(y') paged int8 at one nccl rank, sharded_fused_decode=False (the "
+                "logical-gather island; teacher-forced on the fused one-rank run's tokens)",
+                sum_g)
+    probe.check("(y') gather island")
+    worst = check_contiguous_logits(tokens_sh, trace_sh, picks_g, tr_g,
+                                    label="(y') gather island vs fused island")
+    print(f"(y') gather vs fused island: in each of {probe.calls} calls the selection equals "
+          f"the fused island's on the same state; every logits row within "
+          f"{max(worst.values()):.3g} bf16 ulps of the fused one-rank run's (limit "
+          f"{CONTIG_LOGIT_ULPS}); ms per tick {np.median(sum_g['tick_ms']):.2f} vs "
+          f"{np.median(summary_sh['tick_ms']):.2f} (medians, eager); collectives per tick "
+          f"{json.dumps(sum_g['collectives_per_tick'])} vs "
+          f"{json.dumps(summary_sh['collectives_per_tick'])}", flush=True)
+
+
+class DropProbe:
+    """Run (z)'s count of the (token, choice) pairs the MoE capacity drops
+    in each prefill: a ``with`` block routes `models.moe.route` through a
+    wrapper that keeps, while the engine prefills (`install` marks it),
+    each call's dropped pairs and tokens with a dropped choice, on the
+    device; `per_prefill` reads them after the run."""
+
+    def __init__(self):
+        self.prefills, self._on = [], False
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._real = moe.route
+
+        def counting(*a, **kw):
+            r = self._real(*a, **kw)
+            if self._on:
+                self.prefills[-1].append(((~r.keep).sum(), (~r.keep).any(-1).sum(),
+                                          r.keep.numel(), r.cap))
+            return r
+
+        moe.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+    def install(self, engine) -> None:
+        inner = engine._prefill
+
+        def prefill(req):
+            self.prefills.append([])
+            self._on = True
+            try:
+                return inner(req)
+            finally:
+                self._on = False
+
+        engine._prefill = prefill
+
+    def per_prefill(self) -> list:
+        """Per prefill: (dropped pairs, tokens with a dropped choice, both
+        summed over layers; pairs routed; the capacity)."""
+        return [(sum(int(d) for d, _, _, _ in calls), sum(int(t) for _, t, _, _ in calls),
+                 sum(n for _, _, n, _ in calls), calls[0][3] if calls else None)
+                for calls in self.prefills]
+
+
+def moe_layer_ms(dev, model, iters=20) -> dict:
+    """One MoE layer's FFN (`blocks.ffn_apply` on layer 0's weights) at the
+    decode tick's shape (the main path's slots, one token each, routed as
+    one flat row) and at the shortest prompt's prefill shape, by
+    `graph_ms`."""
+    import torch
+    from repro_torch.models.blocks import ffn_apply
+    from repro_torch.models.common import cdtype
+    cfg, params = model
+    ffn = params["layers"][0]["ffn"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((SERVE["slots"], cfg.d_model), generator=gen, device=dev).to(cdtype(cfg))
+    xp = torch.randn((1, min(PROMPTS), cfg.d_model), generator=gen,
+                     device=dev).to(cdtype(cfg))
+    return {"decode_ms": graph_ms(lambda: ffn_apply(ffn, x, cfg), iters),
+            "prefill_ms": graph_ms(lambda: ffn_apply(ffn, xp, cfg), max(2, iters // 4))}
+
+
+def check_moe(dev, ctx, runs: dict) -> None:
+    """Phase 4's runs (z)-(z''') (module docstring): granite-moe-3b-a800m at
+    full width on the main path's engine and prompts."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = config_model(dev, GRANITE)
+    cfg = model[0]
+    kw = dict(model=model, prompts=PROMPTS, new_tokens=NEW_TOKENS, profile_tick=PROFILE_TICK)
+    with DropProbe() as drops:
+        runs["granite"], sum_z, tok_z, tr_z = serve_main_path(dev, hook=drops.install, **kw)
+    print_serve(f"(z) paged int8, {cfg.num_experts} experts (padded to "
+                f"{cfg.padded_experts}), top-{cfg.experts_per_token}", sum_z, GRANITE)
+    print(f"{GRANITE} (z): per prefill (dropped (token, choice) pairs, tokens with a "
+          f"dropped choice, pairs routed, capacity), summed over {cfg.num_layers} layers: "
+          f"{drops.per_prefill()}; prefill s {sum_z['prefill_s']:.3f}, TTFT s "
+          f"{[round(t, 4) for t in sum_z['ttft_s']]}", flush=True)
+    runs["granite eager"], sum_ze, tok_ze, tr_ze = serve_main_path(dev, eager_run=True, **kw)
+    print_serve("(z') paged int8, eager (built under steps.eager())", sum_ze, GRANITE)
+    rows = check_bitwise(f"{GRANITE} graphed vs eager", tok_z, tr_z, tok_ze, tr_ze)
+    print(f"{GRANITE} (z') = (z): greedy tokens identical, {rows} logits rows bit for bit; ms "
+          f"per tick eager {np.median(sum_ze['tick_ms']):.2f}, graphed replay "
+          f"{sum_z['replay_ms_median']:.2f} (median); wrapper launches per replay "
+          f"{sum_z['launches_per_replay']}; peak memory GB {sum_z['peak_mem_gb']:.3f}",
+          flush=True)
+    force = dict(enumerate(tok_z))
+    runs["granite contiguous"], sum_zc, picks_zc, tr_zc = serve_main_path(
+        dev, paged=False, force=force, **kw)
+    print_serve("(z'') contiguous (teacher-forced on (z)'s tokens)", sum_zc, GRANITE)
+    worst_c = check_contiguous_logits(tok_z, tr_z, picks_zc, tr_zc,
+                                      label=f"{GRANITE} (z'') contiguous vs (z) paged")
+    runs["granite sharded"], sum_zs, picks_zs, tr_zs = serve_main_path(
+        dev, ctx, force=force, **kw)
+    print_serve("(z''') paged int8 at one nccl rank (teacher-forced on (z)'s tokens)", sum_zs,
+                GRANITE)
+    worst_s = check_contiguous_logits(tok_z, tr_z, picks_zs, tr_zs,
+                                      label=f"{GRANITE} (z''') sharded vs (z) paged")
+    finite = all(bool(torch.isfinite(r).all()) for r in (*tr_z.values(), *tr_zc.values(),
+                                                          *tr_zs.values()))
+    if not finite:
+        raise AssertionError(f"{GRANITE}: non-finite logits")
+    layer = moe_layer_ms(dev, model)
+    print(f"{GRANITE}: (z'') every logits row within {max(worst_c.values()):.3g} bf16 ulps "
+          f"of (z)'s, (z''') within {max(worst_s.values()):.3g} (limit {CONTIG_LOGIT_ULPS}); "
+          f"ms per tick (z) replay {sum_z['replay_ms_median']:.2f}, (z'') replay "
+          f"{sum_zc['replay_ms_median']:.2f}, (z''') eager {np.median(sum_zs['tick_ms']):.2f} "
+          f"(medians); collectives per tick (z''') "
+          f"{json.dumps(sum_zs['collectives_per_tick'])}; one MoE layer's FFN by graph_ms: "
+          f"decode ({SERVE['slots']} tokens) {layer['decode_ms']:.4f} ms, prefill "
+          f"({min(PROMPTS)} tokens) {layer['prefill_ms']:.4f} ms", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -2950,6 +3315,16 @@ def main() -> int:
         recs += check_kernels(dev, get_config(arch), lengths=dense_lengths,
                               prompt_len=max(DENSE_PROMPTS), tag=f"[{arch}]", sharded=False,
                               slots=DENSE_SLOTS, run=arch)
+    # granite-moe-3b-a800m's shapes (24 H / 8 KV: G 3; HD 64; r 32, two
+    # words), runs (z) and its twins: B1, B2 and B3 at HD 64, and B4-B6 at one
+    # rank; its contiguous twin's B7, B9 and B8; B8's partials branch at G 3
+    mcfg = get_config(GRANITE)
+    recs += check_kernels(dev, mcfg, lengths=lengths, prompt_len=max(PROMPTS),
+                          tag=f"[{GRANITE}]", run="granite", sharded_run="granite sharded")
+    recs += check_flat_kernels(dev, mcfg, lengths=lengths, tag=f"[{GRANITE}]",
+                               run="granite contiguous")
+    recs += check_sp_flat_kernels(dev, mcfg, lengths=lengths, tag=f"[{GRANITE}]",
+                                  pooling=False)
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -2974,12 +3349,19 @@ def main() -> int:
         print(f"kernel {r['name']} at {GEMMA}'s shapes: max_abs_err={r['max_abs_err']:.3g} "
               f"({r['err_over_tol']:.3g} of {r['tolerance']}), {r['selected_blocks']} "
               f"blocks listed", flush=True)
+    for r in check_tiered_kernels(dev, mcfg, lengths, timed=False):
+        print(f"kernel {r['name']} at {GRANITE}'s shapes (G 3, HD 64): max_abs_err="
+              f"{r['max_abs_err']:.3g} ({r['err_over_tol']:.3g} of {r['tolerance']}), "
+              f"{r['selected_blocks']} blocks listed", flush=True)
+    for line in check_group_rows_and_baseline(dev, cfg, mcfg, lengths):
+        print(line, flush=True)
     for paged, kw in ((True, {}), (False, {}), (True, {"kv_pool_dtype": "fp16"}),
                       (True, SMALL_SPILL), (True, {"arch": GEMMA}), (False, {"arch": GEMMA})):
         small = check_small_path(dev, paged, **kw)
         print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
 
-    launches, summary, tokens, trace = serve_main_path(dev)                # phase 4
+    hists = []                                                              # phase 4
+    launches, summary, tokens, trace = serve_main_path(dev, hists=hists)
     print_serve("paged", summary)
     launches_e, summary_e, tokens_e, trace_e = serve_main_path(dev, eager_run=True)
     print_serve("paged, eager (built under steps.eager())", summary_e)
@@ -2990,7 +3372,7 @@ def main() -> int:
           f"{summary['launches_per_replay']}; peak memory GB eager "
           f"{summary_e['peak_mem_gb']:.3f}, graphed {summary['peak_mem_gb']:.3f}", flush=True)
     ctx = init_decode_ctx(dev)
-    launches_sh, summary_sh, tokens_sh, _ = serve_main_path(dev, ctx)
+    launches_sh, summary_sh, tokens_sh, trace_sh = serve_main_path(dev, ctx)
     print_serve("paged sharded (one rank, nccl)", summary_sh)
     where = first_divergence(tokens, tokens_sh)
     if where is not None:
@@ -3029,6 +3411,9 @@ def main() -> int:
     check_prefix_cache(dev, ctx, runs)
     gemma_r = check_dense_configs(dev, runs)
     check_flat_and_rings(dev, ctx, runs, tokens, trace_c, gemma_r)
+    check_unfused(dev, ctx, runs, (tokens, trace, summary, hists),
+                  (tokens_sh, trace_sh, summary_sh))
+    check_moe(dev, ctx, runs)
     # each kernel's launches on the run of its path (a record at another
     # model's shapes: its `run`, under its wrapper's counter)
     home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",

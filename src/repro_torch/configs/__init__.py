@@ -1,8 +1,8 @@
 """Architecture registry of the port: `--arch <id>` resolves here.
 
 Only the architectures the port can serve are listed: the dense LMs, with
-global ("A") and sliding-window ("L") layers. The JAX package's other
-configs join as their model families are ported.
+global ("A") and sliding-window ("L") layers, and the MoE LMs. The JAX
+package's other configs join as their model families are ported.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ _ARCHS = {
     "gemma3-12b": "gemma3_12b",
     "phi3-medium-14b": "phi3_medium_14b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

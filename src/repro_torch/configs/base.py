@@ -2,8 +2,9 @@
 
 Field names, defaults and `reduced()` match the JAX package's
 `configs/base.py`, so one architecture id means the same shapes on both
-sides. The dense LM (global and sliding-window layers) reads most of these
-fields; the rest are kept so a config compares equal field for field.
+sides. The dense and MoE LMs (global and sliding-window layers) read most
+of these fields; the rest are kept so a config compares equal field for
+field.
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, 256)
+
+    @property
+    def padded_experts(self) -> int:
+        return self.expert_pad_to or self.num_experts
 
     @property
     def groups(self) -> int:

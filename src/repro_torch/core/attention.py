@@ -2,8 +2,9 @@
 plus the dense oracles.
 
 Port of the reference `core/attention.py`: the contiguous tick
-(`salca_decode_attention`, kernels B7, B9 and B8), the fused paged tick
-(`salca_decode_attention_paged`, kernels B1 and B2) and the oracles
+(`salca_decode_attention`, kernels B7, B9 and B8), the paged tick
+(`salca_decode_attention_paged`: fused, kernels B1 and B2; or the
+reference's unfused baseline, B7 and B8) and the oracles
 `exact_sparse_attention`, `dense_decode_attention`,
 `dense_decode_from_cache` and `dense_decode_from_paged`.
 
@@ -28,7 +29,9 @@ import math
 import torch
 
 from repro_torch.core import quantization as qz
-from repro_torch.core.cache import PagedSalcaCache, SalcaCache, paged_logical_kv
+from repro_torch.core.cache import (
+    PagedSalcaCache, SalcaCache, gather_selected_paged, paged_logical_features,
+    paged_logical_kv)
 from repro_torch.core.histogram_topk import Selection, compact_indices
 from repro_torch.core.selection import (
     SalcaParams, estimate_relevance, estimate_relevance_paged, query_heavy_features,
@@ -77,10 +80,8 @@ def salca_decode_attention(q: torch.Tensor, cache: SalcaCache, params: SalcaPara
     """Salca decode attention of q (B, H, HD) over a contiguous cache (the
     routing is in the module docstring). Returns (B, H, HD) f32 (and the
     Selection when asked)."""
-    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode
-    b, h, hd = q.shape
     kv = cache.num_kv_heads
-    groups = h // kv
+    groups = q.shape[1] // kv
     q_feat = query_heavy_features(q, cache.heavy_idx, groups)
     if not (params.sink_tokens or params.recent_tokens):
         scores = estimate_relevance(q_feat, cache.feat_words, cache.feat_scale,
@@ -89,30 +90,65 @@ def salca_decode_attention(q: torch.Tensor, cache: SalcaCache, params: SalcaPara
     else:
         sel = salca_select(q_feat, cache.feat_words, cache.feat_scale, cache.feat_zero,
                            groups, params, valid_mask=cache.valid_mask())
-    kc, ks, vc, vs = gather_selected(cache, sel)
-    c = kc.shape[2]
-    out = sparse_flash_decode(q.reshape(b * kv, groups, hd).float().contiguous(),
-                              kc.reshape(b * kv, c, hd), ks.reshape(b * kv, c),
-                              vc.reshape(b * kv, c, hd), vs.reshape(b * kv, c),
-                              sel.mask.reshape(b * kv, c)).reshape(b, h, hd)
+    out = _attend_gathered(q, *gather_selected(cache, sel), sel.mask)
     return (out, sel) if return_selection else out
 
 
 def salca_decode_attention_paged(q: torch.Tensor, pool: PagedSalcaCache,
-                                 params: SalcaParams, return_selection: bool = False):
-    """Salca decode attention of q (S, H, HD) over a paged pool, page-table
-    walk fused into the kernels: scoring streams physical feature blocks
-    (B1), exact attention reads only the selected physical blocks (B2).
-    Returns (S, H, HD) f32 (and the Selection when asked)."""
+                                 params: SalcaParams, return_selection: bool = False,
+                                 fused: bool | None = None):
+    """Salca decode attention of q (S, H, HD) over a paged pool. Returns
+    (S, H, HD) f32 (and the Selection when asked).
+
+    ``fused`` (default ``flags.PERF.paged_fused_decode``) picks one of the
+    reference's two data paths; they share the query quantization and the
+    blocked selection (`select_sparse_pattern_blocked` over the mapped
+    valid mask), so they select the same tokens, bit for bit:
+
+    * fused: the page-table walk is inside the kernels — scoring streams
+      the physical feature blocks (B1), exact attention reads only the
+      selected physical blocks (B2).
+    * unfused (the reference's PR 3 baseline): the feature stream is
+      gathered into logical order (`cache.paged_logical_features`) and
+      scored flat (B7); the selected rows are gathered one by one
+      (`cache.gather_selected_paged`) and attended by B8 in an int8 pool.
+      In an fp16 or int4 pool phase 4 is `exact_sparse_attention` in torch
+      ops, as the reference runs its oracle there (B8 takes int8 codes).
+
+    CUDA tensors launch the kernels (or raise); nothing gives way to a
+    plain version."""
+    from repro_torch.flags import PERF
     from repro_torch.kernels.flash_decode.ops import sparse_flash_decode_paged
-    h = q.shape[1]
-    groups = h // pool.num_kv_heads
+    if fused is None:
+        fused = PERF.paged_fused_decode
+    groups = q.shape[1] // pool.num_kv_heads
     q_feat = query_heavy_features(q, pool.heavy_idx, groups)
-    scores = estimate_relevance_paged(q_feat, pool, groups)
+    if fused:
+        scores = estimate_relevance_paged(q_feat, pool, groups)
+    else:
+        fw, fs, fz = paged_logical_features(pool)
+        scores = estimate_relevance(q_feat, fw, fs, fz, groups)
     sel = select_sparse_pattern_blocked(scores, params, pool.mapped_valid_mask()[:, None, :],
                                         pool.block_size)
-    out = sparse_flash_decode_paged(q, pool, sel)
+    if fused:
+        out = sparse_flash_decode_paged(q, pool, sel)
+    else:
+        out = _attend_gathered(q, *gather_selected_paged(pool, sel), sel.mask)
     return (out, sel) if return_selection else out
+
+
+def _attend_gathered(q, kc, ks, vc, vs, mask) -> torch.Tensor:
+    """Phase 4 over gathered rows (B, KV, C, ·): B8 for int8 codes, else
+    `exact_sparse_attention` in torch ops."""
+    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode
+    if kc.dtype != torch.int8:
+        return exact_sparse_attention(q, kc, ks, vc, vs, mask)
+    b, h, hd = q.shape
+    kv, c = kc.shape[1], kc.shape[2]
+    return sparse_flash_decode(q.reshape(b * kv, h // kv, hd).float().contiguous(),
+                               kc.reshape(b * kv, c, hd), ks.reshape(b * kv, c),
+                               vc.reshape(b * kv, c, hd), vs.reshape(b * kv, c),
+                               mask.reshape(b * kv, c)).reshape(b, h, hd)
 
 
 def exact_sparse_attention(q, k_codes, k_scale, v_codes, v_scale, mask) -> torch.Tensor:

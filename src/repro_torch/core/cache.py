@@ -472,7 +472,7 @@ def _localize_pages(pages: torch.Tensor, block_range) -> torch.Tensor:
         return pages
     lo, hi = block_range
     owned = (pages >= lo) & (pages < hi)
-    return torch.where(owned, pages - lo, PAGE_UNMAPPED)
+    return (pages - lo).masked_fill(~owned, PAGE_UNMAPPED)
 
 
 def _refcount_add(refcount: torch.Tensor, pages: torch.Tensor, delta: int) -> None:
@@ -811,8 +811,59 @@ def _resolve_pages(pool: PagedSalcaCache, idx: torch.Tensor, block_range=None):
     page = torch.gather(pt.expand(idx.shape[:-1] + (pool.max_blocks,)), -1, blk.long())
     page = _localize_pages(page, block_range)
     mapped = page >= 0
-    return (torch.where(mapped, page, 0), torch.where(mapped, torch.remainder(idx, bs), 0),
+    return (page.masked_fill(~mapped, 0), torch.remainder(idx, bs).masked_fill(~mapped, 0),
             mapped)
+
+
+def resolve_logical_rows(pool: PagedSalcaCache, idx: torch.Tensor) -> torch.Tensor:
+    """Logical token indices idx (S, ...) → rows of the flat (P·BS) pool
+    through the page table; unmapped resolutions clamp to row 0 (callers
+    mask them)."""
+    page, off, _ = _resolve_pages(pool, idx)
+    return page * pool.block_size + off
+
+
+def paged_logical_features(pool: PagedSalcaCache, pages: torch.Tensor | None = None):
+    """The feature stream in logical order, (S, L, KV, ·) for each of
+    words, scale and zero: the reference's unfused read, one gather of
+    whole blocks through the page table (unmapped pages clamp to block 0;
+    the valid mask gates them). ``pages`` (S, MB) replaces the table: a
+    block-sharded rank passes its localized one, unowned entries at local
+    block 0 (the reference's `sp_decode._local_logical`)."""
+    pt = (pool.clamped_pages() if pages is None else pages).long()       # (S, MB)
+    s, l = pt.shape[0], pool.max_seq
+
+    def logical(buf):       # (P, BS, KV, ·) → (S, L, KV, ·)
+        return buf[pt].reshape((s, l) + tuple(buf.shape[2:]))
+
+    return logical(pool.feat_words), logical(pool.feat_scale), logical(pool.feat_zero)
+
+
+def gather_selected_paged(pool: PagedSalcaCache, sel, block_range=None) -> tuple:
+    """The selected K/V rows per (slot, kv head): sel.indices (S, KV, C)
+    logical → codes (S, KV, C, HD) and scales (S, KV, C), the contract of
+    `attention.gather_selected`. The page table is resolved once and each
+    field is one (block, offset, kv head) advanced-index gather off the
+    (P, BS, KV, ·) pool, with no flattened or transposed copy of it.
+    Unmapped resolutions clamp to (block 0, offset 0); callers mask them.
+    The per-block modes read the block's one scale at offset 0, and int4
+    codes unpack to the full head dim (int8 codes); fp16 values come back
+    as they are stored.
+
+    ``block_range``: the rank-local form over the rank's own blocks —
+    indices resolving off this rank clamp like unmapped ones, so a rank
+    fetches exactly the selected rows it holds."""
+    pg, off, _ = _resolve_pages(pool, sel.indices, block_range)        # (S, KV, C)
+    pg, off = pg.long(), off.long()
+    kvb = torch.arange(pool.num_kv_heads, device=pg.device)[None, :, None]
+    kc, vc = pool.k_codes[pg, off, kvb], pool.v_codes[pg, off, kvb]
+    mode = pool.kv_pool_dtype
+    if mode == "int8":
+        return kc, pool.k_scale[pg, off, kvb], vc, pool.v_scale[pg, off, kvb]
+    soff = torch.zeros_like(off)
+    if mode == "int4":
+        kc, vc = qz.unpack_int4(kc), qz.unpack_int4(vc)
+    return kc, pool.k_scale[pg, soff, kvb], vc, pool.v_scale[pg, soff, kvb]
 
 
 def paged_logical_kv(pool: PagedSalcaCache):

@@ -46,6 +46,15 @@ Every payload is O(MB + 256 + HD) per (slot, kv head), independent of the
 context length. The union of the ranks' selections and the threshold are
 bit-identical to the unsharded tick (`attention.salca_decode_attention_paged`);
 outputs differ only by the float order of the merge.
+
+With ``PERF.sharded_fused_decode`` off the tick is the reference's
+logical-gather island (its PR 5 baseline), with the same eight collectives
+a layer and the same selection, bit for bit: each rank gathers its own
+feature blocks into logical order and scores them flat (B7); the binning,
+blocked max-pool and histogram run in torch ops over that stream; the
+selected rows are gathered one by one (`cache.gather_selected_paged`) and
+attended by B8's partials branch in an int8 pool (torch ops in fp16 and
+int4), then merged.
 """
 
 from __future__ import annotations
@@ -56,7 +65,10 @@ import torch
 
 from repro_torch.core import histogram_topk as ht
 from repro_torch.core import quantization as qz
-from repro_torch.core.cache import PagedSalcaCache, SalcaCache, _resolve_pages, append_token
+from repro_torch.core.cache import (
+    PagedSalcaCache, SalcaCache, _resolve_pages, append_token, gather_selected_paged,
+    paged_logical_features)
+from repro_torch.core.maxpool import maxpool1d_blocked_halo
 from repro_torch.core.selection import (
     SalcaParams, estimate_relevance, estimate_relevance_paged_bounds, query_heavy_features)
 from repro_torch.distributed.sharding import (
@@ -212,12 +224,27 @@ def _shard_pool_view(pool: PagedSalcaCache, ctx: DecodeCtx):
 
 
 def sp_salca_decode_paged(q: torch.Tensor, pool: PagedSalcaCache, params: SalcaParams,
-                          ctx: DecodeCtx, return_selection: bool = False):
+                          ctx: DecodeCtx, return_selection: bool = False,
+                          fused: bool | None = None):
     """Salca decode attention of q (S, H, HD), replicated, over this rank's
-    share of a block-sharded pool (the reference's fused island,
-    `_sp_salca_decode_paged_fused`, at its default per-rank capacity).
-    Returns (S, H, HD) f32, identical on every rank (and this rank's
-    Selection when asked)."""
+    share of a block-sharded pool, at the reference's default per-rank
+    capacity (k_cap). ``fused`` (default ``PERF.sharded_fused_decode``):
+    the fused island (`_sp_salca_decode_paged_fused`), or the
+    logical-gather island (`_sp_salca_decode_paged_gather`); both select
+    the same tokens. Returns (S, H, HD) f32, identical on every rank (and
+    this rank's Selection when asked)."""
+    from repro_torch.flags import PERF
+    if fused is None:
+        fused = PERF.sharded_fused_decode
+    island = _sp_salca_decode_paged_fused if fused else _sp_salca_decode_paged_gather
+    return island(q, pool, params, ctx, return_selection)
+
+
+def _sp_salca_decode_paged_fused(q: torch.Tensor, pool: PagedSalcaCache,
+                                 params: SalcaParams, ctx: DecodeCtx,
+                                 return_selection: bool = False):
+    """The fused island: B4, B5 and B6 over the rank's own blocks (the
+    module docstring)."""
     from repro_torch.kernels.flash_decode.ops import sparse_flash_decode_paged_partials
     from repro_torch.kernels.selection_fused.ops import paged_fused_select
     s_, h, hd = q.shape
@@ -290,6 +317,93 @@ def sp_salca_decode_paged(q: torch.Tensor, pool: PagedSalcaCache, params: SalcaP
     # --- B6 + collective 2: rank-local partials, online-softmax merge ------
     acc, m, l = sparse_flash_decode_paged_partials(q, pool, sel, block_range)
     out = _merge(acc, m, l, ctx).reshape(s_, h, hd)
+    return (out, sel) if return_selection else out
+
+
+def _sp_salca_decode_paged_gather(q: torch.Tensor, pool: PagedSalcaCache,
+                                  params: SalcaParams, ctx: DecodeCtx,
+                                  return_selection: bool = False):
+    """The reference's logical-gather island (`_sp_salca_decode_paged_gather`):
+    O(local pool) logical copies of the features and a row gather of the
+    selection each tick, the fused island's selection bit for bit."""
+    from repro_torch.kernels.flash_decode.ops import sparse_flash_decode_partials
+    s_, h, hd = q.shape
+    kv = pool.num_kv_heads
+    groups = h // kv
+    bs, mb, n = pool.block_size, pool.max_blocks, pool.max_seq
+    block_range, owned_blk, local_pt = _shard_pool_view(pool, ctx)
+    own = torch.repeat_interleave(owned_blk, bs, dim=-1)                 # (S, L)
+    mask3 = (pool.valid_mask() & own)[:, None, :]                        # (S, 1, L)
+
+    # --- phase 1: B7 over the owned feature blocks in logical order --------
+    q_feat = query_heavy_features(q, pool.heavy_idx, groups)
+    scores = estimate_relevance(q_feat, *paged_logical_features(pool, local_pt),
+                                groups)                                  # (S, KV, L)
+
+    # --- phase 2: one global INT8 affine (min and max are exact) -----------
+    sm = qz.masked_scores(scores, mask3)
+    lo, hi = qz.score_bounds(sm)
+    lo, hi = pmin(lo, ctx), pmax(hi, ctx)
+    bins = qz.bins_from_bounds(sm, lo, hi, mask3)
+
+    # --- phase 2b: blocked max-pool, halos summed across the ranks ---------
+    if params.use_pool and params.pool_window > 1:
+        w = params.pool_window
+        halo = w // 2
+        blocked = bins.reshape(s_, kv, mb, bs)
+        # a block's edge columns are nonzero only on its owner
+        edges = psum(torch.stack([blocked[..., -halo:], blocked[..., :halo]]).to(torch.int32),
+                     ctx)
+        left, right = edges[0].to(bins.dtype), edges[1].to(bins.dtype)
+        zero = torch.zeros(blocked.shape[:-2] + (1, halo), dtype=bins.dtype, device=q.device)
+        from_left = torch.cat([zero, left[..., :-1, :]], dim=-2)
+        from_right = torch.cat([right[..., 1:, :], zero], dim=-2)
+        pooled = maxpool1d_blocked_halo(blocked, w, from_left, from_right).reshape(s_, kv, n)
+        pooled = pooled.masked_fill(~mask3, 0)
+    else:
+        pooled = bins
+    if params.sink_tokens or params.recent_tokens:
+        pos = torch.arange(n, device=q.device)
+        forced = torch.zeros((1, 1, n), dtype=torch.bool, device=q.device)
+        if params.sink_tokens:
+            forced = forced | (pos < params.sink_tokens)
+        if params.recent_tokens:
+            length = pool.valid_mask().to(torch.int32).sum(-1)[:, None, None]
+            forced = forced | (pos >= (length - params.recent_tokens))
+        pooled = pooled.masked_fill(forced & mask3, 255)
+
+    # --- phase 3: summed histograms → threshold; the global rank -----------
+    t = ht.locate_threshold(psum(ht.histogram256(pooled), ctx), params.k)   # (S, KV)
+    keep = pooled >= t[..., None].to(pooled.dtype)
+    kb = keep.reshape(s_, kv, mb, bs).to(torch.int32)
+    blk_counts = psum(kb.sum(-1, dtype=torch.int32), ctx)                # (S, KV, MB)
+    base = torch.cumsum(blk_counts, dim=-1) - blk_counts                 # exclusive
+    within = torch.cumsum(kb, dim=-1) - 1
+    keep = keep & ((base[..., None] + within).reshape(s_, kv, n) < params.k_cap)
+    indices, mask, count = ht.compact_indices(keep, params.k_cap)
+    sel = ht.Selection(indices, mask, count, t)
+
+    # --- phase 4: the rank's gathered rows, merged across the ranks --------
+    kc, ks, vc, vs = gather_selected_paged(pool, sel, block_range)       # (S, KV, C, ·)
+    c = kc.shape[2]
+    if kc.dtype == torch.int8:
+        acc, m, l = sparse_flash_decode_partials(
+            q.reshape(s_ * kv, groups, hd).float().contiguous(), kc.reshape(s_ * kv, c, hd),
+            ks.reshape(s_ * kv, c), vc.reshape(s_ * kv, c, hd), vs.reshape(s_ * kv, c),
+            mask.reshape(s_ * kv, c))
+        out = _merge(acc.reshape(s_, kv, groups, hd), m.reshape(s_, kv, groups),
+                     l.reshape(s_, kv, groups), ctx)
+    else:       # the reference's phase 4 in torch ops: the global max first
+        qg = q.reshape(s_, kv, groups, hd).float()
+        sc = torch.einsum("bkgd,bkcd->bkgc", qg, kc.float()) * ks[:, :, None, :] / math.sqrt(hd)
+        m3 = mask[:, :, None, :]
+        sc = torch.where(m3, sc, torch.full_like(sc, NEG_INF))
+        m_g = pmax(sc.amax(-1), ctx)
+        p = torch.where(m3, torch.exp(sc - m_g[..., None]), torch.zeros_like(sc))
+        l_g = psum(p.sum(-1), ctx)
+        acc = psum(torch.einsum("bkgc,bkcd->bkgd", p, vc.float() * vs[..., None]), ctx)
+        out = acc / torch.clamp_min(l_g, 1e-20)[..., None]
+    out = out.reshape(s_, h, hd)
     return (out, sel) if return_selection else out
 
 

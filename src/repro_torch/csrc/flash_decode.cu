@@ -51,6 +51,15 @@
 // cluster barrier per block and was slower (PERF.md). f32 throughout (G <= 8
 // query rows of an f32 q).
 //
+// G = 3 (granite-moe's 24 heads over 8 KV heads): a scoring pass dots 16 / G
+// tokens at once and the xor trees halve over 16 values, so the layout needs
+// G to divide 16. G 3 runs on the G 4 layout with a fourth query row of
+// zeros: it is scored with the other three (its scores are 0 and never
+// read) but no warp walks it and nothing of it is stored (template GQ, the
+// real rows, beside G, the layout's). Each query row's walk and softmax are
+// independent of the other rows, so rows 0-2 are what a G 3 layout would
+// compute, bit for bit; the cost is a quarter more scoring than G 3 needs.
+//
 // B8 replaces sparse_flash_decode_pallas (the contiguous tick): the same math
 // over rows already gathered into (BH, C, HD) int8 codes with (BH, C) scales
 // and mask; the score is (q . k) * k_scale * (1/sqrt(HD)), a multiply as in
@@ -75,7 +84,11 @@
 // split over C with a merge of per-chunk (acc, m, l) partials rounds
 // independently of B2 and measurably widened their gap (PERF.md). Every CTA of
 // a row scores the whole row, as B2's do. HD is a multiple of 32 up to 1024
-// and G is 1, 2, 4 or 8, as before.
+// and G is 1, 2, 3, 4 or 8.
+//
+// B8 takes G = 3 as it is: its scoring warps carry B8_TOK tokens x G rows
+// with one full xor tree each, which needs no power of two, so it is
+// instantiated at G 3 (13 scoring warps).
 //
 // B8's partials branch (the sequence-sharded contiguous tick): the same kernel
 // given m_out and l_out writes the walk's unnormalised state (acc, m, l) in
@@ -197,10 +210,13 @@ inline int b2_blocks_per_step(int G, int HD, int BS, int NSB, int code) {
 // (P, BS, KV, ·) pool at kv head b % KV; bmask is (BH, NSB, BS). PER_BLOCK:
 // scales are (P, 1, KV), one word per (block, kv). CTA blockIdx.x
 // accumulates channels [x * W, x * W + W); CPL (1 or 4) bounds cpl. With
-// m_out set (B6) it writes the unnormalised state, else the output.
-template <int G, int CODE, bool PER_BLOCK, int CPL>
+// m_out set (B6) it writes the unnormalised state, else the output. G is the
+// layout's query rows (a divisor of 16), GQ <= G the real ones: q, out, m_out
+// and l_out hold GQ rows per row b; rows GQ..G-1 are zeros, scored, never
+// walked or stored.
+template <int G, int GQ, int CODE, bool PER_BLOCK, int CPL>
 __global__ void __launch_bounds__(B2_THREADS) sparse_flash_decode_paged_kernel(
-    const float* __restrict__ q,          // (BH, G, HD)
+    const float* __restrict__ q,          // (BH, GQ, HD)
     const void* __restrict__ k_codes,     // (P, BS, KV, HD | HD/2)
     const float* __restrict__ k_scale,    // (P, BS | 1, KV)
     const void* __restrict__ v_codes,     // (P, BS, KV, HD | HD/2)
@@ -208,9 +224,9 @@ __global__ void __launch_bounds__(B2_THREADS) sparse_flash_decode_paged_kernel(
     const int32_t* __restrict__ pblk,     // (BH, NSB)
     const int32_t* __restrict__ counts,   // (BH,)
     const uint8_t* __restrict__ bmask,    // (BH, NSB, BS)
-    float* __restrict__ out,              // (BH, G, HD): output, or acc (B6)
-    float* __restrict__ m_out,            // (BH, G), B6 only (else null)
-    float* __restrict__ l_out,            // (BH, G), B6 only
+    float* __restrict__ out,              // (BH, GQ, HD): output, or acc (B6)
+    float* __restrict__ m_out,            // (BH, GQ), B6 only (else null)
+    float* __restrict__ l_out,            // (BH, GQ), B6 only
     int HD, int BS, int KV, int NSB, float scale, int NB) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NWARPS = B2_THREADS / 32, NSCORE = NWARPS - G;
@@ -234,7 +250,8 @@ __global__ void __launch_bounds__(B2_THREADS) sparse_flash_decode_paged_kernel(
   const int nsteps = (cnt + NB - 1) / NB;
   auto nblk = [&](int s) { return min(NB, cnt - s * NB); };
   for (int i = tid; i < cnt; i += B2_THREADS) list[i] = pblk[(size_t)b * NSB + i];
-  for (int i = tid; i < G * HD; i += B2_THREADS) q_sh[i] = q[(size_t)b * G * HD + i];
+  for (int i = tid; i < G * HD; i += B2_THREADS)
+    q_sh[i] = i < GQ * HD ? q[(size_t)b * GQ * HD + i] : 0.f;
   if (tid < G) mrun[tid] = NEG;
   __syncthreads();
 
@@ -421,20 +438,20 @@ __global__ void __launch_bounds__(B2_THREADS) sparse_flash_decode_paged_kernel(
     __syncthreads();                           // step s + 1 has landed
     if (warp >= G) {
       if (s + 1 < nsteps) score(s + 1);
-    } else {
+    } else if (warp < GQ) {
       walk(s);
     }
     __syncthreads();                           // the slots are rewritten next
   }
-  if (warp < G) {
+  if (warp < GQ) {
     for (int j = 0; j < cpl; ++j) {
       const int c = d0 + 32 * j + lane;
-      if (c < HD) out[((size_t)b * G + warp) * HD + c] = partials ? acc[j]
-                                                                  : acc[j] / fmaxf(l, 1e-20f);
+      if (c < HD) out[((size_t)b * GQ + warp) * HD + c] = partials ? acc[j]
+                                                                   : acc[j] / fmaxf(l, 1e-20f);
     }
     if (partials && blockIdx.x == 0 && lane == 0) {   // every CTA holds the same (m, l)
-      m_out[(size_t)b * G + warp] = m;
-      l_out[(size_t)b * G + warp] = l;
+      m_out[(size_t)b * GQ + warp] = m;
+      l_out[(size_t)b * GQ + warp] = l;
     }
   }
 }
@@ -447,15 +464,16 @@ int launch(const void* q, const void* k_codes, const void* k_scale, const void* 
            int NSB, float scale, void* stream) {
   if (HD % 32 != 0 || HD > 1024 || BS < 1 || BH < 1) return (int)cudaErrorInvalidValue;
   const B2Split sp(HD);
-  const int nb = b2_blocks_per_step(G, HD, BS, NSB, CODE);
+  const int GL = G == 3 ? 4 : G;                     // the layout's rows (G 3 on G 4's)
+  const int nb = b2_blocks_per_step(GL, HD, BS, NSB, CODE);
   if (nb < 1) return (int)cudaErrorInvalidValue;    // one block's rows exceed shared memory
-  const int smem = B2Layout(G, HD, BS, NSB, CODE, sp.w, nb).bytes;
+  const int smem = B2Layout(GL, HD, BS, NSB, CODE, sp.w, nb).bytes;
   const dim3 grid(sp.slices, BH);
   cudaStream_t st = (cudaStream_t)stream;
   // the attribute is set on every launch (cheap; it is per device)
-#define B2_LAUNCH(GG, CC)                                                               \
+#define B2_LAUNCH(GG, GQ, CC)                                                           \
   do {                                                                                  \
-    auto* fn = sparse_flash_decode_paged_kernel<GG, CODE, PER_BLOCK, CC>;               \
+    auto* fn = sparse_flash_decode_paged_kernel<GG, GQ, CODE, PER_BLOCK, CC>;           \
     const cudaError_t e =                                                               \
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);    \
     if (e != cudaSuccess) return (int)e;                                                \
@@ -466,10 +484,11 @@ int launch(const void* q, const void* k_codes, const void* k_scale, const void* 
   } while (0)
 #define B2_GROUPS(CC)                              \
   switch (G) {                                     \
-    case 1: B2_LAUNCH(1, CC); break;               \
-    case 2: B2_LAUNCH(2, CC); break;               \
-    case 4: B2_LAUNCH(4, CC); break;               \
-    case 8: B2_LAUNCH(8, CC); break;               \
+    case 1: B2_LAUNCH(1, 1, CC); break;            \
+    case 2: B2_LAUNCH(2, 2, CC); break;            \
+    case 3: B2_LAUNCH(4, 3, CC); break;            \
+    case 4: B2_LAUNCH(4, 4, CC); break;            \
+    case 8: B2_LAUNCH(8, 8, CC); break;            \
     default: return (int)cudaErrorInvalidValue;    \
   }
   if (sp.cpl == 1) {
@@ -735,6 +754,7 @@ int launch_flat(const void* q, const void* k_codes, const void* k_scale, const v
   switch (G) {
     case 1: B8_LAUNCH(1); break;
     case 2: B8_LAUNCH(2); break;
+    case 3: B8_LAUNCH(3); break;
     case 4: B8_LAUNCH(4); break;
     case 8: B8_LAUNCH(8); break;
     default: return (int)cudaErrorInvalidValue;

@@ -9,6 +9,19 @@ reference's names and defaults (`repro/flags.py`):
   ``local_window`` rows instead of the full-context cache
   (`models.blocks.ring_size`); off, it keeps the full context and its
   decode masks to the trailing window.
+* ``paged_fused_decode`` — the unsharded paged tick walks the page table
+  inside its kernels (B1, B2); off, it runs the reference's unfused
+  baseline: the feature stream gathered into logical order, the selected
+  rows gathered one by one (`core.attention.salca_decode_attention_paged`).
+* ``sharded_fused_decode`` — the block-sharded tick runs the fused island
+  (B4, B5, B6); off, the reference's logical-gather island
+  (`core.sp_decode.sp_salca_decode_paged`). Both baselines select the same
+  tokens as the fused paths, bit for bit.
+* ``moe_flat_dispatch`` — MoE routing flattens (B, T) into one token axis
+  for decode-like shapes (B > 1, T <= 16) and sizes the expert capacity
+  from the global token count, 4-aligned (`models.moe`).
+* ``moe_gather_dispatch`` — MoE dispatch and combine by index gathers;
+  off, by the one-hot einsums.
 
 The reference's other flags steer paths the port does not have yet; they
 join with those paths, and setting an unknown flag raises.
@@ -25,6 +38,10 @@ class PerfFlags:
     bf16_collectives: bool = True
     group_sum_query: bool = True
     ring_local_cache: bool = True
+    paged_fused_decode: bool = True
+    sharded_fused_decode: bool = True
+    moe_flat_dispatch: bool = True
+    moe_gather_dispatch: bool = True
 
 
 PERF = PerfFlags()

@@ -40,7 +40,7 @@ from repro_torch.core.quantization import unpack_int4
 from repro_torch.kernels import common
 
 NEG_INF = -1e30
-GROUPS = (1, 2, 4, 8)    # query heads per kv head the CUDA kernel is built for
+GROUPS = (1, 2, 3, 4, 8)   # query heads per kv head the CUDA kernels are built for
 CODES = {"int8": 0, "fp16": 1, "int4": 2}   # the kernel's storage branch
 FLAT_CHUNK = 64          # tokens kernel B8 stages per step (B8_CH in flash_decode.cu)
 

@@ -20,6 +20,9 @@ context and its decode masks to the trailing window. Under a `DecodeCtx`
 every contiguous cache and ring is split by rows across the ranks (rank r
 holds ``[r·n/world, (r+1)·n/world)``), the reference's `cache_pspec`.
 Salca accelerates the "A" layers only.
+
+Every layer's FFN goes through `ffn_apply`: the dense GLU, or the MoE
+branch (`models.moe`) with arctic's dense residual GLU beside it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.core.sp_decode import (
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models.attention import fold_heads, prefill_attention, qkv_project
 from repro_torch.models.common import glu_apply, rmsnorm
+from repro_torch.models.moe import moe_apply
 
 
 def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
@@ -90,6 +94,21 @@ def static_heavy_idx(attn_params: dict, cfg: ModelConfig, sp: SalcaParams,
     return idx[None].expand((batch,) + idx.shape)
 
 
+def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """A layer's FFN on x (..., D) of 2 or 3 dims → (out, aux): the dense
+    GLU (aux 0.0, no tensor made), or the MoE branch (a (S, D) decode input
+    routes as (S, 1, D); aux an f32 scalar) plus arctic's dense residual GLU
+    (the reference's `ffn_apply`)."""
+    if not cfg.moe:
+        return glu_apply(params["glu"], x, cfg.act), 0.0
+    squeeze = x.dim() == 2
+    x3 = x[:, None] if squeeze else x
+    out, aux = moe_apply(params["moe"], x3, cfg)
+    if cfg.dense_residual:
+        out = out + glu_apply(params["dense"], x3, cfg.act)
+    return (out[:, 0] if squeeze else out), aux
+
+
 def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
                   kind: str = "A"):
     """x (B, T, D) → (x_out, SalcaCache of the layer's K/V): padded to
@@ -101,7 +120,7 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
     q, k, v = qkv_project(params["attn"], xn, cfg, positions)
     o = prefill_attention(q, fold_heads(k), fold_heads(v), window=_window(cfg, kind))
     x = x + o.reshape(x.shape[0], t, -1) @ params["attn"]["wo"]
-    f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
+    f, _ = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
     sp = salca_params_for(cfg, max_seq)
     w_ring = ring_size(cfg, kind, max_seq)
     if w_ring < max_seq and t >= w_ring:
@@ -135,7 +154,7 @@ def block_prefill_chunk(params: dict, x: torch.Tensor, kbuf: torch.Tensor,
     vbuf[:, t0:t0 + c] = v[0].transpose(0, 1)
     o = prefill_attention(q, kbuf, vbuf, q_offset=t0)
     x = x + o.reshape(1, c, -1) @ params["attn"]["wo"]
-    f = glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg.act)
+    f, _ = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
     return x + f, kbuf, vbuf, k, v
 
 
@@ -256,5 +275,4 @@ def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: tor
     else:
         h = attn_decode_paged(params["attn"], xn, pool, cfg, pos, salca, active, ctx, kind)
     x = x + h
-    return x + glu_apply(params["ffn"]["glu"], rmsnorm(params["ln2"], x, cfg.norm_eps),
-                         cfg.act)
+    return x + ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)[0]

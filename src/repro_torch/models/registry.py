@@ -1,8 +1,9 @@
 """Uniform model API (the LM part of the reference's `ModelAPI`).
 
-The port serves the dense decoder-only LM with global ("A") and
-sliding-window ("L") attention layers; other families (MoE, SSM, RG-LRU,
-enc-dec, VLM frontends) are later slices of the port and raise here.
+The port serves the decoder-only LM with global ("A") and sliding-window
+("L") attention layers, its FFN dense or MoE (the "moe" family, arctic's
+dense residual included); other families (SSM, RG-LRU, enc-dec, VLM
+frontends) are later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -44,8 +45,10 @@ class ModelAPI(NamedTuple):
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
     """Why this port slice cannot serve ``cfg`` — None when it can."""
-    if cfg.family != "dense" or cfg.moe or cfg.encdec or cfg.frontend != "none":
-        return f"family {cfg.family!r}: only the dense LM is ported so far"
+    if cfg.family not in ("dense", "moe") or cfg.moe != (cfg.family == "moe") \
+            or cfg.encdec or cfg.frontend != "none":
+        return (f"family {cfg.family!r} (moe={cfg.moe}): only the dense and the MoE LM "
+                "are ported so far")
     if set(cfg.layer_pattern) - {"A", "L"}:
         return (f"layer pattern {cfg.layer_pattern!r}: only global ('A') and "
                 "sliding-window ('L') attention layers are ported so far")

@@ -39,7 +39,11 @@ prompt into the ``ceil(prompt / block_size)`` blocks it takes from the
 free list and waits head-of-line while the pool cannot cover it. Each tick
 first grows every slot whose cursor crossed a block boundary by one block
 (or finishes it with an ``overflow`` stop when the free list is empty);
-the tick runs kernels B1 and B2 in every global layer.
+the tick runs kernels B1 and B2 in every global layer. ``fused_decode=False``
+pins the reference's unfused baseline instead (B7 over the feature stream
+gathered into logical order, B8 over the gathered rows; the same
+selection); on a pool sharded over more than one rank it pins the
+logical-gather island.
 
 Block-sharded paged pool (``ctx=DecodeCtx(...)``): the physical block dim is
 split evenly across the ranks of the context's process group, each rank
@@ -161,6 +165,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import InvariantReport, PagedSalcaCache
 from repro_torch.distributed.sharding import DecodeCtx
+from repro_torch.flags import perf_flags
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.runtime.faults import FaultPlan
@@ -451,7 +456,8 @@ class ServingEngine:
                  block_size: int = 32, num_blocks: int | None = None,
                  device="cuda", *, ctx: DecodeCtx | None = None,
                  prefix_sharing: bool = False,
-                 prefix_cache: bool = False, kv_pool_dtype: str | None = None,
+                 prefix_cache: bool = False, fused_decode: bool | None = None,
+                 kv_pool_dtype: str | None = None,
                  host_spill: bool = False, demote_after: int = 4,
                  spill_keep_recent: int = 2, promote_headroom: int = 1,
                  prefill_chunk: int | None = None, preempt: bool = False,
@@ -551,6 +557,21 @@ class ServingEngine:
         self.ctx = ctx
         # pool shards: a contiguous cache split by rows has none to count
         self.n_shards = 1 if ctx is None or not paged else ctx.world_size
+        # ``fused_decode`` pins the paged tick's data path for this engine
+        # (None: the global flags decide), around every tick — the first
+        # eager one and the capture, so every replay too. As in the
+        # reference it steers ``sharded_fused_decode`` on a pool sharded
+        # over more than one rank and ``paged_fused_decode`` otherwise: at
+        # one rank the block-sharded island follows the global flag.
+        self.fused_decode = fused_decode
+        decode_step = self.api.decode_step
+        if fused_decode is not None:
+            flag = ("sharded_fused_decode" if paged and self.n_shards > 1
+                    else "paged_fused_decode")
+
+            def decode_step(*a, _real=self.api.decode_step, **kw):
+                with perf_flags(**{flag: fused_decode}):
+                    return _real(*a, **kw)
         self.host_spill = host_spill
         self.prefix_sharing = prefix_sharing
         self.prefix_cache = prefix_cache
@@ -564,7 +585,7 @@ class ServingEngine:
         self._stash: tuple[Request, tuple] | None = None
         if not paged:
             self._state = self.api.init_state(slots, max_seq, self.device, ctx)
-            self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
+            self._step = ServeDecodeStep(decode_step, params, self._state, slots,
                                          self.device, ctx)
             return
         if max_seq % block_size:
@@ -596,7 +617,7 @@ class ServingEngine:
         self._cold_cache: dict[bytes, tuple] = {}
         self._state = self.api.init_paged_state(slots, max_seq, block_size,
                                                 self.num_blocks, self.device, ctx)
-        self._step = ServeDecodeStep(self.api.decode_step, params, self._state, slots,
+        self._step = ServeDecodeStep(decode_step, params, self._state, slots,
                                      self.device, ctx)
         if host_spill:
             if self.n_shards > 1:

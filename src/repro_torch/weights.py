@@ -9,6 +9,10 @@ The port's tree for the dense LM::
                  "ln2": {"scale"}, "ffn": {"glu": {"w_gate": (D, F),
                  "w_up": (D, F), "w_down": (F, D)}}}, ...]}
 
+and for an MoE LM each layer's ``ffn`` is ``{"moe": {"router": (D, E_pad)
+f32, "w_gate": (E_pad, D, F_e), "w_up": (E_pad, D, F_e), "w_down": (E_pad,
+F_e, D)}}``, plus ``"dense"`` (a GLU as above) with ``dense_residual``.
+
 Layouts are the reference's. The reference stacks one tree per position of
 the layer pattern over the pattern's periods (``periods[i]``: leaves with a
 leading period axis) and keeps the layers past the last whole period in
@@ -28,6 +32,9 @@ from repro_torch.models.common import cdtype
 from repro_torch.models.registry import unsupported_reason
 
 
+F32_LEAVES = ("calib_salience", "router")     # kept in float32 in any model dtype
+
+
 def _check(cfg: ModelConfig) -> None:
     reason = unsupported_reason(cfg)
     if reason is not None:
@@ -37,10 +44,11 @@ def _check(cfg: ModelConfig) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's LM parameter tree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) → the port's tree on
-    ``device``, in the config's dtype. A layer's ``calib_salience`` leaf
-    (`models.transformer.lm_calibrate_static_heavy`) stays float32, as the
-    reference takes its top-r in float32: rounded to the model's dtype, a
-    near-tie could pick another heavy set."""
+    ``device``, in the config's dtype. Two leaves stay float32, as in the
+    reference: a layer's ``calib_salience``
+    (`models.transformer.lm_calibrate_static_heavy`), whose top-r in the
+    model's dtype could pick another heavy set at a near-tie, and an MoE
+    layer's ``router``, whose logits the reference computes in float32."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
@@ -55,7 +63,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         """One layer's dict: entry ``i`` of a stacked period, or a tail
         layer as it stands (``i`` None)."""
         if isinstance(node, dict):
-            return {k: (conv(pick(v, i), torch.float32) if k == "calib_salience"
+            return {k: (conv(pick(v, i), torch.float32) if k in F32_LEAVES
                         else layer(v, i)) for k, v in node.items()}
         return conv(pick(node, i))
 
@@ -78,20 +86,35 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random weights for ``cfg`` at full width, drawn from ``generator``
     (on ``device`` for speed): normals clipped to ±2σ with σ = 1/sqrt(fan_in),
-    embedding N(0, 0.02), norm scales 1."""
+    embedding N(0, 0.02), norm scales 1; an MoE router in float32, the
+    experts' products at fan-in D (gate, up) and F_e (down)."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.resolved_head_dim, cfg.d_ff)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def randn(shape):
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32)
         return x.to(dev)
 
-    def dense(shape, fan_in):
-        return (randn(shape).clamp_(-2.0, 2.0) * fan_in ** -0.5).to(dt)
+    def dense(shape, fan_in, to=dt):
+        return (randn(shape).clamp_(-2.0, 2.0) * fan_in ** -0.5).to(to)
+
+    def glu(f):
+        return {"w_gate": dense((d, f), d), "w_up": dense((d, f), d),
+                "w_down": dense((f, d), f)}
+
+    def ffn():
+        if not cfg.moe:
+            return {"glu": glu(cfg.d_ff)}
+        e, fe = cfg.padded_experts, cfg.moe_d_ff
+        out = {"moe": {"router": dense((d, e), d, torch.float32),
+                       "w_gate": dense((e, d, fe), d), "w_up": dense((e, d, fe), d),
+                       "w_down": dense((e, fe, d), fe)}}
+        if cfg.dense_residual:
+            out["dense"] = glu(cfg.d_ff)
+        return out
 
     def ones(n):
         return {"scale": torch.ones(n, dtype=dt, device=dev)}
@@ -102,9 +125,7 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
                 "wv": dense((d, kv, hd), d), "wo": dense((h * hd, d), h * hd)}
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
-        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
-                       "ffn": {"glu": {"w_gate": dense((d, f), d), "w_up": dense((d, f), d),
-                                       "w_down": dense((f, d), f)}}})
+        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d), "ffn": ffn()})
     embed = {"tok": (randn((cfg.padded_vocab, d)) * 0.02).to(dt)}
     if not cfg.tie_embeddings:
         embed["head"] = dense((d, cfg.padded_vocab), d)

@@ -130,9 +130,10 @@ SAME_CODES_TOL = dict(rtol=1e-5, atol=1e-5)
 CODE_STEP_TOL = dict(rtol=1e-5, atol=1e-3)
 
 
-def assert_code_ticks_close(jticks, tticks) -> int:
+def assert_code_ticks_close(jticks, tticks, step_tol=CODE_STEP_TOL) -> int:
     """Masks equal, codes at most one step apart, logits within the policy
-    above, tick for tick. Returns the number of ticks with a code step."""
+    above (``step_tol`` where a code is a step apart), tick for tick.
+    Returns the number of ticks with a code step."""
     assert len(jticks) == len(tticks)
     stepped = 0
     for (jm, jl, jc), (tm, tl, tc) in zip(jticks, tticks):
@@ -141,5 +142,5 @@ def assert_code_ticks_close(jticks, tticks) -> int:
         diff = int(np.abs(jc.astype(np.int32) - tc).max())
         assert diff <= 1, f"stored codes {diff} steps apart"
         stepped += diff > 0
-        np.testing.assert_allclose(tl[tm], jl[jm], **(CODE_STEP_TOL if diff else SAME_CODES_TOL))
+        np.testing.assert_allclose(tl[tm], jl[jm], **(step_tol if diff else SAME_CODES_TOL))
     return stepped

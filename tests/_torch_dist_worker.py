@@ -10,7 +10,8 @@ task's inputs from ``workdir/in.pt`` and writes this rank's results to
 
 Tasks:
   island  build this rank's share of a pool from replicated prefills and
-          appends, then run the sharded Salca and dense ticks;
+          appends, then run the sharded Salca (the fused island, or with
+          ``fused`` False the logical-gather one) and dense ticks;
   engine  run `ServingEngine(ctx=...)` on a request trace, recording every
           tick's logits and layer-0 page table;
   prefix  the engine task, and a pool-level copy on write across ranks in
@@ -59,7 +60,8 @@ def island(inp, ctx):
         tc.prefill_into_pages(pool, src, slot, pages, block_range=br)
     for k1, v1 in inp["appends"]:
         tc.append_token_paged(pool, k1, v1, block_range=br)
-    out, sel = sp_salca_decode_paged(inp["q"], pool, params, ctx, return_selection=True)
+    out, sel = sp_salca_decode_paged(inp["q"], pool, params, ctx, return_selection=True,
+                                     fused=inp.get("fused", True))
     dense = sp_dense_decode_paged(inp["q"], pool, ctx)
     leaves = {f: getattr(pool, f).clone() for f in tc._DATA_FIELDS + (
         "page_table", "length", "refcount")}

@@ -74,7 +74,8 @@ def test_config_copies_equal_the_reference(arch):
         for kind in "AL":
             for max_seq in (32, 64, 65, 256, 1024, 1025, 8192):
                 assert tB.ring_size(t, kind, max_seq) == jB.ring_size(j, kind, max_seq)
-    assert set(ARCH_NAMES) == {"qwen3-0.6b", *NEW_ARCHS} <= set(JARCH_NAMES)
+    assert set(ARCH_NAMES) == {"qwen3-0.6b", *NEW_ARCHS, "granite-moe-3b-a800m",
+                               "arctic-480b"} <= set(JARCH_NAMES)
     with pytest.raises(KeyError, match="available"):
         tget_config("mamba2-2.7b")
 

@@ -101,7 +101,9 @@ def test_b2_kernel_matches_plain(dev):
     (torch.bfloat16, 2100, 0, 0, 256, 2), (torch.bfloat16, 2100, 1024, 0, 256, 2),
     (torch.bfloat16, 300, 0, 500, 256, 2), (torch.bfloat16, 77, 40, 0, 256, 1),
     (torch.bfloat16, 5, 0, 0, 256, 8), (torch.float32, 300, 0, 0, 256, 2),
-    (torch.float32, 1500, 1024, 0, 256, 2), (torch.float32, 100, 30, 200, 256, 2)])
+    (torch.float32, 1500, 1024, 0, 256, 2), (torch.float32, 100, 30, 200, 256, 2),
+    # granite-moe-3b-a800m's prefill: HD 64, 24 H over 8 KV (G 3), a 4096-token prompt
+    (torch.bfloat16, 4096, 0, 0, 64, 3), (torch.bfloat16, 333, 0, 0, 64, 3)])
 def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
     from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -218,6 +220,8 @@ def _score_operands(dev, seed, kv, g, r, bs, slots=4, max_seq=1024,
     (8, 2, 64, 64, False),
     (1, 2, 64, 32, True),
     (8, 2, 128, 32, False),   # gemma3-12b: head dim 256, G 2, W = r/16 = 8
+    (8, 3, 32, 32, True),     # granite-moe-3b-a800m without the group sum: G 3, r 32
+    (8, 3, 32, 32, False),
 ])
 def test_b1_b4_bitwise_at_serving_shapes(dev, kv, g, r, bs, bf16):
     """B1 and B4 equal their plain versions bit for bit at the serving
@@ -467,6 +471,9 @@ def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
     (1, 1030, 1, 16, 37, False, True),   # more kv heads than a CTA has threads
     (4, 8, 2, 128, 8192, False, True),   # gemma3-12b's contiguous tick: HD 256, G 2
     (4, 10, 4, 64, 3000, False, True),   # phi3-medium-14b
+    (4, 8, 1, 32, 8192, False, True),    # granite-moe-3b-a800m: r 32 (two words), G 1 …
+    (4, 8, 3, 32, 8192, False, True),    # … and G 3 without the group sum
+    (4, 8, 3, 32, 1001, True, False),
 ])
 def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf16):
     """B7 on B1's template: the register layout at G 1 / r 64 with aligned
@@ -527,7 +534,8 @@ def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     assert (out[-1] == 0).all()
 
 
-@pytest.mark.parametrize("g,hd,c", [(2, 128, 512), (8, 64, 150), (1, 256, 96), (4, 128, 300)])
+@pytest.mark.parametrize("g,hd,c", [(2, 128, 512), (8, 64, 150), (1, 256, 96), (4, 128, 300),
+                                   (3, 64, 512), (3, 128, 200)])
 def test_b8_equals_b2_bitwise_on_the_same_runs(dev, g, hd, c):
     """Where a row's gathered tokens are B2's blocks in order, masked at the
     same positions (blocks of 32; dead positions, a dead block and a short
@@ -625,6 +633,86 @@ def test_b2_b6_wide_heads_and_odd_blocks_match_plain(dev, mode, hd, bs, g):
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     acc, _, l = fd.sparse_flash_decode_paged_partials_kernel(*args)
     assert torch.equal(out, acc / torch.clamp_min(l, 1e-20)[..., None])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("mode", ["int8", "fp16", "int4"])
+def test_b2_b6_at_g3_match_plain(dev, mode, hd):
+    """G 3 (granite-moe's 24 H over 8 KV) runs on the G 4 layout with an
+    idle fourth row: B2 within 1e-5 + 1e-5·|plain| of its plain version in
+    every storage branch, B6's (acc, m, l) within the same bound of its
+    plain partials (acc against the sum of p·|v|, which it cancels), B6
+    normalised equal to B2 bit for bit; the rows' outputs, the stored
+    ones only, are (BH, 3, HD)."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    args = _random_rows(dev, mode, g=3, hd=hd, bs=32, nsb=6)
+    q, kc, ks, vc, vs, pblk, counts, bmask, kv, _ = args
+    out = fd.sparse_flash_decode_paged_kernel(*args)
+    assert out.shape == (q.shape[0], 3, hd)
+    want = fd.sparse_flash_decode_paged_plain(q, kc, ks, vc, vs, pblk, bmask, kv, mode)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    acc, m, l = fd.sparse_flash_decode_paged_partials_kernel(*args)
+    pacc, pm, pl = fd.sparse_flash_decode_paged_partials_plain(q, kc, ks, vc, vs, pblk, bmask,
+                                                               kv, mode)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=1e-5)
+    if mode != "int4":                       # |v| in f32: an int8 code of -128 has no abs
+        mag = fd.sparse_flash_decode_paged_partials_plain(q, kc, ks, vc.float().abs(), vs, pblk,
+                                                          bmask, kv, mode)[0]
+        assert ((acc - pacc).abs() <= 1e-5 + 1e-5 * mag).all()
+    assert torch.equal(out, acc / torch.clamp_min(l, 1e-20)[..., None])
+
+
+@pytest.mark.parametrize("hd,c", [(64, 512), (128, 300)])
+def test_b8_both_branches_at_g3_match_plain(dev, hd, c):
+    """B8 at G 3 (its own instantiation: 13 scoring warps), normalised and
+    its partials branch, within 1e-5 + 1e-5·|plain|; an all-masked row is
+    zero, and (0, -1e30, 0) in the partials."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bh = 8
+    kc, vc = (torch.randint(-127, 128, (bh, c, hd), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((bh, c), generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2))
+    mask = torch.rand((bh, c), generator=gen, device=dev) < 0.4
+    mask[-1] = False
+    q = torch.randn((bh, 3, hd), generator=gen, device=dev)
+    args = (q, kc, ks, vc, vs, mask)
+    out = fd.sparse_flash_decode(*args)
+    torch.testing.assert_close(out, fd.sparse_flash_decode_plain(*args), rtol=1e-5, atol=1e-5)
+    acc, m, l = fd.sparse_flash_decode_partials(*args)
+    for a, b in zip((acc, m, l), fd.sparse_flash_decode_partials_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert (out[-1] == 0).all() and (acc[-1] == 0).all() and (m[-1] == -1e30).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 300), (4, 1)], ids=["prefill", "decode"])
+def test_moe_combine_bits_equal_across_calls_and_replay(dev, shape):
+    """granite-moe.reduced() at bf16 (phantom experts: 6 of 8 real): two
+    calls of `moe_apply` on the same input give the same bits, and so does a
+    CUDA graph of it replayed — the combine adds each token's experts in a
+    fixed order, with no atomics; the graph captures (no host sync)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.weights import init_lm_params
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(), num_experts=6)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    moe = params["layers"][0]["ffn"]["moe"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev).to(torch.bfloat16)
+    a, aux_a = moe_apply(moe, x, cfg)
+    b, aux_b = moe_apply(moe, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    moe_apply(moe, x, cfg)                             # warm-up on the side stream
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe_apply(moe, x, cfg)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, a)
 
 
 def test_b3_b8_refuse_misaligned_operands(dev):
@@ -988,10 +1076,14 @@ def _graphed_and_eager_runs(dev, engine_kw):
     dict(paged=True, arch="gemma3-12b"), dict(paged=True, arch="gemma3-12b", kv_pool_dtype="fp16"),
     dict(paged=True, arch="gemma3-12b", host_spill=True, num_blocks=8, demote_after=1,
          spill_keep_recent=2),
-    dict(paged=False, arch="gemma3-12b")],
+    dict(paged=False, arch="gemma3-12b"),
+    # the unfused baseline's tick (B7, B8), and granite-moe.reduced()'s MoE tick
+    dict(paged=True, fused_decode=False),
+    dict(paged=True, arch="granite-moe-3b-a800m"), dict(paged=False, arch="granite-moe-3b-a800m")],
     ids=["int8", "fp16", "int4", "int4_spill", "contiguous", "int8_shared",
          "int8_chunk_preempt", "fp16_chunk_preempt", "sampled", "fp16_nan", "warm_hit",
-         "gemma3_int8", "gemma3_fp16", "gemma3_spill", "gemma3_contiguous"])
+         "gemma3_int8", "gemma3_fp16", "gemma3_spill", "gemma3_contiguous", "int8_unfused",
+         "granite_int8", "granite_contiguous"])
 def test_graphed_engine_equals_eager(dev, engine_kw):
     """The engine's tick as a CUDA graph (the first tick eager, the second
     captured, then replays) against the same engine built under

@@ -28,6 +28,7 @@ from repro.runtime.serve import Request as JRequest
 from repro.runtime.serve import ServeStats as JStats
 from repro.runtime.serve import ServingEngine as JEngine
 from repro_torch.distributed.sharding import init_decode_ctx
+from repro_torch.flags import perf_flags
 from repro_torch.models.blocks import salca_params_for as t_salca_params_for
 from repro_torch.runtime.serve import Request as TRequest
 from repro_torch.runtime.serve import ServeStats as TStats
@@ -283,14 +284,14 @@ def _watch_wrappers(mode: PoolWideOps, monkeypatch) -> None:
                 monkeypatch.setattr(mod, attr, wrapped[val])
 
 
-def _one_paged_tick(weights, rng, sharded: bool, monkeypatch, inject=None):
+def _one_paged_tick(weights, rng, sharded: bool, monkeypatch, inject=None, **engine_kw):
     """One decode tick of a paged engine (12 blocks of 16 for 2 slots of
     128 positions, so P·BS differs from S·L) holding two prompts, under
     PoolWideOps; ``inject`` wraps the tick's attention call."""
     _, tp = weights
     ctx = init_decode_ctx("cpu") if sharded else None
     eng = TEngine(TCFG, tp, max_seq=128, slots=2, paged=True, block_size=16, num_blocks=12,
-                  device="cpu", ctx=ctx)
+                  device="cpu", ctx=ctx, **engine_kw)
     for i, n in enumerate((40, 70)):
         eng.submit(TRequest(rid=i, prompt=rng.integers(0, 500, n).astype(np.int32),
                             max_new_tokens=3))
@@ -328,3 +329,18 @@ def test_pool_wide_op_check_catches_an_injected_pool_copy(weights, rng, sharded,
     mode = _one_paged_tick(weights, rng, sharded, monkeypatch, inject)
     pool_shape = mode.whole + (TCFG.resolved_head_dim,)
     assert [s for _, s in mode.bad] == [pool_shape] * TCFG.num_layers
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["unsharded", "sharded_world1"])
+def test_unfused_tick_reports_pool_wide_ops(weights, rng, sharded, monkeypatch):
+    """The converse: the reference's unfused baselines make logical-order
+    copies of the pool by design, and the same check reports them — the
+    engine's ``fused_decode=False`` unsharded; at one rank, where the knob
+    steers the unsharded flag as in the reference, ``sharded_fused_decode``
+    off (the logical-gather island)."""
+    with perf_flags(sharded_fused_decode=not sharded):
+        mode = _one_paged_tick(weights, rng, sharded, monkeypatch, fused_decode=False)
+    assert mode.depth == 0
+    logical = [s for _, s in mode.bad if s[:3] == (2, 128, TCFG.num_kv_heads)]
+    assert len(logical) >= 3 * TCFG.num_layers, mode.bad
+

@@ -456,12 +456,12 @@ def test_constructor_refuses_like_reference(weights, kw, match):
 
 def test_later_knobs_left_unported():
     """The port's `ServingEngine.__init__` takes every parameter of the
-    reference's but ``fused_decode`` (the reference's unfused paged path,
-    not ported yet), and one of its own, ``device``."""
+    reference's (``fused_decode``, the unfused baselines' knob, included)
+    and one of its own, ``device``."""
     import inspect
     ref = set(inspect.signature(JEngine.__init__).parameters)
     port = set(inspect.signature(TEngine.__init__).parameters)
-    assert ref - port == {"fused_decode"}
+    assert ref - port == set()
     assert port - ref == {"device"}
 
 

@@ -225,8 +225,8 @@ def test_ring_local_cache_off_vs_jax(weights, world1, paged, sharded):
 def test_flat_ctx_validation(weights, world1):
     """``max_seq`` or a ring that does not split across the ranks raises
     with the reason; the reference's refusals without ``paged=True`` stay;
-    ``set_flags`` takes ``ring_local_cache`` and still refuses an unknown
-    name."""
+    ``set_flags`` takes ``ring_local_cache`` and still refuses a name the
+    port does not have."""
     _, tp = weights["gemma3-12b"]
     _, tcfg = _cfgs("gemma3-12b")
     three = DecodeCtx(world1.group, 0, 3, "gloo")
@@ -239,7 +239,7 @@ def test_flat_ctx_validation(weights, world1):
         TEngine(tcfg, tp, max_seq=256, device="cpu", ctx=world1, prefix_sharing=True)
     tflags.set_flags(ring_local_cache=True)
     with pytest.raises(AttributeError, match="unknown perf flag"):
-        tflags.set_flags(sharded_fused_decode=False)
+        tflags.set_flags(hist_scatter_add=False)
 
 
 def test_launcher_sharded_without_paged_serves_the_flat_tick(monkeypatch, capsys):
