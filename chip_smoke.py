@@ -185,11 +185,26 @@ Phases (any failure raises and the script exits non-zero):
    B8's partials branch at G 3, B2/B6's fp16 and int4 branches at G 3
    (printed), B1/B4/B7 at r 32 with ``group_sum_query`` on and off, and the
    paged tick's unfused route against the fused one on one pool
-   (`check_group_rows_and_baseline`).
+   (`check_group_rows_and_baseline`). Last, the recurrent families
+   (`check_recurrent`), each at full width with random bf16 weights from
+   seed 0 on the main path's engine and prompts, loaded alone: (aa)
+   mamba2-2.7b (64 SSD layers, no attention: no kernel on its path; the
+   SSD is torch ops, as the reference's is XLA ops), graphed; (aa') its
+   eager twin and (aa'') its contiguous twin, every row bit for bit (with
+   no attention cache both engines hold the same state); (ab)
+   recurrentgemma-2b (26 layers "RRL": 18 RG-LRU layers, 8 local-attention
+   layers keeping rings of 2048 that every prompt wraps, B3 at G 10 / HD
+   256 under the window in their prefill), graphed; (ab') eager and (ab'')
+   contiguous, bit for bit (the rings are contiguous caches in both
+   engines). Each prints its replay ms, a profiled tick's launches and
+   device ms, peak memory, each prefill's ms and TTFT, the state bytes per
+   slot, and one layer of each kind by `graph_ms`. Phase 3 holds B3 at
+   recurrentgemma's shapes (record tagged `[recurrentgemma-2b]`, counted on
+   run (ab)), and the small path runs both models reduced (paged).
 
 It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
 kernel's launches on the run of its path, and ``launches_per_call`` over
-all fifty-three runs; a record at gemma3's or granite's shapes counts its
+all fifty-nine runs; a record at gemma3's, granite's or recurrentgemma's shapes counts its
 run's launches of its wrapper ((r), (z), (z'') or (z''')), B8's partials
 branch at their shapes run (v)'s) and,
 last, the ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
@@ -299,6 +314,9 @@ CACHE_TTFT_RATIO = 0.6
 GEMMA = "gemma3-12b"
 # the MoE family (runs (z) to (z''')): granite-moe-3b-a800m at full width
 GRANITE = "granite-moe-3b-a800m"
+# the recurrent families: mamba2 (64 SSD layers, no attention) and
+# recurrentgemma ("RRL": 18 RG-LRU layers, 8 local-attention layers of 2048)
+MAMBA, RGEMMA = "mamba2-2.7b", "recurrentgemma-2b"
 DENSE_ARCHS = ("qwen3-8b", "phi3-medium-14b")
 DENSE_SLOTS, DENSE_PROMPTS, DENSE_NEW_TOKENS = 2, (2048, 3072), 8
 # run (x)'s new tokens (gemma3-12b with full-context window layers)
@@ -762,12 +780,10 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
     config with sliding-window layers adds B3 under its window to B3's
     record."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.selection import (
         _quantized_query_groups, query_heavy_features, select_sparse_pattern_blocked)
     from repro_torch.flags import PERF
     from repro_torch.kernels.flash_decode import ops as fd
-    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.score_est import ops as se
     from repro_torch.models.blocks import salca_params_for
 
@@ -851,7 +867,23 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
         recs += check_sharded_kernels(dev, pool, q, b1_args, params, iters, tag, sharded_run)
     del pool
 
-    # B3 — one layer's prefill attention of the longest prompt, bf16
+    recs.append(b3_record(dev, gen, cfg, prompt_len, iters, tag, home))
+    return recs
+
+
+def b3_record(dev, gen, cfg, prompt_len, iters=20, tag="", home=None) -> dict:
+    """Phase 3a's B3 record: one layer's bf16 prefill attention of a
+    ``prompt_len``-token prompt at ``cfg``'s heads (H query heads over KV,
+    any group count), causal, against its plain version (the one-ulp
+    bound), its time, bound, TFLOP/s and SDPA's time; a config with
+    sliding-window layers adds B3 under its window (`b3_windowed`).
+    ``home`` ({"run": name}) names the phase-4 run that counts its
+    launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops as fp
+    timed, _, _ = record_timers(tag)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     t = prompt_len
     q3 = torch.randn((h, t, hd), generator=gen, device=dev).to(torch.bfloat16)
     k3 = torch.randn((kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -882,7 +914,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
     windowed = {}
     if cfg.local_window:
         windowed = b3_windowed(q3, k3, v3, cfg.local_window, iters)
-    recs.append(with_graph_ms(dict(name="flash_prefill" + tag, counter="flash_prefill",
+    return with_graph_ms(dict(name="flash_prefill" + tag, counter="flash_prefill",
                      route="cuda",
                      source="src/repro_torch/csrc/flash_prefill.cu",
                      replaces="src/repro/kernels/flash_prefill/kernel.py:98",
@@ -891,9 +923,9 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
                      plain_ms=events_ms(lambda: fp.flash_attention_plain(q3, k3, v3), 2),
                      bound_ms=bms, bound_by=bby, library_ms=lib,
                      tflops=b3_ops / ms / 1e9, ms_over_library=ms / lib,
-                     sass_tensor_core_instructions=hmma, **windowed, **home),
-        lambda: fp.flash_attention(q3, k3, v3), max(2, iters // 4)))
-    return recs
+                     sass_tensor_core_instructions=hmma, groups=h // kv, **windowed,
+                     **(home or {})),
+        lambda: fp.flash_attention(q3, k3, v3), max(2, iters // 4))
 
 
 def b3_windowed(q3, k3, v3, window: int, iters: int) -> dict:
@@ -1402,9 +1434,10 @@ def small_path_run(d, cfg, params, prompts, paged: bool, **engine_kw):
 
     eng._decode = rec
     stats = eng.run()
+    attn = [c for c in eng._state.caches if hasattr(c, "k_codes")]
     codes = (torch.cat([getattr(c, f).reshape(-1).cpu().to(torch.int16)
-                        for f in ("k_codes", "v_codes") for c in eng._state.caches])
-             if eng._state.caches[0].k_codes.dtype == torch.int8 else None)
+                        for f in ("k_codes", "v_codes") for c in attn])
+             if attn and attn[0].k_codes.dtype == torch.int8 else None)
     return [r.output for r in reqs], logits, stats, codes
 
 
@@ -1620,8 +1653,12 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                                       if hasattr(c, "sel_hist")]).clone())
         return nxt, logits, finite
 
+    prefill_ms = []
+
     def prefill(req):
-        row, st = orig_prefill(req)
+        t0 = time.perf_counter()
+        row, st = orig_prefill(req)          # its row is on the host: the prefill is done
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
         rows[(req.rid, 0)] = torch.from_numpy(row)
         return row, st
 
@@ -1684,7 +1721,10 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     bad = {k for k, r in rows.items() if not bool(torch.isfinite(r).all())}
     if bad - {(r.rid, len(r.output)) for r in reqs if r.stop_reason == "error"}:
         raise AssertionError(f"non-finite logits on the main path at {sorted(bad)}")
-    nl, na = cfg.num_layers, cfg.block_kinds().count("A")
+    # B3 runs in every attention layer's prefill, the tick kernels in every
+    # "A" layer ("S" and "R" layers run none: their mixers are torch ops)
+    nl = sum(kind in "AL" for kind in cfg.block_kinds())
+    na = cfg.block_kinds().count("A")
     mode = engine_kw.get("kv_pool_dtype", "int8")
     branch = {"int8": ""}.get(mode, f"[{mode}]")
     # the unfused baselines (at one rank the engine's knob steers the
@@ -1706,8 +1746,10 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
     else:
         tick_kernels = ("paged_score_bounds", "paged_fused_select",
                         "sparse_flash_decode_paged_partials" + branch)
+    tick_kernels = tick_kernels if na else ()
     want = {k: na * stats.ticks for k in tick_kernels}
-    want["flash_prefill"] = nl * stats.admissions
+    if nl:
+        want["flash_prefill"] = nl * stats.admissions
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
@@ -1720,7 +1762,8 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
         raise AssertionError(f"tick graphed={step.graphed}, captured="
                              f"{step._graph is not None}: every unsharded tick after the "
                              f"first must replay a CUDA graph, every other run stay eager")
-    summary.update(wall_s=wall, peak_mem_gb=peak,
+    summary.update(wall_s=wall, peak_mem_gb=peak, prefill_ms=prefill_ms,
+                   state_bytes_per_slot=state_bytes_per_slot(engine._state, SERVE["slots"]),
                    ttft_s=[r.ttft_s for r in reqs], prompts=[len(r.prompt) for r in reqs],
                    cow_service=cow, profiled_tick=profiled,
                    launches_per_tick={k: launches[k] / stats.ticks for k in tick_kernels},
@@ -1734,6 +1777,25 @@ def serve_main_path(dev, ctx=None, paged=True, force=None, probe=None, eager_run
                                         if step.launches_per_tick else None))
     picks = [[own[(r.rid, j)] for j in range(len(r.output))] for r in reqs]
     return launches, summary, picks, rows
+
+
+def state_bytes_per_slot(state, slots: int) -> dict:
+    """The bytes one slot holds in a decode state, by kind: the recurrent
+    states of "S" and "R" layers, the rings and contiguous caches, and a
+    paged pool's share (its data over the slots)."""
+    from repro_torch.core.cache import PagedSalcaCache
+    from repro_torch.models.blocks import RECURRENT
+    out = {"recurrent": 0, "contiguous": 0, "paged": 0}
+    for c in state.caches:
+        if isinstance(c, RECURRENT):
+            out["recurrent"] += sum(t.numel() * t.element_size() for t in c) // slots
+        elif isinstance(c, PagedSalcaCache):
+            out["paged"] += sum(t.numel() * t.element_size() for t in c.data.values()) // slots
+        else:
+            out["contiguous"] += sum(t.numel() * t.element_size()
+                                     for t in (c.k_codes, c.k_scale, c.v_codes, c.v_scale,
+                                               c.feat_words, c.feat_scale, c.feat_zero)) // slots
+    return out
 
 
 class SpillProbe:
@@ -3242,6 +3304,89 @@ def check_moe(dev, ctx, runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def recurrent_layer_ms(dev, model, iters=20) -> dict:
+    """One layer of each kind of a recurrent model's tick, by `graph_ms`, on
+    the main path's slots: the whole block (`blocks.block_decode`: norms,
+    mixer, FFN) over a zeroed recurrent state for "S" and "R", over a ring
+    of random contents, every slot holding W tokens, for "L"; and the "R"
+    and "S" mixers alone (`rglru_decode`, `ssd_decode` with the state's
+    write-back)."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.common import cdtype, rmsnorm
+    cfg, params = model
+    kinds = cfg.block_kinds()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s = SERVE["slots"]
+    pos = torch.tensor([p + NEW_TOKENS for p in PROMPTS], dtype=torch.int32, device=dev)
+    active = torch.ones(s, dtype=torch.bool, device=dev)
+    x = torch.randn((s, cfg.d_model), generator=gen, device=dev).to(cdtype(cfg))
+    out = {}
+    for kind in sorted(set(kinds)):
+        layer = params["layers"][kinds.index(kind)]
+        if kind == "L":
+            w = cfg.local_window
+            state = random_cache(dev, gen, cfg, s, w, [w] * s)
+        else:
+            state = B.block_init_state(kind, s, cfg, dev)
+        out[f"{kind}_block_ms"] = graph_ms(
+            lambda layer=layer, state=state, kind=kind: B.block_decode(
+                layer, x, state, cfg, pos, None, active, None, kind), iters)
+        if kind in "SR":
+            mixer, p = ((ssm.ssd_decode, layer["ssd"]) if kind == "S"
+                        else (rglru.rglru_decode, layer["rglru"]))
+
+            def mix(mixer=mixer, p=p, state=state, layer=layer):
+                _, new = mixer(p, rmsnorm(layer["ln1"], x, cfg.norm_eps), state, cfg)
+                B.merge_masked_state(new, state, active)
+            out[f"{kind}_mixer_ms"] = graph_ms(mix, iters)
+    return out
+
+
+def check_recurrent(dev, runs: dict) -> None:
+    """Phase 4's runs (aa)-(ab'') (module docstring): mamba2-2.7b and
+    recurrentgemma-2b at full width on the main path's engine and prompts,
+    each model loaded alone; adds their launch counts to ``runs``."""
+    import gc
+
+    import torch
+    for arch, key, run in ((MAMBA, "mamba2", "aa"), (RGEMMA, "recurrentgemma", "ab")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = config_model(dev, arch)
+        cfg = model[0]
+        kw = dict(model=model, prompts=PROMPTS, new_tokens=NEW_TOKENS, profile_tick=PROFILE_TICK)
+        runs[key], sum_g, tok_g, tr_g = serve_main_path(dev, **kw)
+        print_serve(f"({run}) paged int8, graphed", sum_g, arch)
+        runs[f"{key} eager"], sum_e, tok_e, tr_e = serve_main_path(dev, eager_run=True, **kw)
+        print_serve(f"({run}') paged int8, eager (built under steps.eager())", sum_e, arch)
+        rows_e = check_bitwise(f"{arch} graphed vs eager", tok_g, tr_g, tok_e, tr_e)
+        # no paged layer: the contiguous engine holds the same states (rings
+        # and recurrent states) and runs the same tick, so every row is bit
+        # for bit with the paged engine's
+        runs[f"{key} contiguous"], sum_c, tok_c, tr_c = serve_main_path(dev, paged=False, **kw)
+        print_serve(f"({run}'') contiguous, graphed", sum_c, arch)
+        rows_c = check_bitwise(f"{arch} paged vs contiguous", tok_g, tr_g, tok_c, tr_c)
+        if not all(bool(torch.isfinite(r).all()) for r in tr_g.values()):
+            raise AssertionError(f"{arch}: non-finite logits")
+        layers = recurrent_layer_ms(dev, model)
+        p = sum_g["profiled_tick"]
+        print(f"{arch} ({run}): graphed = eager ({rows_e} rows) = contiguous ({rows_c} rows), "
+              f"bit for bit, greedy tokens identical; replay median "
+              f"{sum_g['replay_ms_median']:.2f} ms (contiguous "
+              f"{sum_c['replay_ms_median']:.2f}, eager {np.median(sum_e['tick_ms']):.2f}); "
+              f"profiled tick: {p.get('launches')} launches, {p.get('device_ms')} device ms; "
+              f"peak memory GB {sum_g['peak_mem_gb']:.3f}; prefill ms "
+              f"{[round(t, 2) for t in sum_g['prefill_ms']]}, TTFT s "
+              f"{[round(t, 4) for t in sum_g['ttft_s']]}; state bytes per slot "
+              f"{json.dumps(sum_g['state_bytes_per_slot'])}; one layer by graph_ms "
+              f"{json.dumps({k: round(v, 5) for k, v in layers.items()})}", flush=True)
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -3325,6 +3470,10 @@ def main() -> int:
                                run="granite contiguous")
     recs += check_sp_flat_kernels(dev, mcfg, lengths=lengths, tag=f"[{GRANITE}]",
                                   pooling=False)
+    # recurrentgemma-2b's prefill: B3 at G 10 (10 H / 1 KV), HD 256, under its
+    # window of 2048 in the 8 "L" layers (runs (ab)); mamba2-2.7b runs no kernel
+    recs.append(b3_record(dev, torch.Generator(device=dev).manual_seed(12), get_config(RGEMMA),
+                          max(PROMPTS), tag=f"[{RGEMMA}]", home={"run": "recurrentgemma"}))
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -3356,7 +3505,8 @@ def main() -> int:
     for line in check_group_rows_and_baseline(dev, cfg, mcfg, lengths):
         print(line, flush=True)
     for paged, kw in ((True, {}), (False, {}), (True, {"kv_pool_dtype": "fp16"}),
-                      (True, SMALL_SPILL), (True, {"arch": GEMMA}), (False, {"arch": GEMMA})):
+                      (True, SMALL_SPILL), (True, {"arch": GEMMA}), (False, {"arch": GEMMA}),
+                      (True, {"arch": MAMBA}), (True, {"arch": RGEMMA})):
         small = check_small_path(dev, paged, **kw)
         print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
 
@@ -3414,6 +3564,7 @@ def main() -> int:
     check_unfused(dev, ctx, runs, (tokens, trace, summary, hists),
                   (tokens_sh, trace_sh, summary_sh))
     check_moe(dev, ctx, runs)
+    check_recurrent(dev, runs)
     # each kernel's launches on the run of its path (a record at another
     # model's shapes: its `run`, under its wrapper's counter)
     home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",

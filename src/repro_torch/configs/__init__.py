@@ -1,8 +1,9 @@
 """Architecture registry of the port: `--arch <id>` resolves here.
 
 Only the architectures the port can serve are listed: the dense LMs, with
-global ("A") and sliding-window ("L") layers, and the MoE LMs. The JAX
-package's other configs join as their model families are ported.
+global ("A") and sliding-window ("L") layers, the MoE LMs, mamba2 (SSD
+layers, "S") and recurrentgemma (RG-LRU layers, "R", with local attention).
+The JAX package's other configs join as their model families are ported.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ _ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "arctic-480b": "arctic_480b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

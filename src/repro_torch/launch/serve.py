@@ -10,7 +10,9 @@ the reference launcher does; ``--paged`` serves the paged block pool
 sequence-sharded flat tick (kernels B7, B10, B11 and B8's partials
 branch), with ``--paged`` the block-sharded tick (kernels B4-B6).
 ``--local`` serves the reduced config; pass ``--device cpu`` to run on the
-CPU with the kernels' plain versions.
+CPU with the kernels' plain versions. ``--arch`` takes every ported config:
+the dense and MoE LMs, ``mamba2-2.7b`` (SSD layers) and
+``recurrentgemma-2b`` (RG-LRU layers beside local-attention rings).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Attention blocks of the dense LM, global ("A") and sliding-window ("L"):
-prefill and decode.
+"""The LM's blocks: global ("A") and sliding-window ("L") attention, the
+SSD ("S") and the RG-LRU ("R"): prefill and decode.
 
 Port of the reference `models/blocks.py` for the dense LM: the
 `salca_params_for` rule, the static heavy set of
@@ -23,6 +23,14 @@ Salca accelerates the "A" layers only.
 
 Every layer's FFN goes through `ffn_apply`: the dense GLU, or the MoE
 branch (`models.moe`) with arctic's dense residual GLU beside it.
+
+The recurrent kinds: an "S" block is ln1 + the SSD mixer (`models.ssm`, no
+FFN) and an "R" block ln1 + the RG-LRU (`models.rglru`), then ln2 + the
+FFN. Their state (`SSMState`, `RGLRUState`) is per slot and dense on the
+contiguous and the paged engine alike; a decode step computes every slot
+and writes the new state back in place for the active slots only
+(`merge_masked_state`). Under a `DecodeCtx` every rank holds the whole
+state and updates it identically, with no collective.
 """
 
 from __future__ import annotations
@@ -42,9 +50,12 @@ from repro_torch.core.sp_decode import (
     local_lengths, sp_append_token, sp_dense_decode, sp_dense_decode_paged, sp_salca_decode,
     sp_salca_decode_paged)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
+from repro_torch.models import rglru, ssm
 from repro_torch.models.attention import fold_heads, prefill_attention, qkv_project
 from repro_torch.models.common import glu_apply, rmsnorm
 from repro_torch.models.moe import moe_apply
+
+RECURRENT = (ssm.SSMState, rglru.RGLRUState)
 
 
 def salca_params_for(cfg: ModelConfig, seq_len: int) -> SalcaParams:
@@ -111,9 +122,20 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
                   kind: str = "A"):
-    """x (B, T, D) → (x_out, SalcaCache of the layer's K/V): padded to
-    ``max_seq``, or for an "L" layer with a ring (`ring_size`) to its W
-    slots, holding the prompt's last W tokens at their ring slots."""
+    """x (B, T, D) → (x_out, the layer's state): for "A" and "L" a
+    SalcaCache of the layer's K/V, padded to ``max_seq``, or for an "L"
+    layer with a ring (`ring_size`) to its W slots, holding the prompt's
+    last W tokens at their ring slots; for "S" and "R" the recurrent state
+    after the prompt."""
+    if kind == "S":
+        h, st = ssm.ssd_train(params["ssd"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
+                              return_state=True)
+        return x + h, st
+    if kind == "R":
+        h, st = rglru.rglru_train(params["rglru"], rmsnorm(params["ln1"], x, cfg.norm_eps),
+                                  cfg, return_state=True)
+        x = x + h
+        return x + ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)[0], st
     t = x.shape[1]
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     positions = torch.arange(t, device=x.device)
@@ -262,13 +284,42 @@ def attn_decode_contiguous(params: dict, x: torch.Tensor, cache: SalcaCache,
     return o.to(x.dtype).reshape(s, -1) @ params["wo"]
 
 
+def merge_masked_state(new, old, active: torch.Tensor) -> None:
+    """Write ``new`` into the recurrent state ``old`` in place, slot by slot
+    where ``active`` (S,) holds; the inactive slots' rows keep their bits
+    (the reference's `merge_masked_state`, a per-slot select)."""
+    for n, o in zip(new, old):
+        a = active.reshape(active.shape + (1,) * (n.dim() - 1))
+        o.copy_(torch.where(a, n, o))
+
+
+def block_init_state(kind: str, slots: int, cfg: ModelConfig, device):
+    """An empty recurrent state for an "S" or "R" layer (zeros)."""
+    if kind == "S":
+        return ssm.ssd_init_state(slots, cfg, device)
+    if kind == "R":
+        return rglru.rglru_init_state(slots, cfg, device)
+    raise ValueError(f"block kind {kind!r} keeps an attention cache, not a recurrent state")
+
+
 def block_decode(params: dict, x: torch.Tensor, pool, cfg: ModelConfig, pos: torch.Tensor,
                  salca: SalcaParams, active: torch.Tensor,
                  ctx: DecodeCtx | None = None, kind: str = "A") -> torch.Tensor:
-    """x (S, D) → (S, D) over the layer's cache: a `SalcaCache` (the
+    """x (S, D) → (S, D) over the layer's state: a `SalcaCache` (the
     contiguous engine's slot pool, or an "L" layer's ring; ``ctx``: split
-    by rows) or a `PagedSalcaCache` (``ctx``: block-sharded)."""
+    by rows), a `PagedSalcaCache` (``ctx``: block-sharded), or an "S" or
+    "R" layer's recurrent state (whole on every rank)."""
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if kind == "S":
+        h, new = ssm.ssd_decode(params["ssd"], xn, pool, cfg)
+        merge_masked_state(new, pool, active)
+        return x + h
+    if kind == "R":
+        h, new = rglru.rglru_decode(params["rglru"], xn, pool, cfg)
+        x = x + h
+        out = x + ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)[0]
+        merge_masked_state(new, pool, active)
+        return out
     if isinstance(pool, SalcaCache):
         h = attn_decode_contiguous(params["attn"], xn, pool, cfg, pos, salca, active, kind,
                                    ctx)

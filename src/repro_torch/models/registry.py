@@ -1,9 +1,11 @@
 """Uniform model API (the LM part of the reference's `ModelAPI`).
 
 The port serves the decoder-only LM with global ("A") and sliding-window
-("L") attention layers, its FFN dense or MoE (the "moe" family, arctic's
-dense residual included); other families (SSM, RG-LRU, enc-dec, VLM
-frontends) are later slices of the port and raise here.
+("L") attention layers, SSD ("S", the "ssm" family: mamba2) and RG-LRU
+("R", the "hybrid" family: recurrentgemma) layers, its FFN dense or MoE
+(the "moe" family, arctic's dense residual included); the enc-dec family
+(whisper) and the VLM frontend (llava) are later slices of the port and
+raise here.
 """
 
 from __future__ import annotations
@@ -45,13 +47,14 @@ class ModelAPI(NamedTuple):
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
     """Why this port slice cannot serve ``cfg`` — None when it can."""
-    if cfg.family not in ("dense", "moe") or cfg.moe != (cfg.family == "moe") \
-            or cfg.encdec or cfg.frontend != "none":
-        return (f"family {cfg.family!r} (moe={cfg.moe}): only the dense and the MoE LM "
-                "are ported so far")
-    if set(cfg.layer_pattern) - {"A", "L"}:
-        return (f"layer pattern {cfg.layer_pattern!r}: only global ('A') and "
-                "sliding-window ('L') attention layers are ported so far")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+            or cfg.moe != (cfg.family == "moe") or cfg.encdec or cfg.frontend != "none":
+        return (f"family {cfg.family!r} (moe={cfg.moe}, encdec={cfg.encdec}, frontend="
+                f"{cfg.frontend!r}): only the decoder-only LMs (dense, MoE, SSM and hybrid) "
+                "are ported so far; the enc-dec family and modality frontends are not")
+    if set(cfg.layer_pattern) - {"A", "L", "S", "R"}:
+        return (f"layer pattern {cfg.layer_pattern!r}: only global ('A'), sliding-window "
+                "('L'), SSD ('S') and RG-LRU ('R') layers are ported so far")
     return None
 
 

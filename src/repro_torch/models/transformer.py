@@ -1,8 +1,8 @@
 """Decoder-only LM over a stack of global ("A") and sliding-window ("L")
-attention blocks: prefill (whole, or by chunks for all-"A" stacks), pooled
-decode state (contiguous slot pool or paged), the zero-prefill adoption of
-a cached prompt, the calibration of the static heavy sets, and the decode
-step.
+attention blocks, SSD ("S") and RG-LRU ("R") blocks: prefill (whole, or by
+chunks for all-"A" stacks), pooled decode state (contiguous slot pool or
+paged), the zero-prefill adoption of a cached prompt, the calibration of
+the static heavy sets, and the decode step.
 
 Port of the reference `models/transformer.py` for the dense LM. Where the
 reference scans stacked per-period states (one per position of the layer
@@ -11,7 +11,9 @@ layer, of kind ``cfg.block_kinds()[layer]``. An "L" layer's ring
 (`blocks.ring_size`) stays a contiguous `SalcaCache` on the paged engine
 too; the paged pool's helpers (growth, sharing, copy on write, the host
 tier's block moves, the selection histogram) pass it through, as the
-reference's ``_map_paged_substates`` does.
+reference's ``_map_paged_substates`` does. So do they pass an "S" or "R"
+layer's recurrent state (`models.ssm.SSMState`, `models.rglru.RGLRUState`),
+which admission writes as a plain row copy and release zeroes.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
-    PagedSalcaCache, adopt_pages, cow_block, empty_cache, empty_paged_cache, free_pages,
-    map_block, prefill_chunk_into_pages, prefill_into_pages, read_block_rows, reset_slot,
-    share_blocks, write_block_rows, write_prefill_into_slot)
+    PagedSalcaCache, SalcaCache, adopt_pages, cow_block, empty_cache, empty_paged_cache,
+    free_pages, map_block, prefill_chunk_into_pages, prefill_into_pages, read_block_rows,
+    reset_slot, share_blocks, write_block_rows, write_prefill_into_slot)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range, local_row_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
@@ -33,15 +35,16 @@ from repro_torch.models.common import (
 
 @dataclass
 class LMState:
-    """Per-layer caches (prefill and the contiguous slot pool: `SalcaCache`;
-    the paged engine: `PagedSalcaCache`) and the (B,) position cursor."""
+    """Per-layer states (attention layers: a `SalcaCache` in prefill and the
+    contiguous slot pool, a `PagedSalcaCache` on the paged engine; "S" and
+    "R" layers: their recurrent state) and the (B,) position cursor."""
     caches: list
     pos: torch.Tensor
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int):
     """tokens (B, T) → (last-position logits (B, V_pad), LMState of
-    per-layer `SalcaCache`s)."""
+    per-layer `SalcaCache`s and recurrent states)."""
     h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
     caches = []
     for layer, kind in zip(params["layers"], cfg.block_kinds()):
@@ -128,14 +131,15 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, pool: LMState, tokens: torc
 
 
 def lm_static_heavy(params: dict, cfg: ModelConfig, max_seq: int):
-    """The static heavy sets per layer, each (1, KV, R) int32 — the layout
-    of a batch=1 prefill state's ``heavy_idx`` leaves, so the engine hashes
-    a chunked admission's sets as it hashes a monolithic one's. None
-    without ``salca_static_channels``."""
+    """The static heavy sets of the attention layers, each (1, KV, R) int32
+    — the layout of a batch=1 prefill state's ``heavy_idx`` leaves, so the
+    engine hashes a chunked admission's sets as it hashes a monolithic
+    one's. None without ``salca_static_channels``."""
     if not cfg.salca_static_channels:
         return None
     sp = B.salca_params_for(cfg, max_seq)
-    return tuple(B.static_heavy_idx(layer["attn"], cfg, sp, 1) for layer in params["layers"])
+    return tuple(B.static_heavy_idx(layer["attn"], cfg, sp, 1)
+                 for layer, kind in zip(params["layers"], cfg.block_kinds()) if kind in "AL")
 
 
 def lm_adopt_pages(params: dict, cfg: ModelConfig, pool: LMState, slot: int, pages,
@@ -177,6 +181,9 @@ def lm_calibrate_static_heavy(params: dict, cfg: ModelConfig, tokens) -> dict:
     _, state = lm_prefill(params, cfg, tokens, max_seq=tokens.shape[1])
     layers = []
     for layer, c in zip(params["layers"], state.caches):
+        if not isinstance(c, SalcaCache):       # a recurrent layer has no K
+            layers.append(layer)
+            continue
         k = c.k_codes.float() * c.k_scale[..., None]                    # (B, T, KV, HD)
         valid = (torch.arange(k.shape[1], device=k.device)[None, :]
                  < c.length[:, None]).float()
@@ -201,11 +208,13 @@ def _local_rows(cfg: ModelConfig, rows: int, max_seq: int, ctx: DecodeCtx | None
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device,
                   ctx: DecodeCtx | None = None) -> LMState:
     """Contiguous decode state: one empty ``(batch, max_seq, ·)`` cache per
-    layer (the contiguous engine's slot pool; an "L" layer's ring has
-    `ring_size` slots), cursors at 0. With ``ctx`` each cache holds only this
-    rank's rows (the sequence-sharded flat tick)."""
+    attention layer (the contiguous engine's slot pool; an "L" layer's ring
+    has `ring_size` slots) and a zeroed recurrent state per "S" or "R"
+    layer, cursors at 0. With ``ctx`` each cache holds only this rank's rows
+    (the sequence-sharded flat tick); a recurrent state is whole."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
-    caches = [empty_cache(batch, _local_rows(cfg, B.ring_size(cfg, kind, max_seq), max_seq, ctx),
+    caches = [B.block_init_state(kind, batch, cfg, device) if kind in "SR" else
+              empty_cache(batch, _local_rows(cfg, B.ring_size(cfg, kind, max_seq), max_seq, ctx),
                           cfg.num_kv_heads, cfg.resolved_head_dim, r, device=device)
               for kind in cfg.block_kinds()]
     return LMState(caches, torch.zeros(batch, dtype=torch.int32, device=device))
@@ -216,10 +225,11 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
     """Pooled decode state: one paged block pool per layer, storing K/V in
     ``cfg.kv_pool_dtype`` (the engine's knob); an "L" layer whose window is
     shorter than ``max_seq`` keeps its ring instead, a contiguous
-    ``(slots, W, ·)`` cache (paging a ring buys nothing). With ``ctx`` each
-    pool holds only this rank's ``num_blocks / world_size`` blocks and each
-    ring this rank's ``W / world_size`` rows (its decode is the
-    sequence-sharded flat tick)."""
+    ``(slots, W, ·)`` cache (paging a ring buys nothing); an "S" or "R"
+    layer keeps its dense per-slot recurrent state. With ``ctx`` each pool
+    holds only this rank's ``num_blocks / world_size`` blocks and each ring
+    this rank's ``W / world_size`` rows (its decode is the sequence-sharded
+    flat tick)."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
     max_blocks = -(-max_seq // block_size)
     rings = [B.ring_size(cfg, kind, max_seq) for kind in cfg.block_kinds()]
@@ -228,7 +238,9 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
         lo, hi = local_block_range(num_blocks, ctx)
         local = hi - lo
 
-    def cache(w):
+    def cache(kind, w):
+        if kind in "SR":
+            return B.block_init_state(kind, slots, cfg, device)
         if w < max_seq:
             return empty_cache(slots, _local_rows(cfg, w, max_seq, ctx), cfg.num_kv_heads,
                                cfg.resolved_head_dim, r, device=device)
@@ -236,12 +248,13 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
                                  cfg.num_kv_heads, cfg.resolved_head_dim, r,
                                  kv_pool_dtype=cfg.kv_pool_dtype, device=device,
                                  local_blocks=local)
-    return LMState([cache(w) for w in rings],
+    return LMState([cache(kind, w) for kind, w in zip(cfg.block_kinds(), rings)],
                    torch.zeros(slots, dtype=torch.int32, device=device))
 
 
 def _paged(pool: LMState) -> list:
-    """The state's paged pools, in layer order (rings left out)."""
+    """The state's paged pools, in layer order (rings and recurrent states
+    left out)."""
     return [c for c in pool.caches if isinstance(c, PagedSalcaCache)]
 
 
@@ -254,9 +267,14 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
     (`prefill_into_pages`) — with ``ctx`` the prefill is replicated and each
     rank writes only the blocks it owns, and of a contiguous cache or a
     ring only its rows. ``n_shared`` marks the leading entries of ``pages``
-    as prefix-shared: mapped and counted in every layer, not written."""
+    as prefix-shared: mapped and counted in every layer, not written. A
+    recurrent state's rows are copied whole, in the pool's dtype
+    (`_write_recurrent_row`)."""
     for dst, s in zip(pool.caches, src.caches):
-        if isinstance(dst, PagedSalcaCache):
+        if isinstance(dst, B.RECURRENT):
+            for d, t in zip(dst, s):
+                _write_recurrent_row(d, t, slot)
+        elif isinstance(dst, PagedSalcaCache):
             if pages is None:
                 raise ValueError("paged cache substate requires a pages array "
                                  "(use write_into_pages)")
@@ -267,6 +285,23 @@ def lm_write_into_slot(pool: LMState, src: LMState, slot: int, pages=None,
             write_prefill_into_slot(dst, s, slot, rows)
     pool.pos[slot] = src.pos[0]
     return pool
+
+
+def _write_recurrent_row(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
+    """Row ``slot`` of a recurrent state's leaf ``dst`` := the batch=1
+    prefill's row ``src[0]``, broadcast as the reference's ``.at[slot].set``
+    broadcasts it: an RG-LRU prompt of one token has one conv row, copied
+    into all W-1 rows of the window; a prompt of 2..W-2 tokens has too few
+    rows for the window and raises the reference's ValueError."""
+    row = src[0]
+    try:
+        ok = torch.broadcast_shapes(row.shape, dst.shape[1:]) == dst.shape[1:]
+    except RuntimeError:
+        ok = False
+    if not ok:
+        raise ValueError(f"Incompatible shapes for broadcasting: {tuple(row.shape)} and "
+                         f"requested shape {tuple(dst.shape[1:])}")
+    dst[slot].copy_(row)
 
 
 def lm_map_block(pool: LMState, slot: int, logical_block: int, page: int) -> LMState:
@@ -319,19 +354,27 @@ def lm_write_block(pool: LMState, page: int, payload: tuple) -> LMState:
     return pool
 
 
-def lm_selection_hist(pool: LMState) -> torch.Tensor:
+def lm_selection_hist(pool: LMState) -> torch.Tensor | None:
     """Cumulative selected-token counts per (slot, logical block), summed
     over the paged layers — the signal of the host-spill demotion policy.
-    Returns (slots, MB) int32."""
-    return torch.stack([c.sel_hist for c in _paged(pool)]).sum(0, dtype=torch.int32)
+    Returns (slots, MB) int32, or None when no layer is paged (as the
+    reference)."""
+    paged = _paged(pool)
+    if not paged:
+        return None
+    return torch.stack([c.sel_hist for c in paged]).sum(0, dtype=torch.int32)
 
 
 def lm_reset_slot(pool: LMState, slot: int) -> LMState:
     """Free row ``slot``: caches marked empty (paged: page table unmapped and
-    blocks decref'd), the position cursor zeroed. In place; resetting a
-    free row again changes nothing (its page-table row is unmapped)."""
+    blocks decref'd), recurrent states and the position cursor zeroed. In
+    place; resetting a free row again changes nothing (its page-table row
+    is unmapped)."""
     for c in pool.caches:
-        if isinstance(c, PagedSalcaCache):
+        if isinstance(c, B.RECURRENT):
+            for leaf in c:
+                leaf[slot].zero_()
+        elif isinstance(c, PagedSalcaCache):
             free_pages(c, slot)
         else:
             reset_slot(c, slot)
@@ -342,13 +385,16 @@ def lm_reset_slot(pool: LMState, slot: int) -> LMState:
 def decode_salca_params(cfg: ModelConfig, state: LMState, ctx: DecodeCtx | None = None):
     """The tick's `SalcaParams`, as the reference's `lm_decode_step` derives
     them: from the first attention cache of its state, in its order
-    (pattern positions' stacked states, then the tail), whose first entry
-    is always layer 0's. Layer 0 of "LLLLLA" is an "L" layer, so where it
-    keeps a ring the global layers select with k and k_cap from
-    max(W, 128), not from ``max_seq`` (gemma3 at W 1024 and max_seq 8192:
-    k 128 and k_cap 256, where ``max_seq`` would give 409 and 512). Under
+    (pattern positions' stacked states, then the tail), which is the first
+    attention layer's; from 128 when no layer attends (mamba2). Layer 0 of
+    "LLLLLA" is an "L" layer, so where it keeps a ring the global layers
+    select with k and k_cap from max(W, 128), not from ``max_seq`` (gemma3
+    at W 1024 and max_seq 8192: k 128 and k_cap 256, where ``max_seq``
+    would give 409 and 512); recurrentgemma's is layer 2's ring. Under
     ``ctx`` a contiguous cache counts the rows of every rank."""
-    return B.salca_params_for(cfg, max(B.global_rows(state.caches[0], ctx), 128))
+    rows = next((B.global_rows(c, ctx) for c in state.caches
+                 if not isinstance(c, B.RECURRENT)), 0)
+    return B.salca_params_for(cfg, max(rows, 128))
 
 
 def lm_decode_step(params: dict, cfg: ModelConfig, state: LMState, token: torch.Tensor,

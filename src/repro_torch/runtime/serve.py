@@ -18,6 +18,14 @@ prefill is copied into the slot's row, a finished slot is reset (length
 0), and the tick runs kernels B7, B9 and B8 in every global ("A") layer.
 A slot that reached ``max_seq`` finishes with an ``overflow`` stop.
 
+Recurrent layers (mamba2's "S", recurrentgemma's "R") keep a dense per-slot
+state on both pools: the prefill's final state is copied into the slot's
+row, a finished slot's row is zeroed, the tick updates it in place for the
+active slots only, and the paged pool's block operations pass it by. A
+model with no paged layer (mamba2) still charges and frees blocks on the
+paged engine, as the reference's does, and its audit reports the
+reference's "no PagedSalcaCache substates" violation.
+
 Sliding-window ("L") layers (gemma3's "LLLLLA") keep a W-slot ring per slot
 wherever the window W is shorter than ``max_seq``, on both pools: the
 prefill writes the ring whole, the tick attends over it densely (no Salca,
@@ -163,7 +171,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cache import InvariantReport, PagedSalcaCache
+from repro_torch.core.cache import InvariantReport, PagedSalcaCache, SalcaCache
 from repro_torch.distributed.sharding import DecodeCtx
 from repro_torch.flags import perf_flags
 from repro_torch.kernels.common import resolve_device
@@ -999,9 +1007,11 @@ class ServingEngine:
 
     @staticmethod
     def _heavy_bytes(state1) -> bytes:
-        """Every layer's heavy-channel indices of a batch=1 prefill, as bytes:
-        the identity that two requests must share to alias feature rows."""
-        return torch.stack([c.heavy_idx for c in state1.caches]).cpu().numpy().tobytes()
+        """Every attention layer's heavy-channel indices of a batch=1
+        prefill, as bytes (empty for a model with none): the identity that
+        two requests must share to alias feature rows."""
+        return b"".join(c.heavy_idx.cpu().numpy().tobytes() for c in state1.caches
+                        if isinstance(c, SalcaCache))
 
     def _match_tokens(self, req: Request) -> list[tuple[bytes, int, bytes]]:
         """Longest radix match on the token ids alone: full blocks first,
@@ -1537,7 +1547,7 @@ class ServingEngine:
         entries. Computed once."""
         if self._static_heavy_cache is None:
             parts = self.api.static_heavy(self.params, self.max_seq)
-            self._static_heavy_cache = torch.stack(parts).cpu().numpy().tobytes()
+            self._static_heavy_cache = b"".join(p.cpu().numpy().tobytes() for p in parts)
         return self._static_heavy_cache
 
     def _advance_prefill(self) -> None:
@@ -1843,6 +1853,9 @@ class ServingEngine:
                                             allow_holes=self.host_spill,
                                             cache_pinned=self._cached.keys()),
                       prefix=f"pool[{i}]: ")
+        if not pools:
+            rep.fail("paged engine with no PagedSalcaCache substates")
+            return rep
         free_set = set(free)
         for b in self._cached:
             if self._refcount[b] != 0:

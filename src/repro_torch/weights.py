@@ -12,6 +12,13 @@ The port's tree for the dense LM::
 and for an MoE LM each layer's ``ffn`` is ``{"moe": {"router": (D, E_pad)
 f32, "w_gate": (E_pad, D, F_e), "w_up": (E_pad, D, F_e), "w_down": (E_pad,
 F_e, D)}}``, plus ``"dense"`` (a GLU as above) with ``dense_residual``.
+An "S" layer is ``{"ln1", "ssd": {"w_x": (D, DI), "w_B": (D, DS), "w_C":
+(D, DS), "w_dt": (D, NH), "w_out": (DI, D), "conv_w": (W, DI + 2·DS),
+"A_log": (NH,) f32, "D": (NH,) f32, "dt_bias": (NH,) f32, "norm":
+{"scale": (DI,)}, "z_gate": (D, DI)}}`` and an "R" layer ``{"ln1",
+"rglru": {"w_x": (D, RW), "w_gate_out": (D, RW), "w_out": (RW, D),
+"conv_w": (W, RW), "w_r": (RW, RW) f32, "w_i": (RW, RW) f32, "lam": (RW,)
+f32}, "ln2", "ffn"}``.
 
 Layouts are the reference's. The reference stacks one tree per position of
 the layer pattern over the pattern's periods (``periods[i]``: leaves with a
@@ -32,7 +39,8 @@ from repro_torch.models.common import cdtype
 from repro_torch.models.registry import unsupported_reason
 
 
-F32_LEAVES = ("calib_salience", "router")     # kept in float32 in any model dtype
+# kept in float32 in any model dtype, as in the reference
+F32_LEAVES = ("calib_salience", "router", "A_log", "D", "dt_bias", "w_r", "w_i", "lam")
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -44,11 +52,13 @@ def _check(cfg: ModelConfig) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's LM parameter tree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) → the port's tree on
-    ``device``, in the config's dtype. Two leaves stay float32, as in the
-    reference: a layer's ``calib_salience``
+    ``device``, in the config's dtype. The leaves of `F32_LEAVES` stay
+    float32, as in the reference: a layer's ``calib_salience``
     (`models.transformer.lm_calibrate_static_heavy`), whose top-r in the
-    model's dtype could pick another heavy set at a near-tie, and an MoE
-    layer's ``router``, whose logits the reference computes in float32."""
+    model's dtype could pick another heavy set at a near-tie; an MoE
+    layer's ``router``, whose logits the reference computes in float32; the
+    SSD's ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU's ``w_r``, ``w_i``
+    and ``lam``, whose recurrences run in float32."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
@@ -87,7 +97,11 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
     """Random weights for ``cfg`` at full width, drawn from ``generator``
     (on ``device`` for speed): normals clipped to ±2σ with σ = 1/sqrt(fan_in),
     embedding N(0, 0.02), norm scales 1; an MoE router in float32, the
-    experts' products at fan-in D (gate, up) and F_e (down)."""
+    experts' products at fan-in D (gate, up) and F_e (down). The recurrent
+    blocks take the reference's fan-ins and deterministic leaves: the
+    SSD's ``A_log = log(linspace(1, 16, NH))``, ``D`` ones, ``dt_bias``
+    zeros, the RG-LRU's ``lam = log(linspace(9, 999, RW))`` and ``w_r``,
+    ``w_i`` in float32, each ``conv_w`` N(0, 0.1²)."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
@@ -119,8 +133,35 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
     def ones(n):
         return {"scale": torch.ones(n, dtype=dt, device=dev)}
 
+    def f32(x):
+        return x.to(device=dev, dtype=torch.float32)
+
+    def ssd():
+        di = cfg.ssm_expand * d
+        nh, ds = di // cfg.ssm_head_dim, cfg.ssm_state
+        return {"w_x": dense((d, di), d), "w_B": dense((d, ds), d), "w_C": dense((d, ds), d),
+                "w_dt": dense((d, nh), d), "w_out": dense((di, d), di),
+                "conv_w": (randn((cfg.conv_width, di + 2 * ds)) * 0.1).to(dt),
+                "A_log": f32(torch.log(torch.linspace(1.0, 16.0, nh))),
+                "D": f32(torch.ones(nh)), "dt_bias": f32(torch.zeros(nh)),
+                "norm": ones(di), "z_gate": dense((d, di), d)}
+
+    def rglru():
+        w = cfg.rnn_width or d
+        return {"w_x": dense((d, w), d), "w_gate_out": dense((d, w), d),
+                "w_out": dense((w, d), w),
+                "conv_w": (randn((cfg.conv_width, w)) * 0.1).to(dt),
+                "w_r": dense((w, w), w, torch.float32), "w_i": dense((w, w), w, torch.float32),
+                "lam": f32(torch.log(torch.linspace(9.0, 999.0, w)))}
+
     layers = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.block_kinds():
+        if kind == "S":
+            layers.append({"ln1": ones(d), "ssd": ssd()})
+            continue
+        if kind == "R":
+            layers.append({"ln1": ones(d), "rglru": rglru(), "ln2": ones(d), "ffn": ffn()})
+            continue
         attn = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
                 "wv": dense((d, kv, hd), d), "wo": dense((h * hd, d), h * hd)}
         if cfg.qk_norm:

@@ -1,11 +1,13 @@
 """Port parity, the dense configs beyond qwen3-0.6b: qwen3-8b,
 phi3-medium-14b and gemma3-12b ("LLLLLA", sliding window 1024).
 
-The port's copies of the configs equal the reference's field for field;
+The port's copies of the configs equal the reference's field for field
+(mamba2-2.7b's and recurrentgemma-2b's too);
 `weights.params_from_numpy` maps the reference's stacked layout (one tree
 per position of the layer pattern, stacked over the periods, then a tail)
-to one dict per layer; the registry admits "A" and "L" layers and refuses
-the rest; gemma3 refuses chunked prefill (the reference's message) and the
+to one dict per layer (recurrentgemma at 8 layers too); the registry serves
+every ported config and refuses the enc-dec family and the frontends;
+gemma3 refuses chunked prefill (the reference's message) and the
 block-sharded tick (the port's, when the engine is built); and
 `ServingEngine` on the reduced configs gives the JAX engine's greedy
 tokens: qwen3-8b and phi3-medium-14b on the paged pool, gemma3 with the host
@@ -40,6 +42,7 @@ from repro_torch.runtime.serve import ServingEngine as TEngine
 from repro_torch.weights import init_lm_params, params_from_numpy
 
 NEW_ARCHS = ("qwen3-8b", "phi3-medium-14b", "gemma3-12b")
+RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-2b")
 
 
 def _cfgs(arch, **kw):
@@ -62,10 +65,12 @@ def _weights(arch, **kw):
     return _WEIGHTS[key]
 
 
-@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + NEW_ARCHS + RECURRENT_ARCHS)
 def test_config_copies_equal_the_reference(arch):
-    """Every field of the full and the reduced config, the layer kinds and
-    the ring sizes of both kinds equal the reference's."""
+    """Every field of the full and the reduced config (the SSM and RG-LRU
+    fields included), the layer kinds and the ring sizes of both attention
+    kinds equal the reference's; a config not yet ported (whisper-small)
+    is refused by name."""
     jc, tc = jget_config(arch), tget_config(arch)
     for j, t in ((jc, tc), (jc.reduced(), tc.reduced())):
         td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
@@ -75,22 +80,24 @@ def test_config_copies_equal_the_reference(arch):
             for max_seq in (32, 64, 65, 256, 1024, 1025, 8192):
                 assert tB.ring_size(t, kind, max_seq) == jB.ring_size(j, kind, max_seq)
     assert set(ARCH_NAMES) == {"qwen3-0.6b", *NEW_ARCHS, "granite-moe-3b-a800m",
-                               "arctic-480b"} <= set(JARCH_NAMES)
+                               "arctic-480b", *RECURRENT_ARCHS} <= set(JARCH_NAMES)
     with pytest.raises(KeyError, match="available"):
-        tget_config("mamba2-2.7b")
+        tget_config("whisper-small")
 
 
 @pytest.mark.parametrize("arch,layers", [("gemma3-12b", 12), ("gemma3-12b", 8),
-                                         ("qwen3-8b", 2), ("phi3-medium-14b", 2)],
+                                         ("qwen3-8b", 2), ("phi3-medium-14b", 2),
+                                         ("recurrentgemma-2b", 8)],
                          ids=["gemma3_two_periods", "gemma3_period_and_tail", "qwen3_8b",
-                              "phi3_medium"])
+                              "phi3_medium", "recurrentgemma_periods_and_tail"])
 def test_params_from_numpy_maps_periods_and_tail(arch, layers):
     """Layer l of the port's tree is ``periods[l % P][l // P]`` of the
     reference's, then the tail (gemma3 at 8 layers: one period and an "LL"
-    tail), leaf for leaf; the whole model's prefill then gives the
-    reference's logits, with a W-slot ring in each "L" layer; a tree of
-    another depth is refused. `init_lm_params` makes the same tree (keys,
-    shapes, an untied head where the config has one)."""
+    tail; recurrentgemma at 8: two "RRL" periods and an "RR" tail), leaf for
+    leaf; the whole model's prefill then gives the reference's logits, with
+    a W-slot ring in each "L" layer and a recurrent state in each "R"
+    layer; a tree of another depth is refused. `init_lm_params` makes the
+    same tree (keys, shapes, an untied head where the config has one)."""
     jcfg, tcfg, jp, tp = _weights(arch, num_layers=layers)
     pattern = jcfg.layer_pattern
     n_periods = layers // len(pattern)
@@ -111,7 +118,10 @@ def test_params_from_numpy_maps_periods_and_tail(arch, layers):
     tl, ts = tget_model(tcfg).prefill(tp, torch.from_numpy(prompt), 128)
     np.testing.assert_allclose(tn(tl), np.asarray(jl), rtol=1e-5, atol=1e-5)
     for c, kind in zip(ts.caches, tcfg.block_kinds()):
-        assert c.max_seq == tB.ring_size(tcfg, kind, 128)
+        if kind in "AL":
+            assert c.max_seq == tB.ring_size(tcfg, kind, 128)
+        else:
+            assert isinstance(c, tB.RECURRENT) and c.h.shape[0] == 1
     with pytest.raises(ValueError, match="config expects"):
         params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                           dataclasses.replace(tcfg, num_layers=layers + 1), "cpu")
@@ -122,19 +132,26 @@ def test_params_from_numpy_maps_periods_and_tail(arch, layers):
 
 
 def test_registry_admits_global_and_local_layers_only():
-    """The dense family with "A" and "L" layers is served; "S" and "R"
-    layers, MoE, enc-dec and frontends are refused, with the reason."""
+    """Every ported config is served, full and reduced, "S" and "R" layers
+    included; what remains refused is refused with its reason: whisper-small
+    (the enc-dec "audio" family), llava-next's vision frontend, an MoE flag
+    outside the "moe" family and a layer kind the reference does not have."""
+    from repro_torch.configs.base import ModelConfig
     for arch in ARCH_NAMES:
         assert unsupported_reason(tget_config(arch)) is None
+        assert unsupported_reason(tget_config(arch).reduced()) is None
+    whisper, llava = (ModelConfig(**dataclasses.asdict(jget_config(a)))
+                      for a in ("whisper-small", "llava-next-mistral-7b"))
     base = tget_config("gemma3-12b")
-    for kw, why in ((dict(layer_pattern="RRL"), "layer pattern"),
-                    (dict(layer_pattern="SSA"), "layer pattern"),
-                    (dict(moe=True), "family"), (dict(encdec=True), "family"),
-                    (dict(frontend="vision"), "family"), (dict(family="ssm"), "family")):
-        reason = unsupported_reason(dataclasses.replace(base, **kw))
+    for cfg, why in ((whisper, "enc-dec"), (whisper.reduced(), "enc-dec"),
+                     (llava, "frontends"), (dataclasses.replace(base, frontend="vision"),
+                                            "frontends"),
+                     (dataclasses.replace(base, moe=True), "family"),
+                     (dataclasses.replace(base, layer_pattern="LXA"), "layer pattern")):
+        reason = unsupported_reason(cfg)
         assert reason is not None and why in reason
         with pytest.raises(NotImplementedError, match=why):
-            tget_model(dataclasses.replace(base, **kw))
+            tget_model(cfg)
 
 
 def test_gemma3_refuses_chunks_and_serves_the_sharded_tick():

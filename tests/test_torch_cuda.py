@@ -103,7 +103,12 @@ def test_b2_kernel_matches_plain(dev):
     (torch.bfloat16, 5, 0, 0, 256, 8), (torch.float32, 300, 0, 0, 256, 2),
     (torch.float32, 1500, 1024, 0, 256, 2), (torch.float32, 100, 30, 200, 256, 2),
     # granite-moe-3b-a800m's prefill: HD 64, 24 H over 8 KV (G 3), a 4096-token prompt
-    (torch.bfloat16, 4096, 0, 0, 64, 3), (torch.bfloat16, 333, 0, 0, 64, 3)])
+    (torch.bfloat16, 4096, 0, 0, 64, 3), (torch.bfloat16, 333, 0, 0, 64, 3),
+    # recurrentgemma-2b's "L" layers: HD 256, 10 H over 1 KV (G 10), under the
+    # window of 2048 at a 4096-token prompt (and one shorter than the window),
+    # and causal
+    (torch.bfloat16, 4096, 2048, 0, 256, 10), (torch.bfloat16, 1500, 2048, 0, 256, 10),
+    (torch.bfloat16, 4096, 0, 0, 256, 10)])
 def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
     from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1115,6 +1120,27 @@ def test_graphed_engine_equals_eager(dev, engine_kw):
     assert launches_g == launches_e
     per_tick = step_g.launches_per_tick
     assert per_tick and all(launches_e[k] == n * len(ticks_e) for k, n in per_tick.items())
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_tick_bits_equal_across_calls_and_replay(dev, arch, paged):
+    """The recurrent families' reduced models (SSD layers; RG-LRU layers
+    beside rings of 64 that every prompt wraps): the graphed engine, its
+    eager twin and a second eager engine give the same tokens, and every
+    tick's logits bit for bit — the recurrences' torch ops and the state's
+    in-place write-back read no host data and sum in a fixed order."""
+    kw = dict(paged=paged, arch=arch)
+    (tok_g, ticks_g, launches_g, step_g, _), (tok_e, ticks_e, launches_e, step_e, _) = \
+        _graphed_and_eager_runs(dev, kw)
+    _, (tok_2, ticks_2, launches_2, _, _) = _graphed_and_eager_runs(dev, kw)
+    assert step_g.graphed and step_g._graph is not None and not step_e.graphed
+    assert tok_g == tok_e == tok_2 and len(ticks_g) == len(ticks_e) == len(ticks_2) >= 3
+    for (act_g, lg_g, fin_g), (_, lg_e, _), (_, lg_2, _) in zip(ticks_g, ticks_e, ticks_2):
+        assert torch.equal(lg_g, lg_e) and torch.equal(lg_e, lg_2)
+        assert fin_g[torch.from_numpy(act_g).to(fin_g.device)].all()
+    assert launches_g == launches_e == launches_2
+    assert set(launches_g) == (set() if arch == "mamba2-2.7b" else {"flash_prefill"})
 
 
 def test_adoption_between_replays_keeps_captured_state(dev):
