@@ -200,13 +200,45 @@ Phases (any failure raises and the script exits non-zero):
    device ms, peak memory, each prefill's ms and TTFT, the state bytes per
    slot, and one layer of each kind by `graph_ms`. Phase 3 holds B3 at
    recurrentgemma's shapes (record tagged `[recurrentgemma-2b]`, counted on
-   run (ab)), and the small path runs both models reduced (paged).
+   run (ab)), and the small path runs both models reduced (paged). Last,
+   the last two families (`check_encdec_and_vlm`), each at full width with
+   random bf16 weights from seed 0, through their model API
+   (`serve_model_api`: one slot a request in a pooled contiguous state,
+   each request prefilled at batch 1 and written into its slot, greedy
+   ticks of `runtime.steps.ServeDecodeStep` with an active mask, a slot
+   reset when its request ends): (ac) whisper-small, 4 requests of
+   ENC_FRAMES random frames (f32, made on the card) with decoder prompts of
+   ENC_PROMPTS tokens × ENC_NEW_TOKENS new tokens (12 encoder layers of B3
+   without a causal mask over the frames, 12 decoder layers with B3 causal
+   over the prompt and B3 without a mask from the prompt over the frames;
+   the tick's B7, B9 and B8 over the 32768-row cross caches), graphed; (ac')
+   its eager twin, bit for bit; (ac*) the admitted pool's first tick at one
+   nccl rank (the step's ``ctx`` branch: B7, B10, B11 and B8's partials
+   branch over the cross caches, `CtxTick`), its next tokens equal to
+   (ac)'s, its rows within CONTIG_LOGIT_ULPS, and no (slot, head) keeping
+   more than k_cap rows; (ad) llava-next-mistral-7b,
+   VLM_REQUESTS requests of 2880 patch rows (dim 1024) and VLM_TEXT text
+   tokens × VLM_NEW_TOKENS on a contiguous pool of VLM_MAX_SEQ rows,
+   graphed; (ad') its eager twin, bit for bit; (ad'') the text-only paged
+   engine on VLM_TEXT_PROMPTS. Each prints its encoder and prefill ms per
+   request, replay ms, launches per tick, state bytes per slot and peak
+   memory. Phase 3 holds B3 without a causal mask at whisper's encoder and
+   cross shapes against the plain version over every row (in blocks of
+   PLAIN_ROWS query rows), B7, B9 and B8 at its cross stream's shapes
+   (records tagged `[whisper-small ...]`, counted on run (ac)) and B10, B11
+   and B8's partials branch there at one rank (`check_sp_flat_kernels`,
+   counted on run (ac*)), and B7, B9 and B8 at llava's run (ad) (G 4, HD
+   128, VLM_MAX_SEQ rows in VLM_REQUESTS slots; tagged
+   `[llava-next-mistral-7b]`, counted on run (ad)); the small path runs
+   whisper reduced through the same model-API server (card against CPU)
+   and llava reduced through the paged engine.
 
 It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
 kernel's launches on the run of its path, and ``launches_per_call`` over
-all fifty-nine runs; a record at gemma3's, granite's or recurrentgemma's shapes counts its
-run's launches of its wrapper ((r), (z), (z'') or (z''')), B8's partials
-branch at their shapes run (v)'s) and,
+all sixty-four runs and (ac*); a record at gemma3's, granite's,
+recurrentgemma's, whisper's or llava's shapes counts its run's launches
+of its wrapper ((r), (z), (z''), (z'''), (ab), (ac), (ac*) or (ad)), B8's
+partials branch at gemma3's and granite's shapes run (v)'s) and,
 last, the ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -317,6 +349,21 @@ GRANITE = "granite-moe-3b-a800m"
 # the recurrent families: mamba2 (64 SSD layers, no attention) and
 # recurrentgemma ("RRL": 18 RG-LRU layers, 8 local-attention layers of 2048)
 MAMBA, RGEMMA = "mamba2-2.7b", "recurrentgemma-2b"
+WHISPER, LLAVA = "whisper-small", "llava-next-mistral-7b"
+# run (ac), whisper-small at full width through its model API: a request
+# is ENC_FRAMES random frames (the decode_32k length of the JAX package's
+# configs/shapes.py) and a decoder prompt of ENC_PROMPTS tokens, one slot
+# each, ENC_NEW_TOKENS new tokens
+ENC_FRAMES, ENC_PROMPTS, ENC_NEW_TOKENS = 32768, (4, 8, 12, 16), 32
+# run (ad), llava-next-mistral-7b at full width through its model API:
+# VLM_REQUESTS requests of the config's 2880 patch rows and VLM_TEXT text
+# tokens on a contiguous pool of VLM_MAX_SEQ rows, VLM_NEW_TOKENS new
+# tokens; then (ad'') the text-only paged engine on VLM_TEXT_PROMPTS
+VLM_REQUESTS, VLM_TEXT, VLM_NEW_TOKENS, VLM_MAX_SEQ = 2, 192, 16, 4096
+VLM_TEXT_PROMPTS, VLM_TEXT_NEW_TOKENS = (1024, 2048), 8
+# the plain version of B3 over all rows of a 32768-token attention runs in
+# blocks of this many query rows (each row depends on its own query only)
+PLAIN_ROWS = 1024
 DENSE_ARCHS = ("qwen3-8b", "phi3-medium-14b")
 DENSE_SLOTS, DENSE_PROMPTS, DENSE_NEW_TOKENS = 2, (2048, 3072), 8
 # run (x)'s new tokens (gemma3-12b with full-context window layers)
@@ -601,12 +648,16 @@ def random_cache(dev, gen, cfg, slots, max_seq, lengths):
     return cache
 
 
-def check_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None, run=None):
+def check_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None, run=None, n=None,
+                       slots=None):
     """Phase 3a, the contiguous tick's kernels at its shapes on a random
     slot pool: B7 bit-identical in the tick's bf16-pinned chain and in the
     reference op's f32 chain, B9 bit-identical, B8 within
     B2_ATOL + B2_RTOL·|plain| on the selection B9 leads to. Another model's
-    shapes: ``tag``, ``salca`` and ``run`` as in `check_kernels`."""
+    shapes: ``tag``, ``salca`` and ``run`` as in `check_kernels`; ``n`` the
+    cache's rows and ``slots`` its slots where they are not SERVE's
+    (whisper's cross stream: its T_enc; llava's image run: VLM_MAX_SEQ rows
+    in VLM_REQUESTS slots)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import quantization as qz
@@ -620,7 +671,7 @@ def check_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None, run=None
 
     timed, ctas_of, cold_of = record_timers(tag)
     gen = torch.Generator(device=dev).manual_seed(2)
-    s, n = SERVE["slots"], SERVE["max_seq"]
+    s, n = slots or SERVE["slots"], n or SERVE["max_seq"]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     bh = s * kv
     cache = random_cache(dev, gen, cfg, s, n, lengths)
@@ -1282,7 +1333,7 @@ def check_bin_kernels(dev, iters=50):
 
 
 def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
-                          run="sp contiguous", pooling=True):
+                          run="sp contiguous", pooling=True, n=None):
     """Phase 3a, the sequence-sharded flat tick's kernels at one rank on a
     random slot pool at the serving shapes (the tick of run (v)): B7's
     scores, the bins with the (all-reduced, here one rank's) affine, B10
@@ -1291,9 +1342,11 @@ def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
     into its capacity, gathered, and B8's partials branch within
     B2_ATOL + B2_RTOL·|plain| on acc, m and l (library: none). Another
     model's shapes: ``tag`` and ``salca`` as in `check_kernels`
-    (``pooling=False``: B8's partials only); every record counts its
-    wrapper's launches on run ``run`` and is timed by `graph_ms` (phase 3
-    holds enough profiler sessions already)."""
+    (``pooling=False``: B8's partials only), ``n`` the cache's rows where
+    they are not SERVE's max_seq (whisper's cross stream at one rank, run
+    (ac*)); every record counts its wrapper's launches on run ``run`` and is
+    timed by `graph_ms` (phase 3 holds enough profiler sessions
+    already)."""
     import torch
     from repro_torch.core import quantization as qz
     from repro_torch.core.attention import gather_selected
@@ -1306,7 +1359,7 @@ def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
     from repro_torch.models.blocks import salca_params_for
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    s, n = SERVE["slots"], SERVE["max_seq"]
+    s, n = SERVE["slots"], n or SERVE["max_seq"]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     bh, g = s * kv, h // kv
     params = salca or salca_params_for(cfg, n)
@@ -1323,7 +1376,7 @@ def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
     w, halo = params.pool_window, params.pool_window // 2
     zeros = torch.zeros((s, kv, halo), dtype=torch.uint8, device=dev)
     padded = torch.cat([zeros, bins, zeros], dim=-1).reshape(bh, n + 2 * halo)
-    recs, extra = [], {"run": run, "tick": "sequence-sharded flat (run (v))"}
+    recs, extra = [], {"run": run, "tick": f"sequence-sharded flat (run {run!r})"}
     pooled_p = mp.maxpool_int8(padded, w)
     pooled = torch.where(valid, pooled_p[:, halo:-halo].reshape(s, kv, n),
                          torch.zeros_like(bins)).reshape(bh, n).contiguous()
@@ -1386,7 +1439,7 @@ def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
                capacity=bh * c, thresholds=sorted({int(x) for x in t.flatten().tolist()}),
                **extra)
     rec["graph_ms"] = rec["ms"]
-    if tag:
+    if tag and run == "sp contiguous":
         rec["note"] = ("no run serves this model through the flat tick: its launches are "
                        "the wrapper's on run (v)")
     recs.append(rec)
@@ -1415,12 +1468,8 @@ def small_path_run(d, cfg, params, prompts, paged: bool, **engine_kw):
     alone)."""
     import torch
     from repro_torch.runtime.serve import Request, ServingEngine
-    p = params if d == "cpu" else {
-        "embed": {k: v.to(d) for k, v in params["embed"].items()},
-        "ln_f": {"scale": params["ln_f"]["scale"].to(d)},
-        "layers": [_to(layer, d) for layer in params["layers"]]}
-    eng = ServingEngine(cfg, p, max_seq=256, slots=2, paged=paged, block_size=32, device=d,
-                        **engine_kw)
+    eng = ServingEngine(cfg, _to(params, d), max_seq=256, slots=2, paged=paged, block_size=32,
+                        device=d, **engine_kw)
     reqs = [Request(rid=i, prompt=pr, max_new_tokens=5) for i, pr in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -1493,7 +1542,12 @@ def check_small_path(dev, paged: bool, arch="qwen3-0.6b", **engine_kw):
 
 
 def _to(tree, dev):
-    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
+    """A parameter tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def main_path_model(dev):
@@ -3387,6 +3441,394 @@ def check_recurrent(dev, runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def b3_bidirectional_record(dev, gen, cfg, tq: int, s_len: int, tag: str, run: str,
+                            iters=5) -> dict:
+    """Phase 3a's record of B3 without a causal mask at ``cfg``'s heads:
+    ``tq`` query rows over ``s_len`` keys in bf16 (whisper's encoder: tq =
+    s_len; its cross-attention prefill: a decoder prompt over T_enc frames),
+    every row against the plain version, which runs over blocks of PLAIN_ROWS
+    query rows (a row of an unmasked attention depends on its own query
+    only; the whole score matrix at 32768² would take 51 GB), with B3's
+    one-ulp bound; its time by `graph_ms`, the blocked plain version's and
+    SDPA's (no mask) by CUDA events, and the bound from every (query, key)
+    pair. ``run`` names the phase-4 run that counts its launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import ops as fp
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q3 = torch.randn((h, tq, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k3, v3 = (torch.randn((kv, s_len, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+
+    def plain():
+        return torch.cat([fp.flash_attention_plain(q3[:, i:i + PLAIN_ROWS], k3, v3,
+                                                   causal=False)
+                          for i in range(0, tq, PLAIN_ROWS)], dim=1)
+
+    out3 = fp.flash_attention(q3, k3, v3, causal=False)
+    ref = plain()
+    diff = (out3.float() - ref.float()).abs()
+    err = float(diff.max())
+    ratio = float((diff / (B3_ATOL + B3_RTOL * ref.float().abs())).max())
+    del ref, diff
+    if not ratio <= 1.0:
+        raise AssertionError(f"B3{tag} (causal=False): |kernel - plain| reaches {ratio:.3g}x "
+                             f"its bound {B3_ATOL:g} + 2^-7·|plain| (max abs err {err})")
+    ms = graph_ms(lambda: fp.flash_attention(q3, k3, v3, causal=False), iters)
+    kr = k3.repeat_interleave(h // kv, 0)[None]
+    vr = v3.repeat_interleave(h // kv, 0)[None]
+    lib = events_ms(lambda: F.scaled_dot_product_attention(q3[None], kr, vr), iters)
+    ops = 4 * hd * h * tq * s_len
+    bms, bby = bound(2 * (2 * q3.numel() + k3.numel() + v3.numel()), ops, "bf16")
+    return dict(name="flash_prefill" + tag, counter="flash_prefill", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill/kernel.py:98",
+                launches=None, max_abs_err=err, tolerance=f"{B3_ATOL:g} + 2^-7*|plain|",
+                err_over_tol=ratio, ms=ms, graph_ms=ms, plain_ms=events_ms(plain, 1),
+                plain_call=f"flash_attention_plain over blocks of {PLAIN_ROWS} query rows",
+                bound_ms=bms, bound_by=bby, library_ms=lib,
+                library_call="scaled_dot_product_attention, no mask",
+                tflops=ops / ms / 1e9, ms_over_library=ms / lib, causal=False,
+                query_rows=tq, keys=s_len, groups=h // kv, run=run)
+
+
+def encdec_requests(dev, cfg, frames=ENC_FRAMES, prompts=ENC_PROMPTS, seed=0) -> list:
+    """Run (ac)'s requests: per request a decoder prompt (1, Td) drawn from
+    ``seed`` and ``frames`` random frame embeddings (1, T_enc, D), f32 made
+    on ``dev`` from ``seed``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32),
+             {"frames": torch.randn((1, frames, cfg.d_model), generator=gen, device=dev)})
+            for n in prompts]
+
+
+def vlm_requests(dev, cfg, n=VLM_REQUESTS, text=VLM_TEXT, seed=0) -> list:
+    """Run (ad)'s requests: per request ``text`` text tokens drawn from
+    ``seed`` and the config's ``num_image_tokens`` random patch embeddings
+    (1, P, F), f32 made on ``dev`` from ``seed``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(rng.integers(0, cfg.vocab_size, (1, text)).astype(np.int32),
+             {"patches": torch.randn((1, cfg.num_image_tokens, cfg.frontend_dim),
+                                     generator=gen, device=dev)})
+            for _ in range(n)]
+
+
+def serve_model_api(dev, model, reqs, max_seq: int, new_tokens: int, eager_run=False,
+                    before_ticks=None, profile_tick=None) -> tuple:
+    """Serve ``reqs`` ((tokens (1, T), prefill keywords: ``frames`` or
+    ``patches``)) through the model API with `runtime.steps.PooledServer`,
+    the way the reference serves an enc-dec model (its `ModelAPI` and the
+    mesh step builder): one slot per request in a pooled contiguous state
+    (the enc-dec family's max_seq is T_enc), greedy ticks of
+    `ServeDecodeStep` with an active mask (a CUDA graph after its first
+    call on the card; eager when ``eager_run`` builds it under
+    `steps.eager()`), a slot reset after its request's ``new_tokens``-th
+    token. ``before_ticks(api, pool, tokens, active)`` runs after the
+    admissions; ``profile_tick`` (an index, on the card) runs that tick
+    under the profiler (its device ms and kernel launches in the summary's
+    ``profiled_tick``). Each prefill (admission) and tick is timed between
+    two synchronizations. Checks the kernels' launches (B3 once per
+    attention of a prefill, the contiguous tick's B7, B9 and B8 once per
+    decoder layer and tick) and that every row is finite. Returns
+    (launches, summary, tokens per request, {(request, token): logits row
+    on the host})."""
+    import contextlib
+    import gc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import encdec, get_model
+    from repro_torch.runtime.steps import PooledServer, eager
+    cfg, params = model
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn, into):
+        def run(*a):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync()
+            into.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    slots = len(reqs)
+    enc_ms, prefill_ms, tick_ms, profiled, rows = [], [], [], {}, {}
+
+    class Server(PooledServer):
+        admit = timed(PooledServer.admit, prefill_ms)
+
+        def tick(self, tokens, active):
+            if self.ticks == 0 and before_ticks is not None:
+                before_ticks(self.api, self.pool, tokens.copy(), active.copy())
+            if not (on_card and len(tick_ms) == profile_tick):
+                return timed(super().tick, tick_ms)(tokens, active)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_IDLE_S)
+                out = timed(super().tick, tick_ms)(tokens, active)
+                time.sleep(PROFILE_IDLE_S)
+            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            profiled.update(tick=profile_tick, launches=len(kernels) or None,
+                            device_ms=(sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                                       if kernels else None))
+            return out
+
+    def keep(i, j, row):
+        rows[(i, j)] = row.float().cpu()
+
+    reset_launches()
+    t_run = time.time()
+    real_encode = encdec.encode
+    encdec.encode = timed(real_encode, enc_ms)
+    try:
+        with eager() if eager_run else contextlib.nullcontext():
+            server = Server(get_model(cfg), params, slots, max_seq, dev)
+        out = server.serve([(torch.from_numpy(t), x) for t, x in reqs], new_tokens,
+                           on_logits=keep)
+    finally:
+        encdec.encode = real_encode
+    sync()
+    wall = time.time() - t_run
+    if server.nonfinite:
+        raise AssertionError(f"{cfg.name}: requests {server.nonfinite} met a logits row "
+                             "that is not finite")
+    launches = dict(LAUNCHES)
+    n_att = (cfg.encoder_layers + 2 * cfg.num_layers) if cfg.encdec else sum(
+        kind in "AL" for kind in cfg.block_kinds())
+    ticks, step, pool = server.ticks, server.step, server.pool
+    want = {"flash_prefill": n_att * slots}
+    if cfg.salca:
+        want.update({k: cfg.num_layers * ticks for k in
+                     ("score_estimate", "fused_bin_pool_threshold", "sparse_flash_decode")})
+    if on_card and launches != want:        # the CPU's plain versions count no launch
+        raise AssertionError(f"{cfg.name}: launch counts {launches} != expected {want}")
+    if int(pool.pos.abs().sum()) != 0:
+        raise AssertionError(f"{cfg.name}: a slot's cursor was not reset")
+    if on_card and step.graphed == eager_run:
+        raise AssertionError(f"{cfg.name}: tick graphed={step.graphed} with eager_run="
+                             f"{eager_run}")
+    per_slot = {}
+    for name in ("self_caches", "cross_caches", "caches"):
+        caches = getattr(pool, name, None)
+        if caches:
+            per_slot[name] = sum(t.numel() * t.element_size() for c in caches
+                                 for t in (c.k_codes, c.k_scale, c.v_codes, c.v_scale,
+                                           c.feat_words, c.feat_scale, c.feat_zero)) // slots
+    summary = dict(
+        wall_s=wall, prefill_ms=prefill_ms, encoder_ms=enc_ms, tick_ms=tick_ms, ticks=ticks,
+        graphed=step.graphed,
+        replay_ms_median=float(np.median(tick_ms[2:])) if step.graphed else None,
+        launches_per_replay=(sum(step.launches_per_tick.values())
+                             if step.launches_per_tick else None),
+        launches_per_tick={k: v / ticks for k, v in launches.items() if k != "flash_prefill"},
+        profiled_tick=profiled,
+        state_bytes_per_slot=per_slot,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None)
+    return launches, summary, out, rows
+
+
+def print_model_api(label: str, name: str, summary: dict) -> None:
+    ticks = summary["tick_ms"]
+    graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, replays "
+             f"median {summary['replay_ms_median']:.2f} ms, wrapper launches per replay "
+             f"{summary['launches_per_replay']}" if summary["graphed"]
+             else f"eager, ticks median {np.median(ticks):.2f} ms")
+    if summary["profiled_tick"]:
+        p = summary["profiled_tick"]
+        graph += (f"; profiled tick {p['tick']}: device ms {p['device_ms']}, kernel launches "
+                  f"{p['launches']}")
+    enc = (f"encoder ms per request {[round(t, 2) for t in summary['encoder_ms']]}, "
+           if summary["encoder_ms"] else "")
+    print(f"serve {name} {label}: {summary['ticks']} ticks; {graph}; {enc}prefill ms per "
+          f"request {[round(t, 2) for t in summary['prefill_ms']]}; launches per tick "
+          f"{json.dumps(summary['launches_per_tick'])}; state bytes per slot "
+          f"{json.dumps(summary['state_bytes_per_slot'])}; peak memory GB "
+          f"{summary['peak_mem_gb']}", flush=True)
+    print(f"serve stats {name} {label}: {json.dumps(summary)}", flush=True)
+
+
+class CtxTick:
+    """Run (ac)'s tick at one nccl rank (the enc-dec step's ``ctx`` branch:
+    the flat sequence-sharded tick over the self and the cross caches), as
+    a `serve_model_api` ``before_ticks`` hook: on a copy of the admitted
+    pool's self caches and cursors (the cross caches are only read), one
+    eager tick of the graphed run's first tokens. It keeps that tick's next
+    tokens, its logits rows, its kernel launches (taken back out of
+    `LAUNCHES`, so the run's own counts stay its own) and the largest
+    Selection count of a (slot, kv head) in any layer (`sp_salca_decode`
+    keeps up to 4·k_cap at one rank where the unsharded tick keeps k_cap)."""
+
+    def __init__(self, params, ctx):
+        self.params, self.ctx = params, ctx
+        self.tokens = self.rows = self.launches = None
+        self.max_count = 0
+
+    def __call__(self, api, pool, tok, active):
+        from collections import Counter
+
+        import torch
+        from repro_torch.core.cache import SalcaCache
+        from repro_torch.kernels.common import LAUNCHES
+        from repro_torch.models import encdec
+        real = encdec.sp_salca_decode
+        counts = []
+
+        def counting(*a, **k):
+            o, sel = real(*a, return_selection=True, **k)
+            counts.append(sel.count.max())
+            return o
+
+        copy = encdec.EncDecState([SalcaCache(*(t.clone() for t in c)) for c in pool.self_caches],
+                                  pool.cross_caches, pool.pos.clone())
+        before = Counter(LAUNCHES)
+        encdec.sp_salca_decode = counting
+        try:
+            dev = pool.pos.device
+            logits, _ = api.decode_step(self.params, copy, torch.from_numpy(tok).to(dev),
+                                        torch.from_numpy(active).to(dev), self.ctx)
+        finally:
+            encdec.sp_salca_decode = real
+        self.rows = logits.float().cpu()
+        self.tokens = self.rows.argmax(-1).numpy()
+        self.launches = {k: n - before[k] for k, n in LAUNCHES.items() if n > before[k]}
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+        self.max_count = int(torch.stack(counts).max()) if counts else 0
+        del copy
+
+
+def check_small_encdec(dev) -> dict:
+    """Phase 3b's small enc-dec path: whisper-small.reduced() at f32 with
+    random weights from seed 0, two requests of 256 frames and decoder
+    prompts of 5 and 9 tokens from seed 0, 5 new tokens, through
+    `serve_model_api` on the card against the same on the CPU (the plain
+    versions, which the CPU tests hold against the JAX reference): greedy
+    tokens identical, logits within SMALL_PATH_LOGIT_TOL while both pools
+    hold the same int8 codes, SMALL_PATH_CODE_STEP_TOL where a stored code
+    is one step apart."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_lm_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(WHISPER).reduced(), dtype="float32")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = encdec_requests("cpu", cfg, frames=256, prompts=(5, 9))
+    codes, res = [], []
+    for d in ("cpu", dev):
+        hold = []
+
+        def keep(api, pool, tok, active, hold=hold):
+            hold.append(pool)
+        r = [(t, {"frames": e["frames"].to(d)}) for t, e in reqs]
+        res.append(serve_model_api(d, (cfg, _to(params, d)), r, 256, 5, before_ticks=keep))
+        pool = hold[0]
+        codes.append(torch.cat([getattr(c, f).reshape(-1).cpu().to(torch.int16)
+                                for c in pool.self_caches + pool.cross_caches
+                                for f in ("k_codes", "v_codes")]))
+    (_, _, tok_c, rows_c), (_, _, tok_g, rows_g) = res
+    if tok_c != tok_g:
+        raise AssertionError(f"small path ({WHISPER}): greedy tokens differ: cpu {tok_c} vs "
+                             f"card {tok_g}")
+    step = int((codes[0].int() - codes[1].int()).abs().max())
+    if step > 1:
+        raise AssertionError(f"small path ({WHISPER}): stored codes {step} steps apart")
+    differ = int((codes[0] != codes[1]).sum())
+    tol = SMALL_PATH_CODE_STEP_TOL if differ else SMALL_PATH_LOGIT_TOL
+    gap = max(float((rows_c[k] - rows_g[k]).abs().max()) for k in rows_c)
+    if not gap <= tol:
+        raise AssertionError(f"small path ({WHISPER}): max logits gap {gap} > {tol:g} "
+                             f"({differ} stored K/V codes differ)")
+    return {"arch": WHISPER, "model_api": True, "tokens_identical": True,
+            "max_logit_gap": gap, "rows": len(rows_g), "codes_differing": differ}
+
+
+def check_encdec_and_vlm(dev, ctx, runs: dict) -> None:
+    """Phase 4's runs (ac)-(ad'') (module docstring): whisper-small and
+    llava-next-mistral-7b at full width, each model loaded alone; adds their
+    launch counts to ``runs``."""
+    import gc
+
+    import torch
+    from repro_torch.models.blocks import salca_params_for
+    model = config_model(dev, WHISPER)
+    cfg = model[0]
+    reqs = encdec_requests(dev, cfg)
+    probe = CtxTick(model[1], ctx)
+    runs["whisper"], sum_g, tok_g, tr_g = serve_model_api(
+        dev, model, reqs, ENC_FRAMES, ENC_NEW_TOKENS, before_ticks=probe,
+        profile_tick=PROFILE_TICK)
+    print_model_api("(ac) pooled EncDecState, graphed", WHISPER, sum_g)
+    runs["whisper eager"], sum_e, tok_e, tr_e = serve_model_api(
+        dev, model, reqs, ENC_FRAMES, ENC_NEW_TOKENS, eager_run=True)
+    print_model_api("(ac') eager (built under steps.eager())", WHISPER, sum_e)
+    rows = check_bitwise(f"{WHISPER} graphed vs eager", tok_g, tr_g, tok_e, tr_e)
+    runs["whisper sharded"] = probe.launches
+    k_cap = salca_params_for(cfg, ENC_FRAMES).k_cap
+    first = np.array([t[1] for t in tok_g])
+    ulps = max(float((probe.rows[s] - tr_g[(s, 1)]).abs().max()) / bf16_ulp(tr_g[(s, 1)])
+               for s in range(len(reqs)))
+    same = bool((probe.tokens == first).all())
+    # at one rank the ctx branch keeps up to 4·k_cap rows of a (slot, head)
+    # where the unsharded tick keeps k_cap: the two compute the same
+    # selection only while none goes over k_cap, which these seeds give
+    if not (same and ulps <= CONTIG_LOGIT_ULPS and probe.max_count <= k_cap):
+        raise AssertionError(f"{WHISPER} (ac*) one nccl rank: tokens {probe.tokens} vs (ac)'s "
+                             f"{first}, rows within {ulps:.3g} bf16 ulps (limit "
+                             f"{CONTIG_LOGIT_ULPS}), largest Selection count "
+                             f"{probe.max_count} (limit k_cap {k_cap})")
+    print(f"{WHISPER} (ac*) one tick at one nccl rank (the ctx branch): next tokens equal to "
+          f"(ac)'s, rows within {ulps:.3g} bf16 ulps; largest Selection count "
+          f"{probe.max_count} (k_cap {k_cap}); launches {json.dumps(probe.launches)}",
+          flush=True)
+    print(f"{WHISPER} (ac): graphed = eager, greedy tokens identical, {rows} logits rows bit "
+          f"for bit; replay median {sum_g['replay_ms_median']} ms (eager "
+          f"{np.median(sum_e['tick_ms']):.2f}); encoder ms {sum_g['encoder_ms']}; cross-cache "
+          f"bytes per slot {sum_g['state_bytes_per_slot']['cross_caches']}; peak memory GB "
+          f"{sum_g['peak_mem_gb']}", flush=True)
+    del model, reqs, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = config_model(dev, LLAVA)
+    cfg = model[0]
+    reqs = vlm_requests(dev, cfg)
+    runs["llava"], sum_g, tok_g, tr_g = serve_model_api(dev, model, reqs, VLM_MAX_SEQ,
+                                                        VLM_NEW_TOKENS, profile_tick=PROFILE_TICK)
+    print_model_api("(ad) image path, contiguous pool, graphed", LLAVA, sum_g)
+    runs["llava eager"], sum_e, tok_e, tr_e = serve_model_api(
+        dev, model, reqs, VLM_MAX_SEQ, VLM_NEW_TOKENS, eager_run=True)
+    print_model_api("(ad') eager (built under steps.eager())", LLAVA, sum_e)
+    rows = check_bitwise(f"{LLAVA} graphed vs eager", tok_g, tr_g, tok_e, tr_e)
+    print(f"{LLAVA} (ad): {len(reqs)} requests of {cfg.num_image_tokens} patch rows + "
+          f"{VLM_TEXT} text tokens; graphed = eager, greedy tokens identical, {rows} logits rows "
+          f"bit for bit; replay median {sum_g['replay_ms_median']} ms (eager "
+          f"{np.median(sum_e['tick_ms']):.2f}); peak memory GB {sum_g['peak_mem_gb']}",
+          flush=True)
+    del reqs
+    runs["llava paged"], sum_p, _, _ = serve_main_path(
+        dev, model=model, prompts=VLM_TEXT_PROMPTS, new_tokens=VLM_TEXT_NEW_TOKENS)
+    print_serve("(ad'') text only, paged engine, graphed", sum_p, LLAVA)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -3474,6 +3916,32 @@ def main() -> int:
     # window of 2048 in the 8 "L" layers (runs (ab)); mamba2-2.7b runs no kernel
     recs.append(b3_record(dev, torch.Generator(device=dev).manual_seed(12), get_config(RGEMMA),
                           max(PROMPTS), tag=f"[{RGEMMA}]", home={"run": "recurrentgemma"}))
+    # whisper-small's work, counted on run (ac): B3 without a causal mask at
+    # its encoder's shapes (12 H / 12 KV, HD 64, over ENC_FRAMES frames) and
+    # its cross-attention prefill's (the longest decoder prompt over the
+    # frames); its tick's B7, B9 and B8 over the ENC_FRAMES-row cross stream
+    # (G 1, r 32, k and k_cap from T_enc)
+    wcfg = get_config(WHISPER)
+    wgen = torch.Generator(device=dev).manual_seed(14)
+    for tq, part in ((ENC_FRAMES, "encoder"), (max(ENC_PROMPTS), "cross")):
+        recs.append(b3_bidirectional_record(dev, wgen, wcfg, tq, ENC_FRAMES,
+                                            f"[{WHISPER} {part}]", "whisper"))
+    wsalca = salca_params_for(wcfg, ENC_FRAMES)
+    recs += check_flat_kernels(dev, wcfg, lengths=[ENC_FRAMES] * SERVE["slots"],
+                               tag=f"[{WHISPER}]", salca=wsalca, run="whisper", n=ENC_FRAMES)
+    # … and the ctx branch's at one rank (run (ac*)): B10 over the
+    # halo-padded bins, B11 and B8's partials over the rank's capacity of
+    # 4·k_cap
+    recs += check_sp_flat_kernels(dev, wcfg, lengths=[ENC_FRAMES] * SERVE["slots"],
+                                  tag=f"[{WHISPER}]", salca=wsalca, run="whisper sharded",
+                                  n=ENC_FRAMES)
+    # llava's image run (ad): the contiguous tick's B7, B9 and B8 at G 4 (32
+    # H / 8 KV), HD 128, over VLM_MAX_SEQ rows in VLM_REQUESTS slots, each
+    # holding its patch rows and text
+    lcfg = get_config(LLAVA)
+    recs += check_flat_kernels(dev, lcfg, lengths=[lcfg.num_image_tokens + VLM_TEXT]
+                               * VLM_REQUESTS, tag=f"[{LLAVA}]", run="llava", n=VLM_MAX_SEQ,
+                               slots=VLM_REQUESTS)
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -3506,9 +3974,11 @@ def main() -> int:
         print(line, flush=True)
     for paged, kw in ((True, {}), (False, {}), (True, {"kv_pool_dtype": "fp16"}),
                       (True, SMALL_SPILL), (True, {"arch": GEMMA}), (False, {"arch": GEMMA}),
-                      (True, {"arch": MAMBA}), (True, {"arch": RGEMMA})):
+                      (True, {"arch": MAMBA}), (True, {"arch": RGEMMA}), (True, {"arch": LLAVA})):
         small = check_small_path(dev, paged, **kw)
         print(f"small path (card vs plain on CPU): {json.dumps(small)}", flush=True)
+    print(f"small path (card vs plain on CPU): {json.dumps(check_small_encdec(dev))}",
+          flush=True)
 
     hists = []                                                              # phase 4
     launches, summary, tokens, trace = serve_main_path(dev, hists=hists)
@@ -3565,6 +4035,7 @@ def main() -> int:
                   (tokens_sh, trace_sh, summary_sh))
     check_moe(dev, ctx, runs)
     check_recurrent(dev, runs)
+    check_encdec_and_vlm(dev, ctx, runs)
     # each kernel's launches on the run of its path (a record at another
     # model's shapes: its `run`, under its wrapper's counter)
     home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",

@@ -200,11 +200,12 @@ def append_token_masked(cache: SalcaCache, k: torch.Tensor, v: torch.Tensor,
                         active: torch.Tensor | None) -> SalcaCache:
     """`append_token` under an active-row mask (B,) bool: inactive rows drop
     the write (cursor forced to ``max_seq``) and keep their stored length;
-    active rows advance to ``min(length + 1, max_seq)``. In place."""
+    active rows advance to ``min(length + 1, max_seq)``. In place; no tensor
+    is made of host data, so a CUDA graph can capture it."""
     if active is None:
         return append_token(cache, k, v)
     old_len = cache.length.clone()
-    cache.length.copy_(torch.where(active, old_len, cache.max_seq))
+    cache.length.masked_fill_(~active, cache.max_seq)
     append_token(cache, k, v)
     cache.length.copy_(torch.where(active, torch.clamp_max(old_len + 1, cache.max_seq),
                                    old_len))

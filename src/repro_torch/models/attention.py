@@ -1,5 +1,6 @@
 """GQA attention layer: QKV projection and prefill attention through kernel B3,
-whole or by chunks.
+causal (whole or by chunks) or bidirectional (the enc-dec family's encoder
+and cross-attention).
 
 Port of the reference `models/attention.py` for the serving path. Weight
 layouts are the reference's: wq (D, H, HD), wk/wv (D, KV, HD), wo (H·HD, D).
@@ -10,11 +11,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_prefill.ops import flash_attention_chunked
+from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_chunked
 from repro_torch.models.common import rmsnorm, rope
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., D) @ w (D, N, HD) → (..., N, HD)."""
     d, n, hd = w.shape
     return (x @ w.reshape(d, n * hd)).reshape(x.shape[:-1] + (n, hd))
@@ -24,7 +25,7 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor):
     """x (..., T, D) → q (..., T, H, HD), k/v (..., T, KV, HD), after the
     q/k norms and RoPE. For one decode token per slot pass x (S, 1, D)."""
-    q, k, v = _proj(x, params["wq"]), _proj(x, params["wk"]), _proj(x, params["wv"])
+    q, k, v = proj(x, params["wq"]), proj(x, params["wk"]), proj(x, params["wv"])
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -48,3 +49,16 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = flash_attention_chunked(fold_heads(q), k, v, q_offset=q_offset, causal=True,
                                 window=window)
     return o.reshape(b, h, t, hd).transpose(1, 2)
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention with no mask (the reference's ``flash_attention_xla(causal=
+    False)``) of q (B, Tq, H, HD) over k/v (B, S, KV, HD), any Tq and S:
+    the enc-dec encoder over its frames (Tq = S; the reference's
+    ``attention_train(causal=False)``), or the decoder's cross-attention
+    prefill (Td queries over T_enc keys). Kernel B3 with ``causal=False``.
+    Returns (B, Tq, H, HD), q dtype."""
+    b, t, h, hd = q.shape
+    o = flash_attention(fold_heads(q), fold_heads(k), fold_heads(v), causal=False)
+    return o.reshape(b, h, t, hd).transpose(1, 2)
+

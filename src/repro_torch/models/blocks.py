@@ -84,6 +84,19 @@ def global_rows(cache, ctx: DecodeCtx | None) -> int:
     return cache.max_seq
 
 
+def local_rows(cfg: ModelConfig, rows: int, max_seq: int, ctx: DecodeCtx | None) -> int:
+    """Rows of a layer's contiguous cache (or ring) on this rank: all of
+    them, or under ``ctx`` an even share; raises when they do not split."""
+    if ctx is None:
+        return rows
+    if rows % ctx.world_size:
+        what = f"the ring of {rows}" if rows < max_seq else f"max_seq {rows}"
+        raise ValueError(f"{cfg.name}: {what} does not split evenly across "
+                         f"{ctx.world_size} ranks (the sequence-sharded cache holds "
+                         "rows/world per rank)")
+    return rows // ctx.world_size
+
+
 def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.local_window if kind == "L" else 0
 

@@ -1,6 +1,7 @@
 """Decoder-only LM over a stack of global ("A") and sliding-window ("L")
-attention blocks, SSD ("S") and RG-LRU ("R") blocks: prefill (whole, or by
-chunks for all-"A" stacks), pooled decode state (contiguous slot pool or
+attention blocks, SSD ("S") and RG-LRU ("R") blocks: the vision frontend's
+projector (`embed_inputs`: image rows ahead of the text), prefill (whole,
+or by chunks for all-"A" stacks without a frontend), pooled decode state (contiguous slot pool or
 paged), the zero-prefill adoption of a cached prompt, the calibration of
 the static heavy sets, and the decode step.
 
@@ -42,17 +43,33 @@ class LMState:
     pos: torch.Tensor
 
 
-def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int):
-    """tokens (B, T) → (last-position logits (B, V_pad), LMState of
-    per-layer `SalcaCache`s and recurrent states)."""
+def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 patches: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, T_text) → (B, T, D) in the compute dtype; with the vision
+    frontend and ``patches`` (B, P, F), the projected patches come first:
+    ``patches @ projector`` in the compute dtype, then the text (T = P +
+    T_text)."""
     h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
+    if cfg.frontend == "vision" and patches is not None:
+        img = patches.to(cdtype(cfg)) @ params["projector"]
+        h = torch.cat([img, h], dim=1)
+    return h
+
+
+def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
+               patches: torch.Tensor | None = None):
+    """tokens (B, T_text), with the vision frontend's ``patches`` (B, P, F)
+    ahead of them (`embed_inputs`) → (last-position logits (B, V_pad),
+    LMState of per-layer `SalcaCache`s and recurrent states, its cursor at
+    P + T_text)."""
+    h = embed_inputs(params, cfg, tokens, patches)
     caches = []
     for layer, kind in zip(params["layers"], cfg.block_kinds()):
         h, cache = B.block_prefill(layer, h, cfg, max_seq, kind)
         caches.append(cache)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = vocab_mask_logits(lm_logits(params["embed"], h[:, -1], cfg), cfg)
-    pos = torch.full((h.shape[0],), tokens.shape[1], dtype=torch.int32, device=h.device)
+    pos = torch.full((h.shape[0],), h.shape[1], dtype=torch.int32, device=h.device)
     return logits, LMState(caches, pos)
 
 
@@ -192,19 +209,6 @@ def lm_calibrate_static_heavy(params: dict, cfg: ModelConfig, tokens) -> dict:
     return {**params, "layers": layers}
 
 
-def _local_rows(cfg: ModelConfig, rows: int, max_seq: int, ctx: DecodeCtx | None) -> int:
-    """Rows of a layer's contiguous cache (or ring) on this rank: all of
-    them, or under ``ctx`` an even share; raises when they do not split."""
-    if ctx is None:
-        return rows
-    if rows % ctx.world_size:
-        what = f"the ring of {rows}" if rows < max_seq else f"max_seq {rows}"
-        raise ValueError(f"{cfg.name}: {what} does not split evenly across "
-                         f"{ctx.world_size} ranks (the sequence-sharded cache holds "
-                         "rows/world per rank)")
-    return rows // ctx.world_size
-
-
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device,
                   ctx: DecodeCtx | None = None) -> LMState:
     """Contiguous decode state: one empty ``(batch, max_seq, ·)`` cache per
@@ -214,7 +218,7 @@ def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, device,
     (the sequence-sharded flat tick); a recurrent state is whole."""
     r = B.salca_params_for(cfg, max_seq).r(cfg.resolved_head_dim)
     caches = [B.block_init_state(kind, batch, cfg, device) if kind in "SR" else
-              empty_cache(batch, _local_rows(cfg, B.ring_size(cfg, kind, max_seq), max_seq, ctx),
+              empty_cache(batch, B.local_rows(cfg, B.ring_size(cfg, kind, max_seq), max_seq, ctx),
                           cfg.num_kv_heads, cfg.resolved_head_dim, r, device=device)
               for kind in cfg.block_kinds()]
     return LMState(caches, torch.zeros(batch, dtype=torch.int32, device=device))
@@ -242,7 +246,7 @@ def lm_init_paged_state(cfg: ModelConfig, slots: int, max_seq: int, block_size: 
         if kind in "SR":
             return B.block_init_state(kind, slots, cfg, device)
         if w < max_seq:
-            return empty_cache(slots, _local_rows(cfg, w, max_seq, ctx), cfg.num_kv_heads,
+            return empty_cache(slots, B.local_rows(cfg, w, max_seq, ctx), cfg.num_kv_heads,
                                cfg.resolved_head_dim, r, device=device)
         return empty_paged_cache(num_blocks, block_size, slots, max_blocks,
                                  cfg.num_kv_heads, cfg.resolved_head_dim, r,

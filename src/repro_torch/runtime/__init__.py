@@ -2,5 +2,7 @@
 
 from repro_torch.runtime.monitor import NaNGuard, StepMonitor
 from repro_torch.runtime.serve import Request, ServeStats, ServingEngine
+from repro_torch.runtime.steps import PooledServer
 
-__all__ = ["NaNGuard", "Request", "ServeStats", "ServingEngine", "StepMonitor"]
+__all__ = ["NaNGuard", "PooledServer", "Request", "ServeStats", "ServingEngine",
+           "StepMonitor"]

@@ -474,6 +474,12 @@ class ServingEngine:
                  spill_max_retries: int = 3, spill_backoff_base: int = 1,
                  spill_backoff_cap: int = 8, monitor: StepMonitor | None = None,
                  heartbeat_path: str | None = None):
+        if cfg.encdec:
+            raise ValueError(f"{cfg.name}: the enc-dec family is not served by this engine: "
+                             "its requests carry tokens and no frames, and the enc-dec "
+                             "prefill needs the encoder's frames; serve it through its "
+                             "model API (models.get_model: prefill(frames=), init_state, "
+                             "write_into_slot, decode_step, reset_slot)")
         self.device = resolve_device(device)
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")

@@ -32,6 +32,14 @@ the same tensors; the tick makes no tensor from host data. Kernel launches
 keep their meaning, "launched and executed" (`kernels.common.LAUNCHES`):
 the capture counts none, and each replay adds one tick's launches, as the
 capture's wrappers counted them.
+
+`PooledServer` drives that tick for what the serving engine does not
+serve: the reference serves the enc-dec family (whose requests carry
+frames) and the vision frontend's image requests through the model API on
+a pooled contiguous state, driven by its mesh step builder. The server
+admits each request into a free slot (a batch-1 prefill, written into the
+slot), ticks the pool greedily with an active mask and frees a slot when
+its request ends.
 """
 
 from __future__ import annotations
@@ -131,6 +139,84 @@ class ServeDecodeStep:
         self._graph.replay()
         LAUNCHES.update(self.launches_per_tick)
         return tuple(t.clone() for t in self._out)
+
+
+class PooledServer:
+    """Serve requests through a model's API (`models.registry.ModelAPI`) on
+    a pooled contiguous state of ``slots`` rows, ``init_state(slots,
+    max_seq, device, ctx)`` (the enc-dec family's max_seq is T_enc). A
+    request is ``(tokens (1, T) int32, inputs)``, ``inputs`` the prefill's
+    keywords: ``frames=`` (1, T_enc, D) for the enc-dec family, ``patches=``
+    (1, P, F) for the vision frontend. Requests take free slots in order,
+    each prefilled at batch 1 and written into its slot (`admit`); greedy
+    ticks of a `ServeDecodeStep` built here (`tick`: a CUDA graph after its
+    first call on a card, unsharded and outside `eager`) advance the active
+    slots; a request ends at its ``new_tokens``-th token (the prefill's
+    included) or at a logits row that is not finite (``nonfinite`` lists
+    it), and its slot is reset (`release`) and taken by the next request
+    waiting. Every write to the pool is in place, as the graph needs."""
+
+    def __init__(self, api, params: dict, slots: int, max_seq: int, device, ctx=None):
+        self.api, self.params, self.slots, self.max_seq = api, params, slots, max_seq
+        self.device, self.ctx = torch.device(device), ctx
+        self.pool = api.init_state(slots, max_seq, self.device, ctx)
+        self.step = ServeDecodeStep(api.decode_step, params, self.pool, slots, self.device, ctx)
+        self.ticks = 0
+        self.nonfinite: list[int] = []
+
+    def admit(self, slot: int, tokens: torch.Tensor, inputs: dict) -> torch.Tensor:
+        """Prefill one request at batch 1 into row ``slot`` of the pool →
+        the logits row (V_pad,) of its prompt's last position."""
+        logits, src = self.api.prefill(self.params, tokens.to(self.device), self.max_seq,
+                                       **inputs)
+        self.api.write_into_slot(self.pool, src, slot, ctx=self.ctx)
+        return logits[0]
+
+    def tick(self, tokens: np.ndarray, active: np.ndarray):
+        """One `ServeDecodeStep` tick over the pool: (next tokens, logits,
+        finite flags) on the device."""
+        self.ticks += 1
+        return self.step(tokens, active)
+
+    def release(self, slot: int) -> None:
+        self.api.reset_slot(self.pool, slot)
+
+    def serve(self, requests, new_tokens: int, on_logits=None) -> list[list[int]]:
+        """Serve every request to its end → its greedy tokens, the
+        prefill's first. ``on_logits(request, index, row)`` sees each
+        logits row on the device, index 0 the prefill's."""
+        out = [[] for _ in requests]
+        waiting = list(range(len(requests)))[::-1]
+        owner = [None] * self.slots
+        tok, active = np.zeros(self.slots, np.int32), np.zeros(self.slots, bool)
+
+        def take(slot, token, row, finite) -> None:
+            i = owner[slot]
+            if on_logits is not None:
+                on_logits(i, len(out[i]), row)
+            if finite:
+                out[i].append(int(token))
+                tok[slot] = token
+            else:
+                self.nonfinite.append(i)
+            if not finite or len(out[i]) == new_tokens:
+                self.release(slot)
+                owner[slot], active[slot] = None, False
+
+        while waiting or active.any():
+            for slot in range(self.slots):
+                if owner[slot] is None and waiting:
+                    owner[slot], active[slot] = waiting.pop(), True
+                    tokens, inputs = requests[owner[slot]]
+                    row = self.admit(slot, tokens, inputs)
+                    token, finite = to_host(row.argmax(), torch.isfinite(row).all())
+                    take(slot, token, row, bool(finite))
+            if active.any():
+                nxt, logits, finite = self.tick(tok.copy(), active.copy())
+                nx, fin = to_host(nxt, finite)
+                for slot in np.flatnonzero(active):
+                    take(slot, nx[slot], logits[slot], bool(fin[slot]))
+        return out
 
 
 def to_host(*tensors) -> list[np.ndarray]:

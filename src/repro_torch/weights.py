@@ -20,6 +20,15 @@ An "S" layer is ``{"ln1", "ssd": {"w_x": (D, DI), "w_B": (D, DS), "w_C":
 "conv_w": (W, RW), "w_r": (RW, RW) f32, "w_i": (RW, RW) f32, "lam": (RW,)
 f32}, "ln2", "ffn"}``.
 
+With the vision frontend (llava) the tree also holds ``"projector": (F,
+D)``, which maps the stub's patch embeddings into the LM stream. The
+enc-dec family (whisper) has a tree of its own (`models.encdec`):
+``"embed"``, ``"enc"`` (one dict per encoder layer: ``ln1``, ``attn``,
+``ln2``, ``glu``), ``"ln_enc"``, ``"dec"`` (one dict per decoder layer:
+``ln1``, ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``glu``) and
+``"ln_f"``; the reference stacks each of ``enc`` and ``dec`` over its
+layers, the port unstacks them.
+
 Layouts are the reference's. The reference stacks one tree per position of
 the layer pattern over the pattern's periods (``periods[i]``: leaves with a
 leading period axis) and keeps the layers past the last whole period in
@@ -77,6 +86,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
                         else layer(v, i)) for k, v in node.items()}
         return conv(pick(node, i))
 
+    if cfg.encdec:
+        def stack(name, n):
+            got = np.asarray(tree[name]["ln1"]["scale"]).shape[0]
+            if got != n:
+                raise ValueError(f"parameter tree has {got} {name} layers; config expects {n}")
+            return [layer(tree[name], i) for i in range(n)]
+        return {"embed": {k: conv(v) for k, v in tree["embed"].items()},
+                "enc": stack("enc", cfg.encoder_layers),
+                "ln_enc": {"scale": conv(tree["ln_enc"]["scale"])},
+                "dec": stack("dec", cfg.num_layers),
+                "ln_f": {"scale": conv(tree["ln_f"]["scale"])}}
+
     # layer l of the reference's tree: periods[l % P][l // P], then the tail
     periods, tail = tree["periods"], tree["tail"]
     n_periods = np.asarray(periods[0]["ln1"]["scale"]).shape[0] if periods else 0
@@ -88,9 +109,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     layers = [layer(periods[i % len(periods)], i // len(periods))
               for i in range(n_periods * len(periods))]
     layers += [layer(node, None) for node in tail]
-    return {"embed": {k: conv(v) for k, v in tree["embed"].items()},
-            "ln_f": {"scale": conv(tree["ln_f"]["scale"])},
-            "layers": layers}
+    out = {"embed": {k: conv(v) for k, v in tree["embed"].items()},
+           "ln_f": {"scale": conv(tree["ln_f"]["scale"])},
+           "layers": layers}
+    if "projector" in tree:
+        out["projector"] = conv(tree["projector"])
+    return out
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
@@ -101,7 +125,10 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
     blocks take the reference's fan-ins and deterministic leaves: the
     SSD's ``A_log = log(linspace(1, 16, NH))``, ``D`` ones, ``dt_bias``
     zeros, the RG-LRU's ``lam = log(linspace(9, 999, RW))`` and ``w_r``,
-    ``w_i`` in float32, each ``conv_w`` N(0, 0.1²)."""
+    ``w_i`` in float32, each ``conv_w`` N(0, 0.1²). The vision frontend's
+    ``projector`` (F, D) takes fan-in F; an enc-dec config gets the
+    enc-dec tree (module docstring), its attention and GLU leaves drawn as
+    the LM's."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
@@ -154,6 +181,25 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
                 "w_r": dense((w, w), w, torch.float32), "w_i": dense((w, w), w, torch.float32),
                 "lam": f32(torch.log(torch.linspace(9.0, 999.0, w)))}
 
+    def attn():
+        out = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
+               "wv": dense((d, kv, hd), d), "wo": dense((h * hd, d), h * hd)}
+        if cfg.qk_norm:
+            out["q_norm"], out["k_norm"] = ones(hd), ones(hd)
+        return out
+
+    def embed():
+        out = {"tok": (randn((cfg.padded_vocab, d)) * 0.02).to(dt)}
+        if not cfg.tie_embeddings:
+            out["head"] = dense((d, cfg.padded_vocab), d)
+        return out
+
+    if cfg.encdec:
+        enc = [{"ln1": ones(d), "attn": attn(), "ln2": ones(d), "glu": glu(cfg.d_ff)}
+               for _ in range(cfg.encoder_layers)]
+        dec = [{"ln1": ones(d), "self_attn": attn(), "ln_x": ones(d), "cross_attn": attn(),
+                "ln2": ones(d), "glu": glu(cfg.d_ff)} for _ in range(cfg.num_layers)]
+        return {"embed": embed(), "enc": enc, "ln_enc": ones(d), "dec": dec, "ln_f": ones(d)}
     layers = []
     for kind in cfg.block_kinds():
         if kind == "S":
@@ -162,12 +208,8 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
         if kind == "R":
             layers.append({"ln1": ones(d), "rglru": rglru(), "ln2": ones(d), "ffn": ffn()})
             continue
-        attn = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
-                "wv": dense((d, kv, hd), d), "wo": dense((h * hd, d), h * hd)}
-        if cfg.qk_norm:
-            attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
-        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d), "ffn": ffn()})
-    embed = {"tok": (randn((cfg.padded_vocab, d)) * 0.02).to(dt)}
-    if not cfg.tie_embeddings:
-        embed["head"] = dense((d, cfg.padded_vocab), d)
-    return {"embed": embed, "ln_f": ones(d), "layers": layers}
+        layers.append({"ln1": ones(d), "attn": attn(), "ln2": ones(d), "ffn": ffn()})
+    out = {"embed": embed(), "ln_f": ones(d), "layers": layers}
+    if cfg.frontend == "vision":
+        out["projector"] = dense((cfg.frontend_dim, d), cfg.frontend_dim)
+    return out

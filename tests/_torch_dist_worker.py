@@ -30,7 +30,11 @@ Tasks:
   sp_engine  `ServingEngine(ctx=...)` on each of a list of engine runs (the
           contiguous cache split by rows, or paged with sequence-sharded
           rings), recording per tick the logits and, per "A" layer, this
-          rank's selected counts.
+          rank's selected counts;
+  encdec  whisper-small.reduced()'s pooled decode state split by rows,
+          written from replicated batch=1 prefills, then greedy ticks of
+          the enc-dec decode step under ``ctx``, recording each tick's
+          tokens and logits.
 """
 
 import dataclasses
@@ -294,6 +298,24 @@ def sp_engine(inp, ctx):
     return out
 
 
+def encdec(inp, ctx):
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(), dtype="float32")
+    api = get_model(cfg)
+    slots = len(inp["prefills"])
+    pool = api.init_state(slots, inp["t_enc"], "cpu", ctx)
+    for slot, (frames, tokens) in enumerate(inp["prefills"]):
+        _, src = api.prefill(inp["weights"], tokens, frames=frames)
+        api.write_into_slot(pool, src, slot, ctx=ctx)
+    tok, act, out = inp["first"], torch.from_numpy(inp["active"].copy()), []
+    for _ in range(inp["ticks"]):
+        logits, pool = api.decode_step(inp["weights"], pool, torch.from_numpy(tok), act, ctx)
+        tok = logits.argmax(-1).numpy().astype("int32")
+        out.append((tok, logits.numpy()))
+    return out
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
@@ -302,7 +324,7 @@ def main() -> int:
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine, "prefix": prefix,
            "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache,
-           "sp_flat": sp_flat, "sp_engine": sp_engine}[task](inp, ctx)
+           "sp_flat": sp_flat, "sp_engine": sp_engine, "encdec": encdec}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

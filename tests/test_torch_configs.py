@@ -6,7 +6,8 @@ The port's copies of the configs equal the reference's field for field
 `weights.params_from_numpy` maps the reference's stacked layout (one tree
 per position of the layer pattern, stacked over the periods, then a tail)
 to one dict per layer (recurrentgemma at 8 layers too); the registry serves
-every ported config and refuses the enc-dec family and the frontends;
+every config, the enc-dec family and the frontends included, and refuses
+what the port has no path for;
 gemma3 refuses chunked prefill (the reference's message) and the
 block-sharded tick (the port's, when the engine is built); and
 `ServingEngine` on the reduced configs gives the JAX engine's greedy
@@ -43,6 +44,7 @@ from repro_torch.weights import init_lm_params, params_from_numpy
 
 NEW_ARCHS = ("qwen3-8b", "phi3-medium-14b", "gemma3-12b")
 RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-2b")
+FRONTEND_ARCHS = ("whisper-small", "llava-next-mistral-7b")
 
 
 def _cfgs(arch, **kw):
@@ -65,12 +67,13 @@ def _weights(arch, **kw):
     return _WEIGHTS[key]
 
 
-@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + NEW_ARCHS + RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + NEW_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS)
 def test_config_copies_equal_the_reference(arch):
-    """Every field of the full and the reduced config (the SSM and RG-LRU
-    fields included), the layer kinds and the ring sizes of both attention
-    kinds equal the reference's; a config not yet ported (whisper-small)
-    is refused by name."""
+    """Every field of the full and the reduced config (the SSM, RG-LRU,
+    enc-dec and frontend fields included), the layer kinds and the ring
+    sizes of both attention kinds equal the reference's; the port lists
+    every architecture of the reference, in its order, and refuses an
+    unknown name."""
     jc, tc = jget_config(arch), tget_config(arch)
     for j, t in ((jc, tc), (jc.reduced(), tc.reduced())):
         td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
@@ -79,10 +82,9 @@ def test_config_copies_equal_the_reference(arch):
         for kind in "AL":
             for max_seq in (32, 64, 65, 256, 1024, 1025, 8192):
                 assert tB.ring_size(t, kind, max_seq) == jB.ring_size(j, kind, max_seq)
-    assert set(ARCH_NAMES) == {"qwen3-0.6b", *NEW_ARCHS, "granite-moe-3b-a800m",
-                               "arctic-480b", *RECURRENT_ARCHS} <= set(JARCH_NAMES)
+    assert ARCH_NAMES == JARCH_NAMES
     with pytest.raises(KeyError, match="available"):
-        tget_config("whisper-small")
+        tget_config("whisper-large")
 
 
 @pytest.mark.parametrize("arch,layers", [("gemma3-12b", 12), ("gemma3-12b", 8),
@@ -132,22 +134,30 @@ def test_params_from_numpy_maps_periods_and_tail(arch, layers):
 
 
 def test_registry_admits_global_and_local_layers_only():
-    """Every ported config is served, full and reduced, "S" and "R" layers
-    included; what remains refused is refused with its reason: whisper-small
-    (the enc-dec "audio" family), llava-next's vision frontend, an MoE flag
-    outside the "moe" family and a layer kind the reference does not have."""
-    from repro_torch.configs.base import ModelConfig
+    """Every config is served, full and reduced, "S" and "R" layers, the
+    enc-dec family (whisper-small) and the vision frontend (llava-next, and
+    a vision frontend ahead of gemma3's rings) included: `get_model` builds
+    each one's API, the enc-dec family's with the reference's fields (the
+    paged and chunked ones None). What remains refused is refused with its
+    reason: a family the port does not know, an MoE flag outside the
+    "moe" family, a layer kind the reference does not have, the audio
+    frontend without the enc-dec family, the enc-dec family without it or
+    with non-global layers."""
     for arch in ARCH_NAMES:
-        assert unsupported_reason(tget_config(arch)) is None
-        assert unsupported_reason(tget_config(arch).reduced()) is None
-    whisper, llava = (ModelConfig(**dataclasses.asdict(jget_config(a)))
-                      for a in ("whisper-small", "llava-next-mistral-7b"))
+        for cfg in (tget_config(arch), tget_config(arch).reduced()):
+            assert unsupported_reason(cfg) is None
+            api = tget_model(cfg)
+            assert (api.init_paged_state is None) == cfg.encdec
+            assert (api.prefill_chunk_unsupported is None) == cfg.encdec
     base = tget_config("gemma3-12b")
-    for cfg, why in ((whisper, "enc-dec"), (whisper.reduced(), "enc-dec"),
-                     (llava, "frontends"), (dataclasses.replace(base, frontend="vision"),
-                                            "frontends"),
-                     (dataclasses.replace(base, moe=True), "family"),
-                     (dataclasses.replace(base, layer_pattern="LXA"), "layer pattern")):
+    whisper = tget_config("whisper-small")
+    assert unsupported_reason(dataclasses.replace(base, frontend="vision")) is None
+    for cfg, why in ((dataclasses.replace(base, moe=True), "MoE FFN"),
+                     (dataclasses.replace(base, family="diffusion"), "serves the families"),
+                     (dataclasses.replace(base, layer_pattern="LXA"), "layer pattern"),
+                     (dataclasses.replace(base, frontend="audio"), "audio frontend"),
+                     (dataclasses.replace(whisper, frontend="none"), "audio frontend"),
+                     (dataclasses.replace(whisper, layer_pattern="LA"), "layer pattern")):
         reason = unsupported_reason(cfg)
         assert reason is not None and why in reason
         with pytest.raises(NotImplementedError, match=why):

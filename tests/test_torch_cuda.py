@@ -126,6 +126,36 @@ def test_b3_kernel_matches_plain(dev, dtype, t, window, q_offset, hd, groups):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq,s_len", [(32768, 32768), (32731, 32731), (4, 32768), (448, 32768),
+                                      (100, 333)],
+                         ids=["encoder", "encoder_ragged", "cross4", "cross448", "small"])
+def test_b3_bidirectional_matches_plain_on_row_slices(dev, dtype, tq, s_len):
+    """B3 with ``causal=False`` (whisper-small's encoder over its frames, Tq
+    = S, and its cross-attention prefill, Td queries over T_enc keys) at
+    BH 12, G 1, HD 64: rows of the first query tile, a middle one and the
+    last (ragged where Tq is), against the plain version over the same
+    rows (a row of an unmasked attention depends on its own query only);
+    B3's one-ulp rule in bf16, 1e-5 in f32. Every key tile is read: S
+    ragged against the key tile masks its edge."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((12, tq, 64), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((12, s_len, 64), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    n0 = LAUNCHES["flash_prefill"]
+    out = flash_attention(q, k, v, causal=False)
+    assert LAUNCHES["flash_prefill"] == n0 + 1
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
+    mid = (tq // 2) // 64 * 64
+    last = (tq - 1) // 64 * 64
+    for lo in sorted({0, mid, last}):
+        rows = slice(lo, min(lo + 64, tq))
+        ref = flash_attention_plain(q[:, rows], k, v, causal=False)
+        torch.testing.assert_close(out[:, rows].float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("q_offset,c", [(384, 384), (200, 300), (0, 384)],
                          ids=["offset384", "offset200", "offset0"])
 def test_b3_chunk_rows_equal_whole_prompt_bitwise(dev, dtype, q_offset, c):
@@ -479,6 +509,9 @@ def test_b7_kernel_bitwise_reference_op(dev, bh, g, r, n):
     (4, 8, 1, 32, 8192, False, True),    # granite-moe-3b-a800m: r 32 (two words), G 1 …
     (4, 8, 3, 32, 8192, False, True),    # … and G 3 without the group sum
     (4, 8, 3, 32, 1001, True, False),
+    (4, 12, 1, 32, 32768, False, True),  # whisper-small's cross stream: G 1, r 32, N 32768
+    (4, 12, 1, 32, 32768, False, False),
+    (2, 8, 4, 64, 4096, False, True),    # llava's image run: G 4, r 64, N 4096, 2 slots
 ])
 def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf16):
     """B7 on B1's template: the register layout at G 1 / r 64 with aligned
@@ -511,7 +544,9 @@ def test_b7_bitwise_register_and_wide_layouts(dev, b, kv, g, r, n, unaligned, bf
     (4, 1, 1000, 32, 0.2), (6, 4, 512, 64, 0.05),
     # HD 1024: the chunk's staged codes take over 48 KB of shared memory
     (2, 8, 130, 1024, 0.5),
-    (32, 2, 544, 256, 0.3)])          # gemma3-12b: 4 slots x 8 kv heads, HD 256, G 2
+    (32, 2, 544, 256, 0.3),           # gemma3-12b: 4 slots x 8 kv heads, HD 256, G 2
+    (48, 1, 2048, 64, 0.8),           # whisper-small's cross stream: 4 x 12 heads, k_cap 2048
+    (16, 4, 256, 128, 0.8)])          # llava's image run: 2 slots x 8 kv heads, k_cap 256
 def test_b8_kernel_matches_plain(dev, bh, g, c, hd, density):
     """B8 within 1e-5 + 1e-5·|plain| (f32, other summation order), C not a
     multiple of 32 included; a row with nothing selected is exactly zero."""
@@ -752,7 +787,9 @@ def test_b3_b8_refuse_misaligned_operands(dev):
     (2, 4096, 67, (4096, 2049), None), (2, 4096, 129, (4095, 1), None),  # HALO 33, 64
     (2, 300_000, 7, (300_000, 262_147), None),          # chunked: the row exceeds the stage
     (2, 250_002, 129, (250_002, 249_999), None),        # chunked, N % 4 != 0, wide halo
-    (3, 2048, 7, None, 0), (3, 2048, 7, None, 5000)])   # k = 0, k > N
+    (3, 2048, 7, None, 0), (3, 2048, 7, None, 5000),   # k = 0, k > N
+    (48, 32768, 7, (32768,) * 48, 1638),                # whisper-small's cross stream
+    (16, 4096, 7, (3072,) * 16, 204)])                  # llava's image run
 @pytest.mark.parametrize("unaligned", [False, True])
 def test_b9_kernel_bitwise(dev, monkeypatch, bh, n, window, lengths, k, unaligned):
     """Pooled bins, histogram and threshold bit for bit: ragged lengths,
@@ -898,7 +935,8 @@ def test_b2_b6_per_block_branches_match_plain(dev, mode):
     (32, 8192, 7, 409, "random"), (2, 1000, 7, 5000, "random"),
     (4, 8192, 7, 409, "equal"), (4, 8192, 7, 409, "zero"), (3, 1000, 7, 100, "zero"),
     (4, 8192, 7, 409, "runs"), (3, 1000, 7, 50, "runs"), (256, 8192, 7, 409, "random"),
-    (256, 2048, 7, 100, "runs")])
+    (256, 2048, 7, 100, "runs"),
+    (48, 32774, 7, 1638, "runs")])      # whisper-small's cross stream at one rank, halo-padded
 def test_b10_b11_kernels_bitwise(dev, bh, n, window, k, kind):
     """B10 (max-pool) and B11 (histogram + threshold) equal their plain
     versions bit for bit, a ragged last run (N = 1000) and a k above N
@@ -1416,3 +1454,55 @@ def test_gemma3_under_ctx_matches_unsharded_twin(dev, paged):
     for rid, (a, b) in enumerate(zip(*outs)):
         n = over.get(rid, len(a))
         assert a[:n] == b[:n], (rid, over)
+
+
+def _encdec_ticks(dev, eager_run: bool, n_ticks=6, t_enc=256):
+    """whisper-small.reduced() (bf16) on ``dev``: two requests' batch=1
+    prefills written into a pooled `EncDecState`, then greedy ticks through
+    `ServeDecodeStep` (graphed unless built under `steps.eager()`), slot 1
+    inactive from the fourth tick. Returns each tick's logits and the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime.steps import ServeDecodeStep, eager
+    from repro_torch.weights import init_lm_params
+    cfg = get_config("whisper-small").reduced()
+    api = get_model(cfg)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = api.init_state(2, t_enc, dev)
+    first = []
+    for slot, td in enumerate((5, 9)):
+        frames = torch.randn((1, t_enc, cfg.d_model), generator=gen, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, td), generator=gen, device=dev,
+                               dtype=torch.int32)
+        logits, src = api.prefill(params, tokens, frames=frames)
+        api.write_into_slot(pool, src, slot)
+        first.append(int(logits[0].argmax()))
+    if eager_run:
+        with eager():
+            step = ServeDecodeStep(api.decode_step, params, pool, 2, dev)
+    else:
+        step = ServeDecodeStep(api.decode_step, params, pool, 2, dev)
+    tok, active, out = np.array(first, np.int32), np.array([True, True]), []
+    for i in range(n_ticks):
+        if i == 3:
+            active = np.array([True, False])
+        nxt, logits, finite = step(tok, active)
+        out.append(logits.clone())
+        tok = nxt.cpu().numpy().astype(np.int32)
+    torch.cuda.synchronize()
+    return out, step, pool
+
+
+def test_graphed_encdec_tick_equals_eager(dev):
+    """The enc-dec tick (self caches appended in place, Salca over the cross
+    caches: B7, B9, B8) replayed from a CUDA graph equals the eager tick
+    bit for bit, every tick, an inactive slot included; its cursor holds."""
+    ticks_g, step_g, pool_g = _encdec_ticks(dev, eager_run=False)
+    ticks_e, step_e, pool_e = _encdec_ticks(dev, eager_run=True)
+    assert step_g.graphed and step_g._graph is not None and not step_e.graphed
+    for lg_g, lg_e in zip(ticks_g, ticks_e):
+        assert torch.equal(lg_g, lg_e)
+    assert torch.equal(pool_g.pos, pool_e.pos)
+    assert {"score_estimate", "fused_bin_pool_threshold",
+            "sparse_flash_decode"} <= set(step_g.launches_per_tick)
