@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the eleven CUDA kernels' four sources from ``src/repro_torch/csrc``
+2. build the CUDA kernels' five sources from ``src/repro_torch/csrc`` (the
+   eleven TPU kernels' counterparts and B3-bwd, B3's backward)
    (nvcc, sm_90a, one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with kernel, plain and library times and
@@ -232,6 +233,28 @@ Phases (any failure raises and the script exits non-zero):
    `[llava-next-mistral-7b]`, counted on run (ad)); the small path runs
    whisper reduced through the same model-API server (card against CPU)
    and llava reduced through the paged engine.
+
+Last, training (`check_train_gradients`, `check_training`): (af)
+qwen3-0.6b's widths at GRAD_LAYERS layers (random bf16 weights, seed 0),
+one TRAIN_SHAPE batch of `runtime.data.make_batch`: every parameter's
+gradient through B3 and B3-bwd against the same through their plain
+versions on the card, each leaf within GRAD_CHECK_LIMIT of its largest
+magnitude; (ag) full-width qwen3-0.6b (28 layers) trained by
+`runtime.Trainer` for TRAIN_STEPS steps of TRAIN_SHAPE (the train_4k cell
+at seq 4096 with its global batch cut from 256 to 4 for one card), a
+checkpoint every TRAIN_CKPT_EVERY steps into a temporary directory, with
+each step's ms, tokens/s, loss, gradient norm, peak memory, B3's and
+B3-bwd's launches (2 and 3 per layer and step) and a profiled step's
+device time in each; every loss finite and the mean of the last three
+below that of the first three; (ag') a fresh `Trainer` on the directory,
+its last checkpoint removed, resumes at step TRAIN_CKPT_EVERY and gives
+the first run's losses and gradient norms bit for bit. Phase 3 holds
+B3-bwd (run (ae), `check_b3_bwd`) against its plain version at the
+training shapes: qwen3-0.6b's (4 × 16 H over 8 KV, HD 128, T 4096, causal,
+and under a window of 1024), whisper-small's encoder (unmasked, HD 64) and
+cross-attention (448 queries over 4096 frames), and one f32 case, each
+gradient within B3_BWD_TOL, timed by `graph_ms` beside the backward of
+one `scaled_dot_product_attention` call (its record counted on run (ag)).
 
 It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
 kernel's launches on the run of its path, and ``launches_per_call`` over
@@ -3829,6 +3852,341 @@ def check_encdec_and_vlm(dev, ctx, runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- training (PR 30): runs (ae)-(ag') ------------------------------------
+# B3-bwd against its plain version (tests/test_torch_cuda.py's rule): both
+# work in f32 from the same operands (the kernel's forward output and LSE);
+# their sums run in other orders, and a bf16 gradient rounds once, so an
+# element may differ by one bf16 ulp of itself (2^-7 |x|) plus the f32 sums'
+# difference (atol). (atol, rtol) by operand type
+B3_BWD_TOL = {"bf16": (1e-3, 2.0 ** -7), "f32": (1e-4, 1e-4)}
+TRAIN_ARCH = "qwen3-0.6b"
+# the train_4k cell of configs/shapes.py, its global batch cut from 256 to
+# 4 sequences so that one card holds the step (the (4, 4096, 151936) bf16
+# logits and their f32 copy in the cross-entropy take ~15 GB)
+TRAIN_SHAPE = dict(name="train_4k", seq_len=4096, global_batch=4, kind="train")
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 12, 6
+# run (ae)'s windowed case at the training shape (gemma3-12b's window)
+B3_BWD_WINDOW = 1024
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+# run (af): qwen3-0.6b's widths cut to this many layers; every parameter's
+# gradient through B3 + B3-bwd against the same through their plain
+# versions, each leaf within GRAD_CHECK_LIMIT of its largest magnitude. The
+# two runs differ only in the attention's roundings (B3's bf16 output
+# within one ulp of the plain version's), which the bf16 model carries
+# into every gradient; a wrong or missing gradient term moves a leaf by
+# O(1) of its largest value
+GRAD_LAYERS, GRAD_CHECK_LIMIT = 2, 2.0 ** -4
+
+
+def train_config():
+    """The training runs' model: full-width TRAIN_ARCH."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH)
+
+
+def b3_bwd_pairs(t: int, s_len: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head keeps at q_offset 0."""
+    if not causal:
+        return t * s_len
+    i = np.arange(t)
+    kept = np.minimum(i + 1, s_len)
+    if window > 0:
+        kept = np.minimum(kept, window)
+    return int(kept.sum())
+
+
+def sdpa_backward_ms(q, k, v, dout, causal: bool, window: int, iters: int) -> float:
+    """The yardstick, timed and used nowhere in the port: the backward of
+    one ``scaled_dot_product_attention`` call (``enable_gqa``; causal, or a
+    boolean mask for the window) on the same tensors, by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    bh, t, _ = q.shape
+    bkv, s_len = k.shape[:2]
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(t, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                         is_causal=causal and not window,
+                                         enable_gqa=bkv != bh)
+    return events_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None],
+                                                 retain_graph=True), iters)
+
+
+def b3_bwd_case(dev, gen, label: str, h: int, kv: int, t: int, s_len: int, hd: int, dtype,
+                causal=True, window=0, iters=5) -> dict:
+    """B3-bwd at one shape (h query heads over kv, the batch folded in):
+    dQ, dK and dV against the plain version on the same forward output and
+    LSE (each gradient's max |kernel - plain| over atol + rtol·|plain|),
+    its time by `graph_ms`, the plain version's and SDPA's backward by CUDA
+    events, and its bound (10·HD flops per kept pair at the operand type's
+    peak; inputs and gradients read or written once)."""
+    import torch
+    from repro_torch.kernels.flash_prefill import ops as fp
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    atol, rtol = B3_BWD_TOL[kind]
+    q = torch.randn((h, t, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((kv, s_len, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    dout = torch.randn((h, t, hd), generator=gen, device=dev).to(dtype)
+    mask = dict(causal=causal, window=window)
+    out, lse = fp.flash_attention_lse(q, k, v, **mask)
+    got = fp.flash_attention_backward(q, k, v, out, dout, lse, **mask)
+    want = fp.flash_attention_backward_plain(q, k, v, out, dout, lse, **mask)
+    errs, ratios = {}, {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d = (a.float() - b.float()).abs()
+        errs[name] = float(d.max())
+        ratios[name] = float((d / (atol + rtol * b.float().abs())).max())
+        if not ratios[name] <= 1.0:
+            raise AssertionError(f"B3-bwd {label} {name}: |kernel - plain| reaches "
+                                 f"{ratios[name]:.3g}x its bound {atol:g} + {rtol:g}·|plain| "
+                                 f"(max abs err {errs[name]})")
+    del got, want
+    ms = graph_ms(lambda: fp.flash_attention_backward(q, k, v, out, dout, lse, **mask), iters)
+    plain_ms = events_ms(lambda: fp.flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                                                   **mask), 1)
+    lib = sdpa_backward_ms(q, k, v, dout, causal, window, iters)
+    pairs = b3_bwd_pairs(t, s_len, causal, window) * h
+    elt = q.element_size()
+    moved = elt * 2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+    bms, bby = bound(moved, 10 * hd * pairs, kind)
+    line = (f"B3-bwd {label} ({kind}, {h} H / {kv} KV, HD {hd}, T {t}, S {s_len}, "
+            f"{'causal' if causal else 'unmasked'}{f', window {window}' if window else ''}): "
+            + ", ".join(f"{n} max_abs_err={errs[n]:.3g} ({ratios[n]:.3g} of {atol:g} + "
+                        f"{rtol:g}*|plain|)" for n in errs)
+            + f"; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} (SDPA backward) "
+            f"bound_ms={bms:.5f} ({bby}); {10 * hd * pairs / ms / 1e9:.1f} TFLOP/s of the "
+            f"bound's work")
+    return dict(label=label, errs=errs, ratios=ratios, tol=(atol, rtol), ms=ms,
+                plain_ms=plain_ms, library_ms=lib, bound_ms=bms, bound_by=bby, line=line)
+
+
+def check_b3_bwd(dev) -> dict:
+    """Run (ae): B3-bwd at qwen3-0.6b's training shapes (TRAIN_SHAPE's batch
+    of 4 × 16 heads over 8 KV, HD 128, T 4096, bf16; causal, and under a
+    window of 1024), whisper-small's encoder (4 × 12 heads, HD 64, T 4096
+    unmasked) and its cross-attention (the 448-token decoder stream over
+    4096 frames), and one f32 case. Returns the kernel's record (the causal
+    qwen3 shape, its launches counted on run (ag))."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(30)
+    b, t = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    bf = torch.bfloat16
+    cases = [
+        b3_bwd_case(dev, gen, "qwen3-0.6b", b * 16, b * 8, t, t, 128, bf),
+        b3_bwd_case(dev, gen, "qwen3-0.6b window", b * 16, b * 8, t, t, 128, bf,
+                    window=B3_BWD_WINDOW),
+        b3_bwd_case(dev, gen, "whisper-small encoder", b * 12, b * 12, t, t, 64, bf,
+                    causal=False),
+        b3_bwd_case(dev, gen, "whisper-small cross", b * 12, b * 12, min(448, t), t, 64, bf,
+                    causal=False),
+        b3_bwd_case(dev, gen, "qwen3-0.6b f32", 16, 8, t // 2, t // 2, 128, torch.float32),
+    ]
+    for c in cases:
+        print(c["line"], flush=True)
+    main, win = cases[0], cases[1]
+    worst = max(main["ratios"], key=main["ratios"].get)
+    atol, rtol = main["tol"]
+    return dict(name="flash_prefill_bwd", counter="flash_prefill_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill_bwd.cu",
+                replaces="src/repro/models/attention.py:64",
+                replaces_note="no TPU kernel: the reference's gradient is XLA's autodiff of "
+                              "flash_attention_xla",
+                launches=None, max_abs_err=max(main["errs"].values()),
+                tolerance=f"{atol:g} + 2^-7*|plain|", err_over_tol=main["ratios"][worst],
+                errs=main["errs"], ms=main["ms"], graph_ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                library_call="scaled_dot_product_attention backward (is_causal, enable_gqa)",
+                window=B3_BWD_WINDOW, window_ms=win["ms"], window_max_abs_err=max(win["errs"].values()),
+                window_err_over_tol=max(win["ratios"].values()),
+                window_bound_ms=win["bound_ms"], window_bound_by=win["bound_by"],
+                window_library_ms=win["library_ms"], run="train",
+                cases={c["label"]: {k: c[k] for k in ("errs", "ms", "plain_ms", "library_ms",
+                                                     "bound_ms")} for c in cases})
+
+
+def train_gradients(cfg, params, batch, plain: bool):
+    """(loss, every parameter's gradient) of ``cfg``'s loss on ``batch``:
+    through B3 and B3-bwd, or with ``plain`` through their plain versions
+    (patched into `FlashAttentionFn`'s module for the call)."""
+    import torch
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.models import get_model
+    from repro_torch.runtime.tree import leaves, tree_map
+    plain_fns = {"flash_attention_lse": fp.flash_attention_lse_plain,
+                 "flash_attention_backward": fp.flash_attention_backward_plain}
+    saved = {n: getattr(fp, n) for n in plain_fns}
+    if plain:
+        for n, f in plain_fns.items():
+            setattr(fp, n, f)
+    try:
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
+        loss = get_model(cfg).loss(p, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in leaves(p)], allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for n, f in saved.items():
+            setattr(fp, n, f)
+    return float(loss.detach()), [k for k, _ in leaves(p)], grads
+
+
+def check_train_gradients(dev) -> None:
+    """Run (af): qwen3-0.6b's widths at GRAD_LAYERS layers, random bf16
+    weights from seed 0, one TRAIN_SHAPE batch from `make_batch`: every
+    parameter's gradient through B3 + B3-bwd against the same through their
+    plain versions on the card, each leaf within GRAD_CHECK_LIMIT of its
+    largest magnitude."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import common
+    from repro_torch.runtime.data import make_batch, to_device
+    from repro_torch.weights import init_lm_params
+    cfg = dataclasses.replace(train_config(), num_layers=GRAD_LAYERS)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = to_device(make_batch(cfg, ShapeConfig(**TRAIN_SHAPE), 0, 0), dev)
+    loss_k, names, gk = train_gradients(cfg, params, batch, plain=False)
+    before = dict(common.LAUNCHES)
+    loss_p, _, gp = train_gradients(cfg, params, batch, plain=True)
+    if dict(common.LAUNCHES) != before:
+        raise AssertionError("run (af): the plain run launched a kernel")
+    worst, where = 0.0, names[0]
+    for n, a, b in zip(names, gk, gp):
+        rel = float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, where = rel, n
+    print(f"(af) {TRAIN_ARCH} widths, {GRAD_LAYERS} layers, batch {TRAIN_SHAPE['global_batch']}"
+          f" x {TRAIN_SHAPE['seq_len']}: loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain); "
+          f"{len(names)} gradient leaves, worst {where} at {worst:.4g} of its largest "
+          f"magnitude (limit {GRAD_CHECK_LIMIT:g})", flush=True)
+    if not worst <= GRAD_CHECK_LIMIT:
+        raise AssertionError(f"run (af): gradient leaf {where} differs by {worst:.4g} of its "
+                             f"largest magnitude (limit {GRAD_CHECK_LIMIT:g})")
+
+
+def ckpt_bytes(directory: str) -> int:
+    """Bytes of the checkpoints under ``directory``, each ``step_<N>``."""
+    import os
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(directory) for f in files)
+
+
+def profile_train_step(trainer, batch) -> dict:
+    """Device time of one training step (fresh parameters, after a warm-up
+    step) from the profiler's trace: in all, in B3 and in B3-bwd."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    params, opt = trainer.init_state()
+    trainer.step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    tot = {"all": 0.0, "b3": 0.0, "b3_bwd": 0.0}
+    count = {"b3": 0, "b3_bwd": 0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        tot["all"] += us
+        for part, name in (("b3", "flash_prefill_bf16_kernel"), ("b3_bwd", "flash_bwd_")):
+            if name in e.key:
+                tot[part] += us
+                count[part] += e.count
+    return {k: v / 1e3 for k, v in tot.items()} | {"wall_ms": wall, "launches": count}
+
+
+def check_training(dev) -> dict:
+    """Runs (ag) and (ag'): full-width qwen3-0.6b (28 layers, random bf16
+    weights from seed 0) trained by `Trainer` over `make_batch`'s stream at
+    TRAIN_SHAPE for TRAIN_STEPS steps, a checkpoint every TRAIN_CKPT_EVERY
+    into a temporary directory; every loss finite and the mean of the last
+    three below that of the first three; then a fresh `Trainer` on the
+    directory with the last checkpoint removed resumes at step
+    TRAIN_CKPT_EVERY and must give the first run's later losses and gradient
+    norms bit for bit. Returns run (ag)'s launch counts."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import common
+    from repro_torch.runtime import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.runtime.data import make_batch, to_device
+    cfg, shape = train_config(), ShapeConfig(**TRAIN_SHAPE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def trainer():
+            return Trainer(cfg, shape, TrainerConfig(num_steps=TRAIN_STEPS,
+                                                     ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=tmp,
+                                                     seed=0, log_every=TRAIN_STEPS),
+                           AdamWConfig(**TRAIN_OPT), device=dev)
+        tr = trainer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        t0 = time.time()
+        out = tr.train()
+        wall = time.time() - t0
+        launches = dict(common.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_attn = cfg.num_layers
+        want = {"flash_prefill": 2 * n_attn * TRAIN_STEPS,
+                "flash_prefill_bwd": 3 * n_attn * TRAIN_STEPS}
+        if launches != want:
+            raise AssertionError(f"run (ag): launches {launches}, expected {want} (B3 in the "
+                                 "forward and its recomputation, B3-bwd's three kernels)")
+        tokens = shape.global_batch * shape.seq_len
+        for m in tr.metrics:
+            print(f"(ag) step {m['step']}: {m['seconds'] * 1e3:.1f} ms, "
+                  f"{tokens / m['seconds']:.0f} tokens/s, loss {m['loss']:.6f}, grad norm "
+                  f"{m['grad_norm']:.6f}, lr {m['lr']:.3g}", flush=True)
+        losses = out["losses"]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"run (ag): losses {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"run (ag): the loss did not fall: {losses}")
+        steady = [m["seconds"] for m in tr.metrics[1:]]
+        print(f"(ag) {TRAIN_ARCH} full width ({n_attn} layers), {TRAIN_STEPS} steps of "
+              f"{shape.global_batch} x {shape.seq_len} tokens: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (mean of the first 3 {np.mean(losses[:3]):.4f}, last 3 "
+              f"{np.mean(losses[-3:]):.4f}); median step {np.median(steady) * 1e3:.1f} ms "
+              f"(steps 1-{TRAIN_STEPS - 1}), {tokens / np.median(steady):.0f} tokens/s; peak "
+              f"memory {peak:.3f} GB; launches {launches}; checkpoints "
+              f"{tr.ckpt.all_steps()} of {ckpt_bytes(tmp) / 1e9:.2f} GB; train() "
+              f"{wall:.1f} s of wall in all", flush=True)
+        # (ag') resume from step TRAIN_CKPT_EVERY (the later checkpoint removed)
+        shutil.rmtree(os.path.join(tmp, f"step_{TRAIN_STEPS}"))
+        tr2 = trainer()
+        t0 = time.time()
+        out2 = tr2.train()
+        wall2 = time.time() - t0
+        first = tr2.metrics[0]["step"] if tr2.metrics else None
+        keys = ("loss", "grad_norm")
+        again = [[m[k] for k in keys] for m in tr2.metrics]
+        orig = [[m[k] for k in keys] for m in tr.metrics[TRAIN_CKPT_EVERY:]]
+        if first != TRAIN_CKPT_EVERY or out2["final_step"] != TRAIN_STEPS or again != orig:
+            raise AssertionError(f"run (ag'): resumed at {first}, losses and gradient norms "
+                                 f"{again} vs the uninterrupted run's {orig}")
+        print(f"(ag') a fresh Trainer resumed at step {first}: steps {first}-{TRAIN_STEPS - 1} "
+              f"give the uninterrupted run's losses and gradient norms bit for bit (train() "
+              f"{wall2:.1f} s of wall)", flush=True)
+        prof = profile_train_step(tr2, to_device(make_batch(cfg, shape, 0, 0), dev))
+        print(f"(ag) one profiled step: device {prof['all']:.1f} ms of {prof['wall_ms']:.1f} "
+              f"ms wall; B3 {prof['b3']:.1f} ms ({prof['launches']['b3']} launches in the "
+              f"trace of {2 * n_attn}), B3-bwd {prof['b3_bwd']:.1f} ms "
+              f"({prof['launches']['b3_bwd']} of {3 * n_attn})", flush=True)
+        del tr, tr2
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -3942,6 +4300,8 @@ def main() -> int:
     recs += check_flat_kernels(dev, lcfg, lengths=[lcfg.num_image_tokens + VLM_TEXT]
                                * VLM_REQUESTS, tag=f"[{LLAVA}]", run="llava", n=VLM_MAX_SEQ,
                                slots=VLM_REQUESTS)
+    # B3-bwd at the training shapes (run (ae)), counted on the training run (ag)
+    recs.append(check_b3_bwd(dev))
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -4036,6 +4396,8 @@ def main() -> int:
     check_moe(dev, ctx, runs)
     check_recurrent(dev, runs)
     check_encdec_and_vlm(dev, ctx, runs)
+    check_train_gradients(dev)
+    runs["train"] = check_training(dev)
     # each kernel's launches on the run of its path (a record at another
     # model's shapes: its `run`, under its wrapper's counter)
     home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",

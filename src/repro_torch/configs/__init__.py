@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.shapes import SHAPES, get_shape
 
 _ARCHS = {
     "qwen3-8b": "qwen3_8b",
@@ -38,4 +39,4 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
-__all__ = ["ModelConfig", "get_config", "ARCH_NAMES"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config", "get_shape", "ARCH_NAMES"]

@@ -4,7 +4,8 @@ Field names, defaults and `reduced()` match the JAX package's
 `configs/base.py`, so one architecture id means the same shapes on both
 sides. The dense and MoE LMs (global and sliding-window layers) read most
 of these fields; the rest are kept so a config compares equal field for
-field.
+field. `ShapeConfig` is the reference's input-shape cell (sequence length
+and global batch), which the trainer's data stream reads.
 """
 
 from __future__ import annotations
@@ -136,3 +137,17 @@ class ModelConfig:
         if self.frontend != "none":
             kw.update(frontend_dim=64, num_image_tokens=8)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (the reference's `ShapeConfig`)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+    def reduced(self) -> "ShapeConfig":
+        return replace(self, seq_len=min(self.seq_len, 256),
+                       global_batch=min(self.global_batch, 4))

@@ -67,8 +67,9 @@ struct F32 {
 template <int HD>
 __global__ void __launch_bounds__(F32<HD>::THREADS)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int Tq, int S,
-                     int groups, int causal, int window, int q_offset, float scale) {
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int Tq, int S, int groups, int causal, int window,
+                     int q_offset, float scale) {
   constexpr int TPR = F32<HD>::TPR, BK = F32<HD>::BK, THREADS = F32<HD>::THREADS;
   constexpr int NH = HD / TPR;          // channels per thread
   __shared__ __align__(16) float ks[BK][HD];
@@ -162,6 +163,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row_ok) {
     const float inv = 1.f / fmaxf(l, 1e-20f);
+    if (lse != nullptr && h == 0) lse[(size_t)bh * Tq + qi] = m + logf(fmaxf(l, 1e-20f));
 #pragma unroll
     for (int i = 0; i < NH / 4; ++i) {
 #pragma unroll
@@ -173,14 +175,14 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, int Tq,
-               int S, int HD, int groups, int causal, int window, int q_offset, float scale,
-               cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int BH,
+               int Tq, int S, int HD, int groups, int causal, int window, int q_offset,
+               float scale, cudaStream_t st) {
   const dim3 grid((Tq + BQ - 1) / BQ, BH);
 #define B3_LAUNCH(D)                                                                   \
   flash_prefill_kernel<D><<<grid, F32<D>::THREADS, 0, st>>>(                           \
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Tq, S, groups,   \
-      causal, window, q_offset, scale)
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Tq, S,      \
+      groups, causal, window, q_offset, scale)
   switch (HD) {
     case 32: B3_LAUNCH(32); break;
     case 64: B3_LAUNCH(64); break;
@@ -267,8 +269,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                          int Tq, int S, int groups, int causal, int window, int q_offset,
-                          float scale_log2) {
+                          float* __restrict__ lse, int Tq, int S, int groups, int causal,
+                          int window, int q_offset, float scale_log2) {
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int BK = L::BK;
@@ -429,6 +431,8 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-20f);
     const int row = qb + 16 * warp + gq + 8 * r;
+    if (lse != nullptr && row < Tq && t4 == 0)   // natural-log units, as the f32 branch
+      lse[(size_t)bh * Tq + row] = (m_run[r] + log2f(fmaxf(l, 1e-20f))) * 0.6931471805599453f;
     if (row < Tq) {
       __nv_bfloat16* dst = out + ((size_t)bh * Tq + row) * HD + 2 * t4;
 #pragma unroll
@@ -440,8 +444,9 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int Tq, int S,
-           int groups, int causal, int window, int q_offset, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int BH, int Tq,
+           int S, int groups, int causal, int window, int q_offset, float scale,
+           cudaStream_t st) {
   constexpr int bytes = Layout<HD>::BYTES;
   // set on every launch (cheap): the attribute is per device
   const cudaError_t e = cudaFuncSetAttribute(
@@ -450,7 +455,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int T
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
   flash_prefill_bf16_kernel<HD><<<grid, THREADS, bytes, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, Tq, S, groups, causal, window, q_offset,
+      (__nv_bfloat16*)out, lse, Tq, S, groups, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -459,25 +464,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int T
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16. lse (BH, Tq) f32, or null: each row's
+// log-sum-exp of its scaled, masked scores (natural log), which the
+// backward kernel (flash_prefill_bwd.cu) recomputes P from; a null pointer
+// leaves out's arithmetic exactly as it is without it.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* out,
                              int dtype, int BH, int Tq, int S, int HD, int groups,
-                             int causal, int window, int q_offset, float scale,
+                             int causal, int window, int q_offset, float scale, void* lse_ptr,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_ptr;
   if (Tq <= 0 || BH <= 0) return (int)cudaGetLastError();
   if (dtype == 0)
-    return launch_f32(q, k, v, out, BH, Tq, S, HD, groups, causal, window, q_offset, scale,
-                      st);
+    return launch_f32(q, k, v, out, lse, BH, Tq, S, HD, groups, causal, window, q_offset,
+                      scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   switch (HD) {
-    case 32: return tc::launch<32>(q, k, v, out, BH, Tq, S, groups, causal, window, q_offset,
+    case 32: return tc::launch<32>(q, k, v, out, lse, BH, Tq, S, groups, causal, window, q_offset,
                                    scale, st);
-    case 64: return tc::launch<64>(q, k, v, out, BH, Tq, S, groups, causal, window, q_offset,
+    case 64: return tc::launch<64>(q, k, v, out, lse, BH, Tq, S, groups, causal, window, q_offset,
                                    scale, st);
-    case 128: return tc::launch<128>(q, k, v, out, BH, Tq, S, groups, causal, window,
+    case 128: return tc::launch<128>(q, k, v, out, lse, BH, Tq, S, groups, causal, window,
                                      q_offset, scale, st);
-    case 256: return tc::launch<256>(q, k, v, out, BH, Tq, S, groups, causal, window,
+    case 256: return tc::launch<256>(q, k, v, out, lse, BH, Tq, S, groups, causal, window,
                                      q_offset, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -37,6 +37,7 @@ SOURCES = {
     "score_est": "score_est.cu",
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_bwd": "flash_prefill_bwd.cu",
     "selection_fused": "selection_fused.cu",
 }
 

@@ -1,8 +1,9 @@
 """GQA attention layer: QKV projection and prefill attention through kernel B3,
 causal (whole or by chunks) or bidirectional (the enc-dec family's encoder
-and cross-attention).
+and cross-attention), and the training forward (`attention_train`), which
+B3-bwd differentiates (`FlashAttentionFn`).
 
-Port of the reference `models/attention.py` for the serving path. Weight
+Port of the reference `models/attention.py`. Weight
 layouts are the reference's: wq (D, H, HD), wk/wv (D, KV, HD), wo (H·HD, D).
 """
 
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_prefill.ops import flash_attention, flash_attention_chunked
+from repro_torch.kernels.flash_prefill.ops import (
+    FlashAttentionFn, flash_attention, flash_attention_chunked)
 from repro_torch.models.common import rmsnorm, rope
 
 
@@ -62,3 +64,23 @@ def bidirectional_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     o = flash_attention(fold_heads(q), fold_heads(k), fold_heads(v), causal=False)
     return o.reshape(b, h, t, hd).transpose(1, 2)
 
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Differentiable attention of q (B, Tq, H, HD) over k/v (B, S, KV, HD)
+    (the reference's ``flash_attention_xla`` at q_offset 0): causal,
+    windowed or unmasked, through `FlashAttentionFn` (B3, then B3-bwd).
+    Returns (B, Tq, H, HD), q dtype."""
+    b, t, h, hd = q.shape
+    o = FlashAttentionFn.apply(fold_heads(q), fold_heads(k), fold_heads(v), causal, window)
+    return o.reshape(b, h, t, hd).transpose(1, 2)
+
+
+def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention over a full training sequence (the reference's
+    `attention_train`): x (B, T, D) → (B, T, D). ``window`` > 0 masks to
+    the sliding window; ``causal=False`` is the enc-dec encoder's form."""
+    b, t, _ = x.shape
+    q, k, v = qkv_project(params, x, cfg, torch.arange(t, device=x.device))
+    return train_attention(q, k, v, causal=causal, window=window).reshape(b, t, -1) @ params["wo"]

@@ -21,6 +21,11 @@ every contiguous cache and ring is split by rows across the ranks (rank r
 holds ``[r·n/world, (r+1)·n/world)``), the reference's `cache_pspec`.
 Salca accelerates the "A" layers only.
 
+`block_train` is the training forward of every kind (the reference's
+`block_train`): attention through `models.attention.attention_train`, so
+that B3-bwd differentiates it, and the recurrent kinds through the same
+forward as their prefill (`_recurrent_block`) without the state.
+
 Every layer's FFN goes through `ffn_apply`: the dense GLU, or the MoE
 branch (`models.moe`) with arctic's dense residual GLU beside it.
 
@@ -51,7 +56,8 @@ from repro_torch.core.sp_decode import (
     sp_salca_decode_paged)
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import rglru, ssm
-from repro_torch.models.attention import fold_heads, prefill_attention, qkv_project
+from repro_torch.models.attention import (
+    attention_train, fold_heads, prefill_attention, qkv_project)
 from repro_torch.models.common import glu_apply, rmsnorm
 from repro_torch.models.moe import moe_apply
 
@@ -133,6 +139,34 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
     return (out[:, 0] if squeeze else out), aux
 
 
+def _recurrent_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                     return_state: bool):
+    """An "S" block (ln1 + the SSD mixer) or an "R" block (ln1 + the
+    RG-LRU, then ln2 + the FFN) on x (B, T, D) → (x_out, aux, the state
+    after the prompt or None)."""
+    xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    mixer = (ssm.ssd_train(params["ssd"], xn, cfg, return_state=return_state) if kind == "S"
+             else rglru.rglru_train(params["rglru"], xn, cfg, return_state=return_state))
+    h, st = mixer if return_state else (mixer, None)
+    x = x + h
+    if kind == "S":
+        return x, 0.0, st
+    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
+    return x + f, aux, st
+
+
+def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str = "A"):
+    """A layer's training forward: x (B, T, D) → (x_out, aux), aux the MoE
+    FFN's load-balancing loss (0.0 for a dense FFN or an "S" block)."""
+    if kind in ("S", "R"):
+        x, aux, _ = _recurrent_block(params, x, cfg, kind, return_state=False)
+        return x, aux
+    x = x + attention_train(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
+                            window=_window(cfg, kind))
+    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
+    return x + f, aux
+
+
 def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
                   kind: str = "A"):
     """x (B, T, D) → (x_out, the layer's state): for "A" and "L" a
@@ -140,15 +174,9 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, max_seq: int,
     layer with a ring (`ring_size`) to its W slots, holding the prompt's
     last W tokens at their ring slots; for "S" and "R" the recurrent state
     after the prompt."""
-    if kind == "S":
-        h, st = ssm.ssd_train(params["ssd"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
-                              return_state=True)
-        return x + h, st
-    if kind == "R":
-        h, st = rglru.rglru_train(params["rglru"], rmsnorm(params["ln1"], x, cfg.norm_eps),
-                                  cfg, return_state=True)
-        x = x + h
-        return x + ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)[0], st
+    if kind in ("S", "R"):
+        x, _, st = _recurrent_block(params, x, cfg, kind, return_state=True)
+        return x, st
     t = x.shape[1]
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
     positions = torch.arange(t, device=x.device)

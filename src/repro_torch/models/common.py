@@ -59,3 +59,11 @@ def vocab_mask_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return logits
     v = torch.arange(cfg.padded_vocab, device=logits.device)
     return logits.masked_fill(v >= cfg.vocab_size, _VOCAB_FILL[logits.dtype])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy over every position (the reference's
+    `cross_entropy`): padded vocab slots masked, f32 log-sum-exp."""
+    logits = vocab_mask_logits(logits, cfg).float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()

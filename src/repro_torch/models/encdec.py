@@ -1,10 +1,12 @@
-"""Whisper-style encoder–decoder (the audio family): the serving half.
+"""Whisper-style encoder–decoder (the audio family): serving and training.
 
 Port of the reference `models/encdec.py`: `encode`, `EncDecState`,
 `encdec_prefill`, `encdec_init_state`, `encdec_write_into_slot`,
-`encdec_reset_slot` and `encdec_decode_step`. The training half
-(`_cross_attention_full`, `decode_train`, `encdec_loss`) comes with the
-port's trainer.
+`encdec_reset_slot` and `encdec_decode_step`, and the training half
+(`cross_attention_full`, `decode_train`, `encdec_loss`), whose attention
+goes through `models.attention.train_attention` (B3, then B3-bwd) and whose
+encoder and decoder layers each run under activation checkpointing, as the
+reference's under ``jax.checkpoint``.
 
 The conv audio frontend is a STUB: the caller delivers precomputed frame
 embeddings (B, T_enc, D), post-conv, pre-encoder. The encoder attends both
@@ -35,8 +37,10 @@ cross caches are never written after their prefill.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import dense_decode_from_cache, salca_decode_attention
@@ -47,21 +51,69 @@ from repro_torch.core.sp_decode import (
 from repro_torch.distributed.sharding import DecodeCtx, local_row_range
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import (
-    bidirectional_attention, fold_heads, prefill_attention, proj, qkv_project)
+    attention_train, bidirectional_attention, fold_heads, prefill_attention, proj,
+    qkv_project, train_attention)
 from repro_torch.models.common import (
-    cdtype, embed_tokens, glu_apply, lm_logits, rmsnorm, rope, vocab_mask_logits)
+    cdtype, cross_entropy, embed_tokens, glu_apply, lm_logits, rmsnorm, rope,
+    vocab_mask_logits)
 
 
-def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, T_enc, D) stub embeddings → encoder states (B, T_enc, D)."""
-    h = frames.to(cdtype(cfg))
+def _enc_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig, attend) -> torch.Tensor:
+    """One encoder layer on h (B, T_enc, D); ``attend(q, k, v)`` is the
+    unmasked attention (serving's `bidirectional_attention`, or training's
+    differentiable `train_attention`)."""
     b, t, _ = h.shape
-    positions = torch.arange(t, device=h.device)
+    q, k, v = qkv_project(lp["attn"], rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg,
+                          torch.arange(t, device=h.device))
+    h = h + attend(q, k, v).reshape(b, t, -1) @ lp["attn"]["wo"]
+    return h + glu_apply(lp["glu"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg.act)
+
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
+    """frames (B, T_enc, D) stub embeddings → encoder states (B, T_enc, D).
+    ``train``: differentiable, each layer under activation checkpointing."""
+    h = frames.to(cdtype(cfg))
+    attend = partial(train_attention, causal=False) if train else bidirectional_attention
     for lp in params["enc"]:
-        q, k, v = qkv_project(lp["attn"], rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg, positions)
-        h = h + bidirectional_attention(q, k, v).reshape(b, t, -1) @ lp["attn"]["wo"]
-        h = h + glu_apply(lp["glu"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg.act)
+        h = (checkpoint(_enc_layer, lp, h, cfg, attend, use_reentrant=False) if train
+             else _enc_layer(lp, h, cfg, attend))
     return rmsnorm(params["ln_enc"], h, cfg.norm_eps)
+
+
+def cross_attention_full(lp: dict, x: torch.Tensor, enc: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Training cross-attention of x (B, Td, D) over the encoder states enc
+    (B, T_enc, D): no positions, no mask (the reference's
+    `_cross_attention_full`)."""
+    o = train_attention(proj(x, lp["wq"]), proj(enc, lp["wk"]), proj(enc, lp["wv"]),
+                        causal=False)
+    return o.reshape(x.shape[0], x.shape[1], -1) @ lp["wo"]
+
+
+def _dec_layer_train(lp: dict, h: torch.Tensor, enc: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    h = h + attention_train(lp["self_attn"], rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg)
+    h = h + cross_attention_full(lp["cross_attn"], rmsnorm(lp["ln_x"], h, cfg.norm_eps), enc,
+                                 cfg)
+    return h + glu_apply(lp["glu"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg.act)
+
+
+def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 enc: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder forward → logits (B, Td, V_pad), each layer
+    under activation checkpointing."""
+    h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
+    for lp in params["dec"]:
+        h = checkpoint(_dec_layer_train, lp, h, enc, cfg, use_reentrant=False)
+    return lm_logits(params["embed"], rmsnorm(params["ln_f"], h, cfg.norm_eps), cfg)
+
+
+def encdec_loss(params: dict, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the decoder's next-token logits over the labels."""
+    enc = encode(params, cfg, frames, train=True)
+    return cross_entropy(decode_train(params, cfg, tokens, enc), labels, cfg)
 
 
 @dataclass

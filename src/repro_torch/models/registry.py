@@ -1,4 +1,5 @@
-"""Uniform model API (the serving part of the reference's `ModelAPI`).
+"""Uniform model API (the reference's `ModelAPI`): serving, and the
+training loss.
 
 The port serves the decoder-only LM with global ("A") and sliding-window
 ("L") attention layers, SSD ("S", the "ssm" family: mamba2) and RG-LRU
@@ -53,6 +54,9 @@ class ModelAPI(NamedTuple):
     # static heavy sets from activation statistics over a calibration batch
     adopt_pages: Callable[..., Any]        # (params, pool, slot, pages, length) -> pool
     calibrate: Callable[..., Any]          # (params, tokens) -> params with calib_salience
+    # training: the mean loss of a batch {"tokens", "labels", "patches"? |
+    # "frames"} of tensors (the reference's `loss`)
+    loss: Callable[..., Any] = None        # (params, batch) -> scalar loss
 
 
 # the config families the port serves (`ModelConfig.family`)
@@ -118,13 +122,17 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     def calibrate(params, tokens):
         return transformer.lm_calibrate_static_heavy(params, cfg, tokens)
 
+    def loss(params, batch):
+        return transformer.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                                   patches=batch.get("patches"))
+
     return ModelAPI(prefill, decode_step, init_state, transformer.lm_write_into_slot,
                     init_paged_state, transformer.lm_write_into_slot,
                     transformer.lm_map_block, transformer.lm_share_blocks,
                     transformer.lm_cow_block, transformer.lm_reset_slot,
                     transformer.lm_read_block, transformer.lm_write_block,
                     transformer.lm_selection_hist, prefill_begin, prefill_chunk,
-                    prefill_chunk_unsupported, static_heavy, adopt_pages, calibrate)
+                    prefill_chunk_unsupported, static_heavy, adopt_pages, calibrate, loss)
 
 
 def _encdec_model(cfg: ModelConfig) -> ModelAPI:
@@ -146,8 +154,12 @@ def _encdec_model(cfg: ModelConfig) -> ModelAPI:
                                                         cfg.decoder_max_len - 1),
                                         device=device, ctx=ctx)
 
+    def loss(params, batch):
+        return encdec.encdec_loss(params, cfg, batch["frames"], batch["tokens"],
+                                  batch["labels"])
+
     none = dict.fromkeys(ModelAPI._fields)
-    return ModelAPI(**{**none, "prefill": prefill, "decode_step": decode_step,
+    return ModelAPI(**{**none, "prefill": prefill, "decode_step": decode_step, "loss": loss,
                        "init_state": init_state,
                        "write_into_slot": encdec.encdec_write_into_slot,
                        "reset_slot": encdec.encdec_reset_slot})

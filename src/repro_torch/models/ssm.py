@@ -104,7 +104,10 @@ def ssd_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: boo
     lmat = torch.exp(seg.masked_fill_(~causal, -1e9))
     del seg
     cb = cc @ bc.transpose(-1, -2)                                     # (B, NC, i, j)
-    att = lmat.mul_(cb[:, :, None]).mul_(dtc.transpose(2, 3)[..., None, :])
+    if lmat.requires_grad:          # training: exp saved its output for the backward
+        att = lmat * cb[:, :, None] * dtc.transpose(2, 3)[..., None, :]
+    else:                           # serving: in place, the same bits
+        att = lmat.mul_(cb[:, :, None]).mul_(dtc.transpose(2, 3)[..., None, :])
     y_intra = (att @ xc.transpose(2, 3)).transpose(2, 3)              # (B, NC, CS, NH, HD)
     del lmat, att
 

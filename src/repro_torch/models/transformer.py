@@ -1,6 +1,8 @@
 """Decoder-only LM over a stack of global ("A") and sliding-window ("L")
 attention blocks, SSD ("S") and RG-LRU ("R") blocks: the vision frontend's
-projector (`embed_inputs`: image rows ahead of the text), prefill (whole,
+projector (`embed_inputs`: image rows ahead of the text), the training
+forward and loss (`lm_forward`, `lm_loss`; each layer under activation
+checkpointing where the reference checkpoints each period), prefill (whole,
 or by chunks for all-"A" stacks without a frontend), pooled decode state (contiguous slot pool or
 paged), the zero-prefill adoption of a cached prompt, the calibration of
 the static heavy sets, and the decode step.
@@ -22,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (
@@ -31,7 +34,7 @@ from repro_torch.core.cache import (
 from repro_torch.distributed.sharding import DecodeCtx, local_block_range, local_row_range
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
-    cdtype, embed_tokens, lm_logits, rmsnorm, vocab_mask_logits)
+    cdtype, cross_entropy, embed_tokens, lm_logits, rmsnorm, vocab_mask_logits)
 
 
 @dataclass
@@ -54,6 +57,31 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         img = patches.to(cdtype(cfg)) @ params["projector"]
         h = torch.cat([img, h], dim=1)
     return h
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               patches: torch.Tensor | None = None):
+    """Full-sequence training forward → (logits (B, T, V_pad), aux): aux the
+    MoE layers' load-balancing losses summed (0.0 without MoE). Each layer
+    runs under activation checkpointing (its inputs kept, its inside
+    recomputed in the backward): memory only, the same numbers."""
+    h = embed_inputs(params, cfg, tokens, patches)
+    aux = 0.0
+    for layer, kind in zip(params["layers"], cfg.block_kinds()):
+        h, a = checkpoint(B.block_train, layer, h, cfg, kind, use_reentrant=False)
+        aux = aux + a
+    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    return lm_logits(params["embed"], h, cfg), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            patches: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (over the text positions only, behind
+    the vision frontend's patches) + 0.01 · aux."""
+    logits, aux = lm_forward(params, cfg, tokens, patches)
+    if cfg.frontend == "vision" and patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    return cross_entropy(logits, labels, cfg) + 0.01 * aux
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,

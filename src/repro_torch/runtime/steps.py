@@ -1,4 +1,5 @@
-"""The serving decode tick: one call advances every active slot by one token.
+"""The serving decode tick: one call advances every active slot by one token;
+and the training step (`make_train_step`).
 
 Port of the reference `runtime/steps.py::make_serve_decode_step` for one
 device, without the mesh plan, with ``nan_flags``: the tick returns the
@@ -32,6 +33,11 @@ the same tensors; the tick makes no tensor from host data. Kernel launches
 keep their meaning, "launched and executed" (`kernels.common.LAUNCHES`):
 the capture counts none, and each replay adds one tick's launches, as the
 capture's wrappers counted them.
+
+`make_train_step` is the counterpart of the reference's `make_train_step`
+on one device, without a mesh: the loss, its gradient with respect to every
+parameter (through kernel B3-bwd on the card), then `adamw_update`. It
+runs eagerly.
 
 `PooledServer` drives that tick for what the serving engine does not
 serve: the reference serves the enc-dec family (whose requests carry
@@ -228,3 +234,29 @@ def to_host(*tensors) -> list[np.ndarray]:
     host = [t.to("cpu", non_blocking=True) for t in tensors]
     torch.cuda.current_stream(tensors[0].device).synchronize()
     return [h.numpy() for h in host]
+
+
+def make_train_step(cfg, opt_cfg=None, device="cuda"):
+    """step(params, opt_state, batch) → (params, opt_state, {"loss",
+    "grad_norm", "lr"} as device scalars). ``batch`` holds tensors on
+    ``device`` (`runtime.data.PrefetchIterator`). A parameter that the
+    loss does not reach gets a zero gradient, as under ``jax.grad``."""
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import get_model
+    from repro_torch.runtime.optimizer import AdamWConfig, adamw_update
+    from repro_torch.runtime.tree import leaves, tree_map
+    api = get_model(cfg)
+    opt_cfg = opt_cfg or AdamWConfig()
+    resolve_device(device)
+
+    def step(params, opt_state, batch):
+        params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = api.loss(params, batch)
+        grads = iter(torch.autograd.grad(loss, [t for _, t in leaves(params)],
+                                         allow_unused=True, materialize_grads=True))
+        grads = tree_map(lambda _: next(grads), params)
+        params = tree_map(lambda t: t.detach(), params)
+        new_params, new_opt, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        return new_params, new_opt, {"loss": loss.detach(), **metrics}
+
+    return step

@@ -146,3 +146,70 @@ def assert_code_ticks_close(jticks, tticks, step_tol=CODE_STEP_TOL) -> int:
         stepped += diff > 0
         np.testing.assert_allclose(tl[tm], jl[jm], **(step_tol if diff else SAME_CODES_TOL))
     return stepped
+
+
+# --------------------------------------------------------------------------
+# Training parity (tests/test_torch_train.py, tests/test_torch_train_loop.py)
+# --------------------------------------------------------------------------
+
+# a training batch at T 64, batch 2 (the reference's `make_batch`)
+TRAIN_SHAPE = dict(name="train_t64", seq_len=64, global_batch=2, kind="train")
+# sliding windows cut to this so that they bind at T 64
+TRAIN_WINDOW = 24
+# f32 on both sides: the loss within LOSS_TOL; a gradient leaf within
+# GRAD_RTOL of its largest magnitude (the reference's sums run in other
+# orders over 64-token sequences and a two-layer model's products; a wrong
+# or missing term moves a leaf by O(1) of it)
+LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+GRAD_RTOL = 1e-4
+
+
+def check_loss_and_gradients(arch: str) -> float:
+    """``ModelAPI.loss`` of ``arch``'s reduced f32 config and the gradient
+    of every parameter against ``jax.value_and_grad`` of the reference's
+    loss, on the same parameters (`params_from_numpy`) and batch. Returns
+    the worst leaf's error over its largest magnitude."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.models import get_model as jget_model
+    from repro.runtime.data import make_batch as jmake_batch
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.models import get_model as tget_model
+    from repro_torch.runtime.tree import leaves
+    from repro_torch.weights import params_from_numpy
+
+    cfgs = []
+    for get in (jget_config, tget_config):
+        cfg = dataclasses.replace(get(arch).reduced(), dtype="float32")
+        if cfg.local_window:
+            cfg = dataclasses.replace(cfg, local_window=TRAIN_WINDOW)
+        cfgs.append(cfg)
+    jcfg, tcfg = cfgs
+    japi = jget_model(jcfg)
+    jp = japi.init(jax.random.PRNGKey(0))
+    batch = jmake_batch(jcfg, JShape(**TRAIN_SHAPE), seed=1, step=0)
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: japi.loss(p, batch)))(jp)
+
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)       # noqa: E731
+    params = params_from_numpy(to_np(jp), tcfg, "cpu")
+    keyed = [t.requires_grad_() for _, t in leaves(params)]
+    loss = tget_model(tcfg).loss(params, {k: torch.from_numpy(np.asarray(v))
+                                          for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **LOSS_TOL)
+    grads = torch.autograd.grad(loss, keyed, allow_unused=True, materialize_grads=True)
+
+    want = dict(leaves(params_from_numpy(to_np(jgrads), tcfg, "cpu")))
+    names = [k for k, _ in leaves(params)]
+    assert names == list(want)
+    worst = 0.0
+    for name, got in zip(names, grads):
+        ref = want[name].numpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got.numpy() - ref).max())
+        assert err <= GRAD_RTOL * scale + 1e-12, f"{name}: {err} vs max |ref| {scale}"
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"{arch}: loss {float(loss.detach()):.6f}, {len(names)} leaves, worst leaf error "
+          f"{worst:.3g} of its max")
+    return worst

@@ -1506,3 +1506,99 @@ def test_graphed_encdec_tick_equals_eager(dev):
     assert torch.equal(pool_g.pos, pool_e.pos)
     assert {"score_estimate", "fused_bin_pool_threshold",
             "sparse_flash_decode"} <= set(step_g.launches_per_tick)
+
+
+# B3-bwd against its plain version: both work in f32 from the same operands
+# (the kernel's own forward output and LSE); sums run in other orders, and a
+# bf16 gradient rounds once, so an element may differ by one bf16 ulp of
+# itself plus the f32 sums' difference
+B3_BWD_TOL = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3),
+              torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def _b3_bwd_operands(dev, dtype, h, kv, t, s_len, hd, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((h, t, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((kv, s_len, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((kv, s_len, hd), generator=gen, device=dev).to(dtype)
+    dout = torch.randn((h, t, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype,hd,h,kv,t,s_len,causal,window", [
+    # qwen3-0.6b's training shapes (16 H over 8 KV, HD 128; batch 2), T cut
+    (torch.bfloat16, 128, 32, 16, 700, 700, True, 0),
+    (torch.bfloat16, 128, 32, 16, 700, 700, True, 256),
+    # whisper's encoder (unmasked, HD 64, G 1) and its cross-attention (Tq != S)
+    (torch.bfloat16, 64, 12, 12, 333, 333, False, 0),
+    (torch.bfloat16, 64, 12, 12, 40, 517, False, 0),
+    (torch.float32, 128, 8, 4, 300, 300, True, 0),
+    (torch.float32, 64, 6, 2, 100, 100, True, 30),
+    (torch.bfloat16, 32, 4, 2, 129, 129, True, 0),
+    (torch.bfloat16, 256, 4, 2, 300, 300, True, 128),
+    (torch.float32, 256, 2, 1, 100, 100, True, 0),
+], ids=["qwen3", "qwen3_window", "encoder", "cross", "f32", "f32_window_g3", "hd32",
+        "hd256_window", "hd256_f32"])
+def test_b3_bwd_kernel_matches_plain(dev, dtype, hd, h, kv, t, s_len, causal, window):
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_prefill import ops as fp
+    q, k, v, dout = _b3_bwd_operands(dev, dtype, h, kv, t, s_len, hd)
+    mask = dict(causal=causal, window=window)
+    out, lse = fp.flash_attention_lse(q, k, v, **mask)
+    _, lse_plain = fp.flash_attention_lse_plain(q, k, v, **mask)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-5, atol=1e-4)
+    n0 = LAUNCHES["flash_prefill_bwd"]
+    got = fp.flash_attention_backward(q, k, v, out, dout, lse, **mask)
+    assert LAUNCHES["flash_prefill_bwd"] == n0 + 3
+    want = fp.flash_attention_backward_plain(q, k, v, out, dout, lse, **mask)
+    tol = B3_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype
+        ratio = float(((a.float() - b.float()).abs()
+                       / (tol["atol"] + tol["rtol"] * b.float().abs())).max())
+        print(f"B3-bwd {name} {dtype} HD {hd} G {h // kv} T {t} S {s_len}: "
+              f"max abs err {float((a.float() - b.float()).abs().max()):.3g}, "
+              f"{ratio:.3g} of the tolerance")
+        assert ratio <= 1.0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0)])
+def test_b3_lse_output_leaves_out_bitwise(dev, dtype, causal, window):
+    """B3 with its LSE pointer writes the same ``out`` bits as without it."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    q, k, v, _ = _b3_bwd_operands(dev, dtype, 16, 8, 500, 500, 128, seed=6)
+    plain_out = fp.flash_attention(q, k, v, causal=causal, window=window)
+    out, _ = fp.flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, plain_out)
+
+
+def test_b3_bwd_is_deterministic_and_differentiates_train_attention(dev):
+    """Two backward calls give the same bits (no atomics); autograd through
+    `train_attention` on CUDA tensors launches B3 then B3-bwd, and its
+    gradients are the kernel's."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.models.attention import fold_heads, train_attention
+    q, k, v, dout = _b3_bwd_operands(dev, torch.bfloat16, 32, 16, 1000, 1000, 128, seed=8)
+    out, lse = fp.flash_attention_lse(q, k, v)
+    a = fp.flash_attention_backward(q, k, v, out, dout, lse)
+    b = fp.flash_attention_backward(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the model's layout (B, T, N, HD), batch 2
+    to4 = lambda x: x.reshape(2, -1, x.shape[1], x.shape[2]).transpose(1, 2)   # noqa: E731
+    tq, tk, tv = (to4(x).detach().requires_grad_() for x in (q, k, v))
+    n_f, n_b = LAUNCHES["flash_prefill"], LAUNCHES["flash_prefill_bwd"]
+    o = train_attention(tq, tk, tv)
+    o.backward(to4(dout))
+    assert (LAUNCHES["flash_prefill"] - n_f, LAUNCHES["flash_prefill_bwd"] - n_b) == (1, 3)
+    for x, want in ((tq, a[0]), (tk, a[1]), (tv, a[2])):
+        assert torch.equal(fold_heads(x.grad), want)
+
+
+def test_b3_bwd_refuses_head_dims_it_lacks(dev):
+    from repro_torch.kernels.flash_prefill import ops as fp
+    q, k, v, dout = _b3_bwd_operands(dev, torch.bfloat16, 2, 1, 64, 64, 48)
+    lse = torch.zeros((2, 64), device=dev)
+    with pytest.raises(ValueError, match="HD in"):
+        fp.flash_attention_backward(q, k, v, q, dout, lse)
