@@ -256,12 +256,36 @@ cross-attention (448 queries over 4096 frames), and one f32 case, each
 gradient within B3_BWD_TOL, timed by `graph_ms` beside the backward of
 one `scaled_dot_product_attention` call (its record counted on run (ag)).
 
+Last, the tooling's example entry points (``examples/torch_*.py``):
+(ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
+qwen3-0.6b, int8 pool, LONG_SLOTS slots at max_seq 32768 (k 1,638, k_cap
+2,048), LONG_PROMPTS of 28,000-32,700 tokens × LONG_NEW_TOKENS, graphed,
+and (ah') its eager twin: greedy tokens identical (the logits rows bit for
+bit are counted); each prints ms per tick, TTFT per request, launches per
+tick and peak memory; (ai) the same entry point with one LONGEST_PROMPT
+request at max_seq 131072, where k reaches its cap (LONGEST_K): TTFT, peak
+memory during prefill, ms per tick and the printed k and k_cap, and on the
+first tick's layer-0 state (`LongProbe`, `check_long_state`) B1 bit for bit
+with its plain version, the selection bit for bit with the torch chain on
+the CPU, B2 within its bound, B3 on layer 0's prefill operands over three
+PLAIN_ROWS blocks within its one-ulp bound, and B1's and B2's times beside
+`core.performance_model`'s bytes per token at that N over HBM3's rate and a
+dense decode by SDPA; (aj) ``torch_quickstart`` on the card, its thresholds
+and kept counts equal to the same run with the contiguous tick's kernels
+replaced by their plain versions on the card (`run_plain_flat`); (ak)
+``torch_ablation_selection``'s nine rows, overlap and coverage equal to the
+plain versions'; (al) ``torch_train_small`` for TRAIN_SMALL_STEPS steps:
+the loss falls, B3's and B3-bwd's launches printed. Phase 3 holds B1 and B2
+at (ah)'s and (ai)'s pool shapes and B3 at their longest prompts (records
+tagged ``[qwen3-0.6b 32k]`` / ``[qwen3-0.6b 131k]``, counted on (ah) /
+(ai); `check_long_kernels`).
+
 It prints the script's seconds in all, a ``{"kernels": [...]}`` line (each
 kernel's launches on the run of its path, and ``launches_per_call`` over
-all sixty-four runs and (ac*); a record at gemma3's, granite's,
-recurrentgemma's, whisper's or llava's shapes counts its run's launches
-of its wrapper ((r), (z), (z''), (z'''), (ab), (ac), (ac*) or (ad)), B8's
-partials branch at gemma3's and granite's shapes run (v)'s) and,
+every run; a record at gemma3's, granite's, recurrentgemma's, whisper's,
+llava's or the long contexts' shapes counts its run's launches of its
+wrapper ((r), (z), (z''), (z'''), (ab), (ac), (ac*), (ad), (ah) or (ai)),
+B8's partials branch at gemma3's and granite's shapes run (v)'s) and,
 last, the ``{"ok": true, "device": {...}}`` line. Without a CUDA device it exits
 with code 1 and prints no result.
 """
@@ -281,8 +305,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM: HBM3
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}   # dense, per second
+# the H100 SXM's datasheet peaks (HBM3 bytes/s; dense op/s by type), kept in one place
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_OPS  # noqa: E402
+
 SERVE = dict(paged=True, slots=4, max_seq=8192, block_size=32)
 PROMPTS = (2048, 3072, 4096, 2560)
 NEW_TOKENS = 16
@@ -387,6 +413,9 @@ VLM_TEXT_PROMPTS, VLM_TEXT_NEW_TOKENS = (1024, 2048), 8
 # the plain version of B3 over all rows of a 32768-token attention runs in
 # blocks of this many query rows (each row depends on its own query only)
 PLAIN_ROWS = 1024
+# B3's records check every row against the plain version up to this prompt
+# length; a longer prompt checks three PLAIN_ROWS blocks (`b3_causal_blocks`)
+PLAIN_WHOLE_ROWS = 8192
 DENSE_ARCHS = ("qwen3-8b", "phi3-medium-14b")
 DENSE_SLOTS, DENSE_PROMPTS, DENSE_NEW_TOKENS = 2, (2048, 3072), 8
 # run (x)'s new tokens (gemma3-12b with full-context window layers)
@@ -842,7 +871,7 @@ def check_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None, run=None
 
 
 def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, sharded=True,
-                  slots=None, run=None, sharded_run=None):
+                  slots=None, run=None, sharded_run=None, max_seq=None):
     """Phase 3a: each kernel against its plain version on the same inputs, at
     the main path's shapes. Returns one record per kernel (launch counts are
     filled in from the main path's run). Another model's shapes: ``tag``
@@ -850,9 +879,9 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
     the tick's `SalcaParams` where they are not max_seq's (gemma3's come
     from its first layer's ring), ``sharded=False`` leaves B4-B6 out,
     ``slots`` the run's slots (one length each), ``run`` names the phase-4
-    run whose launches the records count (``sharded_run`` B4-B6's); a
-    config with sliding-window layers adds B3 under its window to B3's
-    record."""
+    run whose launches the records count (``sharded_run`` B4-B6's),
+    ``max_seq`` the pool's length where it is not SERVE's; a config with
+    sliding-window layers adds B3 under its window to B3's record."""
     import torch
     from repro_torch.core.selection import (
         _quantized_query_groups, query_heavy_features, select_sparse_pattern_blocked)
@@ -863,7 +892,7 @@ def check_kernels(dev, cfg, lengths, prompt_len, iters=20, tag="", salca=None, s
 
     timed, ctas_of, _ = record_timers(tag)
     gen = torch.Generator(device=dev).manual_seed(1)
-    s, mseq, bs = slots or SERVE["slots"], SERVE["max_seq"], SERVE["block_size"]
+    s, mseq, bs = slots or SERVE["slots"], max_seq or SERVE["max_seq"], SERVE["block_size"]
     home = {"run": run} if run else {}
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pool = random_pool(dev, gen, cfg, s, mseq, bs, lengths)
@@ -963,13 +992,23 @@ def b3_record(dev, gen, cfg, prompt_len, iters=20, tag="", home=None) -> dict:
     k3 = torch.randn((kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
     v3 = torch.randn((kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
     out3 = fp.flash_attention(q3, k3, v3)
-    plain3 = fp.flash_attention_plain(q3, k3, v3)
-    diff3 = (out3.float() - plain3.float()).abs()
-    err3 = float(diff3.max())
-    # both sides work in f32 and round once to bf16, so an element may differ
-    # by one bf16 ulp of itself (<= 2^-7 |x|); a dropped key tile or a wrong
-    # rescale moves the late rows (|x| ~ 0.02) by far more than that
-    ratio3 = float((diff3 / (B3_ATOL + B3_RTOL * plain3.float().abs())).max())
+    if t <= PLAIN_WHOLE_ROWS:
+        plain3 = fp.flash_attention_plain(q3, k3, v3)
+        diff3 = (out3.float() - plain3.float()).abs()
+        err3 = float(diff3.max())
+        # both sides work in f32 and round once to bf16, so an element may
+        # differ by one bf16 ulp of itself (<= 2^-7 |x|); a dropped key tile
+        # or a wrong rescale moves the late rows (|x| ~ 0.02) by far more
+        ratio3 = float((diff3 / (B3_ATOL + B3_RTOL * plain3.float().abs())).max())
+        plain_fn, plain_call = (lambda: fp.flash_attention_plain(q3, k3, v3)), {}
+        del plain3, diff3
+    else:               # the whole score matrix would not fit: three row blocks
+        err3, ratio3 = b3_causal_blocks(q3, k3, v3, out3)
+        plain_fn = functools.partial(b3_causal_blocks, q3, k3, v3, out3, (0,))
+        plain_call = {"plain_call": f"flash_attention_plain over the query rows [0, "
+                                    f"{PLAIN_ROWS}), by kv head (three such blocks checked: "
+                                    "first, middle, last)"}
+    del out3
     if not ratio3 <= 1.0:
         raise AssertionError(f"B3: |kernel - plain| reaches {ratio3:.3g}x its bound "
                              f"{B3_ATOL:g} + 2^-7·|plain| (max abs err {err3})")
@@ -994,12 +1033,37 @@ def b3_record(dev, gen, cfg, prompt_len, iters=20, tag="", home=None) -> dict:
                      replaces="src/repro/kernels/flash_prefill/kernel.py:98",
                      launches=None, max_abs_err=err3,
                      tolerance=f"{B3_ATOL:g} + 2^-7*|plain|", err_over_tol=ratio3, ms=ms,
-                     plain_ms=events_ms(lambda: fp.flash_attention_plain(q3, k3, v3), 2),
+                     plain_ms=events_ms(plain_fn, 2), **plain_call,
                      bound_ms=bms, bound_by=bby, library_ms=lib,
                      tflops=b3_ops / ms / 1e9, ms_over_library=ms / lib,
                      sass_tensor_core_instructions=hmma, groups=h // kv, **windowed,
                      **(home or {})),
         lambda: fp.flash_attention(q3, k3, v3), max(2, iters // 4))
+
+
+def b3_causal_blocks(q3, k3, v3, out3, starts=None) -> tuple[float, float]:
+    """B3's causal rows against the plain version over blocks of PLAIN_ROWS
+    query rows — by default the first, a middle and the last block of the
+    prompt: the block [a, a + PLAIN_ROWS) over keys [0, a + PLAIN_ROWS) at
+    ``q_offset`` a, one kv head's query group at a time (a block's scores
+    over 131k keys take 0.5 GB a head). Returns (max abs err, max of |err|
+    over B3's one-ulp bound)."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    h, t, _ = q3.shape
+    kv = k3.shape[0]
+    g = h // kv
+    if starts is None:
+        starts = (0, (t // 2 // PLAIN_ROWS) * PLAIN_ROWS, t - PLAIN_ROWS)
+    err = ratio = 0.0
+    for a in starts:
+        e = a + PLAIN_ROWS
+        for j in range(kv):
+            ref = fp.flash_attention_plain(q3[j * g:(j + 1) * g, a:e], k3[j:j + 1, :e],
+                                           v3[j:j + 1, :e], q_offset=a).float()
+            diff = (out3[j * g:(j + 1) * g, a:e].float() - ref).abs()
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / (B3_ATOL + B3_RTOL * ref.abs())).max()))
+    return err, ratio
 
 
 def b3_windowed(q3, k3, v3, window: int, iters: int) -> dict:
@@ -4187,6 +4251,436 @@ def check_training(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The example entry points on the card (runs (ah)-(al)): qwen3-0.6b served at
+# long contexts through examples/torch_serve_longcontext.py, the quickstart,
+# the ablation sweep and the small trainer
+# ---------------------------------------------------------------------------
+
+LONG_SLOTS, LONG_NEW_TOKENS = 8, 16
+# run (ah): eight prompts between 28,000 and 32,700 tokens (max_seq 32768)
+LONG_PROMPTS = (28000, 32700, 30150, 29300, 31850, 28650, 32200, 30700)
+# run (ai): one prompt of 131,000 tokens (max_seq 131072: k at its cap,
+# salca_max_k 4,096, and k_cap 5,120)
+LONGEST_PROMPT, LONGEST_K = 131000, (4096, 5120)
+TRAIN_SMALL_STEPS = 40
+
+
+def long_max_seq(prompts) -> int:
+    """The serving twin's max_seq: the longest prompt and its new tokens,
+    rounded up to 128."""
+    return ((max(prompts) + LONG_NEW_TOKENS + 127) // 128) * 128
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_long_kernels(dev, cfg) -> list:
+    """Phase 3 at the long-context runs' shapes: B1 and B2 over random pools
+    of (ah)'s 8 slots × 32768 (k 1,638, k_cap 2,048) and (ai)'s one slot ×
+    131072 (k 4,096, k_cap 5,120; a row may list 4,096 blocks), and B3 at
+    their longest prompts (32,700 and 131,000 rows, checked on three row
+    blocks), each against its plain version, timed by `graph_ms` beside its
+    bound and its library call. Records tagged ``[qwen3-0.6b 32k]`` /
+    ``[qwen3-0.6b 131k]``, counted on runs (ah) / (ai)."""
+    from repro_torch.models.blocks import salca_params_for
+    recs = []
+    for tag, prompts, slots, run, iters in (("32k", LONG_PROMPTS, LONG_SLOTS, "long 32k", 20),
+                                            ("131k", (LONGEST_PROMPT,), 1, "long 131k", 8)):
+        mseq = long_max_seq(prompts)
+        sp = salca_params_for(cfg, mseq)
+        got = check_kernels(dev, cfg, [n + LONG_NEW_TOKENS for n in prompts], max(prompts),
+                            iters=iters, tag=f"[qwen3-0.6b {tag}]", sharded=False,
+                            slots=slots, run=run, max_seq=mseq)
+        for r in got:
+            r.update(max_seq=mseq, k=sp.k, k_cap=sp.k_cap)
+        recs += got
+    return recs
+
+
+class LongProbe:
+    """Installed on a long-context run: times every tick and prefill, keeps
+    every logits row, and on the first (eager) tick reads layer 0's call of
+    the paged attention: its `SalcaParams` (k, k_cap) and, with ``snapshot``,
+    a copy of its query and pool (the state every kernel is then held to).
+    With ``b3``, it keeps layer 0's B3 operands and output of the first
+    prefill. Peak memory is read at the end of the prefills. Tick
+    PROFILE_TICK (a replay on a graphed run) runs under the profiler: its
+    device ms, kernel launches and the kernels that take the most time."""
+
+    def __init__(self, snapshot=False, b3=False):
+        self.snapshot, self.b3 = snapshot, b3
+        self.tick_ms, self.prefill_ms, self.rows, self.params = [], [], {}, None
+        self.state = self.b3_ops = None
+        self.prefill_peak_gb = None
+        self.profiled = {}
+
+    def install(self, engine):
+        import copy
+
+        import torch
+        from repro_torch.models import attention as mattn
+        from repro_torch.models import blocks
+        orig_decode, orig_prefill = engine._decode, engine._prefill
+        real_attn, real_b3 = blocks.salca_decode_attention_paged, mattn.flash_attention_chunked
+        self._restore = lambda: (setattr(blocks, "salca_decode_attention_paged", real_attn),
+                                 setattr(mattn, "flash_attention_chunked", real_b3))
+
+        def attn(q, pool, params, **kw):
+            if self.params is None and not torch.cuda.is_current_stream_capturing():
+                self.params = params
+                if self.snapshot:
+                    self.state = (q.clone(), copy.deepcopy(pool))
+            return real_attn(q, pool, params, **kw)
+
+        def b3(q, k, v, **kw):
+            out = real_b3(q, k, v, **kw)
+            if self.b3 and self.b3_ops is None:
+                self.b3_ops = (q.clone(), k.clone(), v.clone(), out.clone(), kw)
+            return out
+
+        def decode(*a):
+            who = [(slot, req.rid, len(req.output)) for slot, req in engine._active.items()]
+            t0 = time.perf_counter()
+            if len(self.tick_ms) == PROFILE_TICK:
+                nxt, logits, finite = self._profile(orig_decode, a)
+            else:
+                nxt, logits, finite = orig_decode(*a)
+            host = logits.to("cpu", non_blocking=True)
+            torch.cuda.synchronize()
+            self.tick_ms.append(1e3 * (time.perf_counter() - t0))
+            for slot, rid, j in who:
+                self.rows[(rid, j)] = host[slot]
+            return nxt, logits, finite
+
+        def prefill(req):
+            t0 = time.perf_counter()
+            out = orig_prefill(req)
+            self.prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            self.prefill_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            return out
+
+        blocks.salca_decode_attention_paged, mattn.flash_attention_chunked = attn, b3
+        engine._decode, engine._prefill = decode, prefill
+
+    def _profile(self, decode, args):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_IDLE_S)
+            out = decode(*args)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_IDLE_S)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        self.profiled = dict(tick=PROFILE_TICK,
+                             launches=sum(n for _, n in by_name.values()) or None,
+                             device_ms=sum(ms for ms, _ in by_name.values()) or None,
+                             top=[(name[:80], round(ms, 4), n) for name, (ms, n) in top])
+        return out
+
+    def remove(self):
+        self._restore()
+
+
+def serve_long(dev, params, prompts, slots, eager_run=False, probe=None) -> dict:
+    """Runs (ah) / (ai): ``examples/torch_serve_longcontext.py --full --paged``
+    (full-width qwen3-0.6b, int8 pool, block 32) with ``prompts`` on
+    ``slots`` slots × LONG_NEW_TOKENS, through its `serve`, every launch
+    counter set to 0 just before; built under `steps.eager()` with
+    ``eager_run``. Returns the launches, the summary, the tokens and the
+    probe's readings."""
+    import contextlib
+    import gc
+
+    import torch
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.runtime.steps import eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    tsl = load_example("torch_serve_longcontext")
+    args = tsl.parse_args().parse_args([
+        "--full", "--paged", "--slots", str(slots), "--new-tokens", str(LONG_NEW_TOKENS),
+        "--prompt-lens", ",".join(map(str, prompts)), "--device", dev])
+    cfg = tsl.model_config(args)
+    probe = probe or LongProbe()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with eager() if eager_run else contextlib.nullcontext():
+        try:
+            out = tsl.serve(args, cfg, params, hook=probe.install)
+        finally:
+            probe.remove()
+    launches = dict(LAUNCHES)
+    engine, reqs, summary = out["engine"], out["requests"], out["summary"]
+    assert summary["completed"] == len(prompts), summary
+    assert all(r.stop_reason == "length" and len(r.output) == LONG_NEW_TOKENS for r in reqs)
+    want = {"paged_score_estimate": cfg.num_layers * summary["ticks"],
+            "sparse_flash_decode_paged": cfg.num_layers * summary["ticks"],
+            "flash_prefill": cfg.num_layers * summary["admissions"]}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    bad = [k for k, r in probe.rows.items() if not bool(torch.isfinite(r).all())]
+    if bad:
+        raise AssertionError(f"non-finite logits at {sorted(bad)[:5]}")
+    step = engine._step
+    if step.graphed == eager_run or (step.graphed and step._graph is None):
+        raise AssertionError(f"tick graphed={step.graphed} with eager_run={eager_run}")
+    ms = probe.tick_ms
+    summary.update(
+        max_seq=engine.max_seq, wall_s=out["wall_s"], tick_ms=ms, graphed=step.graphed,
+        replay_ms_median=float(np.median(ms[2:])) if step.graphed else None,
+        eager_ms_median=float(np.median(ms)), prefill_ms=probe.prefill_ms,
+        ttft_s=[r.ttft_s for r in reqs], prompts=[len(r.prompt) for r in reqs],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        prefill_peak_mem_gb=probe.prefill_peak_gb,
+        launches_per_tick={k: v / summary["ticks"] for k, v in launches.items()
+                           if k != "flash_prefill"},
+        launches_per_replay=(sum(step.launches_per_tick.values())
+                             if step.launches_per_tick else None),
+        k=probe.params.k, k_cap=probe.params.k_cap, profiled_tick=probe.profiled)
+    del engine, out
+    return dict(launches=launches, summary=summary, tokens=[list(r.output) for r in reqs],
+                rows=probe.rows, probe=probe)
+
+
+def print_long(label: str, s: dict) -> None:
+    ticks = (f"replay median {s['replay_ms_median']:.2f} ms (first {s['tick_ms'][0]:.2f}, "
+             f"capture {s['tick_ms'][1]:.2f})" if s["graphed"]
+             else f"eager median {s['eager_ms_median']:.2f} ms")
+    print(f"serve longcontext {label}: max_seq {s['max_seq']}, k {s['k']}, k_cap {s['k_cap']}; "
+          f"ms/tick {ticks}; wrapper launches per replay {s['launches_per_replay']}; "
+          f"kernel launches per tick {json.dumps(s['launches_per_tick'])}; prefill ms "
+          f"{[round(x, 1) for x in s['prefill_ms']]}; TTFT s "
+          f"{[round(x, 3) for x in s['ttft_s']]}; peak mem GB during prefill "
+          f"{s['prefill_peak_mem_gb']:.3f}, in all {s['peak_mem_gb']:.3f}; "
+          f"{s['ticks']} ticks, wall {s['wall_s']:.1f} s", flush=True)
+    p = s["profiled_tick"]
+    if p:
+        print(f"serve longcontext {label}: profiled tick {p['tick']}: device ms "
+              f"{p['device_ms']}, kernel launches {p['launches']}, top kernels "
+              f"{json.dumps(p['top'])}", flush=True)
+    print(f"serve stats longcontext {label}: {json.dumps(s)}", flush=True)
+
+
+def check_long_state(dev, probe, cfg, iters=20) -> dict:
+    """Run (ai)'s first tick, layer 0, on its own state (`LongProbe`
+    snapshot): B1 bit for bit with its plain version; the selection from
+    B1's scores bit for bit with the torch chain on the CPU over the same
+    scores; B2 on that selection within its bound; each timed by
+    `graph_ms` beside `performance_model`'s bytes per token at this N over
+    HBM3's rate (salca: B1 the feature stream, B2 the gathered K/V; dense:
+    bf16 K/V), and a dense decode by SDPA over the same N bf16 keys of the
+    KV heads (GQA). Then
+    B3 on layer 0's prefill operands, three PLAIN_ROWS blocks against the
+    plain version (the one-ulp bound)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import performance_model as pm
+    from repro_torch.core.selection import (
+        _quantized_query_groups, query_heavy_features, select_sparse_pattern_blocked)
+    from repro_torch.flags import PERF
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.score_est import ops as se
+    q, pool = probe.state
+    params = probe.params
+    s, h, hd = q.shape
+    kv, bs = pool.num_kv_heads, pool.block_size
+    n = int(pool.length.max())
+    q_feat = query_heavy_features(q, pool.heavy_idx, h // kv)
+    qc, qs, qsum = _quantized_query_groups(q_feat, kv)
+    b1_args = (qc, qs, qsum, pool.feat_words, pool.feat_scale, pool.feat_zero,
+               pool.clamped_pages())
+    scores = se.paged_score_estimate(*b1_args, bf16=PERF.bf16_collectives)
+    plain = se.paged_score_estimate_plain(*b1_args, bf16=PERF.bf16_collectives)
+    if not torch.equal(scores, plain):
+        raise AssertionError(f"(ai) B1: kernel differs from plain on "
+                             f"{int((scores != plain).sum())} of {scores.numel()} scores")
+    valid = pool.mapped_valid_mask()[:, None, :]
+    sel = select_sparse_pattern_blocked(scores, params, valid, bs)
+    sel_cpu = select_sparse_pattern_blocked(scores.cpu(), params, valid.cpu(), bs)
+    for f, a, b in zip(sel._fields, sel, sel_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"(ai) selection: field {f} differs from the torch chain's on "
+                                 "the CPU")
+    pblk, counts, bmask = fd._selected_block_plan(pool, sel)
+    qr = q.reshape(s * kv, h // kv, hd).float().contiguous()
+    b2_args = (qr, pool.k_codes, pool.k_scale, pool.v_codes, pool.v_scale, pblk, counts,
+               bmask, kv)
+    out2 = fd.sparse_flash_decode_paged_kernel(*b2_args)
+    plain2 = fd.sparse_flash_decode_paged_plain(qr, pool.k_codes, pool.k_scale, pool.v_codes,
+                                                pool.v_scale, pblk, bmask, kv)
+    ratio2 = float(((out2 - plain2).abs() / (B2_ATOL + B2_RTOL * plain2.abs())).max())
+    if not ratio2 <= 1.0:
+        raise AssertionError(f"(ai) B2: |kernel - plain| reaches {ratio2:.3g}x its bound")
+    b1_ms = graph_ms(lambda: se.paged_score_estimate(*b1_args), iters)
+    b2_ms = graph_ms(lambda: fd.sparse_flash_decode_paged_kernel(*b2_args), iters)
+    kd = torch.randn((1, kv, n, hd), device=dev, dtype=torch.bfloat16)
+    dense_ms = events_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(1, h, 1, hd).to(torch.bfloat16), kd, kd, enable_gqa=True), iters)
+    del kd
+    kept = int(sel.count.sum())
+    salca = pm.salca_bytes_per_token(n, hd, kv, params.feature_sparsity, kept / (kv * n),
+                                     "int8", bs)
+    dense = pm.dense_bytes_per_token(n, hd, kv)
+    out = dict(n=n, k=params.k, k_cap=params.k_cap, kept=kept, listed_blocks=int(counts.sum()),
+               b2_err_over_tol=ratio2, b1_ms=b1_ms, b2_ms=b2_ms,
+               model_b1_ms=1e3 * salca.feature_stream / HBM_BYTES_PER_S,
+               model_b2_ms=1e3 * salca.kv_gather / HBM_BYTES_PER_S,
+               model_dense_ms=1e3 * dense.total / HBM_BYTES_PER_S, dense_sdpa_ms=dense_ms,
+               model_salca_over_dense=salca.total / dense.total,
+               measured_salca_over_dense=(b1_ms + b2_ms) / dense_ms)
+    out.update(b1_share_of_bound=out["model_b1_ms"] / b1_ms,
+               b2_share_of_bound=out["model_b2_ms"] / b2_ms)
+    qb, kb, vb, ob, kw = probe.b3_ops
+    assert kw.get("q_offset", 0) == 0 and qb.shape[1] == n - 1, (kw, qb.shape)
+    out["b3_max_abs_err"], out["b3_err_over_tol"] = b3_causal_blocks(qb, kb, vb, ob)
+    if not out["b3_err_over_tol"] <= 1.0:
+        raise AssertionError(f"(ai) B3 layer 0: {out['b3_err_over_tol']:.3g}x its bound")
+    return out
+
+
+def check_long_context(dev, runs: dict) -> None:
+    """Runs (ah) and (ai): qwen3-0.6b at 32k and 128k contexts through the
+    serving twin (module docstring)."""
+    import torch
+    from repro_torch.models.blocks import salca_params_for
+    cfg, params = main_path_model(dev)
+    a = serve_long(dev, params, LONG_PROMPTS, LONG_SLOTS)
+    print_long("(ah) 8 x 32k, graphed", a["summary"])
+    ae = serve_long(dev, params, LONG_PROMPTS, LONG_SLOTS, eager_run=True)
+    print_long("(ah') 8 x 32k, eager (built under steps.eager())", ae["summary"])
+    if a["tokens"] != ae["tokens"]:
+        raise AssertionError(f"(ah) graphed tokens differ from the eager twin's at "
+                             f"{first_divergence(a['tokens'], ae['tokens'])}")
+    same = sum(torch.equal(r, ae["rows"][key]) for key, r in a["rows"].items())
+    print(f"(ah) graphed vs eager: greedy tokens identical; {same} of {len(a['rows'])} logits "
+          f"rows bit for bit", flush=True)
+    sp = salca_params_for(cfg, long_max_seq(LONG_PROMPTS))
+    if (a["summary"]["k"], a["summary"]["k_cap"]) != (sp.k, sp.k_cap):
+        raise AssertionError(f"(ah) k, k_cap {a['summary']['k']}, {a['summary']['k_cap']}")
+    runs["long 32k"], runs["long 32k eager"] = a["launches"], ae["launches"]
+    del a, ae
+    probe = LongProbe(snapshot=True, b3=True)
+    b = serve_long(dev, params, (LONGEST_PROMPT,), 1, probe=probe)
+    print_long("(ai) 1 x 131k, graphed", b["summary"])
+    sp = salca_params_for(cfg, long_max_seq((LONGEST_PROMPT,)))
+    if (b["summary"]["k"], b["summary"]["k_cap"]) != (sp.k, sp.k_cap) or \
+            (sp.k, sp.k_cap) != LONGEST_K:
+        raise AssertionError(f"(ai) k, k_cap {b['summary']['k']}, {b['summary']['k_cap']}")
+    runs["long 131k"] = b["launches"]
+    st = check_long_state(dev, probe, cfg)
+    print(f"(ai) first tick, layer 0, at N {st['n']}: k {st['k']}, k_cap {st['k_cap']}, "
+          f"{st['kept']} kept over {st['listed_blocks']} listed blocks; B1 bit for bit; the "
+          f"selection bit for bit with the torch chain on the CPU; B2 {st['b2_err_over_tol']:.3g}"
+          f" of its bound; B3 (layer 0's prefill, rows first / middle / last "
+          f"{PLAIN_ROWS}) {st['b3_err_over_tol']:.3g} of its bound", flush=True)
+    print(f"(ai) per layer: B1 {st['b1_ms']:.4f} ms against the model's feature stream "
+          f"{st['model_b1_ms']:.4f} ms at {HBM_BYTES_PER_S:g} B/s ({st['b1_share_of_bound']:.3f}"
+          f" of the bound); B2 {st['b2_ms']:.4f} ms against the gathered K/V's "
+          f"{st['model_b2_ms']:.4f} ms ({st['b2_share_of_bound']:.3f}); dense: the model "
+          f"{st['model_dense_ms']:.4f} ms, SDPA over {st['n']} bf16 keys {st['dense_sdpa_ms']:.4f}"
+          f" ms; Salca over dense: the model's bytes {st['model_salca_over_dense']:.4f}, "
+          f"measured (B1 + B2) / SDPA {st['measured_salca_over_dense']:.4f}", flush=True)
+    print(f"long state (ai): {json.dumps(st)}", flush=True)
+    del b, probe
+    torch.cuda.empty_cache()
+
+
+def run_plain_flat(fn):
+    """``fn()`` with the contiguous tick's kernels (B7, B9, B8) replaced by
+    their plain versions, on the same device (the callers import the
+    wrappers from their modules at call time)."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.score_est import ops as se
+    from repro_torch.kernels.selection_fused import ops as sf
+    saved = [(m, n, getattr(m, n)) for m, n in ((se, "flat_score_estimate"),
+                                                (sf, "fused_bin_pool_threshold"),
+                                                (fd, "sparse_flash_decode"))]
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, getattr(m, n + "_plain"))
+        return fn()
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def check_examples(dev, runs: dict) -> None:
+    """Runs (aj)-(al): the quickstart, the ablation sweep and the small
+    trainer, each an example entry point on the card, launch counters set
+    to 0 just before each."""
+    import tempfile
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    qs = load_example("torch_quickstart")
+    reset_launches()
+    got = qs.run(dev)
+    runs["quickstart"] = dict(LAUNCHES)
+    want = run_plain_flat(lambda: qs.run(dev))
+    if not (np.array_equal(got["threshold"], want["threshold"])
+            and np.array_equal(got["kept"], want["kept"])):
+        raise AssertionError(f"(aj) thresholds {got['threshold']} / kept {got['kept']} differ "
+                             f"from the plain versions' {want['threshold']} / {want['kept']}")
+    if runs["quickstart"] != {"score_estimate": 1, "fused_bin_pool_threshold": 1,
+                              "sparse_flash_decode": 1}:
+        raise AssertionError(f"(aj) launches {runs['quickstart']}")
+    qs.report(got)
+    print(f"(aj) quickstart: thresholds and kept counts equal to the plain versions'; "
+          f"recall {got['recall']} (plain {want['recall']}), rel. error {got['rel']:.6f} "
+          f"(plain {want['rel']:.6f}); launches {json.dumps(runs['quickstart'])}", flush=True)
+
+    abl = load_example("torch_ablation_selection")
+    reset_launches()
+    rows = abl.sweep(dev)
+    runs["ablation"] = dict(LAUNCHES)
+    plain = run_plain_flat(lambda: abl.sweep(dev))
+    for r, p in zip(rows, plain):
+        if (r["overlap"], r["coverage"]) != (p["overlap"], p["coverage"]):
+            raise AssertionError(f"(ak) row ({r['s_f']}, {r['r_q']}): overlap / coverage "
+                                 f"{r['overlap']} / {r['coverage']} != plain {p['overlap']} / "
+                                 f"{p['coverage']}")
+        print(f"(ak) s_f {r['s_f']} r_q {r['r_q']}: overlap {r['overlap']:.3f} coverage "
+              f"{r['coverage']:.3f} rel_err {r['rel_err']:.5f} (plain {p['rel_err']:.5f})",
+              flush=True)
+    if runs["ablation"] != {k: len(abl.GRID) for k in runs["quickstart"]}:
+        raise AssertionError(f"(ak) launches {runs['ablation']}")
+    print(f"(ak) ablation: {len(rows)} rows, overlap and coverage equal to the plain "
+          f"versions'; launches {json.dumps(runs['ablation'])}", flush=True)
+
+    tts = load_example("torch_train_small")
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = tts.run(tts.parse_args(["--steps", str(TRAIN_SMALL_STEPS), "--device", dev,
+                                      "--ckpt-dir", ckpt]))
+        wall = time.perf_counter() - t0
+        runs["train small"] = dict(LAUNCHES)
+    losses = out["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not (np.all(np.isfinite(losses)) and last < first and out["final_step"] ==
+            TRAIN_SMALL_STEPS):
+        raise AssertionError(f"(al) losses {losses}")
+    if not (runs["train small"].get("flash_prefill", 0) > 0
+            and runs["train small"].get("flash_prefill_bwd", 0) > 0):
+        raise AssertionError(f"(al) launches {runs['train small']}")
+    print(f"(al) train_small: {TRAIN_SMALL_STEPS} steps in {wall:.1f} s, loss {first:.3f} → "
+          f"{last:.3f} (mean of the first and last 10); launches B3 "
+          f"{runs['train small']['flash_prefill']}, B3-bwd "
+          f"{runs['train small']['flash_prefill_bwd']}", flush=True)
+
+
 def print_serve(label: str, summary: dict, name: str = "qwen3-0.6b") -> None:
     ticks = summary["tick_ms"]
     graph = (f"first tick (eager) {ticks[0]:.2f} ms, capture tick {ticks[1]:.2f} ms, "
@@ -4300,6 +4794,9 @@ def main() -> int:
     recs += check_flat_kernels(dev, lcfg, lengths=[lcfg.num_image_tokens + VLM_TEXT]
                                * VLM_REQUESTS, tag=f"[{LLAVA}]", run="llava", n=VLM_MAX_SEQ,
                                slots=VLM_REQUESTS)
+    # the long-context runs' shapes: B1 and B2 at 8 x 32768 and 1 x 131072,
+    # B3 at 32,700 and 131,000 rows (runs (ah), (ai))
+    recs += check_long_kernels(dev, cfg)
     # B3-bwd at the training shapes (run (ae)), counted on the training run (ag)
     recs.append(check_b3_bwd(dev))
     # the main path's records by `graph_ms` too, now that no profiler
@@ -4398,6 +4895,8 @@ def main() -> int:
     check_encdec_and_vlm(dev, ctx, runs)
     check_train_gradients(dev)
     runs["train"] = check_training(dev)
+    check_long_context(dev, runs)
+    check_examples(dev, runs)
     # each kernel's launches on the run of its path (a record at another
     # model's shapes: its `run`, under its wrapper's counter)
     home = {"maxpool_int8": "sp contiguous", "hist_threshold": "sp contiguous",

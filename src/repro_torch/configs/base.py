@@ -112,6 +112,49 @@ class ModelConfig:
         p = self.layer_pattern
         return [p[i % len(p)] for i in range(self.num_layers)]
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + trunk), for 6ND (the
+        reference's formula)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        h, kv = self.num_heads, self.num_kv_heads
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        glu = 3 * d * self.d_ff
+        moe = 0
+        if self.moe:
+            moe = self.num_experts * 3 * d * self.moe_d_ff + d * self.num_experts
+            glu = glu if self.dense_residual else 0
+        ssd = 0
+        if "S" in self.layer_pattern:
+            di = self.ssm_expand * d
+            nh = di // self.ssm_head_dim
+            ssd = (d * (2 * di + 2 * self.ssm_state + nh) + di * d
+                   + self.conv_width * (di + 2 * self.ssm_state))
+        rglru = 0
+        if "R" in self.layer_pattern:
+            w = self.rnn_width or d
+            rglru = 2 * d * w + w * d + 3 * w + self.conv_width * w
+        kinds = self.block_kinds()
+        total = 0
+        for kind in kinds:
+            if kind in ("A", "L"):
+                total += attn + (glu + moe)
+            elif kind == "S":
+                total += ssd
+            elif kind == "R":
+                total += rglru + (glu + moe)
+        total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.encdec:
+            total += self.encoder_layers * (2 * attn + glu)  # self+cross & ffn
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if not self.moe:
+            return self.param_count()
+        inactive = (self.num_experts - self.experts_per_token) * 3 * self.d_model * self.moe_d_ff
+        n_moe_layers = sum(1 for k in self.block_kinds() if k in ("A", "L", "R"))
+        return self.param_count() - inactive * n_moe_layers
+
     def reduced(self) -> "ModelConfig":
         """CPU test variant: same family and features, tiny dims."""
         kw = dict(

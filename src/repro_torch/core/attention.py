@@ -67,9 +67,10 @@ def fused_select_flat(scores: torch.Tensor, length: torch.Tensor,
     offset, _ = qz.binning_affine(lo, hi)
     w = params.pool_window if params.use_pool else 1
     pooled, _, thr = fused_bin_pool_threshold(
-        s.reshape(b * kv, n), offset.reshape(-1).contiguous(), hi.reshape(-1).contiguous(),
+        s.reshape(b * kv, n).contiguous(), offset.reshape(-1).contiguous(),
+        hi.reshape(-1).contiguous(),
         torch.full((b * kv,), params.k, dtype=torch.int32, device=scores.device),
-        length.to(torch.int32)[:, None].expand(b, kv).reshape(-1), window=w)
+        length.to(torch.int32).repeat_interleave(kv), window=w)
     keep = pooled >= thr[:, None].to(pooled.dtype)
     indices, mask, count = compact_indices(keep.reshape(b, kv, n), params.k_cap)
     return Selection(indices, mask, count, thr.reshape(b, kv))

@@ -25,3 +25,18 @@ def top_channels(salience: torch.Tensor, r: int) -> torch.Tensor:
 def heavy_channel_indices(keys: torch.Tensor, r: int) -> torch.Tensor:
     """Top-r channel set of keys (..., N, d) → (..., r) int32, ascending."""
     return top_channels(channel_salience(keys), r)
+
+
+def extract_channels(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather feature channels: x (..., N, d), idx (..., r) → (..., N, r);
+    ``idx`` broadcasts over the token axis (a head's channels are frozen
+    across its tokens)."""
+    idxb = idx.unsqueeze(-2).expand(x.shape[:-1] + (idx.shape[-1],)).long()
+    return torch.gather(x, -1, idxb)
+
+
+def static_channel_indices(calib_keys: torch.Tensor, r: int) -> torch.Tensor:
+    """Loki-style offline channel selection from a calibration batch (a
+    comparison baseline of the benchmarks, paper Table 4): calib_keys
+    (..., N, d) → (..., r) int32."""
+    return heavy_channel_indices(calib_keys, r)

@@ -79,3 +79,12 @@ def histogram_topk_blocked(bins: torch.Tensor, k, k_cap: int) -> Selection:
     form; indices come out in the logical (flattened) coordinate."""
     return histogram_topk(bins.reshape(bins.shape[:-2] + (bins.shape[-2] * bins.shape[-1],)),
                           k, k_cap)
+
+
+def exact_topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """O(n log n) exact Top-K baseline (``Std_TopK``) over the last dim, in
+    descending score order, int32. Ties go to the lower index, as
+    `lax.top_k`'s do: a stable descending sort (`torch.topk` promises no
+    order among ties)."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :k].to(torch.int32)

@@ -1,9 +1,11 @@
 """Low-precision quantization primitives of Salca (paper §3.1), in PyTorch.
 
-Port of the reference `core/quantization.py`, restricted to what the
-decode paths use: 2-bit asymmetric key features, 3-bit symmetric query
-features, int8 per-token K/V, the tiered pool's per-block symmetric codes
-and int4 nibble packing, uint8 score binning and 2-bit packing. Every
+Port of the reference `core/quantization.py`: 2-bit asymmetric key
+features, 3-bit symmetric query features, int8 per-token K/V, the tiered
+pool's per-block symmetric codes and int4 nibble packing, uint8 score
+binning and 2-bit packing, the dequantizers and the score estimate of the
+dual-compressed features, and the Table 7 schemes of the design-space
+sweeps (1-bit sign, MSB-truncated int8). Every
 function reproduces the reference bit for bit on the same float32 inputs:
 `torch.round` rounds half to even like `jnp.round`, and a bf16 round trip
 rounds to nearest even like `lax.reduce_precision(·, 8, 7)`.
@@ -72,14 +74,14 @@ def asym_quantize(x: torch.Tensor, bits: int) -> AsymQuant:
     return AsymQuant(codes, safe.squeeze(-1), lo.squeeze(-1))
 
 
-def sym_quantize(x: torch.Tensor, bits: int) -> SymQuant:
-    """Symmetric quantization along the last dim; codes in ±(2^(b-1)-1)."""
+def sym_quantize(x: torch.Tensor, bits: int, axis: int = -1) -> SymQuant:
+    """Symmetric quantization along ``axis``; codes in ±(2^(b-1)-1)."""
     m = (1 << (bits - 1)) - 1
     x32 = x.float()
-    amax = x32.abs().amax(dim=-1, keepdim=True)
+    amax = x32.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp_min(div_const(amax, m), _EPS)
     codes = torch.clamp(torch.round(x32 / scale), -m, m)
-    return SymQuant(codes.to(torch.int8), scale.squeeze(-1))
+    return SymQuant(codes.to(torch.int8), scale.squeeze(axis))
 
 
 def sym_quantize_axes(x: torch.Tensor, bits: int,
@@ -94,6 +96,21 @@ def sym_quantize_axes(x: torch.Tensor, bits: int,
     scale = torch.clamp_min(div_const(amax, m), _EPS)
     codes = torch.clamp(torch.round(x32 / scale), -m, m)
     return codes.to(torch.int8), scale
+
+
+def sym_dequantize_axes(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of `sym_quantize_axes` (the scale keeps its size-1 dims)."""
+    return codes.float() * scale
+
+
+def asym_dequantize(q: AsymQuant, axis: int = -1) -> torch.Tensor:
+    """``codes · scale + zero``, the per-row factors broadcast along ``axis``."""
+    return q.codes.float() * q.scale.unsqueeze(axis) + q.zero.unsqueeze(axis)
+
+
+def sym_dequantize(q: SymQuant, axis: int = -1) -> torch.Tensor:
+    """``codes · scale``, the per-row scale broadcast along ``axis``."""
+    return q.codes.float() * q.scale.unsqueeze(axis)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -132,6 +149,20 @@ def quantize_query_features(q_feat: torch.Tensor) -> SymQuant:
 def quantize_kv_int8(x: torch.Tensor) -> SymQuant:
     """INT8 symmetric per-token quantization of K or V."""
     return sym_quantize(x, bits=8)
+
+
+def estimate_scores(q3: SymQuant, k2: AsymQuant) -> torch.Tensor:
+    """Dequantized relevance scores of dual-compressed features:
+    ``S = s_q · (a · Σ q̂ĉ + z · Σ q̂)``, q3 codes (..., H, r), k2 codes
+    (..., N, r) → (..., H, N) f32. The integer dot product runs in f32,
+    which holds it exactly (|q̂| ≤ 3, ĉ ≤ 3, r ≤ 256: every partial sum is
+    an integer below 2^24), so it equals the reference's int32 dot."""
+    qi = q3.codes.float()
+    int_dot = torch.matmul(qi, k2.codes.float().transpose(-1, -2))
+    qsum = q3.codes.to(torch.int32).sum(-1).float()
+    a = k2.scale[..., None, :]
+    z = k2.zero[..., None, :]
+    return q3.scale[..., None] * (a * int_dot + z * qsum[..., None])
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -221,3 +252,22 @@ def unpack2bit(words: torch.Tensor, r: int) -> torch.Tensor:
     assert nw * CODES_PER_WORD == r
     c = (words[..., None] >> _shifts(words.device, torch.int32)) & 3
     return c.reshape(*lead, r).to(torch.int8)
+
+
+# Alternate schemes of the design-space sweeps only (paper Table 7): 1-bit
+# sign and MSB-truncated int8.
+
+def quantize_sign(x: torch.Tensor) -> torch.Tensor:
+    """1-bit sign-only quantization (Table 7 row ``k_1``): ±1 in f32."""
+    return torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+
+
+def quantize_msb(x: torch.Tensor, keep_bits: int, axis: int = -1) -> torch.Tensor:
+    """Int8 then MSB truncation (Table 7 rows ``k_msb{2,3}``): quantize
+    symmetrically to int8, keep the top ``keep_bits`` of the 7 magnitude
+    bits (an arithmetic shift, so negative codes floor as in the
+    reference), and return the dequantized approximation."""
+    q = sym_quantize(x, bits=8, axis=axis)
+    drop = 8 - 1 - keep_bits
+    trunc = (q.codes.to(torch.int32) >> drop) << drop
+    return trunc.float() * q.scale.unsqueeze(axis)

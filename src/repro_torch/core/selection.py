@@ -34,6 +34,13 @@ class SalcaParams:
         r = int(self.feature_sparsity * head_dim)
         return max(16, (r // 16) * 16)
 
+    @staticmethod
+    def for_seq(n: int, retention: float = 0.05, **kw) -> "SalcaParams":
+        """Params targeting a retention rate on sequences of length n."""
+        k = max(128, int(n * retention))
+        k_cap = ((int(k * 1.25) + 127) // 128) * 128
+        return SalcaParams(k=min(k, n), k_cap=min(k_cap, n), **kw)
+
 
 def query_heavy_features(q: torch.Tensor, heavy_idx: torch.Tensor,
                          groups: int) -> torch.Tensor:

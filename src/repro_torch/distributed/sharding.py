@@ -12,7 +12,8 @@ a contiguous cache or a ring by its rows (`local_row_range`).
 with ``MIN``/``MAX``/``SUM`` over the context's group, and the halo's
 ``jax.lax.ppermute`` to both sequence neighbours one ``all_gather`` of
 every rank's two edges (`neighbour_edges`). `COLLECTIVES` counts what was
-issued, by kind. The backend follows
+issued, by kind, and `analysis.collectives.TRACE` records each one's result
+and wire bytes over the group. The backend follows
 the device: ``nccl`` for CUDA tensors, ``gloo`` for CPU tensors; a tensor
 on the other kind of device raises — one backend never stands in for the
 other. All-reduce gives every rank the same bits, so replicated values
@@ -27,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.collectives import TRACE
 from repro_torch.kernels.common import resolve_device
 
 BACKEND = {"cuda": "nccl", "cpu": "gloo"}
@@ -84,6 +86,7 @@ def _all_reduce(x: torch.Tensor, op, ctx: DecodeCtx) -> torch.Tensor:
     _check_backend(x, ctx)
     dist.all_reduce(x, op=op, group=ctx.group)
     COLLECTIVES["all_reduce"] += 1
+    TRACE.record("all-reduce", x.numel() * x.element_size(), ctx.world_size)
     return x
 
 
@@ -117,6 +120,7 @@ def neighbour_edges(tail: torch.Tensor, head: torch.Tensor,
     every = pair.new_empty((n * 2,) + tail.shape)         # rank-major: (tail, head) each
     dist.all_gather_into_tensor(every, pair, group=ctx.group)
     COLLECTIVES["all_gather"] += 1
+    TRACE.record("all-gather", every.numel() * every.element_size(), n)
     return every[2 * ((ctx.rank - 1) % n)], every[2 * ((ctx.rank + 1) % n) + 1]
 
 

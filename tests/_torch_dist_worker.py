@@ -31,6 +31,11 @@ Tasks:
           contiguous cache split by rows, or paged with sequence-sharded
           rings), recording per tick the logits and, per "A" layer, this
           rank's selected counts;
+  collectives  qwen3-0.6b.reduced() served for one decode tick under ``ctx``
+          on the contiguous pool (the sequence-sharded flat tick) and on
+          the paged pool (the block-sharded tick), recording every
+          collective the tick hands to torch.distributed (kind, bytes) and
+          `analysis.collectives.TRACE`'s summary of the same tick;
   encdec  whisper-small.reduced()'s pooled decode state split by rows,
           written from replicated batch=1 prefills, then greedy ticks of
           the enc-dec decode step under ``ctx``, recording each tick's
@@ -316,6 +321,52 @@ def encdec(inp, ctx):
     return out
 
 
+def collectives(inp, ctx):
+    import numpy as np
+
+    from repro_torch.analysis.collectives import TRACE
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.runtime.serve import Request, ServingEngine
+    from repro_torch.weights import init_lm_params
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype="float32")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    issued, out = [], {}
+    real = {"all-reduce": dist.all_reduce, "all-gather": dist.all_gather_into_tensor}
+
+    def logged(op):
+        def call(*a, **k):
+            t = a[0]
+            issued.append((op, t.numel() * t.element_size()))
+            return real[op](*a, **k)
+        return call
+
+    for paged in (False, True):
+        eng = ServingEngine(cfg, params, max_seq=256, slots=2, paged=paged, block_size=32,
+                            device="cpu", ctx=ctx)
+        prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 150).astype(np.int32)
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=2))
+        orig = eng._decode
+
+        def tick(*a, orig=orig):
+            issued.clear()
+            TRACE.reset()
+            COLLECTIVES.clear()
+            dist.all_reduce = logged("all-reduce")
+            dist.all_gather_into_tensor = logged("all-gather")
+            try:
+                return orig(*a)
+            finally:
+                dist.all_reduce = real["all-reduce"]
+                dist.all_gather_into_tensor = real["all-gather"]
+
+        eng._decode = tick
+        eng.run()
+        out["paged" if paged else "contiguous"] = dict(
+            issued=list(issued), summary=TRACE.summary(), counted=dict(COLLECTIVES))
+    return out
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
@@ -324,7 +375,8 @@ def main() -> int:
                           store=dist.FileStore(str(workdir / "store"), world))
     res = {"island": island, "engine": engine, "prefix": prefix,
            "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache,
-           "sp_flat": sp_flat, "sp_engine": sp_engine, "encdec": encdec}[task](inp, ctx)
+           "sp_flat": sp_flat, "sp_engine": sp_engine, "encdec": encdec,
+           "collectives": collectives}[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

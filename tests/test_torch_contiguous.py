@@ -270,6 +270,32 @@ def test_salca_decode_attention_fused_route(rng, monkeypatch, params_kw):
     assert (tn(tsel.indices[0])[tn(tsel.mask[0])] < 100).all()
 
 
+def test_fused_route_at_batch_one_hands_b9_contiguous_operands(rng, monkeypatch):
+    """One slot (the quickstart's batch): every operand the fused route hands
+    B9 is contiguous, as the kernel's wrapper requires on the card (the
+    per-row lengths were a stride-0 view of the slot's length at batch 1);
+    the Selection equals the reference's bit for bit."""
+    seen = []
+    real = sf_ops.fused_bin_pool_threshold
+
+    def checking(*a, **kw):
+        seen.append([t.is_contiguous() for t in a if hasattr(t, "is_contiguous")])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(sf_ops, "fused_bin_pool_threshold", checking)
+    t, kv, hd = 256, 4, 64
+    k = rng.normal(size=(1, t, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(1, t, kv, hd)).astype(np.float32)
+    q = rng.normal(size=(1, 2 * kv, hd)).astype(np.float32)
+    kw = dict(k=48, k_cap=96, pool_window=7)
+    jcache = jc.prefill_cache(jnp.asarray(k), jnp.asarray(v), max_seq=t, params=JParams(**kw))
+    tcache = tc.prefill_cache(tt(k), tt(v), max_seq=t, params=TParams(**kw))
+    _, tsel = t_attn(tt(q), tcache, TParams(**kw), return_selection=True)
+    assert seen == [[True] * 5]
+    _, jsel = j_attn(jnp.asarray(q), jcache, JParams(**kw), return_selection=True)
+    _assert_same_selection(jsel, tsel)
+
+
 def test_salca_decode_attention_forcing_takes_chain(rng, monkeypatch):
     """Sink/recent forcing: phases 2-3 run the chain (B9 is not called), as
     in the reference; same Selection, output within 1e-5."""

@@ -11,7 +11,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "scripts").glob("torch_*.py")))
+              + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imports(path):
@@ -47,6 +48,15 @@ def test_entry_points_default_to_cuda():
     eng = ServingEngine(cfg, params, max_seq=64, block_size=16, device="cpu")
     assert eng.device.type == "cpu"
     assert np.all(eng._mask == 0)
+    # an example twin: its default device is the card, --device cpu runs here
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
+    assert quickstart.workload("cpu")[0].device.type == "cpu"
 
 
 def test_kernel_build_staleness_follows_headers(tmp_path, monkeypatch):
