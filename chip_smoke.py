@@ -252,9 +252,11 @@ the first run's losses and gradient norms bit for bit. Phase 3 holds
 B3-bwd (run (ae), `check_b3_bwd`) against its plain version at the
 training shapes: qwen3-0.6b's (4 × 16 H over 8 KV, HD 128, T 4096, causal,
 and under a window of 1024), whisper-small's encoder (unmasked, HD 64) and
-cross-attention (448 queries over 4096 frames), and one f32 case, each
-gradient within B3_BWD_TOL, timed by `graph_ms` beside the backward of
-one `scaled_dot_product_attention` call (its record counted on run (ag)).
+cross-attention (448 queries over 4096 frames), gemma3-12b's (HD 256,
+causal and under the window) and one f32 case, each gradient within
+B3_BWD_TOL, timed by `graph_ms` beside the backward of one
+`scaled_dot_product_attention` call, whose own gradients' ratio to the
+same tolerance is printed as a reading (its record counted on run (ag)).
 
 Last, the tooling's example entry points (``examples/torch_*.py``):
 (ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
@@ -1469,25 +1471,34 @@ def check_sp_flat_kernels(dev, cfg, lengths, iters=20, tag="", salca=None,
                          torch.zeros_like(bins)).reshape(bh, n).contiguous()
     hist, _ = htk.hist_threshold(pooled, params.k)
     if pooling:
+        import torch.nn.functional as F
         _check_exact("B10 (halo-padded rows)", (pooled_p,), (mp.maxpool_int8_plain(padded, w),))
         kk = torch.full((bh,), params.k, dtype=torch.int32, device=dev)
         _check_exact("B11 (pooled rows)", (hist,), (htk.hist_threshold_plain(pooled, kk)[0],))
         np_ = bh * (n + 2 * halo)
-        for name, fn, plain, nbytes, ops, replaces in (
+        # library calls as `check_bin_kernels` times them (copies not timed)
+        xf = padded.float()[:, None]
+        offs = (pooled.long() + 256 * torch.arange(bh, device=dev)[:, None]).reshape(-1)
+        for name, fn, plain, lib, nbytes, ops, replaces, call in (
                 ("maxpool_int8", lambda: mp.maxpool_int8(padded, w),
-                 lambda: mp.maxpool_int8_plain(padded, w), 2 * np_, np_ * (w - 1),
-                 "src/repro/kernels/maxpool/kernel.py:55"),
+                 lambda: mp.maxpool_int8_plain(padded, w),
+                 lambda: F.max_pool1d(xf, w, stride=1, padding=w // 2), 2 * np_, np_ * (w - 1),
+                 "src/repro/kernels/maxpool/kernel.py:55",
+                 "max_pool1d on a float copy of the halo-padded bins (copy not timed)"),
                 ("hist_threshold", lambda: htk.hist_threshold(pooled, params.k),
                  lambda: htk.hist_threshold_plain(pooled, kk),
+                 lambda: torch.bincount(offs, minlength=bh * 256),
                  bh * n + 4 * 256 * bh + 4 * bh, bh * n + bh * 256,
-                 "src/repro/kernels/hist_topk/kernel.py:57")):
+                 "src/repro/kernels/hist_topk/kernel.py:57",
+                 "bincount over row-offset pooled bins: the histogram only, no threshold "
+                 "(offsets not timed)")):
             bms, bby = bound(nbytes, ops, "f32")
             rec = dict(name=f"{name}[sp_flat]{tag}", counter=name, route="cuda",
                        source="src/repro_torch/csrc/selection_fused.cu", replaces=replaces,
                        launches=None, max_abs_err=0.0, tolerance="bit-identical",
                        err_over_tol=0.0, ms=graph_ms(fn, iters),
                        plain_ms=events_ms(plain, max(2, iters // 10)), bound_ms=bms,
-                       bound_by=bby, library_ms=None,
+                       bound_by=bby, library_ms=events_ms(lib, iters), library_call=call,
                        shape=[bh, n + 2 * halo if name == "maxpool_int8" else n], **extra)
             rec["graph_ms"] = rec["ms"]
             recs.append(rec)
@@ -3931,6 +3942,17 @@ TRAIN_SHAPE = dict(name="train_4k", seq_len=4096, global_batch=4, kind="train")
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 12, 6
 # run (ae)'s windowed case at the training shape (gemma3-12b's window)
 B3_BWD_WINDOW = 1024
+
+
+def b3_bwd_executed(hd: int, kind: str) -> int:
+    """Flops B3-bwd's design executes per kept (query, key) pair, in units
+    of HD (csrc/flash_prefill_bwd.cu's header): bf16 S, P^T·dO (hi + lo) in
+    the dV pass, S, dP, dS^T·Q (hi + lo) in the dK pass, S, dP, dS·K (hi +
+    lo) for dQ: 22; at HD 256 both consumers of a tile compute S and dP for
+    their half of the channels: 32. f32: 14 (S and dP twice)."""
+    if kind == "f32":
+        return 14
+    return 32 if hd > 128 else 22
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
 # run (af): qwen3-0.6b's widths cut to this many layers; every parameter's
 # gradient through B3 + B3-bwd against the same through their plain
@@ -3959,10 +3981,11 @@ def b3_bwd_pairs(t: int, s_len: int, causal: bool, window: int) -> int:
     return int(kept.sum())
 
 
-def sdpa_backward_ms(q, k, v, dout, causal: bool, window: int, iters: int) -> float:
+def sdpa_backward(q, k, v, dout, causal: bool, window: int, iters: int):
     """The yardstick, timed and used nowhere in the port: the backward of
     one ``scaled_dot_product_attention`` call (``enable_gqa``; causal, or a
-    boolean mask for the window) on the same tensors, by CUDA events."""
+    boolean mask for the window) on the same tensors, by CUDA events. Returns
+    (ms, its (dq, dk, dv) in B3's layout)."""
     import torch
     import torch.nn.functional as F
     bh, t, _ = q.shape
@@ -3975,8 +3998,10 @@ def sdpa_backward_ms(q, k, v, dout, causal: bool, window: int, iters: int) -> fl
     out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                          is_causal=causal and not window,
                                          enable_gqa=bkv != bh)
-    return events_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None],
-                                                 retain_graph=True), iters)
+    grad = lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None],   # noqa: E731
+                                       retain_graph=True)
+    grads = tuple(g[0] for g in grad())
+    return events_ms(grad, iters), grads
 
 
 def b3_bwd_case(dev, gen, label: str, h: int, kv: int, t: int, s_len: int, hd: int, dtype,
@@ -3986,7 +4011,10 @@ def b3_bwd_case(dev, gen, label: str, h: int, kv: int, t: int, s_len: int, hd: i
     LSE (each gradient's max |kernel - plain| over atol + rtol·|plain|),
     its time by `graph_ms`, the plain version's and SDPA's backward by CUDA
     events, and its bound (10·HD flops per kept pair at the operand type's
-    peak; inputs and gradients read or written once)."""
+    peak; inputs and gradients read or written once). SDPA's own gradients
+    are held to the same tolerance against the plain version and printed:
+    a reading, never a gate. TFLOP/s are printed on the bound's work and on
+    the work the design executes (`b3_bwd_executed`)."""
     import torch
     from repro_torch.kernels.flash_prefill import ops as fp
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -3998,33 +4026,44 @@ def b3_bwd_case(dev, gen, label: str, h: int, kv: int, t: int, s_len: int, hd: i
     out, lse = fp.flash_attention_lse(q, k, v, **mask)
     got = fp.flash_attention_backward(q, k, v, out, dout, lse, **mask)
     want = fp.flash_attention_backward_plain(q, k, v, out, dout, lse, **mask)
-    errs, ratios = {}, {}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        d = (a.float() - b.float()).abs()
-        errs[name] = float(d.max())
-        ratios[name] = float((d / (atol + rtol * b.float().abs())).max())
+
+    def ratios_of(grads):
+        return {name: float(((a.float() - b.float()).abs()
+                             / (atol + rtol * b.float().abs())).max())
+                for name, a, b in zip(("dq", "dk", "dv"), grads, want)}
+    errs = {name: float((a.float() - b.float()).abs().max())
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    ratios = ratios_of(got)
+    for name in ratios:
         if not ratios[name] <= 1.0:
             raise AssertionError(f"B3-bwd {label} {name}: |kernel - plain| reaches "
                                  f"{ratios[name]:.3g}x its bound {atol:g} + {rtol:g}·|plain| "
                                  f"(max abs err {errs[name]})")
-    del got, want
+    del got
     ms = graph_ms(lambda: fp.flash_attention_backward(q, k, v, out, dout, lse, **mask), iters)
     plain_ms = events_ms(lambda: fp.flash_attention_backward_plain(q, k, v, out, dout, lse,
                                                                    **mask), 1)
-    lib = sdpa_backward_ms(q, k, v, dout, causal, window, iters)
+    lib, lib_grads = sdpa_backward(q, k, v, dout, causal, window, iters)
+    lib_ratios = ratios_of(lib_grads)
+    del want, lib_grads
     pairs = b3_bwd_pairs(t, s_len, causal, window) * h
     elt = q.element_size()
     moved = elt * 2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
     bms, bby = bound(moved, 10 * hd * pairs, kind)
+    executed = b3_bwd_executed(hd, kind)
     line = (f"B3-bwd {label} ({kind}, {h} H / {kv} KV, HD {hd}, T {t}, S {s_len}, "
             f"{'causal' if causal else 'unmasked'}{f', window {window}' if window else ''}): "
             + ", ".join(f"{n} max_abs_err={errs[n]:.3g} ({ratios[n]:.3g} of {atol:g} + "
                         f"{rtol:g}*|plain|)" for n in errs)
-            + f"; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} (SDPA backward) "
-            f"bound_ms={bms:.5f} ({bby}); {10 * hd * pairs / ms / 1e9:.1f} TFLOP/s of the "
-            f"bound's work")
+            + f"; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} (SDPA backward; its "
+            f"gradients at " + ", ".join(f"{n} {r:.3g}" for n, r in lib_ratios.items())
+            + f" of the same tolerance, a reading) bound_ms={bms:.5f} ({bby}); "
+            f"{10 * hd * pairs / ms / 1e9:.1f} TFLOP/s of the bound's work (10*HD a pair), "
+            f"{executed * hd * pairs / ms / 1e9:.1f} of the work executed ({executed}*HD)")
     return dict(label=label, errs=errs, ratios=ratios, tol=(atol, rtol), ms=ms,
-                plain_ms=plain_ms, library_ms=lib, bound_ms=bms, bound_by=bby, line=line)
+                plain_ms=plain_ms, library_ms=lib, library_ratios=lib_ratios, bound_ms=bms,
+                bound_by=bby, tflops_bound_work=10 * hd * pairs / ms / 1e9,
+                tflops_executed=executed * hd * pairs / ms / 1e9, line=line)
 
 
 def check_b3_bwd(dev) -> dict:
@@ -4032,8 +4071,9 @@ def check_b3_bwd(dev) -> dict:
     of 4 × 16 heads over 8 KV, HD 128, T 4096, bf16; causal, and under a
     window of 1024), whisper-small's encoder (4 × 12 heads, HD 64, T 4096
     unmasked) and its cross-attention (the 448-token decoder stream over
-    4096 frames), and one f32 case. Returns the kernel's record (the causal
-    qwen3 shape, its launches counted on run (ag))."""
+    4096 frames), gemma3-12b's (4 × 16 heads over 8 KV, HD 256, T 4096;
+    causal and under the window) and one f32 case. Returns the kernel's
+    record (the causal qwen3 shape, its launches counted on run (ag))."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(30)
     b, t = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
@@ -4046,6 +4086,11 @@ def check_b3_bwd(dev) -> dict:
                     causal=False),
         b3_bwd_case(dev, gen, "whisper-small cross", b * 12, b * 12, min(448, t), t, 64, bf,
                     causal=False),
+        # gemma3-12b's training shape (16 H / 8 KV, HD 256), causal and under its
+        # sliding window
+        b3_bwd_case(dev, gen, "gemma3-12b", b * 16, b * 8, t, t, 256, bf),
+        b3_bwd_case(dev, gen, "gemma3-12b window", b * 16, b * 8, t, t, 256, bf,
+                    window=B3_BWD_WINDOW),
         b3_bwd_case(dev, gen, "qwen3-0.6b f32", 16, 8, t // 2, t // 2, 128, torch.float32),
     ]
     for c in cases:
@@ -4068,8 +4113,10 @@ def check_b3_bwd(dev) -> dict:
                 window_err_over_tol=max(win["ratios"].values()),
                 window_bound_ms=win["bound_ms"], window_bound_by=win["bound_by"],
                 window_library_ms=win["library_ms"], run="train",
-                cases={c["label"]: {k: c[k] for k in ("errs", "ms", "plain_ms", "library_ms",
-                                                     "bound_ms")} for c in cases})
+                cases={c["label"]: {k: c[k] for k in ("errs", "ratios", "ms", "plain_ms",
+                                                     "library_ms", "library_ratios", "bound_ms",
+                                                     "tflops_bound_work", "tflops_executed")}
+                       for c in cases})
 
 
 def train_gradients(cfg, params, batch, plain: bool):

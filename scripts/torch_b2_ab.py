@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Kernels B1, B2, B4, B5, B6, B7, B9, B10 and B11 against other checkouts',
-bit for bit, on chip_smoke.py's operands.
+bit for bit, on chip_smoke.py's operands; B3-bwd beside them (timed P C C P).
 
     python3 scripts/torch_b2_ab.py --tree DIR [DIR ...] [--rows NAME ...]
 
@@ -20,6 +20,16 @@ int4), B9, B10 and B11. Then, on those operands:
 and prints, per row and tree, whether the outputs are ``torch.equal`` to
 that tree's, and the times; the last line is one JSON object with all of
 it. ``--rows NAME ...`` compares only the named rows. Needs a CUDA device.
+
+One more row, ``flash_attention_backward``, holds B3-bwd at run (ae)'s
+causal qwen3-0.6b operands (chip_smoke's generator and draw order: 4 × 16
+heads over 8 KV, HD 128, T 4096, bf16). Each tree's library is built from
+its own ``csrc/flash_prefill_bwd.cu`` and called through the C entry point
+both trees share, in this process, timed by CUDA events in the order tree,
+this one, this one, tree (P C C P). A redesign changes the roundings, so
+the row prints each gradient's largest |this - tree| over chip_smoke's
+B3_BWD_TOL (1e-3 + 2^-7·|tree|), not ``torch.equal``; it does not decide
+the exit code.
 """
 
 from __future__ import annotations
@@ -70,6 +80,69 @@ def run_rows(mods, cs, rows) -> dict:
                          ms=cs.kernel_ms(lambda: fn(*args, **kw), KERNELS[mod, fname],
                                          ITERS))
     return out
+
+
+B3_BWD = "flash_attention_backward"
+
+
+def b3_bwd_row(cs, trees, iters=5) -> dict:
+    """B3-bwd of this tree and of each of ``trees`` on run (ae)'s causal
+    qwen3-0.6b operands, P C C P by CUDA events; each gradient's largest
+    |this - tree| over atol + rtol·|tree|."""
+    import ctypes
+    import math
+    import subprocess as sp
+
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_prefill import ops as fp
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    b, t, hd = cs.TRAIN_SHAPE["global_batch"], cs.TRAIN_SHAPE["seq_len"], 128
+    h, kv = b * 16, b * 8
+    q = torch.randn((h, t, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((kv, t, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    dout = torch.randn((h, t, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = fp.flash_attention_lse(q, k, v)
+    atol, rtol = cs.B3_BWD_TOL["bf16"]
+
+    def entry(lib: Path):
+        f = ctypes.CDLL(str(lib)).flash_prefill_bwd
+        f.argtypes = [common.P] * 10 + [common.I] * 8 + [common.F, common.P]
+        f.restype = ctypes.c_int
+        return f
+
+    def call(f):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((h, t), dtype=torch.float32, device="cuda")
+        common.check(f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), 1, h, t, t, hd, h // kv, 1, 0,
+                       1.0 / math.sqrt(hd), common.stream_ptr(dq)), "flash_prefill_bwd")
+        return dq, dk, dv
+
+    common.build_kernels(["flash_prefill_bwd"])
+    mine_f = entry(common.BUILD_DIR / "libflash_prefill_bwd.so")
+    mine = call(mine_f)
+    rec = dict(name=B3_BWD, shape=[h, kv, t, hd], trees=[])
+    for tree in trees:
+        lib = tree / "build" / "kernels" / "libflash_prefill_bwd.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        sp.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib),
+                str(tree / "src" / "repro_torch" / "csrc" / "flash_prefill_bwd.cu")],
+               check=True, capture_output=True, timeout=600)
+        f = entry(lib)
+        theirs = call(f)
+        over = {n: float(((a.float() - b.float()).abs()
+                          / (atol + rtol * b.float().abs())).max())
+                for n, a, b in zip(("dq", "dk", "dv"), mine, theirs)}
+        p1 = cs.events_ms(lambda: call(f), iters)
+        c1 = cs.events_ms(lambda: call(mine_f), iters)
+        c2 = cs.events_ms(lambda: call(mine_f), iters)
+        p2 = cs.events_ms(lambda: call(f), iters)
+        rec["trees"].append(dict(tree=str(tree), ms_pccp=[p1, c1, c2, p2],
+                                 delta_over_tol=over))
+    return rec
 
 
 def child(tree: Path, ops_file: Path, out_file: Path) -> int:
@@ -143,9 +216,9 @@ def main() -> int:
             setattr(mods[mod], fname, fn)
     assert len(rows) == 14, sorted(rows)
     if a.rows:
-        unknown = set(a.rows) - set(rows)
+        unknown = set(a.rows) - set(rows) - {B3_BWD}
         if unknown:
-            ap.error(f"unknown rows {sorted(unknown)}; rows: {sorted(rows)}")
+            ap.error(f"unknown rows {sorted(unknown)}; rows: {sorted(rows) + [B3_BWD]}")
         rows = {name: row for name, row in rows.items() if name in a.rows}
 
     # this tree's kernels first: after the child has profiled, sessions of
@@ -176,7 +249,16 @@ def main() -> int:
             f"{t['tree']}: ms {t['ms']:.5f}, torch.equal {t['equal']}" for t in rec["trees"]),
             flush=True)
         report.append(rec)
-    print(json.dumps({"gpu": cs.gpu_line(), "rows": report}), flush=True)
+    b3 = None
+    if not a.rows or B3_BWD in a.rows:
+        b3 = b3_bwd_row(cs, trees)
+        for t in b3["trees"]:
+            print(f"{B3_BWD} (B3-bwd at run (ae)'s causal qwen3-0.6b operands): {t['tree']} "
+                  f"P C C P ms " + " ".join(f"{x:.4f}" for x in t["ms_pccp"])
+                  + "; largest |this - tree| over 1e-3 + 2^-7*|tree|: "
+                  + ", ".join(f"{n} {r:.3g}" for n, r in t["delta_over_tol"].items()),
+                  flush=True)
+    print(json.dumps({"gpu": cs.gpu_line(), "rows": report, "b3_bwd": b3}), flush=True)
     return 0 if all(t["equal"] for r in report for t in r["trees"]) else 1
 
 

@@ -28,6 +28,7 @@ from repro_torch.kernels import common
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
+_TENSOR_MAP_ERROR = 10000   # B3-bwd's return for a TMA map it could not make, + the CUresult
 
 
 def _scores(q, k, causal: bool, window: int, q_offset: int):
@@ -145,7 +146,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
     """The gradient (dq, dk, dv) of `flash_attention` at q_offset 0, from
     the forward's ``out`` and ``lse`` and the output's gradient ``dout``.
     CPU tensors take the plain version; CUDA tensors launch B3-bwd (three
-    kernels: D, then dK/dV, then dQ, each counted)."""
+    kernels: D, then dK/dV, then dQ, each counted). Its bf16 branch reads q,
+    k, v and dout by TMA, which needs each to start 16-byte aligned: a
+    misaligned one is refused, never copied."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, lse, causal=causal,
                                               window=window)
@@ -155,6 +158,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
     common.require(out, "out", q.dtype, (bh, t, hd), q.device)
     common.require(dout, "dout", q.dtype, (bh, t, hd), q.device)
     common.require(lse, "lse", torch.float32, (bh, t), q.device)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v, dout)):
+        raise ValueError("kernel B3-bwd (bf16) reads q, k, v and dout by TMA: they must "
+                         "start 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     fn = common.load("flash_prefill_bwd", "flash_prefill_bwd",
@@ -163,6 +169,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _DTYPES[q.dtype], bh, t, s_len, hd, bh // bkv, int(causal), window,
              1.0 / math.sqrt(hd), common.stream_ptr(dq))
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_prefill_bwd: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - _TENSOR_MAP_ERROR}")
     common.check(err, "flash_prefill_bwd")
     common.LAUNCHES["flash_prefill_bwd"] += 3
     return dq, dk, dv

@@ -1537,8 +1537,21 @@ def _b3_bwd_operands(dev, dtype, h, kv, t, s_len, hd, seed=5):
     (torch.bfloat16, 32, 4, 2, 129, 129, True, 0),
     (torch.bfloat16, 256, 4, 2, 300, 300, True, 128),
     (torch.float32, 256, 2, 1, 100, 100, True, 0),
+    # the wgmma tiles' edges: one row, rows either side of the 64-row query
+    # tiles and the 128-key tiles; a window straddling a key tile; Tq != S
+    # with S off the key tiles; recurrentgemma's G 10 at HD 256 under a
+    # window; granite's G 3 at HD 64
+    (torch.bfloat16, 128, 4, 2, 1, 1, True, 0),
+    (torch.bfloat16, 128, 4, 2, 63, 63, True, 0),
+    (torch.bfloat16, 128, 4, 2, 65, 65, True, 0),
+    (torch.bfloat16, 128, 4, 2, 129, 129, True, 0),
+    (torch.bfloat16, 128, 4, 2, 700, 700, True, 130),
+    (torch.bfloat16, 64, 4, 2, 40, 517, False, 0),
+    (torch.bfloat16, 256, 10, 1, 600, 600, True, 200),
+    (torch.bfloat16, 64, 6, 2, 300, 300, True, 0),
 ], ids=["qwen3", "qwen3_window", "encoder", "cross", "f32", "f32_window_g3", "hd32",
-        "hd256_window", "hd256_f32"])
+        "hd256_window", "hd256_f32", "t1", "t63", "t65", "t129", "window_straddles_key_tile",
+        "cross_g2_s517", "hd256_g10_window", "hd64_g3"])
 def test_b3_bwd_kernel_matches_plain(dev, dtype, hd, h, kv, t, s_len, causal, window):
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.flash_prefill import ops as fp
@@ -1594,6 +1607,67 @@ def test_b3_bwd_is_deterministic_and_differentiates_train_attention(dev):
     assert (LAUNCHES["flash_prefill"] - n_f, LAUNCHES["flash_prefill_bwd"] - n_b) == (1, 3)
     for x, want in ((tq, a[0]), (tk, a[1]), (tv, a[2])):
         assert torch.equal(fold_heads(x.grad), want)
+
+
+@pytest.mark.parametrize("hd,h,kv,t,s_len,causal,window", [
+    (128, 32, 16, 1000, 1000, True, 256),
+    (64, 12, 12, 333, 333, False, 0),
+    (64, 12, 12, 40, 517, False, 0),
+    (256, 10, 1, 600, 600, True, 200),
+], ids=["window", "unmasked", "cross", "hd256_g10_window"])
+def test_b3_bwd_two_calls_give_the_same_bits(dev, hd, h, kv, t, s_len, causal, window):
+    """No atomics: the windowed and unmasked gradients keep their bits from
+    one call to the next, as the causal ones do."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    q, k, v, dout = _b3_bwd_operands(dev, torch.bfloat16, h, kv, t, s_len, hd, seed=9)
+    mask = dict(causal=causal, window=window)
+    out, lse = fp.flash_attention_lse(q, k, v, **mask)
+    a = fp.flash_attention_backward(q, k, v, out, dout, lse, **mask)
+    b = fp.flash_attention_backward(q, k, v, out, dout, lse, **mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_b3_bwd_runs_on_a_thread_that_made_no_cuda_call(dev):
+    """Autograd runs the backward on a thread of its own, where B3-bwd may be
+    the first CUDA call: its bf16 branch launches D before it encodes its
+    TMA maps, so the driver finds the device's context current there too."""
+    import threading
+
+    from repro_torch.kernels.flash_prefill import ops as fp
+    q, k, v, dout = _b3_bwd_operands(dev, torch.bfloat16, 4, 2, 130, 130, 128, seed=10)
+    out, lse = fp.flash_attention_lse(q, k, v)
+    want = fp.flash_attention_backward(q, k, v, out, dout, lse)
+    got = []
+    th = threading.Thread(target=lambda: got.append(
+        fp.flash_attention_backward(q, k, v, out, dout, lse)))
+    th.start()
+    th.join()
+    assert got and all(torch.equal(x, y) for x, y in zip(got[0], want))
+
+
+def test_b3_bwd_refuses_misaligned_operands(dev):
+    """B3-bwd's bf16 branch reads q, k, v and dout by TMA: a contiguous view
+    that does not start 16-byte aligned is refused with a ValueError, never
+    copied; the f32 branch takes it."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+
+    def off_by_one(x):
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(x.shape)
+
+    q, k, v, dout = _b3_bwd_operands(dev, torch.bfloat16, 4, 2, 64, 64, 64)
+    out, lse = fp.flash_attention_lse(q, k, v)
+    for i in range(4):
+        args = [q, k, v, dout]
+        args[i] = off_by_one(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            fp.flash_attention_backward(args[0], args[1], args[2], out, args[3], lse)
+    q32, k32, v32, d32 = (x.float() for x in (q, k, v, dout))
+    o32, l32 = fp.flash_attention_lse(q32, k32, v32)
+    got = fp.flash_attention_backward(off_by_one(q32), k32, v32, o32, d32, l32)
+    want = fp.flash_attention_backward(q32, k32, v32, o32, d32, l32)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_b3_bwd_refuses_head_dims_it_lacks(dev):

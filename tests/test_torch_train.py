@@ -35,6 +35,13 @@ from repro_torch.models.attention import fold_heads, train_attention
 ATTN_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
+def attn_tol(hd: int) -> dict:
+    """ATTN_TOL at HD 32; above it the absolute part grows as sqrt(HD / 32):
+    where D = rowsum(dO∘O) and dP = dO·V cancel (a row that sees one key has
+    dS = 0 exactly), their two f32 sums of HD products part by that much."""
+    return dict(ATTN_TOL, atol=ATTN_TOL["atol"] * (hd / 32) ** 0.5)
+
+
 # --------------------------------------------------------------------------
 # (a) the attention gradient
 # --------------------------------------------------------------------------
@@ -45,6 +52,10 @@ ATTN_CASES = {
     "window_gqa": dict(h=4, kv=2, t=64, s=64, causal=True, window=16),
     "unmasked_gqa": dict(h=4, kv=2, t=64, s=64, causal=False, window=0),
     "cross": dict(h=4, kv=2, t=24, s=40, causal=False, window=0),
+    # the card test's edge shapes for B3-bwd's wgmma tiles (HD 128, T 129:
+    # one row past two 64-row query tiles and one 128-key tile)
+    "causal_hd128_t129": dict(h=4, kv=2, t=129, s=129, causal=True, window=0, hd=128),
+    "window_hd128_t129": dict(h=4, kv=2, t=129, s=129, causal=True, window=65, hd=128),
 }
 
 
@@ -52,12 +63,13 @@ ATTN_CASES = {
 def test_attention_backward_matches_jax_vjp(case):
     c = ATTN_CASES[case]
     rng = np.random.default_rng(3)
-    b, hd = 2, 32
+    b, hd = 2, c.get("hd", 32)
     q = rng.standard_normal((b, c["t"], c["h"], hd), np.float32)
     k = rng.standard_normal((b, c["s"], c["kv"], hd), np.float32)
     v = rng.standard_normal((b, c["s"], c["kv"], hd), np.float32)
     do = rng.standard_normal((b, c["t"], c["h"], hd), np.float32)
     mask = dict(causal=c["causal"], window=c["window"])
+    tol = attn_tol(hd)
 
     @jax.jit
     def fwd_bwd(q_, k_, v_, do_):
@@ -69,10 +81,10 @@ def test_attention_backward_matches_jax_vjp(case):
     # the Function's CPU backward, through the model's layout
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = train_attention(tq, tk, tv, **mask)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **ATTN_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **tol)
     out.backward(torch.from_numpy(do))
     for name, got, want in (("dq", tq.grad, jdq), ("dk", tk.grad, jdk), ("dv", tv.grad, jdv)):
-        np.testing.assert_allclose(got.numpy(), want, err_msg=name, **ATTN_TOL)
+        np.testing.assert_allclose(got.numpy(), want, err_msg=name, **tol)
 
     # the plain backward called directly, from the plain forward's LSE
     fq, fk, fv, fdo = (fold_heads(torch.from_numpy(x)) for x in (q, k, v, do))
@@ -80,7 +92,7 @@ def test_attention_backward_matches_jax_vjp(case):
     dq, dk, dv = fp.flash_attention_backward_plain(fq, fk, fv, fout, fdo, lse, **mask)
     for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
         np.testing.assert_allclose(got.numpy(), fold_heads(torch.from_numpy(want.copy())).numpy(),
-                                   err_msg=name, **ATTN_TOL)
+                                   err_msg=name, **tol)
 
 
 def test_lse_is_the_rows_logsumexp_and_forward_unchanged():
