@@ -257,6 +257,21 @@ causal and under the window) and one f32 case, each gradient within
 B3_BWD_TOL, timed by `graph_ms` beside the backward of one
 `scaled_dot_product_attention` call, whose own gradients' ratio to the
 same tolerance is printed as a reading (its record counted on run (ag)).
+Then training over the data axis (`check_sharded_training`): (am) the same
+model, shape and seed through `Trainer(cfg, shape, MeshPlan(...))` on a
+(1, 1) ("data", "model") mesh over the one-rank nccl world
+(`runtime.steps.ShardedTrainStep`: FSDP blocks, a gather of the whole
+parameters, reduce-scatters and all-reduces over one rank) for
+TRAIN_CKPT_EVERY steps: its losses and gradient norms bit for bit with
+(ag)'s first TRAIN_CKPT_EVERY (else the first step where they part is
+printed), its ms per step, tokens/s, peak memory, collectives per step and
+B3 / B3-bwd launches beside (ag)'s, and its step-6 checkpoint's
+parameters, restored through `restore(shardings=)`, bit for bit with
+(ag)'s step-6 checkpoint's; (am') `distributed.compression.make_compressed_grad_fn` at the
+same rank for COMPRESSED_STEPS AdamW steps: every loss finite, within the
+CPU check's criterion (``l_c < 1.5·l_e + 1e-3``) of (ag)'s loss at the
+same step, and the compressed gradients' largest error at step 0 over
+each leaf's largest magnitude within the quantizer's half step (0.5/127).
 
 Last, the tooling's example entry points (``examples/torch_*.py``):
 (ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
@@ -3939,7 +3954,7 @@ TRAIN_ARCH = "qwen3-0.6b"
 # 4 sequences so that one card holds the step (the (4, 4096, 151936) bf16
 # logits and their f32 copy in the cross-entropy take ~15 GB)
 TRAIN_SHAPE = dict(name="train_4k", seq_len=4096, global_batch=4, kind="train")
-TRAIN_STEPS, TRAIN_CKPT_EVERY = 12, 6
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 6
 # run (ae)'s windowed case at the training shape (gemma3-12b's window)
 B3_BWD_WINDOW = 1024
 
@@ -3954,6 +3969,8 @@ def b3_bwd_executed(hd: int, kind: str) -> int:
         return 14
     return 32 if hd > 128 else 22
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+# run (am'): AdamW steps on the EF21-compressed gradients
+COMPRESSED_STEPS = 4
 # run (af): qwen3-0.6b's widths cut to this many layers; every parameter's
 # gradient through B3 + B3-bwd against the same through their plain
 # versions, each leaf within GRAD_CHECK_LIMIT of its largest magnitude. The
@@ -4219,7 +4236,8 @@ def check_training(dev) -> dict:
     three below that of the first three; then a fresh `Trainer` on the
     directory with the last checkpoint removed resumes at step
     TRAIN_CKPT_EVERY and must give the first run's later losses and gradient
-    norms bit for bit. Returns run (ag)'s launch counts."""
+    norms bit for bit. Then runs (am) and (am') (`check_sharded_training`)
+    against (ag). Returns each run's launch counts by run name."""
     import os
     import tempfile
 
@@ -4232,9 +4250,9 @@ def check_training(dev) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         def trainer():
-            return Trainer(cfg, shape, TrainerConfig(num_steps=TRAIN_STEPS,
-                                                     ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=tmp,
-                                                     seed=0, log_every=TRAIN_STEPS),
+            return Trainer(cfg, shape, None,
+                           TrainerConfig(num_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                                         ckpt_dir=tmp, seed=0, log_every=TRAIN_STEPS),
                            AdamWConfig(**TRAIN_OPT), device=dev)
         tr = trainer()
         torch.cuda.synchronize()
@@ -4291,9 +4309,154 @@ def check_training(dev) -> dict:
               f"ms wall; B3 {prof['b3']:.1f} ms ({prof['launches']['b3']} launches in the "
               f"trace of {2 * n_attn}), B3-bwd {prof['b3_bwd']:.1f} ms "
               f"({prof['launches']['b3_bwd']} of {3 * n_attn})", flush=True)
+        ag = dict(metrics=tr.metrics, losses=losses, dir=tmp, peak_gb=peak,
+                  median_ms=float(np.median(steady) * 1e3))
         del tr, tr2
         torch.cuda.empty_cache()
-        return launches
+        return {"train": launches, **check_sharded_training(dev, ag)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_sharded_training(dev, ag: dict) -> dict:
+    """Runs (am) and (am'): the (ag) model, shape, seed and optimizer over
+    the data axis at one nccl rank (the one-rank world `init_decode_ctx`
+    joined). (am): `Trainer(cfg, shape, MeshPlan.for_mesh((1, 1) mesh))`
+    for TRAIN_CKPT_EVERY steps, every loss and gradient norm bit for bit
+    with (ag)'s (else the first step where they part, and the first leaf
+    of that step's checkpointed state, are printed and the run fails), its
+    step-6 checkpoint through `restore(shardings=)` bit for bit with (ag)'s;
+    (am'): `make_compressed_grad_fn` + AdamW for COMPRESSED_STEPS steps.
+    Returns both runs' launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.analysis.collectives import TRACE
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.compression import make_compressed_grad_fn
+    from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import (AdamWConfig, CheckpointManager, Trainer, TrainerConfig,
+                                     adamw_update, init_opt_state)
+    from repro_torch.runtime.data import make_batch, to_device
+    from repro_torch.runtime.steps import MeshPlan
+    from repro_torch.runtime.tree import leaves, tree_map
+    from repro_torch.weights import init_lm_params
+    cfg, shape = train_config(), ShapeConfig(**TRAIN_SHAPE)
+    steps, n_attn = TRAIN_CKPT_EVERY, cfg.num_layers
+    tokens = shape.global_batch * shape.seq_len
+    mesh = make_data_mesh(dev)
+    plan = MeshPlan.for_mesh(mesh)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_sharded_")
+    t_am = time.time()
+    try:
+        tr = Trainer(cfg, shape, plan, TrainerConfig(num_steps=steps, ckpt_every=steps,
+                                                     ckpt_dir=tmp, seed=0, log_every=steps),
+                     AdamWConfig(**TRAIN_OPT), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        COLLECTIVES.clear()
+        TRACE.reset()
+        t0 = time.time()
+        out = tr.train()
+        wall = time.time() - t0
+        launches = dict(common.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v / steps for k, v in COLLECTIVES.items()}
+        want = {"flash_prefill": 2 * n_attn * steps, "flash_prefill_bwd": 3 * n_attn * steps}
+        if launches != want:
+            raise AssertionError(f"run (am): launches {launches}, expected {want}")
+        keys = ("loss", "grad_norm")
+        got = [[m[k] for k in keys] for m in tr.metrics]
+        ref = [[m[k] for k in keys] for m in ag["metrics"][:steps]]
+        n_sharded = sum(d is not None for _, _, d in tr.step_fn.layout.values())
+        # steps 1..steps-1 of both runs: no checkpoint is being written behind them
+        ms = np.median([m["seconds"] * 1e3 for m in tr.metrics[1:]])
+        ag_ms = np.median([m["seconds"] * 1e3 for m in ag["metrics"][1:steps]])
+        print(f"(am) {TRAIN_ARCH} full width, Trainer over a (1, 1) ('data', 'model') mesh at "
+              f"one nccl rank, {steps} steps of {shape.global_batch} x {shape.seq_len}: median "
+              f"step {ms:.1f} ms over steps 1-{steps - 1} ((ag)'s same steps: {ag_ms:.1f}), "
+              f"{tokens / ms * 1e3:.0f} tokens/s ((ag): {tokens / ag_ms * 1e3:.0f}); peak memory "
+              f"{peak:.3f} GB ((ag): {ag['peak_gb']:.3f}); collectives per step {per_step} "
+              f"({n_sharded} sharded leaves of {len(tr.step_fn.layout)}; TRACE "
+              f"{TRACE.summary()}: a group of one moves no bytes); launches {launches}; "
+              f"train() {wall:.1f} s of wall", flush=True)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            print(f"(am) step {i}: loss {a[0]:.6f} grad norm {a[1]:.6f} ((ag): {b[0]:.6f} "
+                  f"{b[1]:.6f})", flush=True)
+        if out["final_step"] != steps or got != ref:
+            first = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+            raise AssertionError(f"run (am): the sharded trainer at one rank parts from (ag) "
+                                 f"at step {first}: {got} vs {ref}")
+        # its checkpoint's parameters through their shardings, against (ag)'s step 6
+        t0 = time.time()
+        params, _ = tr.init_state()
+        shardings = {"params": tr._shardings()["params"]}
+        _, mine = CheckpointManager(tmp).restore({"params": params}, step=steps,
+                                                 shardings=shardings)
+        _, theirs = CheckpointManager(ag["dir"]).restore({"params": params}, step=steps)
+        for (name, a), (_, b) in zip(leaves(mine), leaves(theirs)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"run (am): restored leaf {name} differs from (ag)'s "
+                                     f"step-{steps} checkpoint")
+        print(f"(am) losses and gradient norms bit for bit with (ag)'s steps 0-{steps - 1}; "
+              f"its step-{steps} checkpoint's parameters, restored through "
+              f"restore(shardings=), bit for bit with (ag)'s ({len(list(leaves(mine)))} "
+              f"leaves, {time.time() - t0:.1f} s); (am) {time.time() - t_am:.1f} s in all",
+              flush=True)
+        del tr, params, mine, theirs
+        torch.cuda.empty_cache()
+        t_c = time.time()
+
+        # (am') EF21-compressed gradients at one rank, AdamW on them
+        api = get_model(cfg)
+        opt_cfg = AdamWConfig(**TRAIN_OPT)
+        params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        state = init_opt_state(params, opt_cfg)
+        grad_fn = make_compressed_grad_fn(api.loss, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        errors, losses, times, worst = None, [], [], None
+        for s in range(COMPRESSED_STEPS):
+            batch = to_device(make_batch(cfg, shape, 0, s), dev)
+            t0 = time.time()
+            loss, grads, errors = grad_fn(params, batch, errors)
+            if s == 0:          # against the exact gradients (errors start at zero)
+                exact = tree_map(lambda t: t.detach().requires_grad_(True), params)
+                ex_loss = api.loss(exact, batch)
+                ex = torch.autograd.grad(ex_loss, [t for _, t in leaves(exact)],
+                                         allow_unused=True, materialize_grads=True)
+                worst = max(float((g.float() - e.float()).abs().max()
+                                  / e.float().abs().max().clamp_min(1e-30))
+                            for (_, g), e in zip(leaves(grads), ex))
+                del exact, ex_loss, ex
+            params, state, m = adamw_update(params, grads, state, opt_cfg)
+            losses.append(float(loss))
+            times.append((time.time() - t0) * 1e3)
+        launches_c = dict(common.LAUNCHES)
+        peak_c = torch.cuda.max_memory_allocated() / 1e9
+        ref_l = ag["losses"][:COMPRESSED_STEPS]
+        print(f"(am') make_compressed_grad_fn at one nccl rank + AdamW, {COMPRESSED_STEPS} "
+              f"steps: losses {[round(x, 6) for x in losses]} ((ag): "
+              f"{[round(x, 6) for x in ref_l]}; relative "
+              f"{[f'{a / b - 1:+.3g}' for a, b in zip(losses, ref_l)]}); the compressed "
+              f"gradients' largest error at step 0 {worst:.4g} of each leaf's largest "
+              f"magnitude (bound 0.5/127 = {0.5 / 127:.4g}); median step "
+              f"{np.median(times[1:]):.1f} ms; peak memory {peak_c:.3f} GB; launches "
+              f"{launches_c}; {time.time() - t_c:.1f} s in all", flush=True)
+        if not all(np.isfinite(losses)) or not all(
+                a < 1.5 * b + 1e-3 for a, b in zip(losses, ref_l)):
+            raise AssertionError(f"run (am'): losses {losses} against (ag)'s {ref_l}")
+        if not worst <= 0.5 / 127 * (1 + 1e-5):
+            raise AssertionError(f"run (am'): compressed gradients {worst} of their leaves' "
+                                 "largest magnitude off the exact ones")
+        del params, state, grads, errors
+        torch.cuda.empty_cache()
+        return {"train sharded": launches, "train compressed": launches_c}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4941,7 +5104,7 @@ def main() -> int:
     check_recurrent(dev, runs)
     check_encdec_and_vlm(dev, ctx, runs)
     check_train_gradients(dev)
-    runs["train"] = check_training(dev)
+    runs.update(check_training(dev))
     check_long_context(dev, runs)
     check_examples(dev, runs)
     # each kernel's launches on the run of its path (a record at another

@@ -47,7 +47,7 @@ def run(args) -> dict:
     cfg = get_config(args.arch).reduced()
     shape = ShapeConfig("example", seq_len=args.seq, global_batch=args.batch, kind="train")
     trainer = Trainer(
-        cfg, shape,
+        cfg, shape, None,
         TrainerConfig(num_steps=args.steps, ckpt_every=max(args.steps // 4, 10),
                       ckpt_dir=args.ckpt_dir, log_every=20),
         AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=args.steps), device=args.device)

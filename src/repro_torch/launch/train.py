@@ -2,23 +2,41 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --shape train_4k --steps 200 --local --device cpu   # CPU smoke
+    PYTHONPATH=src torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \\
+        --arch qwen3-0.6b --local --device cpu              # 2 gloo ranks
 
-Trains one model on one device through `runtime.trainer.Trainer`, with
-checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir`` (resumed from
-when it holds one). ``--local`` trains the reduced model at the reduced
-shape, as the reference launcher does; without it, the full config at the
-named shape. ``--device`` defaults to ``cuda``; pass ``cpu`` to run the
-kernels' plain versions. The reference's ``--multi-pod`` has no
-counterpart: multi-GPU training is later work.
+Trains through `runtime.trainer.Trainer`, with checkpoints every
+``--ckpt-every`` steps into ``--ckpt-dir`` (resumed from when it holds
+one). ``--local`` trains the reduced model at the reduced shape, as the
+reference launcher does; without it, the full config at the named shape.
+``--device`` defaults to ``cuda``; pass ``cpu`` to run the kernels' plain
+versions.
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) every
+rank joins the process group (``nccl`` on the card, ``gloo`` on the CPU;
+``--dist-init`` names the rendezvous, ``env://`` by default, or a
+``file://`` path on a shared file system), takes ``cuda:LOCAL_RANK``, and
+trains FSDP over a data mesh of every rank (`launch.mesh.make_data_mesh`,
+(N, 1) over ("data", "model")). Without those variables it is a world of
+one on one device. The model axis of the reference's production meshes
+(its tensor and sequence parallelism, the ``--multi-pod`` mesh) is not
+ported: the train step refuses a model axis above 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_shape
+from repro_torch.distributed.sharding import BACKEND
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.runtime.optimizer import AdamWConfig
+from repro_torch.runtime.steps import MeshPlan
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -34,18 +52,32 @@ def main() -> None:
     ap.add_argument("--local", action="store_true",
                     help="reduced model and shape (smoke mode)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-init", default="env://",
+                    help="the process group's rendezvous under torchrun")
     args = ap.parse_args()
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg = get_config(args.arch)
     if args.local:
         cfg = cfg.reduced()
+    device, plan = torch.device(args.device), None
+    if "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group(BACKEND[device.type], init_method=args.dist_init,
+                                rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+        plan = MeshPlan.for_mesh(make_data_mesh(device))
     tcfg = TrainerConfig(num_steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, seed=args.seed, reduced_shapes=args.local)
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    out = Trainer(cfg, get_shape(args.shape), tcfg, opt, device=args.device).train()
+    out = Trainer(cfg, get_shape(args.shape), plan, tcfg, opt, device=device).train()
     print(f"done: step={out['final_step']} last_loss={out['losses'][-1]:.4f} "
           f"recoveries={out['recoveries']} stragglers={out['straggler_flags']}")
+    if plan is not None:
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

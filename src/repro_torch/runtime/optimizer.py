@@ -72,12 +72,15 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig):
+def adamw_update(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig,
+                 gnorm: torch.Tensor | None = None):
     """One step → (new_params, new_state, {"grad_norm", "lr"}), device
-    scalars, no host sync."""
+    scalars, no host sync. ``gnorm``: the global norm of the whole
+    gradients where ``grads`` are this rank's shards of them (the sharded
+    train step); by default `global_norm` of ``grads``."""
     with torch.no_grad():
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if gnorm is None else gnorm
         scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-12), 1.0)
         grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
         lr = lr_schedule(cfg, step)

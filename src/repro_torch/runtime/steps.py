@@ -34,10 +34,18 @@ keep their meaning, "launched and executed" (`kernels.common.LAUNCHES`):
 the capture counts none, and each replay adds one tick's launches, as the
 capture's wrappers counted them.
 
-`make_train_step` is the counterpart of the reference's `make_train_step`
-on one device, without a mesh: the loss, its gradient with respect to every
-parameter (through kernel B3-bwd on the card), then `adamw_update`. It
-runs eagerly.
+`make_train_step` is the counterpart of the reference's `make_train_step`:
+the loss, its gradient with respect to every parameter (through kernel
+B3-bwd on the card), then `adamw_update`, eagerly. Without a `MeshPlan` it
+runs on one device. With one it runs what the reference's jitted step runs
+under its FSDP `param_specs` over the plan's data axes (`ShardedTrainStep`):
+each rank holds its block of every parameter and of the AdamW moments and
+master, gathers the whole parameters at the step's start, runs the loss on
+its rows of the global batch (`batch_specs`), and reduces each gradient to
+its mean over the ranks (a reduce-scatter to its block, an all-reduce where
+the spec replicates it). The model axis (the reference's tensor and
+sequence parallelism) is not ported: a plan whose model axis is above 1
+raises.
 
 `PooledServer` drives that tick for what the serving engine does not
 serve: the reference serves the enc-dec family (whose requests carry
@@ -52,11 +60,51 @@ from __future__ import annotations
 
 import contextlib
 from collections import Counter
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import P, fit_spec
 from repro_torch.kernels.common import LAUNCHES
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """Axis roles for a given mesh (`launch.mesh`)."""
+    mesh: Any
+    dp: tuple[str, ...]            # batch/FSDP axes
+    tp: str = "model"
+
+    @classmethod
+    def for_mesh(cls, mesh) -> "MeshPlan":
+        return cls(mesh=mesh, dp=tuple(n for n in mesh.axis_names if n != "model"))
+
+    def decode_axes(self, global_batch: int):
+        """(batch_axes, seq_axes) for decode: the batch takes the data axes
+        it can fill; the KV cache's sequence dim takes "model" plus any data
+        axis the batch cannot occupy."""
+        batch_axes, seq_axes = [], []
+        filled = 1
+        for a in self.dp:
+            if global_batch % (filled * self.mesh.shape[a]) == 0:
+                batch_axes.append(a)
+                filled *= self.mesh.shape[a]
+            else:
+                seq_axes.append(a)
+        seq_axes.append(self.tp)
+        return (tuple(batch_axes) or None,
+                tuple(seq_axes) if len(seq_axes) > 1 else seq_axes[0])
+
+    def decode_seq_axes(self, global_batch: int):
+        return self.decode_axes(global_batch)[1]
+
+
+def batch_specs(mesh, batch: dict, dp) -> dict:
+    """Each batch leaf's spec: its leading dim over the data axes."""
+    return {k: fit_spec(mesh, P(dp, *([None] * (v.ndim - 1))), v.shape)
+            for k, v in batch.items()}
 
 _EAGER_DEPTH = 0
 
@@ -236,27 +284,176 @@ def to_host(*tensors) -> list[np.ndarray]:
     return [h.numpy() for h in host]
 
 
-def make_train_step(cfg, opt_cfg=None, device="cuda"):
+def make_train_step(cfg, plan: MeshPlan | None = None, opt_cfg=None, device="cuda"):
     """step(params, opt_state, batch) → (params, opt_state, {"loss",
     "grad_norm", "lr"} as device scalars). ``batch`` holds tensors on
     ``device`` (`runtime.data.PrefetchIterator`). A parameter that the
-    loss does not reach gets a zero gradient, as under ``jax.grad``."""
+    loss does not reach gets a zero gradient, as under ``jax.grad``. With
+    ``plan`` the step is a `ShardedTrainStep` (params, opt_state and batch
+    this rank's blocks and rows)."""
     from repro_torch.kernels.common import resolve_device
-    from repro_torch.models import get_model
-    from repro_torch.runtime.optimizer import AdamWConfig, adamw_update
-    from repro_torch.runtime.tree import leaves, tree_map
-    api = get_model(cfg)
+    from repro_torch.runtime.optimizer import AdamWConfig
     opt_cfg = opt_cfg or AdamWConfig()
     resolve_device(device)
+    if plan is not None:
+        return ShardedTrainStep(cfg, plan, opt_cfg)
+    from repro_torch.models import get_model
+    from repro_torch.runtime.optimizer import adamw_update
+    from repro_torch.runtime.tree import tree_map
+    api = get_model(cfg)
 
     def step(params, opt_state, batch):
-        params = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss = api.loss(params, batch)
-        grads = iter(torch.autograd.grad(loss, [t for _, t in leaves(params)],
-                                         allow_unused=True, materialize_grads=True))
-        grads = tree_map(lambda _: next(grads), params)
+        grads, loss = _loss_and_grads(api, params, batch)
         params = tree_map(lambda t: t.detach(), params)
         new_params, new_opt, metrics = adamw_update(params, grads, opt_state, opt_cfg)
         return new_params, new_opt, {"loss": loss.detach(), **metrics}
 
     return step
+
+
+def _refill(tree, items):
+    """A tree of ``tree``'s structure whose leaves are ``items``, in order."""
+    from repro_torch.runtime.tree import tree_map
+    it = iter(items)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _loss_and_grads(api, params, batch):
+    """(the gradient of the loss of ``batch`` with respect to every leaf of
+    ``params``, as a tree; the loss)."""
+    from repro_torch.runtime.tree import leaves, tree_map
+    params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = api.loss(params, batch)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves(params)], allow_unused=True,
+                                materialize_grads=True)
+    return _refill(params, grads), loss
+
+
+class ShardedTrainStep:
+    """The train step under ``plan``: FSDP over the plan's data axes, with
+    the reference's parameter specs (`param_specs` of `ShardingCtx(mesh,
+    dp, tp, strategy, moe_strategy)`, ``pspec``) and the same specs for the
+    AdamW moments and master (``ospec``). A call takes this rank's blocks
+    of the parameters and of the optimizer state (`shard`) and this rank's
+    rows of the global batch (`local_batch`):
+
+    * it gathers every sharded parameter whole (one all-gather a leaf; the
+      whole tree at the step's start);
+    * runs ``api.loss`` on its rows and takes the gradients;
+    * reduces each gradient to its mean over the data ranks: a
+      reduce-scatter to the leaf's block, an all-reduce where the spec
+      replicates the leaf, each a sum divided by the rank count;
+    * returns as the loss the mean of the ranks' losses (the global
+      batch's: its rows split evenly);
+    * AdamW updates the local blocks; its clip takes the global norm from
+      one all-reduce of the per-leaf sums of squares, a replicated leaf's
+      counted once (on the first data rank), then summed leaf by leaf in
+      the tree's order: at one rank the bits of `optimizer.global_norm`.
+
+    A model axis above 1 raises (`sharding.MODEL_AXIS_ITEM`), and so does an
+    MoE config over more than one data rank: the reference computes the
+    load-balancing loss over the global batch (a product of two means),
+    which a per-rank loss does not give (ROADMAP A)."""
+
+    def __init__(self, cfg, plan: MeshPlan, opt_cfg):
+        from repro_torch.distributed.sharding import (
+            MODEL_AXIS_ITEM, ShardingCtx, _axis_size, param_specs)
+        from repro_torch.models import get_model
+        from repro_torch.runtime.optimizer import AdamWState
+        from repro_torch.runtime.tree import leaves
+        from repro_torch.weights import init_lm_params
+        mesh = plan.mesh
+        self.cfg, self.plan, self.opt_cfg = cfg, plan, opt_cfg
+        self.api = get_model(cfg)
+        self.sctx = ShardingCtx(mesh=mesh, dp=plan.dp, tp=plan.tp, strategy=cfg.attn_strategy,
+                                moe_strategy=cfg.moe_strategy)
+        if _axis_size(mesh, plan.tp) > 1:
+            raise NotImplementedError(f"a {plan.tp!r} axis of {_axis_size(mesh, plan.tp)} in "
+                                      f"training: {MODEL_AXIS_ITEM} is not ported")
+        self.n = _axis_size(mesh, plan.dp)
+        if self.n != mesh.ctx.world_size:
+            raise NotImplementedError(f"data axes {plan.dp} of {self.n} ranks in a world of "
+                                      f"{mesh.ctx.world_size}: training runs over every rank")
+        if cfg.moe and self.n > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE training over {self.n} data ranks; the reference's "
+                "load-balancing loss is over the global batch (ROADMAP A: MoE under data > 1)")
+        dp_entry = plan.dp[0] if len(plan.dp) == 1 else tuple(plan.dp)
+        self.pshape = init_lm_params(cfg, None, "meta")
+        self.pspec = param_specs(self.sctx, self.pshape)
+        self.ospec = AdamWState(step=P(), m=self.pspec, v=self.pspec,
+                                master=self.pspec if opt_cfg.use_master else ())
+        self.rank0 = all(mesh.coords[a] == 0 for a in plan.dp)
+        self.layout = {}            # path → (whole shape, spec, the dim split over the data axes)
+        shapes = {path: tuple(t.shape) for path, t in leaves(self.pshape)}
+        for path, sp in param_specs(self.sctx, shapes).items():
+            dims = [i for i, e in enumerate(sp) if e == dp_entry]
+            if len(dims) > 1 or any(e is not None and e != dp_entry and _axis_size(mesh, e) > 1
+                                    for e in sp):
+                raise NotImplementedError(f"{path}: spec {sp} splits more than one dim over "
+                                          f"the data axes {plan.dp}")
+            self.layout[path] = (shapes[path], sp, dims[0] if dims else None)
+
+    def _leaves(self, tree):
+        """(tensor, whole shape, spec, data dim) of every leaf of a
+        parameter tree, in the tree's order."""
+        from repro_torch.runtime.tree import leaves
+        out = []
+        for path, t in leaves(tree):
+            if path not in self.layout:
+                raise ValueError(f"{path}: not a parameter of {self.cfg.name}")
+            out.append((t, *self.layout[path]))
+        if len(out) != len(self.layout):
+            raise ValueError(f"a tree of {len(out)} of the config's {len(self.layout)} "
+                             "parameter paths")
+        return out
+
+    def shard(self, params):
+        """This rank's blocks of a whole parameter tree."""
+        from repro_torch.distributed.sharding import shard
+        return _refill(params, [shard(t, sp, self.plan.mesh)
+                                for t, _, sp, _ in self._leaves(params)])
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (numpy arrays or tensors)."""
+        from repro_torch.distributed.sharding import local_block
+        mesh = self.plan.mesh
+        specs = batch_specs(mesh, batch, self.plan.dp)
+        return {k: v[local_block(mesh, specs[k], v.shape)] for k, v in batch.items()}
+
+    def __call__(self, params, opt_state, batch):
+        from repro_torch.core.quantization import div_const
+        from repro_torch.distributed.sharding import (
+            activation_sharding, all_gather_dim, local_shape, psum, reduce_scatter_dim)
+        from repro_torch.runtime.optimizer import adamw_update
+        from repro_torch.runtime.tree import leaves, tree_map
+        mesh, ctx, n = self.plan.mesh, self.plan.mesh.ctx, float(self.n)
+        local = self._leaves(params)
+        for (path, _), (t, shape, sp, _) in zip(leaves(params), local):
+            if tuple(t.shape) != local_shape(mesh, sp, shape):
+                raise ValueError(f"{path}: this rank holds {tuple(t.shape)}; its block of "
+                                 f"{shape} under {sp} is {local_shape(mesh, sp, shape)}")
+        whole = _refill(params, [t if d is None else all_gather_dim(t, d, ctx)
+                                 for t, _, _, d in local])
+        with activation_sharding(self.sctx, local_batch=next(iter(batch.values())).shape[0]):
+            grads, loss = _loss_and_grads(self.api, whole, batch)
+        del whole
+        with torch.no_grad():
+            reduced, sq = [], []
+            for (_, g), (_, _, _, d) in zip(leaves(grads), local):
+                g = div_const(psum(g.contiguous(), ctx) if d is None
+                              else reduce_scatter_dim(g, d, ctx), n)
+                reduced.append(g)
+                sq.append(torch.sum(torch.square(g.to(torch.float32))) if d is not None
+                          or self.rank0 else g.new_zeros((), dtype=torch.float32))
+            grads = _refill(params, reduced)
+            loss = div_const(psum(loss.detach().clone(), ctx), n)
+            sq = psum(torch.stack(sq), ctx)
+            total = sq[0]
+            for i in range(1, sq.shape[0]):
+                total = total + sq[i]
+            gnorm = torch.sqrt(total)
+        params = tree_map(lambda t: t.detach(), params)
+        new_params, new_opt, metrics = adamw_update(params, grads, opt_state, self.opt_cfg,
+                                                    gnorm=gnorm)
+        return new_params, new_opt, {"loss": loss, **metrics}

@@ -128,13 +128,17 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") 
     ``w_i`` in float32, each ``conv_w`` N(0, 0.1²). The vision frontend's
     ``projector`` (F, D) takes fan-in F; an enc-dec config gets the
     enc-dec tree (module docstring), its attention and GLU leaves drawn as
-    the LM's."""
+    the LM's. On the ``meta`` device (``generator`` unused) it returns the
+    tree's shapes and dtypes and holds no data: the counterpart of
+    ``jax.eval_shape(api.init, key)``."""
     _check(cfg)
     dev = resolve_device(device)
     dt = cdtype(cfg)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def randn(shape):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32)
         return x.to(dev)

@@ -3,6 +3,10 @@ numpy data into the JAX reference and the PyTorch port, and compare their
 outputs field by field."""
 
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -213,3 +217,22 @@ def check_loss_and_gradients(arch: str) -> float:
     print(f"{arch}: loss {float(loss.detach()):.6f}, {len(names)} leaves, worst leaf error "
           f"{worst:.3g} of its max")
     return worst
+
+
+def spawn_ranks(task: str, inp, world: int, workdir, timeout: float = 240) -> list:
+    """Run ``world`` ranks of `_torch_dist_worker.py` ``task`` (a task or a
+    comma-separated list) joined over gloo through a `FileStore` in
+    ``workdir`` (no TCP port); returns each rank's results. A failing
+    rank's output is in the assertion message."""
+    workdir = pathlib.Path(workdir)
+    torch.save(inp, workdir / "in.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    script = pathlib.Path(__file__).resolve().parent / "_torch_dist_worker.py"
+    procs = [subprocess.Popen([sys.executable, str(script), task, str(workdir), str(r),
+                               str(world)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
+    return [torch.load(workdir / f"out{r}.pt", weights_only=False) for r in range(world)]

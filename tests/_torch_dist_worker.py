@@ -1,9 +1,10 @@
-"""One rank of a multi-process check of the port's sharded decode.
+"""One rank of a multi-process check of the port's sharded decode and of
+its training over the data axis.
 
     python tests/_torch_dist_worker.py <task> <workdir> <rank> <world>
 
 Spawned by tests/test_torch_sharded.py and the other tests/test_torch_*.py
-files, one process per rank, all joined
+files (`_torch_bridge.spawn_ranks`), one process per rank, all joined
 over gloo through a `FileStore` in ``workdir`` (no TCP port). Reads the
 task's inputs from ``workdir/in.pt`` and writes this rank's results to
 ``workdir/out<rank>.pt``. Imports torch and the port only.
@@ -39,7 +40,23 @@ Tasks:
   encdec  whisper-small.reduced()'s pooled decode state split by rows,
           written from replicated batch=1 prefills, then greedy ticks of
           the enc-dec decode step under ``ctx``, recording each tick's
-          tokens and logits.
+          tokens and logits;
+  train_fsdp  per case, the sharded train step (`make_train_step` under a
+          data mesh of every rank) from whole weights for a list of global
+          batches, recording each step's metrics, this rank's blocks, the
+          whole parameters gathered back, and the collectives issued; or
+          the error its construction raised; and per case of ``trainers``,
+          `Trainer(cfg, shape, plan)` runs on checkpoint directories
+          (losses, gradient norms, the blocks it restored);
+  compressed  `compressed_psum` on this rank's gradients and errors (the
+          means, the new errors, each leaf's codes and scale), and the
+          reference's `_ddp_check` convergence run over the ranks;
+  elastic  a tensor saved from its blocks under ("data", None) on a
+          (world,) data mesh and restored under ("data", "model") on a
+          (2, world / 2) mesh, this rank's restored block.
+
+A task list ``a,b`` runs each task in turn in one world: ``in.pt`` holds
+each task's inputs under its name, and the results are stored so.
 """
 
 import dataclasses
@@ -367,16 +384,128 @@ def collectives(inp, ctx):
     return out
 
 
+def _cfg(arch: str, **over):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **over)
+
+
+def train_fsdp(inp, ctx):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import COLLECTIVES, gather, local_shape
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime.data import to_device
+    from repro_torch.runtime.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.runtime.steps import MeshPlan, make_train_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.tree import leaves
+    plan = MeshPlan.for_mesh(make_data_mesh("cpu"))
+    out = {}
+    for name, case in inp.get("steps", {}).items():
+        try:
+            step = make_train_step(_cfg(case["arch"]), plan, AdamWConfig(**case["opt"]), "cpu")
+        except NotImplementedError as e:
+            out[name] = dict(raised=str(e))
+            continue
+        params = step.shard(case["weights"])
+        opt = init_opt_state(params, step.opt_cfg)
+        metrics = []
+        COLLECTIVES.clear()
+        for batch in case["batches"]:
+            params, opt, m = step(params, opt, to_device(step.local_batch(batch), "cpu"))
+            metrics.append({k: float(v) for k, v in m.items()})
+        per_step = dict(COLLECTIVES)
+        specs = {path: sp for path, (_, sp, _) in step.layout.items()}
+        out[name] = dict(
+            metrics=metrics,
+            collectives={k: v // len(case["batches"]) for k, v in per_step.items()},
+            local=dict(leaves(params)), specs=specs,
+            want_shapes={path: local_shape(plan.mesh, sp, shape)
+                         for path, (shape, sp, _) in step.layout.items()},
+            whole={path: gather(t, specs[path], plan.mesh) for path, t in leaves(params)},
+            master={path: gather(t, specs[path], plan.mesh) for path, t in leaves(opt.master)})
+    for name, case in inp.get("trainers", {}).items():
+        runs = []
+        for run in case["runs"]:
+            weights = case["weights"]
+            tr = Trainer(_cfg(case["arch"]), ShapeConfig(**case["shape"]), plan,
+                         TrainerConfig(num_steps=run["steps"], ckpt_every=run["ckpt_every"],
+                                       ckpt_dir=run["dir"], keep_n=3, log_every=100),
+                         AdamWConfig(**case["opt"]), device="cpu",
+                         init_params=lambda: weights)
+            restored = None
+            if run.get("probe_restore"):
+                params, opt = tr.init_state()
+                _, restored, _ = tr._restore(params, opt)
+                restored = dict(leaves(restored))
+            res = tr.train()
+            runs.append(dict(losses=res["losses"], final_step=res["final_step"],
+                             grad_norms=[m["grad_norm"] for m in tr.metrics],
+                             steps=[m["step"] for m in tr.metrics], restored=restored,
+                             specs={p: sp for p, (_, sp, _) in tr.step_fn.layout.items()}))
+        out[name] = runs
+    return out
+
+
+def compressed(inp, ctx):
+    from repro_torch.distributed.compression import _quantize_leaf, compressed_psum
+    from repro_torch.distributed.sharding import psum
+    from repro_torch.runtime.tree import tree_map
+    r = ctx.rank
+    grads = {k: torch.from_numpy(v[r]) for k, v in inp["grads"].items()}
+    errors = {k: torch.from_numpy(v[r]) for k, v in inp["errors"].items()}
+    mean, new_err = compressed_psum(grads, ctx, errors)
+    codes = tree_map(lambda g, e: _quantize_leaf(g + e), grads, errors)
+    # the reference's `_ddp_check` convergence run over this world's ranks
+    xs, ys, w0 = (torch.from_numpy(inp["ddp"][k]) for k in ("xs", "ys", "w"))
+    rows = xs.shape[0] // ctx.world_size
+    x, y = xs[r * rows:(r + 1) * rows], ys[r * rows:(r + 1) * rows]
+
+    def grad(w):
+        w = w.detach().requires_grad_(True)
+        return torch.autograd.grad(torch.mean((x @ w - y) ** 2), w)[0]
+
+    lr, w_e, w_c = inp["ddp"]["lr"], w0.clone(), w0.clone()
+    err = torch.zeros_like(w0)
+    for _ in range(inp["ddp"]["steps"]):
+        w_e = w_e - lr * (psum(grad(w_e), ctx) * (1.0 / ctx.world_size))
+        g_c, e = compressed_psum({"g": grad(w_c)}, ctx, {"g": err})
+        err = e["g"]
+        w_c = w_c - lr * g_c["g"]
+    return dict(mean=mean, new_err=new_err, codes={k: c for k, (c, _) in codes.items()},
+                scales={k: s for k, (_, s) in codes.items()}, w_e=w_e, w_c=w_c)
+
+
+def elastic(inp, ctx):
+    from repro_torch.distributed.sharding import Mesh, NamedSharding, P, shard
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    mgr = CheckpointManager(inp["dir"], async_save=False)
+    mesh_a = Mesh({"data": ctx.world_size}, ctx)
+    w = inp["w"]
+    mgr.save(7, {"w": shard(w, P("data", None), mesh_a)}, block=True,
+             shardings={"w": NamedSharding(mesh_a, P("data", None))})
+    mesh_b = Mesh({"data": 2, "model": ctx.world_size // 2}, ctx)
+    spec_b = P("data", "model")
+    target = {"w": torch.zeros_like(shard(w, spec_b, mesh_b))}
+    step, restored = mgr.restore(target, shardings={"w": NamedSharding(mesh_b, spec_b)})
+    return dict(step=step, w=restored["w"], coords=mesh_b.coords)
+
+
+TASKS = {"island": island, "engine": engine, "prefix": prefix, "scheduler": scheduler,
+         "lifecycle": lifecycle, "cache": cache, "sp_flat": sp_flat, "sp_engine": sp_engine,
+         "encdec": encdec, "collectives": collectives, "train_fsdp": train_fsdp,
+         "compressed": compressed, "elastic": elastic}
+
+
 def main() -> int:
     task, workdir, rank, world = sys.argv[1], pathlib.Path(sys.argv[2]), *map(int, sys.argv[3:5])
     torch.set_num_threads(1)
     inp = torch.load(workdir / "in.pt", weights_only=False)
     ctx = init_decode_ctx("cpu", rank=rank, world_size=world,
                           store=dist.FileStore(str(workdir / "store"), world))
-    res = {"island": island, "engine": engine, "prefix": prefix,
-           "scheduler": scheduler, "lifecycle": lifecycle, "cache": cache,
-           "sp_flat": sp_flat, "sp_engine": sp_engine, "encdec": encdec,
-           "collectives": collectives}[task](inp, ctx)
+    if "," in task:
+        res = {t: TASKS[t](inp[t], ctx) for t in task.split(",")}
+    else:
+        res = TASKS[task](inp, ctx)
     torch.save(res, workdir / f"out{rank}.pt")
     dist.barrier()
     return 0

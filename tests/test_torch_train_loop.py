@@ -278,7 +278,7 @@ OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 
 
 def _trainer(tcfg, init, ckpt_dir, steps, ckpt_every=4):
-    return Trainer(tcfg, ShapeConfig(**SHAPE),
+    return Trainer(tcfg, ShapeConfig(**SHAPE), None,
                    TrainerConfig(num_steps=steps, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
                                  keep_n=2, log_every=100),
                    AdamWConfig(**OPT), device="cpu", init_params=init)
