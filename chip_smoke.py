@@ -272,6 +272,17 @@ same rank for COMPRESSED_STEPS AdamW steps: every loss finite, within the
 CPU check's criterion (``l_c < 1.5·l_e + 1e-3``) of (ag)'s loss at the
 same step, and the compressed gradients' largest error at step 0 over
 each leaf's largest magnitude within the quantizer's half step (0.5/127).
+Phase 3 also runs (an) (`check_cp_shards`): B3's LSE form and B3-bwd at
+a context-parallel rank's query offset, at phi3-medium-14b's training
+attention (4 × 40 H over 10 KV, HD 128, T 4096, causal) and qwen3-0.6b's
+under a window of 1024, split into CP_SHARDS query shards of 1,024 rows at
+q_offset 0, 1024, 2048 and 3072 over the keys through each shard's last
+row: each shard's out, LSE and gradients against the plain version at its
+offset, its out, LSE and dQ bit for bit with the unsharded call's rows, the
+shards' summed dK/dV within B3_BWD_TOL of the unsharded call's; each
+shard's kernels by `graph_ms` beside their bounds and SDPA with a boolean
+mask (records ``flash_prefill[q_offset]`` and
+``flash_prefill_bwd[q_offset]``, counted on (an) itself).
 
 Last, the tooling's example entry points (``examples/torch_*.py``):
 (ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
@@ -310,6 +321,7 @@ with code 1 and prints no result.
 from __future__ import annotations
 
 import functools
+from collections import Counter
 import json
 import shutil
 import subprocess
@@ -4136,6 +4148,185 @@ def check_b3_bwd(dev) -> dict:
                        for c in cases})
 
 
+# ---- run (an): B3 and B3-bwd at a query offset (PR 34) ---------------------
+# A context-parallel rank of the training step (`models.attention`, cp)
+# holds the query rows [r·T/M, (r+1)·T/M) at q_offset r·T/M over the
+# gathered keys [0, (r+1)·T/M): phi3-medium-14b's training attention (40 H /
+# 10 KV, HD 128), and qwen3-0.6b's (16 H / 8 KV) under gemma3's window of
+# 1024, at TRAIN_SHAPE's batch of 4 × 4096, bf16, in CP_SHARDS query shards
+CP_SHARDS = 4
+CP_CASES = (("phi3-medium-14b", 40, 10, 0), ("qwen3-0.6b window", 16, 8, B3_BWD_WINDOW))
+# B3's LSE against its plain version: both f32, the kernel's from bf16
+# products with its row max and exponential sums in another order over the
+# key tiles (exp2 and log2 units), the plain version's torch.logsumexp
+B3_LSE_TOL = (1e-4, 1e-5)          # (atol, rtol)
+
+
+def offset_pairs(tq: int, q_offset: int, window: int) -> int:
+    """(query, key) pairs one head keeps for causal rows at positions
+    [q_offset, q_offset + tq) (under a window: keys kpos > qpos - window)."""
+    kept = q_offset + np.arange(tq) + 1
+    if window > 0:
+        kept = np.minimum(kept, window)
+    return int(kept.sum())
+
+
+def sdpa_offset(q, k, v, dout, q_offset: int, window: int, iters: int) -> tuple[float, float]:
+    """The yardstick for a shard, timed and used nowhere in the port:
+    ``scaled_dot_product_attention`` on the shard's rows with an explicit
+    boolean mask (``is_causal`` aligns the diagonal top-left, which an
+    offset shard does not have), ``enable_gqa``: (forward ms, backward ms) by
+    CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    bh, t, _ = q.shape
+    s_len = k.shape[1]
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    call = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,   # noqa: E731
+                                                  enable_gqa=k.shape[0] != bh)
+    fwd = events_ms(lambda: call(), iters)
+    out = call()
+    bwd = events_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout[None],
+                                                retain_graph=True), iters)
+    return fwd, bwd
+
+
+def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
+    """Run (an): per case of CP_CASES, the whole sequence through B3's LSE
+    form and B3-bwd once (the unsharded call), then each of CP_SHARDS query
+    shards through the same two kernels at its q_offset: the shard's out and
+    LSE against the plain version (B3's one-ulp rule; `B3_LSE_TOL`) and its
+    dQ, dK, dV against `flash_attention_backward_plain` at the offset
+    (`B3_BWD_TOL`); its out, LSE and dQ equal to the unsharded call's rows
+    bit for bit (a shard's query tiles start on the whole call's tile bounds
+    and visit the same key tiles in the same order, by position), its dK/dV
+    summed over the shards against the unsharded call's within `B3_BWD_TOL`
+    counted once for each rounding: atol + 2^-7·(|whole| + Σ|shard's|) (the
+    shards split each key's sum over the query rows into M partial sums,
+    each rounded once to bf16 before the sum, as the cp ranks' reduce-scatter
+    of dK and dV sums them). Each shard's kernels timed by `graph_ms`,
+    their bounds from its kept pairs, SDPA on the shard with a boolean mask.
+    Returns (B3's and B3-bwd's records at the last, longest shard of the
+    first case, the wrapper launches of the shards' calls: run (an))."""
+    import torch
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_prefill import ops as fp
+    gen = torch.Generator(device=dev).manual_seed(34)
+    b, t, hd = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"], 128
+    atol, rtol = B3_BWD_TOL["bf16"]
+    launched = Counter()
+    recs = []
+    for label, h, kv, window in CP_CASES:
+        q = torch.randn((b * h, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b * kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        dout = torch.randn((b * h, t, hd), generator=gen, device=dev).to(torch.bfloat16)
+        mask = dict(causal=True, window=window)
+        whole_out, whole_lse = fp.flash_attention_lse(q, k, v, **mask)
+        whole = fp.flash_attention_backward(q, k, v, whole_out, dout, whole_lse, **mask)
+        n = t // CP_SHARDS
+        sums = {name: torch.zeros_like(k, dtype=torch.float32) for name in ("dk", "dv")}
+        mags = {name: torch.zeros_like(k, dtype=torch.float32) for name in ("dk", "dv")}
+        for r in range(CP_SHARDS):
+            a, e = r * n, (r + 1) * n
+            sq, sdo = q[:, a:e].contiguous(), dout[:, a:e].contiguous()
+            sk, sv = k[:, :e].contiguous(), v[:, :e].contiguous()
+            at = dict(mask, q_offset=a)
+            before = Counter(LAUNCHES)
+            out, lse = fp.flash_attention_lse(sq, sk, sv, **at)           # the shard's run
+            grads = fp.flash_attention_backward(sq, sk, sv, out, sdo, lse, **at)
+            torch.cuda.synchronize()
+            launched.update({key: c - before[key] for key, c in LAUNCHES.items()
+                             if c > before[key]})
+            p_out, p_lse = fp.flash_attention_lse_plain(sq, sk, sv, **at)
+            want = fp.flash_attention_backward_plain(sq, sk, sv, out, sdo, lse, **at)
+            o_ratio = float(((out.float() - p_out.float()).abs()
+                             / (B3_ATOL + B3_RTOL * p_out.float().abs())).max())
+            l_ratio = float(((lse - p_lse).abs()
+                             / (B3_LSE_TOL[0] + B3_LSE_TOL[1] * p_lse.abs())).max())
+            g_ratio = {name: float(((x.float() - y.float()).abs()
+                                    / (atol + rtol * y.float().abs())).max())
+                       for name, x, y in zip(("dq", "dk", "dv"), grads, want)}
+            errs = {name: float((x.float() - y.float()).abs().max())
+                    for name, x, y in zip(("dq", "dk", "dv"), grads, want)}
+            tag = f"(an) {label} shard {r} (q_offset {a}, keys [0, {e}))"
+            for what, ratio in (("out", o_ratio), ("lse", l_ratio), *g_ratio.items()):
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{tag}: {what} reaches {ratio:.3g}x its bound "
+                                         "against the plain version")
+            for what, x, y in (("out", out, whole_out[:, a:e]), ("lse", lse, whole_lse[:, a:e]),
+                               ("dq", grads[0], whole[0][:, a:e])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{tag}: {what} differs from the unsharded call's "
+                                         f"rows on {int((x != y).sum())} elements")
+            for name, g in (("dk", grads[1]), ("dv", grads[2])):
+                sums[name][:, :e] += g.float()
+                mags[name][:, :e] += g.float().abs()
+            del p_out, p_lse, want
+            f_ms = graph_ms(lambda: fp.flash_attention_lse(sq, sk, sv, **at), iters)
+            b_ms = graph_ms(lambda: fp.flash_attention_backward(sq, sk, sv, out, sdo, lse,
+                                                                **at), iters)
+            f_plain = events_ms(lambda: fp.flash_attention_lse_plain(sq, sk, sv, **at), 1)
+            b_plain = events_ms(lambda: fp.flash_attention_backward_plain(
+                sq, sk, sv, out, sdo, lse, **at), 1)
+            f_lib, b_lib = sdpa_offset(sq, sk, sv, sdo, a, window, iters)
+            pairs = offset_pairs(n, a, window) * b * h
+            f_bytes = 2 * (2 * sq.numel() + sk.numel() + sv.numel()) + 4 * lse.numel()
+            b_bytes = 2 * (3 * sq.numel() + 2 * sk.numel() + 2 * sv.numel()) + 4 * lse.numel()
+            f_bound, f_by = bound(f_bytes, 4 * hd * pairs, "bf16")
+            b_bound, b_by = bound(b_bytes, 10 * hd * pairs, "bf16")
+            print(f"{tag}, {b * h} H / {b * kv} KV, HD {hd}, bf16: out {o_ratio:.3g}, lse "
+                  f"{l_ratio:.3g}, " + ", ".join(f"{n_} {x:.3g}" for n_, x in g_ratio.items())
+                  + " of their bounds against the plain version; out, lse, dq bit for bit "
+                  f"with the unsharded call; B3 graph_ms={f_ms:.4f} bound_ms={f_bound:.5f} "
+                  f"({f_by}) plain_ms={f_plain:.2f} SDPA fwd {f_lib:.4f}; B3-bwd graph_ms="
+                  f"{b_ms:.4f} bound_ms={b_bound:.5f} ({b_by}) plain_ms={b_plain:.2f} SDPA bwd "
+                  f"{b_lib:.4f}", flush=True)
+            if r == CP_SHARDS - 1 and not recs:
+                common = dict(route="cuda", launches=None, run="an", q_offset=a, keys=e,
+                              shape=f"{b * h} H / {b * kv} KV, HD {hd}, {n} rows, {label}")
+                recs.append(dict(
+                    common, name="flash_prefill[q_offset]", counter="flash_prefill",
+                    source="src/repro_torch/csrc/flash_prefill.cu",
+                    replaces="src/repro/kernels/flash_prefill/kernel.py:98",
+                    max_abs_err=float((out.float() - fp.flash_attention_lse_plain(
+                        sq, sk, sv, **at)[0].float()).abs().max()),
+                    tolerance=f"{B3_ATOL:g} + 2^-7*|plain|", err_over_tol=o_ratio,
+                    lse_over_tol=l_ratio, ms=f_ms, graph_ms=f_ms, plain_ms=f_plain,
+                    bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
+                    library_call="scaled_dot_product_attention (boolean mask, enable_gqa)"))
+                recs.append(dict(
+                    common, name="flash_prefill_bwd[q_offset]", counter="flash_prefill_bwd",
+                    source="src/repro_torch/csrc/flash_prefill_bwd.cu",
+                    replaces="src/repro/models/attention.py:64",
+                    replaces_note="no TPU kernel: the reference's gradient is XLA's autodiff "
+                                  "of flash_attention_xla",
+                    max_abs_err=max(errs.values()), errs=errs,
+                    tolerance=f"{atol:g} + 2^-7*|plain|", err_over_tol=max(g_ratio.values()),
+                    ms=b_ms, graph_ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
+                    library_ms=b_lib,
+                    library_call="scaled_dot_product_attention backward (boolean mask)"))
+        for name, ref in (("dk", whole[1]), ("dv", whole[2])):
+            ref = ref.float()
+            diff = (sums[name] - ref).abs()
+            ratio = float((diff / (atol + rtol * (ref.abs() + mags[name]))).max())
+            once = float((diff / (atol + rtol * ref.abs())).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"(an) {label}: the shards' summed {name} reaches "
+                                     f"{ratio:.3g}x its bound against the unsharded call's")
+            print(f"(an) {label}: the {CP_SHARDS} shards' summed {name} within {ratio:.3g} of "
+                  f"{atol:g} + 2^-7*(|whole| + sum|shard's|) of the unsharded call's "
+                  f"({once:.3g} of {atol:g} + 2^-7*|whole|, a reading)", flush=True)
+        del q, k, v, dout, whole_out, whole_lse, whole, sums, mags
+        torch.cuda.empty_cache()
+    return recs, launched
+
+
 def train_gradients(cfg, params, batch, plain: bool):
     """(loss, every parameter's gradient) of ``cfg``'s loss on ``batch``:
     through B3 and B3-bwd, or with ``plain`` through their plain versions
@@ -5009,6 +5200,9 @@ def main() -> int:
     recs += check_long_kernels(dev, cfg)
     # B3-bwd at the training shapes (run (ae)), counted on the training run (ag)
     recs.append(check_b3_bwd(dev))
+    # B3 and B3-bwd at a context-parallel rank's query offset (run (an))
+    cp_recs, cp_launches = check_cp_shards(dev)
+    recs += cp_recs
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -5077,7 +5271,7 @@ def main() -> int:
     # the tiered pool: fp16 and int4 pools, each unsharded and block-sharded
     # (tokens must agree), then int4 with the host tier on a small pool
     runs = {"int8": launches, "int8 eager": launches_e, "int8 sharded": launches_sh,
-            "contiguous": launches_c}
+            "contiguous": launches_c, "an": cp_launches}
     clean = {}
     for mode in ("fp16", "int4"):
         runs[mode], summary_m, tokens_m, clean[mode] = serve_main_path(dev, kv_pool_dtype=mode)

@@ -88,7 +88,9 @@ B3_BWD = "flash_attention_backward"
 def b3_bwd_row(cs, trees, iters=5) -> dict:
     """B3-bwd of this tree and of each of ``trees`` on run (ae)'s causal
     qwen3-0.6b operands, P C C P by CUDA events; each gradient's largest
-    |this - tree| over atol + rtol·|tree|."""
+    |this - tree| over atol + rtol·|tree|, and whether it is the same bits.
+    A tree whose entry point takes a query offset (PR 34 on) is called at
+    offset 0."""
     import ctypes
     import math
     import subprocess as sp
@@ -106,23 +108,27 @@ def b3_bwd_row(cs, trees, iters=5) -> dict:
     out, lse = fp.flash_attention_lse(q, k, v)
     atol, rtol = cs.B3_BWD_TOL["bf16"]
 
-    def entry(lib: Path):
+    def entry(lib: Path, src: Path):
         f = ctypes.CDLL(str(lib)).flash_prefill_bwd
-        f.argtypes = [common.P] * 10 + [common.I] * 8 + [common.F, common.P]
+        offset = "int q_offset, float scale" in src.read_text()
+        f.argtypes = [common.P] * 10 + [common.I] * (9 if offset else 8) + [common.F, common.P]
         f.restype = ctypes.c_int
-        return f
+        return f, offset
 
-    def call(f):
+    def call(fo):
+        f, offset = fo
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty((h, t), dtype=torch.float32, device="cuda")
+        ints = [1, h, t, t, hd, h // kv, 1, 0] + ([0] if offset else [])
         common.check(f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), 1, h, t, t, hd, h // kv, 1, 0,
+                       dk.data_ptr(), dv.data_ptr(), *ints,
                        1.0 / math.sqrt(hd), common.stream_ptr(dq)), "flash_prefill_bwd")
         return dq, dk, dv
 
     common.build_kernels(["flash_prefill_bwd"])
-    mine_f = entry(common.BUILD_DIR / "libflash_prefill_bwd.so")
+    here = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    mine_f = entry(common.BUILD_DIR / "libflash_prefill_bwd.so", here / "flash_prefill_bwd.cu")
     mine = call(mine_f)
     rec = dict(name=B3_BWD, shape=[h, kv, t, hd], trees=[])
     for tree in trees:
@@ -131,7 +137,8 @@ def b3_bwd_row(cs, trees, iters=5) -> dict:
         sp.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib),
                 str(tree / "src" / "repro_torch" / "csrc" / "flash_prefill_bwd.cu")],
                check=True, capture_output=True, timeout=600)
-        f = entry(lib)
+        src = tree / "src" / "repro_torch" / "csrc" / "flash_prefill_bwd.cu"
+        f = entry(lib, src)
         theirs = call(f)
         over = {n: float(((a.float() - b.float()).abs()
                           / (atol + rtol * b.float().abs())).max())
@@ -141,7 +148,9 @@ def b3_bwd_row(cs, trees, iters=5) -> dict:
         c2 = cs.events_ms(lambda: call(mine_f), iters)
         p2 = cs.events_ms(lambda: call(f), iters)
         rec["trees"].append(dict(tree=str(tree), ms_pccp=[p1, c1, c2, p2],
-                                 delta_over_tol=over))
+                                 delta_over_tol=over,
+                                 equal={n: bool(torch.equal(a, b)) for n, a, b in
+                                        zip(("dq", "dk", "dv"), mine, theirs)}))
     return rec
 
 

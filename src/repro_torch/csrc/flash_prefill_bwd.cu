@@ -9,8 +9,11 @@
 //
 // Inputs: q, dout, out (BH, T, HD); k, v (BKV, S, HD), BH = BKV * groups;
 // lse (BH, T) f32, the forward's per-row log-sum-exp of the scaled, masked
-// scores (B3's optional output). Masks as B3 at q_offset 0: causal keeps
-// kpos <= qpos, window > 0 keeps kpos > qpos - window. With
+// scores (B3's optional output). Query row i sits at position qpos =
+// q_offset + i over keys [0, S) (a context-parallel shard's rows; 0 for a
+// whole sequence), and the masks are B3's: causal keeps kpos <= qpos, window
+// > 0 keeps kpos > qpos - window. Every tile bound below is taken on
+// positions, so at q_offset 0 the kernel does what it did without one. With
 // P = exp(scale * Q K^T - lse) (masked entries 0) and D = rowsum(dO * O):
 //   dV = P^T dO,  dS = P * (dO V^T - D),  dQ = scale * dS K,  dK = scale * dS^T Q,
 // dK and dV summed over the `groups` query heads of a KV head.
@@ -134,9 +137,11 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
 
-__device__ __forceinline__ bool kept(int qpos, int kpos, int Tq, int S, int causal,
+// query row `row` (at position qoff + row) and key kpos
+__device__ __forceinline__ bool kept(int row, int kpos, int Tq, int S, int qoff, int causal,
                                      int window) {
-  return qpos < Tq && kpos < S && (!causal || kpos <= qpos) &&
+  const int qpos = qoff + row;
+  return row < Tq && kpos < S && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
 }
 
@@ -178,8 +183,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int Tq, int S, int groups,
-                      int causal, int window, float scale) {
+                      T* __restrict__ dk, T* __restrict__ dv, int Tq, int S, int qoff,
+                      int groups, int causal, int window, float scale) {
   using C = Cfg<HD>;
   constexpr int BN = C::KV_BN, BM = C::KV_BM, LD = C::LD, LP = BN + 1;
   extern __shared__ float sm[];
@@ -207,8 +212,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(dv_acc);
 
   // query rows that see a key of this tile: [m_begin, m_end)
-  const int m_begin = causal ? n0 / BM * BM : 0;
-  const int m_end = window > 0 ? min(Tq, n_last + window) : Tq;
+  const int m_begin = causal ? max(0, n0 - qoff) / BM * BM : 0;
+  const int m_end = window > 0 ? min(Tq, max(0, n_last + window - qoff)) : Tq;
   const int s_tx = threadIdx.x % S_NTX, s_ty = threadIdx.x / S_NTX;
 
   for (int g = 0; g < groups; ++g) {
@@ -236,7 +241,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < S_TN; ++j) {
           const int n = s_tx + S_NTX * j;
-          p[i][j] = kept(m0 + m, n0 + n, Tq, S, causal, window)
+          p[i][j] = kept(m0 + m, n0 + n, Tq, S, qoff, causal, window)
                         ? expf(p[i][j] * scale - ls[m]) : 0.f;
           ps[m * LP + n] = p[i][j];
         }
@@ -283,7 +288,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int Tq, int S,
-                    int groups, int causal, int window, float scale) {
+                    int qoff, int groups, int causal, int window, float scale) {
   using C = Cfg<HD>;
   constexpr int BM = C::Q_BM, BN = C::Q_BN, LD = C::LD, LP = BN + 1;
   extern __shared__ float sm[];
@@ -314,8 +319,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   zero(dq_acc);
 
   // keys this tile's rows see: [n_begin, n_end)
-  const int n_end = causal ? min(S, m_last + 1) : S;
-  const int n_begin = (window > 0 ? max(0, m0 - window + 1) : 0) / BN * BN;
+  const int n_end = causal ? min(S, qoff + m_last + 1) : S;
+  const int n_begin = (window > 0 ? max(0, qoff + m0 - window + 1) : 0) / BN * BN;
   const int s_tx = threadIdx.x % S_NTX, s_ty = threadIdx.x / S_NTX;
   const T* kg = k + (size_t)bkv * S * HD;
   const T* vg = v + (size_t)bkv * S * HD;
@@ -336,7 +341,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < S_TN; ++j) {
         const int n = s_tx + S_NTX * j;
-        const float pr = kept(m0 + m, n0 + n, Tq, S, causal, window)
+        const float pr = kept(m0 + m, n0 + n, Tq, S, qoff, causal, window)
                              ? expf(p[i][j] * scale - ls[m]) : 0.f;
         ps[m * LP + n] = pr * (dp[i][j] - ds[m]);
       }
@@ -360,7 +365,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Tq,
-           int S, int groups, int causal, int window, float scale, cudaStream_t st) {
+           int S, int qoff, int groups, int causal, int window, float scale, cudaStream_t st) {
   using C = Cfg<HD>;
   const int rows = BH * Tq;
   flash_bwd_delta_kernel<T><<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(
@@ -378,13 +383,13 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   flash_bwd_dkdv_kernel<T, HD><<<dim3((S + C::KV_BN - 1) / C::KV_BN, bkv), THREADS,
                                  C::KV_SMEM, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Tq,
-      S, groups, causal, window, scale);
+      S, qoff, groups, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dq_kernel<T, HD><<<dim3(BH, (Tq + C::Q_BM - 1) / C::Q_BM), THREADS, C::Q_SMEM,
                                st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, Tq, S,
-      groups, causal, window, scale);
+      qoff, groups, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -510,12 +515,14 @@ struct Tile {
   }
 };
 
+// query rows [q0, q0 + nq) (at positions qoff + row) and keys [k0, k0 + nk):
 // 0: no pair of the tile is kept; 1: every pair is; 2: some are
-__device__ __forceinline__ int tile_kind(int q0, int nq, int k0, int nk, int Tq, int S,
+__device__ __forceinline__ int tile_kind(int q0, int nq, int k0, int nk, int Tq, int S, int qoff,
                                          int causal, int window) {
   const int q1 = q0 + nq - 1, k1 = k0 + nk - 1;
-  if (q0 >= Tq || k0 >= S || (causal && k0 > q1) || (window > 0 && k1 <= q0 - window)) return 0;
-  const bool all = q1 < Tq && k1 < S && (!causal || k1 <= q0) && (window <= 0 || k0 > q1 - window);
+  const int p0 = qoff + q0, p1 = qoff + q1;   // the rows' positions
+  if (q0 >= Tq || k0 >= S || (causal && k0 > p1) || (window > 0 && k1 <= p0 - window)) return 0;
+  const bool all = q1 < Tq && k1 < S && (!causal || k1 <= p0) && (window <= 0 || k0 > p1 - window);
   return all ? 1 : 2;
 }
 
@@ -540,7 +547,7 @@ struct KV {
 struct Rows {
   int key, cc;
   float sl2;   // scale * log2 e
-  int Tq, S, causal, window;
+  int Tq, S, qoff, causal, window;
 };
 
 // the LSE rows (log2 e units) of a ring stage of (2); its D rows follow
@@ -572,12 +579,12 @@ __device__ __forceinline__ void probabilities(float (&s)[BM / 2], const float* l
     const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + r.cc);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int i = 4 * j + 2 * h, kpos = r.key + 8 * h, qpos = m0 + 8 * j + r.cc;
+      const int i = 4 * j + 2 * h, kpos = r.key + 8 * h, qpos = m0 + 8 * j + r.cc;   // qpos: a row
       float p0 = exp2f(fmaf(s[i], r.sl2, -l2.x));
       float p1 = exp2f(fmaf(s[i + 1], r.sl2, -l2.y));
       if (kind == 2) {
-        if (!kept(qpos, kpos, r.Tq, r.S, r.causal, r.window)) p0 = 0.f;
-        if (!kept(qpos + 1, kpos, r.Tq, r.S, r.causal, r.window)) p1 = 0.f;
+        if (!kept(qpos, kpos, r.Tq, r.S, r.qoff, r.causal, r.window)) p0 = 0.f;
+        if (!kept(qpos + 1, kpos, r.Tq, r.S, r.qoff, r.causal, r.window)) p1 = 0.f;
       }
       s[i] = p0;
       s[i + 1] = p1;
@@ -639,7 +646,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tdo,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int Tq, int S, int groups, int causal, int window, float scale) {
+                            int Tq, int S, int qoff, int groups, int causal, int window,
+                            float scale) {
   using C = KV<HD>;
   using L = Tile<HD>;
   constexpr int BM = C::BM, BN = C::BN;
@@ -655,8 +663,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n0 = blockIdx.x * BN;
   const int n_last = min(n0 + BN, S) - 1;
   // query rows that see a key of this tile: [m_begin, m_end)
-  const int m_begin = causal ? n0 / BM * BM : 0;
-  const int m_end = window > 0 ? min(Tq, n_last + window) : Tq;
+  const int m_begin = causal ? max(0, n0 - qoff) / BM * BM : 0;
+  const int m_end = window > 0 ? min(Tq, max(0, n_last + window - qoff)) : Tq;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -716,7 +724,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
     const int rr = warp * 16 + lane / 4;   // accumulator rows rr, rr + 8 (keys)
     const int cc = 2 * (lane % 4);         // columns 8 j + cc + {0, 1} (query rows)
-    const Rows rows{n0 + key0 + rr, cc, scale * LOG2E, Tq, S, causal, window};
+    const Rows rows{n0 + key0 + rr, cc, scale * LOG2E, Tq, S, qoff, causal, window};
     const uint32_t kt = base + C::K_OFF, vt = base + C::V_OFF;
     mbar_wait(kv_full, 0);
     int stage = 0;
@@ -729,7 +737,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int g = 0; g < groups; ++g) {
         for (int m0 = m_begin; m0 < m_end; m0 += BM) {
           mbar_wait(&full[stage], ph);
-          const int kind = tile_kind(m0, BM, n0 + key0, 64, Tq, S, causal, window);
+          const int kind = tile_kind(m0, BM, n0 + key0, 64, Tq, S, qoff, causal, window);
           if (kind != 0) {
             const uint32_t st = base + C::RING + stage * C::STAGE;
             float p[NS];
@@ -754,7 +762,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int g = 0; g < groups; ++g) {
         for (int m0 = m_begin; m0 < m_end; m0 += BM) {
           mbar_wait(&full[stage], ph);
-          const int kind = tile_kind(m0, BM, n0 + key0, 64, Tq, S, causal, window);
+          const int kind = tile_kind(m0, BM, n0 + key0, 64, Tq, S, qoff, causal, window);
           if (kind != 0) {
             const uint32_t st = base + C::RING + stage * C::STAGE;
             const float* ls = stage_lse<HD>(sm, stage);
@@ -815,8 +823,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int Tq, int S, int groups, int causal,
-                          int window, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int Tq, int S, int qoff, int groups,
+                          int causal, int window, float scale) {
   using C = QD<HD>;
   using L = Tile<HD>;
   constexpr int BM = C::BM, BN = C::BN;
@@ -833,8 +841,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bkv = bh / groups;
   const int m_last = min(m0 + BM, Tq) - 1;
   // keys this tile's rows see: [n_begin, n_end)
-  const int n_end = causal ? min(S, m_last + 1) : S;
-  const int n_begin = (window > 0 ? max(0, m0 - window + 1) : 0) / BN * BN;
+  const int n_end = causal ? min(S, qoff + m_last + 1) : S;
+  const int n_begin = (window > 0 ? max(0, qoff + m0 - window + 1) : 0) / BN * BN;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -892,7 +900,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t ph = 0;
     for (int n0 = n_begin; n0 < n_end; n0 += BN) {
       mbar_wait(&full[stage], ph);
-      const int kind = tile_kind(q0, 64, n0, BN, Tq, S, causal, window);
+      const int kind = tile_kind(q0, 64, n0, BN, Tq, S, qoff, causal, window);
       if (kind != 0) {
         const uint32_t st = base + C::RING + stage * C::STAGE;
         float s[NS], dp[NS];
@@ -912,7 +920,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             for (int e = 0; e < 2; ++e) {
               const int i = 4 * j + 2 * h + e;
               float p = exp2f(fmaf(s[i], sl2, -l2[h]));
-              if (kind == 2 && !kept(q0 + rr + 8 * h, n0 + 8 * j + cc + e, Tq, S, causal, window))
+              if (kind == 2 &&
+                  !kept(q0 + rr + 8 * h, n0 + 8 * j + cc + e, Tq, S, qoff, causal, window))
                 p = 0.f;
               dp[i] = p * (dp[i] - dd[h]);
             }
@@ -995,7 +1004,7 @@ constexpr int TENSOR_MAP_ERROR = 10000;
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Tq, int S,
-           int groups, int causal, int window, float scale, cudaStream_t st) {
+           int qoff, int groups, int causal, int window, float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -1029,29 +1038,31 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dkdv_wgmma_kernel<HD>
       <<<dim3((S + KV<HD>::BN - 1) / KV<HD>::BN, bkv), THREADS, KV<HD>::SMEM, st>>>(
-          kq, kk, kvv, kdo, lse, delta, (bf*)dk, (bf*)dv, Tq, S, groups, causal, window, scale);
+          kq, kk, kvv, kdo, lse, delta, (bf*)dk, (bf*)dv, Tq, S, qoff, groups, causal, window,
+          scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dq_wgmma_kernel<HD>
       <<<dim3(BH, (Tq + QD<HD>::BM - 1) / QD<HD>::BM), THREADS, QD<HD>::SMEM, st>>>(
-          qq, qk, qv, qdo, lse, delta, (bf*)dq, Tq, S, groups, causal, window, scale);
+          qq, qk, qv, qdo, lse, delta, (bf*)dq, Tq, S, qoff, groups, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
              const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Tq, int S,
-             int HD, int groups, int causal, int window, float scale, cudaStream_t st) {
+             int HD, int qoff, int groups, int causal, int window, float scale, cudaStream_t st) {
+#define B3_BWD_CASE(D)                                                                        \
+  case D:                                                                                   \
+    return launch<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, qoff, groups,    \
+                     causal, window, scale, st);
   switch (HD) {
-    case 32: return launch<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, groups,
-                               causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, groups,
-                               causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, groups,
-                                 causal, window, scale, st);
-    case 256: return launch<256>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, groups,
-                                 causal, window, scale, st);
+    B3_BWD_CASE(32)
+    B3_BWD_CASE(64)
+    B3_BWD_CASE(128)
+    B3_BWD_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef B3_BWD_CASE
 }
 
 }  // namespace hop
@@ -1059,39 +1070,41 @@ int dispatch(const void* q, const void* k, const void* v, const void* out, const
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
              const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Tq,
-             int S, int HD, int groups, int causal, int window, float scale,
+             int S, int HD, int qoff, int groups, int causal, int window, float scale,
              cudaStream_t st) {
+#define B3_BWD_CASE(D)                                                                        \
+  case D:                                                                                   \
+    return launch<T, D>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S, qoff, groups, \
+                        causal, window, scale, st);
   switch (HD) {
-    case 32: return launch<T, 32>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S,
-                                  groups, causal, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S,
-                                  groups, causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S,
-                                    groups, causal, window, scale, st);
-    case 256: return launch<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Tq, S,
-                                    groups, causal, window, scale, st);
+    B3_BWD_CASE(32)
+    B3_BWD_CASE(64)
+    B3_BWD_CASE(128)
+    B3_BWD_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef B3_BWD_CASE
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dout and the gradients);
-// lse (BH, Tq) f32 from B3; delta (BH, Tq) f32 scratch. Returns a
-// cudaError_t, or 10000 + the CUresult of a bf16 tensor map that could not
-// be made.
+// lse (BH, Tq) f32 from B3; delta (BH, Tq) f32 scratch; query row i at
+// position q_offset + i over keys [0, S). Returns a cudaError_t, or 10000 +
+// the CUresult of a bf16 tensor map that could not be made.
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v, const void* out,
                                  const void* dout, const void* lse, void* delta, void* dq,
                                  void* dk, void* dv, int dtype, int BH, int Tq, int S, int HD,
-                                 int groups, int causal, int window, float scale,
+                                 int groups, int causal, int window, int q_offset, float scale,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Tq <= 0 || BH <= 0 || S <= 0) return (int)cudaGetLastError();
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, dout, (const float*)lse, (float*)delta, dq, dk, dv,
-                           BH, Tq, S, HD, groups, causal, window, scale, st);
+                           BH, Tq, S, HD, q_offset, groups, causal, window, scale, st);
   if (dtype == 1)
     return hop::dispatch(q, k, v, out, dout, (const float*)lse, (float*)delta, dq, dk, dv, BH,
-                         Tq, S, HD, groups, causal, window, scale, st);
+                         Tq, S, HD, q_offset, groups, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,11 +31,24 @@ at the row-major position r, jax's device order). `fit_spec`,
 shape}`` mapping, whose stacked leaves get the spec shifted right as in the
 reference). `shard` cuts this rank's block out of a whole tensor,
 `gather` puts the blocks of every rank back together (one
-``all_gather``), and `all_gather_dim` / `reduce_scatter_dim` are the data
-axis's collectives of the sharded train step (`runtime.steps`). The
-``constrain*`` hints change no value: each rank already holds its rows of
-the batch, and the model axis above 1 (GSPMD's tensor and sequence
-parallelism) raises.
+``all_gather``), and `all_gather_dim` / `reduce_scatter_dim` are the
+collectives of the sharded train step (`runtime.steps`), over the group of
+one axis set (`Mesh.group`: the data axes, or "model").
+
+The model axis (the reference's GSPMD layouts for tensor, sequence and
+context parallelism) is written out as Megatron-style layers with explicit
+collectives (`models.common`, `models.attention`, `models.transformer`).
+The layout moves are autograd functions over the model group: the
+sequence-sharded residual gathered whole (an all-gather, whose backward is
+a reduce-scatter: `gather_from_sequence`), partial sums reduced into the
+residual's layout (a reduce-scatter, whose backward is an all-gather:
+`reduce_scatter_to_sequence`; where ``fit_spec`` leaves the sequence whole,
+an all-reduce both ways), and the vocab-parallel cross-entropy's three
+all-reduces. The ``constrain*`` hints name these moves where the reference
+calls them. A replicated activation's gradient is held as each model
+rank's part of it (its rows, heads or vocab columns), so a leaf that the
+spec replicates over "model" ends the backward with its part of the
+gradient and the step sums it over the model group once.
 """
 
 from __future__ import annotations
@@ -170,7 +183,8 @@ def local_block_range(num_blocks: int, ctx: DecodeCtx) -> tuple[int, int]:
 # Training: meshes and specs
 # ---------------------------------------------------------------------------
 
-MODEL_AXIS_ITEM = "ROADMAP A.8's model axis (tensor and sequence parallelism in training)"
+MODEL_AXIS_ITEM = ("ROADMAP A item 1's next slices: the model axis in training for the MoE, "
+                   "SSD, RG-LRU and enc-dec families")
 
 
 class P(tuple):
@@ -193,7 +207,17 @@ class Mesh:
     """Axis names, their sizes (``shape``: name → size, in axis order) and
     this process's ``coords`` (name → index) over the process group ``ctx``
     (group, rank, world size, backend), whose ranks fill the mesh in
-    row-major order. `launch.mesh` builds one."""
+    row-major order. `launch.mesh` builds one.
+
+    A mesh with a "model" axis also holds one process group per axis set
+    that the train step needs (`group`): "model" (the ranks that share this
+    rank's other coordinates) and the other axes together (the data axes:
+    the ranks that share its model coordinate). Every rank makes every group
+    of both sets in the same order, here, as ``new_group`` asks; a set that
+    spans the whole world is ``ctx`` itself. A ``ctx`` without a group (a
+    layout only: coordinates and blocks) makes none."""
+
+    MODEL = "model"
 
     def __init__(self, shape: dict, ctx: DecodeCtx):
         if math.prod(shape.values()) != ctx.world_size:
@@ -204,12 +228,58 @@ class Mesh:
         self.axis_names = tuple(shape)
         self.ctx = ctx
         self.coords = self.coords_of(ctx.rank)
+        self._groups: dict[tuple, DecodeCtx] = {}
+        if self.MODEL in self.shape and ctx.group is not None:
+            for axes in (tuple(a for a in self.axis_names if a != self.MODEL), (self.MODEL,)):
+                if axes:
+                    self._groups[axes] = self._make_group(axes)
 
     def coords_of(self, rank: int) -> dict:
         out = {}
         for name in reversed(self.axis_names):
             rank, out[name] = divmod(rank, self.shape[name])
         return {name: out[name] for name in self.axis_names}
+
+    def rank_of(self, coords: dict) -> int:
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.shape[name] + coords[name]
+        return rank
+
+    def _make_group(self, axes: tuple) -> DecodeCtx:
+        """This rank's group over ``axes``: the ranks whose other
+        coordinates equal its own, ranked by their row-major index over
+        ``axes`` (``new_group`` orders a group by global rank, the same
+        order). Makes every such group of the mesh, in one order."""
+        size = _axis_size(self, axes)
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + self.coords[a]
+        if size == self.ctx.world_size:
+            return self.ctx
+        others = [a for a in self.axis_names if a not in axes]
+        mine = None
+        for fixed in _grid(self, others):
+            ranks = [self.rank_of({**fixed, **inner}) for inner in _grid(self, list(axes))]
+            group = dist.new_group(ranks=ranks)
+            if self.ctx.rank in ranks:
+                mine = group
+        return DecodeCtx(mine, index, size, self.ctx.backend)
+
+    def group(self, axes) -> DecodeCtx:
+        """The group over the axis set ``axes`` (a name or a tuple: the data
+        axes, or "model") made with the mesh: its collectives
+        (`all_gather_dim`, `reduce_scatter_dim`, `psum`) run over the ranks
+        that share this rank's other coordinates. A set that spans the whole
+        world is ``ctx``."""
+        axes = _axes(axes)
+        if _axis_size(self, axes) == self.ctx.world_size:
+            return self.ctx
+        if axes not in self._groups:
+            raise ValueError(f"{self!r} holds no process group over {axes} (groups: "
+                             f"{sorted(self._groups)}; a mesh without a process group holds "
+                             "none)")
+        return self._groups[axes]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank {self.ctx.rank} of {self.ctx.world_size})"
@@ -252,6 +322,14 @@ def _axis_size(mesh, axes) -> int:
     for a in _axes(axes):
         n *= mesh.shape[a]
     return n
+
+
+def _grid(mesh, axes: list) -> list[dict]:
+    """Every coordinate assignment of ``axes``, in row-major order."""
+    out = [{}]
+    for a in axes:
+        out = [{**c, a: i} for c in out for i in range(mesh.shape[a])]
+    return out
 
 
 def fit_spec(mesh, spec, shape) -> tuple:
@@ -487,7 +565,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, ctx: DecodeCtx) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# Activation constraints
+# Activation constraints and the model axis's layout moves
 # ---------------------------------------------------------------------------
 
 _ACTIVE: list[tuple[ShardingCtx, int | None]] = []
@@ -496,7 +574,9 @@ _ACTIVE: list[tuple[ShardingCtx, int | None]] = []
 class activation_sharding:
     """Context manager installing the ambient `ShardingCtx` that
     `constrain` reads, with the rows of the batch this rank holds
-    (``local_batch``; None: not checked)."""
+    (``local_batch``; None: not checked). The backward of a loss taken
+    inside it (activation checkpointing recomputes the forward there) runs
+    inside it too."""
 
     def __init__(self, ctx: ShardingCtx, local_batch: int | None = None):
         self.ctx = ctx
@@ -514,34 +594,183 @@ def current_ctx() -> ShardingCtx | None:
     return _ACTIVE[-1][0] if _ACTIVE else None
 
 
-def constrain(x: torch.Tensor, *dims) -> torch.Tensor:
-    """The reference's sharding hint with symbolic dims "dp" | "tp" | None:
-    ``x`` itself. Each rank already holds its rows of the batch, so a "dp"
-    leading dim must be the local batch; a "tp" dim on a model axis above 1
-    raises (that layout is not ported)."""
-    if not _ACTIVE:
+def model_size() -> int:
+    """The ambient mesh's model axis size (1 without an ambient context)."""
+    ctx = current_ctx()
+    return 1 if ctx is None else _axis_size(ctx.mesh, ctx.tp)
+
+
+def model_group() -> DecodeCtx | None:
+    """The ambient mesh's group over its model axis when that axis is above
+    1; None otherwise (no ambient context, or a model axis of 1: every move
+    below is then the identity)."""
+    ctx = current_ctx()
+    if ctx is None or model_size() == 1:
+        return None
+    return ctx.mesh.group(ctx.tp)
+
+
+def model_part(size: int) -> tuple[int, int]:
+    """(index, parts) of this rank's block of a dim of ``size`` whose spec
+    entry is the model axis: (its model coordinate, M) where ``fit_spec``
+    splits the dim, (0, 1) where it leaves it whole."""
+    m = model_size()
+    if m == 1 or size % m:
+        return 0, 1
+    return current_ctx().mesh.coords[current_ctx().tp], m
+
+
+def sequence_split(t: int) -> bool:
+    """Whether the residual stream of a sequence of ``t`` positions is split
+    over the model axis: the reference's ``constrain_residual`` spec
+    P(dp, tp, None) through ``fit_spec`` (a sequence the axis does not
+    divide stays whole)."""
+    return model_part(t)[1] > 1
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    """Sequence shards (dim 1) → the whole sequence on every model rank;
+    the backward reduce-scatters each rank's part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, 1, ctx.group), None
+
+
+class _ReduceScatterToSequence(torch.autograd.Function):
+    """Each model rank's partial sum over the whole sequence → the sum, this
+    rank's sequence shard (dim 1); the backward all-gathers the shards'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 1, ctx.group), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Partial sums → their sum on every model rank, where the residual's
+    sequence is whole; the backward sums the ranks' parts of the gradient
+    the same way (the sum's inputs each see the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return psum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous().clone(), ctx.group), None
+
+
+def gather_from_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """x (B, T/M, ...) in the residual's layout → (B, T, ...), the whole
+    sequence: an all-gather over the model group where the sequence is
+    split (``split``), the identity where it is whole or there is no model
+    axis (Megatron's ``gather_from_sequence_parallel_region``)."""
+    group = model_group() if split else None
+    if group is None:
         return x
-    ctx, local_batch = _ACTIVE[-1]
-    if "tp" in dims and _axis_size(ctx.mesh, ctx.tp) > 1:
-        raise NotImplementedError(f"a {ctx.tp!r} axis of {_axis_size(ctx.mesh, ctx.tp)} in "
-                                  f"training: {MODEL_AXIS_ITEM} is not ported")
+    return _GatherFromSequence.apply(x, group)
+
+
+def reduce_scatter_to_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """Each model rank's partial sum x (B, T, ...) → the sum in the
+    residual's layout: a reduce-scatter to this rank's sequence shard where
+    the sequence is split, an all-reduce where it is whole, the identity
+    without a model axis (Megatron's ``reduce_scatter_to_sequence_parallel_
+    region`` and ``reduce_from_tensor_model_parallel_region``)."""
+    group = model_group()
+    if group is None:
+        return x
+    return (_ReduceScatterToSequence if split else _SumOverModel).apply(x, group)
+
+
+def _check_batch(x: torch.Tensor, dims) -> None:
+    _, local_batch = _ACTIVE[-1]
     if dims and dims[0] == "dp" and local_batch is not None and x.shape[0] != local_batch:
         raise ValueError(f"a batch dim of {x.shape[0]} where this rank holds {local_batch} "
                          "rows")
+
+
+def constrain(x: torch.Tensor, *dims, split: bool = False) -> torch.Tensor:
+    """The reference's sharding hint with symbolic dims "dp" | "tp" | None,
+    on x in the residual's layout (batch over the data axes; the sequence,
+    dim 1, over the model axis where ``split``): a "dp" leading dim must be
+    the local batch; a "tp" dim 1 keeps the residual's layout (the
+    identity); None at dim 1 gathers the sequence whole
+    (`gather_from_sequence`). The identity without an ambient context."""
+    if not _ACTIVE:
+        return x
+    _check_batch(x, dims)
+    if len(dims) > 1 and dims[1] is None:
+        return gather_from_sequence(x, split)
     return x
 
 
-def constrain_residual(h: torch.Tensor) -> torch.Tensor:
-    """Residual stream: batch over the data axes, sequence over model."""
-    return constrain(h, "dp", "tp", None)
+def constrain_residual(h: torch.Tensor, split: bool = False) -> torch.Tensor:
+    """Residual stream: batch over the data axes, sequence over model (the
+    layers hand it over in that layout: the identity)."""
+    return constrain(h, "dp", "tp", None, split=split)
 
 
-def constrain_qkv(q, k, v):
-    """Attention entry: TP shards heads, CP the query sequence."""
-    if current_ctx() is None:
+def constrain_qkv(q, k, v, split: bool = False):
+    """Attention entry, q/k/v (B, T, N, HD): TP holds its heads over the
+    whole sequence (gathered before the projection onto them, so here the
+    identity); CP its query rows, with K and V gathered over the whole
+    sequence where it is split (`gather_from_sequence`)."""
+    ctx = current_ctx()
+    if ctx is None:
         return q, k, v
-    if current_ctx().strategy == "tp":
-        return (constrain(q, "dp", None, "tp", None), constrain(k, "dp", None, "tp", None),
-                constrain(v, "dp", None, "tp", None))
-    return (constrain(q, "dp", "tp", None, None), constrain(k, "dp", None, None, None),
-            constrain(v, "dp", None, None, None))
+    if ctx.strategy == "tp":
+        return tuple(constrain(x, "dp", None, "tp", None) for x in (q, k, v))
+    kv = constrain(torch.cat([k, v], dim=2), "dp", None, None, None, split=split)   # one gather
+    return (constrain(q, "dp", "tp", None, None, split=split),
+            *kv.split(k.shape[2], dim=2))
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """Mean cross-entropy over this rank's vocab columns [v0, v0 + V/M) of
+    the logits (the padded slots already at -1e30): the forward all-reduces
+    the row max, the sum of exponentials and the gold logit (which only the
+    rank owning the label's column holds); the backward is softmax minus
+    one-hot on the local columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0, group):
+        x = logits.float()
+        m = pmax(x.amax(-1).contiguous(), group)
+        e = torch.exp(x - m[..., None])
+        se = psum(e.sum(-1), group)
+        local = labels.long() - v0
+        mine = (local >= 0) & (local < x.shape[-1])
+        idx = torch.where(mine, local, 0)
+        gold = psum(torch.where(mine, x.gather(-1, idx[..., None])[..., 0], 0.0), group)
+        loss = (torch.log(se) + m - gold).mean()
+        ctx.save_for_backward(e, se, idx, mine)
+        ctx.dtype = logits.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, mine = ctx.saved_tensors
+        d = e / se[..., None]
+        d.scatter_add_(-1, idx[..., None], -mine[..., None].to(d.dtype))
+        return (d * (g / mine.numel())).to(ctx.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 v0: int) -> torch.Tensor:
+    """Mean cross-entropy of logits (..., V/M) holding the columns [v0,
+    v0 + V/M) of this model rank (`_VocabParallelCrossEntropy`); the same
+    value on every rank of the model group."""
+    return _VocabParallelCrossEntropy.apply(logits, labels, v0, model_group())

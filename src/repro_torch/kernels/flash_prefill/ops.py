@@ -11,7 +11,9 @@ row-group bh reads K/V row-group bh // G. CUDA source:
 
 Training differentiates B3 through `FlashAttentionFn`: its forward is B3
 with the per-row log-sum-exp as a second output, its backward kernel B3-bwd
-(``repro_torch/csrc/flash_prefill_bwd.cu``), which replaces no TPU kernel —
+(``repro_torch/csrc/flash_prefill_bwd.cu``), both at any query offset (a
+context-parallel rank's query rows [q_offset, q_offset+T) over the gathered
+keys [0, S), S ≥ q_offset+T). B3-bwd replaces no TPU kernel —
 the reference takes this gradient by XLA's autodiff of
 `models/attention.py::flash_attention_xla`. Each has its plain version
 beside it (`flash_attention_lse_plain`, `flash_attention_backward_plain`).
@@ -61,24 +63,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return _attend(_scores(q, k, causal, window, q_offset)[0], v, q)
 
 
-def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                              q_offset: int = 0):
     """`flash_attention_plain` and each row's log-sum-exp of its scaled,
     masked scores (BH, T) f32: the forward that training saves."""
-    s, _ = _scores(q, k, causal, window, 0)
+    s, _ = _scores(q, k, causal, window, q_offset)
     return _attend(s, v, q), torch.logsumexp(s, dim=-1).reshape(q.shape[:2])
 
 
 def flash_attention_backward_plain(q, k, v, out, dout, lse, *, causal: bool = True,
-                                   window: int = 0):
-    """Plain version of B3-bwd: the explicit gradient of `flash_attention`,
-    f32 math. P recomputed from the forward's ``lse``, D = rowsum(dO∘O),
-    dV = Pᵀ dO, dS = P∘(dO Vᵀ − D), dQ = dS K / √HD, dK = dSᵀ Q / √HD, with
-    dK and dV summed over the G query heads of a KV head. Returns (dq, dk,
-    dv) in the inputs' dtypes."""
+                                   window: int = 0, q_offset: int = 0):
+    """Plain version of B3-bwd: the explicit gradient of `flash_attention`
+    (query rows at positions [q_offset, q_offset+T)), f32 math. P
+    recomputed from the forward's ``lse``, D = rowsum(dO∘O), dV = Pᵀ dO,
+    dS = P∘(dO Vᵀ − D), dQ = dS K / √HD, dK = dSᵀ Q / √HD, with dK and dV
+    summed over the G query heads of a KV head. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
     bh, t, hd = q.shape
     bkv = k.shape[0]
     g = bh // bkv
-    s, mask = _scores(q, k, causal, window, 0)
+    s, mask = _scores(q, k, causal, window, q_offset)
     p = torch.where(mask, torch.exp(s - lse.reshape(bkv, g, t, 1)), torch.zeros_like(s))
     do = dout.float().reshape(bkv, g, t, hd)
     d = (do * out.float().reshape(bkv, g, t, hd)).sum(-1, keepdim=True)
@@ -100,15 +104,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _b3(q, k, v, causal, window, q_offset, None)
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
-    """`flash_attention` at q_offset 0 and each row's log-sum-exp (BH, T)
-    f32: B3 with its LSE output on CUDA tensors (one store per row; the
-    output's bits are those of `flash_attention`), the plain version on
-    CPU tensors."""
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """`flash_attention` and each row's log-sum-exp (BH, T) f32: B3 with its
+    LSE output on CUDA tensors (one store per row; the output's bits are
+    those of `flash_attention`), the plain version on CPU tensors."""
+    _check_offset(q, k, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_lse_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_lse_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    return _b3(q, k, v, causal, window, 0, lse), lse
+    return _b3(q, k, v, causal, window, q_offset, lse), lse
+
+
+def _check_offset(q, k, q_offset: int) -> None:
+    """Queries at an offset attend keys through their last position (at
+    offset 0 any S: the enc-dec cross-attention's Tq ≠ S)."""
+    if q_offset < 0 or (q_offset > 0 and k.shape[1] < q_offset + q.shape[1]):
+        raise ValueError(f"queries at [{q_offset}, {q_offset + q.shape[1]}) need keys through "
+                         f"their last position; k holds {k.shape[1]}")
 
 
 def _check_operands(name: str, q, k, v) -> None:
@@ -142,16 +156,18 @@ def _b3(q, k, v, causal: bool, window: int, q_offset: int, lse) -> torch.Tensor:
 
 
 def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
-                             window: int = 0):
-    """The gradient (dq, dk, dv) of `flash_attention` at q_offset 0, from
-    the forward's ``out`` and ``lse`` and the output's gradient ``dout``.
+                             window: int = 0, q_offset: int = 0):
+    """The gradient (dq, dk, dv) of `flash_attention` (query rows at
+    positions [q_offset, q_offset+T) over keys [0, S)), from the forward's
+    ``out`` and ``lse`` and the output's gradient ``dout``.
     CPU tensors take the plain version; CUDA tensors launch B3-bwd (three
     kernels: D, then dK/dV, then dQ, each counted). Its bf16 branch reads q,
     k, v and dout by TMA, which needs each to start 16-byte aligned: a
     misaligned one is refused, never copied."""
+    _check_offset(q, k, q_offset)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, lse, causal=causal,
-                                              window=window)
+                                              window=window, q_offset=q_offset)
     bh, t, hd = q.shape
     bkv, s_len = k.shape[:2]
     _check_operands("B3-bwd", q, k, v)
@@ -164,10 +180,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     fn = common.load("flash_prefill_bwd", "flash_prefill_bwd",
-                     [common.P] * 10 + [common.I] * 8 + [common.F, common.P])
+                     [common.P] * 10 + [common.I] * 9 + [common.F, common.P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             _DTYPES[q.dtype], bh, t, s_len, hd, bh // bkv, int(causal), window,
+             _DTYPES[q.dtype], bh, t, s_len, hd, bh // bkv, int(causal), window, q_offset,
              1.0 / math.sqrt(hd), common.stream_ptr(dq))
     if err >= _TENSOR_MAP_ERROR:
         raise RuntimeError(f"flash_prefill_bwd: cuTensorMapEncodeTiled failed with CUresult "
@@ -178,25 +194,28 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable B3: ``FlashAttentionFn.apply(q, k, v, causal, window)``
-    in B3's layout at q_offset 0. The forward is `flash_attention_lse` and
-    saves q, k, v, out and the LSE; the backward is
-    `flash_attention_backward`. Each takes its kernel on CUDA tensors and
-    its plain version on CPU tensors."""
+    """Differentiable B3: ``FlashAttentionFn.apply(q, k, v, causal, window,
+    q_offset)`` in B3's layout, query rows at positions [q_offset,
+    q_offset+T) over keys [0, S) (q_offset 0 when omitted). The forward is
+    `flash_attention_lse` and saves q, k, v, out and the LSE; the backward is
+    `flash_attention_backward` at the same offset. Each takes its kernel on
+    CUDA tensors and its plain version on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True, window: int = 0):
-        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(), lse,
-                                              causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                                              causal=ctx.causal, window=ctx.window,
+                                              q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_chunked(q, k, v, *, q_offset: int, causal: bool = True,

@@ -4,8 +4,12 @@ Functions, not module constants: importing this module touches no device
 and joins no process group. A mesh spans the default process group
 (`distributed.sharding.init_decode_ctx` joins or reuses it: ``nccl`` for a
 CUDA device, ``gloo`` for the CPU; a world of one needs no rendezvous), its
-ranks in row-major order over the axes. Training runs over the data axes
-only: `runtime.steps.make_train_step` refuses a model axis above 1.
+ranks in row-major order over the axes. A mesh with a "model" axis makes its
+per-axis process groups when it is built (`Mesh.group`), so every rank
+builds the same meshes in the same order. Training runs on any (data ×
+model) mesh: FSDP over the data axes and, for the dense families, tensor,
+sequence and context parallelism over "model" (`runtime.steps.
+ShardedTrainStep`; the other families refuse a model axis above 1).
 """
 
 from __future__ import annotations
@@ -55,6 +59,6 @@ def make_local_mesh(device="cuda") -> Mesh:
 
 def make_data_mesh(device="cuda") -> Mesh:
     """Every rank of the process group on the data axis, (N, 1) ("data",
-    "model"): the layout the port trains on (`launch.train`)."""
+    "model"): `launch.train`'s layout without ``--local``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     return make_mesh((world, 1), ("data", "model"), device)

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --shape train_4k --steps 200 --local --device cpu   # CPU smoke
     PYTHONPATH=src torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \\
-        --arch qwen3-0.6b --local --device cpu              # 2 gloo ranks
+        --arch qwen3-0.6b --local --device cpu              # (1, 2) over 2 gloo ranks
 
 Trains through `runtime.trainer.Trainer`, with checkpoints every
 ``--ckpt-every`` steps into ``--ckpt-dir`` (resumed from when it holds
@@ -15,12 +15,14 @@ versions.
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) every
 rank joins the process group (``nccl`` on the card, ``gloo`` on the CPU;
 ``--dist-init`` names the rendezvous, ``env://`` by default, or a
-``file://`` path on a shared file system), takes ``cuda:LOCAL_RANK``, and
-trains FSDP over a data mesh of every rank (`launch.mesh.make_data_mesh`,
-(N, 1) over ("data", "model")). Without those variables it is a world of
-one on one device. The model axis of the reference's production meshes
-(its tensor and sequence parallelism, the ``--multi-pod`` mesh) is not
-ported: the train step refuses a model axis above 1.
+``file://`` path on a shared file system) and takes ``cuda:LOCAL_RANK``.
+With ``--local`` it trains on the reference's local mesh, (1, N) over
+("data", "model") (`launch.mesh.make_local_mesh`: tensor, sequence and
+context parallelism over every rank); without it on a data mesh of every
+rank, (N, 1) (`launch.mesh.make_data_mesh`: FSDP), since no machine here
+holds the production meshes' 256 or 512 ranks. Without those variables it
+is a world of one on one device. The MoE, SSD, RG-LRU and enc-dec families
+refuse a model axis above 1.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_shape
 from repro_torch.distributed.sharding import BACKEND
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.mesh import make_data_mesh, make_local_mesh
 from repro_torch.runtime.optimizer import AdamWConfig
 from repro_torch.runtime.steps import MeshPlan
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -68,7 +70,9 @@ def main() -> None:
         dist.init_process_group(BACKEND[device.type], init_method=args.dist_init,
                                 rank=int(os.environ["RANK"]),
                                 world_size=int(os.environ["WORLD_SIZE"]))
-        plan = MeshPlan.for_mesh(make_data_mesh(device))
+        plan = MeshPlan.for_mesh((make_local_mesh if args.local else make_data_mesh)(device))
+    if plan is not None:
+        print(f"mesh: {plan.mesh.shape}", flush=True)
     tcfg = TrainerConfig(num_steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, seed=args.seed, reduced_shapes=args.local)
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps)

@@ -58,7 +58,7 @@ from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import rglru, ssm
 from repro_torch.models.attention import (
     attention_train, fold_heads, prefill_attention, qkv_project)
-from repro_torch.models.common import glu_apply, rmsnorm
+from repro_torch.models.common import glu_apply, parallel_glu, rmsnorm
 from repro_torch.models.moe import moe_apply
 
 RECURRENT = (ssm.SSMState, rglru.RGLRUState)
@@ -124,13 +124,13 @@ def static_heavy_idx(attn_params: dict, cfg: ModelConfig, sp: SalcaParams,
     return idx[None].expand((batch,) + idx.shape)
 
 
-def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool = False):
     """A layer's FFN on x (..., D) of 2 or 3 dims → (out, aux): the dense
     GLU (aux 0.0, no tensor made), or the MoE branch (a (S, D) decode input
     routes as (S, 1, D); aux an f32 scalar) plus arctic's dense residual GLU
     (the reference's `ffn_apply`)."""
     if not cfg.moe:
-        return glu_apply(params["glu"], x, cfg.act), 0.0
+        return parallel_glu(params["glu"], x, cfg, split), 0.0
     squeeze = x.dim() == 2
     x3 = x[:, None] if squeeze else x
     out, aux = moe_apply(params["moe"], x3, cfg)
@@ -155,15 +155,20 @@ def _recurrent_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return x + f, aux, st
 
 
-def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str = "A"):
+def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str = "A",
+                split: bool = False):
     """A layer's training forward: x (B, T, D) → (x_out, aux), aux the MoE
-    FFN's load-balancing loss (0.0 for a dense FFN or an "S" block)."""
+    FFN's load-balancing loss (0.0 for a dense FFN or an "S" block). Under
+    a model axis above 1, x and x_out are in the residual's layout (the
+    sequence split over "model" where ``split``): the norms act on the
+    rank's rows, attention and the GLU move the data they need
+    (`models.attention`, `models.common.parallel_glu`)."""
     if kind in ("S", "R"):
         x, aux, _ = _recurrent_block(params, x, cfg, kind, return_state=False)
         return x, aux
     x = x + attention_train(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
-                            window=_window(cfg, kind))
-    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
+                            window=_window(cfg, kind), split=split)
+    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg, split)
     return x + f, aux
 
 

@@ -31,10 +31,13 @@ from repro_torch.core.cache import (
     PagedSalcaCache, SalcaCache, adopt_pages, cow_block, empty_cache, empty_paged_cache,
     free_pages, map_block, prefill_chunk_into_pages, prefill_into_pages, read_block_rows,
     reset_slot, share_blocks, write_block_rows, write_prefill_into_slot)
-from repro_torch.distributed.sharding import DecodeCtx, local_block_range, local_row_range
+from repro_torch.distributed.sharding import (
+    DecodeCtx, constrain, constrain_residual, local_block_range, local_row_range, model_group,
+    reduce_scatter_to_sequence, sequence_split)
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
-    cdtype, cross_entropy, embed_tokens, lm_logits, rmsnorm, vocab_mask_logits)
+    cdtype, cross_entropy, embed_tokens, embed_tokens_parallel, lm_logits, rmsnorm,
+    vocab_mask_logits)
 
 
 @dataclass
@@ -46,16 +49,38 @@ class LMState:
     pos: torch.Tensor
 
 
+def _has_image(cfg: ModelConfig, patches) -> bool:
+    return cfg.frontend == "vision" and patches is not None
+
+
 def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 patches: torch.Tensor | None = None) -> torch.Tensor:
+                 patches: torch.Tensor | None = None, split: bool = False) -> torch.Tensor:
     """tokens (B, T_text) → (B, T, D) in the compute dtype; with the vision
     frontend and ``patches`` (B, P, F), the projected patches come first:
     ``patches @ projector`` in the compute dtype, then the text (T = P +
-    T_text)."""
-    h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
-    if cfg.frontend == "vision" and patches is not None:
-        img = patches.to(cdtype(cfg)) @ params["projector"]
-        h = torch.cat([img, h], dim=1)
+    T_text).
+
+    Under a model axis above 1 (training) the result is in the residual's
+    layout: each rank's part of the vocab-parallel lookup (the text rows,
+    zero rows where the image goes) is reduced into its sequence shard
+    (``split``) or summed whole, and the projector (replicated) acts on the
+    image rows that the rank holds."""
+    if model_group() is None:
+        h = embed_tokens(params["embed"], tokens).to(cdtype(cfg))
+        if _has_image(cfg, patches):
+            img = patches.to(cdtype(cfg)) @ params["projector"]
+            h = torch.cat([img, h], dim=1)
+        return h
+    h = embed_tokens_parallel(params["embed"], tokens, cfg).to(cdtype(cfg))
+    n_img = patches.shape[1] if _has_image(cfg, patches) else 0
+    if n_img:
+        h = torch.cat([h.new_zeros((h.shape[0], n_img, h.shape[2])), h], dim=1)
+    h = reduce_scatter_to_sequence(h, split)
+    lo = model_group().rank * h.shape[1] if split else 0
+    mine = min(max(n_img - lo, 0), h.shape[1])        # image rows among this rank's
+    if mine:
+        img = patches[:, lo:lo + mine].to(cdtype(cfg)) @ params["projector"]
+        h = torch.cat([img, h[:, mine:]], dim=1)
     return h
 
 
@@ -64,13 +89,25 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Full-sequence training forward → (logits (B, T, V_pad), aux): aux the
     MoE layers' load-balancing losses summed (0.0 without MoE). Each layer
     runs under activation checkpointing (its inputs kept, its inside
-    recomputed in the backward): memory only, the same numbers."""
-    h = embed_inputs(params, cfg, tokens, patches)
+    recomputed in the backward, collectives included): memory only, the
+    same numbers.
+
+    The reference's sharding hints stand where it calls them: under a model
+    axis above 1 the residual stream is split over "model" along the
+    sequence where the axis divides it (``split``, `sequence_split`),
+    ``ln_f`` acts on the rank's rows, and the sequence is gathered whole
+    for the vocab-parallel head (logits (B, T, V_pad / M): this rank's
+    columns)."""
+    t = tokens.shape[1] + (patches.shape[1] if _has_image(cfg, patches) else 0)
+    split = sequence_split(t)
+    h = constrain_residual(embed_inputs(params, cfg, tokens, patches, split), split)
     aux = 0.0
     for layer, kind in zip(params["layers"], cfg.block_kinds()):
-        h, a = checkpoint(B.block_train, layer, h, cfg, kind, use_reentrant=False)
+        h, a = checkpoint(B.block_train, layer, h, cfg, kind, split, use_reentrant=False)
+        h = constrain_residual(h, split)
         aux = aux + a
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    h = constrain(h, "dp", None, None, split=split)    # the whole sequence for the head
     return lm_logits(params["embed"], h, cfg), aux
 
 
@@ -79,7 +116,7 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.
     """Mean next-token cross-entropy (over the text positions only, behind
     the vision frontend's patches) + 0.01 · aux."""
     logits, aux = lm_forward(params, cfg, tokens, patches)
-    if cfg.frontend == "vision" and patches is not None:
+    if _has_image(cfg, patches):
         logits = logits[:, patches.shape[1]:]
     return cross_entropy(logits, labels, cfg) + 0.01 * aux
 

@@ -10,10 +10,11 @@ a time. bf16 tensors are stored as f32 (exact) and restored to the
 target's dtype. Keys are the tree's paths joined with "/" (`runtime.tree`:
 dicts and lists, the port's own layout).
 
-A sharded tree (each rank holding its blocks, ``shardings`` a tree of
-`distributed.sharding.NamedSharding`) is saved whole, as the reference's
-`_flatten` pulls a sharded array whole: every rank gathers the blocks and
-the mesh's first rank writes. A blocking save returns on every rank once
+A sharded tree (each rank holding its blocks under any data × model
+layout, ``shardings`` a tree of `distributed.sharding.NamedSharding`) is
+saved whole, as the reference's `_flatten` pulls a sharded array whole:
+every rank gathers the blocks over the whole mesh and the mesh's first rank
+writes. A blocking save returns on every rank once
 the step is on disk, and `wait` joins an asynchronous one on every rank.
 `restore(shardings=)` is the reference's reshard-on-restore (an elastic
 restart): every rank reads the whole arrays and keeps its block under the

@@ -38,14 +38,16 @@ capture's wrappers counted them.
 the loss, its gradient with respect to every parameter (through kernel
 B3-bwd on the card), then `adamw_update`, eagerly. Without a `MeshPlan` it
 runs on one device. With one it runs what the reference's jitted step runs
-under its FSDP `param_specs` over the plan's data axes (`ShardedTrainStep`):
-each rank holds its block of every parameter and of the AdamW moments and
-master, gathers the whole parameters at the step's start, runs the loss on
-its rows of the global batch (`batch_specs`), and reduces each gradient to
-its mean over the ranks (a reduce-scatter to its block, an all-reduce where
-the spec replicates it). The model axis (the reference's tensor and
-sequence parallelism) is not ported: a plan whose model axis is above 1
-raises.
+under its `param_specs` over the plan's mesh (`ShardedTrainStep`): FSDP
+over the data axes and, for the dense families, tensor, sequence and
+context parallelism over "model". Each rank holds its block of every
+parameter and of the AdamW moments and master, gathers its model blocks
+whole over the data axes at the step's start, runs the loss on its rows of
+the global batch (`batch_specs`; every model rank the same rows, the
+layers' collectives over the model group), and reduces each gradient to
+its mean over the data ranks (a reduce-scatter to its block, an all-reduce
+where the spec replicates it), after one sum over the model group where
+the spec replicates the leaf over "model".
 
 `PooledServer` drives that tick for what the serving engine does not
 serve: the reference serves the enc-dec family (whose requests carry
@@ -311,6 +313,25 @@ def make_train_step(cfg, plan: MeshPlan | None = None, opt_cfg=None, device="cud
     return step
 
 
+def model_axis_refusal(cfg, m: int) -> str | None:
+    """Why ``cfg`` cannot train on a model axis of ``m`` > 1 (None: it
+    can): the families outside the dense layout, and dims the layers need
+    split that the axis does not divide."""
+    from repro_torch.distributed.sharding import MODEL_AXIS_ITEM
+    kinds = set(cfg.block_kinds()) if not cfg.encdec else set()
+    family = ("MoE" if cfg.moe else "SSD" if "S" in kinds else "RG-LRU" if "R" in kinds
+              else "enc-dec" if cfg.encdec else None)
+    if family is not None:
+        return f"the {family} family: {MODEL_AXIS_ITEM} is not ported"
+    if cfg.attn_strategy == "tp" and cfg.num_heads % m:
+        return (f"{cfg.num_heads} heads do not split over it (the tp layers hold whole "
+                "heads)")
+    if cfg.padded_vocab % m:
+        return (f"the padded vocab of {cfg.padded_vocab} does not split over it (the "
+                "vocab-parallel head and loss hold whole columns)")
+    return None
+
+
 def _refill(tree, items):
     """A tree of ``tree``'s structure whose leaves are ``items``, in order."""
     from repro_torch.runtime.tree import tree_map
@@ -330,34 +351,49 @@ def _loss_and_grads(api, params, batch):
 
 
 class ShardedTrainStep:
-    """The train step under ``plan``: FSDP over the plan's data axes, with
-    the reference's parameter specs (`param_specs` of `ShardingCtx(mesh,
-    dp, tp, strategy, moe_strategy)`, ``pspec``) and the same specs for the
+    """The train step under ``plan``: FSDP over the plan's data axes and the
+    model axis's layouts, with the reference's parameter specs
+    (`param_specs` of `ShardingCtx(mesh, dp, tp, strategy, moe_strategy)`,
+    ``pspec``: a leaf may split one dim over the data axes and another over
+    "model", e.g. ``attn/wq`` P(f, m, None)) and the same specs for the
     AdamW moments and master (``ospec``). A call takes this rank's blocks
     of the parameters and of the optimizer state (`shard`) and this rank's
-    rows of the global batch (`local_batch`):
+    rows of the global batch (`local_batch`; the same rows on every model
+    rank):
 
-    * it gathers every sharded parameter whole (one all-gather a leaf; the
-      whole tree at the step's start);
-    * runs ``api.loss`` on its rows and takes the gradients;
+    * it gathers every leaf split over the data axes whole over the data
+      group (one all-gather a leaf, at the step's start); model blocks stay
+      local;
+    * runs ``api.loss`` on its rows under the ambient `ShardingCtx` (the
+      model axis's collectives run inside the layers, `models.common`,
+      `models.attention`) and takes the gradients. A leaf that the spec
+      splits over "model" then holds its block's gradient; a leaf that it
+      replicates over "model" (norm scales, cp's attention weights,
+      replicated KV, the projector) holds this rank's part (each model rank
+      saw other rows, heads or vocab columns) and is summed over the model
+      group once (an all-reduce);
     * reduces each gradient to its mean over the data ranks: a
-      reduce-scatter to the leaf's block, an all-reduce where the spec
-      replicates the leaf, each a sum divided by the rank count;
-    * returns as the loss the mean of the ranks' losses (the global
-      batch's: its rows split evenly);
+      reduce-scatter over the data group to the leaf's block, an all-reduce
+      where the spec replicates the leaf over the data axes, each a sum
+      divided by the data rank count;
+    * returns as the loss the mean of the data ranks' losses (the global
+      batch's: its rows split evenly; the same on every model rank);
     * AdamW updates the local blocks; its clip takes the global norm from
-      one all-reduce of the per-leaf sums of squares, a replicated leaf's
-      counted once (on the first data rank), then summed leaf by leaf in
-      the tree's order: at one rank the bits of `optimizer.global_norm`.
+      one all-reduce over every rank of the per-leaf sums of squares, each
+      distinct block counted once (a leaf replicated over an axis only at
+      coordinate 0 of that axis), then summed leaf by leaf in the tree's
+      order: at one rank the bits of `optimizer.global_norm`.
 
-    A model axis above 1 raises (`sharding.MODEL_AXIS_ITEM`), and so does an
-    MoE config over more than one data rank: the reference computes the
-    load-balancing loss over the global batch (a product of two means),
-    which a per-rank loss does not give (ROADMAP A)."""
+    A model axis above 1 raises for the families outside this layout (MoE,
+    SSD, RG-LRU, enc-dec: `sharding.MODEL_AXIS_ITEM`) and where the heads
+    (tp) or the padded vocab do not split over it; so does an MoE config
+    over more than one data rank: the reference computes the load-balancing
+    loss over the global batch (a product of two means), which a per-rank
+    loss does not give (ROADMAP A)."""
 
     def __init__(self, cfg, plan: MeshPlan, opt_cfg):
         from repro_torch.distributed.sharding import (
-            MODEL_AXIS_ITEM, ShardingCtx, _axis_size, param_specs)
+            ShardingCtx, _axis_size, param_specs)
         from repro_torch.models import get_model
         from repro_torch.runtime.optimizer import AdamWState
         from repro_torch.runtime.tree import leaves
@@ -367,13 +403,16 @@ class ShardedTrainStep:
         self.api = get_model(cfg)
         self.sctx = ShardingCtx(mesh=mesh, dp=plan.dp, tp=plan.tp, strategy=cfg.attn_strategy,
                                 moe_strategy=cfg.moe_strategy)
-        if _axis_size(mesh, plan.tp) > 1:
-            raise NotImplementedError(f"a {plan.tp!r} axis of {_axis_size(mesh, plan.tp)} in "
-                                      f"training: {MODEL_AXIS_ITEM} is not ported")
-        self.n = _axis_size(mesh, plan.dp)
-        if self.n != mesh.ctx.world_size:
-            raise NotImplementedError(f"data axes {plan.dp} of {self.n} ranks in a world of "
-                                      f"{mesh.ctx.world_size}: training runs over every rank")
+        self.n, self.m = _axis_size(mesh, plan.dp), _axis_size(mesh, plan.tp)
+        if self.n * self.m != mesh.ctx.world_size:
+            raise NotImplementedError(f"data axes {plan.dp} of {self.n} ranks and {plan.tp!r} of "
+                                      f"{self.m} in a world of {mesh.ctx.world_size}: training "
+                                      "runs over every rank")
+        if self.m > 1:
+            why = model_axis_refusal(cfg, self.m)
+            if why is not None:
+                raise NotImplementedError(f"{cfg.name}: a {plan.tp!r} axis of {self.m} in "
+                                          f"training: {why}")
         if cfg.moe and self.n > 1:
             raise NotImplementedError(
                 f"{cfg.name}: MoE training over {self.n} data ranks; the reference's "
@@ -384,15 +423,21 @@ class ShardedTrainStep:
         self.ospec = AdamWState(step=P(), m=self.pspec, v=self.pspec,
                                 master=self.pspec if opt_cfg.use_master else ())
         self.rank0 = all(mesh.coords[a] == 0 for a in plan.dp)
+        self.model0 = mesh.coords[plan.tp] == 0
         self.layout = {}            # path → (whole shape, spec, the dim split over the data axes)
+        self.model_dim = {}         # path → the dim split over "model" (M > 1)
+        # (None where the spec splits none)
         shapes = {path: tuple(t.shape) for path, t in leaves(self.pshape)}
         for path, sp in param_specs(self.sctx, shapes).items():
             dims = [i for i, e in enumerate(sp) if e == dp_entry]
-            if len(dims) > 1 or any(e is not None and e != dp_entry and _axis_size(mesh, e) > 1
-                                    for e in sp):
-                raise NotImplementedError(f"{path}: spec {sp} splits more than one dim over "
-                                          f"the data axes {plan.dp}")
+            mdims = [i for i, e in enumerate(sp) if e == plan.tp and self.m > 1]
+            if len(dims) > 1 or len(mdims) > 1 or any(
+                    e is not None and e not in (dp_entry, plan.tp) and _axis_size(mesh, e) > 1
+                    for e in sp):
+                raise NotImplementedError(f"{path}: spec {sp} splits a dim over axes other "
+                                          f"than one data dim {plan.dp} and one {plan.tp!r} dim")
             self.layout[path] = (shapes[path], sp, dims[0] if dims else None)
+            self.model_dim[path] = mdims[0] if mdims else None
 
     def _leaves(self, tree):
         """(tensor, whole shape, spec, data dim) of every leaf of a
@@ -422,38 +467,53 @@ class ShardedTrainStep:
         return {k: v[local_block(mesh, specs[k], v.shape)] for k, v in batch.items()}
 
     def __call__(self, params, opt_state, batch):
+        from repro_torch.runtime.optimizer import adamw_update
+        from repro_torch.runtime.tree import tree_map
+        grads, loss, gnorm = self.gradients(params, batch)
+        params = tree_map(lambda t: t.detach(), params)
+        new_params, new_opt, metrics = adamw_update(params, grads, opt_state, self.opt_cfg,
+                                                    gnorm=gnorm)
+        return new_params, new_opt, {"loss": loss, **metrics}
+
+    def gradients(self, params, batch):
+        """(each leaf's gradient block, reduced to its mean over the data
+        ranks; the loss, the data ranks' mean; the global gradient norm) of
+        the loss of ``batch`` (this rank's rows) at ``params`` (this rank's
+        blocks): the step before AdamW."""
         from repro_torch.core.quantization import div_const
         from repro_torch.distributed.sharding import (
             activation_sharding, all_gather_dim, local_shape, psum, reduce_scatter_dim)
-        from repro_torch.runtime.optimizer import adamw_update
-        from repro_torch.runtime.tree import leaves, tree_map
+        from repro_torch.runtime.tree import leaves
         mesh, ctx, n = self.plan.mesh, self.plan.mesh.ctx, float(self.n)
+        data = mesh.group(self.plan.dp)
+        model = mesh.group(self.plan.tp) if self.m > 1 else None
         local = self._leaves(params)
         for (path, _), (t, shape, sp, _) in zip(leaves(params), local):
             if tuple(t.shape) != local_shape(mesh, sp, shape):
                 raise ValueError(f"{path}: this rank holds {tuple(t.shape)}; its block of "
                                  f"{shape} under {sp} is {local_shape(mesh, sp, shape)}")
-        whole = _refill(params, [t if d is None else all_gather_dim(t, d, ctx)
+        whole = _refill(params, [t if d is None else all_gather_dim(t, d, data)
                                  for t, _, _, d in local])
         with activation_sharding(self.sctx, local_batch=next(iter(batch.values())).shape[0]):
             grads, loss = _loss_and_grads(self.api, whole, batch)
         del whole
         with torch.no_grad():
             reduced, sq = [], []
-            for (_, g), (_, _, _, d) in zip(leaves(grads), local):
-                g = div_const(psum(g.contiguous(), ctx) if d is None
-                              else reduce_scatter_dim(g, d, ctx), n)
+            for (path, g), (_, _, _, d) in zip(leaves(grads), local):
+                md = self.model_dim[path]
+                if model is not None and md is None:      # this model rank's part
+                    g = psum(g.contiguous(), model)
+                g = div_const(psum(g.contiguous(), data) if d is None
+                              else reduce_scatter_dim(g, d, data), n)
                 reduced.append(g)
-                sq.append(torch.sum(torch.square(g.to(torch.float32))) if d is not None
-                          or self.rank0 else g.new_zeros((), dtype=torch.float32))
+                distinct = (d is not None or self.rank0) and (md is not None or self.model0)
+                sq.append(torch.sum(torch.square(g.to(torch.float32))) if distinct
+                          else g.new_zeros((), dtype=torch.float32))
             grads = _refill(params, reduced)
-            loss = div_const(psum(loss.detach().clone(), ctx), n)
+            loss = div_const(psum(loss.detach().clone(), data), n)
             sq = psum(torch.stack(sq), ctx)
             total = sq[0]
             for i in range(1, sq.shape[0]):
                 total = total + sq[i]
             gnorm = torch.sqrt(total)
-        params = tree_map(lambda t: t.detach(), params)
-        new_params, new_opt, metrics = adamw_update(params, grads, opt_state, self.opt_cfg,
-                                                    gnorm=gnorm)
-        return new_params, new_opt, {"loss": loss, **metrics}
+        return grads, loss, gnorm

@@ -1,5 +1,5 @@
 """One rank of a multi-process check of the port's sharded decode and of
-its training over the data axis.
+its training over data × model meshes.
 
     python tests/_torch_dist_worker.py <task> <workdir> <rank> <world>
 
@@ -48,6 +48,13 @@ Tasks:
           the error its construction raised; and per case of ``trainers``,
           `Trainer(cfg, shape, plan)` runs on checkpoint directories
           (losses, gradient norms, the blocks it restored);
+  train_tp  the meshes of ``inp["meshes"]``, each over the whole world and
+          built in one order on every rank; per mesh its step cases (the
+          sharded train step from whole weights: the step-0 gradient of
+          every leaf, gathered whole, each step's metrics, this rank's blocks,
+          the whole parameters gathered back, the collectives of a step; or
+          the error its construction raised), its layer cases (`tp_layers`)
+          and its `Trainer` runs (as in ``train_fsdp``);
   compressed  `compressed_psum` on this rank's gradients and errors (the
           means, the new errors, each leaf's codes and scale), and the
           reference's `_ddp_check` convergence run over the ranks;
@@ -446,6 +453,158 @@ def train_fsdp(inp, ctx):
     return out
 
 
+def _step_case(case, plan):
+    from repro_torch.analysis.collectives import TRACE
+    from repro_torch.distributed.sharding import COLLECTIVES, gather, local_shape
+    from repro_torch.runtime.data import to_device
+    from repro_torch.runtime.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.tree import leaves, tree_map
+    try:
+        step = make_train_step(_cfg(case["arch"], **case.get("over", {})), plan,
+                               AdamWConfig(**case["opt"]), "cpu")
+    except NotImplementedError as e:
+        return dict(raised=str(e))
+    mesh = plan.mesh
+    specs = {path: sp for path, (_, sp, _) in step.layout.items()}
+    params = step.shard(case["weights"])
+    opt = init_opt_state(params, step.opt_cfg)
+    batches = [to_device(step.local_batch(b), "cpu") for b in case["batches"]]
+    metrics, grads = [], None
+    COLLECTIVES.clear()
+    TRACE.reset()
+    for batch in batches:
+        if grads is None:       # step 0 as `step` runs it, its gradients kept
+            grads, loss, gnorm = step.gradients(params, batch)
+            params, opt, m = adamw_update(tree_map(lambda t: t.detach(), params), grads, opt,
+                                          step.opt_cfg, gnorm=gnorm)
+            m = {"loss": loss, **m}
+        else:
+            params, opt, m = step(params, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    per_step = {k: v // len(batches) for k, v in COLLECTIVES.items()}
+    wire = TRACE.summary()
+    grads = {path: gather(g, specs[path], mesh) for path, g in leaves(grads)}
+    return dict(metrics=metrics, grads=grads, collectives=per_step, trace=wire,
+                local=dict(leaves(params)), specs=specs, coords=mesh.coords,
+                want_shapes={path: local_shape(mesh, sp, shape)
+                             for path, (shape, sp, _) in step.layout.items()},
+                whole={path: gather(t, specs[path], mesh) for path, t in leaves(params)})
+
+
+def _nest(flat: dict, prefix: str) -> dict:
+    """{"<prefix>/a/b": t} → {"a": {"b": t}}."""
+    out = {}
+    for path, t in flat.items():
+        *keys, last = path[len(prefix) + 1:].split("/")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = t
+    return out
+
+
+def tp_layers(cases, mesh):
+    """Each layer case on ``mesh``: the layer on this rank's blocks of the
+    case's whole parameters (the reference's specs) and its rows of the
+    input under the ambient `ShardingCtx`, then the output and the
+    gradients made whole: the rows gathered where the sequence is split, a
+    block's gradient gathered, a leaf replicated over "model" (and an input
+    whose sequence is whole) summed over the model group."""
+    from repro_torch.distributed.sharding import (
+        ShardingCtx, activation_sharding, all_gather_dim, gather, param_specs, psum,
+        sequence_split, shard)
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import attention_train
+    from repro_torch.models.common import parallel_glu
+    out = {}
+    model = mesh.group("model")
+    for name, case in cases.items():
+        cfg = _cfg(case["arch"], **case.get("over", {}))
+        sctx = ShardingCtx(mesh=mesh, dp=("data",),
+                           strategy=case.get("strategy", cfg.attn_strategy))
+        whole = case["params"]
+        specs = param_specs(sctx, {p: tuple(t.shape) for p, t in whole.items()})
+        local = {p: shard(t, specs[p], mesh).requires_grad_() for p, t in whole.items()}
+        x, t_len = case.get("x"), case["t"]
+        with activation_sharding(sctx, local_batch=case["batch"]):
+            split = sequence_split(t_len)
+            n = t_len // model.world_size
+            rows = slice(model.rank * n, (model.rank + 1) * n) if split else slice(None)
+            if case["kind"] == "vocab":
+                tree = {"embed": {k.split("/")[1]: v for k, v in local.items()
+                                  if k.startswith("embed/")},
+                        "ln_f": {"scale": local["ln_f/scale"]}, "layers": []}
+                if "projector" in local:
+                    tree["projector"] = local["projector"]
+                y = transformer.lm_loss(tree, cfg, case["tokens"], case["labels"],
+                                        patches=case.get("patches"))
+                seed, targets = y, list(local.values())
+            else:
+                xl = x[:, rows].clone().requires_grad_()
+                p = _nest(local, case["prefix"])
+                if case["kind"] == "glu":
+                    y = parallel_glu(p, xl, cfg, split)
+                else:
+                    y = attention_train(p, xl, cfg, window=case.get("window", 0), split=split)
+                # a replicated activation's gradient is held as each model rank's part
+                # of it: where the sequence is whole, the output's cotangent is split
+                # evenly over the ranks (M a power of two: exact)
+                cot = case["cot"][:, rows] if split else case["cot"] / model.world_size
+                seed, targets = (y * cot).sum(), list(local.values()) + [xl]
+            # a rank that holds no image rows does not use the projector
+            grads = torch.autograd.grad(seed, targets, allow_unused=True, materialize_grads=True)
+        res = dict(split=split, grads={})
+        for (path, _), g in zip(local.items(), grads):
+            res["grads"][path] = (gather(g, specs[path], mesh) if "model" in specs[path]
+                                  else psum(g.contiguous(), model))
+        res["y"] = y.detach()
+        if x is not None:
+            gx = grads[-1]
+            res["dx"] = all_gather_dim(gx, 1, model) if split else psum(gx.contiguous(), model)
+            res["y"] = all_gather_dim(res["y"], 1, model) if split else res["y"]
+        out[name] = res
+    return out
+
+
+def train_tp(inp, ctx):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.steps import MeshPlan
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.tree import leaves
+    meshes = {shape: make_mesh(shape, ("data", "model"), "cpu") for shape in inp["meshes"]}
+    out = {}
+    for shape, mesh in meshes.items():
+        plan = MeshPlan.for_mesh(mesh)
+        for name, case in inp.get("steps", {}).get(shape, {}).items():
+            out[(shape, name)] = _step_case(case, plan)
+        if shape in inp.get("layers", {}):
+            out[(shape, "layers")] = tp_layers(inp["layers"][shape], mesh)
+        for name, case in inp.get("trainers", {}).get(shape, {}).items():
+            runs = []
+            for run in case["runs"]:
+                weights = case["weights"]
+                tr = Trainer(_cfg(case["arch"]), ShapeConfig(**case["shape"]), plan,
+                             TrainerConfig(num_steps=run["steps"], ckpt_every=run["ckpt_every"],
+                                           ckpt_dir=run["dir"], keep_n=3, log_every=100),
+                             AdamWConfig(**case["opt"]), device="cpu",
+                             init_params=lambda: weights)
+                restored = None
+                if run.get("probe_restore"):
+                    params, opt = tr.init_state()
+                    _, restored, _ = tr._restore(params, opt)
+                    restored = dict(leaves(restored))
+                res = tr.train()
+                runs.append(dict(losses=res["losses"], final_step=res["final_step"],
+                                 grad_norms=[m["grad_norm"] for m in tr.metrics],
+                                 steps=[m["step"] for m in tr.metrics], restored=restored,
+                                 specs={p: sp for p, (_, sp, _) in tr.step_fn.layout.items()}))
+            out[(shape, name)] = runs
+    return out
+
+
 def compressed(inp, ctx):
     from repro_torch.distributed.compression import _quantize_leaf, compressed_psum
     from repro_torch.distributed.sharding import psum
@@ -493,6 +652,7 @@ def elastic(inp, ctx):
 TASKS = {"island": island, "engine": engine, "prefix": prefix, "scheduler": scheduler,
          "lifecycle": lifecycle, "cache": cache, "sp_flat": sp_flat, "sp_engine": sp_engine,
          "encdec": encdec, "collectives": collectives, "train_fsdp": train_fsdp,
+         "train_tp": train_tp,
          "compressed": compressed, "elastic": elastic}
 
 

@@ -1575,6 +1575,45 @@ def test_b3_bwd_kernel_matches_plain(dev, dtype, hd, h, kv, t, s_len, causal, wi
         assert ratio <= 1.0, name
 
 
+@pytest.mark.parametrize("dtype,hd,h,kv,tq,q_offset,extra,window", [
+    # a context-parallel shard: rows at [q_offset, q_offset + tq) over the
+    # keys through its last row (extra: keys past it, which it never weighs)
+    (torch.bfloat16, 128, 8, 4, 300, 700, 0, 0),
+    (torch.bfloat16, 128, 8, 4, 256, 768, 0, 300),       # the window cuts the first tiles
+    (torch.bfloat16, 128, 8, 4, 128, 1024, 0, 64),       # every tile of a row past the window
+    (torch.bfloat16, 64, 6, 2, 129, 1, 100, 0),          # off the tile bounds, keys past it
+    (torch.bfloat16, 256, 4, 2, 200, 333, 0, 100),
+    (torch.float32, 128, 8, 4, 100, 250, 0, 0),
+    (torch.float32, 64, 4, 2, 65, 130, 30, 40),
+], ids=["cp_shard", "cp_window", "cp_window_past", "offset1_extra_keys", "hd256_window",
+        "f32", "f32_window_extra_keys"])
+def test_b3_and_b3_bwd_at_q_offset_match_plain(dev, dtype, hd, h, kv, tq, q_offset, extra,
+                                                window):
+    """B3's LSE form and B3-bwd at a query offset against their plain
+    versions at the same offset (the LSE and the gradients within the
+    offset-0 tolerances); keys past the shard's last row get no gradient."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    s_len = q_offset + tq + extra
+    q, k, v, dout = _b3_bwd_operands(dev, dtype, h, kv, tq, s_len, hd, seed=9)
+    at = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = fp.flash_attention_lse(q, k, v, **at)
+    p_out, p_lse = fp.flash_attention_lse_plain(q, k, v, **at)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=1e-4)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-4)
+    torch.testing.assert_close(out.float(), p_out.float(), rtol=rtol, atol=atol)
+    got = fp.flash_attention_backward(q, k, v, out, dout, lse, **at)
+    want = fp.flash_attention_backward_plain(q, k, v, out, dout, lse, **at)
+    tol = B3_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ratio = float(((a.float() - b.float()).abs()
+                       / (tol["atol"] + tol["rtol"] * b.float().abs())).max())
+        print(f"B3-bwd at q_offset {q_offset} {name} {dtype} HD {hd} window {window}: "
+              f"{ratio:.3g} of the tolerance")
+        assert ratio <= 1.0, name
+    for g in got[1:]:
+        assert not g[:, q_offset + tq:].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0)])
 def test_b3_lse_output_leaves_out_bitwise(dev, dtype, causal, window):

@@ -19,7 +19,8 @@ against the JAX package on the CPU.
   (`elastic`): saved from its ("data", None) blocks on a (4,) mesh,
   restored under ("data", "model") on a (2, 2) mesh, bit for bit.
 * `launch/train.py` at a world of 2: two processes with ``RANK``,
-  ``WORLD_SIZE``, ``LOCAL_RANK`` and ``--dist-init file://...`` (no port).
+  ``WORLD_SIZE``, ``LOCAL_RANK`` and ``--dist-init file://...`` (no port);
+  ``--local`` trains on the reference's local mesh, (1, 2).
 
 Run alone: ~25 s on this container's CPU.
 """
@@ -192,7 +193,9 @@ def test_compressed_psum_one_rank_and_ddp_step():
 
 def test_train_launcher_two_gloo_ranks(tmp_path):
     """`python -m repro_torch.launch.train --local --device cpu` as rank 0
-    and 1 of a world of 2 (the variables torchrun sets, a file rendezvous)."""
+    and 1 of a world of 2 (the variables torchrun sets, a file rendezvous),
+    on the (1, 2) ("data", "model") mesh; its checkpoints hold the whole
+    arrays."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE="2", OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b", "--local",
            "--device", "cpu", "--steps", "2", "--ckpt-every", "1",
@@ -205,7 +208,10 @@ def test_train_launcher_two_gloo_ranks(tmp_path):
         assert p.returncode == 0, f"rank {r}:\n{log}"
         done = [line for line in log.splitlines() if line.startswith("done: ")]
         assert done and done[-1].startswith("done: step=2 ") and "recoveries=0" in done[-1]
+        assert "mesh: {'data': 1, 'model': 2}" in log.splitlines()
     assert [line for line in logs[0].splitlines() if line.startswith("done: ")] == \
         [line for line in logs[1].splitlines() if line.startswith("done: ")]
     assert CheckpointManager(str(tmp_path / "ckpt")).all_steps() == [1, 2]
     assert json.load(open(tmp_path / "ckpt" / "step_2" / "meta.json"))["arch"] == "qwen3-0.6b"
+    with np.load(tmp_path / "ckpt" / "step_2" / "arrays.npz") as z:      # gathered whole
+        assert z["params/embed/tok"].shape == (512, 128)
