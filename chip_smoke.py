@@ -282,7 +282,20 @@ offset, its out, LSE and dQ bit for bit with the unsharded call's rows, the
 shards' summed dK/dV within B3_BWD_TOL of the unsharded call's; each
 shard's kernels by `graph_ms` beside their bounds and SDPA with a boolean
 mask (records ``flash_prefill[q_offset]`` and
-``flash_prefill_bwd[q_offset]``, counted on (an) itself).
+``flash_prefill_bwd[q_offset]``, counted on (an) itself). (ao) holds
+granite-moe-3b-a800m's training attention (4 × 24 H over 8 KV: G 3, HD 64,
+T 4096, causal) the same way, in the same 4 shards (records
+``flash_prefill[q_offset, granite]`` and its B3-bwd twin, counted on (ao)).
+(ao') runs one full-width granite MoE layer (bf16, random weights from a
+seeded generator, 4 × 4096 tokens) as the 4 ranks of a (1, 4) mesh run it
+under ``ep`` (`models.moe`: each rank's routing of its sequence shard, its
+queue offsets from every rank's counts, its dispatch buffer, its 12
+experts, its combine), in turn on one card with the collectives' results
+passed by hand (`check_ep_layer`): every rank's ``topi``, ``pos`` and
+``keep`` equal to the unsharded routing's rows, the output, the
+load-balancing loss and every gradient within EP_LAYER_TOL of the
+unsharded `moe_apply`'s; it prints the share of dropped (token, choice)
+pairs.
 
 Last, the tooling's example entry points (``examples/torch_*.py``):
 (ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
@@ -4148,14 +4161,19 @@ def check_b3_bwd(dev) -> dict:
                        for c in cases})
 
 
-# ---- run (an): B3 and B3-bwd at a query offset (PR 34) ---------------------
+# ---- runs (an), (ao): B3 and B3-bwd at a query offset -----------------------
 # A context-parallel rank of the training step (`models.attention`, cp)
 # holds the query rows [r·T/M, (r+1)·T/M) at q_offset r·T/M over the
-# gathered keys [0, (r+1)·T/M): phi3-medium-14b's training attention (40 H /
-# 10 KV, HD 128), and qwen3-0.6b's (16 H / 8 KV) under gemma3's window of
-# 1024, at TRAIN_SHAPE's batch of 4 × 4096, bf16, in CP_SHARDS query shards
+# gathered keys [0, (r+1)·T/M): (an) phi3-medium-14b's training attention
+# (40 H / 10 KV, HD 128), and qwen3-0.6b's (16 H / 8 KV) under gemma3's
+# window of 1024; (ao) granite-moe-3b-a800m's (24 H / 8 KV: G 3, HD 64); at
+# TRAIN_SHAPE's batch of 4 × 4096, bf16, in CP_SHARDS query shards. Per case
+# (label, heads, KV heads, window, head dim, run, the suffix of the last
+# shard's records in the JSON line or None)
 CP_SHARDS = 4
-CP_CASES = (("phi3-medium-14b", 40, 10, 0), ("qwen3-0.6b window", 16, 8, B3_BWD_WINDOW))
+CP_CASES = (("phi3-medium-14b", 40, 10, 0, 128, "an", ""),
+            ("qwen3-0.6b window", 16, 8, B3_BWD_WINDOW, 128, "an", None),
+            ("granite-moe-3b-a800m", 24, 8, 0, 64, "ao", ", granite"))
 # B3's LSE against its plain version: both f32, the kernel's from bf16
 # products with its row max and exponential sums in another order over the
 # key tiles (exp2 and log2 units), the plain version's torch.logsumexp
@@ -4197,7 +4215,7 @@ def sdpa_offset(q, k, v, dout, q_offset: int, window: int, iters: int) -> tuple[
 
 
 def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
-    """Run (an): per case of CP_CASES, the whole sequence through B3's LSE
+    """Runs (an) and (ao): per case of CP_CASES, the whole sequence through B3's LSE
     form and B3-bwd once (the unsharded call), then each of CP_SHARDS query
     shards through the same two kernels at its q_offset: the shard's out and
     LSE against the plain version (B3's one-ulp rule; `B3_LSE_TOL`) and its
@@ -4211,17 +4229,18 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
     each rounded once to bf16 before the sum, as the cp ranks' reduce-scatter
     of dK and dV sums them). Each shard's kernels timed by `graph_ms`,
     their bounds from its kept pairs, SDPA on the shard with a boolean mask.
-    Returns (B3's and B3-bwd's records at the last, longest shard of the
-    first case, the wrapper launches of the shards' calls: run (an))."""
+    Returns (B3's and B3-bwd's records at the last, longest shard of each
+    case that names a suffix, the wrapper launches of the shards' calls by
+    run: (an), (ao))."""
     import torch
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.flash_prefill import ops as fp
     gen = torch.Generator(device=dev).manual_seed(34)
-    b, t, hd = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"], 128
+    b, t = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
     atol, rtol = B3_BWD_TOL["bf16"]
-    launched = Counter()
+    launched = {}
     recs = []
-    for label, h, kv, window in CP_CASES:
+    for label, h, kv, window, hd, run, suffix in CP_CASES:
         q = torch.randn((b * h, t, hd), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b * kv, t, hd), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
@@ -4241,8 +4260,8 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
             out, lse = fp.flash_attention_lse(sq, sk, sv, **at)           # the shard's run
             grads = fp.flash_attention_backward(sq, sk, sv, out, sdo, lse, **at)
             torch.cuda.synchronize()
-            launched.update({key: c - before[key] for key, c in LAUNCHES.items()
-                             if c > before[key]})
+            launched.setdefault(run, Counter()).update(
+                {key: c - before[key] for key, c in LAUNCHES.items() if c > before[key]})
             p_out, p_lse = fp.flash_attention_lse_plain(sq, sk, sv, **at)
             want = fp.flash_attention_backward_plain(sq, sk, sv, out, sdo, lse, **at)
             o_ratio = float(((out.float() - p_out.float()).abs()
@@ -4254,7 +4273,7 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
                        for name, x, y in zip(("dq", "dk", "dv"), grads, want)}
             errs = {name: float((x.float() - y.float()).abs().max())
                     for name, x, y in zip(("dq", "dk", "dv"), grads, want)}
-            tag = f"(an) {label} shard {r} (q_offset {a}, keys [0, {e}))"
+            tag = f"({run}) {label} shard {r} (q_offset {a}, keys [0, {e}))"
             for what, ratio in (("out", o_ratio), ("lse", l_ratio), *g_ratio.items()):
                 if not ratio <= 1.0:
                     raise AssertionError(f"{tag}: {what} reaches {ratio:.3g}x its bound "
@@ -4287,11 +4306,11 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
                   f"({f_by}) plain_ms={f_plain:.2f} SDPA fwd {f_lib:.4f}; B3-bwd graph_ms="
                   f"{b_ms:.4f} bound_ms={b_bound:.5f} ({b_by}) plain_ms={b_plain:.2f} SDPA bwd "
                   f"{b_lib:.4f}", flush=True)
-            if r == CP_SHARDS - 1 and not recs:
-                common = dict(route="cuda", launches=None, run="an", q_offset=a, keys=e,
+            if r == CP_SHARDS - 1 and suffix is not None:
+                common = dict(route="cuda", launches=None, run=run, q_offset=a, keys=e,
                               shape=f"{b * h} H / {b * kv} KV, HD {hd}, {n} rows, {label}")
                 recs.append(dict(
-                    common, name="flash_prefill[q_offset]", counter="flash_prefill",
+                    common, name=f"flash_prefill[q_offset{suffix}]", counter="flash_prefill",
                     source="src/repro_torch/csrc/flash_prefill.cu",
                     replaces="src/repro/kernels/flash_prefill/kernel.py:98",
                     max_abs_err=float((out.float() - fp.flash_attention_lse_plain(
@@ -4301,7 +4320,8 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
                     bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
                     library_call="scaled_dot_product_attention (boolean mask, enable_gqa)"))
                 recs.append(dict(
-                    common, name="flash_prefill_bwd[q_offset]", counter="flash_prefill_bwd",
+                    common, name=f"flash_prefill_bwd[q_offset{suffix}]",
+                    counter="flash_prefill_bwd",
                     source="src/repro_torch/csrc/flash_prefill_bwd.cu",
                     replaces="src/repro/models/attention.py:64",
                     replaces_note="no TPU kernel: the reference's gradient is XLA's autodiff "
@@ -4317,14 +4337,127 @@ def check_cp_shards(dev, iters=5) -> tuple[list, Counter]:
             ratio = float((diff / (atol + rtol * (ref.abs() + mags[name]))).max())
             once = float((diff / (atol + rtol * ref.abs())).max())
             if not ratio <= 1.0:
-                raise AssertionError(f"(an) {label}: the shards' summed {name} reaches "
+                raise AssertionError(f"({run}) {label}: the shards' summed {name} reaches "
                                      f"{ratio:.3g}x its bound against the unsharded call's")
-            print(f"(an) {label}: the {CP_SHARDS} shards' summed {name} within {ratio:.3g} of "
+            print(f"({run}) {label}: the {CP_SHARDS} shards' summed {name} within {ratio:.3g} of "
                   f"{atol:g} + 2^-7*(|whole| + sum|shard's|) of the unsharded call's "
                   f"({once:.3g} of {atol:g} + 2^-7*|whole|, a reading)", flush=True)
         del q, k, v, dout, whole_out, whole_lse, whole, sums, mags
         torch.cuda.empty_cache()
     return recs, launched
+
+
+# ---- run (ao'): granite's full-width MoE layer as 4 ep ranks run it --------
+# One MoE layer of granite-moe-3b-a800m (d 1536, 40 experts padded to 48,
+# top 8, d_ff 512 an expert), bf16, on TRAIN_SHAPE's 4 × 4096 tokens, run as
+# the EP_RANKS ranks of a (1, 4) mesh would run it under ``ep``, one after
+# another on one card: each rank's steps of `models.moe` (its sequence
+# shard's routing, counts → offsets → positions, its dispatch buffer, its
+# 12 experts, the combine of its tokens), with the tensors that the
+# collectives would return passed by hand (the counts stacked, the dispatch
+# buffers summed and cut by expert: the reduce-scatter; the experts' outputs
+# concatenated: the all-gather); the whole differentiated at once
+EP_RANKS = 4
+# bf16 outputs and gradients against the unsharded layer's: the expert
+# products over 12 experts may take other GEMMs than over 48, so an
+# element may round to a neighbour (one bf16 ulp of the tensor's largest
+# magnitude, 2^-8, twice: the product and the combine) — the CPU tests hold
+# the same steps within 1e-5 in f32
+EP_LAYER_TOL = 2.0 ** -7
+
+
+def check_ep_layer(dev) -> dict:
+    """Run (ao') (above): every rank's ``topi``, ``pos`` and ``keep`` equal
+    to the unsharded `models.moe.route`'s rows exactly; the output, the load-
+    balancing loss and the gradients of x, the router and the three expert
+    weights (the loss: the output against a random cotangent plus 0.01 ×
+    aux, as `lm_loss` weighs it) within EP_LAYER_TOL of each tensor's
+    largest magnitude of the unsharded `moe_apply`'s. Prints the share of
+    dropped (token, choice) pairs and each side's ms (CUDA events)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.flags import PERF
+    from repro_torch.models import moe
+    t0 = time.time()
+    cfg = get_config(GRANITE)
+    b, t = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    d, e, f = cfg.d_model, cfg.padded_experts, cfg.moe_d_ff
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def randn(*shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    params = {"router": randn(d, e, scale=d ** -0.5, dtype=torch.float32),
+              "w_gate": randn(e, d, f, scale=d ** -0.5), "w_up": randn(e, d, f, scale=d ** -0.5),
+              "w_down": randn(e, f, d, scale=f ** -0.5)}
+    x, cot = randn(b, t, d, scale=1.0), randn(b, t, d, scale=1.0)
+    names = ["x", *params]
+
+    def grads_of(out, aux, leaves):
+        return torch.autograd.grad((out.float() * cot.float()).sum() + 0.01 * aux, leaves)
+
+    leaves = [x.clone().requires_grad_(), *(v.clone().requires_grad_() for v in params.values())]
+    whole = dict(zip(params, leaves[1:]))
+    torch.cuda.synchronize()
+    t_one = time.time()
+    out, aux = moe.moe_apply(whole, leaves[0], cfg)
+    want = grads_of(out, aux, leaves)
+    torch.cuda.synchronize()
+    t_one = (time.time() - t_one) * 1e3
+    cap = moe.capacity(t, cfg, tight=PERF.moe_flat_dispatch)
+    ref = moe.route(params["router"], x, cfg, cap)
+
+    leaves = [x.clone().requires_grad_(), *(v.clone().requires_grad_() for v in params.values())]
+    xs, p = leaves[0], dict(zip(params, leaves[1:]))
+    n, el = t // EP_RANKS, e // EP_RANKS
+    torch.cuda.synchronize()
+    t_ep = time.time()
+    tops = [moe.gate_top_k(p["router"], xs[:, r * n:(r + 1) * n], cfg) for r in range(EP_RANKS)]
+    counts = torch.stack([moe.expert_counts(topi, e) for _, topi, _ in tops])  # the all-gather
+    routes = [moe.positions(*tops[r], cap, moe.queue_offsets(counts, r)) for r in range(EP_RANKS)]
+    bufs = [moe.gather_slots(xs[:, r * n:(r + 1) * n], routes[r]) for r in range(EP_RANKS)]
+    summed = bufs[0][0]
+    for xe, _ in bufs[1:]:
+        summed = summed + xe                                   # the reduce-scatter's sum
+    ye = torch.cat([moe.expert_glu({k: p[k][r * el:(r + 1) * el]
+                                    for k in ("w_gate", "w_up", "w_down")},
+                                   summed[r * el:(r + 1) * el], cfg.act)
+                    for r in range(EP_RANKS)])                  # the all-gather
+    out_ep = torch.cat([moe.combine_slots(routes[r], ye, bufs[r][1]) for r in range(EP_RANKS)], 1)
+    sums = moe.aux_sums(routes[0], 0, n)
+    for r in range(1, EP_RANKS):
+        sums = sums + moe.aux_sums(routes[r], 0, n)            # sum_over_tokens' all-reduce
+    aux_ep = moe.aux_from_sums(sums, b * t)
+    got = grads_of(out_ep, aux_ep, leaves)
+    torch.cuda.synchronize()
+    t_ep = (time.time() - t_ep) * 1e3
+    for r, rr in enumerate(routes):
+        for field in ("topi", "pos", "keep"):
+            if not torch.equal(getattr(rr, field), getattr(ref, field)[:, r * n:(r + 1) * n]):
+                raise AssertionError(f"(ao') rank {r}: {field} differs from the unsharded "
+                                     "routing's rows")
+    ratios = {}
+    for name, a, w in (("out", out_ep, out), *zip(names, got, want)):
+        a, w = a.detach().float(), w.detach().float()
+        ratios[name] = float((a - w).abs().max()) / (EP_LAYER_TOL * float(w.abs().max()))
+    aux, aux_ep = float(aux.detach()), float(aux_ep.detach())
+    ratios["aux"] = abs(aux_ep - aux) / (EP_LAYER_TOL * abs(aux))
+    worst = max(ratios, key=ratios.get)
+    if not ratios[worst] <= 1.0:
+        raise AssertionError(f"(ao') {worst} reaches {ratios[worst]:.3g}x 2^-7 of its largest "
+                             "magnitude against the unsharded layer")
+    dropped = 1.0 - float(ref.keep.float().mean())
+    per_rank = [1.0 - float(rr.keep.float().mean()) for rr in routes]
+    print(f"(ao') {GRANITE} MoE layer, bf16, {b} x {t} tokens as {EP_RANKS} ep ranks on one "
+          f"card: topi, pos and keep of every rank equal to the unsharded routing's rows; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+          + f" of 2^-7 of their largest magnitudes; capacity {cap}, dropped (token, choice) "
+          f"pairs {dropped:.4f} (by rank {', '.join(f'{x:.4f}' for x in per_rank)}); "
+          f"aux {aux:.6f} / {aux_ep:.6f}; forward + backward unsharded "
+          f"{t_one:.1f} ms, emulated ranks {t_ep:.1f} ms (first calls); {time.time() - t0:.1f} s",
+          flush=True)
+    del out, want, got, bufs, summed, ye, out_ep
+    torch.cuda.empty_cache()
+    return dict(ratios=ratios, dropped=dropped, dropped_by_rank=per_rank)
 
 
 def train_gradients(cfg, params, batch, plain: bool):
@@ -5200,9 +5333,11 @@ def main() -> int:
     recs += check_long_kernels(dev, cfg)
     # B3-bwd at the training shapes (run (ae)), counted on the training run (ag)
     recs.append(check_b3_bwd(dev))
-    # B3 and B3-bwd at a context-parallel rank's query offset (run (an))
+    # B3 and B3-bwd at a context-parallel rank's query offset (runs (an),
+    # (ao)); granite's full-width MoE layer as 4 ep ranks run it (run (ao'))
     cp_recs, cp_launches = check_cp_shards(dev)
     recs += cp_recs
+    check_ep_layer(dev)
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:
@@ -5271,7 +5406,7 @@ def main() -> int:
     # the tiered pool: fp16 and int4 pools, each unsharded and block-sharded
     # (tokens must agree), then int4 with the host tier on a small pool
     runs = {"int8": launches, "int8 eager": launches_e, "int8 sharded": launches_sh,
-            "contiguous": launches_c, "an": cp_launches}
+            "contiguous": launches_c, **cp_launches}
     clean = {}
     for mode in ("fp16", "int4"):
         runs[mode], summary_m, tokens_m, clean[mode] = serve_main_path(dev, kv_pool_dtype=mode)

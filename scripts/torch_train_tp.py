@@ -4,6 +4,8 @@ the collectives of a step with their bytes.
 
     torchrun --standalone --nproc_per_node 4 scripts/torch_train_tp.py \\
         --arch qwen3-8b --mesh 1x4 --seq 4096 --batch 4 --steps 4
+    torchrun --standalone --nproc_per_node 4 scripts/torch_train_tp.py \\
+        --arch granite-moe-3b-a800m --mesh 2x2 --steps 5 [--moe-strategy tp]
 
 One process a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` from torchrun):
 ``nccl`` on ``cuda:LOCAL_RANK``, or ``gloo`` with ``--device cpu`` (with
@@ -11,8 +13,13 @@ One process a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` from torchrun):
 weights from ``--seed`` (the whole tree made on every rank, then cut to its
 blocks, as `runtime.trainer.Trainer` does), `runtime.data.make_batch`'s
 synthetic batches, `runtime.steps.make_train_step` under a
-`runtime.steps.MeshPlan` of the mesh; no checkpoints. Rank 0 prints one line
-a step and a JSON summary, which it also writes to ``--out``.
+`runtime.steps.MeshPlan` of the mesh; no checkpoints. An MoE config trains
+under its ``moe_strategy`` (``--moe-strategy`` replaces it: ``ep``, experts
+over "model", or ``tp``, their d_ff), and each step also reports the share
+of (token, choice) pairs that the expert capacity dropped over every rank's
+routings (`models.moe.positions`; the checkpointed recomputation's count
+twice, which leaves the share as it is). Rank 0 prints one line a step and
+a JSON summary, which it also writes to ``--out``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,23 @@ def gpu_line() -> str:
     return " | ".join(out.stdout.strip().splitlines())
 
 
+def _count_moe_pairs(device) -> torch.Tensor:
+    """Route `models.moe.positions` through a counter: (kept pairs, pairs)
+    as a float64 tensor on ``device`` that each routing adds to."""
+    from repro_torch.models import moe
+    acc = torch.zeros(2, dtype=torch.float64, device=device)
+    real = moe.positions
+
+    def counting(*args, **kw):
+        r = real(*args, **kw)
+        acc[0] += r.keep.sum()
+        acc[1] += r.keep.numel()
+        return r
+
+    moe.positions = counting
+    return acc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-8b", choices=ARCH_NAMES)
@@ -59,6 +83,8 @@ def main() -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true", help="the reduced config (a rehearsal)")
+    ap.add_argument("--moe-strategy", choices=("ep", "tp"), default=None,
+                    help="an MoE config's layout over the model axis (default: the config's)")
     ap.add_argument("--out", default="chiprun_out/torch_train_tp.json")
     args = ap.parse_args()
 
@@ -79,6 +105,9 @@ def main() -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    if args.moe_strategy:
+        cfg = dataclasses.replace(cfg, moe_strategy=args.moe_strategy)
+    pairs = _count_moe_pairs(device) if cfg.moe else None
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps)
     step = make_train_step(cfg, MeshPlan.for_mesh(mesh), opt_cfg, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -95,6 +124,8 @@ def main() -> int:
         batch = to_device(step.local_batch(make_batch(cfg, tshape, args.seed, s)), device)
         COLLECTIVES.clear()
         TRACE.reset()
+        if pairs is not None:
+            pairs.zero_()
         sync()
         t = time.time()
         params, opt, m = step(params, opt, batch)
@@ -102,6 +133,9 @@ def main() -> int:
         ms = (time.time() - t) * 1e3
         per_step, wire = dict(COLLECTIVES), TRACE.summary()
         steps.append(dict(step=s, ms=ms, **{k: float(v) for k, v in m.items()}))
+        if pairs is not None:
+            dist.all_reduce(pairs)
+            steps[-1]["dropped_pairs_share"] = float(1.0 - pairs[0] / pairs[1])
         if rank == 0:
             print(f"step {s}: loss {steps[-1]['loss']:.4f} grad_norm "
                   f"{steps[-1]['grad_norm']:.4f} {ms:.1f} ms", flush=True)
@@ -113,6 +147,7 @@ def main() -> int:
         tokens = args.seq * args.batch
         later = sorted(x["ms"] for x in steps[1:]) or [steps[0]["ms"]]
         out = dict(arch=cfg.name, mesh=mesh.shape, seq=args.seq, global_batch=args.batch,
+                   moe_strategy=cfg.moe_strategy if cfg.moe else None,
                    device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                            else "cpu"),
                    gpus=gpu_line() if device.type == "cuda" else None, init_s=init_s,

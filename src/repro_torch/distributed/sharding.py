@@ -49,6 +49,13 @@ calls them. A replicated activation's gradient is held as each model
 rank's part of it (its rows, heads or vocab columns), so a leaf that the
 spec replicates over "model" ends the backward with its part of the
 gradient and the step sums it over the model group once.
+
+The MoE layouts (`models.moe`) add the expert-parallel exchanges over
+"model" (`scatter_to_experts`, a reduce-scatter over the expert dim whose
+backward is an all-gather, and `gather_from_experts`, its conjugate) and
+the load-balancing loss's sums over the global batch (`sum_over_tokens`:
+an all-reduce over every rank whose backward sums over the data ranks
+only).
 """
 
 from __future__ import annotations
@@ -183,8 +190,8 @@ def local_block_range(num_blocks: int, ctx: DecodeCtx) -> tuple[int, int]:
 # Training: meshes and specs
 # ---------------------------------------------------------------------------
 
-MODEL_AXIS_ITEM = ("ROADMAP A item 1's next slices: the model axis in training for the MoE, "
-                   "SSD, RG-LRU and enc-dec families")
+MODEL_AXIS_ITEM = ("ROADMAP A item 1's next slices: the model axis in training for the SSD, "
+                   "RG-LRU and enc-dec families")
 
 
 class P(tuple):
@@ -628,33 +635,33 @@ def sequence_split(t: int) -> bool:
     return model_part(t)[1] > 1
 
 
-class _GatherFromSequence(torch.autograd.Function):
-    """Sequence shards (dim 1) → the whole sequence on every model rank;
-    the backward reduce-scatters each rank's part of the gradient."""
+class _AllGatherDim(torch.autograd.Function):
+    """The parts of a tensor split along ``dim`` over the group → the whole
+    on every rank; the backward reduce-scatters each rank's part of the
+    gradient."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather_dim(x, 1, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return reduce_scatter_dim(g, 1, ctx.group), None
-
-
-class _ReduceScatterToSequence(torch.autograd.Function):
-    """Each model rank's partial sum over the whole sequence → the sum, this
-    rank's sequence shard (dim 1); the backward all-gathers the shards'
-    gradients."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return reduce_scatter_dim(x, 1, group)
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather_dim(g, 1, ctx.group), None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    """Each rank's partial sum → the sum, this rank's part along ``dim``;
+    the backward all-gathers the parts' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -680,7 +687,7 @@ def gather_from_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
     group = model_group() if split else None
     if group is None:
         return x
-    return _GatherFromSequence.apply(x, group)
+    return _AllGatherDim.apply(x, 1, group)
 
 
 def reduce_scatter_to_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
@@ -692,7 +699,76 @@ def reduce_scatter_to_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
     group = model_group()
     if group is None:
         return x
-    return (_ReduceScatterToSequence if split else _SumOverModel).apply(x, group)
+    if split:
+        return _ReduceScatterDim.apply(x, 1, group)
+    return _SumOverModel.apply(x, group)
+
+
+def data_size() -> int:
+    """The ambient mesh's data axes' rank count (1 without an ambient context)."""
+    ctx = current_ctx()
+    return 1 if ctx is None else _axis_size(ctx.mesh, ctx.dp)
+
+
+def data_group() -> DecodeCtx | None:
+    """The ambient mesh's group over its data axes when they hold more than
+    one rank; None otherwise."""
+    if data_size() == 1:
+        return None
+    ctx = current_ctx()
+    return ctx.mesh.group(ctx.dp)
+
+
+def scatter_to_experts(x: torch.Tensor) -> torch.Tensor:
+    """The MoE dispatch under expert parallelism: every model rank's buffer
+    (E, ...) of all experts' slots, holding only the slots of its own tokens
+    (zero elsewhere), → this rank's E/M experts' slots summed over the ranks
+    (a reduce-scatter over dim 0; exact: each slot has one writer). The
+    backward all-gathers the experts' gradients."""
+    return _ReduceScatterDim.apply(x, 0, model_group())
+
+
+def gather_from_experts(x: torch.Tensor) -> torch.Tensor:
+    """The MoE return under expert parallelism: this rank's experts' outputs
+    (E/M, ...) → every expert's on every model rank (an all-gather over dim
+    0). The backward reduce-scatters the ranks' gradients to the experts'
+    owners."""
+    return _AllGatherDim.apply(x, 0, model_group())
+
+
+class _SumOverTokens(torch.autograd.Function):
+    """Each rank's sums over the tokens it holds → their sum over the mesh
+    (one all-reduce over every rank). The loss holds the result on every
+    rank and the step averages the data ranks' gradients, so the backward
+    sums the data ranks' cotangents; a model rank keeps its own (the step
+    sums a model-replicated leaf's gradient once)."""
+
+    @staticmethod
+    def forward(ctx, x, world, data):
+        ctx.data = data
+        return psum(x.contiguous().clone(), world)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.data is None:
+            return g, None, None
+        return psum(g.contiguous().clone(), ctx.data), None, None
+
+
+def sum_over_tokens(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the global batch of per-rank sums over disjoint token
+    sets (the rows over the data axes; over "model", each rank's sequence
+    shard or share of rows): `_SumOverTokens` on the ambient mesh, the
+    identity on one rank. The MoE load-balancing loss's means (the
+    reference's are over the global batch: a per-rank loss is not its
+    share)."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh.ctx.world_size == 1:
+        return x
+    if data_size() * model_size() != ctx.mesh.ctx.world_size:
+        raise NotImplementedError(f"{ctx.mesh!r}: a token sum over data {ctx.dp} and "
+                                  f"{ctx.tp!r} that do not span the mesh")
+    return _SumOverTokens.apply(x, ctx.mesh.ctx, data_group())
 
 
 def _check_batch(x: torch.Tensor, dims) -> None:

@@ -58,7 +58,7 @@ from repro_torch.distributed.sharding import DecodeCtx, local_block_range
 from repro_torch.models import rglru, ssm
 from repro_torch.models.attention import (
     attention_train, fold_heads, prefill_attention, qkv_project)
-from repro_torch.models.common import glu_apply, parallel_glu, rmsnorm
+from repro_torch.models.common import parallel_glu, rmsnorm
 from repro_torch.models.moe import moe_apply
 
 RECURRENT = (ssm.SSMState, rglru.RGLRUState)
@@ -128,14 +128,17 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool = Fal
     """A layer's FFN on x (..., D) of 2 or 3 dims → (out, aux): the dense
     GLU (aux 0.0, no tensor made), or the MoE branch (a (S, D) decode input
     routes as (S, 1, D); aux an f32 scalar) plus arctic's dense residual GLU
-    (the reference's `ffn_apply`)."""
+    (the reference's `ffn_apply`). In training on a mesh x is in the
+    residual's layout (``split``): the MoE takes its layouts over the mesh
+    (`models.moe`) and the dense residual is `parallel_glu` (the
+    ``(glu|dense)`` rules split its d_ff over "model")."""
     if not cfg.moe:
         return parallel_glu(params["glu"], x, cfg, split), 0.0
     squeeze = x.dim() == 2
     x3 = x[:, None] if squeeze else x
-    out, aux = moe_apply(params["moe"], x3, cfg)
+    out, aux = moe_apply(params["moe"], x3, cfg, split)
     if cfg.dense_residual:
-        out = out + glu_apply(params["dense"], x3, cfg.act)
+        out = out + parallel_glu(params["dense"], x3, cfg, split)
     return (out[:, 0] if squeeze else out), aux
 
 

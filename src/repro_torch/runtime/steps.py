@@ -315,11 +315,12 @@ def make_train_step(cfg, plan: MeshPlan | None = None, opt_cfg=None, device="cud
 
 def model_axis_refusal(cfg, m: int) -> str | None:
     """Why ``cfg`` cannot train on a model axis of ``m`` > 1 (None: it
-    can): the families outside the dense layout, and dims the layers need
-    split that the axis does not divide."""
+    can): the families outside the dense and MoE layouts, and dims the
+    layers need split that the axis does not divide (experts that do not
+    split stay whole on every rank: `models.moe`)."""
     from repro_torch.distributed.sharding import MODEL_AXIS_ITEM
     kinds = set(cfg.block_kinds()) if not cfg.encdec else set()
-    family = ("MoE" if cfg.moe else "SSD" if "S" in kinds else "RG-LRU" if "R" in kinds
+    family = ("SSD" if "S" in kinds else "RG-LRU" if "R" in kinds
               else "enc-dec" if cfg.encdec else None)
     if family is not None:
         return f"the {family} family: {MODEL_AXIS_ITEM} is not ported"
@@ -384,12 +385,12 @@ class ShardedTrainStep:
       coordinate 0 of that axis), then summed leaf by leaf in the tree's
       order: at one rank the bits of `optimizer.global_norm`.
 
-    A model axis above 1 raises for the families outside this layout (MoE,
-    SSD, RG-LRU, enc-dec: `sharding.MODEL_AXIS_ITEM`) and where the heads
-    (tp) or the padded vocab do not split over it; so does an MoE config
-    over more than one data rank: the reference computes the load-balancing
-    loss over the global batch (a product of two means), which a per-rank
-    loss does not give (ROADMAP A)."""
+    The MoE family trains on any such mesh: its layers take the reference's
+    ``ep`` or expert-TP layouts over "model" and its load-balancing loss
+    over the global batch (`models.moe`). A model axis above 1 raises for
+    the families outside these layouts (SSD, RG-LRU, enc-dec:
+    `sharding.MODEL_AXIS_ITEM`) and where the heads (tp) or the padded vocab
+    do not split over it."""
 
     def __init__(self, cfg, plan: MeshPlan, opt_cfg):
         from repro_torch.distributed.sharding import (
@@ -413,10 +414,6 @@ class ShardedTrainStep:
             if why is not None:
                 raise NotImplementedError(f"{cfg.name}: a {plan.tp!r} axis of {self.m} in "
                                           f"training: {why}")
-        if cfg.moe and self.n > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE training over {self.n} data ranks; the reference's "
-                "load-balancing loss is over the global batch (ROADMAP A: MoE under data > 1)")
         dp_entry = plan.dp[0] if len(plan.dp) == 1 else tuple(plan.dp)
         self.pshape = init_lm_params(cfg, None, "meta")
         self.pspec = param_specs(self.sctx, self.pshape)

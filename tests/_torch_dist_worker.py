@@ -52,8 +52,10 @@ Tasks:
           built in one order on every rank; per mesh its step cases (the
           sharded train step from whole weights: the step-0 gradient of
           every leaf, gathered whole, each step's metrics, this rank's blocks,
-          the whole parameters gathered back, the collectives of a step; or
-          the error its construction raised), its layer cases (`tp_layers`)
+          the whole parameters gathered back, the collectives of a step, with
+          ``record_aux`` the MoE layers' load-balancing losses at step 0; or
+          the error its construction raised), its layer cases (`tp_layers`:
+          the dense layers, and the MoE branch with its routing integers)
           and its `Trainer` runs (as in ``train_fsdp``);
   compressed  `compressed_psum` on this rank's gradients and errors (the
           means, the new errors, each leaf's codes and scale), and the
@@ -453,6 +455,32 @@ def train_fsdp(inp, ctx):
     return out
 
 
+class _recorded_aux:
+    """With ``on``, a list of every MoE load-balancing loss that
+    `models.moe.aux_from_sums` forms inside the block (each layer's in the
+    forward, then again in its checkpointed recomputation)."""
+
+    def __init__(self, on):
+        self.on, self.seen = on, []
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import moe
+            self.real = moe.aux_from_sums
+
+            def recording(*args):
+                self.seen.append(self.real(*args))
+                return self.seen[-1]
+            moe.aux_from_sums = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        if self.on:
+            from repro_torch.models import moe
+            moe.aux_from_sums = self.real
+        self.seen[:] = [a.detach() for a in self.seen]
+
+
 def _step_case(case, plan):
     from repro_torch.analysis.collectives import TRACE
     from repro_torch.distributed.sharding import COLLECTIVES, gather, local_shape
@@ -475,7 +503,8 @@ def _step_case(case, plan):
     TRACE.reset()
     for batch in batches:
         if grads is None:       # step 0 as `step` runs it, its gradients kept
-            grads, loss, gnorm = step.gradients(params, batch)
+            with _recorded_aux(case.get("record_aux")) as aux:
+                grads, loss, gnorm = step.gradients(params, batch)
             params, opt, m = adamw_update(tree_map(lambda t: t.detach(), params), grads, opt,
                                           step.opt_cfg, gnorm=gnorm)
             m = {"loss": loss, **m}
@@ -485,7 +514,7 @@ def _step_case(case, plan):
     per_step = {k: v // len(batches) for k, v in COLLECTIVES.items()}
     wire = TRACE.summary()
     grads = {path: gather(g, specs[path], mesh) for path, g in leaves(grads)}
-    return dict(metrics=metrics, grads=grads, collectives=per_step, trace=wire,
+    return dict(metrics=metrics, grads=grads, collectives=per_step, trace=wire, aux=aux,
                 local=dict(leaves(params)), specs=specs, coords=mesh.coords,
                 want_shapes={path: local_shape(mesh, sp, shape)
                              for path, (shape, sp, _) in step.layout.items()},
@@ -504,13 +533,35 @@ def _nest(flat: dict, prefix: str) -> dict:
     return out
 
 
+def _ffn_routed(p, x, cfg, split):
+    """`blocks.ffn_apply` on x, and the (topi, pos, keep) of the routing it
+    made (`models.moe.positions` recorded for the call)."""
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import ffn_apply
+    seen, real = [], moe.positions
+
+    def recording(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    moe.positions = recording
+    try:
+        y, aux = ffn_apply(p, x, cfg, split)
+    finally:
+        moe.positions = real
+    return y, aux, {f: getattr(seen[0], f) for f in ("topi", "pos", "keep")}
+
+
 def tp_layers(cases, mesh):
     """Each layer case on ``mesh``: the layer on this rank's blocks of the
     case's whole parameters (the reference's specs) and its rows of the
     input under the ambient `ShardingCtx`, then the output and the
     gradients made whole: the rows gathered where the sequence is split, a
     block's gradient gathered, a leaf replicated over "model" (and an input
-    whose sequence is whole) summed over the model group."""
+    whose sequence is whole) summed over the model group. An FFN case (the
+    MoE branch, `blocks.ffn_apply`) adds ``aux_w`` times its load-balancing
+    loss to the seed on every rank, as the step's loss holds it, and keeps
+    the loss and this rank's routing integers."""
     from repro_torch.distributed.sharding import (
         ShardingCtx, activation_sharding, all_gather_dim, gather, param_specs, psum,
         sequence_split, shard)
@@ -522,7 +573,9 @@ def tp_layers(cases, mesh):
     for name, case in cases.items():
         cfg = _cfg(case["arch"], **case.get("over", {}))
         sctx = ShardingCtx(mesh=mesh, dp=("data",),
-                           strategy=case.get("strategy", cfg.attn_strategy))
+                           strategy=case.get("strategy", cfg.attn_strategy),
+                           moe_strategy=cfg.moe_strategy)
+        extra = {}
         whole = case["params"]
         specs = param_specs(sctx, {p: tuple(t.shape) for p, t in whole.items()})
         local = {p: shard(t, specs[p], mesh).requires_grad_() for p, t in whole.items()}
@@ -545,6 +598,9 @@ def tp_layers(cases, mesh):
                 p = _nest(local, case["prefix"])
                 if case["kind"] == "glu":
                     y = parallel_glu(p, xl, cfg, split)
+                elif case["kind"] == "ffn":
+                    y, aux, routing = _ffn_routed(p, xl, cfg, split)
+                    extra = dict(aux=aux.detach(), routing=routing)
                 else:
                     y = attention_train(p, xl, cfg, window=case.get("window", 0), split=split)
                 # a replicated activation's gradient is held as each model rank's part
@@ -552,9 +608,11 @@ def tp_layers(cases, mesh):
                 # evenly over the ranks (M a power of two: exact)
                 cot = case["cot"][:, rows] if split else case["cot"] / model.world_size
                 seed, targets = (y * cot).sum(), list(local.values()) + [xl]
+                if extra:
+                    seed = seed + case["aux_w"] * aux
             # a rank that holds no image rows does not use the projector
             grads = torch.autograd.grad(seed, targets, allow_unused=True, materialize_grads=True)
-        res = dict(split=split, grads={})
+        res = dict(split=split, grads={}, **extra)
         for (path, _), g in zip(local.items(), grads):
             res["grads"][path] = (gather(g, specs[path], mesh) if "model" in specs[path]
                                   else psum(g.contiguous(), model))

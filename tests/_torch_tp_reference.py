@@ -1,6 +1,7 @@
 """The reference's jitted `make_train_step` on data × model meshes of forced
-host devices, for tests/test_torch_tp_train.py (a subprocess: the device
-count is fixed when jax starts).
+host devices, for tests/test_torch_tp_train.py (the dense families) and
+tests/test_torch_moe_train.py (granite-moe-3b-a800m on (1, 4) and (2, 2))
+(a subprocess: the device count is fixed when jax starts).
 
     python tests/_torch_tp_reference.py <out.npz> <arch>:<data>x<model> ...
 

@@ -1585,8 +1585,11 @@ def test_b3_bwd_kernel_matches_plain(dev, dtype, hd, h, kv, t, s_len, causal, wi
     (torch.bfloat16, 256, 4, 2, 200, 333, 0, 100),
     (torch.float32, 128, 8, 4, 100, 250, 0, 0),
     (torch.float32, 64, 4, 2, 65, 130, 30, 40),
+    # granite-moe-3b-a800m's cp shard: G 3 (the G 4 layout with an idle row)
+    # at HD 64, a second shard of 1,024 rows
+    (torch.bfloat16, 64, 6, 2, 1024, 1024, 0, 0),
 ], ids=["cp_shard", "cp_window", "cp_window_past", "offset1_extra_keys", "hd256_window",
-        "f32", "f32_window_extra_keys"])
+        "f32", "f32_window_extra_keys", "granite_cp_g3_hd64"])
 def test_b3_and_b3_bwd_at_q_offset_match_plain(dev, dtype, hd, h, kv, tq, q_offset, extra,
                                                 window):
     """B3's LSE form and B3-bwd at a query offset against their plain

@@ -15,8 +15,9 @@ package on the CPU.
   `MeshPlan.decode_axes` and `batch_specs` against the reference's.
 * Placement: `Mesh` coordinates in jax's row-major device order,
   `local_block` / `shard` / `gather` at one rank; the ``constrain*`` hints.
-* The refusals: a model axis above 1 (naming its ROADMAP item) and an MoE
-  config over two data ranks.
+* The model axis: the dense and MoE families build their steps on it (the
+  MoE experts or their d_ff over "model"), MoE builds over two data ranks,
+  and the SSD family refuses it, naming its ROADMAP item.
 * The sharded step and `Trainer(plan=...)` on a (1, 1) mesh over the
   in-process gloo world of one: losses, gradient norms and parameters bit
   for bit with the one-device step and trainer, and a checkpoint restored
@@ -235,19 +236,28 @@ def test_mesh_coords_blocks_and_constrain():
 
 
 def test_train_step_refuses_model_axis_and_moe_over_data():
-    """The dense families take a model axis (heads, d_ff and vocab split over
-    it); MoE refuses it, naming the ROADMAP item that carries it, and
-    refuses more than one data rank."""
+    """The dense and MoE families take a model axis (heads, d_ff and vocab
+    split over it; the experts under ``ep``, their d_ff under expert-TP)
+    and MoE takes more than one data rank, both of which it refused until
+    its layouts were ported; the SSD family still refuses a model axis,
+    naming the ROADMAP item that carries it."""
     _, tcfg = f32_configs()
     tp = MeshPlan.for_mesh(Mesh({"data": 1, "model": 2}, DecodeCtx(None, 0, 2, "gloo")))
     step = make_train_step(tcfg, tp, device="cpu")
     assert step.model_dim["layers/0/attn/wq"] == 1 and step.model_dim["embed/tok"] == 0
     moe = dataclasses.replace(tget_config("granite-moe-3b-a800m").reduced(), dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 1's next slices"):
-        make_train_step(moe, tp, device="cpu")
+    step = make_train_step(moe, tp, device="cpu")
+    assert step.model_dim["layers/0/ffn/moe/w_gate"] == 0
+    assert step.model_dim["layers/0/ffn/moe/router"] is None
+    step = make_train_step(dataclasses.replace(moe, moe_strategy="tp"), tp, device="cpu")
+    assert step.model_dim["layers/0/ffn/moe/w_gate"] == 2
+    assert step.model_dim["layers/0/ffn/moe/w_down"] == 1
     dp2 = MeshPlan.for_mesh(Mesh({"data": 2, "model": 1}, DecodeCtx(None, 1, 2, "gloo")))
-    with pytest.raises(NotImplementedError, match="MoE under data > 1"):
-        make_train_step(moe, dp2, device="cpu")
+    step = make_train_step(moe, dp2, device="cpu")
+    assert step.layout["layers/0/ffn/moe/w_gate"][2] == 1       # d_model over the data axis
+    ssd = dataclasses.replace(tget_config("mamba2-2.7b").reduced(), dtype="float32")
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 1's next slices"):
+        make_train_step(ssd, tp, device="cpu")
 
 
 # --------------------------------------------------------------------------

@@ -12,8 +12,10 @@ each size), against the port's one-device step and the reference's jitted
   leaves carry the same bits on every rank; the collectives per step are
   one all-gather and one reduce-scatter per sharded leaf and one all-reduce
   per replicated leaf, plus the loss's and the norm's.
-* granite-moe-3b-a800m.reduced() at 2 ranks raises (the reference's
-  load-balancing loss is over the global batch; ROADMAP A).
+* granite-moe-3b-a800m.reduced() on 2 ranks (which raised until the MoE
+  load-balancing loss was taken over the global batch): losses and
+  gradient norms within `METRIC_RTOL`, and parameters within `PARAM_ATOL`,
+  of the one-device step's on the global batch.
 * Checkpoints: a 4-rank `Trainer(plan=...)` resumed from its own checkpoint
   continues bit for bit with the uninterrupted run; its step-6 checkpoint
   restored on 2 ranks gives each rank exactly its block of the stored
@@ -45,11 +47,11 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed.sharding import DecodeCtx, Mesh, local_block, local_shape
 from repro_torch.runtime import AdamWConfig, Trainer, TrainerConfig
-from repro_torch.runtime.data import to_device
+from repro_torch.runtime.data import make_batch, to_device
 from repro_torch.runtime.optimizer import init_opt_state
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.tree import leaves
-from repro_torch.weights import params_from_numpy
+from repro_torch.weights import init_lm_params, params_from_numpy
 
 OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 SHAPE = dict(name="t", seq_len=64, global_batch=4, kind="train")
@@ -96,9 +98,25 @@ def _case(arch):
                 one_params=dict(leaves(p)), ref=ref, ref_params=dict(leaves(ref_p)))
 
 
+def _one_device_case(arch):
+    """Weights from the port's init (seed 0), the global batches, and the
+    port's one-device step's metrics and final parameters."""
+    _, tcfg = _cfgs(arch)
+    weights = init_lm_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    batches = [make_batch(tcfg, ShapeConfig(**SHAPE), 1, s) for s in range(STEPS)]
+    step = make_train_step(tcfg, None, AdamWConfig(**OPT), "cpu")
+    p, o, one = weights, init_opt_state(weights, AdamWConfig(**OPT)), []
+    for b in batches:
+        p, o, m = step(p, o, to_device(b, "cpu"))
+        one.append({k: float(v) for k, v in m.items()})
+    return dict(weights=weights, batches=batches, one=one, one_params=dict(leaves(p)))
+
+
 @pytest.fixture(scope="module")
 def cases():
-    return {arch: _case(arch) for arch in ("qwen3-0.6b", "mamba2-2.7b")}
+    out = {arch: _case(arch) for arch in ("qwen3-0.6b", "mamba2-2.7b")}
+    out["granite-moe-3b-a800m"] = _one_device_case("granite-moe-3b-a800m")
+    return out
 
 
 def _steps_input(cases, archs):
@@ -123,8 +141,7 @@ def worlds(cases, tmp_path_factory):
                                     "trainers": {"q": dict(trainer, runs=runs4)}},
                      4, base / "w4")
     shutil.copytree(base / "c", base / "r")
-    steps2 = _steps_input(cases, ["qwen3-0.6b", "mamba2-2.7b"])
-    steps2["granite"] = dict(arch="granite-moe-3b-a800m", opt=OPT, weights=None, batches=[])
+    steps2 = _steps_input(cases, ["qwen3-0.6b", "mamba2-2.7b", "granite-moe-3b-a800m"])
     (base / "w2").mkdir()
     w2 = spawn_ranks("train_fsdp", {"steps": steps2, "trainers": {"q": dict(
         trainer, runs=[dict(steps=8, ckpt_every=2, dir=str(base / "r"),
@@ -184,9 +201,21 @@ def test_fsdp_mamba2_two_ranks(cases, worlds):
     assert worlds[2][0]["mamba2-2.7b"]["metrics"] == worlds[2][1]["mamba2-2.7b"]["metrics"]
 
 
-def test_fsdp_moe_over_two_ranks_raises(worlds):
-    for r in worlds[2]:
-        assert "MoE under data > 1" in r["granite"]["raised"]
+def test_fsdp_moe_over_two_ranks_raises(cases, worlds):
+    """MoE over two data ranks, which raised until its load-balancing loss
+    was taken over the global batch, trains: the same metrics on both
+    ranks, within `METRIC_RTOL` of the one-device step's, its parameters
+    within `PARAM_ATOL`."""
+    case, res = cases["granite-moe-3b-a800m"], [r["granite-moe-3b-a800m"] for r in worlds[2]]
+    assert "raised" not in res[0], res[0].get("raised")
+    assert res[0]["metrics"] == res[1]["metrics"]
+    for s in range(STEPS):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(res[0]["metrics"][s][k], case["one"][s][k],
+                                       rtol=METRIC_RTOL, err_msg=f"step {s} {k}")
+    for path, whole in res[0]["whole"].items():
+        np.testing.assert_allclose(whole.numpy(), case["one_params"][path].numpy(), rtol=0,
+                                   atol=PARAM_ATOL, err_msg=path)
 
 
 def test_fsdp_trainer_resumes_bitwise_on_four_ranks(worlds):
