@@ -295,7 +295,21 @@ passed by hand (`check_ep_layer`): every rank's ``topi``, ``pos`` and
 ``keep`` equal to the unsharded routing's rows, the output, the
 load-balancing loss and every gradient within EP_LAYER_TOL of the
 unsharded `moe_apply`'s; it prints the share of dropped (token, choice)
-pairs.
+pairs. (aq) holds recurrentgemma-2b's "L" training attention (4 × 10 H over
+1 KV: G 10, HD 256, T 4096, under its window of 2048) the same way as (an),
+in the same 4 shards (records ``flash_prefill[q_offset, recurrentgemma]``
+and its B3-bwd twin, counted on (aq)). (ap) runs one full-width SSD layer
+of mamba2-2.7b and one "R" block of recurrentgemma-2b (bf16, random
+weights from a seeded generator, 4 × 4096 tokens) as the 4 ranks of a
+(1, 4) mesh run them (`models.ssm`, `models.rglru`: the sequence gathered,
+each rank's heads or channels, the SSD norm's sum of squares and the
+RG-LRU's gate partials summed over the ranks, the row-parallel partial
+outputs summed), in turn on one card with the collectives' results passed
+by hand (`check_tp_recurrent`): the output and every gradient within
+TP_LAYER_ROUNDINGS × TP_LAYER_TOL (2^-7 once for each rank's rounded
+partial) of each tensor's largest magnitude of the unsharded block's,
+each reading printed in units of 2^-7 beside both sides' distances from
+an f32 truth of the unsharded block.
 
 Last, the tooling's example entry points (``examples/torch_*.py``):
 (ah) ``torch_serve_longcontext --full --paged`` (its `serve`): full-width
@@ -4173,7 +4187,8 @@ def check_b3_bwd(dev) -> dict:
 CP_SHARDS = 4
 CP_CASES = (("phi3-medium-14b", 40, 10, 0, 128, "an", ""),
             ("qwen3-0.6b window", 16, 8, B3_BWD_WINDOW, 128, "an", None),
-            ("granite-moe-3b-a800m", 24, 8, 0, 64, "ao", ", granite"))
+            ("granite-moe-3b-a800m", 24, 8, 0, 64, "ao", ", granite"),
+            ("recurrentgemma-2b", 10, 1, 2048, 256, "aq", ", recurrentgemma"))
 # B3's LSE against its plain version: both f32, the kernel's from bf16
 # products with its row max and exponential sums in another order over the
 # key tiles (exp2 and log2 units), the plain version's torch.logsumexp
@@ -4458,6 +4473,185 @@ def check_ep_layer(dev) -> dict:
     del out, want, got, bufs, summed, ye, out_ep
     torch.cuda.empty_cache()
     return dict(ratios=ratios, dropped=dropped, dropped_by_rank=per_rank)
+
+
+# ---- run (ap): the SSD and RG-LRU blocks at full width as 4 model ranks ----
+# One "S" layer of mamba2-2.7b (d 2560, d_inner 5120: 80 heads of 64, state
+# 128, chunk 256) and one "R" block of recurrentgemma-2b (d 2560, RG-LRU
+# width 2560, d_ff 7680), bf16, random weights from a seeded generator
+# (`weights.init_lm_params` of a one-layer config), on TRAIN_SHAPE's 4 ×
+# 4096 tokens, run as the TP_RANKS ranks of a (1, 4) mesh run them in
+# training, one after another on one card: each rank's blocks of the
+# reference's specs (`param_specs`, `local_block`), its heads
+# (`ssm.head_block`, `ssm.ssd_scan`) or channels, with the tensors that the
+# collectives would return passed by hand (the sequence gathered: the whole
+# normed input; the SSD norm's all-reduce: the ranks' sums of squares
+# summed; the RG-LRU's two gate reduce-scatters: the ranks' partials summed
+# and cut to each rank's channels; the closing reduce-scatters: the ranks'
+# partial outputs summed); the whole differentiated at once
+TP_RANKS = 4
+# bf16 outputs and gradients against the unsharded block's, in units of 2^-7
+# of the tensor's largest magnitude: the unsharded bf16 block itself sits up
+# to 1.58 of them from an f32 truth of the same block on an H100 (dt_bias;
+# w_B 1.37, w_C 1.42), and the layout adds one bf16 rounding a rank where
+# each rank's partial (an output, dx, a replicated leaf's gradient: its
+# heads' or channels' part) rounds before the ranks' sum, as the
+# collectives sum it. So the limit counts 2^-7 once for each of the
+# TP_RANKS rounded partials (as (an)'s dK / dV rule counts each shard's);
+# each reading is printed against 2^-7 too, with both sides' distances from
+# the f32 truth. A missed or doubled sum over the ranks moves a tensor by
+# O(1) of its largest magnitude: 128 units. The CPU tests hold the same
+# layers within 1e-5 in f32
+TP_LAYER_TOL = 2.0 ** -7
+TP_LAYER_ROUNDINGS = TP_RANKS
+
+
+def _tp_rank_blocks(sctx, layer: dict, r: int) -> dict:
+    """Model rank ``r``'s blocks of a layer's leaves (a nested dict) under
+    the reference's specs on a (1, TP_RANKS) mesh."""
+    from repro_torch.distributed.sharding import DecodeCtx, Mesh, local_block, param_specs
+    from repro_torch.runtime.tree import leaves
+    flat = {f"layers/0/{p}": t for p, t in leaves(layer)}
+    specs = param_specs(sctx, {p: tuple(t.shape) for p, t in flat.items()})
+    mesh = Mesh(dict(sctx.mesh.shape), DecodeCtx(None, r, TP_RANKS, "nccl"))
+    out = {}
+    for path, t in flat.items():
+        node = out
+        *keys, last = path.split("/")[2:]
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = t[local_block(mesh, specs[path], t.shape)]
+    return out
+
+
+def _tp_s_block(sctx, layer: dict, x, cfg):
+    """An "S" block as the TP_RANKS ranks compute it (`ssm.ssd_train`'s
+    model-axis branch), the collectives by hand."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.common import rmsnorm
+    di = cfg.ssm_expand * cfg.d_model
+    nh = di // cfg.ssm_head_dim
+    xn = rmsnorm(layer["ln1"], x, cfg.norm_eps)            # the gathered sequence
+    ranks = []
+    for r in range(TP_RANKS):
+        p = _tp_rank_blocks(sctx, layer, r)["ssd"]
+        y, up, _, _ = ssm.ssd_scan(ssm.head_block(p, cfg, r, TP_RANKS), xn, cfg,
+                                   (di // TP_RANKS, nh // TP_RANKS))
+        ranks.append((p, y, up))
+    total = sum(y.float().square().sum(-1, keepdim=True) for _, y, _ in ranks)  # all-reduce
+    out = None
+    for p, y, up in ranks:
+        yn = (y.float() * torch.rsqrt(total / di + cfg.norm_eps)
+              * p["norm"]["scale"].float()).to(y.dtype)
+        part = ssm.gated_out(p, yn, up)[:, :x.shape[1]]
+        out = part if out is None else out + part           # the reduce-scatter's sum
+    return x + out
+
+
+def _tp_r_block(sctx, layer: dict, x, cfg):
+    """An "R" block as the TP_RANKS ranks compute it (`rglru.rglru_train`'s
+    model-axis branch, then `parallel_glu`), the collectives by hand."""
+    import torch.nn.functional as F
+    from repro_torch.models import rglru
+    from repro_torch.models.common import glu_apply, rmsnorm
+    from repro_torch.models.ssm import causal_conv
+    n = (cfg.rnn_width or cfg.d_model) // TP_RANKS
+    xn = rmsnorm(layer["ln1"], x, cfg.norm_eps)
+    blocks = [_tp_rank_blocks(sctx, layer, r) for r in range(TP_RANKS)]
+    xs = [causal_conv(xn @ b["rglru"]["w_x"], b["rglru"]["conv_w"])[0].float() for b in blocks]
+    zr = sum(xf @ b["rglru"]["w_r"] for xf, b in zip(xs, blocks))   # the partials' sums
+    zi = sum(xf @ b["rglru"]["w_i"] for xf, b in zip(xs, blocks))
+    out = None
+    for r, (b, xf) in enumerate(zip(blocks, xs)):
+        p = b["rglru"]
+        a, bb = rglru.gate_terms(p, xf, zr[..., r * n:(r + 1) * n], zi[..., r * n:(r + 1) * n])
+        _, h = rglru.associative_scan(a, bb)
+        y = h.to(x.dtype) * F.gelu(xn @ p["w_gate_out"], approximate="tanh")
+        part = y @ p["w_out"]
+        out = part if out is None else out + part
+    x = x + out
+    x2 = rmsnorm(layer["ln2"], x, cfg.norm_eps)
+    f = None
+    for b in blocks:
+        part = glu_apply(b["ffn"]["glu"], x2, cfg.act)
+        f = part if f is None else f + part
+    return x + f
+
+
+def check_tp_recurrent(dev) -> dict:
+    """Run (ap) (above): per block, the output and the gradients of the
+    input and of every leaf (the loss: the output against a random
+    cotangent) within TP_LAYER_ROUNDINGS × TP_LAYER_TOL of each tensor's
+    largest magnitude of the unsharded `blocks.block_train`'s; prints every
+    reading in units of TP_LAYER_TOL against that limit, the same unsharded
+    block's in f32 (the truth) against both, and each side's ms
+    (CUDA-synchronized wall, first calls)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import DecodeCtx, Mesh, ShardingCtx
+    from repro_torch.models import blocks as B
+    from repro_torch.runtime.tree import leaves, tree_map
+    from repro_torch.weights import init_lm_params
+    t0 = time.time()
+    b, t = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    gen = torch.Generator(device=dev).manual_seed(36)
+    out = {}
+    for arch, kind, emulated in ((MAMBA, "S", _tp_s_block), (RGEMMA, "R", _tp_r_block)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=1)
+        assert cfg.block_kinds() == [kind], cfg.block_kinds()
+        layer = init_lm_params(cfg, gen, dev)["layers"][0]
+        sctx = ShardingCtx(mesh=Mesh({"data": 1, "model": TP_RANKS},
+                                     DecodeCtx(None, 0, TP_RANKS, "nccl")),
+                           dp=("data",), strategy=cfg.attn_strategy)
+        x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        cot = torch.randn((b, t, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        names = ["out", "x"] + [p for p, _ in leaves(layer)]
+        res = {}
+        for side in ("whole", "ranks", "truth"):
+            up = (lambda z: z.float()) if side == "truth" else (lambda z: z)
+            c = dataclasses.replace(cfg, dtype="float32") if side == "truth" else cfg
+            xs = up(x).clone().requires_grad_()
+            flat = [up(t_).clone().requires_grad_() for _, t_ in leaves(layer)]
+            it = iter(flat)
+            lay = tree_map(lambda _: next(it), layer)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            y = emulated(sctx, lay, xs, c) if side == "ranks" else B.block_train(lay, xs, c, kind)[0]
+            grads = torch.autograd.grad((y.float() * cot.float()).sum(), [xs] + flat)
+            torch.cuda.synchronize()
+            res[side] = ([y.detach().float()] + [g.float() for g in grads],
+                         (time.time() - t1) * 1e3)
+            del y, grads, flat, lay, xs
+        ratios, truth = {}, {}
+        for name, a, w, f in zip(names, res["ranks"][0], res["whole"][0], res["truth"][0]):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"(ap) {arch} {kind}: {name} is not finite")
+            unit = TP_LAYER_TOL * float(w.abs().max())
+            ratios[name] = float((a - w).abs().max()) / unit
+            unit_f = TP_LAYER_TOL * float(f.abs().max())
+            truth[name] = (float((w - f).abs().max()) / unit_f, float((a - f).abs().max()) / unit_f)
+        worst = max(ratios, key=ratios.get)
+        if not ratios[worst] <= TP_LAYER_ROUNDINGS:
+            raise AssertionError(f"(ap) {arch} {kind}: {worst} reaches {ratios[worst]:.3g}x 2^-7 "
+                                 f"of its largest magnitude against the unsharded block (limit "
+                                 f"{TP_LAYER_ROUNDINGS})")
+        print(f"(ap) {arch} \"{kind}\" block, bf16, {b} x {t} tokens as {TP_RANKS} model ranks "
+              f"on one card, each tensor against the unsharded block's in units of 2^-7 of its "
+              f"largest magnitude (limit {TP_LAYER_ROUNDINGS}; above 1: "
+              f"{sorted(k for k, v in ratios.items() if v > 1)}): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+              + "; against the f32 truth (unsharded, ranks): "
+              + ", ".join(f"{k} {u:.3g}/{v:.3g}" for k, (u, v) in truth.items())
+              + f"; forward + backward unsharded {res['whole'][1]:.1f} ms, emulated ranks "
+              f"{res['ranks'][1]:.1f} ms (first calls)", flush=True)
+        out[arch] = dict(ratios=ratios, truth=truth)
+        del layer, res
+        torch.cuda.empty_cache()
+    print(f"(ap): {time.time() - t0:.1f} s", flush=True)
+    return out
 
 
 def train_gradients(cfg, params, batch, plain: bool):
@@ -5334,10 +5528,13 @@ def main() -> int:
     # B3-bwd at the training shapes (run (ae)), counted on the training run (ag)
     recs.append(check_b3_bwd(dev))
     # B3 and B3-bwd at a context-parallel rank's query offset (runs (an),
-    # (ao)); granite's full-width MoE layer as 4 ep ranks run it (run (ao'))
+    # (ao), (aq)); granite's full-width MoE layer as 4 ep ranks run it (run (ao'))
     cp_recs, cp_launches = check_cp_shards(dev)
     recs += cp_recs
     check_ep_layer(dev)
+    # mamba2's SSD layer and recurrentgemma's "R" block as 4 model ranks run
+    # them in training (run (ap)); recurrentgemma's cp shards are (aq), above
+    check_tp_recurrent(dev)
     # the main path's records by `graph_ms` too, now that no profiler
     # session of phase 3 follows
     for r in recs:

@@ -19,7 +19,15 @@ over "model", or ``tp``, their d_ff), and each step also reports the share
 of (token, choice) pairs that the expert capacity dropped over every rank's
 routings (`models.moe.positions`; the checkpointed recomputation's count
 twice, which leaves the share as it is). Rank 0 prints one line a step and
-a JSON summary, which it also writes to ``--out``.
+a JSON summary, which it also writes to ``--out``: the last step's
+collectives by kind (`distributed.sharding.COLLECTIVES`), their wire bytes
+(`analysis.collectives.TRACE`) and, by group ("data", "model" or "world"),
+their count and result bytes, this rank's.
+
+    torchrun --standalone --nproc_per_node 4 scripts/torch_train_tp.py \
+        --arch mamba2-2.7b --mesh 1x4 --seq 4096 --batch 4 --steps 5
+    torchrun --standalone --nproc_per_node 4 scripts/torch_train_tp.py \
+        --arch recurrentgemma-2b --mesh 2x2 --seq 4096 --batch 4 --steps 5
 """
 
 from __future__ import annotations
@@ -72,6 +80,42 @@ def _count_moe_pairs(device) -> torch.Tensor:
     return acc
 
 
+class GroupCounter:
+    """A step's collectives by group and kind: ``torch.distributed``'s
+    all-gather, reduce-scatter and all-reduce wrapped to count each call
+    and its result's bytes under the name of the mesh group it ran over
+    ("data" or "model", marked where the group spans every rank or holds
+    one; "world" for the whole process group otherwise)."""
+
+    OPS = {"all_gather_into_tensor": "all_gather", "reduce_scatter_tensor": "reduce_scatter",
+           "all_reduce": "all_reduce"}
+
+    def __init__(self, mesh):
+        names = {}
+        for axes, label in ((("data",), "data"), ("model", "model")):
+            g = mesh.group(axes)
+            names[id(g.group)] = (f"{label} (world)" if g is mesh.ctx else
+                                  f"{label} (one rank)" if g.world_size == 1 else label)
+        self.names, self.seen, self.real = names, {}, {}
+        for fn, kind in self.OPS.items():
+            self.real[fn] = getattr(dist, fn)
+            setattr(dist, fn, self._wrap(self.real[fn], kind))
+
+    def _wrap(self, real, kind):
+        def call(*args, **kw):
+            key = f"{self.names.get(id(kw.get('group')), 'world')}/{kind}"
+            t = args[0]                 # the result (all-gather, reduce-scatter) or x
+            n, b = self.seen.get(key, (0, 0))
+            self.seen[key] = (n + 1, b + t.numel() * t.element_size())
+            return real(*args, **kw)
+        return call
+
+    def take(self) -> dict:
+        out = {k: dict(count=n, result_bytes=b) for k, (n, b) in sorted(self.seen.items())}
+        self.seen = {}
+        return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-8b", choices=ARCH_NAMES)
@@ -108,6 +152,7 @@ def main() -> int:
     if args.moe_strategy:
         cfg = dataclasses.replace(cfg, moe_strategy=args.moe_strategy)
     pairs = _count_moe_pairs(device) if cfg.moe else None
+    groups = GroupCounter(mesh)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=1, total_steps=args.steps)
     step = make_train_step(cfg, MeshPlan.for_mesh(mesh), opt_cfg, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -119,11 +164,12 @@ def main() -> int:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     tshape = ShapeConfig(name="tp", seq_len=args.seq, global_batch=args.batch, kind="train")
-    steps, per_step, wire = [], {}, {}
+    steps, per_step, wire, by_group = [], {}, {}, {}
     for s in range(args.steps):
         batch = to_device(step.local_batch(make_batch(cfg, tshape, args.seed, s)), device)
         COLLECTIVES.clear()
         TRACE.reset()
+        groups.take()
         if pairs is not None:
             pairs.zero_()
         sync()
@@ -131,7 +177,7 @@ def main() -> int:
         params, opt, m = step(params, opt, batch)
         sync()
         ms = (time.time() - t) * 1e3
-        per_step, wire = dict(COLLECTIVES), TRACE.summary()
+        per_step, wire, by_group = dict(COLLECTIVES), TRACE.summary(), groups.take()
         steps.append(dict(step=s, ms=ms, **{k: float(v) for k, v in m.items()}))
         if pairs is not None:
             dist.all_reduce(pairs)
@@ -154,7 +200,7 @@ def main() -> int:
                    steps=steps, median_ms_after_first=later[len(later) // 2],
                    tokens_per_s=tokens / (later[len(later) // 2] / 1e3),
                    peak_gb_per_rank=peaks, collectives_per_step=per_step,
-                   collective_bytes_per_step=wire)
+                   collective_bytes_per_step=wire, collectives_by_group=by_group)
         print(json.dumps(out), flush=True)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

@@ -50,6 +50,13 @@ rank's part of it (its rows, heads or vocab columns), so a leaf that the
 spec replicates over "model" ends the backward with its part of the
 gradient and the step sums it over the model group once.
 
+The recurrent mixers (`models.ssm`, `models.rglru`) take the whole
+sequence (gathered) on the rank's channels and reduce their partial output
+back; the SSD's norm over its split channels sums the ranks' sums of squares
+(`sum_over_model`), and the RG-LRU's row-split gate matrices give partials
+over every channel that are reduce-scattered to the rank's
+(`reduce_scatter_channels`).
+
 The MoE layouts (`models.moe`) add the expert-parallel exchanges over
 "model" (`scatter_to_experts`, a reduce-scatter over the expert dim whose
 backward is an all-gather, and `gather_from_experts`, its conjugate) and
@@ -190,8 +197,8 @@ def local_block_range(num_blocks: int, ctx: DecodeCtx) -> tuple[int, int]:
 # Training: meshes and specs
 # ---------------------------------------------------------------------------
 
-MODEL_AXIS_ITEM = ("ROADMAP A item 1's next slices: the model axis in training for the SSD, "
-                   "RG-LRU and enc-dec families")
+MODEL_AXIS_ITEM = ("ROADMAP A item 1's next slice: the model axis in training for the enc-dec "
+                   "family")
 
 
 class P(tuple):
@@ -690,6 +697,17 @@ def gather_from_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
     return _AllGatherDim.apply(x, 1, group)
 
 
+def sequence_shard(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """x (B, T, ...) whole on every model rank → this rank's rows in the
+    residual's layout: its sequence shard where ``split``, all of x where
+    the sequence is whole."""
+    group = model_group() if split else None
+    if group is None:
+        return x
+    n = x.shape[1] // group.world_size
+    return x[:, group.rank * n:(group.rank + 1) * n]
+
+
 def reduce_scatter_to_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
     """Each model rank's partial sum x (B, T, ...) → the sum in the
     residual's layout: a reduce-scatter to this rank's sequence shard where
@@ -702,6 +720,24 @@ def reduce_scatter_to_sequence(x: torch.Tensor, split: bool) -> torch.Tensor:
     if split:
         return _ReduceScatterDim.apply(x, 1, group)
     return _SumOverModel.apply(x, group)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """Each model rank's partial sum x over its block of a split dim (a
+    norm's sum of squares over its channels) → their sum on every model
+    rank (`_SumOverModel`: an all-reduce both ways); the identity without a
+    model axis."""
+    group = model_group()
+    return x if group is None else _SumOverModel.apply(x, group)
+
+
+def reduce_scatter_channels(x: torch.Tensor) -> torch.Tensor:
+    """Each model rank's partial sum x (..., W) over all W channels (its
+    input rows of a row-split matrix) → the sum's W/M channels of this rank
+    (a reduce-scatter over the last dim, whose backward all-gathers the
+    channels' gradients); the identity without a model axis."""
+    group = model_group()
+    return x if group is None else _ReduceScatterDim.apply(x, -1, group)
 
 
 def data_size() -> int:

@@ -9,8 +9,9 @@ per-axis process groups when it is built (`Mesh.group`), so every rank
 builds the same meshes in the same order. Training runs on any (data ×
 model) mesh: FSDP over the data axes and, for the dense families, tensor,
 sequence and context parallelism over "model", for the MoE family its
-experts or their d_ff too (`runtime.steps.ShardedTrainStep`; the other
-families refuse a model axis above 1).
+experts or their d_ff too, for the SSD and the RG-LRU their heads or
+channels (`runtime.steps.ShardedTrainStep`; the enc-dec family refuses a
+model axis above 1).
 """
 
 from __future__ import annotations

@@ -21,8 +21,8 @@ With ``--local`` it trains on the reference's local mesh, (1, N) over
 context parallelism over every rank); without it on a data mesh of every
 rank, (N, 1) (`launch.mesh.make_data_mesh`: FSDP), since no machine here
 holds the production meshes' 256 or 512 ranks. Without those variables it
-is a world of one on one device. The SSD, RG-LRU and enc-dec families
-refuse a model axis above 1.
+is a world of one on one device. The enc-dec family refuses a model axis
+above 1.
 """
 
 from __future__ import annotations

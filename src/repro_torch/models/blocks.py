@@ -143,18 +143,20 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool = Fal
 
 
 def _recurrent_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                     return_state: bool):
+                     return_state: bool, split: bool = False):
     """An "S" block (ln1 + the SSD mixer) or an "R" block (ln1 + the
     RG-LRU, then ln2 + the FFN) on x (B, T, D) → (x_out, aux, the state
-    after the prompt or None)."""
+    after the prompt or None). In training on a mesh x is in the residual's
+    layout (``split``): the norms act on the rank's rows, the mixer and the
+    FFN move what they need."""
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    mixer = (ssm.ssd_train(params["ssd"], xn, cfg, return_state=return_state) if kind == "S"
-             else rglru.rglru_train(params["rglru"], xn, cfg, return_state=return_state))
+    mixer = (ssm.ssd_train(params["ssd"], xn, cfg, return_state, split) if kind == "S"
+             else rglru.rglru_train(params["rglru"], xn, cfg, return_state, split))
     h, st = mixer if return_state else (mixer, None)
     x = x + h
     if kind == "S":
         return x, 0.0, st
-    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg)
+    f, aux = ffn_apply(params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps), cfg, split)
     return x + f, aux, st
 
 
@@ -165,9 +167,10 @@ def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str = "A"
     a model axis above 1, x and x_out are in the residual's layout (the
     sequence split over "model" where ``split``): the norms act on the
     rank's rows, attention and the GLU move the data they need
-    (`models.attention`, `models.common.parallel_glu`)."""
+    (`models.attention`, `models.common.parallel_glu`, `models.ssm`,
+    `models.rglru`)."""
     if kind in ("S", "R"):
-        x, aux, _ = _recurrent_block(params, x, cfg, kind, return_state=False)
+        x, aux, _ = _recurrent_block(params, x, cfg, kind, False, split)
         return x, aux
     x = x + attention_train(params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), cfg,
                             window=_window(cfg, kind), split=split)

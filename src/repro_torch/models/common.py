@@ -12,7 +12,8 @@ this rank's rows of ``tok``), the vocab-parallel head (`lm_logits` on the
 local block: this rank's columns), the padded-vocab mask by global column
 (`vocab_mask_logits`), the vocab-parallel cross-entropy, and the GLU with
 ``w_gate``/``w_up`` column blocks and ``w_down`` a row block over d_ff
-(`parallel_glu`).
+(`parallel_glu`), and the RMSNorm over a split last dim (`parallel_rmsnorm`,
+the SSD's gated norm).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
-    gather_from_sequence, model_part, reduce_scatter_to_sequence, vocab_parallel_cross_entropy)
+    gather_from_sequence, model_part, reduce_scatter_to_sequence, sum_over_model,
+    vocab_parallel_cross_entropy)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 # -1e30 as each compute dtype holds it (float16: -inf), as a Python float
@@ -36,6 +38,16 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
+
+
+def parallel_rmsnorm(params: dict, x: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+    """`rmsnorm` of x (..., width/M), this model rank's block of a last dim
+    of ``width`` split over the model axis (``params["scale"]`` its block
+    too): the mean of squares is the model group's sum of the blocks' sums
+    over ``width`` (`sum_over_model`)."""
+    x32 = x.float()
+    var = sum_over_model(x32.square().sum(-1, keepdim=True)) / width
     return (x32 * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
 
 

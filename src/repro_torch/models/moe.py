@@ -56,6 +56,9 @@ device computes on the global batch.
 * Where the spec leaves the experts whole (E, or d_ff under expert-TP, not
   divisible by M) every rank holds every expert and computes the slots of
   the tokens it routes; nothing is exchanged.
+* ``PERF.moe_gather_dispatch`` off: the same layouts and exchanges, with
+  the one-hot einsums (`onehot_slots`, `onehot_combine`) in place of the
+  index buffers, as on one device.
 * The load-balancing loss is the reference's product of two means over
   the global batch: each rank sums the gates and the top-1 counts over its
   share of the tokens (`aux_sums`), one all-reduce sums them over the mesh
@@ -218,6 +221,33 @@ def combine_slots(r: Routing, ye: torch.Tensor, w_ec: torch.Tensor) -> torch.Ten
     return _combine(r, ye.transpose(0, 1) * w_ec[..., None].to(ye.dtype), w_ec)
 
 
+def onehot_slots(x: torch.Tensor, r: Routing, experts: slice | None = None):
+    """The one-hot dispatch (``moe_gather_dispatch`` off; the reference's
+    einsums): (the expert-major buffer (E', B, C, D) of the experts
+    ``experts`` (None: every expert) filled from x (B, T, D)'s tokens, the
+    (token, choice) one-hots over experts and slots that `onehot_combine`
+    takes). A sequence shard's buffer holds only its own tokens' slots, zero
+    elsewhere, as `gather_slots`'s does."""
+    e, cap = r.gates.shape[-1], r.cap
+    sel = (r.topi[..., None] == torch.arange(e, device=x.device)).to(x.dtype)
+    slot = r.pos.masked_fill(~r.keep, cap).long()
+    cap_onehot = (slot[..., None] == torch.arange(cap, device=x.device)).to(x.dtype)
+    disp = torch.einsum("btke,btkc->btec", sel, cap_onehot)
+    if experts is not None:
+        disp = disp[:, :, experts]
+    return torch.einsum("btd,btec->ebcd", x, disp), (sel, cap_onehot)
+
+
+def onehot_combine(r: Routing, ye: torch.Tensor, hots) -> torch.Tensor:
+    """The one-hot combine: the outputs (B, T, D) of ``r``'s tokens from
+    every expert's slot outputs ye (E, B, C, D), weighted by the kept
+    top-k weights (one einsum over experts and slots)."""
+    sel, cap_onehot = hots
+    w = (r.topw * r.keep).to(ye.dtype)
+    comb = torch.einsum("btke,btkc,btk->btec", sel, cap_onehot, w)
+    return torch.einsum("btec,ebcd->btd", comb, ye)
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool = False):
     """x (B, T, D) → (out (B, T, D) in x's dtype, aux f32 scalar). In
     training on a mesh of more than one rank, x and out are in the
@@ -236,16 +266,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool = Fal
         xe, w_ec = gather_slots(x, r, slice(None))
         out = combine_slots(r, expert_glu(params, xe, cfg.act), w_ec)
     else:
-        e, cap = r.gates.shape[-1], r.cap
-        sel = (r.topi[..., None] == torch.arange(e, device=x.device)).to(x.dtype)
-        slot = r.pos.masked_fill(~r.keep, cap).long()
-        cap_onehot = (slot[..., None] == torch.arange(cap, device=x.device)).to(x.dtype)
-        disp = torch.einsum("btke,btkc->btec", sel, cap_onehot)
-        xe = torch.einsum("btd,btec->ebcd", x, disp)
-        ye = expert_glu(params, xe, cfg.act)
-        w = (r.topw * r.keep).to(x.dtype)
-        comb = torch.einsum("btke,btkc,btk->btec", sel, cap_onehot, w)
-        out = torch.einsum("btec,ebcd->btd", comb, ye)
+        xe, hots = onehot_slots(x, r)
+        out = onehot_combine(r, expert_glu(params, xe, cfg.act), hots)
     if (b, t) != (b_in, t_in):
         out = out.reshape(b_in, t_in, d)
     return out.to(x.dtype), aux_loss(r)
@@ -279,17 +301,18 @@ def _moe_apply_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig, split: bool
         counts = all_gather_dim(expert_counts(topi, e)[None], 0, model_group())
         offset = queue_offsets(counts, model_group().rank)
     r = positions(gates, topi, topw, cap, offset)
+    slots, combine = ((gather_slots, combine_slots) if PERF.moe_gather_dispatch
+                      else (onehot_slots, onehot_combine))
     if ep:
         i, parts = model_part(e)
-        xe, w_ec = gather_slots(xr, r, None if shard else slice(i * e // parts,
-                                                                (i + 1) * e // parts))
+        xe, held = slots(xr, r, None if shard else slice(i * e // parts, (i + 1) * e // parts))
         if shard:
             xe = scatter_to_experts(xe)
         ye = gather_from_experts(expert_glu(params, xe, cfg.act))
     else:
-        xe, w_ec = gather_slots(xr, r, slice(None))
+        xe, held = slots(xr, r, slice(None))
         ye = expert_glu(params, xe, cfg.act)
-    out = combine_slots(r, ye, w_ec)
+    out = combine(r, ye, held)
     if tp:
         out = reduce_scatter_to_sequence(out, split)
     # the load-balancing sums over this rank's share of the tokens: all that

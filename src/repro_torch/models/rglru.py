@@ -11,7 +11,8 @@ Port of the reference `models/rglru.py` (``RGLRUState``, ``_causal_conv``,
 tokens is `associative_scan`, the odd/even recursion of
 ``jax.lax.associative_scan`` written in torch ops: log depth, and the same
 pairing of terms as the reference's. ``w_r``, ``w_i`` and ``lam`` are
-float32 and their products run in float32.
+float32 and their products run in float32. In training under a model axis
+the block runs on the rank's channels (`rglru_train`).
 
 No TPU kernel computes the RG-LRU: the reference writes it as XLA ops and
 an associative scan, and so do these torch ops, on the CPU and on the card
@@ -27,6 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    gather_from_sequence, model_group, model_part, reduce_scatter_channels,
+    reduce_scatter_to_sequence, sequence_shard)
 from repro_torch.models.common import cdtype
 from repro_torch.models.ssm import causal_conv, softplus
 
@@ -38,10 +42,22 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor     # (B, conv_width-1, W), model dtype: the raw conv window
 
 
-def _gates(params: dict, x: torch.Tensor):
-    """x (..., W) f32 → (a, beta·i·x), the diagonal recurrence's terms."""
-    r = torch.sigmoid(x @ params["w_r"])
-    i = torch.sigmoid(x @ params["w_i"])
+def _gates(params: dict, x: torch.Tensor, reduce=None):
+    """x (..., W) f32 → (a, beta·i·x), the diagonal recurrence's terms.
+    ``reduce`` takes the gate matrices' products to the gates' inputs (under
+    a model axis: x this rank's channels, ``w_r`` / ``w_i`` its row blocks,
+    and `reduce_scatter_channels` sums the partials to its channels)."""
+    zr, zi = x @ params["w_r"], x @ params["w_i"]
+    if reduce is not None:
+        zr, zi = reduce(zr), reduce(zi)
+    return gate_terms(params, x, zr, zi)
+
+
+def gate_terms(params: dict, x: torch.Tensor, zr: torch.Tensor, zi: torch.Tensor):
+    """(a, beta·i·x) from x (..., W) f32 and the gates' inputs zr = x @ w_r,
+    zi = x @ w_i (under a model axis: this rank's channels of each)."""
+    r = torch.sigmoid(zr)
+    i = torch.sigmoid(zi)
     log_a = -_C * r * softplus(-params["lam"])
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
@@ -79,15 +95,40 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def rglru_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
+def rglru_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: bool = False,
+                split: bool = False):
     """u (B, T, D) → (B, T, D) [, final `RGLRUState`]. The returned conv
     window is the reference's ``x_raw[:, -(W-1):]``: the raw inputs of the
     last W-1 tokens, or of all T < W-1 of them, unpadded (so the slot write
     broadcasts a 1-token prompt's row and refuses a 2-token prompt's, as the
-    reference's does)."""
+    reference's does).
+
+    In training under a model axis above 1, u and the output are in the
+    residual's layout (the sequence split over "model" where ``split``) and
+    the block takes the reference's specs: the sequence is gathered whole,
+    ``w_x``, ``w_gate_out``, ``conv_w`` and ``lam`` give this rank's W/M
+    channels (the depthwise conv and the scan act per channel: no
+    exchange), the row blocks of ``w_r`` and ``w_i`` give partials over all
+    W gate inputs, reduce-scattered to the rank's channels (two f32
+    (B, T, W) reduce-scatters), and ``w_out``'s row block a partial output,
+    reduced back into the residual's layout. Where the spec leaves W whole
+    every rank runs the whole block and keeps its rows."""
+    if model_group() is None:
+        return _rglru(params, u, return_state)
+    if return_state:
+        raise NotImplementedError("the RG-LRU's prompt state under a model axis")
+    ug = gather_from_sequence(u, split)
+    if model_part(cfg.rnn_width or cfg.d_model)[1] == 1:
+        return sequence_shard(_rglru(params, ug), split)
+    return reduce_scatter_to_sequence(_rglru(params, ug, reduce=reduce_scatter_channels), split)
+
+
+def _rglru(params: dict, u: torch.Tensor, return_state: bool = False, reduce=None):
+    """`rglru_train` on u (B, T, D) whole, the gates' products taken to
+    their inputs by ``reduce`` (`_gates`)."""
     x_raw = u @ params["w_x"]
     x, _ = causal_conv(x_raw, params["conv_w"])
-    a, b = _gates(params, x.float())
+    a, b = _gates(params, x.float(), reduce)
     _, h = associative_scan(a, b)
     y = h.to(u.dtype) * F.gelu(u @ params["w_gate_out"], approximate="tanh")
     out = y @ params["w_out"]

@@ -6,7 +6,9 @@ Port of the reference `models/ssm.py` (``SSMState``, ``_dims``,
 final state, ``ssd_init_state`` and ``ssd_decode``). Within a chunk the
 output is a dense attention-like product; states pass between chunks by an
 exponential-decay recurrence (a Python loop over the chunks, as the
-reference's ``lax.scan``). The decode step is the pure recurrence.
+reference's ``lax.scan``). The decode step is the pure recurrence. In
+training under a model axis the mixer runs on the rank's heads
+(`ssd_train`).
 
 No TPU kernel computes the SSD: the reference writes it as XLA einsums and
 a scan, and so do these torch ops, on the CPU and on the card alike. They
@@ -24,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import cdtype, rmsnorm
+from repro_torch.distributed.sharding import (
+    gather_from_sequence, model_group, model_part, reduce_scatter_to_sequence, sequence_shard)
+from repro_torch.models.common import cdtype, parallel_rmsnorm, rmsnorm
 
 
 class SSMState(NamedTuple):
@@ -64,15 +68,87 @@ def causal_conv(seq: torch.Tensor, w: torch.Tensor, prior: torch.Tensor | None =
     return out, padded[:, -(width - 1):]
 
 
-def ssd_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
+def ssd_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: bool = False,
+              split: bool = False):
     """Chunked SSD forward: u (B, T, D) → (B, T, D) [, final `SSMState`].
 
     The chunk is min(ssm_chunk, T); a prompt that is not a multiple pads
     with zero rows whose dt is zeroed, so they neither decay nor update the
     state. The returned conv window holds the raw (pre-activation) inputs of
-    the last W-1 real tokens, left-padded with zeros for a shorter prompt."""
+    the last W-1 real tokens, left-padded with zeros for a shorter prompt.
+
+    In training under a model axis above 1, u and the output are in the
+    residual's layout (the sequence split over "model" where ``split``) and
+    the mixer takes the reference's specs: the sequence is gathered whole,
+    this rank's ``w_x`` / ``z_gate`` columns are its nh/M heads, B and C are
+    computed whole from the replicated ``w_B`` / ``w_C``, and ``w_dt``,
+    ``dt_bias``, ``A_log``, ``D`` and the conv's x columns are cut to the
+    rank's heads, so that each replicated leaf's gradient is this rank's
+    part of it. The gated norm over the split d_inner sums the ranks' sums
+    of squares; ``w_out``'s row block gives a partial output, reduced back
+    into the residual's layout. Where the spec leaves d_inner whole every
+    rank runs the whole mixer and keeps its rows."""
+    if model_group() is None:
+        return _ssd(params, u, cfg, return_state)
+    if return_state:
+        raise NotImplementedError("the SSD's prompt state under a model axis")
+    di, nh, _, _ = _dims(cfg)
+    ug = gather_from_sequence(u, split)
+    i, parts = model_part(di)
+    if parts == 1:
+        return sequence_shard(_ssd(params, ug, cfg), split)
+    y, up, _, _ = ssd_scan(head_block(params, cfg, i, parts), ug, cfg,
+                           (di // parts, nh // parts))
+    y = parallel_rmsnorm(params["norm"], y, cfg.norm_eps, di)
+    return reduce_scatter_to_sequence(gated_out(params, y, up)[:, :ug.shape[1]], split)
+
+
+def head_block(params: dict, cfg: ModelConfig, i: int, parts: int) -> dict:
+    """The SSD leaves of model rank ``i`` of ``parts`` as its scan takes
+    them: ``params`` holds its blocks of the split leaves (``w_x``,
+    ``z_gate``, ``norm``, ``w_out``) and the replicated ones whole; ``w_dt``,
+    ``dt_bias``, ``A_log`` and ``D`` are cut to its heads and ``conv_w`` to
+    its x columns beside the B and C columns."""
+    di, nh, _, _ = _dims(cfg)
+    heads = slice(i * nh // parts, (i + 1) * nh // parts)
+    cols = slice(i * di // parts, (i + 1) * di // parts)
+    conv = params["conv_w"]
+    return dict(params, w_dt=params["w_dt"][:, heads], dt_bias=params["dt_bias"][heads],
+                A_log=params["A_log"][heads], D=params["D"][heads],
+                conv_w=torch.cat([conv[:, cols], conv[:, di:]], dim=1))
+
+
+def gated_out(params: dict, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The normed scan output y (..., di) gated by silu(u @ z_gate) and
+    projected out by ``w_out``."""
+    return (y * F.silu(u @ params["z_gate"])) @ params["w_out"]
+
+
+def _ssd(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: bool = False):
+    """`ssd_train` on u (B, T, D) whole."""
+    t_in = u.shape[1]
+    y, up, conv_in, h = ssd_scan(params, u, cfg)
+    out = gated_out(params, rmsnorm(params["norm"], y, cfg.norm_eps), up)[:, :t_in]
+    if not return_state:
+        return out
+    w1 = cfg.conv_width - 1
+    # a copy, not a view: a view would keep the whole (B, T, conv_dim)
+    # projection alive in every layer's state until the slot write
+    raw_tail = conv_in[:, max(t_in - w1, 0):t_in].clone()
+    if raw_tail.shape[1] < w1:
+        raw_tail = F.pad(raw_tail, (0, 0, w1 - raw_tail.shape[1], 0))
+    return out, SSMState(h=h, conv=raw_tail)
+
+
+def ssd_scan(params: dict, u: torch.Tensor, cfg: ModelConfig, dims: tuple | None = None):
+    """The SSD up to its gated norm on u (B, T, D), over ``dims`` = (d_inner,
+    heads) of the weights given (all of them by default) → (y (B, T', di)
+    in u's dtype before the norm, u padded to T' (a multiple of the chunk),
+    the conv's raw input (B, T', di + 2·ds), the final state h)."""
     b, t_in, _ = u.shape
     di, nh, hd, ds = _dims(cfg)
+    if dims is not None:
+        di, nh = dims
     cs = min(cfg.ssm_chunk, t_in)
     if t_in % cs:
         u = F.pad(u, (0, 0, 0, cs - t_in % cs))
@@ -127,19 +203,7 @@ def ssd_train(params: dict, u: torch.Tensor, cfg: ModelConfig, return_state: boo
 
     y = (y_intra + y_inter).reshape(b, t, nh, hd)
     y = y + params["D"][None, None, :, None] * x.float()
-    y = y.reshape(b, t, di).to(u.dtype)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps)
-    y = y * F.silu(u @ params["z_gate"])
-    out = (y @ params["w_out"])[:, :t_in]
-    if not return_state:
-        return out
-    w1 = cfg.conv_width - 1
-    # a copy, not a view: a view would keep the whole (B, T, conv_dim)
-    # projection alive in every layer's state until the slot write
-    raw_tail = conv_in[:, max(t_in - w1, 0):t_in].clone()
-    if raw_tail.shape[1] < w1:
-        raw_tail = F.pad(raw_tail, (0, 0, w1 - raw_tail.shape[1], 0))
-    return out, SSMState(h=h, conv=raw_tail)
+    return y.reshape(b, t, di).to(u.dtype), u, conv_in, h
 
 
 def ssd_init_state(batch: int, cfg: ModelConfig, device) -> SSMState:

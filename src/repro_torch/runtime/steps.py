@@ -315,16 +315,21 @@ def make_train_step(cfg, plan: MeshPlan | None = None, opt_cfg=None, device="cud
 
 def model_axis_refusal(cfg, m: int) -> str | None:
     """Why ``cfg`` cannot train on a model axis of ``m`` > 1 (None: it
-    can): the families outside the dense and MoE layouts, and dims the
-    layers need split that the axis does not divide (experts that do not
-    split stay whole on every rank: `models.moe`)."""
+    can): the enc-dec family, and dims the layers need split that the axis
+    does not divide (experts, SSD channels or RG-LRU channels that the
+    spec leaves whole stay whole on every rank: `models.moe`,
+    `models.ssm`, `models.rglru`)."""
     from repro_torch.distributed.sharding import MODEL_AXIS_ITEM
-    kinds = set(cfg.block_kinds()) if not cfg.encdec else set()
-    family = ("SSD" if "S" in kinds else "RG-LRU" if "R" in kinds
-              else "enc-dec" if cfg.encdec else None)
-    if family is not None:
-        return f"the {family} family: {MODEL_AXIS_ITEM} is not ported"
-    if cfg.attn_strategy == "tp" and cfg.num_heads % m:
+    if cfg.encdec:
+        return f"the enc-dec family: {MODEL_AXIS_ITEM} is not ported"
+    kinds = set(cfg.block_kinds())
+    if "S" in kinds:
+        di = cfg.ssm_expand * cfg.d_model
+        nh = di // cfg.ssm_head_dim
+        if di % m == 0 and nh % m:
+            return (f"the spec splits the SSD's d_inner of {di} over it, but not its {nh} "
+                    "heads (the SSD layers hold whole heads)")
+    if kinds & {"A", "L"} and cfg.attn_strategy == "tp" and cfg.num_heads % m:
         return (f"{cfg.num_heads} heads do not split over it (the tp layers hold whole "
                 "heads)")
     if cfg.padded_vocab % m:
@@ -387,10 +392,12 @@ class ShardedTrainStep:
 
     The MoE family trains on any such mesh: its layers take the reference's
     ``ep`` or expert-TP layouts over "model" and its load-balancing loss
-    over the global batch (`models.moe`). A model axis above 1 raises for
-    the families outside these layouts (SSD, RG-LRU, enc-dec:
-    `sharding.MODEL_AXIS_ITEM`) and where the heads (tp) or the padded vocab
-    do not split over it."""
+    over the global batch (`models.moe`). The SSD and the RG-LRU run their
+    scans over the gathered sequence on the rank's heads or channels
+    (`models.ssm`, `models.rglru`). A model axis above 1 raises for the
+    enc-dec family (`sharding.MODEL_AXIS_ITEM`) and where the heads (tp
+    attention, or the SSD's where the spec splits its channels) or the
+    padded vocab do not split over it."""
 
     def __init__(self, cfg, plan: MeshPlan, opt_cfg):
         from repro_torch.distributed.sharding import (

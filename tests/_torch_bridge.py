@@ -11,6 +11,12 @@ import sys
 import numpy as np
 import torch
 
+# one intra-op thread in every test process: the suite runs several pytest
+# workers side by side, and the port's small CPU ops gain little from more
+# threads while idle ones spin on the cores the other workers need (the
+# spawned gloo ranks run one thread each too)
+torch.set_num_threads(1)
+
 POOL_FIELDS = ("k_codes", "k_scale", "v_codes", "v_scale", "feat_words", "feat_scale",
                "feat_zero", "heavy_idx", "length", "page_table", "refcount", "sel_hist")
 CACHE_FIELDS = ("k_codes", "k_scale", "v_codes", "v_scale", "feat_words", "feat_scale",
@@ -219,11 +225,12 @@ def check_loss_and_gradients(arch: str) -> float:
     return worst
 
 
-def spawn_ranks(task: str, inp, world: int, workdir, timeout: float = 240) -> list:
-    """Run ``world`` ranks of `_torch_dist_worker.py` ``task`` (a task or a
-    comma-separated list) joined over gloo through a `FileStore` in
-    ``workdir`` (no TCP port); returns each rank's results. A failing
-    rank's output is in the assertion message."""
+def start_ranks(task: str, inp, world: int, workdir, timeout: float = 240):
+    """Start ``world`` ranks of `_torch_dist_worker.py` ``task`` (a task or
+    a comma-separated list) joined over gloo through a `FileStore` in
+    ``workdir`` (no TCP port), one thread each; returns a function that
+    waits for them and returns each rank's results (the caller works
+    meanwhile). A failing rank's output is in the assertion message."""
     workdir = pathlib.Path(workdir)
     torch.save(inp, workdir / "in.pt")
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -232,7 +239,15 @@ def spawn_ranks(task: str, inp, world: int, workdir, timeout: float = 240) -> li
                                str(world)], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    logs = [p.communicate(timeout=timeout)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
-    return [torch.load(workdir / f"out{r}.pt", weights_only=False) for r in range(world)]
+
+    def join() -> list:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
+        return [torch.load(workdir / f"out{r}.pt", weights_only=False) for r in range(world)]
+    return join
+
+
+def spawn_ranks(task: str, inp, world: int, workdir, timeout: float = 240) -> list:
+    """`start_ranks` and wait for them: each rank's results."""
+    return start_ranks(task, inp, world, workdir, timeout)()

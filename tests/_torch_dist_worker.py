@@ -534,22 +534,29 @@ def _nest(flat: dict, prefix: str) -> dict:
 
 
 def _ffn_routed(p, x, cfg, split):
-    """`blocks.ffn_apply` on x, and the (topi, pos, keep) of the routing it
-    made (`models.moe.positions` recorded for the call)."""
+    """`blocks.ffn_apply` on x, the (topi, pos, keep) of the routing it made
+    (`models.moe.positions` recorded for the call) and the dispatch that
+    filled the slots ("gather" or "onehot")."""
     from repro_torch.models import moe
     from repro_torch.models.blocks import ffn_apply
-    seen, real = [], moe.positions
+    seen, taken = [], []
+    real = {f: getattr(moe, f) for f in ("positions", "gather_slots", "onehot_slots")}
 
-    def recording(*args, **kw):
-        seen.append(real(*args, **kw))
-        return seen[-1]
+    def recording(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            (seen.append(out) if name == "positions" else taken.append(name.split("_")[0]))
+            return out
+        return call
 
-    moe.positions = recording
+    for name in real:
+        setattr(moe, name, recording(name))
     try:
         y, aux = ffn_apply(p, x, cfg, split)
     finally:
-        moe.positions = real
-    return y, aux, {f: getattr(seen[0], f) for f in ("topi", "pos", "keep")}
+        for name, f in real.items():
+            setattr(moe, name, f)
+    return y, aux, {f: getattr(seen[0], f) for f in ("topi", "pos", "keep")}, taken
 
 
 def tp_layers(cases, mesh):
@@ -566,7 +573,9 @@ def tp_layers(cases, mesh):
         ShardingCtx, activation_sharding, all_gather_dim, gather, param_specs, psum,
         sequence_split, shard)
     from repro_torch.models import transformer
+    from repro_torch.flags import perf_flags
     from repro_torch.models.attention import attention_train
+    from repro_torch.models.blocks import block_train
     from repro_torch.models.common import parallel_glu
     out = {}
     model = mesh.group("model")
@@ -580,7 +589,8 @@ def tp_layers(cases, mesh):
         specs = param_specs(sctx, {p: tuple(t.shape) for p, t in whole.items()})
         local = {p: shard(t, specs[p], mesh).requires_grad_() for p, t in whole.items()}
         x, t_len = case.get("x"), case["t"]
-        with activation_sharding(sctx, local_batch=case["batch"]):
+        with perf_flags(**case.get("flags", {})), \
+                activation_sharding(sctx, local_batch=case["batch"]):
             split = sequence_split(t_len)
             n = t_len // model.world_size
             rows = slice(model.rank * n, (model.rank + 1) * n) if split else slice(None)
@@ -598,9 +608,11 @@ def tp_layers(cases, mesh):
                 p = _nest(local, case["prefix"])
                 if case["kind"] == "glu":
                     y = parallel_glu(p, xl, cfg, split)
+                elif case["kind"] == "block":
+                    y, _ = block_train(p, xl, cfg, case["block"], split)
                 elif case["kind"] == "ffn":
-                    y, aux, routing = _ffn_routed(p, xl, cfg, split)
-                    extra = dict(aux=aux.detach(), routing=routing)
+                    y, aux, routing, taken = _ffn_routed(p, xl, cfg, split)
+                    extra = dict(aux=aux.detach(), routing=routing, dispatch=taken)
                 else:
                     y = attention_train(p, xl, cfg, window=case.get("window", 0), split=split)
                 # a replicated activation's gradient is held as each model rank's part

@@ -36,7 +36,7 @@ from repro.runtime import (  # noqa: E402
 OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 SHAPE = dict(name="t", seq_len=64, global_batch=4, kind="train")
 STEPS = 3
-OVER = {"gemma3-12b": dict(local_window=24)}
+OVER = {"gemma3-12b": dict(local_window=24), "recurrentgemma-2b": dict(num_layers=3)}
 
 
 def main() -> int:

@@ -239,8 +239,9 @@ def test_train_step_refuses_model_axis_and_moe_over_data():
     """The dense and MoE families take a model axis (heads, d_ff and vocab
     split over it; the experts under ``ep``, their d_ff under expert-TP)
     and MoE takes more than one data rank, both of which it refused until
-    its layouts were ported; the SSD family still refuses a model axis,
-    naming the ROADMAP item that carries it."""
+    its layouts were ported; so do the SSD (its heads over "model") and the
+    RG-LRU (its channels), and the enc-dec family still refuses a model
+    axis, naming the ROADMAP item that carries it."""
     _, tcfg = f32_configs()
     tp = MeshPlan.for_mesh(Mesh({"data": 1, "model": 2}, DecodeCtx(None, 0, 2, "gloo")))
     step = make_train_step(tcfg, tp, device="cpu")
@@ -256,8 +257,16 @@ def test_train_step_refuses_model_axis_and_moe_over_data():
     step = make_train_step(moe, dp2, device="cpu")
     assert step.layout["layers/0/ffn/moe/w_gate"][2] == 1       # d_model over the data axis
     ssd = dataclasses.replace(tget_config("mamba2-2.7b").reduced(), dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 1's next slices"):
-        make_train_step(ssd, tp, device="cpu")
+    step = make_train_step(ssd, tp, device="cpu")
+    assert step.model_dim["layers/0/ssd/w_x"] == 1 and step.model_dim["layers/0/ssd/w_B"] is None
+    with pytest.raises(NotImplementedError, match="the SSD layers hold whole heads"):
+        make_train_step(dataclasses.replace(ssd, ssm_head_dim=256), tp, device="cpu")  # 1 head
+    rg = dataclasses.replace(tget_config("recurrentgemma-2b").reduced(), dtype="float32")
+    step = make_train_step(rg, tp, device="cpu")
+    assert step.model_dim["layers/0/rglru/w_r"] == 0 and step.model_dim["layers/0/rglru/lam"] == 0
+    encdec = dataclasses.replace(tget_config("whisper-small").reduced(), dtype="float32")
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 1's next slice: "):
+        make_train_step(encdec, tp, device="cpu")
 
 
 # --------------------------------------------------------------------------

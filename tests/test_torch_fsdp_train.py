@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import spawn_ranks
+from _torch_bridge import start_ranks
 from repro.configs import get_config as jget_config
 from repro.configs.base import ShapeConfig as JShape
 from repro.launch.mesh import make_local_mesh
@@ -72,16 +72,22 @@ def _cfgs(arch):
                  for get in (jget_config, tget_config))
 
 
-def _case(arch):
-    """Weights from the reference's init, the global batches, the port's
-    one-device step's and the reference's jitted step's metrics and final
-    parameters."""
+def _inputs(arch):
+    """Weights from the reference's init and the global batches."""
     jcfg, tcfg = _cfgs(arch)
     jp = jax.jit(jget_model(jcfg).init)(jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, jp)
     batches = [jmake_batch(jcfg, JShape(**SHAPE), seed=1, step=s) for s in range(STEPS)]
+    return dict(weights=params_from_numpy(tree, tcfg, "cpu"), batches=batches, jp=jp)
+
+
+def _case(arch, inp):
+    """The port's one-device step's and the reference's jitted step's
+    metrics and final parameters from ``inp``."""
+    jcfg, tcfg = _cfgs(arch)
+    batches = inp["batches"]
     step = make_train_step(tcfg, None, AdamWConfig(**OPT), "cpu")
-    p = params_from_numpy(tree, tcfg, "cpu")
+    p = inp["weights"]
     o, one = init_opt_state(p, AdamWConfig(**OPT)), []
     for b in batches:
         p, o, m = step(p, o, to_device(b, "cpu"))
@@ -89,13 +95,13 @@ def _case(arch):
     _, jitted, _, _ = jmake_train_step(jcfg, JPlan.for_mesh(make_local_mesh()),
                                        JAdamWConfig(**OPT))
     f = jitted(batches[0])
-    rp, ro, ref = jp, jinit_opt_state(jp, JAdamWConfig(**OPT)), []
+    rp, ro, ref = inp["jp"], jinit_opt_state(inp["jp"], JAdamWConfig(**OPT)), []
     for b in batches:
         rp, ro, m = f(rp, ro, b)
         ref.append({k: float(v) for k, v in m.items()})
     ref_p = params_from_numpy(jax.tree_util.tree_map(np.asarray, rp), tcfg, "cpu")
-    return dict(weights=params_from_numpy(tree, tcfg, "cpu"), batches=batches, one=one,
-                one_params=dict(leaves(p)), ref=ref, ref_params=dict(leaves(ref_p)))
+    return dict(weights=inp["weights"], batches=batches, one=one, one_params=dict(leaves(p)),
+                ref=ref, ref_params=dict(leaves(ref_p)))
 
 
 def _one_device_case(arch):
@@ -112,41 +118,48 @@ def _one_device_case(arch):
     return dict(weights=weights, batches=batches, one=one, one_params=dict(leaves(p)))
 
 
-@pytest.fixture(scope="module")
-def cases():
-    out = {arch: _case(arch) for arch in ("qwen3-0.6b", "mamba2-2.7b")}
-    out["granite-moe-3b-a800m"] = _one_device_case("granite-moe-3b-a800m")
-    return out
-
-
-def _steps_input(cases, archs):
-    return {a: dict(arch=a, opt=OPT, weights=cases[a]["weights"], batches=cases[a]["batches"])
+def _steps_input(inputs, archs):
+    return {a: dict(arch=a, opt=OPT, weights=inputs[a]["weights"], batches=inputs[a]["batches"])
             for a in archs}
 
 
 @pytest.fixture(scope="module")
-def worlds(cases, tmp_path_factory):
+def worlds(tmp_path_factory):
     """The 4-rank world (qwen3's steps; trainer runs A: 4 steps with a
     checkpoint every 2, B: a fresh trainer on A's directory to step 6, C:
     6 steps uninterrupted), then the 2-rank world (qwen3's, mamba2's and
-    granite's steps; R: a trainer on a copy of C's directory to step 8)."""
+    granite's steps; R: a trainer on a copy of C's directory to step 8);
+    the one-device and reference steps run here while the ranks do (qwen3's
+    beside the 4 ranks, mamba2's beside the 2; granite's one-device steps
+    come first, its weights being the 2 ranks' input)."""
     base = tmp_path_factory.mktemp("fsdp")
-    qwen = cases["qwen3-0.6b"]
+    inputs = {arch: _inputs(arch) for arch in ("qwen3-0.6b", "mamba2-2.7b")}
+    qwen = inputs["qwen3-0.6b"]
     trainer = dict(arch="qwen3-0.6b", opt=OPT, shape=SHAPE, weights=qwen["weights"])
     runs4 = [dict(steps=4, ckpt_every=2, dir=str(base / "a")),
              dict(steps=6, ckpt_every=2, dir=str(base / "a")),
              dict(steps=6, ckpt_every=2, dir=str(base / "c"))]
     (base / "w4").mkdir()
-    w4 = spawn_ranks("train_fsdp", {"steps": _steps_input(cases, ["qwen3-0.6b"]),
-                                    "trainers": {"q": dict(trainer, runs=runs4)}},
-                     4, base / "w4")
+    join4 = start_ranks("train_fsdp", {"steps": _steps_input(inputs, ["qwen3-0.6b"]),
+                                       "trainers": {"q": dict(trainer, runs=runs4)}},
+                        4, base / "w4")
+    cases = {"qwen3-0.6b": _case("qwen3-0.6b", qwen)}
+    w4 = join4()
     shutil.copytree(base / "c", base / "r")
-    steps2 = _steps_input(cases, ["qwen3-0.6b", "mamba2-2.7b", "granite-moe-3b-a800m"])
+    inputs["granite-moe-3b-a800m"] = _one_device_case("granite-moe-3b-a800m")
+    steps2 = _steps_input(inputs, ["qwen3-0.6b", "mamba2-2.7b", "granite-moe-3b-a800m"])
     (base / "w2").mkdir()
-    w2 = spawn_ranks("train_fsdp", {"steps": steps2, "trainers": {"q": dict(
+    join2 = start_ranks("train_fsdp", {"steps": steps2, "trainers": {"q": dict(
         trainer, runs=[dict(steps=8, ckpt_every=2, dir=str(base / "r"),
                             probe_restore=True)])}}, 2, base / "w2")
-    return {4: w4, 2: w2, "dirs": base}
+    cases["mamba2-2.7b"] = _case("mamba2-2.7b", inputs["mamba2-2.7b"])
+    cases["granite-moe-3b-a800m"] = inputs["granite-moe-3b-a800m"]
+    return {4: w4, 2: join2(), "dirs": base, "cases": cases}
+
+
+@pytest.fixture(scope="module")
+def cases(worlds):
+    return worlds["cases"]
 
 
 def _check_steps(res, case):

@@ -24,7 +24,10 @@ granite-moe-3b-a800m.reduced() (8 experts, top 2) unless named:
 * ``drops``: a capacity factor of 0.25 (capacity 8 of ~16 pairs an expert
   and row): most pairs drop, the higher ranks' shards most of all;
 * ``arctic`` / ``arctic_tp``: arctic-480b.reduced(), its dense residual GLU
-  with d_ff split over "model" (`parallel_glu`).
+  with d_ff split over "model" (`parallel_glu`);
+* ``ep_onehot`` / ``tp_onehot``: ``PERF.moe_gather_dispatch`` off, the
+  one-hot dispatch and combine on the mesh, against the one-device one-hot
+  form.
 
 Every rank's ``topi``, ``pos`` and ``keep`` equal the unsharded routing's
 (its rows, or all of them where it routes the whole sequence) exactly;
@@ -46,7 +49,7 @@ import torch
 from _torch_bridge import spawn_ranks
 from _torch_dist_worker import _nest
 from repro_torch.configs import get_config
-from repro_torch.flags import PERF
+from repro_torch.flags import PERF, perf_flags
 from repro_torch.models.blocks import ffn_apply
 from repro_torch.models.moe import capacity, route
 from repro_torch.weights import init_lm_params
@@ -66,7 +69,12 @@ CASES = {
     "drops": (GRANITE, dict(capacity_factor=0.25), T),
     "arctic": (ARCTIC, {}, T),
     "arctic_tp": (ARCTIC, dict(moe_strategy="tp"), T),
+    "ep_onehot": (GRANITE, {}, T),
+    "tp_onehot": (GRANITE, dict(moe_strategy="tp"), T),
 }
+# ``moe_gather_dispatch`` off: the one-hot einsums on the mesh, as on one device
+FLAGS = {"ep_onehot": dict(moe_gather_dispatch=False),
+         "tp_onehot": dict(moe_gather_dispatch=False)}
 PREFIX = "layers/0/ffn"
 
 
@@ -86,7 +94,8 @@ def _cases():
         params[f"{PREFIX}/moe/router"] = params[f"{PREFIX}/moe/router"] * 8
         out[name] = dict(kind="ffn", arch=arch, over=over, batch=B, t=t, params=params,
                          prefix=PREFIX, x=torch.randn((B, t, cfg.d_model), generator=g),
-                         cot=torch.randn((B, t, cfg.d_model), generator=g), aux_w=AUX_W)
+                         cot=torch.randn((B, t, cfg.d_model), generator=g), aux_w=AUX_W,
+                         flags=FLAGS.get(name, {}))
     return out
 
 
@@ -97,9 +106,10 @@ def _one_device(case):
     params = {p: t.clone().requires_grad_() for p, t in case["params"].items()}
     x = case["x"].clone().requires_grad_()
     p = _nest(params, PREFIX)
-    y, aux = ffn_apply(p, x, cfg)
-    seed = (y * case["cot"]).sum() + case["aux_w"] * aux
-    grads = torch.autograd.grad(seed, list(params.values()) + [x])
+    with perf_flags(**case["flags"]):
+        y, aux = ffn_apply(p, x, cfg)
+        seed = (y * case["cot"]).sum() + case["aux_w"] * aux
+        grads = torch.autograd.grad(seed, list(params.values()) + [x])
     r = route(p["moe"]["router"], x, cfg, capacity(case["t"], cfg, PERF.moe_flat_dispatch))
     return (y.detach(), aux.detach(), dict(zip(params, grads[:-1])), grads[-1],
             {"topi": r.topi, "pos": r.pos, "keep": r.keep})
@@ -134,6 +144,8 @@ def test_moe_layer_matches_one_device(worlds, m, name):
     assert all(r["split"] == (t % m == 0) for r in ranks), name
     for rank, r in enumerate(ranks):
         what = f"{name} M={m} rank {rank}"
+        # the mesh takes the dispatch that the flag names
+        assert r["dispatch"] == ["onehot" if name in FLAGS else "gather"], what
         rows = r["routing"]["topi"].shape[1]
         lo = rank * rows if rows < t else 0          # a sequence shard, or all of it
         for f, want in routing.items():

@@ -22,6 +22,15 @@ replicates over "model" summed over the model group (`tp_layers`). Cases:
   under a window of 24 (q/k norms on local heads);
 * ``attn_cp``: phi3's attention (cp: each rank its rows at their offset
   over the gathered keys), causal and under a window of 24;
+* ``ssd``: mamba2's "S" block (`blocks.block_train`: ln1 + the SSD, 16
+  heads split over "model", B / C / dt replicated and cut to the rank's
+  heads, the gated norm's sum of squares over the model group);
+  ``ssd_heads_whole``: an SSD whose d_inner (45) and 5 heads neither axis
+  divides (the spec leaves them whole: every rank runs the whole mixer);
+* ``rglru``: recurrentgemma's "R" block (ln1 + the RG-LRU, its 128
+  channels over "model", the gate matrices' partials reduce-scattered,
+  then ln2 + the GLU); ``rglru_width_whole``: an RG-LRU width of 125
+  (whole on every rank);
 * ``*_whole``: T 63, which neither axis divides: the sequence stays whole
   on every rank (the reference's ``fit_spec``), the row-parallel sums
   become all-reduces. A replicated activation's gradient is held as each
@@ -46,11 +55,15 @@ from _torch_dist_worker import _nest
 from repro_torch.configs import get_config
 from repro_torch.models import transformer
 from repro_torch.models.attention import attention_train
+from repro_torch.models.blocks import block_train
 from repro_torch.models.common import parallel_glu
 from repro_torch.weights import init_lm_params
 
 LAYER_RTOL = 1e-5
 B, T, VOCAB, PATCHES = 2, 64, 500, 40
+# an SSD whose d_inner (45) and heads (5) neither axis divides: the spec
+# leaves its channels whole and every rank runs the whole mixer
+SSD_ODD = dict(d_model=45, ssm_expand=1, ssm_head_dim=9)
 
 
 def _cfg(arch, **over):
@@ -90,20 +103,30 @@ def _cases():
         "attn_tp_window": ("gemma3-12b", {}, "attn", dict(window=24)),
         "attn_cp": ("phi3-medium-14b", {}, "attn", {}),
         "attn_cp_window": ("phi3-medium-14b", {}, "attn", dict(window=24)),
+        "ssd": ("mamba2-2.7b", {}, "block", dict(block="S")),
+        "ssd_heads_whole": ("mamba2-2.7b", SSD_ODD, "block", dict(block="S")),
+        "rglru": ("recurrentgemma-2b", {}, "block", dict(block="R")),
+        "rglru_width_whole": ("recurrentgemma-2b", dict(rnn_width=125), "block",
+                              dict(block="R")),
     }
     for name, (arch, over, kind, extra) in layers.items():
         for t in (T, T - 1):
-            if t != T and name not in ("glu", "attn_tp", "attn_cp"):
+            if t != T and name not in ("glu", "attn_tp", "attn_cp", "ssd", "rglru"):
                 continue
             cfg = _cfg(arch, **over)
             layer = init_lm_params(cfg, g, "cpu")["layers"][0]
-            sub = layer["ffn"]["glu"] if kind == "glu" else layer["attn"]
-            prefix = "layers/0/ffn/glu" if kind == "glu" else "layers/0/attn"
+            sub, prefix = {"glu": (layer.get("ffn", {}).get("glu"), "layers/0/ffn/glu"),
+                           "attn": (layer.get("attn"), "layers/0/attn"),
+                           "block": (layer, "layers/0")}[kind]
             params = {}
             for k, v in sub.items():
                 if isinstance(v, dict):
                     for kk, vv in rand_scales(v).items():
-                        params[f"{prefix}/{k}/{kk}"] = vv
+                        if isinstance(vv, dict):
+                            for k3, v3 in rand_scales(vv).items():
+                                params[f"{prefix}/{k}/{kk}/{k3}"] = v3
+                        else:
+                            params[f"{prefix}/{k}/{kk}"] = vv
                 else:
                     params[f"{prefix}/{k}"] = v
             x = torch.randn((B, t, cfg.d_model), generator=g)
@@ -129,8 +152,11 @@ def _one_device(case):
         return y.detach(), dict(zip(params, grads)), None
     x = case["x"].clone().requires_grad_()
     p = _nest(params, case["prefix"])
-    y = (parallel_glu(p, x, cfg, False) if case["kind"] == "glu"
-         else attention_train(p, x, cfg, window=case.get("window", 0)))
+    if case["kind"] == "block":
+        y = block_train(p, x, cfg, case["block"])[0]
+    else:
+        y = (parallel_glu(p, x, cfg, False) if case["kind"] == "glu"
+             else attention_train(p, x, cfg, window=case.get("window", 0)))
     grads = torch.autograd.grad((y * case["cot"]).sum(), list(params.values()) + [x])
     return y.detach(), dict(zip(params, grads[:-1])), grads[-1]
 
@@ -153,7 +179,8 @@ def _close(got, want, what):
 
 CASES = ["vocab_tied", "vocab_untied", "vocab_vision", "glu", "attn_tp", "attn_tp_window",
          "attn_cp", "attn_cp_window", "vocab_tied_whole", "vocab_untied_whole",
-         "vocab_vision_whole", "glu_whole", "attn_tp_whole", "attn_cp_whole"]
+         "vocab_vision_whole", "glu_whole", "attn_tp_whole", "attn_cp_whole",
+         "ssd", "ssd_whole", "ssd_heads_whole", "rglru", "rglru_whole", "rglru_width_whole"]
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -162,7 +189,7 @@ def test_layer_matches_one_device(worlds, m, name):
     case = worlds["cases"][name]
     y, grads, dx = _one_device(case)
     ranks = [r[((1, m), "layers")][name] for r in worlds[m]]
-    assert all(r["split"] == (not name.endswith("_whole")) for r in ranks), name
+    assert all(r["split"] == (case["t"] == T) for r in ranks), name
     for rank, r in enumerate(ranks):
         _close(r["y"], y, f"{name} M={m} rank {rank}: output")
         for path, g in grads.items():

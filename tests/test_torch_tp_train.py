@@ -24,22 +24,26 @@ a subprocess with 4 host devices: `REF_CASES`).
     block of the whole; a leaf replicated over an axis carries the same
     bits on every rank of that axis;
   - the collectives of a step equal `expected_collectives`;
-  - for `REF_CASES` (qwen3-0.6b on (1, 4), its KV replicated, and phi3 on
-    (1, 2), cp), losses and norms within `METRIC_RTOL` and parameters within
-    `REF_PARAM_ATOL` of the reference's jitted step on the same mesh.
-* mamba2-2.7b, recurrentgemma-2b and whisper-small (reduced) on (1, 2)
-  each raise and name ROADMAP A item 1's next slices; granite-moe-3b-a800m,
-  which raised there too until the MoE layouts were ported, trains on
-  (1, 2) within the tolerances below of the one-device step
-  (tests/test_torch_moe_train.py holds the MoE family on every mesh).
+  - for `REF_CASES` (qwen3-0.6b on (1, 4), its KV replicated, phi3 on
+    (1, 2), cp, and mamba2 and recurrentgemma on (1, 4)), losses and norms
+    within `METRIC_RTOL` and parameters within `REF_PARAM_ATOL` of the
+    reference's jitted step on the same mesh.
+* mamba2-2.7b (SSD) and recurrentgemma-2b (RG-LRU, cut to one "RRL"
+  period) on (1, 2), (1, 4) and (2, 2) as the dense cases, and on (1, 4)
+  against the reference (`REF_CASES`).
+* whisper-small (reduced) on (1, 2) raises and names `MODEL_AXIS_ITEM`
+  (ROADMAP A item 1's next slice); granite-moe-3b-a800m, mamba2-2.7b and
+  recurrentgemma-2b, which raised there too until their layouts were
+  ported, train on (1, 2) within the tolerances below of the one-device
+  step (tests/test_torch_moe_train.py holds the MoE family on every mesh).
 * Checkpoints: a (1, 4) `Trainer` resumed from its own checkpoint
   continues bit for bit with the uninterrupted run; a (1, 4) run's step-6
   checkpoint restored onto (2, 2) gives each rank exactly its block of the
   stored arrays, and training continues from it (steps 6-7 within
   `METRIC_RTOL` of the (1, 4) run's).
 
-Run alone: ~25 s on this container's CPU (the reference's subprocess runs
-beside the one-device steps and the spawned worlds).
+Run alone: ~45 s on this container's CPU (the reference's two subprocesses
+run beside the one-device steps and the spawned worlds).
 """
 
 import dataclasses
@@ -52,12 +56,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import spawn_ranks
+from _torch_bridge import spawn_ranks, start_ranks
 from repro.configs import get_config as jget_config
 from repro.models import get_model as jget_model
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.distributed.sharding import DecodeCtx, Mesh, local_block
+from repro_torch.distributed.sharding import MODEL_AXIS_ITEM, DecodeCtx, Mesh, local_block
 from repro_torch.models import get_model
 from repro_torch.runtime import AdamWConfig
 from repro_torch.runtime.data import make_batch, to_device
@@ -83,13 +87,18 @@ PARAM_ATOL = 3e-4
 # the same against the reference, whose one-device step the port's own
 # one-device step already parts from (XLA's fusions; PR 33 read ≤ 3e-5)
 REF_PARAM_ATOL = 3e-4
-OVER = {"gemma3-12b": dict(local_window=24)}
+# recurrentgemma cut to one "RRL" period
+OVER = {"gemma3-12b": dict(local_window=24), "recurrentgemma-2b": dict(num_layers=3)}
+SSD, RGLRU = "mamba2-2.7b", "recurrentgemma-2b"
 CASES = [("qwen3-0.6b", (1, 2)), ("qwen3-0.6b", (1, 4)), ("qwen3-0.6b", (2, 2)),
          ("phi3-medium-14b", (1, 2)), ("phi3-medium-14b", (2, 2)), ("gemma3-12b", (1, 2)),
-         ("llava-next-mistral-7b", (1, 2))]
-REFUSED = ["mamba2-2.7b", "recurrentgemma-2b", "whisper-small"]
-MOE = "granite-moe-3b-a800m"          # refused the model axis until its layouts were ported
-REF_CASES = [("qwen3-0.6b", (1, 4)), ("phi3-medium-14b", (1, 2))]
+         ("llava-next-mistral-7b", (1, 2)), (SSD, (1, 2)), (SSD, (1, 4)), (SSD, (2, 2)),
+         (RGLRU, (1, 2)), (RGLRU, (1, 4)), (RGLRU, (2, 2))]
+REFUSED = ["whisper-small"]
+MOE = "granite-moe-3b-a800m"
+# the families that refused the model axis until their layouts were ported
+PORTED = [MOE, SSD, RGLRU]
+REF_CASES = [("qwen3-0.6b", (1, 4)), ("phi3-medium-14b", (1, 2)), (SSD, (1, 4)), (RGLRU, (1, 4))]
 REFERENCE = pathlib.Path(__file__).resolve().parent / "_torch_tp_reference.py"
 
 
@@ -103,59 +112,67 @@ def _reference_tree(arch):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _one_device(arch):
-    """Whole weights, the global batches, the one-device step's step-0
-    gradients, metrics and final parameters."""
+def _inputs(arch):
+    """Whole weights and the global batches (for `REF_CASES` the
+    reference's init tree too)."""
     cfg = _cfg(arch)
     tree = _reference_tree(arch) if arch in {a for a, _ in REF_CASES} else None
     weights = (params_from_numpy(tree, cfg, "cpu") if tree is not None
                else init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu"))
     batches = [make_batch(cfg, ShapeConfig(**SHAPE), 1, s) for s in range(STEPS)]
+    return dict(weights=weights, batches=batches, tree=tree)
+
+
+def _one_device(arch, inp):
+    """The one-device step's step-0 gradients, metrics and final parameters."""
+    cfg = _cfg(arch)
+    weights, batches = inp["weights"], inp["batches"]
     grads, _ = _loss_and_grads(get_model(cfg), weights, to_device(batches[0], "cpu"))
     step = make_train_step(cfg, None, AdamWConfig(**OPT), "cpu")
     p, o, metrics = weights, init_opt_state(weights, AdamWConfig(**OPT)), []
     for b in batches:
         p, o, m = step(p, o, to_device(b, "cpu"))
         metrics.append({k: float(v) for k, v in m.items()})
-    return dict(weights=weights, batches=batches, grads=dict(leaves(grads)), metrics=metrics,
-                params=dict(leaves(p)), tree=tree)
+    return dict(inp, grads=dict(leaves(grads)), metrics=metrics, params=dict(leaves(p)))
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's steps, started first: the subprocess runs beside the
-    one-device steps and the spawned worlds."""
-    out = tmp_path_factory.mktemp("tp_reference") / "ref.npz"
-    proc = subprocess.Popen([sys.executable, str(REFERENCE), str(out),
-                             *(f"{a}:{m[0]}x{m[1]}" for a, m in REF_CASES)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out
+    """The reference's steps, started first: two subprocesses (the dense
+    cases, the recurrent ones) run beside the one-device steps and the
+    spawned worlds."""
+    base = tmp_path_factory.mktemp("tp_reference")
+    recurrent = (SSD, RGLRU)
+    out = []
+    for i, part in enumerate(([c for c in REF_CASES if c[0] not in recurrent],
+                              [c for c in REF_CASES if c[0] in recurrent])):
+        path = base / f"ref{i}.npz"
+        out.append((subprocess.Popen([sys.executable, str(REFERENCE), str(path),
+                                      *(f"{a}:{m[0]}x{m[1]}" for a, m in part)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), path))
+    return out
 
 
 @pytest.fixture(scope="module")
-def one(reference):
-    # one thread: the reference's subprocess and the worlds share the CPU
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return {arch: _one_device(arch) for arch in {a for a, _ in CASES} | {MOE}}
-    finally:
-        torch.set_num_threads(threads)
-
-
-@pytest.fixture(scope="module")
-def worlds(reference, one, tmp_path_factory):
+def worlds(reference, tmp_path_factory):
+    """The 2-rank world, with the one-device steps run here meanwhile (one
+    thread: the reference's subprocess and the ranks share the CPU), then
+    the 4-rank world."""
     base = tmp_path_factory.mktemp("tp_train")
+    inputs = {arch: _inputs(arch) for arch in sorted({a for a, _ in CASES} | {MOE})}
 
     def steps(mesh):
         return {arch: dict(arch=arch, over=OVER.get(arch, {}), opt=OPT,
-                           weights=one[arch]["weights"], batches=one[arch]["batches"])
+                           weights=inputs[arch]["weights"], batches=inputs[arch]["batches"])
                 for arch, shape in CASES if shape == mesh}
     w2 = steps((1, 2))
     for arch in REFUSED:
         w2[arch] = dict(arch=arch, opt=OPT, weights=None, batches=[])
-    w2[MOE] = dict(arch=MOE, opt=OPT, weights=one[MOE]["weights"], batches=one[MOE]["batches"])
-    trainer = dict(arch="qwen3-0.6b", opt=OPT, shape=SHAPE, weights=one["qwen3-0.6b"]["weights"])
+    w2[MOE] = dict(arch=MOE, opt=OPT, weights=inputs[MOE]["weights"],
+                   batches=inputs[MOE]["batches"])
+    trainer = dict(arch="qwen3-0.6b", opt=OPT, shape=SHAPE,
+                   weights=inputs["qwen3-0.6b"]["weights"])
     runs14 = [dict(steps=4, ckpt_every=2, dir=str(base / "a")),
               dict(steps=8, ckpt_every=2, dir=str(base / "a")),
               dict(steps=6, ckpt_every=2, dir=str(base / "c"))]
@@ -163,19 +180,32 @@ def worlds(reference, one, tmp_path_factory):
     runs22 = [dict(steps=8, ckpt_every=2, dir=str(base / "c"), probe_restore=True)]
     (base / "w2").mkdir()
     (base / "w4").mkdir()
-    out = {2: spawn_ranks("train_tp", {"meshes": [(1, 2)], "steps": {(1, 2): w2}}, 2,
-                          base / "w2")}
+    join2 = start_ranks("train_tp", {"meshes": [(1, 2)], "steps": {(1, 2): w2}}, 2,
+                        base / "w2")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = {"one": {arch: _one_device(arch, inp) for arch, inp in inputs.items()}}
+    finally:
+        torch.set_num_threads(threads)
+    out[2] = join2()
     inp4 = {"meshes": [(1, 4), (2, 2)], "steps": {(1, 4): steps((1, 4)), (2, 2): steps((2, 2))},
             "trainers": {(1, 4): {"q": dict(trainer, runs=runs14)},
                          (2, 2): {"q": dict(trainer, runs=runs22)}}}
     out[4] = spawn_ranks("train_tp", inp4, 4, base / "w4")
-    ref, ref_out = reference
-    log = ref.communicate(timeout=300)[0]
-    assert ref.returncode == 0, log
-    with np.load(ref_out) as z:
-        out["ref"] = {k: z[k] for k in z.files}
+    out["ref"] = {}
+    for ref, ref_out in reference:
+        log = ref.communicate(timeout=300)[0]
+        assert ref.returncode == 0, log
+        with np.load(ref_out) as z:
+            out["ref"].update({k: z[k] for k in z.files})
     out["dirs"] = base
     return out
+
+
+@pytest.fixture(scope="module")
+def one(worlds):
+    return worlds["one"]
 
 
 def _ranks(worlds, arch, mesh):
@@ -234,19 +264,27 @@ def expected_collectives(r, cfg, mesh) -> dict:
     "model" and the cross-entropy's three (max, sum, gold); over the whole
     world one for the norm's sums of squares. In the layers: the embedding's
     reduce-scatter and the head's gather, each with its backward's
-    conjugate; per layer, a tp layer's two gathers (attention, GLU) and two
-    reduce-scatters, a cp layer's one gather of K and V, the GLU's gather
-    and its reduce-scatter, once forward, again in the checkpointed
+    conjugate; per layer, once forward, again in the checkpointed
     recomputation (which stops after the layer's last saved activation, the
-    w_down product, so the GLU's closing reduce-scatter is not repeated) and
-    once as the backward's conjugates."""
+    w_down or w_out product, so the layer's closing reduce-scatter is not
+    repeated) and once as the backward's conjugates (an all-gather's a
+    reduce-scatter, a reduce-scatter's an all-gather, an all-reduce's an
+    all-reduce):
+    * a tp attention layer: two gathers (attention, GLU) and two
+      reduce-scatters; a cp one: one gather of K and V, the GLU's gather and
+      its reduce-scatter;
+    * an "S" layer: the sequence's gather, the gated norm's sum of squares
+      (an all-reduce) and the output's reduce-scatter;
+    * an "R" layer: the sequence's gather, the two gates' reduce-scatters,
+      the output's reduce-scatter, then the GLU's gather and reduce-scatter."""
     n = len(r["specs"])
     d = sum("data" in sp for sp in r["specs"].values())
     rm = sum("model" not in sp for sp in r["specs"].values())
-    layers = cfg.num_layers
-    gather, scatter = (6, 5) if cfg.attn_strategy == "tp" else (5, 3)
-    return {"all_gather": d + 2 + layers * gather, "reduce_scatter": d + 2 + layers * scatter,
-            "all_reduce": (n - d) + 1 + rm + 3 + 1}
+    attn = (6, 5, 0) if cfg.attn_strategy == "tp" else (5, 3, 0)
+    per_kind = {"A": attn, "L": attn, "S": (3, 2, 3), "R": (8, 9, 0)}
+    gather, scatter, reduce = (sum(per_kind[k][i] for k in cfg.block_kinds()) for i in range(3))
+    return {"all_gather": d + 2 + gather, "reduce_scatter": d + 2 + scatter,
+            "all_reduce": (n - d) + 1 + rm + 3 + 1 + reduce}
 
 
 @pytest.mark.parametrize("arch,mesh", CASES)
@@ -263,15 +301,16 @@ def test_collectives_per_step(worlds, arch, mesh):
     assert all(s["wire_bytes"] > 0 for s in r["trace"].values())
 
 
-@pytest.mark.parametrize("arch", [MOE] + REFUSED)
+@pytest.mark.parametrize("arch", PORTED + REFUSED)
 def test_other_families_refuse_the_model_axis(one, worlds, arch):
-    """The SSD, RG-LRU and enc-dec families raise on (1, 2); the MoE family
-    trains there: the same metrics on both ranks, within `STEP0_RTOL` at
-    step 0 and `METRIC_RTOL` after of the one-device step's."""
+    """The enc-dec family raises on (1, 2), naming `MODEL_AXIS_ITEM`; the
+    MoE, SSD and RG-LRU families train there: the same metrics on both
+    ranks, within `STEP0_RTOL` at step 0 and `METRIC_RTOL` after of the
+    one-device step's."""
     ranks = [r[((1, 2), arch)] for r in worlds[2]]
     if arch in REFUSED:
         for r in ranks:
-            assert "ROADMAP A item 1's next slices" in r["raised"], arch
+            assert MODEL_AXIS_ITEM in r["raised"], arch
         return
     assert "raised" not in ranks[0], ranks[0].get("raised")
     assert ranks[0]["metrics"] == ranks[1]["metrics"]

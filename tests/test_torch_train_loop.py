@@ -284,7 +284,16 @@ def _trainer(tcfg, init, ckpt_dir, steps, ckpt_every=4):
                    AdamWConfig(**OPT), device="cpu", init_params=init)
 
 
-def test_trainer_matches_reference_and_resumes(model, tmp_path):
+@pytest.fixture(scope="module")
+def uninterrupted(model, tmp_path_factory):
+    """The 10-step run with a checkpoint every 4 steps that the resumed and
+    the recovering trainers are held to (its first 8 steps are the 8-step
+    run's: the schedule and the batches do not depend on ``num_steps``)."""
+    _, tcfg, init = model
+    return _trainer(tcfg, init, tmp_path_factory.mktemp("uninterrupted"), 10).train()
+
+
+def test_trainer_matches_reference_and_resumes(model, uninterrupted, tmp_path):
     jcfg, tcfg, init = model
     jout = JTrainer(jcfg, JShape(**SHAPE), MeshPlan.for_mesh(make_local_mesh()),
                     JTrainerConfig(num_steps=8, ckpt_every=4, ckpt_dir=str(tmp_path / "jax"),
@@ -298,16 +307,17 @@ def test_trainer_matches_reference_and_resumes(model, tmp_path):
     # 8 and gives the uninterrupted 10-step run's losses bit for bit
     tr2 = _trainer(tcfg, init, tmp_path / "a", 10)
     out2 = tr2.train()
-    full = _trainer(tcfg, init, tmp_path / "b", 10).train()
+    full = uninterrupted
+    assert out["losses"] == full["losses"][:8]
     assert out2["final_step"] == 10 and out2["losses"] == full["losses"][8:]
     assert CheckpointManager(str(tmp_path / "a")).all_steps() == [8, 10]
     assert [m["step"] for m in tr2.metrics] == [8, 9]
     assert all(np.isfinite(m["grad_norm"]) and m["lr"] > 0 for m in tr2.metrics)
 
 
-def test_trainer_recovers_from_non_finite_loss(model, tmp_path):
+def test_trainer_recovers_from_non_finite_loss(model, uninterrupted, tmp_path):
     _, tcfg, init = model
-    clean = _trainer(tcfg, init, tmp_path / "clean", 8).train()
+    clean = dict(losses=uninterrupted["losses"][:8])      # the 8-step run's
     tr = _trainer(tcfg, init, tmp_path / "nan", 8)
     real, calls = tr.step_fn, []
 
